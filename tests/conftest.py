@@ -11,3 +11,8 @@ launch/dryrun.py forces 512 placeholder devices (in its own process).
 import jax
 
 jax.config.update("jax_enable_x64", True)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason without one")
