@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device, to_device
-from ..kernels import ops as kops
-from ..kernels.bsr_spgemm import bsr_spgemm_plain, prepare_schedule
+from ..kernels.bsr_spgemm import (bsr_spgemm_plain, bsr_spgemm_schedule,
+                                  prepare_schedule)
 from .formats import BsrPattern, CSR
 from .inspector import (SpGemmBlockPlan, SpGemmGatherPlan, choose_spgemm_path,
                         csr_pattern_digest, fingerprint_pattern,
@@ -148,7 +148,7 @@ def spgemm_block_execute(plan: SpGemmBlockPlan, a_data: np.ndarray,
     a_blocks = to_device(plan.a_pat.scatter(a_data), dev)
     b_blocks = to_device(plan.b_pat.scatter(b_data), dev)
     if use_kernel:
-        out = kops.bsr_spgemm_schedule(
+        out = bsr_spgemm_schedule(
             _k1_schedule(plan), a_blocks, b_blocks,
             # reaplint: disable=REAP004 no per-shape compile: K1 and the
             # torch ops take any shape, so plan-static shapes cost nothing

@@ -25,6 +25,14 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def launch_target(device: torch.device):
+    """``(stream handle, device ordinal)`` a hand-written kernel launches on:
+    the current stream of the CUDA ``device``."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return torch.cuda.current_stream(device).cuda_stream, index
+
+
 def to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array → tensor on ``device``.
 

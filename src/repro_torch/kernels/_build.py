@@ -90,3 +90,23 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(name)[name]))
             _LOADED[name] = lib
         return lib
+
+
+def bind(name: str, entry: str, argtypes) -> ctypes.CDLL:
+    """``load(name)`` with the C signature of its launch function ``entry``
+    declared (it returns a CUDA error code, 0 on success)."""
+    lib = load(name)
+    fn = getattr(lib, entry)
+    if fn.argtypes is None:     # without argtypes ctypes cuts pointers to int
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
+    """Raise ``RuntimeError`` with CUDA's message if a launch failed."""
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")

@@ -35,7 +35,7 @@ from typing import Mapping, Union
 import numpy as np
 import torch
 
-from ..device import to_device
+from ..device import launch_target, to_device
 from . import _build
 
 SUPPORTED_BS = (16, 32, 64, 128)
@@ -104,15 +104,9 @@ def bsr_spgemm_plain(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
 
 
 def _lib() -> ctypes.CDLL:
-    lib = _build.load("bsr_spgemm")
-    fn = lib.bsr_spgemm_f32
-    if fn.argtypes is None:     # without argtypes ctypes cuts pointers to int
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, p, p, p, i, i, p, p, i]
-        fn.restype = ctypes.c_int
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return _build.bind("bsr_spgemm", "bsr_spgemm_f32",
+                       [p, p, p, p, p, p, i, i, p, p, i])
 
 
 def _launch(sched: K1Schedule, a_blocks: torch.Tensor,
@@ -129,12 +123,8 @@ def _launch(sched: K1Schedule, a_blocks: torch.Tensor,
     err = lib.bsr_spgemm_f32(
         a_blocks.data_ptr(), b_blocks.data_ptr(), base, base + step,
         base + 2 * step, base + 3 * step, sched.n_groups, bs,
-        out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream,
-        out.device.index if out.device.index is not None
-        else torch.cuda.current_device())
-    if err:
-        raise RuntimeError("bsr_spgemm launch failed: "
-                           f"{lib.repro_cuda_error_string(err).decode()}")
+        out.data_ptr(), *launch_target(out.device))
+    _build.check_launch(lib, err, "bsr_spgemm")
     bsr_spgemm.launches += 1
 
 

@@ -1,0 +1,352 @@
+"""Kernel K3: block-sparse (gathered) flash attention, and the planned
+``block_attention`` op.
+
+Port of the block-attention half of ``repro.kernels.flash_attention``: the
+plan lowers an arbitrary CSR mask to per-q-block lists of visible kv
+blocks, and K3 runs online-softmax attention of each q block over only the
+kv blocks its list names, so invisible kv blocks are never read.
+``attention_block_schedule`` and the contiguous-range kernel K4
+(``flash_attention``) come with the LM stack.
+
+K3 replaces the Pallas TPU kernel ``block_sparse_attention`` in
+``src/repro/kernels/flash_attention.py:274`` (``pl.pallas_call`` at :317).
+The CUDA C++ source is ``csrc/block_sparse_attention.cu``, built by
+``_build`` and bound with ctypes.
+
+Bound on an H100: ``4·B·H·n_visible·bs²·D`` fp32 FLOP (QKᵀ and PV) against
+q, k, v read once and the output written once.  At bs = D = 128 a visible
+block does 8.4 MFLOP per head on 128 KiB of fp32 K and V: bound by fp32
+operations.  So K3 keeps everything of one (b, h, q block) on chip: the
+running max, sum and the (bs, D) accumulator in registers, Q in shared
+memory for the whole kv loop, K and V streamed through 32-row panels, and
+the probabilities of one kv block in shared memory between the two
+products.  Scores and products are IEEE fp32 (no TF32): the reference holds
+K3 to 1e-4.  bfloat16 inputs are widened on load and the output rounded
+once on store.
+
+``block_sparse_attention`` dispatches on the tensors' device: CPU tensors
+run ``block_sparse_attention_plain``; CUDA tensors launch the kernel or
+raise.  ``block_sparse_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core.formats import CSR, bsr_pattern_from_csr
+from ..core.inspector import (PatternFingerprint, fingerprint_pattern,
+                              next_pow2)
+from ..device import launch_target, resolve_device, to_device
+from . import _build
+
+NEG_INF = -1e30
+
+# (bs, D) pairs K3 is built for; anything else raises on CUDA
+SUPPORTED_SHAPES = tuple((bs, d) for bs in (32, 64, 128) for d in (32, 64, 128))
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+# ---------------------------------------------------------------------------
+# Planned block-sparse attention: arbitrary CSR mask → per-q-block kv lists
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(eq=False)
+class BlockAttentionPlan:
+    """Pattern-pure plan for attention under a block-sparse CSR mask.
+
+    Semantics are *block granular*: q block ``qi`` attends kv block ``kj``
+    iff the mask has at least one stored element in that ``block x block``
+    tile (positions past the unpadded ``seq`` are always masked).  The
+    mask's values never enter the plan — only its sparsity pattern — so
+    every same-mask call (each decode step / layer sharing a document
+    mask) replays a warm plan.
+
+    ``kv_ids[qi, s]`` is the s-th visible kv block of q block ``qi``;
+    slots past ``n_kv[qi]`` are padded with block 0 and skipped by both
+    executors.  ``nk_cap`` is the pow-2 bucketed max visible count (the
+    reference's static-shape discipline; kept so plans stay bit-identical).
+    """
+
+    block: int
+    seq: int                 # unpadded q/kv sequence length (mask dims)
+    n_q_blocks: int
+    nk_cap: int              # pow-2 bucketed max visible kv blocks/q block
+    kv_ids: np.ndarray       # (n_q_blocks, nk_cap) int32, slot-padded with 0
+    n_kv: np.ndarray         # (n_q_blocks,) int32 visible count per q block
+    n_visible: int           # total stored mask blocks (schedule size)
+    fingerprint: Optional[PatternFingerprint] = None
+
+    def flops(self, batch: int, heads: int, head_dim: int) -> int:
+        return 4 * batch * heads * self.n_visible * self.block \
+            * self.block * head_dim
+
+
+def inspect_block_attention(mask: CSR, block: int = 128,
+                            fingerprint: Optional[PatternFingerprint] = None
+                            ) -> BlockAttentionPlan:
+    """Stage-2 plan-build: the mask's BSR structure → visible-kv lists."""
+    if mask.n_rows != mask.n_cols:
+        raise ValueError(f"attention mask must be square, got "
+                         f"{mask.n_rows}x{mask.n_cols}")
+    pat = bsr_pattern_from_csr(mask, block)
+    n_kv = np.diff(pat.indptr).astype(np.int32)
+    nq = pat.n_block_rows
+    nk_cap = next_pow2(max(1, int(n_kv.max(initial=0))))
+    kv_ids = np.zeros((nq, nk_cap), np.int32)
+    slots = np.arange(pat.n_blocks, dtype=np.int64) \
+        - np.repeat(pat.indptr[:-1], n_kv)
+    kv_ids[pat.block_rows(), slots] = pat.indices
+    return BlockAttentionPlan(block, mask.n_rows, nq, nk_cap, kv_ids, n_kv,
+                              pat.n_blocks, fingerprint)
+
+
+# ---------------------------------------------------------------------------
+# Kernel K3: plain version and wrapper
+# ---------------------------------------------------------------------------
+
+def block_sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, kv_ids: torch.Tensor,
+                                 n_kv: torch.Tensor, *, softcap: float,
+                                 scale: float, seq: int) -> torch.Tensor:
+    """Plain PyTorch version of K3 (the torch twin of the reference's
+    ``_block_attention_jnp``): gather the visible kv blocks, masked
+    softmax over them, exact zeros for rows that see nothing.  GQA keeps
+    the kv heads ungathered: q heads are viewed as (kv head, group)."""
+    b, h, s_pad, d = q.shape
+    hkv = k.shape[1]
+    nq, nk_cap = kv_ids.shape
+    bs = s_pad // nq
+    group = h // hkv
+    ids = kv_ids.long()
+    qb = q.float().reshape(b, hkv, group, nq, bs, d)
+    kg = k.float().reshape(b, hkv, nq, bs, d)[:, :, ids]  # (b,hkv,nq,cap,bs,d)
+    vg = v.float().reshape(b, hkv, nq, bs, d)[:, :, ids]
+    s = torch.einsum("bhgqid,bhqsjd->bhgqisj", qb, kg) * scale
+    if softcap > 0.0:
+        s = softcap * torch.tanh(s / softcap)
+    slot = torch.arange(nk_cap, device=q.device)
+    live = slot[None, :] < n_kv.to(q.device).long()[:, None]    # (nq, cap)
+    kpos = ids[:, :, None] * bs + torch.arange(bs, device=q.device)
+    mask = (live[:, :, None] & (kpos < seq))[:, None, :]    # (nq,1,cap,bs)
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(dim=(-2, -1), keepdim=True)
+    # fully-masked q rows: exp(NEG_INF - NEG_INF) would be 1, so zero the
+    # masked probabilities explicitly and divide under an lsum>0 guard
+    p = torch.where(mask, torch.exp(s - m), torch.zeros((), device=q.device))
+    lsum = p.sum(dim=(-2, -1))[..., None]                # (b,hkv,g,nq,bs,1)
+    out = torch.einsum("bhgqisj,bhqsjd->bhgqid", p, vg)
+    out = torch.where(lsum > 0, out / lsum.clamp_min(1e-30),
+                      torch.zeros((), device=q.device))
+    return out.reshape(b, h, s_pad, d).to(q.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("block_sparse_attention", "block_sparse_attention",
+                       [p, p, p, p, p, p, i, i, i, i, i, i, i, i, f, f, i, p,
+                        i])
+
+
+def _launch(q, k, v, kv_ids, n_kv, out, *, softcap, scale, seq) -> None:
+    b, h, s_pad, d = q.shape
+    nq, nk_cap = kv_ids.shape
+    bs = s_pad // nq
+    if (bs, d) not in SUPPORTED_SHAPES:
+        raise ValueError(f"K3 supports (bs, D) in {SUPPORTED_SHAPES}, got "
+                         f"({bs}, {d})")
+    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("K3 takes q, k, v all float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16 \
+                or t.device != out.device:
+            raise ValueError("K3 operands must be contiguous, 16-byte "
+                             "aligned tensors on one device")
+    sched = to_device(np.concatenate([kv_ids.reshape(-1), n_kv]),
+                      out.device)
+    lib = _lib()
+    err = lib.block_sparse_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), sched.data_ptr(),
+        sched.data_ptr() + 4 * nq * nk_cap, out.data_ptr(), b, h, k.shape[1],
+        nq, nk_cap, bs, d, seq, float(scale), float(softcap),
+        _DTYPE_CODE[q.dtype], *launch_target(out.device))
+    _build.check_launch(lib, err, "block_sparse_attention")
+    block_sparse_attention.launches += 1
+
+
+def _host_ids(x) -> np.ndarray:
+    return (x.detach().cpu().numpy() if torch.is_tensor(x)
+            else np.asarray(x)).astype(np.int32, copy=False)
+
+
+def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           kv_ids, n_kv, *, softcap: float = 0.0,
+                           scale: Optional[float] = None,
+                           seq: Optional[int] = None) -> torch.Tensor:
+    """q: (B, H, S_pad, D); k, v: (B, Hkv, S_pad, D); kv_ids:
+    (S_pad // bs, nk_cap) visible kv blocks per q block, ``n_kv`` the count
+    of live slots.  Returns q's shape and dtype on q's device.
+
+    ``kv_ids``/``n_kv`` are read on the host to check their ranges (a raw
+    kernel has no bounds checks): pass numpy or CPU tensors.  CPU tensors
+    run the plain version; CUDA tensors launch K3 or raise.
+    """
+    b, h, s_pad, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
+            or h % k.shape[1]:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    ids, counts = _host_ids(kv_ids), _host_ids(n_kv)
+    nq, nk_cap = ids.shape
+    if s_pad % max(nq, 1) or counts.shape != (nq,):
+        raise ValueError("kv_ids must be (S_pad // bs, nk_cap) and n_kv "
+                         "(S_pad // bs,)")
+    if ids.size and (ids.min() < 0 or ids.max() >= nq) \
+            or counts.size and (counts.min() < 0 or counts.max() > nk_cap):
+        raise ValueError("kv_ids or n_kv out of range")
+    scale = float(d ** -0.5) if scale is None else float(scale)
+    seq = s_pad if seq is None else int(seq)
+    if q.device.type == "cpu":
+        return block_sparse_attention_plain(
+            q, k, v, torch.from_numpy(ids), torch.from_numpy(counts),
+            softcap=softcap, scale=scale, seq=seq)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.empty_like(q)
+    if q.numel():
+        _launch(q, k, v, ids, counts, out, softcap=softcap, scale=scale,
+                seq=seq)
+    return out
+
+
+block_sparse_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Executor and oracle
+# ---------------------------------------------------------------------------
+
+def _as_tensor(x, dev: torch.device) -> torch.Tensor:
+    t = x if torch.is_tensor(x) else torch.from_numpy(np.asarray(x))
+    return t.to(dev, non_blocking=True).contiguous()
+
+
+def block_attention_execute(plan: BlockAttentionPlan, q, k, v,
+                            use_kernel: bool = True, *,
+                            softcap: float = 0.0,
+                            scale: Optional[float] = None, device="cuda"):
+    """Attention output from a plan + this call's q/k/v values.
+
+    q: (B, H, S, D); k, v: (B, Hkv, S, D) with H % Hkv == 0 (GQA), as
+    numpy arrays or torch tensors (torch for bfloat16, which numpy lacks).
+    S is zero-padded up to the plan's block multiple; padded kv positions
+    are masked and padded q rows are sliced off the result.  Numpy inputs
+    give a numpy result (the reference's contract); tensor inputs give a
+    tensor on ``device``, with no copy back to the host.
+    """
+    dev = resolve_device(device)
+    as_numpy = not torch.is_tensor(q)
+    q, k, v = (_as_tensor(x, dev) for x in (q, k, v))
+    b, h, s, d = q.shape
+    if s != plan.seq:
+        raise ValueError(f"q has seq {s}, plan was built for {plan.seq}")
+    s_pad = plan.n_q_blocks * plan.block
+    if s_pad != s:
+        pad = (0, 0, 0, s_pad - s)
+        q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
+    d_scale = float(d ** -0.5) if scale is None else float(scale)
+    if use_kernel:
+        out = block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv,
+                                     softcap=softcap, scale=d_scale,
+                                     seq=plan.seq)
+    else:
+        out = block_sparse_attention_plain(
+            q, k, v, to_device(plan.kv_ids, dev), to_device(plan.n_kv, dev),
+            softcap=softcap, scale=d_scale, seq=plan.seq)
+    out = out[:, :, :plan.seq]
+    return out.cpu().numpy() if as_numpy else out
+
+
+def block_attention_ref(q, k, v, mask: CSR, block: int, *,
+                        softcap: float = 0.0,
+                        scale: float | None = None) -> np.ndarray:
+    """Dense numpy oracle with the same block-granular mask semantics."""
+    q = np.asarray(q, np.float64)
+    k = np.asarray(k, np.float64)
+    v = np.asarray(v, np.float64)
+    b, h, s, d = q.shape
+    group = h // k.shape[1]
+    kf = np.repeat(k, group, axis=1)
+    vf = np.repeat(v, group, axis=1)
+    blk = mask.to_dense() != 0
+    nq, nk = -(-s // block), -(-s // block)
+    allowed = np.zeros((s, s), bool)
+    for qi in range(nq):
+        for kj in range(nk):
+            tile = blk[qi * block:(qi + 1) * block,
+                       kj * block:(kj + 1) * block]
+            if tile.any():
+                allowed[qi * block:(qi + 1) * block,
+                        kj * block:(kj + 1) * block] = True
+    scl = (d ** -0.5) if scale is None else scale
+    s_mat = np.einsum("bhid,bhjd->bhij", q, kf) * scl
+    if softcap > 0.0:
+        s_mat = softcap * np.tanh(s_mat / softcap)
+    s_mat = np.where(allowed[None, None], s_mat, -np.inf)
+    m = s_mat.max(axis=-1, keepdims=True)
+    p = np.where(np.isfinite(s_mat), np.exp(s_mat - np.where(
+        np.isfinite(m), m, 0.0)), 0.0)
+    lsum = p.sum(axis=-1, keepdims=True)
+    out = np.einsum("bhij,bhjd->bhid", p, vf)
+    return np.where(lsum > 0, out / np.maximum(lsum, 1e-30), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# Op registry: block-sparse attention admitted as a planned op
+# ---------------------------------------------------------------------------
+
+from ..runtime.ops import OpCapabilities, OpSpec, register_op  # noqa: E402
+
+
+def _fp_block_attention(operands, cfg, *, chunked, **kw):
+    mask = operands[3]
+    return fingerprint_pattern("block_attention", (mask,), block=cfg.block)
+
+
+def _inspect_block_attention(operands, cfg, fp, **kw):
+    return inspect_block_attention(operands[3], cfg.block, fp)
+
+
+def _exec_block_attention(plan, operands, cfg, *, overlap, softcap=0.0,
+                          scale=None, **kw):
+    q, k, v = operands[0], operands[1], operands[2]
+    t0 = time.perf_counter()
+    o = block_attention_execute(plan, q, k, v, use_kernel=cfg.use_kernel,
+                                softcap=softcap, scale=scale,
+                                device=cfg.device)
+    if torch.is_tensor(o) and o.is_cuda:
+        # deliberate timed drain: execute_s measures device completion
+        torch.cuda.synchronize(o.device)
+    exec_s = time.perf_counter() - t0
+    b, h, _, d = q.shape
+    stats = dict(method="block_attention", execute_s=exec_s, overlap=False,
+                 n_visible_blocks=plan.n_visible, nk_cap=plan.nk_cap,
+                 flops=plan.flops(b, h, d))
+    return o, stats
+
+
+register_op(OpSpec(
+    tag="block_attention",
+    fingerprint=_fp_block_attention,
+    inspect=_inspect_block_attention,
+    execute_sync=_exec_block_attention,
+    plan_types={"block_attention": BlockAttentionPlan},
+    allowed_kw=("softcap", "scale"),
+    capabilities=OpCapabilities(dtypes=("float32", "bfloat16"),
+                                routing="host"),
+))

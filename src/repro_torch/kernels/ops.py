@@ -7,3 +7,5 @@ the reference's ``interpret`` auto-detection (``repro.kernels.ops``).
 from __future__ import annotations
 
 from .bsr_spgemm import bsr_spgemm, bsr_spgemm_schedule  # noqa: F401
+from .bsr_spmm import bsr_spmm  # noqa: F401
+from .flash_attention import block_sparse_attention  # noqa: F401

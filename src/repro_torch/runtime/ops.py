@@ -260,7 +260,8 @@ def _ensure_builtin_ops() -> None:
 
     Registrations live next to their executors (`core/spgemm.py`,
     `core/cholesky.py`, `runtime/pipeline.py` for the chunk-set plan
-    types); importing any of
+    types, `kernels/bsr_spmm.py`, `kernels/flash_attention.py`,
+    `core/solver.py`); importing any of
     them registers their ops as a side effect, and this hook makes the
     registry complete regardless of which module the process touched
     first.  Concurrent consumers block on the (re-entrant) lock until the
@@ -278,6 +279,9 @@ def _ensure_builtin_ops() -> None:
         import repro_torch.core.spgemm       # noqa: F401  spgemm{,_gather,_block}
         import repro_torch.core.cholesky     # noqa: F401  cholesky
         import repro_torch.runtime.pipeline  # noqa: F401  chunk-set plan types
+        import repro_torch.kernels.bsr_spmm  # noqa: F401  spmm
+        import repro_torch.kernels.flash_attention  # noqa: F401  block_attention
+        import repro_torch.core.solver       # noqa: F401  spmv
         _BUILTINS_LOADED = True
 
 

@@ -39,8 +39,8 @@ from ..core.inspector import (PatternFingerprint, SpGemmBlockPlan,
                               inspect_spgemm_gather, next_pow2)
 from ..core.spgemm import block_result_to_csr, spgemm_gather_execute_chunk
 from ..device import resolve_device, to_device
-from ..kernels import ops as kops
-from ..kernels.bsr_spgemm import bsr_spgemm_plain, prepare_schedule
+from ..kernels.bsr_spgemm import (bsr_spgemm_plain, bsr_spgemm_schedule,
+                                  prepare_schedule)
 
 
 @dataclasses.dataclass
@@ -458,8 +458,8 @@ def spgemm_block_chunked(a: CSR, b: CSR, block: int = 128, n_chunks: int = 4,
         n_out_cap = sched["out_cap"] + 1    # +1: dummy tile for dead slots
         a_t, b_t = to_device(a_blocks, dev), to_device(b_blocks, dev)
         if use_kernel:
-            out = kops.bsr_spgemm_schedule(sched["k1"], a_t, b_t,
-                                           n_out_blocks=n_out_cap)
+            out = bsr_spgemm_schedule(sched["k1"], a_t, b_t,
+                                      n_out_blocks=n_out_cap)
         else:
             out = bsr_spgemm_plain(
                 a_t, b_t, to_device(sched["a_id"], dev),

@@ -23,6 +23,8 @@ CHUNKED = [t for t in CONCRETE if _ops.get_op(t).execute_chunked is not None]
 _GEN = P.random_csr(128, 128, 0.04, np.random.default_rng(0), "banded")
 _BLK = P.random_csr(128, 128, 0.08, np.random.default_rng(1), "blocky")
 _SPD = P.random_spd_csr(96, 0.06, np.random.default_rng(2))
+_W = P.random_csr(128, 96, 0.06, np.random.default_rng(3), "blocky")
+_MASK = P.random_csr(128, 128, 0.03, np.random.default_rng(4), "blocky")
 
 
 def _revalue(a, seed):
@@ -33,11 +35,23 @@ def _revalue(a, seed):
                  vals.astype(a.data.dtype))
 
 
+def _dense(seed, shape):
+    return np.random.default_rng(100 + seed).standard_normal(shape).astype(
+        np.float32)
+
+
 # tag -> (operands(value_seed), runtime overrides)
 EXAMPLES = {
     "spgemm_gather": (lambda s: (_revalue(_GEN, s),) * 2, {}),
     "spgemm_block": (lambda s: (_revalue(_BLK, s),) * 2, dict(block=16)),
     "cholesky": (lambda s: (_revalue(_SPD, s),), {}),
+    "spmm": (lambda s: (_dense(s, (16, 128)), _revalue(_W, s)),
+             dict(block=32)),
+    "spmv": (lambda s: (_revalue(_SPD, s), _dense(s, (96,)).astype(
+        np.float64)), dict(block=32)),
+    "block_attention": (lambda s: (*(_dense(s + i, (1, 2, 128, 16))
+                                     for i in range(3)),
+                                   _revalue(_MASK, s)), dict(block=32)),
 }
 
 

@@ -1,5 +1,5 @@
-"""Kernel K1 on the card: the CUDA kernel against its plain version, and
-the port's main path through it.  Every test here carries the ``gpu``
+"""Kernels K1, K2 and K3 on the card: each CUDA kernel against its plain
+version, and the port's paths through them.  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
 machine with only PyTorch:
@@ -11,8 +11,14 @@ import pytest
 import torch
 
 import repro_torch.core as P
+from repro_torch.core.solver import cg_solve
 from repro_torch.kernels.bsr_spgemm import (bsr_spgemm, bsr_spgemm_plain,
                                             bsr_spgemm_schedule)
+from repro_torch.kernels.bsr_spmm import (bsr_spmm, bsr_spmm_plain,
+                                          inspect_spmm, spmm_ref_numpy)
+from repro_torch.kernels.flash_attention import (
+    block_attention_ref, block_sparse_attention,
+    block_sparse_attention_plain, inspect_block_attention)
 from repro_torch.runtime import (ReapRuntime, bucket_block_schedule,
                                  build_block_chunkset)
 
@@ -22,7 +28,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card; K1 has no CPU mode")
+        pytest.skip("needs a CUDA card; the CUDA kernels have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
@@ -105,3 +111,113 @@ def test_runtime_gather_and_cholesky_on_card(cuda):
         plan, vals, _ = rt.cholesky(s, overlap=overlap)
         base, _ = P.cholesky_baseline_numpy(plan, P.cholesky_values(s))
         np.testing.assert_allclose(vals, base, rtol=1e-10, atol=1e-12)
+
+
+# -- K2: bsr_spmm ------------------------------------------------------------
+
+@pytest.mark.parametrize("t", [1, 5, 33, 256])
+@pytest.mark.parametrize("bs", [16, 32, 64, 128])
+def test_k2_matches_plain(cuda, bs, t):
+    w = P.random_csr(700, 600, 0.02, np.random.default_rng(bs + t), "blocky")
+    plan = inspect_spmm(w, bs)
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (t, plan.pat.n_rows)).astype(np.float32)).to(cuda)
+    tiles = torch.from_numpy(plan.scatter(w.data)).to(cuda)
+    before = bsr_spmm.launches
+    got = bsr_spmm(x, tiles, plan.schedule, n_j_blocks=plan.n_j_blocks)
+    assert bsr_spmm.launches == before + 1
+    want = bsr_spmm_plain(x, tiles, *_ids(cuda, plan.w_id, plan.k_blk,
+                                          plan.j_blk),
+                          n_j_blocks=plan.n_j_blocks)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_k2_rejects_what_it_does_not_take(cuda):
+    sched = dict(w_id=[0], k_blk=[0], j_blk=[0])
+    with pytest.raises(ValueError, match="bs"):
+        bsr_spmm(torch.zeros(2, 8, device=cuda),
+                 torch.zeros(1, 8, 8, device=cuda), sched, n_j_blocks=1)
+    with pytest.raises(ValueError, match="float32"):
+        bsr_spmm(torch.zeros(2, 16, device=cuda, dtype=torch.float64),
+                 torch.zeros(1, 16, 16, device=cuda, dtype=torch.float64),
+                 sched, n_j_blocks=1)
+
+
+def test_runtime_spmm_and_cg_launch_k2(cuda):
+    w = P.random_csr(900, 700, 0.02, np.random.default_rng(5), "blocky")
+    x = np.random.default_rng(6).standard_normal((40, 900)).astype(
+        np.float32)
+    rt = ReapRuntime(device="cuda", block=64)
+    before = bsr_spmm.launches
+    y, st = rt.run("spmm", x, w)
+    assert bsr_spmm.launches == before + 1 and not st["cache_hit"]
+    np.testing.assert_allclose(y, spmm_ref_numpy(x, w), rtol=1e-4,
+                               atol=1e-4)
+    a = P.random_spd_csr(600, 0.02, np.random.default_rng(7), "blocky")
+    b = np.random.default_rng(8).standard_normal(600)
+    before = bsr_spmm.launches
+    xs, info = cg_solve(a, b, rt, tol=1e-5, dtype=np.float32,
+                        precond="cholesky")
+    assert info["converged"]
+    assert bsr_spmm.launches == before + info["iterations"]
+    assert info["spmv_cache_hits"] == info["iterations"] - 1
+    dense = a.to_dense()
+    assert np.linalg.norm(dense @ xs - b) / np.linalg.norm(b) < 1e-4
+    before = bsr_spmm.launches          # float64: the plain executor
+    xs, info = cg_solve(a, b, rt, tol=1e-10, dtype=np.float64)
+    assert info["converged"] and bsr_spmm.launches == before
+    assert np.linalg.norm(dense @ xs - b) / np.linalg.norm(b) < 1e-8
+
+
+# -- K3: block_sparse_attention ----------------------------------------------
+
+def _attention_problem(s, bs, seed, h=4, hkv=2, d=64):
+    rng = np.random.default_rng(seed)
+    row = rng.integers(0, s - bs, 6 * s)    # the last q block sees nothing
+    col = rng.integers(0, s, 6 * s)
+    mask = P.CSR.from_coo(P.COO(s, s, row, col,
+                                np.ones(row.size, np.float32)))
+    q, k, v = (rng.standard_normal((2, n, s, d)).astype(np.float32)
+               for n in (h, hkv, hkv))
+    return mask, q, k, v
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("bs,d,softcap", [(64, 64, 0.0), (64, 128, 5.0),
+                                          (128, 128, 50.0), (32, 32, 0.0)])
+def test_k3_matches_plain(cuda, dtype, tol, bs, d, softcap):
+    s = 4 * bs
+    mask, q, k, v = _attention_problem(s, bs, seed=bs + d, d=d)
+    plan = inspect_block_attention(mask, bs)
+    assert plan.n_kv[-1] == 0
+    q, k, v = (torch.from_numpy(x).to(cuda, dtype) for x in (q, k, v))
+    before = block_sparse_attention.launches
+    got = block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv,
+                                 softcap=softcap, seq=s - 7)
+    assert block_sparse_attention.launches == before + 1
+    assert got.dtype == dtype
+    want = block_sparse_attention_plain(
+        q, k, v, *_ids(cuda, plan.kv_ids, plan.n_kv), softcap=softcap,
+        scale=d ** -0.5, seq=s - 7)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert not got[:, :, -bs:].any()        # the empty q block: exact zeros
+
+
+def test_k3_rejects_unsupported_shape(cuda):
+    q = torch.zeros(1, 1, 64, 16, device=cuda)
+    ids, n = np.zeros((1, 1), np.int32), np.ones(1, np.int32)
+    with pytest.raises(ValueError, match="supports"):
+        block_sparse_attention(q, q, q, ids, n)
+
+
+def test_runtime_block_attention_launches_k3(cuda):
+    mask, q, k, v = _attention_problem(256, 64, seed=9, d=32)
+    rt = ReapRuntime(device="cuda", block=64)
+    for hit in (False, True):
+        before = block_sparse_attention.launches
+        out, st = rt.run("block_attention", q, k, v, mask)
+        assert block_sparse_attention.launches == before + 1
+        assert st["cache_hit"] is hit
+    np.testing.assert_allclose(out, block_attention_ref(q, k, v, mask, 64),
+                               rtol=1e-4, atol=1e-4)
