@@ -10,9 +10,9 @@ Run from the root of a checkout, with no arguments:
 Phases, in order; any failure exits non-zero without the result line:
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
-2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``) and K3
-   (``block_sparse_attention``), one nvcc each, all started together, and
-   print ptxas's report;
+2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``), K3
+   (``block_sparse_attention``) and K5 (``moe_gemm``), one nvcc each, all
+   started together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
    dead trailing group, and at bs = 32 (limit 1e-5, TF32 off);
@@ -50,10 +50,27 @@ Phases, in order; any failure exits non-zero without the result line:
    with the dense boolean block mask) from CUDA events, each kernel's bound,
    the host parts of one CG matvec (fingerprint, value pass, upload), and
    wall time and device busy share of one warm call of each op under
-   ``torch.profiler``, in a child process (``--profile-second-slice``);
-   then the Pre_poisson Cholesky profile and the kernels line (K1, K2 and
-   K3, each with the launches of its own main-path phase; K2's times at the
-   spmm shape, K3's at softcap 0 in float32).
+   ``torch.profiler``, in a child process (``--profile-second-slice``)
+   that runs after phase 11;
+9. kernel against plain — K5 against ``moe_gemm_plain`` on the bundles of
+   one DBRX-132B MoE layer (d_model 6144, 16 experts, top-4, d_ff_expert
+   10752, capacity factor 1.25; float32 weights from a seeded generator on
+   the card, 12.7 GB): the gate and down products of a prefill of 2 × 2048
+   tokens (cap 1280) and of a decode step of 64 tokens (cap 24), limit
+   1e-3, and one bfloat16 decode gate product, limit 2e-2;
+10. main path, third slice — ``moe_ffn_host`` through
+   ``ReapRuntime(device="cuda")`` cold and warm at both token counts, each
+   against the same layer with the plain ``moe_gemm`` on the card at 1e-4;
+   K5 must launch 3 times per call and the warm call must hit the
+   ``moe_dispatch`` plan; then a plan store written by one runtime and read
+   by a fresh one (a store hit, the same output);
+11. times — the warm calls' split (router, routing on the host, dispatch,
+   the three K5 launches, combine) and K5, its plain version and
+   ``torch.bmm`` (TF32 off) at the four shapes, each beside its bound;
+   then the Pre_poisson Cholesky profile and the kernels line (K1, K2, K3
+   and K5, each with the launches of its own main-path phase; K2's times at
+   the spmm shape, K3's at softcap 0 in float32, K5's at the prefill gate
+   shape).
 
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
@@ -84,6 +101,12 @@ CANT = ("cant", 62_000, 4_000_000, "blocky")
 LLAMA = dict(batch=1, heads=32, kv_heads=8, head_dim=128, seq=8192,
              block=128, window_blocks=8)
 SPMM_TOKENS = 256
+# DBRX-132B's MoE layer (src/repro/configs/dbrx_132b.py, published
+# databricks/dbrx-base): 16 experts, top-4, capacity factor 1.25 (the
+# runtime's default); a prefill of 2 x 2048 tokens and a decode step of 64
+DBRX = dict(d_model=6144, n_experts=16, top_k=4, d_ff_expert=10752,
+            capacity_factor=1.25)
+MOE_CALLS = {"prefill": (2, 2048), "decode": (64, 1)}
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 FP32_FLOPS = 67e12
@@ -91,6 +114,7 @@ HBM_BYTES_S = 3.35e12
 K1_TOL = 1e-5
 K2_TOL = K3_TOL = SPGEMM_TOL = 1e-4
 K3_BF16_TOL = 2e-2
+K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
 CHOL_RESIDUAL = 1e-10
 CG_F32_RESIDUAL, CG_F64_RESIDUAL = 1e-4, 1e-8
 TIMED_LAUNCHES = 30
@@ -518,11 +542,12 @@ def attention_phases(card: str) -> dict:
                                          scale=d ** -0.5, seq=s),
             K3_TOL, "K3"))
     qh, kh, vh = (x.to(torch.bfloat16) for x in (q, k, v))
-    compare("Llama-3-8B attention bf16, softcap 0",
-            block_sparse_attention(qh, kh, vh, plan.kv_ids, plan.n_kv),
-            block_sparse_attention_plain(qh, kh, vh, *ids, softcap=0.0,
-                                         scale=d ** -0.5, seq=s),
-            K3_BF16_TOL, "K3")
+    errs.append(compare(
+        "Llama-3-8B attention bf16, softcap 0",
+        block_sparse_attention(qh, kh, vh, plan.kv_ids, plan.n_kv),
+        block_sparse_attention_plain(qh, kh, vh, *ids, softcap=0.0,
+                                     scale=d ** -0.5, seq=s),
+        K3_BF16_TOL, "K3"))
     del qh, kh, vh
     torch.cuda.empty_cache()
 
@@ -600,6 +625,230 @@ def attention_phases(card: str) -> dict:
         "library_ms": library_ms}
 
 
+def dbrx_moe_weights(gen):
+    """One DBRX-132B MoE layer on the card, float32, from a seeded
+    generator, with the reference's initializer scales (router 0.02,
+    experts 1/sqrt(fan_in)): 16 experts, d_model 6144, d_ff_expert 10752."""
+    import torch
+    d, e, f = DBRX["d_model"], DBRX["n_experts"], DBRX["d_ff_expert"]
+
+    def normal(shape, scale):
+        return torch.randn(shape, generator=gen, device=gen.device) \
+            .mul_(scale)
+
+    return dict(router=normal((d, e), 0.02),
+                w_gate=normal((e, d, f), d ** -0.5),
+                w_up=normal((e, d, f), d ** -0.5),
+                w_down=normal((e, f, d), f ** -0.5))
+
+
+def moe_ffn_plain(x, p):
+    """The layer ``moe_ffn_host`` computes, with the plain ``moe_gemm`` and
+    no runtime: the reference each main-path call is held against."""
+    import torch
+    from repro_torch.core import inspect_moe_dispatch, routing_csr
+    from repro_torch.kernels.moe_gemm import moe_gemm_plain
+    from repro_torch.models.moe import expert_capacity, host_route
+    b, s, d = x.shape
+    e, k = DBRX["n_experts"], DBRX["top_k"]
+    tokens = x.reshape(b * s, d)
+    ids, gates = host_route(tokens, p["router"], top_k=k)
+    plan = inspect_moe_dispatch(routing_csr(ids, e), expert_capacity(
+        b * s, e, k, DBRX["capacity_factor"]))
+    be = torch.arange(e, device=x.device)
+    xb = plan.bundle(tokens)
+    h = torch.nn.functional.silu(moe_gemm_plain(xb, p["w_gate"], be)) \
+        * moe_gemm_plain(xb, p["w_up"], be)
+    y = moe_gemm_plain(h, p["w_down"], be)
+    return plan.combine(y, gates).reshape(b, s, d), plan
+
+
+def moe_phases(card: str) -> dict:
+    """Phases 9-11 for K5 (``moe_dispatch`` and the DBRX expert FFN);
+    returns K5's row of the kernels line."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
+                                              row_tile)
+    from repro_torch.models.moe import (expert_capacity, expert_swiglu,
+                                        host_route, moe_ffn_host)
+    from repro_torch.runtime import ReapRuntime
+    dev = torch.device("cuda")
+    d, e, f, k = (DBRX[n] for n in ("d_model", "n_experts", "d_ff_expert",
+                                    "top_k"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(50)
+    t0 = time.perf_counter()
+    p = dbrx_moe_weights(gen)
+    torch.cuda.synchronize()
+    emit(phase="generate", case="DBRX-132B MoE layer, float32",
+         seconds=time.perf_counter() - t0,
+         weight_bytes=sum(w.numel() * 4 for w in p.values()))
+    xs = {name: torch.randn((b, s, d), generator=gen, device=dev)
+          for name, (b, s) in MOE_CALLS.items()}
+
+    # -- 9. K5 against plain: the dispatch plan's bundles, gate and down -----
+    errs = []
+    rt_check = ReapRuntime(device="cuda")
+    bundles = {}
+    for name, x in xs.items():
+        tokens = x.reshape(-1, d)
+        ids, _ = host_route(tokens, p["router"], top_k=k)
+        cap = expert_capacity(tokens.shape[0], e, k,
+                              DBRX["capacity_factor"])
+        xb, plan, _ = rt_check.moe_dispatch(tokens, ids, n_experts=e,
+                                            capacity=cap)
+        be = plan.schedule["bundle_expert"]
+        be_t = torch.from_numpy(be).to(dev)
+        h = torch.nn.functional.silu(moe_gemm(xb, p["w_gate"], be)) \
+            * moe_gemm(xb, p["w_up"], be)
+        bundles[name] = (xb, h, be)
+        for label, a, w in (("gate", xb, p["w_gate"]),
+                            ("down", h, p["w_down"])):
+            errs.append(compare(
+                f"DBRX {name} {label}: ({e},{cap},{a.shape[-1]}) x "
+                f"({e},{w.shape[1]},{w.shape[2]}), row tile {row_tile(cap)}",
+                moe_gemm(a, w, be), moe_gemm_plain(a, w, be_t), K5_TOL,
+                "K5"))
+    xb, _, be = bundles["decode"]
+    w16, x16 = p["w_gate"].to(torch.bfloat16), xb.to(torch.bfloat16)
+    errs.append(compare(
+        "DBRX decode gate, bfloat16", moe_gemm(x16, w16, be),
+        moe_gemm_plain(x16, w16, torch.from_numpy(be).to(dev)),
+        K5_BF16_TOL, "K5"))
+    del w16, x16, rt_check
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # -- 10. main path: moe_ffn_host cold and warm, then a store round trip -
+    torch.cuda.reset_peak_memory_stats()
+    moe_gemm.launches = 0
+    rt = ReapRuntime(device="cuda")
+    kw = dict(n_experts=e, top_k=k, capacity_factor=DBRX["capacity_factor"])
+    walls = {}
+    for name, x in xs.items():
+        want, plan = moe_ffn_plain(x, p)
+        for label in ("cold", "warm"):
+            before = moe_gemm.launches
+            per0 = dict(rt.cache_stats()["per_op"]["moe_dispatch"])
+            (out, aux), wall = timed(lambda: moe_ffn_host(x, p, rt, **kw))
+            per = rt.cache_stats()["per_op"]["moe_dispatch"]
+            hit = per["hits"] - per0["hits"]
+            diff = (out - want).abs().max().item()
+            ok = bool(out.shape == x.shape and torch.isfinite(out).all()
+                      and torch.allclose(out, want, rtol=MOE_TOL,
+                                         atol=MOE_TOL) and float(aux) == 0)
+            emit(phase="main_path",
+                 case=f"DBRX moe_ffn_host {name}, T={x.shape[0] * x.shape[1]}"
+                      f", {label}", call_s=wall,
+                 k5_launches=moe_gemm.launches - before,
+                 moe_dispatch_hits=hit,
+                 moe_dispatch_misses=per["misses"] - per0["misses"],
+                 capacity=plan.capacity, dropped_frac=plan.dropped_frac,
+                 max_abs_err_vs_plain=diff, tol=MOE_TOL, ok=ok)
+            check(ok, f"moe_ffn_host {name} ({label}) differs from the "
+                      "plain layer")
+            check(moe_gemm.launches == before + 3,
+                  f"moe_ffn_host {name} ({label}): K5 not launched 3 times")
+            check(hit == int(label == "warm"),
+                  f"moe_ffn_host {name} ({label}): moe_dispatch cache")
+            walls[name, label] = wall
+        del want
+    store = ROOT / "build" / "moe_plan_store"
+    shutil.rmtree(store, ignore_errors=True)
+    x = xs["decode"]
+    outs = []
+    for label in ("writes", "fresh runtime reads"):
+        rt_s = ReapRuntime(device="cuda", store_dir=str(store))
+        before = moe_gemm.launches
+        out, _ = moe_ffn_host(x, p, rt_s, **kw)
+        per = rt_s.cache_stats()["per_op"]["moe_dispatch"]
+        outs.append(out)
+        emit(phase="main_path", case=f"DBRX decode, plan store {label}",
+             k5_launches=moe_gemm.launches - before, **per,
+             store=rt_s.cache_stats()["store"])
+        check(moe_gemm.launches == before + 3, "store call: K5 launches")
+        check(per["store_hits"] == int(label != "writes"),
+              f"plan store round trip ({label})")
+    check(torch.equal(outs[0], outs[1]), "store round trip changed the "
+          "result")
+    torch.cuda.synchronize()
+    launches = moe_gemm.launches
+    emit(phase="main_path_done", slice="moe_dispatch", k5_launches=launches,
+         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+
+    # -- 11. times: the warm call's split, K5 against bound, plain, bmm ----
+    for name, x in xs.items():
+        tokens = x.reshape(-1, d)
+        split = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = tokens @ p["router"]
+        torch.cuda.synchronize()
+        split["router_logits_s"] = time.perf_counter() - t0
+        _, copy_s = timed(lambda: logits.cpu())
+        split["logits_to_host_s"] = copy_s
+        (ids, gates), split["route_s"] = timed(
+            lambda: host_route(tokens, p["router"], top_k=k))
+        (xb, plan, st), split["dispatch_s"] = timed(
+            lambda: rt.moe_dispatch(tokens, ids, n_experts=e,
+                                    capacity=expert_capacity(
+                                        tokens.shape[0], e, k,
+                                        DBRX["capacity_factor"])))
+        check(st["cache_hit"] is True, "warm split: dispatch missed")
+        split["dispatch_bundle_s"] = st["bundle_s"]
+        be = plan.schedule["bundle_expert"]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        g = moe_gemm(xb, p["w_gate"], be)
+        ev[1].record()
+        u = moe_gemm(xb, p["w_up"], be)
+        ev[2].record()
+        y = moe_gemm(torch.nn.functional.silu(g) * u, p["w_down"], be)
+        ev[3].record()
+        torch.cuda.synchronize()
+        split.update(k5_gate_ms=ev[0].elapsed_time(ev[1]),
+                     k5_up_ms=ev[1].elapsed_time(ev[2]),
+                     k5_down_and_silu_ms=ev[2].elapsed_time(ev[3]))
+        _, split["expert_swiglu_s"] = timed(lambda: expert_swiglu(
+            xb, p["w_gate"], p["w_up"], p["w_down"], be))
+        _, split["combine_s"] = timed(lambda: plan.combine(y, gates))
+        emit(phase="times", case=f"DBRX moe_ffn_host {name}, warm split",
+             call_s=walls[name, "warm"], **split, card=card)
+        del g, u, y
+    rows = {}
+    for name in MOE_CALLS:
+        xb, h, be = bundles[name]
+        be_t = torch.from_numpy(be).to(dev)
+        for label, a, w in (("gate", xb, p["w_gate"]),
+                            ("down", h, p["w_down"])):
+            nb, cap, d_in = a.shape
+            d_out = w.shape[-1]
+            flop = 2 * nb * cap * d_in * d_out
+            nbytes = (a.numel() + w.numel() + nb * cap * d_out) * 4 \
+                + be.nbytes
+            bound_ms, bound_by = bound(flop, nbytes)
+            n = TIMED_LAUNCHES if name == "decode" else 10
+            row = dict(
+                ms=event_ms(lambda: moe_gemm(a, w, be), n),
+                plain_ms=event_ms(lambda: moe_gemm_plain(a, w, be_t), 5),
+                library_ms=event_ms(lambda: torch.bmm(a, w), n),
+                bound_ms=bound_ms, bound_by=bound_by)
+            emit(phase="times", kernel="K5", case=f"DBRX {name} {label}",
+                 shape=[nb, cap, d_in, d_out], flop=flop, bytes=nbytes,
+                 k5_tflops=flop / row["ms"] / 1e9,
+                 k5_bytes_per_s=nbytes / row["ms"] * 1e3,
+                 library="torch.bmm (TF32 off)", **row, card=card)
+            rows[name, label] = row
+    return {
+        "name": "moe_gemm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gemm.cu",
+        "replaces": "src/repro/kernels/moe_gemm.py:43",
+        "launches": launches, "max_abs_err": max(errs),
+        **rows["prefill", "gate"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -631,7 +880,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention")
+    kernels = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
+               "moe_gemm")
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -820,6 +1070,7 @@ def main() -> int:
 
     k2_row = spmm_solver_phases(fa, spd, card)
     k3_row = attention_phases(card)
+    k5_row = moe_phases(card)
     sys.stdout.flush()
     subprocess.run([sys.executable, str(Path(__file__).resolve()),
                     "--profile-second-slice"], check=True, timeout=600)
@@ -827,7 +1078,8 @@ def main() -> int:
     # profiler sessions in the same process recorded no device event
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row]}), flush=True)
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k5_row]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,6 @@
-"""The REAP inspector: the paper's CPU pass (SpGEMM half of
-``repro.core.inspector``, copied; MoE dispatch comes with its own slice).
+"""The REAP inspector: the paper's CPU pass (copy of
+``repro.core.inspector``; MoE dispatch bundles and combines torch tensors
+on their device as well as numpy arrays).
 
 The inspector consumes standard sparse formats and produces *plans*: RIR
 bundles + schedule bundles that make the executor's data access completely
@@ -33,9 +34,11 @@ import hashlib
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from .formats import BsrPattern, CSR, bsr_pattern_from_csr  # noqa: F401
 from .rir import ScheduleBundle
+from .routing import expert_assignment, scatter_to_slots
 
 
 def next_pow2(n: int) -> int:
@@ -308,6 +311,154 @@ def inspect_spgemm_block(a: CSR, b: CSR, block: int = 128,
                            fingerprint)
 
 
+# ---------------------------------------------------------------------------
+# MoE dispatch — expert-routing plan (same machinery, distinct op tag)
+# ---------------------------------------------------------------------------
+
+def routing_csr(expert_ids: np.ndarray, n_experts: int) -> CSR:
+    """Token→expert assignment as a CSR pattern for the fingerprint machinery.
+
+    ``expert_ids`` is the (n_tokens, top_k) router output.  The CSR keeps the
+    per-token top-k *order* (indices are not column-sorted): two routings
+    that pick the same expert sets in a different k-order bundle differently,
+    so they must not collide in the plan cache.
+    """
+    t, k = expert_ids.shape
+    ids = np.ascontiguousarray(expert_ids.reshape(-1), dtype=np.int64)
+    if ids.size and (ids.min() < 0 or ids.max() >= n_experts):
+        # negative ids would wrap into another expert's slots downstream;
+        # masked assignments must be handled by the router, not smuggled in
+        raise ValueError(f"expert ids must be in [0, {n_experts}); got "
+                         f"range [{ids.min()}, {ids.max()}]")
+    return CSR(t, n_experts,
+               np.arange(0, t * k + 1, k, dtype=np.int64),
+               ids, np.ones(t * k, dtype=np.float32))
+
+
+@dataclasses.dataclass(eq=False)
+class MoeDispatchPlan:
+    """Capacity-bundled dispatch plan for one expert-routing pattern.
+
+    The irregular half of MoE dispatch — which token lands in which bundle
+    slot, which assignments overflow — depends only on the (token, expert)
+    assignment pattern, never on gate values or activations.  The plan fixes:
+
+      * ``dest[i]``       — bundle slot of flat assignment i (row-major over
+                            the (n_tokens, top_k) routing); ``n_slots`` marks
+                            a dropped (overflow) assignment.
+      * ``slot_token[s]`` — token filling bundle slot s (``n_tokens`` = dead
+                            padding slot, the RIR discipline).
+
+    Executing a warm plan is two gathers: ``bundle`` packs tokens into
+    (n_experts, capacity, d) RIR bundles for the grouped expert GEMM
+    (kernels.moe_gemm), ``combine`` gate-mixes expert outputs back to token
+    order.  Gates are *values* and are passed at combine time.
+
+    Both take numpy arrays (and return numpy, as the reference does) or
+    torch tensors (and gather on the tensor's device, returning a tensor
+    there).  For tensors the index arrays are uploaded once per device and
+    memoized on the plan, outside its dataclass fields, so payloads stay
+    the reference's.
+    """
+
+    n_tokens: int
+    n_experts: int
+    top_k: int
+    capacity: int
+    dest: np.ndarray          # (n_tokens * top_k,)
+    slot_token: np.ndarray    # (n_experts * capacity,)
+    fingerprint: Optional[PatternFingerprint] = None
+
+    @property
+    def n_slots(self) -> int:
+        return self.n_experts * self.capacity
+
+    @property
+    def keep(self) -> np.ndarray:
+        return self.dest < self.n_slots
+
+    @property
+    def dropped_frac(self) -> float:
+        """Fraction of assignments lost to capacity overflow (pattern-pure)."""
+        return 1.0 - float(self.keep.mean()) if self.dest.size else 0.0
+
+    @property
+    def schedule(self) -> ScheduleBundle:
+        return ScheduleBundle("moe_dispatch", {
+            "slot_token": self.slot_token.astype(np.int32),
+            "bundle_expert": np.arange(self.n_experts, dtype=np.int32)})
+
+    def device_indices(self, device: torch.device):
+        """``(slot_token, dest, keep)`` as tensors on ``device`` (int64,
+        int64, bool), uploaded on first use and memoized on the plan."""
+        memo = self.__dict__.setdefault("_device_indices", {})
+        key = str(device)
+        if key not in memo:
+            memo[key] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                for a in (self.slot_token.astype(np.int64),
+                          self.dest.astype(np.int64), self.keep))
+        return memo[key]
+
+    def bundle(self, tokens):
+        """Value pass: (n_tokens, d) → (n_experts, capacity, d) bundles."""
+        d = tokens.shape[-1]
+        if torch.is_tensor(tokens):
+            slot_token, _, _ = self.device_indices(tokens.device)
+            pad = torch.cat([tokens, tokens.new_zeros((1, d))])
+            return pad.index_select(0, slot_token).reshape(
+                self.n_experts, self.capacity, d)
+        pad = np.concatenate([tokens, np.zeros((1, d), tokens.dtype)])
+        return pad[self.slot_token].reshape(self.n_experts, self.capacity, d)
+
+    def combine(self, y_bundles, gates):
+        """Un-bundle expert outputs to token order, mixing with gates.
+
+        ``y_bundles``: (n_experts, capacity, d_out); ``gates``: the
+        (n_tokens, top_k) router weights for *this* call's values (numpy or
+        a tensor; with tensor bundles they move to the bundles' device).
+        """
+        d_out = y_bundles.shape[-1]
+        if torch.is_tensor(y_bundles):
+            _, dest, keep = self.device_indices(y_bundles.device)
+            g = gates if torch.is_tensor(gates) else torch.from_numpy(
+                np.ascontiguousarray(gates))
+            g = g.to(y_bundles.device, non_blocking=True).reshape(-1)
+            flat = y_bundles.reshape(self.n_slots, d_out)
+            flat = torch.cat([flat, flat.new_zeros((1, d_out))])
+            y_rep = flat.index_select(0, dest) * (g * keep).to(
+                flat.dtype)[:, None]
+            return y_rep.reshape(self.n_tokens, self.top_k, d_out).sum(dim=1)
+        flat = y_bundles.reshape(self.n_slots, d_out)
+        flat = np.concatenate([flat, np.zeros((1, d_out), flat.dtype)])
+        y_rep = flat[self.dest] * (gates.reshape(-1) * self.keep)[:, None]
+        return y_rep.reshape(self.n_tokens, self.top_k, d_out).sum(axis=1)
+
+
+def inspect_moe_dispatch(routing: CSR, capacity: int,
+                         fingerprint: Optional[PatternFingerprint] = None
+                         ) -> MoeDispatchPlan:
+    """Stage-2 plan-build for MoE dispatch (host replica of the router's
+    bundling, minus everything value-dependent).
+
+    ``routing`` comes from ``routing_csr``; assignments beyond ``capacity``
+    per expert are dropped in stable flat order.
+    """
+    t, n_experts = routing.n_rows, routing.n_cols
+    top_k = int(routing.nnz // max(1, t))
+    # the assignment math is shared with the tensor path — core.routing is
+    # the single source of truth for both
+    _, _, dest = expert_assignment(routing.indices, capacity, n_experts,
+                                   xp=np)
+    dest = dest.astype(np.int64)
+    n_slots = n_experts * capacity
+    slot_token = scatter_to_slots(
+        dest, np.repeat(np.arange(t, dtype=np.int64), top_k), n_slots,
+        fill=t, xp=np)
+    return MoeDispatchPlan(t, n_experts, top_k, capacity, dest,
+                           slot_token, fingerprint)
+
+
 def choose_spgemm_path(a: CSR, b: CSR, block: int = 128,
                        fill_threshold: float = 0.02) -> str:
     """Inspector heuristic: pick blocking only when tiles are dense
@@ -321,3 +472,81 @@ def choose_spgemm_path(a: CSR, b: CSR, block: int = 128,
     """
     a_pat = bsr_pattern_from_csr(a, block)
     return "block" if a_pat.fill >= fill_threshold else "gather"
+
+
+# ---------------------------------------------------------------------------
+# Op registry: MoE dispatch as a planned op (runtime.ops protocol)
+# ---------------------------------------------------------------------------
+#
+# Operands are ``(tokens, expert_ids)``; only the routing *pattern* (the
+# token→expert assignment as a CSR) and the capacity enter the fingerprint —
+# tokens and gates are values.  A warm plan turns dispatch into two gathers.
+
+from ..runtime.ops import (OpCapabilities, OpSpec,  # noqa: E402
+                           register_op)
+
+
+def _host_ids(expert_ids) -> np.ndarray:
+    """The (n_tokens, top_k) routing as a host array (tensors are copied
+    back: the pattern is inspected on the host)."""
+    if torch.is_tensor(expert_ids):
+        return expert_ids.detach().cpu().numpy()
+    return np.asarray(expert_ids)
+
+
+def _prepare_moe_dispatch(operands, cfg, *, n_experts: int, capacity=None,
+                          **kw):
+    """Derive the routing CSR and resolved capacity once per dispatch —
+    shared by the fingerprint and (on a miss) the inspect hook."""
+    expert_ids = _host_ids(operands[1])
+    if capacity is None:
+        from ..models.moe import expert_capacity
+        t, k = expert_ids.shape
+        capacity = expert_capacity(t, n_experts, k, cfg.moe_capacity_factor)
+    return dict(kw, n_experts=n_experts, capacity=int(capacity),
+                routing=routing_csr(expert_ids, n_experts))
+
+
+def _fp_moe_dispatch(operands, cfg, *, chunked, routing, capacity, **kw):
+    return fingerprint_pattern("moe_dispatch", (routing,), capacity=capacity)
+
+
+def _inspect_moe_dispatch(operands, cfg, fp, *, routing, capacity, **kw):
+    return inspect_moe_dispatch(routing, capacity, fp)
+
+
+def _exec_moe_dispatch(plan: MoeDispatchPlan, operands, cfg, *, overlap,
+                       **kw):
+    import time
+
+    from ..device import resolve_device
+    tokens = operands[0]
+    t0 = time.perf_counter()
+    if torch.is_tensor(tokens):
+        # tensors in give bundles on the runtime's device
+        x_bundles = plan.bundle(tokens.to(resolve_device(cfg.device),
+                                          non_blocking=True))
+        if x_bundles.is_cuda:
+            # deliberate timed drain: bundle_s measures device completion
+            torch.cuda.synchronize(x_bundles.device)
+    else:
+        x_bundles = plan.bundle(np.asarray(tokens))
+    bundle_s = time.perf_counter() - t0
+    stats = dict(method="moe_dispatch", bundle_s=bundle_s,
+                 capacity=plan.capacity, dropped=plan.dropped_frac)
+    return (x_bundles, plan), stats
+
+
+register_op(OpSpec(
+    tag="moe_dispatch",
+    prepare=_prepare_moe_dispatch,
+    fingerprint=_fp_moe_dispatch,
+    inspect=_inspect_moe_dispatch,
+    execute_sync=_exec_moe_dispatch,
+    plan_types={"moe_dispatch": MoeDispatchPlan},
+    allowed_kw=("n_experts", "capacity"),
+    # host routing only: the reference's traced in-graph twin comes with
+    # the LM stack (ROADMAP queue 1 item 10) and its shard hook with
+    # sharding (item 9), so the op is not shardable yet
+    capabilities=OpCapabilities(routing="host"),
+))

@@ -18,8 +18,9 @@ entry points the library exposes (``core.spgemm.spgemm(plan=...)``,
 
 Executors run on ``RuntimeConfig.device`` (``cuda`` unless the caller asks
 for ``cpu``); a runtime built for CUDA on a machine without a card raises.
-The persistent stores and sharding are not ported yet: their config fields
-exist and raise ``NotImplementedError`` when set.
+The plan store and the fleet store's plan half are ported; the executable
+store and sharding are not yet: their config fields exist and raise
+``NotImplementedError`` when set.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import time
 import warnings
 from typing import Any, Dict, Iterator, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..device import resolve_device
@@ -38,9 +40,7 @@ from .plan_cache import PlanCache
 # config fields of features a later slice ports, and the ROADMAP item
 # (queue 1) that ports each
 _NOT_PORTED = {
-    "store_dir": "queue 1 item 8 (plan store)",
-    "exec_store_dir": "queue 1 item 8 (executable store)",
-    "shared_store_dir": "queue 1 item 8 (shared fleet store)",
+    "exec_store_dir": "queue 1 item 12 (kernel library store)",
     "mesh_shape": "queue 1 item 9 (sharding)",
 }
 
@@ -55,11 +55,21 @@ class RuntimeConfig:
     block path over its plain PyTorch version; on CPU tensors both run the
     plain version.
 
-    ``store_dir``, ``exec_store_dir``, ``shared_store_dir`` and
-    ``mesh_shape`` keep the reference's fields; setting any of them raises
-    ``NotImplementedError`` naming the ROADMAP item that ports it.  The
-    reference's store budgets and ``moe_capacity_factor`` come back with
-    those items.
+    ``store_dir`` attaches a persistent plan store (plan_store.PlanStore):
+    the manifest is consulted lazily on the first miss, and every newly
+    built plan is write-through-persisted, so a restarted process starts
+    warm for every pattern any previous run inspected.
+
+    ``shared_store_dir`` attaches the plan store under a fleet-shared,
+    content-addressed layout (shared_store.SharedBlobs): every process
+    pointed at the same directory — of either package — shares one plan
+    namespace.  An explicit ``store_dir`` wins.  Only the plan half is
+    attached: the reference's executable half has no port yet.
+
+    ``exec_store_dir`` and ``mesh_shape`` keep the reference's fields;
+    setting either raises ``NotImplementedError`` naming the ROADMAP item
+    that ports it.  The executable store's ``exec_budget_bytes`` comes back
+    with that store.
 
     Entry points build the config with ``RuntimeConfig.from_args`` over a
     parser extended by ``add_runtime_args``; programmatic callers use the
@@ -72,7 +82,9 @@ class RuntimeConfig:
     tile: int = 1024
     block: int = 128
     use_kernel: bool = True
+    moe_capacity_factor: float = 1.25
     store_dir: Optional[str] = None
+    store_budget_bytes: int = 1 << 30
     exec_store_dir: Optional[str] = None
     shared_store_dir: Optional[str] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
@@ -90,6 +102,9 @@ class RuntimeConfig:
         plan_dir = getattr(args, "plan_store", None)
         if plan_dir is not None:
             kw["store_dir"] = plan_dir
+        plan_mb = getattr(args, "plan_store_budget_mb", None)
+        if plan_mb is not None:
+            kw["store_budget_bytes"] = int(plan_mb * 1e6)
         exec_dir = getattr(args, "exec_store", None)
         if exec_dir is not None:
             kw["exec_store_dir"] = exec_dir
@@ -137,19 +152,23 @@ def add_runtime_args(parser) -> None:
 
     Every CLI entry point that builds a ``ReapRuntime`` uses this one
     helper plus ``RuntimeConfig.from_args``.  Numeric defaults are None so
-    ``from_args`` only overrides what the user actually set.  The store and
-    mesh flags are accepted and raise at runtime construction until their
-    slice is ported.
+    ``from_args`` only overrides what the user actually set.  The
+    executable-store and mesh flags are accepted and raise at runtime
+    construction until their slice is ported.
     """
     g = parser.add_argument_group("runtime")
     g.add_argument("--plan-store", metavar="DIR", default=None,
-                   help="persist inspection plans under DIR (not ported "
-                        "yet: raises)")
+                   help="persist inspection plans under DIR; restarted "
+                        "processes skip re-inspection for known patterns")
+    g.add_argument("--plan-store-budget-mb", type=float, default=None,
+                   metavar="MB", help="plan-store disk LRU budget")
     g.add_argument("--exec-store", metavar="DIR", default=None,
                    help="persist compiled executables under DIR (not "
                         "ported yet: raises)")
     g.add_argument("--shared-store", metavar="DIR", default=None,
-                   help="fleet store under DIR (not ported yet: raises)")
+                   help="fleet store: the plan store under DIR, backed by "
+                        "a content-addressed blob area that processes of "
+                        "either package share (plan half only)")
     g.add_argument("--mesh-shape", metavar="N[xM]", default=None,
                    help="device mesh for shardable ops (not ported yet: "
                         "raises)")
@@ -261,7 +280,20 @@ class ReapRuntime:
                     f"yet; ROADMAP.md {item} ports it")
         self.device = resolve_device(cfg.device)
         self.config = cfg
-        self.cache = PlanCache(cfg.cache_entries)
+        self.shared = None
+        if cfg.shared_store_dir is not None:
+            from .shared_store import PLANS_SUBDIR, SharedBlobs
+            self.shared = SharedBlobs(cfg.shared_store_dir)
+        self.store = None
+        if cfg.store_dir is not None:        # explicit dir wins: local store
+            from .plan_store import PlanStore
+            self.store = PlanStore(cfg.store_dir, cfg.store_budget_bytes)
+        elif self.shared is not None:
+            from .plan_store import PlanStore
+            self.store = PlanStore(self.shared.store_root(PLANS_SUBDIR),
+                                   cfg.store_budget_bytes,
+                                   shared=self.shared)
+        self.cache = PlanCache(cfg.cache_entries, store=self.store)
         # routing decisions are tiny strings; keep them out of the plan
         # cache so they neither consume plan capacity nor skew hit stats
         self._routes = PlanCache(capacity=max(256, 4 * cfg.cache_entries),
@@ -372,6 +404,26 @@ class ReapRuntime:
                                        overlap=overlap)
         return plan, vals, stats
 
+    def moe_dispatch(self, tokens, expert_ids, *, n_experts: int,
+                     capacity: Optional[int] = None):
+        """Plan-cached MoE dispatch: tokens → (n_experts, capacity, d) RIR
+        bundles for the grouped expert GEMM (kernels.moe_gemm).
+
+        The token→expert assignment (``expert_ids``, from the router —
+        ``models.moe.host_route``) is the sparsity pattern here: it is
+        fingerprinted under the ``moe_dispatch`` op tag, so repeated
+        routings hit a warm bundling plan and the dispatch cost collapses
+        to two gathers.  Gate values never enter the key; pass them to
+        ``plan.combine`` after the expert GEMM.  Numpy tokens give numpy
+        bundles; a tensor gives bundles on the runtime's device.
+        Returns (x_bundles, plan, stats)."""
+        if not torch.is_tensor(tokens):
+            tokens = np.asarray(tokens)
+        (x_bundles, plan), stats = self.run(
+            "moe_dispatch", tokens, expert_ids, n_experts=n_experts,
+            capacity=capacity)
+        return x_bundles, plan, stats
+
     # -- Introspection -----------------------------------------------------
 
     def cache_stats(self) -> dict:
@@ -393,6 +445,8 @@ class ReapRuntime:
             total = warm + rec["misses"]
             rec["warm_rate"] = warm / total if total else 0.0
         out["per_op"] = per_op
+        if self.store is not None:
+            out["store"] = self.store.summary()
         return out
 
 

@@ -258,7 +258,8 @@ _BUILTINS_LOCK = threading.RLock()
 def _ensure_builtin_ops() -> None:
     """Import the modules hosting the built-in registrations (lazy, once).
 
-    Registrations live next to their executors (`core/spgemm.py`,
+    Registrations live next to their executors (`core/inspector.py` for
+    `moe_dispatch`, `core/spgemm.py`,
     `core/cholesky.py`, `runtime/pipeline.py` for the chunk-set plan
     types, `kernels/bsr_spmm.py`, `kernels/flash_attention.py`,
     `core/solver.py`); importing any of
@@ -276,6 +277,7 @@ def _ensure_builtin_ops() -> None:
     with _BUILTINS_LOCK:
         if _BUILTINS_LOADED:
             return
+        import repro_torch.core.inspector    # noqa: F401  moe_dispatch
         import repro_torch.core.spgemm       # noqa: F401  spgemm{,_gather,_block}
         import repro_torch.core.cholesky     # noqa: F401  cholesky
         import repro_torch.runtime.pipeline  # noqa: F401  chunk-set plan types

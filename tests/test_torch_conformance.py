@@ -25,6 +25,7 @@ _BLK = P.random_csr(128, 128, 0.08, np.random.default_rng(1), "blocky")
 _SPD = P.random_spd_csr(96, 0.06, np.random.default_rng(2))
 _W = P.random_csr(128, 96, 0.06, np.random.default_rng(3), "blocky")
 _MASK = P.random_csr(128, 128, 0.03, np.random.default_rng(4), "blocky")
+_ROUTING = np.random.default_rng(5).integers(0, 6, (40, 2))
 
 
 def _revalue(a, seed):
@@ -52,7 +53,9 @@ EXAMPLES = {
     "block_attention": (lambda s: (*(_dense(s + i, (1, 2, 128, 16))
                                      for i in range(3)),
                                    _revalue(_MASK, s)), dict(block=32)),
+    "moe_dispatch": (lambda s: (_dense(s, (40, 16)), _ROUTING), {}),
 }
+_KW = {"moe_dispatch": dict(n_experts=6)}
 
 
 def _runtime(tag, **extra):
@@ -66,8 +69,11 @@ def _payload(tag, seed):
     operands = EXAMPLES[tag][0](seed)
     cfg = RuntimeConfig(n_chunks=1, overlap=False, device=CPU,
                         **EXAMPLES[tag][1])
-    fp = spec.fingerprint(operands, cfg, chunked=False)
-    return fp, serialize_plan(spec.inspect(operands, cfg, fp))
+    kw = dict(_KW.get(tag, {}))
+    if spec.prepare is not None:
+        kw = spec.prepare(operands, cfg, **kw)
+    fp = spec.fingerprint(operands, cfg, chunked=False, **kw)
+    return fp, serialize_plan(spec.inspect(operands, cfg, fp, **kw))
 
 
 def _values(result):
@@ -110,9 +116,26 @@ def test_plan_purity_and_round_trip(tag):
 def test_cache_hit_same_result(tag):
     rt = _runtime(tag)
     operands = EXAMPLES[tag][0](3)
-    first, s0 = rt.run(tag, *operands)
-    again, s1 = rt.run(tag, *operands)
+    first, s0 = rt.run(tag, *operands, **_KW.get(tag, {}))
+    again, s1 = rt.run(tag, *operands, **_KW.get(tag, {}))
     assert not s0["cache_hit"] and s1["cache_hit"]
+    for u, v in zip(_values(first), _values(again)):
+        np.testing.assert_array_equal(u, v)
+
+
+@pytest.mark.parametrize("tag", CONCRETE)
+def test_store_round_trip(tag, tmp_path):
+    """A fresh runtime sharing ``store_dir`` answers from disk, with the
+    same result."""
+    operands = EXAMPLES[tag][0](5)
+    kw = _KW.get(tag, {})
+    first, s0 = _runtime(tag, store_dir=str(tmp_path)).run(tag, *operands,
+                                                           **kw)
+    fresh = _runtime(tag, store_dir=str(tmp_path))
+    again, s1 = fresh.run(tag, *operands, **kw)
+    assert not s0["cache_hit"] and s1["cache_hit"] and s1["store_hit"]
+    assert s1["fingerprint"] == s0["fingerprint"]
+    assert fresh.cache_stats()["per_op"][tag]["store_hits"] == 1
     for u, v in zip(_values(first), _values(again)):
         np.testing.assert_array_equal(u, v)
 
@@ -121,9 +144,9 @@ def test_cache_hit_same_result(tag):
 @pytest.mark.parametrize("overlap", [False, True])
 def test_chunked_matches_sync(tag, overlap):
     operands = EXAMPLES[tag][0](4)
-    sync, _ = _runtime(tag).run(tag, *operands)
+    sync, _ = _runtime(tag).run(tag, *operands, **_KW.get(tag, {}))
     chunked, st = _runtime(tag, n_chunks=4, overlap=overlap).run(
-        tag, *operands)
+        tag, *operands, **_KW.get(tag, {}))
     assert st["n_chunks"] > 1
     for u, v in zip(_values(chunked), _values(sync)):
         np.testing.assert_allclose(u, v, rtol=1e-5, atol=1e-6)

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K3 on the card: each CUDA kernel against its plain
+"""Kernels K1, K2, K3 and K5 on the card: each CUDA kernel against its plain
 version, and the port's paths through them.  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
@@ -19,6 +19,8 @@ from repro_torch.kernels.bsr_spmm import (bsr_spmm, bsr_spmm_plain,
 from repro_torch.kernels.flash_attention import (
     block_attention_ref, block_sparse_attention,
     block_sparse_attention_plain, inspect_block_attention)
+from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+from repro_torch.models.moe import moe_ffn_host, moe_params_from_numpy
 from repro_torch.runtime import (ReapRuntime, bucket_block_schedule,
                                  build_block_chunkset)
 
@@ -221,3 +223,68 @@ def test_runtime_block_attention_launches_k3(cuda):
         assert st["cache_hit"] is hit
     np.testing.assert_allclose(out, block_attention_ref(q, k, v, mask, 64),
                                rtol=1e-4, atol=1e-4)
+
+
+# -- K5: moe_gemm -------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-3),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nb,cap,din,dout,e", [
+    (4, 8, 32, 64, 3), (7, 16, 128, 128, 8), (2, 128, 256, 512, 2),
+    (5, 24, 96, 200, 6), (3, 131, 36, 260, 4), (16, 40, 64, 132, 16)])
+def test_k5_matches_plain(cuda, dtype, tol, nb, cap, din, dout, e):
+    rng = np.random.default_rng(nb * cap)
+    x = torch.from_numpy(rng.standard_normal((nb, cap, din)).astype(
+        np.float32)).to(cuda, dtype)
+    w = torch.from_numpy(rng.standard_normal((e, din, dout)).astype(
+        np.float32) / np.sqrt(din)).to(cuda, dtype)
+    be = rng.integers(0, e, nb).astype(np.int32)    # not the identity
+    before = moe_gemm.launches
+    got = moe_gemm(x, w, be, bk=4, bf=4)
+    assert moe_gemm.launches == before + 1
+    assert got.dtype == dtype and tuple(got.shape) == (nb, cap, dout)
+    want = moe_gemm_plain(x, w, torch.from_numpy(be).to(cuda))
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_k5_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 8, 30, device=cuda)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        moe_gemm(x, torch.zeros(2, 30, 64, device=cuda), np.array([0, 1]),
+                 bk=30)
+    x = torch.zeros(2, 8, 32, device=cuda)
+    with pytest.raises(ValueError, match="dtypes differ"):
+        moe_gemm(x, torch.zeros(2, 32, 64, device=cuda,
+                                dtype=torch.bfloat16), np.array([0, 1]))
+    with pytest.raises(ValueError, match="bundle_expert"):
+        moe_gemm(x, torch.zeros(2, 32, 64, device=cuda), np.array([0, 2]))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        moe_gemm(x.double(), torch.zeros(2, 32, 64, device=cuda,
+                                         dtype=torch.float64),
+                 np.array([0, 1]))
+
+
+def test_moe_ffn_host_launches_k5(cuda):
+    b, s, d, e, k, dff = 2, 16, 32, 4, 2, 48
+    rng = np.random.default_rng(3)
+    p = dict(router=rng.standard_normal((d, e)) * 0.1,
+             w_gate=rng.standard_normal((e, d, dff)) / np.sqrt(d),
+             w_up=rng.standard_normal((e, d, dff)) / np.sqrt(d),
+             w_down=rng.standard_normal((e, dff, d)) / np.sqrt(dff),
+             shared_gate=rng.standard_normal((d, 40)) / np.sqrt(d),
+             shared_up=rng.standard_normal((d, 40)) / np.sqrt(d),
+             shared_down=rng.standard_normal((40, d)) / np.sqrt(40))
+    x = rng.standard_normal((b, s, d)).astype(np.float32)
+    kw = dict(n_experts=e, top_k=k, capacity_factor=1.25)
+    want, _ = moe_ffn_host(torch.from_numpy(x),
+                           moe_params_from_numpy(p, "cpu"),
+                           ReapRuntime(device="cpu"), **kw)
+    rt = ReapRuntime(device="cuda")
+    pt = moe_params_from_numpy(p, cuda)
+    for hit in (False, True):
+        before = moe_gemm.launches
+        out, _ = moe_ffn_host(torch.from_numpy(x).to(cuda), pt, rt, **kw)
+        assert moe_gemm.launches == before + 3
+        per = rt.cache_stats()["per_op"]["moe_dispatch"]
+        assert per["hits"] == int(hit)
+    torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)

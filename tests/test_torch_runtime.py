@@ -90,13 +90,11 @@ class TestRuntimeParity:
     def test_runstats_fields_mirror_reference(self):
         names = [f.name for f in dataclasses.fields(PR.RunStats)]
         assert names == [f.name for f in dataclasses.fields(RR.RunStats)]
-        # every single-device op of the reference but the one a later
-        # slice ports (moe_dispatch, ROADMAP queue 1 item 8)
-        assert PR.list_ops() == [t for t in RR.list_ops()
-                                 if t != "moe_dispatch"]
-        assert PR.list_ops() == ["block_attention", "cholesky", "spgemm",
-                                 "spgemm_block", "spgemm_gather", "spmm",
-                                 "spmv"]
+        # every op the reference registers
+        assert PR.list_ops() == RR.list_ops()
+        assert PR.list_ops() == ["block_attention", "cholesky",
+                                 "moe_dispatch", "spgemm", "spgemm_block",
+                                 "spgemm_gather", "spmm", "spmv"]
 
 
 class TestSerialization:
@@ -186,7 +184,14 @@ class TestGuards:
     @pytest.mark.parametrize("field,value", [
         ("store_dir", "plans"), ("exec_store_dir", "exec"),
         ("shared_store_dir", "fleet"), ("mesh_shape", (2,))])
-    def test_unported_fields_raise(self, field, value):
+    def test_unported_fields_raise(self, field, value, tmp_path):
+        """The executable store and the mesh still raise; the plan and
+        fleet stores are ported and attach a plan store."""
+        if field in ("store_dir", "shared_store_dir"):
+            rt = PR.ReapRuntime(device=CPU, **{field: str(tmp_path / value)})
+            assert rt.store is not None
+            assert (rt.shared is not None) == (field == "shared_store_dir")
+            return
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             PR.ReapRuntime(device=CPU, **{field: value})
 
@@ -196,8 +201,10 @@ class TestGuards:
         PR.add_runtime_args(parser)
         cfg = PR.RuntimeConfig.from_args(parser.parse_args(
             ["--device", "cpu", "--n-chunks", "2", "--no-kernel",
-             "--no-overlap"]), cache_entries=3)
+             "--no-overlap", "--plan-store", "s",
+             "--plan-store-budget-mb", "2.5"]), cache_entries=3)
         assert (cfg.device, cfg.n_chunks, cfg.use_kernel, cfg.overlap,
                 cfg.cache_entries) == ("cpu", 2, False, False, 3)
+        assert (cfg.store_dir, cfg.store_budget_bytes) == ("s", 2_500_000)
         assert PR.RuntimeConfig.from_args(parser.parse_args([])) == \
             PR.RuntimeConfig()
