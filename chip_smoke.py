@@ -5,14 +5,16 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``--profile-second-slice`` is the child process that ``main`` starts.)
+(``--profile-second-slice`` and ``--profile-lm`` are the child processes
+that ``main`` starts.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``), K3
-   (``block_sparse_attention``) and K5 (``moe_gemm``), one nvcc each, all
-   started together, and print ptxas's report;
+   (``block_sparse_attention``), K4 (``flash_attention``), K5
+   (``moe_gemm``) and K6 (``rwkv6_scan``), one nvcc each, all started
+   together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
    dead trailing group, and at bs = 32 (limit 1e-5, TF32 off);
@@ -67,10 +69,33 @@ Phases, in order; any failure exits non-zero without the result line:
 11. times — the warm calls' split (router, routing on the host, dispatch,
    the three K5 launches, combine) and K5, its plain version and
    ``torch.bmm`` (TF32 off) at the four shapes, each beside its bound;
-   then the Pre_poisson Cholesky profile and the kernels line (K1, K2, K3
-   and K5, each with the launches of its own main-path phase; K2's times at
-   the spmm shape, K3's at softcap 0 in float32, K5's at the prefill gate
-   shape).
+12. kernel against plain — K4 against ``flash_attention_plain`` at
+   hymba-1.5b's prefill shapes (25 q / 5 kv heads of 64, window 1024):
+   S = 2048 in bfloat16 (limit 2e-2) and float32 (1e-4) and a ragged S =
+   100; a qwen3-1.7b causal shape (16 / 8 heads of 128, S = 2048) and a
+   softcap case; K6 against ``rwkv6_plain`` at hymba's SSM heads (H = 25,
+   K = 16, V = 64, T = 2048, chunk 64, u = 0, bfloat16 r/k/v), with u ≠ 0
+   and at decays 1e-6 and 1 − 1e-6, output and state (limit 2e-4);
+13. in situ — hymba-1.5b at full width, 2 layers, float32 compute: a
+   2048-token prefill and 4 decode steps on the card (K4, K6) against the
+   same params on the host (plain versions), logits within 1e-3;
+14. main path, fourth slice — hymba-1.5b as published (32 layers, float32
+   params, bfloat16 compute) through ``generate`` (batch 2, prompt 1024,
+   gen 16) and ``ServeScheduler.run`` on a seeded 8-request trace (prompt
+   lengths 64-2048, gen 8-32, 4 slots of 4096): every request completes
+   with in-vocabulary tokens, no slot stays occupied, K4 and K6 launch 32
+   times per prefill; then request isolation in float32 compute (each
+   request's tokens equal its solo generation's, a top-2 logit gap under
+   1e-3 reported as a tie); prefill time per prompt length, TTFT and
+   decode-step percentiles, tokens/s, peak memory;
+15. times — K4 (with ``scaled_dot_product_attention`` as the yardstick)
+   and K6 at the 2048-token prefill by CUDA events, beside their bounds and
+   plain versions; then, in child processes, the second slice's profiles
+   and a warm hymba prefill and decode step under ``torch.profiler``; last
+   the Pre_poisson Cholesky profile and the kernels line (K1 to K6, each
+   with the launches of its own main-path phase; K2's times at the spmm
+   shape, K3's at softcap 0 in float32, K5's at the prefill gate shape,
+   K4's and K6's at the 2048-token hymba prefill).
 
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
@@ -108,13 +133,32 @@ DBRX = dict(d_model=6144, n_experts=16, top_k=4, d_ff_expert=10752,
             capacity_factor=1.25)
 MOE_CALLS = {"prefill": (2, 2048), "decode": (64, 1)}
 
-# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
+# hymba-1.5b (src/repro_torch/configs/hymba_1p5b.py, arXiv:2411.13676): 32
+# layers, d_model 1600, 25 q / 5 kv heads of 64, window 1024, SSM state 16;
+# float32 params, bfloat16 compute.  The serving trace: 8 requests, prompt
+# lengths and generation lengths drawn from these sets, arrival gaps 0-2
+HYMBA = "hymba-1.5b"
+HYMBA_TRACE = dict(n_requests=8, seed=60, prompt_lens=(64, 256, 1024, 2048),
+                   gen_lens=(8, 16, 32), max_gap=2)
+HYMBA_SERVE = dict(max_batch=4, max_seq=4096)
+HYMBA_GENERATE = dict(batch=2, prompt=1024, gen=16)
+HYMBA_SITU = dict(n_layers=2, prompt=2048, decode=4)
+
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
+# dense tensor cores, HBM3
 FP32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 HBM_BYTES_S = 3.35e12
 K1_TOL = 1e-5
 K2_TOL = K3_TOL = SPGEMM_TOL = 1e-4
 K3_BF16_TOL = 2e-2
 K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
+K4_TOL, K4_BF16_TOL, K6_TOL = 1e-4, 2e-2, 2e-4
+# the in-situ check: float32 logits of the same params on the card (K4,
+# K6, cuBLAS) and on the host (plain versions); sums in another order
+LM_TOL = 1e-3
+# request isolation: a top-2 logit gap below this is a tie
+TIE_GAP = 1e-3
 CHOL_RESIDUAL = 1e-10
 CG_F32_RESIDUAL, CG_F64_RESIDUAL = 1e-4, 1e-8
 TIMED_LAUNCHES = 30
@@ -222,10 +266,10 @@ def device_share(case: str, fn) -> None:
          top_device_us=[[k[:60], us] for k, us in top[:6]])
 
 
-def bound(flop: int, nbytes: int):
-    """(bound_ms, bound_by): the larger of FLOP / fp32 peak and bytes / HBM
-    rate."""
-    flop_ms, byte_ms = flop / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+def bound(flop: int, nbytes: int, peak: float = FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of FLOP / peak (fp32 unless the
+    inputs' type has another) and bytes / HBM rate."""
+    flop_ms, byte_ms = flop / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
     return max(flop_ms, byte_ms), \
         "operations" if flop_ms >= byte_ms else "bytes"
 
@@ -849,6 +893,362 @@ def moe_phases(card: str) -> dict:
         **rows["prefill", "gate"]}
 
 
+def hymba_config(**overrides):
+    from repro_torch.configs import get_config
+    return get_config(HYMBA, **overrides)
+
+
+def to_host(tree):
+    return {k: to_host(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def k4_k6_against_plain(dev) -> tuple:
+    """Phase 12: K4 and K6 against their plain versions on the card at
+    hymba-1.5b's prefill shapes (and qwen3-1.7b's, and a softcap case);
+    returns the worst error of each."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(70)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    k4_errs = []
+    for label, (h, hkv, d, s, kw, dtype) in {
+            "hymba S=2048 bf16": (25, 5, 64, 2048, dict(window=1024),
+                                  torch.bfloat16),
+            "hymba S=2048 f32": (25, 5, 64, 2048, dict(window=1024),
+                                 torch.float32),
+            "hymba S=100 (ragged) f32": (25, 5, 64, 100, dict(window=1024),
+                                         torch.float32),
+            "qwen3-1.7b causal S=2048 f32": (16, 8, 128, 2048, {},
+                                             torch.float32),
+            "softcap 50, window 256, S=1000 f32": (
+                8, 4, 128, 1000, dict(window=256, softcap=50.0),
+                torch.float32)}.items():
+        q = randn(1, h, s, d, dtype=dtype)
+        k, v = (randn(1, hkv, s, d, dtype=dtype) for _ in range(2))
+        tol = K4_TOL if dtype == torch.float32 else K4_BF16_TOL
+        k4_errs.append(compare(
+            f"K4 {label}: H={h}, Hkv={hkv}, D={d}, {kw}",
+            flash_attention(q, k, v, **kw),
+            flash_attention_plain(q, k, v, **kw), tol, "K4"))
+    k6_errs = []
+    h, kk, vv, t = 25, 16, 64, 2048
+    for label, dtype, u_zero, w_val in (
+            ("hymba SSM, u=0, bf16 r/k/v", torch.bfloat16, True, None),
+            ("u != 0, f32", torch.float32, False, None),
+            ("w = 1e-6", torch.float32, False, 1e-6),
+            ("w = 1 - 1e-6", torch.float32, False, 1 - 1e-6)):
+        r, k = (randn(1, h, t, kk, dtype=dtype) for _ in range(2))
+        v = randn(1, h, t, vv, dtype=dtype)
+        w = torch.sigmoid(4 * randn(1, h, t, kk)).clamp(1e-6, 1 - 1e-6) \
+            if w_val is None else torch.full((1, h, t, kk), w_val,
+                                             device=dev)
+        u = torch.zeros(h, kk, device=dev) if u_zero else randn(h, kk)
+        (o, st), (o_p, st_p) = (fn(r, k, v, w, u, chunk=64)
+                                for fn in (rwkv6, rwkv6_plain))
+        case = f"K6 {label}: H={h}, K={kk}, V={vv}, T={t}, chunk 64"
+        k6_errs += [compare(case + ", o", o, o_p, K6_TOL, "K6"),
+                    compare(case + ", state", st, st_p, K6_TOL, "K6")]
+    torch.cuda.synchronize()
+    return max(k4_errs), max(k6_errs)
+
+
+def hymba_in_situ(dev) -> None:
+    """Phase 13: hymba-1.5b at full width, depth cut to 2 layers, float32
+    compute: prefill (2048 tokens: the ring cache, 32 K6 chunks) and 4 decode
+    steps on the card against the same params on the host."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(hymba_config(),
+                              n_layers=HYMBA_SITU["n_layers"],
+                              compute_dtype="float32")
+    s, n_dec = HYMBA_SITU["prompt"], HYMBA_SITU["decode"]
+    params = M.init_params(cfg, 71, device=dev)
+    host = to_host(params)
+    toks = torch.from_numpy(np.random.default_rng(72).integers(
+        0, cfg.vocab_size, (1, s)).astype(np.int32))
+    worst = 0.0
+    k4, k6 = flash_attention.launches, rwkv6.launches
+    t0 = time.perf_counter()
+    lg_d, c_d = M.prefill(cfg, params, toks.to(dev),
+                          M.init_cache(cfg, 1, s + n_dec, device=dev))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = (flash_attention.launches - k4, rwkv6.launches - k6)
+    t0 = time.perf_counter()
+    lg_h, c_h = M.prefill(cfg, host, toks,
+                          M.init_cache(cfg, 1, s + n_dec, device="cpu"))
+    host_s = time.perf_counter() - t0
+    steps = [("prefill", lg_d, lg_h)]
+    tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    for i in range(n_dec):
+        lg_d, c_d = M.decode_step(cfg, params, c_d, tok.to(dev), s + i)
+        lg_h, c_h = M.decode_step(cfg, host, c_h, tok, s + i)
+        steps.append((f"decode {i}", lg_d, lg_h))
+        tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    ok = launches == (cfg.n_layers, cfg.n_layers)
+    for label, d, h in steps:
+        d = d.cpu()
+        err = (d - h).abs().max().item()
+        worst = max(worst, err)
+        ok &= bool(torch.isfinite(d).all()
+                   and torch.allclose(d, h, rtol=LM_TOL, atol=LM_TOL))
+        emit(phase="check", case=f"hymba-1.5b 2 layers f32 {label}, card "
+             "vs host", max_abs_err=err, logit_max=h.abs().max().item(),
+             tol=LM_TOL)
+    emit(phase="check", case="hymba-1.5b 2 layers f32 in situ",
+         prompt=s, decode_steps=n_dec, k4_k6_launches=list(launches),
+         card_prefill_s=card_s, host_prefill_s=host_s, max_abs_err=worst,
+         tol=LM_TOL, ok=ok)
+    check(ok, "hymba in situ: card and host logits differ, or K4/K6 did "
+          "not launch once per layer")
+
+
+def serve_trace(cfg):
+    from repro_torch.launch.scheduler import synthetic_trace
+    kw = dict(HYMBA_TRACE)
+    return synthetic_trace(kw.pop("n_requests"), vocab=cfg.vocab_size, **kw)
+
+
+def solo_generate(cfg, params, prompt, gen, max_seq):
+    """One request alone (batch 1): its tokens and each step's top-2 logit
+    gap."""
+    import torch
+    from repro_torch.models import model as M
+    dev = params["embed"].device
+    cache = M.init_cache(cfg, 1, max_seq, device=dev)
+    logits, cache = M.prefill(cfg, params, torch.from_numpy(
+        prompt[None]).to(dev), cache)
+    step = logits[:, len(prompt) - 1]
+    toks, gaps = [], []
+    for i in range(gen):
+        if i:
+            lg, cache = M.decode_step(cfg, params, cache, torch.tensor(
+                [[toks[-1]]], device=dev), len(prompt) + i - 1)
+            step = lg[:, -1]
+        top = step[0].topk(2).values
+        gaps.append(top[0] - top[1])
+        toks.append(int(step[0].argmax().cpu()))
+    return toks, torch.stack(gaps).cpu().numpy()
+
+
+def hymba_serving(dev, card: str) -> tuple:
+    """Phase 14, the main path: hymba-1.5b at full width through
+    ``generate`` and ``ServeScheduler.run``; then request isolation in
+    float32 compute.  Returns (K4 launches, K6 launches) of the main path."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    from repro_torch.launch.scheduler import ServeScheduler
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    cfg = hymba_config()
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, 73, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="generate", case="hymba-1.5b params, float32",
+         seconds=time.perf_counter() - t0,
+         n_params=count_params(params))
+    trace = serve_trace(cfg)
+    per_prefill = []
+
+    class Timed(ServeScheduler):
+        def _prefill_into(self, slot, req):
+            k4, k6 = flash_attention.launches, rwkv6.launches
+            t0 = time.perf_counter()
+            super()._prefill_into(slot, req)
+            per_prefill.append((len(req.prompt), time.perf_counter() - t0,
+                                flash_attention.launches - k4,
+                                rwkv6.launches - k6))
+
+    g = HYMBA_GENERATE
+    prompt = np.random.default_rng(74).integers(
+        0, cfg.vocab_size, (g["batch"], g["prompt"])).astype(np.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = rwkv6.launches = 0
+    # -- the main path ------------------------------------------------------
+    (seqs, lat), gen_s = timed(lambda: generate(
+        cfg, params, prompt, gen=g["gen"], max_seq=g["prompt"] + g["gen"] + 1,
+        device=dev))
+    gen_launches = (flash_attention.launches, rwkv6.launches)
+    sch = Timed(cfg, params, device=dev, **HYMBA_SERVE)
+    comps, run_s = timed(lambda: sch.run(trace))
+    launches = (flash_attention.launches, rwkv6.launches)
+    # ------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    new = seqs[:, g["prompt"]:].cpu().numpy()
+    ok = bool(tuple(seqs.shape) == (g["batch"], g["prompt"] + g["gen"])
+              and new.min() >= 0 and new.max() < cfg.vocab_size
+              and gen_launches == (cfg.n_layers, cfg.n_layers))
+    emit(phase="main_path", case=f"hymba-1.5b generate, batch {g['batch']}, "
+         f"prompt {g['prompt']}, gen {g['gen']}", call_s=gen_s,
+         k4_k6_launches=list(gen_launches),
+         decode_step_p50_s=float(np.percentile(lat, 50)),
+         decode_step_p99_s=float(np.percentile(lat, 99)),
+         tokens_per_s=g["batch"] * g["gen"] / gen_s, ok=ok)
+    check(ok, "generate: wrong shape, out-of-vocabulary tokens, or K4/K6 "
+          "not launched once per layer")
+    by_rid = {c.rid: c for c in comps}
+    occupancy = M.cache_slot_occupancy(sch.cache)
+    ok = bool(sorted(by_rid) == [r.rid for r in trace]
+              and all(len(by_rid[r.rid].tokens) == r.gen for r in trace)
+              and all(0 <= t < cfg.vocab_size for c in comps
+                      for t in c.tokens)
+              and not occupancy.any()
+              and all(n4 == n6 == cfg.n_layers
+                      for _, _, n4, n6 in per_prefill))
+    lat = sch.latency_summary()
+    n_tok = sum(len(c.tokens) for c in comps)
+    prefill_s = {}
+    for n, sec, _, _ in per_prefill:
+        prefill_s.setdefault(str(n), []).append(sec)
+    emit(phase="main_path", case="hymba-1.5b ServeScheduler.run, "
+         f"{len(trace)} requests", call_s=run_s,
+         steps=sch.stats["steps"], decode_steps=sch.stats["decode_steps"],
+         tokens=n_tok, tokens_per_s=n_tok / run_s,
+         prefill_s_by_prompt_len=prefill_s,
+         k4_k6_launches_per_prefill=[[n4, n6] for *_, n4, n6 in per_prefill],
+         ttft_p50_s=lat["ttft"]["p50_s"], ttft_p99_s=lat["ttft"]["p99_s"],
+         decode_step_p50_s=lat["decode_step"]["p50_s"],
+         decode_step_p99_s=lat["decode_step"]["p99_s"],
+         occupancy_after_drain=occupancy.tolist(),
+         max_memory_allocated_bytes=peak, ok=ok, card=card)
+    check(ok, "ServeScheduler: a request did not complete, a token is out "
+          "of the vocabulary, a slot was left occupied, or K4/K6 did not "
+          "launch once per layer per prefill")
+    del sch, seqs
+    torch.cuda.empty_cache()
+
+    # request isolation, float32 compute: each request's tokens are its
+    # solo generation's, up to a reported tie
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    comps32 = {c.rid: c for c in ServeScheduler(
+        cfg32, params, device=dev, **HYMBA_SERVE).run(trace)}
+    params32 = M.compute_params(cfg32, params, dev)
+    ties, fails = [], []
+    for r in trace:
+        solo, gaps = solo_generate(cfg32, params32, r.prompt, r.gen,
+                                   HYMBA_SERVE["max_seq"])
+        got = comps32[r.rid].tokens
+        if got == solo:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b)
+        row = dict(rid=r.rid, prompt_len=len(r.prompt), first_diff_step=i,
+                   top2_gap=float(gaps[i]))
+        (ties if gaps[i] < TIE_GAP else fails).append(row)
+    emit(phase="check", case="hymba-1.5b request isolation, float32 "
+         "compute", requests=len(trace), identical=len(trace) - len(ties)
+         - len(fails), ties=ties, failures=fails, tie_gap=TIE_GAP,
+         ok=not fails)
+    check(not fails, f"request isolation: tokens differ beyond a tie: "
+          f"{fails}")
+    return launches
+
+
+def hymba_kernel_times(dev, card: str) -> tuple:
+    """Phase 15: K4 and K6 at the main path's largest prefill (2048 tokens,
+    bfloat16 compute) by CUDA events, beside their bounds, their plain
+    versions and, for K4, ``scaled_dot_product_attention`` (the window as
+    an explicit boolean mask, kv heads repeated for GQA).  Returns the two
+    rows of the kernels line without launches and errors."""
+    import torch
+    from repro_torch.kernels.flash_attention import (attention_mask,
+                                                     flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    cfg = hymba_config()
+    s, b = max(HYMBA_TRACE["prompt_lens"]), 1
+    h, hkv, d, st = cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.ssm_state
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(75)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    q = randn(b, h, s, d)
+    k, v = randn(b, hkv, s, d), randn(b, hkv, s, d)
+    kw = dict(window=cfg.window)
+    mask = attention_mask(s, causal=True, window=cfg.window, device=dev)
+    pairs = int(mask.sum())
+    flop = 4 * b * h * pairs * d
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
+    k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
+    k4 = dict(ms=event_ms(lambda: flash_attention(q, k, v, **kw)),
+              plain_ms=event_ms(lambda: flash_attention_plain(q, k, v, **kw),
+                                5),
+              bound_ms=bound_ms, bound_by=bound_by,
+              library_ms=event_ms(lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      q, k_rep, v_rep, attn_mask=mask)))
+    emit(phase="times", kernel="K4", case=f"hymba-1.5b prefill S={s} bf16",
+         visible_pairs=pairs, flop=flop, bytes=nbytes,
+         k4_tflops=flop / k4["ms"] / 1e9,
+         library="scaled_dot_product_attention, boolean window mask, kv "
+                 "repeated", **k4, card=card)
+    del q, k, v, k_rep, v_rep, mask
+
+    chunk = min(64, s)
+    r, kk_, vv_ = randn(b, h, s, st), randn(b, h, s, st), randn(b, h, s, d)
+    w = torch.sigmoid(4 * randn(b, h, s, st, dtype=torch.float32)).clamp(
+        1e-6, 1 - 1e-6)
+    u = torch.zeros(h, st, device=dev)
+    flop = 2 * b * h * s * st * d + 2 * b * h * s * chunk * (st + d)
+    nbytes = (r.numel() + kk_.numel() + vv_.numel()) * r.element_size() \
+        + w.numel() * 4 + b * h * s * d * 4 + b * h * st * d * 4
+    bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
+    k6 = dict(ms=event_ms(lambda: rwkv6(r, kk_, vv_, w, u, chunk=chunk)),
+              plain_ms=event_ms(lambda: rwkv6_plain(r, kk_, vv_, w, u,
+                                                    chunk=chunk), 5),
+              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    emit(phase="times", kernel="K6", case=f"hymba-1.5b SSM heads T={s}, "
+         "bf16 r/k/v, f32 w", flop=flop, bytes=nbytes, library="none",
+         **k6, card=card)
+    return k4, k6
+
+
+def profile_lm() -> None:
+    """Device busy share of one warm hymba-1.5b prefill (1024 tokens) and
+    one warm decode step (batch 4), in a child process (see
+    ``profile_second_slice``)."""
+    import torch
+    from repro_torch.models import model as M
+    dev = torch.device("cuda")
+    cfg = hymba_config()
+    params = M.compute_params(cfg, M.init_params(cfg, 76, device=dev), dev)
+    toks = torch.from_numpy(np.random.default_rng(77).integers(
+        0, cfg.vocab_size, (4, 1024)).astype(np.int32)).to(dev)
+    _, cache = M.prefill(cfg, params, toks,
+                         M.init_cache(cfg, 4, 1100, device=dev))
+
+    def prefill():
+        return M.prefill(cfg, params, toks[:1],
+                         M.init_cache(cfg, 1, 1100, device=dev))
+
+    def decode():
+        return M.decode_step(cfg, params, cache, toks[:, :1],
+                             torch.full((4,), 1024, device=dev))
+
+    for case, fn in (("hymba-1.5b prefill 1024 tokens, warm", prefill),
+                     ("hymba-1.5b decode step, batch 4, warm", decode)):
+        timed(fn)
+        device_share(case, fn)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -881,7 +1281,7 @@ def main() -> int:
 
     # -- 2. build -----------------------------------------------------------
     kernels = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
-               "moe_gemm")
+               "flash_attention", "moe_gemm", "rwkv6_scan")
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -1071,15 +1471,35 @@ def main() -> int:
     k2_row = spmm_solver_phases(fa, spd, card)
     k3_row = attention_phases(card)
     k5_row = moe_phases(card)
+    torch.cuda.empty_cache()
+
+    # -- 12.-15. the LM stack: hymba-1.5b, K4 and K6 -----------------------
+    k4_err, k6_err = k4_k6_against_plain(dev)
+    hymba_in_situ(dev)
+    torch.cuda.empty_cache()
+    k4_launches, k6_launches = hymba_serving(dev, card)
+    torch.cuda.empty_cache()
+    k4_times, k6_times = hymba_kernel_times(dev, card)
+    k4_row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:116",
+        "launches": k4_launches, "max_abs_err": k4_err, **k4_times}
+    k6_row = {
+        "name": "rwkv6", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:67",
+        "launches": k6_launches, "max_abs_err": k6_err, **k6_times}
     sys.stdout.flush()
-    subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                    "--profile-second-slice"], check=True, timeout=600)
+    for child in ("--profile-second-slice", "--profile-lm"):
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        child], check=True, timeout=600)
     # last: after this session (12,000 levels of small launches) later
     # profiler sessions in the same process recorded no device event
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k5_row]}),
-          flush=True)
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row, k5_row,
+                                  k6_row]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1090,4 +1510,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-second-slice"]:
         sys.exit(profile_second_slice())
+    if sys.argv[1:] == ["--profile-lm"]:
+        sys.exit(profile_lm())
     sys.exit(main())

@@ -1,17 +1,15 @@
-"""Kernel K3: block-sparse (gathered) flash attention, and the planned
-``block_attention`` op.
+"""Kernels K3 and K4: flash attention over block-sparse and over contiguous
+kv ranges, and the planned ``block_attention`` op.
 
-Port of the block-attention half of ``repro.kernels.flash_attention``: the
-plan lowers an arbitrary CSR mask to per-q-block lists of visible kv
-blocks, and K3 runs online-softmax attention of each q block over only the
-kv blocks its list names, so invisible kv blocks are never read.
-``attention_block_schedule`` and the contiguous-range kernel K4
-(``flash_attention``) come with the LM stack.
+Port of ``repro.kernels.flash_attention``.
 
-K3 replaces the Pallas TPU kernel ``block_sparse_attention`` in
-``src/repro/kernels/flash_attention.py:274`` (``pl.pallas_call`` at :317).
-The CUDA C++ source is ``csrc/block_sparse_attention.cu``, built by
-``_build`` and bound with ctypes.
+K3 (``block_sparse_attention``): the plan lowers an arbitrary CSR mask to
+per-q-block lists of visible kv blocks, and K3 runs online-softmax
+attention of each q block over only the kv blocks its list names, so
+invisible kv blocks are never read.  It replaces the Pallas TPU kernel
+``block_sparse_attention`` in ``src/repro/kernels/flash_attention.py:274``
+(``pl.pallas_call`` at :317).  The CUDA C++ source is
+``csrc/block_sparse_attention.cu``.
 
 Bound on an H100: ``4·B·H·n_visible·bs²·D`` fp32 FLOP (QKᵀ and PV) against
 q, k, v read once and the output written once.  At bs = D = 128 a visible
@@ -24,9 +22,23 @@ products.  Scores and products are IEEE fp32 (no TF32): the reference holds
 K3 to 1e-4.  bfloat16 inputs are widened on load and the output rounded
 once on store.
 
-``block_sparse_attention`` dispatches on the tensors' device: CPU tensors
-run ``block_sparse_attention_plain``; CUDA tensors launch the kernel or
-raise.  ``block_sparse_attention.launches`` counts kernel launches.
+K4 (``flash_attention``): causal / sliding-window attention over the
+contiguous kv range each q tile can see (``attention_block_schedule``'s
+closed form, computed inside the kernel), with softcap and GQA.  It
+replaces the Pallas TPU kernel ``flash_attention`` in
+``src/repro/kernels/flash_attention.py:116`` (``pl.pallas_call`` at :164).
+The CUDA C++ source is ``csrc/flash_attention.cu``: K3's inner loop on
+64 × 64 tiles, the masks applied per element, ragged S (kv ≥ S masked,
+q rows ≥ S never stored), head dim 64 or 128.  Bound: ``4·D`` FLOP per
+visible (q, k) pair against q, k, v read once and the output written once;
+at hymba-1.5b's prefill (bfloat16, D = 64, window 1024) it is bound by
+operations.
+
+Both wrappers dispatch on the tensors' device: CPU tensors run the plain
+version (``block_sparse_attention_plain``, ``flash_attention_plain``);
+CUDA tensors launch the kernel or raise.  ``block_sparse_attention.launches``
+and ``flash_attention.launches`` count kernel launches.  Both are built by
+``_build`` and bound with ctypes.
 """
 from __future__ import annotations
 
@@ -48,6 +60,8 @@ NEG_INF = -1e30
 
 # (bs, D) pairs K3 is built for; anything else raises on CUDA
 SUPPORTED_SHAPES = tuple((bs, d) for bs in (32, 64, 128) for d in (32, 64, 128))
+# head dims K4 is built for; anything else raises on CUDA
+K4_HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -225,6 +239,132 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 block_sparse_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel K4: contiguous-range (causal / sliding-window) flash attention
+# ---------------------------------------------------------------------------
+
+def attention_block_schedule(seq: int, bq: int, bk: int, *, causal: bool,
+                             window: int = 0):
+    """Host inspector: per q-block, the [lo, hi) range of visible kv blocks.
+
+    Returns (kv_lo, n_kv, nk_max) — int32 arrays of shape (seq//bq,).  A
+    copy of the reference's; K4 computes the same closed form per q tile
+    on the card, so nothing uploads it.
+    """
+    nq = seq // bq
+    kv_lo = np.zeros(nq, dtype=np.int32)
+    n_kv = np.zeros(nq, dtype=np.int32)
+    for qi in range(nq):
+        q_first, q_last = qi * bq, qi * bq + bq - 1
+        hi = (q_last // bk + 1) if causal else (seq // bk)
+        lo = 0
+        if window > 0:
+            lo = max(0, (q_first - window + 1) // bk)
+        kv_lo[qi], n_kv[qi] = lo, hi - lo
+    return kv_lo, n_kv, int(n_kv.max())
+
+
+def attention_mask(seq: int, *, causal: bool, window: int,
+                   device) -> torch.Tensor:
+    """(seq, seq) boolean: query row i may see key column j (K4's masks)."""
+    qpos = torch.arange(seq, device=device)[:, None]
+    kpos = torch.arange(seq, device=device)[None, :]
+    mask = torch.ones((seq, seq), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, window: int = 0,
+                          softcap: float = 0.0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of K4: dense masked softmax in float32, GQA as
+    q heads viewed (kv head, group), probabilities kept in float32 for the
+    PV product (as the Pallas kernel does), rows that see nothing exactly
+    0, the result in q's dtype."""
+    b, h, s, d = q.shape
+    hkv = k.shape[1]
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, hkv, h // hkv, s, d)
+    sc = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * scale
+    if softcap > 0.0:
+        sc = softcap * torch.tanh(sc / softcap)
+    mask = attention_mask(s, causal=causal, window=window, device=q.device)
+    sc = torch.where(mask, sc, torch.full((), NEG_INF, device=q.device))
+    m = sc.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(sc - m), torch.zeros((), device=q.device))
+    lsum = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", p, v.float())
+    out = torch.where(lsum > 0, out / lsum.clamp_min(1e-30),
+                      torch.zeros((), device=q.device))
+    return out.reshape(b, h, s, d).to(q.dtype)
+
+
+def _k4_lib() -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("flash_attention", "flash_attention",
+                       [p, p, p, p, i, i, i, i, i, i, i, f, f, i, p, i])
+
+
+def _k4_launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
+    b, h, s, d = q.shape
+    if d not in K4_HEAD_DIMS:
+        raise ValueError(f"K4 supports head dims {K4_HEAD_DIMS}, got {d}")
+    if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
+        raise ValueError("K4 takes q, k, v all float32 or all bfloat16, got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for t in (q, k, v):
+        if not t.is_contiguous() or t.data_ptr() % 16 \
+                or t.device != out.device:
+            raise ValueError("K4 operands must be contiguous, 16-byte "
+                             "aligned tensors on one device")
+    lib = _k4_lib()
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
+        k.shape[1], s, d, int(causal), int(window), float(scale),
+        float(softcap), _DTYPE_CODE[q.dtype], *launch_target(out.device))
+    _build.check_launch(lib, err, "flash_attention")
+    flash_attention.launches += 1
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, H, S, D); k, v: (B, Hkv, S, D) with H % Hkv == 0 (GQA).
+
+    Attention of each query over the keys it may see: ``kpos <= qpos`` when
+    causal, ``kpos > qpos - window`` when ``window > 0``; logits scaled by
+    ``scale`` (default ``D**-0.5``) and soft-capped (``softcap > 0``)
+    before the masks.  Returns q's shape and dtype on q's device.  Any S is
+    taken (the reference's kernel asserts ``S % bq == 0``; its tile
+    arguments ``bq`` / ``bk`` are not offered, as K4 picks its own tiles).
+    CPU tensors run the plain version; CUDA tensors launch K4 or raise.
+    """
+    b, h, s, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
+            or h % k.shape[1]:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    scale = float(d ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.empty_like(q)
+    if q.numel():
+        _k4_launch(q, k, v, out, causal=causal, window=window,
+                   softcap=softcap, scale=scale)
+    return out
+
+
+flash_attention.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,2 +1,4 @@
-"""Model layers of the port.  So far the host-routed MoE expert FFN
-(``moe``); the rest of the LM stack comes with its own slice."""
+"""Model layers of the port: the decoder-only LM stack for the ``attn`` and
+``hymba`` mixers with the SwiGLU FFN (``layers``, ``params``,
+``attention``, ``ssm``, ``blocks``, ``model``) and the host-routed MoE
+expert FFN (``moe``)."""

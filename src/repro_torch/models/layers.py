@@ -1,0 +1,94 @@
+"""Shared model layers: norms, rotary embeddings, dense projections, embed.
+
+Port of ``repro.models.layers`` (the inference half).  Params are plain
+dicts of tensors produced by the Meta system (``params``).  Compute dtype
+policy as in the reference: inputs are cast to ``cfg.compute_dtype`` at
+block boundaries; norms and softmax statistics accumulate in fp32.
+``layer_norm``, ``gelu_mlp`` and ``cross_entropy_loss`` (whisper and
+training) are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def grad_fence(x: torch.Tensor) -> torch.Tensor:
+    """The identity.  The reference's ``grad_fence`` casts the backward
+    cotangent to the primal dtype, which only training sees."""
+    return x
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """RMSNorm with fp32 statistics. ``plus_one``: gemma-style (1 + w)."""
+    x32 = x.float()
+    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    w = weight.float()
+    if plus_one:
+        w = 1.0 + w
+    return (y * w).to(x.dtype)
+
+
+def rotary(x: torch.Tensor, positions: torch.Tensor, *,
+           theta: float = 10000.0) -> torch.Tensor:
+    """Apply rotary position embedding.  x: (..., S, D), positions: (..., S)."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    angles = positions[..., :, None].float() * freqs       # (..., S, half)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    y1 = x1 * cos - x2 * sin
+    y2 = x2 * cos + x1 * sin
+    return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """gemma-2 logit soft-capping: cap * tanh(x / cap)."""
+    if cap <= 0.0:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
+def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w contracting x's last dim with w's first dim, in x's dtype.
+
+    w may be (d_in, d_out) or (d_in, a, b) (fused head projections).  The
+    weight is cast to x's dtype first, as in the reference; a weight that
+    already has it (``model.compute_params``) is used as it is.
+    """
+    out = x @ w.to(x.dtype).reshape(w.shape[0], -1)
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, *,
+                 scale: Optional[float] = None,
+                 compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Token embedding gather; optional sqrt(d) scaling (gemma)."""
+    x = table[tokens.long()].to(compute_dtype)
+    if scale is not None:
+        x = x * torch.tensor(scale, dtype=compute_dtype, device=x.device)
+    return x
+
+
+def unembed(x: torch.Tensor, table: torch.Tensor, *,
+            cap: float = 0.0) -> torch.Tensor:
+    """Project to vocabulary logits (optionally soft-capped), fp32 out.
+
+    The table is cast to x's dtype, then both operands are widened to fp32
+    for the product: the reference's ``preferred_element_type=float32``
+    (exact products of the compute-dtype values, fp32 sums)."""
+    logits = x.float() @ table.to(x.dtype).float().T
+    return softcap(logits, cap)
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """SwiGLU MLP: silu(x@Wg) * (x@Wu) @ Wd, used by every dense FFN here."""
+    g = torch.nn.functional.silu(dense(x, w_gate))
+    u = dense(x, w_up)
+    return dense(g * u, w_down)

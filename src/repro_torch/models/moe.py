@@ -30,6 +30,7 @@ import torch
 from ..core.routing import softmax_probs, top_k_experts
 from ..device import resolve_device
 from ..kernels.ops import moe_gemm
+from .layers import swiglu
 
 
 def _round_up(x: int, m: int) -> int:
@@ -80,15 +81,6 @@ def expert_swiglu(x_bundles: torch.Tensor, w_gate: torch.Tensor,
                                           bundle_expert))
     u = moe_gemm(x_bundles, w_up.to(dt), bundle_expert)
     return moe_gemm(g * u, w_down.to(dt), bundle_expert)
-
-
-def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU MLP ``silu(x@Wg) * (x@Wu) @ Wd`` in x's dtype (the shared
-    experts' dense FFN; plain products)."""
-    dt = x.dtype
-    g = torch.nn.functional.silu(x @ w_gate.to(dt))
-    return (g * (x @ w_up.to(dt))) @ w_down.to(dt)
 
 
 def moe_ffn_host(x: torch.Tensor, p: Mapping[str, torch.Tensor], runtime, *,

@@ -1,0 +1,195 @@
+"""Port parity, flash attention (kernel K4): ``repro_torch`` on the CPU
+against ``repro``.
+
+* ``attention_block_schedule`` equal to the reference's over a grid of
+  (seq, bq, bk, causal, window);
+* K4's plain version (``kernels.ops.flash_attention`` on CPU tensors)
+  against the reference's Pallas ``flash_attention`` in interpret mode and
+  its ``flash_attention_ref`` oracle, over every ``TestFlashAttention``
+  case at its tolerance (2e-3 float32, 3e-2 bfloat16);
+* the model-level ``models.attention.flash_attention`` against
+  ``flash_attention_jnp`` on a ragged S and on the ``_windowed`` branch
+  (S > window + bq), and ``decode_attention`` against the reference's.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import repro.kernels.flash_attention as RF
+import repro.models.attention as RA
+import repro_torch.kernels.flash_attention as PF
+import repro_torch.models.attention as PA
+from repro.kernels import ops as rops
+from repro.kernels import ref as rref
+from repro_torch.kernels import ops as pops
+
+
+def _qkv(seed, b, h, hkv, s, d, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return tuple((scale * rng.standard_normal((b, n, s, d))).astype(
+        np.float32) for n in (h, hkv, hkv))
+
+
+def _close(got, want, tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+class TestSchedule:
+    @pytest.mark.parametrize("seq,bq,bk", [(512, 64, 64), (256, 64, 128),
+                                           (1024, 128, 64), (96, 32, 32),
+                                           (64, 64, 64)])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("window", [0, 1, 64, 100, 128, 4096])
+    def test_equal_to_reference(self, seq, bq, bk, causal, window):
+        got = pops.attention_block_schedule(seq, bq, bk, causal=causal,
+                                            window=window)
+        want = RF.attention_block_schedule(seq, bq, bk, causal=causal,
+                                           window=window)
+        for g, w in zip(got[:2], want[:2]):
+            assert g.dtype == w.dtype and np.array_equal(g, w)
+        assert got[2] == want[2]
+
+    def test_skips_invisible_blocks(self):
+        lo, n, _ = pops.attention_block_schedule(512, 64, 64, causal=True)
+        assert list(n) == list(range(1, 9))
+        _, n2, _ = pops.attention_block_schedule(512, 64, 64, causal=True,
+                                                 window=128)
+        assert n2.max() <= 3
+
+
+class TestK4PlainMatchesReference:
+    """Every ``TestFlashAttention`` case of ``tests/test_kernels.py``."""
+
+    @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+    @pytest.mark.parametrize("causal", [True, False])
+    def test_basic(self, dtype, causal):
+        q, k, v = _qkv(0, 2, 4, 4, 256, 64)
+        jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+        jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+        got = pops.flash_attention(*(torch.from_numpy(x).to(tdt)
+                                     for x in (q, k, v)), causal=causal)
+        assert got.dtype == tdt and tuple(got.shape) == q.shape
+        tol = 2e-3 if dtype == "float32" else 3e-2
+        _close(got, rops.flash_attention(jq, jk, jv, causal=causal, bq=64,
+                                         bk=64), tol)
+        _close(got, rref.flash_attention_ref(jq, jk, jv, causal=causal), tol)
+
+    @pytest.mark.parametrize("window", [64, 128])
+    def test_sliding_window(self, window):
+        q, k, v = _qkv(1, 1, 2, 2, 512, 32)
+        got = pops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=True, window=window)
+        _close(got, rops.flash_attention(q, k, v, causal=True, window=window,
+                                         bq=64, bk=64), 2e-3)
+        _close(got, rref.flash_attention_ref(q, k, v, causal=True,
+                                             window=window), 2e-3)
+
+    def test_softcap_gemma2(self):
+        q, k, v = _qkv(2, 1, 2, 2, 128, 32)
+        q, k = 3 * q, 3 * k
+        got = pops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=True, softcap=50.0)
+        _close(got, rops.flash_attention(q, k, v, causal=True, softcap=50.0,
+                                         bq=64, bk=64), 2e-3)
+        _close(got, rref.flash_attention_ref(q, k, v, causal=True,
+                                             softcap=50.0), 2e-3)
+
+    def test_gqa(self):
+        q, k, v = _qkv(3, 1, 8, 2, 128, 32)
+        got = pops.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                   causal=True)
+        _close(got, rops.flash_attention(q, k, v, causal=True, bq=64, bk=64),
+               2e-3)
+        rep = [np.repeat(x, 4, axis=1) for x in (k, v)]
+        _close(got, rref.flash_attention_ref(q, *rep, causal=True), 2e-3)
+
+    def test_scale_and_non_causal_window(self):
+        q, k, v = _qkv(4, 1, 4, 2, 128, 32)
+        kw = dict(causal=False, window=40, scale=0.3)
+        got = pops.flash_attention(*map(torch.from_numpy, (q, k, v)), **kw)
+        _close(got, rops.flash_attention(q, k, v, bq=64, bk=64, **kw), 2e-3)
+
+    def test_rejects_mismatched_heads(self):
+        q = torch.zeros(1, 3, 16, 32)
+        k = torch.zeros(1, 2, 16, 32)
+        with pytest.raises(ValueError, match="incompatible"):
+            pops.flash_attention(q, k, k)
+
+
+class TestModelAttention:
+    @pytest.mark.parametrize("s,spec", [
+        (100, dict(causal=True, window=0)),
+        (100, dict(causal=True, window=16, softcap=20.0)),
+        (36, dict(causal=False, window=0)),
+    ])
+    def test_ragged_seq(self, s, spec):
+        q, k, v = _qkv(5, 2, 4, 2, s, 16)
+        got = PA.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                 PA.AttnSpec(**spec, scale=0.25))
+        want = RA.flash_attention_jnp(q, k, v, RA.AttnSpec(**spec,
+                                                           scale=0.25))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+    @pytest.mark.parametrize("window", [32, 64])
+    def test_windowed_branch(self, window):
+        q, k, v = _qkv(6, 1, 4, 2, 256, 16)
+        spec = dict(causal=True, window=window)
+        assert window + 64 < 256          # the reference's _windowed path
+        got = PA.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                 PA.AttnSpec(**spec), bq=64, bk=64)
+        want = RA.flash_attention_jnp(q, k, v, RA.AttnSpec(**spec), bq=64,
+                                      bk=64)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
+    def test_bfloat16_within_one_rounding_of_p(self):
+        # flash_attention_jnp rounds p to bfloat16 before the PV product;
+        # the port keeps p in float32 (as the Pallas kernel does)
+        q, k, v = _qkv(7, 1, 4, 2, 128, 16)
+        got = PA.flash_attention(*(torch.from_numpy(x).to(torch.bfloat16)
+                                   for x in (q, k, v)), PA.AttnSpec())
+        want = RA.flash_attention_jnp(*(jnp.asarray(x, jnp.bfloat16)
+                                        for x in (q, k, v)), RA.AttnSpec())
+        _close(got, want, 3e-2)
+
+    def test_keeps_reference_block_assertion(self):
+        q, k, v = (torch.zeros(1, 2, 1100, 16) for _ in range(3))
+        with pytest.raises(ValueError, match="multiple"):
+            PA.flash_attention(q, k, v, PA.AttnSpec())
+        with pytest.raises(AssertionError):
+            RA.flash_attention_jnp(q.numpy(), k.numpy(), v.numpy(),
+                                   RA.AttnSpec())
+
+    @pytest.mark.parametrize("window,softcap", [(0, 0.0), (8, 0.0),
+                                                (0, 30.0)])
+    def test_decode_attention(self, window, softcap):
+        rng = np.random.default_rng(8)
+        b, h, hkv, sc, d = 3, 4, 2, 16, 16
+        q = rng.standard_normal((b, h, 1, d)).astype(np.float32)
+        kc, vc = (rng.standard_normal((b, hkv, sc, d)).astype(np.float32)
+                  for _ in range(2))
+        slot_pos = np.tile(np.arange(sc, dtype=np.int32), (b, 1))
+        slot_pos[1, 10:] = -1
+        pos = np.array([15, 9, -1], np.int32)          # row 2 idle
+        kw = dict(causal=True, window=window, softcap=softcap)
+        got = PA.decode_attention(*map(torch.from_numpy,
+                                       (q, kc, vc, slot_pos, pos)),
+                                  PA.AttnSpec(**kw))
+        want = RA.decode_attention(q, kc, vc, slot_pos, pos,
+                                   RA.AttnSpec(**kw))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_plain_is_the_kernel_modules_function():
+    # the wrapper runs the module's plain version on CPU tensors
+    q, k, v = (torch.from_numpy(x) for x in _qkv(9, 1, 2, 1, 70, 64))
+    before = PF.flash_attention.launches
+    out = PF.flash_attention(q, k, v, window=20)
+    assert torch.equal(out, PF.flash_attention_plain(q, k, v, window=20))
+    assert PF.flash_attention.launches == before

@@ -1,4 +1,4 @@
-"""Kernels K1, K2, K3 and K5 on the card: each CUDA kernel against its plain
+"""Kernels K1 to K6 on the card: each CUDA kernel against its plain
 version, and the port's paths through them.  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
@@ -19,7 +19,12 @@ from repro_torch.kernels.bsr_spmm import (bsr_spmm, bsr_spmm_plain,
 from repro_torch.kernels.flash_attention import (
     block_attention_ref, block_sparse_attention,
     block_sparse_attention_plain, inspect_block_attention)
+from repro_torch.configs import get_config
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+from repro_torch.models import model as M
 from repro_torch.models.moe import moe_ffn_host, moe_params_from_numpy
 from repro_torch.runtime import (ReapRuntime, bucket_block_schedule,
                                  build_block_chunkset)
@@ -288,3 +293,114 @@ def test_moe_ffn_host_launches_k5(cuda):
         per = rt.cache_stats()["per_op"]["moe_dispatch"]
         assert per["hits"] == int(hit)
     torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+# -- K4: flash_attention --------------------------------------------------------
+
+def _randn(dev, seed, *shape, dtype=torch.float32):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("h,hkv,d,s,kw", [
+    (25, 5, 64, 512, dict(window=128)),           # hymba: window, GQA 5
+    (25, 5, 64, 100, dict(window=1024)),          # ragged S
+    (16, 8, 128, 384, dict()),                    # qwen3: causal, D 128
+    (8, 4, 128, 200, dict(softcap=50.0)),         # softcap, ragged S
+    (4, 4, 64, 130, dict(causal=False)),          # full attention
+    (4, 2, 64, 96, dict(causal=False, window=16, scale=0.2)),
+])
+def test_k4_matches_plain(cuda, dtype, tol, h, hkv, d, s, kw):
+    q = _randn(cuda, s, 2, h, s, d, dtype=dtype)
+    k = _randn(cuda, s + 1, 2, hkv, s, d, dtype=dtype)
+    v = _randn(cuda, s + 2, 2, hkv, s, d, dtype=dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_k4_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros(1, 2, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 64, 64, device=cuda, dtype=torch.float64)
+    with pytest.raises(ValueError, match="float32 or all bfloat16"):
+        flash_attention(q, q, q)
+    q = torch.zeros(1, 2, 64, 64, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q, q.transpose(2, 3).contiguous().transpose(2, 3),
+                        q)
+
+
+# -- K6: rwkv6 ----------------------------------------------------------------
+
+@pytest.mark.parametrize("t,h,kk,vv,chunk,dtype,u_zero,w_val", [
+    (2048, 25, 16, 64, 64, torch.bfloat16, True, None),   # hymba's SSM heads
+    (256, 3, 16, 64, 64, torch.float32, False, None),     # u != 0
+    (128, 2, 16, 24, 32, torch.float32, False, None),     # V tail tile
+    (96, 2, 64, 64, 32, torch.bfloat16, False, None),     # K = 64
+    (256, 2, 16, 64, 64, torch.float32, False, 1e-6),     # extreme decay
+    (256, 2, 16, 64, 64, torch.float32, False, 1 - 1e-6),
+    (12, 25, 16, 64, 64, torch.float32, True, None),      # T < chunk
+])
+def test_k6_matches_plain(cuda, t, h, kk, vv, chunk, dtype, u_zero, w_val):
+    r = _randn(cuda, t, 1, h, t, kk, dtype=dtype)
+    k = _randn(cuda, t + 1, 1, h, t, kk, dtype=dtype)
+    v = _randn(cuda, t + 2, 1, h, t, vv, dtype=dtype)
+    if w_val is None:
+        w = torch.sigmoid(4 * _randn(cuda, t + 3, 1, h, t, kk)).clamp(
+            1e-6, 1 - 1e-6)
+    else:
+        w = torch.full((1, h, t, kk), w_val, device=cuda)
+    u = torch.zeros(h, kk, device=cuda) if u_zero else _randn(cuda, 7, h, kk)
+    before = rwkv6.launches
+    o, state = rwkv6(r, k, v, w, u, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6.launches == before + 1
+    assert o.dtype == state.dtype == torch.float32
+    assert tuple(state.shape) == (1, h, kk, vv)
+    assert torch.isfinite(o).all() and torch.isfinite(state).all()
+    o_want, s_want = rwkv6_plain(r, k, v, w, u, chunk=chunk)
+    torch.testing.assert_close(o, o_want, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(state, s_want, rtol=2e-4, atol=2e-4)
+
+
+def test_k6_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(1, 1, 256, 16, device=cuda)
+    with pytest.raises(ValueError, match="chunk <= 64"):
+        rwkv6(x, x, x, x + 0.5, torch.zeros(1, 16, device=cuda), chunk=128)
+    x = torch.zeros(1, 1, 64, 80, device=cuda)
+    with pytest.raises(ValueError, match="K <= 64"):
+        rwkv6(x, x, x, x + 0.5, torch.zeros(1, 80, device=cuda))
+
+
+# -- the LM stack: a 2-layer hymba-1.5b prefill launches K4 and K6 per layer ----
+
+def test_hymba_prefill_launches_k4_and_k6_per_layer(cuda):
+    import dataclasses
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2,
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (1, 128),
+                         generator=torch.Generator().manual_seed(0))
+    k4, k6 = flash_attention.launches, rwkv6.launches
+    logits, cache = M.prefill(cfg, params, toks.to(cuda),
+                              M.init_cache(cfg, 1, 160, device=cuda))
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - k4, rwkv6.launches - k6) == (2, 2)
+    host = M.prefill(cfg, _to_cpu(params), toks,
+                     M.init_cache(cfg, 1, 160, device="cpu"))[0]
+    torch.testing.assert_close(logits.cpu(), host, rtol=1e-3, atol=1e-3)
+    assert cache["layers"]["pos0"]["ssm_state"].abs().sum() > 0
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
