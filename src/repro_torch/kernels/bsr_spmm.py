@@ -13,18 +13,22 @@ Port of ``repro.kernels.bsr_spmm``.  K2 replaces the Pallas TPU kernel
 :144).  The CUDA C++ source is ``csrc/bsr_spmm.cu``, built by ``_build`` and
 bound with ctypes.
 
-Bound on an H100: ``2·T·n_jobs·bs²`` fp32 FLOP against X read once, the W
+Bound on an H100: ``2·T·n_jobs·bs²`` FLOP against X read once, the W
 tiles read once and Y written once.  At T = 256, bs = 128 a job does
-8.4 MFLOP on 64 KiB of W (128 FLOP/B): bound by fp32 operations, so K2
-tiles like K1 (a 128-row token tile × one output block-column per thread
-block, fp32 accumulator in registers, 32-deep panels in shared memory).  At
-T = 1 (the solver's matvec) a job does 2·bs² FLOP on 4·bs² bytes: bound by
-bytes, so K2 switches to a GEMV that streams each W tile once, coalesced,
-instead of padding the one row to a tile.  IEEE fp32 FMAs, no TF32.
+8.4 MFLOP on 64 KiB of W (128 FLOP/B): bound by operations, so K2 tiles
+(a 128-row token tile × one output block-column per thread block) on the
+tensor cores in 3xTF32 (``mma.sync`` m16n8k8 on TF32 splits of each fp32
+operand: three tensor-core products per product, fp32 accuracy; plain
+TF32 would miss the 1e-4 limit), with X panels and W slices through a
+3-stage ``cp.async`` ring.  At T = 1 (the solver's matvec) a job does
+2·bs² FLOP on 4·bs² bytes: bound by bytes, so K2 switches to a GEMV that
+streams each W tile once, coalesced, in IEEE fp32 FMAs.
 
 ``bsr_spmm`` dispatches on the tensors' device: CPU tensors run
 ``bsr_spmm_plain``; CUDA tensors launch the kernel or raise.
-``bsr_spmm.launches`` counts kernel launches.
+``bsr_spmm.launches`` counts kernel launches and ``bsr_spmm.uploads`` the
+schedule uploads: a ``K2Schedule`` keeps its device copy per device, so a
+warm call with the same schedule copies nothing to the card.
 
 The planned op (``SpmmPlan`` / ``inspect_spmm`` / ``spmm_execute`` and the
 ``spmm`` registration) keeps the reference's plan and contract.  Two
@@ -122,10 +126,11 @@ def inspect_bsr_weight(w_dense: np.ndarray, block: int,
 class K2Schedule:
     """A validated SpMM job schedule in the kernel's form (host arrays).
 
-    ``ids`` is one int32 array ``w_id | k_blk | j_blk | group_start`` so a
-    launch uploads it with one copy; group ``g`` is output block-column
-    ``g`` and runs over jobs ``group_start[g]:group_start[g + 1]``.
-    Pattern-pure: callers memoize it per plan.
+    ``ids`` is one int32 array ``w_id | k_blk | j_blk | group_start``,
+    uploaded with one copy on the first launch on a device and kept there
+    (``device_ids``); group ``g`` is output block-column ``g`` and runs
+    over jobs ``group_start[g]:group_start[g + 1]``.  Pattern-pure: callers
+    memoize it per plan.
     """
 
     ids: np.ndarray
@@ -133,6 +138,16 @@ class K2Schedule:
     n_j_blocks: int
     w_max: int
     k_max: int
+
+    def device_ids(self, device: torch.device) -> torch.Tensor:
+        """``ids`` on ``device``, uploaded on first use and memoized on the
+        schedule outside its dataclass fields."""
+        memo = self.__dict__.setdefault("_device_ids", {})
+        key = str(device)
+        if key not in memo:
+            memo[key] = to_device(self.ids, device)
+            bsr_spmm.uploads += 1
+        return memo[key]
 
 
 def prepare_spmm_schedule(schedule: Union[Mapping, K2Schedule],
@@ -200,7 +215,7 @@ def _launch(sched: K2Schedule, x: torch.Tensor, w_blocks: torch.Tensor,
                 or t.data_ptr() % 16 or t.device != out.device:
             raise ValueError("K2 operands must be contiguous, 16-byte "
                              "aligned float32 tensors on the output's device")
-    ids = to_device(sched.ids, out.device)
+    ids = sched.device_ids(out.device)
     n, lib = sched.n_jobs, _lib()
     base, step = ids.data_ptr(), 4 * n
     err = lib.bsr_spmm_f32(
@@ -244,6 +259,7 @@ def bsr_spmm(x: torch.Tensor, w_blocks: torch.Tensor, schedule, *,
 
 
 bsr_spmm.launches = 0
+bsr_spmm.uploads = 0
 
 
 # ---------------------------------------------------------------------------

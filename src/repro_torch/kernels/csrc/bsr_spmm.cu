@@ -11,107 +11,243 @@
 // an appended zero tile), so every output element is written exactly once.
 //
 // Two variants, picked from the token count t of the call:
-//  * tile (t > 8): BT x BS output tile per thread block (BT = 128, or 16 when
-//    t < 64), 256 threads as a 16 x 16 grid, thread (ty, tx) owns rows
-//    ty + 16*i and columns tx + 16*j.  X[:, k-panel] is stored transposed in
-//    Xs (padded by one word) and W[k-panel, :] in Ws, 32 deep (BS when
-//    BS < 32), both loaded as float4; rows past t load zeros and are not
-//    stored.  At BS = 128, BT = 128 this is K1's inner loop: bound by fp32
-//    operations.
+//  * tile (t > 8): a BT x BS output tile per thread block (BT = 128 with 8
+//    warps, or 32 with 4 warps when t < 64) on the tensor cores in 3xTF32,
+//    CUTLASS's OpMultiplyAddFastF32 idea: each fp32 operand is split into
+//    big = tf32(x) and small = tf32(x - big) (both rounded to nearest), and
+//    mma.sync m16n8k8 sums small*big + big*small + big*big, which keeps
+//    fp32 accuracy (the reference holds K2 to 1e-4, which plain TF32 misses)
+//    at three tensor-core products per product, the small terms first.  The
+//    tensor cores sum the products of each 16-deep step from zero, and IEEE
+//    adds carry those sums into the output's accumulator: the tensor cores'
+//    own accumulation truncates.  Two blocks share an SM (128 registers a
+//    thread).  The group's jobs are walked as one sequence of KC-deep
+//    slices (KC = 32, or BS when BS < 32): the X panel (BT x KC, rows
+//    padded by 4 floats) and the W slice (KC x BS, rows padded by 8 floats;
+//    W's [k][n] tiles need no transpose for mma.sync's B fragments) go through
+//    a 3-stage cp.async ring, so the loads of slices i + 1 and i + 2 are in
+//    flight while slice i is multiplied.  The paddings put the 32 lanes of
+//    every fragment load in distinct banks.  Rows past t load as zeros and
+//    are not stored.  Bound at filter3D T = 256: 3 x 20.8 GFLOP of TF32
+//    products over 495 TFLOP/s, 0.126 ms (the fp32 FMA bound is 0.311 ms).
 //  * gemv (t <= 8, the solver's matvec has t = 1): one thread block per
 //    (output group, token row).  Each W tile is streamed once, each of the 256
 //    threads reading column c = tid % BS of a k-slice (coalesced rows of W),
 //    the x slab broadcast from shared memory; the k-slices are summed in
-//    shared memory at the end.  Bound by the bytes of W.
-// Products are IEEE fp32 FMAs (no TF32): the reference holds K2 to 1e-4.
+//    shared memory at the end.  IEEE fp32 FMAs.  Bound by the bytes of W.
 //
-// C entry point: plain C interface for ctypes; returns cudaGetLastError()
-// after the launch (0 on success).
+// C entry point: plain C interface for ctypes; returns the first CUDA error of
+// the attribute call or the launch (0 on success).
 
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; with `full` false the 16 bytes are zeroed
+// (src-size 0) and `src` is not read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32's
+// rounding): add half the weight of the 13 low mantissa bits, then clear
+// them.  An add and a mask on the integer pipe; cvt.rna.tf32 in their place
+// runs on the much slower conversion pipe, which then bounds the kernel.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small + r, |r| <= 2^-22 |x|: big is x rounded to TF32, small the
+// rest (exact in fp32) rounded to TF32.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = round_tf32(x);
+  small = round_tf32(x - __uint_as_float(big));
+}
+
+// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+
 template <int BS, int BT>
-__global__ void __launch_bounds__(kThreads)
+struct TileShape {
+  static constexpr int WM = BT == 128 ? 4 : 2;  // warps along the rows
+  static constexpr int WN = 2;                  // warps along the columns
+  static constexpr int threads = WM * WN * 32;
+  static constexpr int MT = BT / WM / 16;       // m16 tiles per warp
+  static constexpr int NT = BS / WN / 8;        // n8 tiles per warp
+  static constexpr int KC = BS < 32 ? BS : 32;  // k depth of one slice
+  static_assert(KC % 16 == 0, "a slice is walked 16 deep");
+  static constexpr int LDX = KC + 4;            // padded X panel row (floats)
+  static constexpr int LDW = BS + 8;            // padded W slice row (floats)
+  static constexpr int STAGES = 3;
+  static constexpr int stage_floats = BT * LDX + KC * LDW;
+  static constexpr int smem_bytes =
+      STAGES * stage_floats * static_cast<int>(sizeof(float));
+};
+
+template <int BS, int BT>
+__global__ void __launch_bounds__(TileShape<BS, BT>::threads, 2)
 spmm_tile_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const int* __restrict__ w_id, const int* __restrict__ k_blk,
                  const int* __restrict__ j_blk,
                  const int* __restrict__ group_start, int t, int ldx, int ldy,
                  float* __restrict__ y) {
-  constexpr int TR = BT / 16;
-  constexpr int TC = BS / 16;
-  constexpr int BK = BS < 32 ? BS : 32;
-  __shared__ __align__(16) float Xs[BK][BT + 1];
-  __shared__ __align__(16) float Ws[BK][BS];
+  using S = TileShape<BS, BT>;
+  constexpr int KC = S::KC, LDX = S::LDX, LDW = S::LDW;
+  constexpr int MT = S::MT, NT = S::NT, STAGES = S::STAGES;
+  constexpr int NKC = BS / KC;  // slices per job
+  extern __shared__ __align__(16) float smem[];
 
-  const int g = blockIdx.x;
-  const int row0 = blockIdx.y * BT;
-  const int p0 = group_start[g];
-  const int p1 = group_start[g + 1];
+  // the token tiles of one group are neighbours in the grid, so the second
+  // reads the group's W tiles from L2
+  const int n_tt = (t + BT - 1) / BT;
+  const int g0 = blockIdx.x / n_tt;
+  const int row0 = (blockIdx.x % n_tt) * BT;
+  const int p0 = group_start[g0];
+  const int n_it = (group_start[g0 + 1] - p0) * NKC;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int m_base = (warp / S::WN) * (BT / S::WM);
+  const int n_base = (warp % S::WN) * (BS / S::WN);
 
-  float acc[TR][TC];
-#pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+  // slice i of the group: job p0 + i / NKC, k columns (i % NKC) * KC + [0, KC)
+  auto load_slice = [&](int i, int stage) {
+    const int p = p0 + i / NKC;
+    const int kc = (i % NKC) * KC;
+    const float* X = x + static_cast<long long>(k_blk[p]) * BS + kc;
+    const float* W = w + static_cast<long long>(w_id[p]) * BS * BS +
+                     static_cast<long long>(kc) * BS;
+    float* xs = smem + stage * S::stage_floats;
+    float* ws = xs + BT * LDX;
+    for (int e = tid; e < BT * KC / 4; e += S::threads) {
+      const int r = e / (KC / 4);
+      const int c = (e % (KC / 4)) * 4;
+      const bool in = row0 + r < t;
+      cp_async16(xs + r * LDX + c,
+                 X + static_cast<long long>(in ? row0 + r : 0) * ldx + c, in);
+    }
+    for (int e = tid; e < KC * BS / 4; e += S::threads) {
+      const int r = e / (BS / 4);
+      const int c = (e % (BS / 4)) * 4;
+      cp_async16(ws + r * LDW + c, W + r * BS + c, true);
+    }
+  };
 
-  for (int p = p0; p < p1; ++p) {
-    const float* X = x + static_cast<long long>(row0) * ldx +
-                     static_cast<long long>(k_blk[p]) * BS;
-    const float* W = w + static_cast<long long>(w_id[p]) * BS * BS;
-    for (int k0 = 0; k0 < BS; k0 += BK) {
-      // X panel: BT rows x BK columns, float4 along k, stored transposed.
-      for (int v = tid; v < BT * BK / 4; v += kThreads) {
-        const int m = v / (BK / 4);
-        const int k = (v % (BK / 4)) * 4;
-        float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        if (row0 + m < t)
-          val = *reinterpret_cast<const float4*>(
-              X + static_cast<long long>(m) * ldx + k0 + k);
-        Xs[k + 0][m] = val.x;
-        Xs[k + 1][m] = val.y;
-        Xs[k + 2][m] = val.z;
-        Xs[k + 3][m] = val.w;
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_it) load_slice(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_it; ++i) {
+    cp_async_wait<STAGES - 2>();  // slice i has landed
+    __syncthreads();              // ... for every thread; slice i - 1 is done
+    if (i + STAGES - 1 < n_it) load_slice(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const float* xs = smem + (i % STAGES) * S::stage_floats;
+    const float* ws = xs + BT * LDX;
+    // two 8-deep steps at a time: their six products per output, the small
+    // terms first, are summed from zero and then added to the accumulator
+    // with IEEE adds.  The tensor cores' accumulation truncates; into a
+    // running sum that has grown large, step after step, that cost about
+    // 1e-4 where outputs nearly cancel (against 3e-5 for plain fp32).
+#pragma unroll
+    for (int kk = 0; kk < KC; kk += 16) {
+      uint32_t a_big[2][MT][4], a_small[2][MT][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          const float* xr =
+              xs + (m_base + mt * 16 + g) * LDX + kk + 8 * h + t4;
+          split_tf32(xr[0], a_big[h][mt][0], a_small[h][mt][0]);
+          split_tf32(xr[8 * LDX], a_big[h][mt][1], a_small[h][mt][1]);
+          split_tf32(xr[4], a_big[h][mt][2], a_small[h][mt][2]);
+          split_tf32(xr[8 * LDX + 4], a_big[h][mt][3], a_small[h][mt][3]);
+        }
       }
-      // W panel: BK rows x BS columns, float4 along n.
-      for (int v = tid; v < BK * BS / 4; v += kThreads) {
-        const int k = v / (BS / 4);
-        const int n = (v % (BS / 4)) * 4;
-        *reinterpret_cast<float4*>(&Ws[k][n]) =
-            *reinterpret_cast<const float4*>(W + (k0 + k) * BS + n);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        float c[MT][4];
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) c[mt][e] = 0.0f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float* wc = ws + (kk + 8 * h + t4) * LDW + n_base + nt * 8 + g;
+          uint32_t b_big[2], b_small[2];
+          split_tf32(wc[0], b_big[0], b_small[0]);
+          split_tf32(wc[4 * LDW], b_big[1], b_small[1]);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], a_small[h][mt], b_big);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], a_big[h][mt], b_small);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_tf32(c[mt], a_big[h][mt], b_big);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mt][nt][e] += c[mt][e];
       }
-      __syncthreads();
-#pragma unroll
-      for (int k = 0; k < BK; ++k) {
-        float ar[TR], br[TC];
-#pragma unroll
-        for (int i = 0; i < TR; ++i) ar[i] = Xs[k][ty + 16 * i];
-#pragma unroll
-        for (int j = 0; j < TC; ++j) br[j] = Ws[k][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TR; ++i)
-#pragma unroll
-          for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-      }
-      __syncthreads();
     }
   }
+  cp_async_wait<0>();
 
   float* Y = y + static_cast<long long>(row0) * ldy +
              static_cast<long long>(j_blk[p0]) * BS;
 #pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = ty + 16 * i;
-    if (row0 + r < t) {
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = m_base + mt * 16 + g;
 #pragma unroll
-      for (int j = 0; j < TC; ++j)
-        Y[static_cast<long long>(r) * ldy + tx + 16 * j] = acc[i][j];
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = n_base + nt * 8 + 2 * t4;
+      if (row0 + r < t)
+        *reinterpret_cast<float2*>(Y + static_cast<long long>(r) * ldy + c) =
+            make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      if (row0 + r + 8 < t)
+        *reinterpret_cast<float2*>(Y + static_cast<long long>(r + 8) * ldy + c) =
+            make_float2(acc[mt][nt][2], acc[mt][nt][3]);
     }
   }
 }
@@ -158,22 +294,49 @@ spmm_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// Raises `kernel`'s dynamic shared-memory limit to `bytes` on `device` once;
+// `done` is the kernel's flag word (bit d: device d), so later launches make
+// no driver call for it.
+template <typename Kernel>
+cudaError_t allow_smem_once(std::atomic<unsigned long long>& done,
+                            Kernel* kernel, int bytes, int device) {
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
+}
+
+template <int BS, int BT>
+int launch_tile(const float* x, const float* w, const int* w_id,
+                const int* k_blk, const int* j_blk, const int* group_start,
+                int n_groups, int t, int ldx, int ldy, float* y,
+                cudaStream_t stream, int device) {
+  using S = TileShape<BS, BT>;
+  auto* kernel = spmm_tile_kernel<BS, BT>;
+  static std::atomic<unsigned long long> smem_set{0};
+  cudaError_t err = allow_smem_once(smem_set, kernel, S::smem_bytes, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<n_groups * ((t + BT - 1) / BT), S::threads, S::smem_bytes,
+           stream>>>(x, w, w_id, k_blk, j_blk, group_start, t, ldx, ldy, y);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BS>
-void launch(const float* x, const float* w, const int* w_id, const int* k_blk,
-            const int* j_blk, const int* group_start, int n_groups, int t,
-            int ldx, int ldy, float* y, cudaStream_t stream) {
+int launch(const float* x, const float* w, const int* w_id, const int* k_blk,
+           const int* j_blk, const int* group_start, int n_groups, int t,
+           int ldx, int ldy, float* y, cudaStream_t stream, int device) {
   if (t <= 8) {
     spmm_gemv_kernel<BS><<<dim3(n_groups, t), kThreads, 0, stream>>>(
         x, w, w_id, k_blk, j_blk, group_start, ldx, ldy, y);
-  } else if (t < 64) {
-    spmm_tile_kernel<BS, 16><<<dim3(n_groups, (t + 15) / 16), kThreads, 0,
-                               stream>>>(x, w, w_id, k_blk, j_blk, group_start,
-                                         t, ldx, ldy, y);
-  } else {
-    spmm_tile_kernel<BS, 128><<<dim3(n_groups, (t + 127) / 128), kThreads, 0,
-                                stream>>>(x, w, w_id, k_blk, j_blk,
-                                          group_start, t, ldx, ldy, y);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (t < 64)
+    return launch_tile<BS, 32>(x, w, w_id, k_blk, j_blk, group_start,
+                               n_groups, t, ldx, ldy, y, stream, device);
+  return launch_tile<BS, 128>(x, w, w_id, k_blk, j_blk, group_start, n_groups,
+                              t, ldx, ldy, y, stream, device);
 }
 
 }  // namespace
@@ -184,7 +347,7 @@ extern "C" {
 // of x (row stride ldx floats) into y (row stride ldy floats).  The caller has
 // checked dtypes, shapes, 16-byte alignment, index ranges and that group g
 // writes block-column g, and passes n_groups >= 1 and t >= 1.  Returns
-// cudaGetLastError() after the launch.
+// the first CUDA error of the attribute call or the launch (0 on success).
 int bsr_spmm_f32(const float* x, const float* w, const int* w_id,
                  const int* k_blk, const int* j_blk, const int* group_start,
                  int n_groups, int t, int ldx, int ldy, int bs, float* y,
@@ -193,13 +356,12 @@ int bsr_spmm_f32(const float* x, const float* w, const int* w_id,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bs) {
-    case 16: launch<16>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s); break;
-    case 32: launch<32>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s); break;
-    case 64: launch<64>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s); break;
-    case 128: launch<128>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s); break;
+    case 16: return launch<16>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
+    case 32: return launch<32>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
+    case 64: return launch<64>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
+    case 128: return launch<128>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -27,12 +27,18 @@ contiguous kv range each q tile can see (``attention_block_schedule``'s
 closed form, computed inside the kernel), with softcap and GQA.  It
 replaces the Pallas TPU kernel ``flash_attention`` in
 ``src/repro/kernels/flash_attention.py:116`` (``pl.pallas_call`` at :164).
-The CUDA C++ source is ``csrc/flash_attention.cu``: K3's inner loop on
-64 × 64 tiles, the masks applied per element, ragged S (kv ≥ S masked,
-q rows ≥ S never stored), head dim 64 or 128.  Bound: ``4·D`` FLOP per
-visible (q, k) pair against q, k, v read once and the output written once;
-at hymba-1.5b's prefill (bfloat16, D = 64, window 1024) it is bound by
-operations.
+The CUDA C++ source is ``csrc/flash_attention.cu``, two kernels picked by
+the input type: bfloat16 on the tensor cores (``mma.sync`` m16n8k16 on
+128-row q tiles, 64-row at head dims 128 and 256, K and V through a
+2-stage ``cp.async`` ring, the online
+softmax in fp32 registers, P rounded to bfloat16 for the PV product, masks
+only on boundary tiles), and float32 in IEEE FMAs (K3's inner loop on
+64 × 64 tiles, masks per element; the 1e-4 limit rules out TF32).  Both
+take ragged S (kv ≥ S masked, q rows ≥ S never stored) and head dims
+``K4_HEAD_DIMS``, every head dim of the port's configs and of
+``reduced_config``.  Bound: ``4·D`` FLOP per visible (q, k) pair against
+q, k, v read once and the output written once; at hymba-1.5b's prefill
+(bfloat16, D = 64, window 1024) it is bound by operations.
 
 Both wrappers dispatch on the tensors' device: CPU tensors run the plain
 version (``block_sparse_attention_plain``, ``flash_attention_plain``);
@@ -60,8 +66,9 @@ NEG_INF = -1e30
 
 # (bs, D) pairs K3 is built for; anything else raises on CUDA
 SUPPORTED_SHAPES = tuple((bs, d) for bs in (32, 64, 128) for d in (32, 64, 128))
-# head dims K4 is built for; anything else raises on CUDA
-K4_HEAD_DIMS = (64, 128)
+# head dims K4 is built for (every d_head of configs/ and reduced_config's
+# 16); anything else raises on CUDA
+K4_HEAD_DIMS = (16, 32, 64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

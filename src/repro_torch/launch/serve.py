@@ -28,7 +28,15 @@ import torch
 
 from ..configs import ARCHS, get_config, reduced_config
 from ..device import resolve_device
+from ..kernels import ops as kops
 from ..models import model as M
+
+
+def print_kernel_launches() -> None:
+    """The hand-written kernels this process launched (0 on the CPU, where
+    their plain versions run)."""
+    print(f"[serve] kernel launches: flash_attention="
+          f"{kops.flash_attention.launches} rwkv6={kops.rwkv6.launches}")
 
 
 def generate(cfg, params, tokens, *, gen: int, max_seq: int,
@@ -117,6 +125,7 @@ def serve_continuous(cfg, args):
                 f"{len(completions)} / {streamed[0]} streamed")
         print(f"[serve] smoke OK: {args.expect_completions} completions, "
               f"{streamed[0]} streamed tokens, no orphaned slots")
+    print_kernel_launches()
     return completions
 
 
@@ -174,6 +183,7 @@ def main(argv=None):
         print(f"[serve] decode latency p50={np.median(lat) * 1e3:.1f}ms "
               f"p99={np.percentile(lat, 99) * 1e3:.1f}ms")
     print("[serve] first sequence:", seqs[0].cpu().numpy()[:16], "...")
+    print_kernel_launches()
     return seqs
 
 

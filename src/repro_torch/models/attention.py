@@ -4,10 +4,11 @@ Port of ``repro.models.attention``.  The reference's models call a
 blocked pure-jnp flash attention (``flash_attention_jnp``) and name the
 Pallas kernel as the hot path on real hardware; here ``flash_attention``
 goes through ``kernels.ops.flash_attention``: kernel K4 on the card, its
-plain version on the host.  Both compute the same masked softmax; K4 keeps
-the probabilities in float32 for the PV product, as the Pallas kernel
-does, where ``flash_attention_jnp`` rounds them to v's dtype first (equal
-in float32, one rounding apart in bfloat16).
+plain version on the host.  Both compute the same masked softmax.  The
+plain version and K4's float32 kernel keep the probabilities in float32
+for the PV product, as the Pallas kernel does; K4's bfloat16 kernel rounds
+them to bfloat16 first, as ``flash_attention_jnp`` does (equal in float32,
+one rounding apart in bfloat16).
 
 Shapes: q (B, H, S, D); k, v (B, Hkv, S, D); GQA by ``h // (H / Hkv)``.
 """

@@ -8,8 +8,11 @@ against ``repro``.
   its ``flash_attention_ref`` oracle, over every ``TestFlashAttention``
   case at its tolerance (2e-3 float32, 3e-2 bfloat16);
 * the model-level ``models.attention.flash_attention`` against
-  ``flash_attention_jnp`` on a ragged S and on the ``_windowed`` branch
-  (S > window + bq), and ``decode_attention`` against the reference's.
+  ``flash_attention_jnp`` on a ragged S, on the ``_windowed`` branch
+  (S > window + bq) and at head dims 256 and 16, and ``decode_attention``
+  against the reference's;
+* every head dim of the configs (and of ``reduced_config``) is one K4
+  takes on the card.
 """
 import numpy as np
 import pytest
@@ -147,6 +150,21 @@ class TestModelAttention:
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
                                    atol=1e-4)
 
+    @pytest.mark.parametrize("d,h,hkv,s,spec", [
+        (256, 8, 4, 128, dict(causal=True, window=32, softcap=50.0)),
+        (256, 4, 1, 96, dict(causal=True, window=0)),
+        (16, 4, 2, 128, dict(causal=True, window=16, softcap=20.0)),
+        (16, 8, 2, 64, dict(causal=False, window=0)),
+    ])
+    def test_head_dims_256_and_16(self, d, h, hkv, s, spec):
+        # gemma2-2b / paligemma-3b's head dim and reduced_config's
+        q, k, v = _qkv(10 + d, 1, h, hkv, s, d)
+        got = PA.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                 PA.AttnSpec(**spec))
+        want = RA.flash_attention_jnp(q, k, v, RA.AttnSpec(**spec))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4,
+                                   atol=1e-4)
+
     def test_bfloat16_within_one_rounding_of_p(self):
         # flash_attention_jnp rounds p to bfloat16 before the PV product;
         # the port keeps p in float32 (as the Pallas kernel does)
@@ -184,6 +202,14 @@ class TestModelAttention:
                                    RA.AttnSpec(**kw))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+def test_k4_takes_every_head_dim_the_configs_use():
+    from repro_torch.configs import ARCHS, get_config, reduced_config
+    dims = {get_config(a).d_head for a in ARCHS}
+    dims |= {reduced_config(get_config(a)).d_head for a in ARCHS}
+    assert dims <= set(PF.K4_HEAD_DIMS)
+    assert {16, 64, 128, 256} <= dims
 
 
 def test_plain_is_the_kernel_modules_function():

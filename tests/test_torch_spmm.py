@@ -3,7 +3,8 @@
 fingerprints and byte-equal payloads over the five pattern families; kernel
 K2's plain version against the reference Pallas kernel (interpret mode) and
 its jnp executor at ``TestBsrSpmm``'s tolerance (rtol = atol = 1e-4 in
-float32), float64 through the plain executor; the ``spmm`` op through
+float32), float64 through the plain executor; the K2 schedule's memoized
+device copy of its ids; the ``spmm`` op through
 ``ReapRuntime(device="cpu")``."""
 import numpy as np
 import pytest
@@ -105,6 +106,20 @@ class TestK2Plain:
             kops.bsr_spmm(x, w, dict(good, w_id=[0, 1, 3]), n_j_blocks=2)
         with pytest.raises(ValueError, match="past"):
             kops.bsr_spmm(x, w, dict(good, k_blk=[0, 2, 0]), n_j_blocks=2)
+
+    def test_schedule_keeps_one_device_copy_of_its_ids(self):
+        plan = PK.inspect_spmm(_w(P, "banded"), 32)
+        sched = PK._k2_schedule(plan)
+        assert PK._k2_schedule(plan) is sched     # memoized on the plan
+        before = PK.bsr_spmm.uploads
+        ids = sched.device_ids(torch.device(CPU))
+        assert PK.bsr_spmm.uploads == before + 1
+        assert sched.device_ids(torch.device(CPU)) is ids
+        assert PK.bsr_spmm.uploads == before + 1
+        assert np.array_equal(ids.numpy(), sched.ids)
+        # memoized outside the dataclass fields
+        assert "_device_ids" not in {f.name for f in
+                                     PK.dataclasses.fields(sched)}
 
 
 class TestSpmmExecute:
