@@ -38,7 +38,8 @@ Phases, in order; any failure exits non-zero without the result line:
    ``block_sparse_attention_plain`` at the Llama-3-8B attention shape
    (32 q heads, 8 kv heads, head dim 128, S = 8192, block 128, causal
    sliding window of 8 blocks plus global block 0) in float32
-   with softcap 0 and 50 (limit 1e-4) and in bfloat16 (limit 2e-2);
+   with softcap 0 and 50 (limit 1e-4) and in bfloat16 (limit 2e-2), then
+   at ``K3_SHAPES`` (head dims 256 and 16, block 16) in both types;
 7. main path, second slice — ``run("spmm")`` on filter3D with T = 256, cold
    and warm with fresh X and W values, against scipy's ``(Wᵀ·Xᵀ)ᵀ`` at
    1e-4; ``cg_solve`` on cant in float32 with the planned Cholesky
@@ -47,9 +48,10 @@ Phases, in order; any failure exits non-zero without the result line:
    ‖A·x − b‖/‖b‖ ≤ 1e-4; ``cg_solve`` on Pre_poisson in float64 (the plain
    executor) at tol 1e-10, residual ≤ 1e-8; ``run("block_attention")`` at
    the Llama-3-8B shape, cold and warm, against a float64 dense masked
-   attention on the card on 4 of the 32 heads at 1e-4.  K2 must launch once
-   per spmm call and once per float32 CG iteration, K3 once per attention
-   call;
+   attention on the card on 4 of the 32 heads at 1e-4, and once more with
+   ``ReapRuntime(device="cuda", block=16)`` at S = 2048.  K2 must launch
+   once per spmm call and once per float32 CG iteration, K3 once per
+   attention call;
 8. times — K2, K3, their plain versions and a library yardstick
    (``torch.sparse.mm`` on a sparse CSR tensor; ``scaled_dot_product_attention``
    with the dense boolean block mask) from CUDA events, each kernel's bound
@@ -57,7 +59,10 @@ Phases, in order; any failure exits non-zero without the result line:
    call (the wrapper, host included) and on the device (calls captured in
    a CUDA graph) at T = 256 and T = 1, with the schedule uploads of the
    warm calls (none: the ids stay on the card), the host parts of one CG
-   matvec (fingerprint, value pass, upload), and
+   matvec (fingerprint, value pass, upload), K2's outputs at phase 6's
+   filter3D and cant inputs as SHA-256 digests, which must equal
+   ``K2_DIGESTS`` (bit-identical to the kernel before its helpers moved to
+   ``csrc/common.cuh``), and
    wall time and device busy share of one warm call of each op under
    ``torch.profiler``, in a child process (``--profile-second-slice``)
    that runs after phase 11;
@@ -66,7 +71,7 @@ Phases, in order; any failure exits non-zero without the result line:
    10752, capacity factor 1.25; float32 weights from a seeded generator on
    the card, 12.7 GB): the gate and down products of a prefill of 2 × 2048
    tokens (cap 1280) and of a decode step of 64 tokens (cap 24), limit
-   1e-3, and one bfloat16 decode gate product, limit 2e-2;
+   1e-3, and the bfloat16 gate products of both, limit 2e-2;
 10. main path, third slice — ``moe_ffn_host`` through
    ``ReapRuntime(device="cuda")`` cold and warm at both token counts, each
    against the same layer with the plain ``moe_gemm`` on the card at 1e-4;
@@ -75,7 +80,8 @@ Phases, in order; any failure exits non-zero without the result line:
    by a fresh one (a store hit, the same output);
 11. times — the warm calls' split (router, routing on the host, dispatch,
    the three K5 launches, combine) and K5, its plain version and
-   ``torch.bmm`` (TF32 off) at the four shapes, each beside its bound;
+   ``torch.bmm`` (TF32 off) at the four shapes, each beside its bound
+   (3xTF32, the design's, and one fp32 FMA a product);
 12. kernel against plain — K4 against ``flash_attention_plain`` in
    bfloat16 (the tensor-core kernel, limit 2e-2 and a relative norm
    ‖got − want‖/‖want‖ of 5e-3, beside a reading of what a dropped kv
@@ -87,8 +93,9 @@ Phases, in order; any failure exits non-zero without the result line:
    dim 16 and a head dim 32 (window 16, S = 300: q tiles whose first kv
    tiles are masked for most rows), and a softcap case; K6 against
    ``rwkv6_plain`` at hymba's SSM heads (H = 25, K = 16, V = 64, T = 2048,
-   chunk 64, u = 0, bfloat16 r/k/v), with u ≠ 0 and at decays 1e-6 and
-   1 − 1e-6, output and state (limit 2e-4);
+   chunk 64, u = 0, bfloat16 r/k/v), at ``generate``'s batch of 2 and
+   1024 tokens, with u ≠ 0 and at decays 1e-6 and 1 − 1e-6, output and
+   state (limit 2e-4);
 13. in situ — hymba-1.5b at full width, 2 layers, float32 compute: a
    2048-token prefill and 4 decode steps on the card (K4, K6) against the
    same params on the host (plain versions), logits within 1e-3;
@@ -145,6 +152,16 @@ CANT = ("cant", 62_000, 4_000_000, "blocky")
 LLAMA = dict(batch=1, heads=32, kv_heads=8, head_dim=128, seq=8192,
              block=128, window_blocks=8)
 SPMM_TOKENS = 256
+# K3 at the shapes the Llama case leaves out: (label, H, Hkv, D, S, block,
+# softcap); head dims 16 (reduced_config) and 256 (gemma2-2b, 8 q / 4 kv
+# heads, softcap 50), and the runtime's block 16 (K1 and K2 take it too)
+K3_SHAPES = (("gemma2-2b heads, D=256, S=2048, block 128", 8, 4, 256, 2048,
+              128, 50.0),
+             ("gemma2-2b heads, D=256, S=2048, block 64", 8, 4, 256, 2048, 64,
+              0.0),
+             ("reduced config, D=16, S=512, block 16", 4, 2, 16, 512, 16, 0.0),
+             ("Llama-3-8B heads, D=128, S=1024, block 16", 32, 8, 128, 1024,
+              16, 0.0))
 # DBRX-132B's MoE layer (src/repro/configs/dbrx_132b.py, published
 # databricks/dbrx-base): 16 experts, top-4, capacity factor 1.25 (the
 # runtime's default); a prefill of 2 x 2048 tokens and a decode step of 64
@@ -177,6 +194,14 @@ K2_TOL = K3_TOL = SPGEMM_TOL = 1e-4
 K3_BF16_TOL = 2e-2
 K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
 K4_TOL, K4_BF16_TOL, K6_TOL = 1e-4, 2e-2, 2e-4
+# SHA-256 of K2's float32 outputs at phase 6's inputs (numpy-seeded), read
+# from the kernel before its helpers moved to csrc/common.cuh: the shared
+# header must leave K2 bit-identical
+K2_DIGESTS = {
+    "filter3D spmm T=256":
+        "6f230640ea52dc69cbb2d41e67b69a45da7196298abdef11e68c61223627c9f5",
+    "cant spmv T=1":
+        "65079b5cd91cfa5629a0ea1c051dbcb2b9150421852834a776bb7009ff05aa66"}
 # bfloat16 K4 also as a whole: ||got - want|| / ||want|| against the plain
 # version.  P and the outputs rounded to bfloat16 give about 2e-3 at phase
 # 12's shapes; dropping the 63 oldest keys of each window gives about 1e-1
@@ -190,6 +215,11 @@ TIE_GAP = 1e-3
 CHOL_RESIDUAL = 1e-10
 CG_F32_RESIDUAL, CG_F64_RESIDUAL = 1e-4, 1e-8
 TIMED_LAUNCHES = 30
+# the device kernels of K1-K6 (csrc/*.cu), for the profiles' per-kernel sums
+PORT_KERNEL_NAMES = {
+    "K1": ("bsr_spgemm_kernel",), "K2": ("spmm_tile_kernel", "spmm_gemv_kernel"),
+    "K3": ("block_attn_kernel",), "K4": ("flash_attn_",), "K5": ("moe_gemm_",),
+    "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel")}
 
 
 def emit(**row) -> None:
@@ -303,10 +333,14 @@ def device_share(case: str, fn) -> None:
               and "Activity Buffer" not in e.key]
     busy = sum(us for _, us in events) / 1e6
     top = sorted((ev for ev in events if ev[1] > 0), key=lambda ev: -ev[1])
+    # each of the port's kernels, its launches summed over their kernel names
+    port_us = {k: sum(us for key, us in events if any(n in key for n in names))
+               for k, names in PORT_KERNEL_NAMES.items()}
     # a session that recorded no device event measured nothing: no share
     emit(phase="profile", case=case, wall_s=wall, device_events=len(top),
          device_busy_s=busy if top else None,
          device_busy_share=busy / wall if top else None,
+         port_kernels_us={k: us for k, us in port_us.items() if us},
          top_device_us=[[k[:60], us] for k, us in top[:6]])
 
 
@@ -585,6 +619,11 @@ def spmm_solver_phases(fa, spd, card: str) -> dict:
          fingerprint_s=fingerprint_s, host_value_pass_s=scatter_s,
          tile_upload_s=upload_s,
          tile_bytes=host_tiles.nbytes, card=card)
+    digests = k2_digests(x, tiles, k2s, n_j, v, vtiles, vs, vp.n_j_blocks)
+    emit(phase="times", kernel="K2", case="outputs' digests",
+         digests=digests, expected=K2_DIGESTS, card=card)
+    check(digests == K2_DIGESTS, "K2's outputs are not bit-identical to "
+          "K2_DIGESTS")
     # the preconditioner's share of a warm solve: its planned factorization
     # (once per solve, a cache hit) and one application M⁻¹·r (once per
     # iteration, host triangular solves)
@@ -606,13 +645,34 @@ def spmm_solver_phases(fa, spd, card: str) -> dict:
         "library_ms": library_ms}
 
 
+def k2_digests(x, tiles, k2s, n_j, v, vtiles, vs, nv_j) -> dict:
+    """SHA-256 of K2's outputs at phase 6's filter3D spmm (the tile path)
+    and cant spmv (the GEMV) inputs."""
+    import hashlib
+
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+
+    def digest(y):
+        return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+
+    return {"filter3D spmm T=256": digest(bsr_spmm(x, tiles, k2s,
+                                                   n_j_blocks=n_j)),
+            "cant spmv T=1": digest(bsr_spmm(v, vtiles, vs,
+                                             n_j_blocks=nv_j))}
+
+
 def llama_mask():
+    """The Llama-3-8B case's mask: ``window_mask`` at its sequence, block
+    and window."""
+    return window_mask(LLAMA["seq"], LLAMA["block"], LLAMA["window_blocks"])
+
+
+def window_mask(s: int, bs: int, w: int):
     """Causal sliding-window mask at block granularity (the op's
-    semantics): q block ``qi`` sees kv blocks ``qi-7..qi`` and global block
-    0, one stored entry per visible tile.  Returns the CSR mask and the
-    (n_q_blocks, n_q_blocks) boolean block mask."""
+    semantics): q block ``qi`` sees kv blocks ``qi-w+1..qi`` and global
+    block 0, one stored entry per visible tile.  Returns the CSR mask and
+    the (n_q_blocks, n_q_blocks) boolean block mask."""
     from repro_torch.core import COO, CSR
-    s, bs, w = LLAMA["seq"], LLAMA["block"], LLAMA["window_blocks"]
     nq = s // bs
     allowed = np.zeros((nq, nq), bool)
     for qi in range(nq):
@@ -698,16 +758,37 @@ def attention_phases(card: str) -> dict:
                                      scale=d ** -0.5, seq=s),
         K3_BF16_TOL, "K3"))
     del qh, kh, vh
+    # the head dims and block sizes the Llama case leaves out
+    for label, hq, hk, dd, ss, bb, cap in K3_SHAPES:
+        sp = inspect_block_attention(window_mask(ss, bb, 8)[0], bb)
+        sids = [torch.from_numpy(a).to(dev) for a in (sp.kv_ids, sp.n_kv)]
+        xs = [torch.randn((1, n, ss, dd), generator=gen, device=dev)
+              for n in (hq, hk, hk)]
+        for dtype, tol in ((torch.float32, K3_TOL),
+                           (torch.bfloat16, K3_BF16_TOL)):
+            xq, xk, xv = (x.to(dtype) for x in xs)
+            errs.append(compare(
+                f"K3 {label}, H={hq}, Hkv={hk}, softcap {cap}, {dtype}",
+                block_sparse_attention(xq, xk, xv, sp.kv_ids, sp.n_kv,
+                                       softcap=cap),
+                block_sparse_attention_plain(xq, xk, xv, *sids, softcap=cap,
+                                             scale=dd ** -0.5, seq=ss),
+                tol, "K3"))
+        del xs, xq, xk, xv
     torch.cuda.empty_cache()
 
     # -- 7. main path: block_attention through the runtime ------------------
-    tok = torch.from_numpy(allowed).to(dev).repeat_interleave(bs, 0) \
-        .repeat_interleave(bs, 1)
+    def token_mask(allowed, bs):
+        return torch.from_numpy(allowed).to(dev).repeat_interleave(bs, 0) \
+            .repeat_interleave(bs, 1)
 
-    def oracle(q, k, v, out):
+    tok = token_mask(allowed, bs)
+
+    def oracle(q, k, v, out, tok=tok):
         """float64 dense masked attention on the card, head by head, on 4
         heads spread over the kv groups (0, 9, 18, 27 of 32)."""
         worst, ok = 0.0, True
+        h, hkv, d = q.shape[1], k.shape[1], q.shape[-1]
         for hh in (i * (h // 4) + i % (h // 4) for i in range(4)):
             kvh = hh // (h // hkv)
             sc = (q[0, hh].double() @ k[0, kvh].double().T) * d ** -0.5
@@ -739,6 +820,22 @@ def attention_phases(card: str) -> dict:
                       ok=ok)
         check(ok, f"attention ({label}) differs from the float64 oracle")
         del out
+    # the runtime's block 16 (the field K1 and K2 take), Llama's heads
+    s16, m16 = 2048, window_mask(2048, 16, 64)
+    ops = [torch.randn((1, n, s16, d), generator=gen, device=dev)
+           for n in (h, hkv, hkv)]
+    rt16 = ReapRuntime(device="cuda", block=16)
+    before = block_sparse_attention.launches
+    (out, st), wall = timed(lambda: rt16.run("block_attention", *ops,
+                                             m16[0]))
+    check(block_sparse_attention.launches == before + 1,
+          "K3 did not launch (block 16)")
+    err, ok = oracle(*ops, out, tok=token_mask(m16[1], 16))
+    main_path_row(f"Llama-3-8B heads block_attention, S={s16}, block 16, "
+                  "window 64 blocks", wall, st, k3_launches=1,
+                  max_abs_err_4_heads=err, tol=K3_TOL, ok=ok)
+    check(ok, "attention (block 16) differs from the float64 oracle")
+    del out, ops
     torch.cuda.synchronize()
     launches = block_sparse_attention.launches
     emit(phase="main_path_done", slice="block_attention",
@@ -848,8 +945,8 @@ def moe_phases(card: str) -> dict:
                               DBRX["capacity_factor"])
         xb, plan, _ = rt_check.moe_dispatch(tokens, ids, n_experts=e,
                                             capacity=cap)
-        be = plan.schedule["bundle_expert"]
-        be_t = torch.from_numpy(be).to(dev)
+        be = plan.schedule      # keeps the expert map's device copy
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
         h = torch.nn.functional.silu(moe_gemm(xb, p["w_gate"], be)) \
             * moe_gemm(xb, p["w_up"], be)
         bundles[name] = (xb, h, be)
@@ -860,12 +957,15 @@ def moe_phases(card: str) -> dict:
                 f"({e},{w.shape[1]},{w.shape[2]}), row tile {row_tile(cap)}",
                 moe_gemm(a, w, be), moe_gemm_plain(a, w, be_t), K5_TOL,
                 "K5"))
-    xb, _, be = bundles["decode"]
-    w16, x16 = p["w_gate"].to(torch.bfloat16), xb.to(torch.bfloat16)
-    errs.append(compare(
-        "DBRX decode gate, bfloat16", moe_gemm(x16, w16, be),
-        moe_gemm_plain(x16, w16, torch.from_numpy(be).to(dev)),
-        K5_BF16_TOL, "K5"))
+    w16 = p["w_gate"].to(torch.bfloat16)
+    for name in ("decode", "prefill"):
+        xb, _, be = bundles[name]
+        x16 = xb.to(torch.bfloat16)
+        errs.append(compare(
+            f"DBRX {name} gate, bfloat16", moe_gemm(x16, w16, be),
+            moe_gemm_plain(x16, w16,
+                           torch.from_numpy(be["bundle_expert"]).to(dev)),
+            K5_BF16_TOL, "K5"))
     del w16, x16, rt_check
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -947,7 +1047,7 @@ def moe_phases(card: str) -> dict:
                                         DBRX["capacity_factor"])))
         check(st["cache_hit"] is True, "warm split: dispatch missed")
         split["dispatch_bundle_s"] = st["bundle_s"]
-        be = plan.schedule["bundle_expert"]
+        be = plan.schedule
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         g = moe_gemm(xb, p["w_gate"], be)
@@ -969,16 +1069,20 @@ def moe_phases(card: str) -> dict:
     rows = {}
     for name in MOE_CALLS:
         xb, h, be = bundles[name]
-        be_t = torch.from_numpy(be).to(dev)
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
         for label, a, w in (("gate", xb, p["w_gate"]),
                             ("down", h, p["w_down"])):
             nb, cap, d_in = a.shape
             d_out = w.shape[-1]
             flop = 2 * nb * cap * d_in * d_out
             nbytes = (a.numel() + w.numel() + nb * cap * d_out) * 4 \
-                + be.nbytes
-            bound_ms, bound_by = bound(flop, nbytes)
+                + be["bundle_expert"].nbytes
+            # the design's bound, 3xTF32: three TF32 tensor-core products
+            # per product; beside it the bound of one fp32 FMA a product
+            bound_ms, bound_by = bound(3 * flop, nbytes, TF32_FLOPS)
+            fma_bound_ms, _ = bound(flop, nbytes)
             n = TIMED_LAUNCHES if name == "decode" else 10
+            uploads = moe_gemm.uploads
             row = dict(
                 ms=event_ms(lambda: moe_gemm(a, w, be), n),
                 plain_ms=event_ms(lambda: moe_gemm_plain(a, w, be_t), 5),
@@ -988,6 +1092,8 @@ def moe_phases(card: str) -> dict:
                  shape=[nb, cap, d_in, d_out], flop=flop, bytes=nbytes,
                  k5_tflops=flop / row["ms"] / 1e9,
                  k5_bytes_per_s=nbytes / row["ms"] * 1e3,
+                 bound_fp32_fma_ms=fma_bound_ms,
+                 schedule_uploads=moe_gemm.uploads - uploads,
                  library="torch.bmm (TF32 off)", **row, card=card)
             rows[name, label] = row
     return {
@@ -1064,21 +1170,25 @@ def k4_k6_against_plain(dev) -> tuple:
          rel_norm=((cut - want).norm() / want.norm()).item(),
          rel_norm_tol=K4_BF16_REL_NORM)
     k6_errs = []
-    h, kk, vv, t = 25, 16, 64, 2048
-    for label, dtype, u_zero, w_val in (
-            ("hymba SSM, u=0, bf16 r/k/v", torch.bfloat16, True, None),
-            ("u != 0, f32", torch.float32, False, None),
-            ("w = 1e-6", torch.float32, False, 1e-6),
-            ("w = 1 - 1e-6", torch.float32, False, 1 - 1e-6)):
-        r, k = (randn(1, h, t, kk, dtype=dtype) for _ in range(2))
-        v = randn(1, h, t, vv, dtype=dtype)
-        w = torch.sigmoid(4 * randn(1, h, t, kk)).clamp(1e-6, 1 - 1e-6) \
-            if w_val is None else torch.full((1, h, t, kk), w_val,
+    h, kk, vv = 25, 16, 64
+    g = HYMBA_GENERATE
+    for label, b, t, dtype, u_zero, w_val in (
+            ("hymba SSM, u=0, bf16 r/k/v", 1, 2048, torch.bfloat16, True,
+             None),
+            ("generate's batch, u=0, bf16 r/k/v", g["batch"], g["prompt"],
+             torch.bfloat16, True, None),
+            ("u != 0, f32", 1, 2048, torch.float32, False, None),
+            ("w = 1e-6", 1, 2048, torch.float32, False, 1e-6),
+            ("w = 1 - 1e-6", 1, 2048, torch.float32, False, 1 - 1e-6)):
+        r, k = (randn(b, h, t, kk, dtype=dtype) for _ in range(2))
+        v = randn(b, h, t, vv, dtype=dtype)
+        w = torch.sigmoid(4 * randn(b, h, t, kk)).clamp(1e-6, 1 - 1e-6) \
+            if w_val is None else torch.full((b, h, t, kk), w_val,
                                              device=dev)
         u = torch.zeros(h, kk, device=dev) if u_zero else randn(h, kk)
         (o, st), (o_p, st_p) = (fn(r, k, v, w, u, chunk=64)
                                 for fn in (rwkv6, rwkv6_plain))
-        case = f"K6 {label}: H={h}, K={kk}, V={vv}, T={t}, chunk 64"
+        case = f"K6 {label}: B={b}, H={h}, K={kk}, V={vv}, T={t}, chunk 64"
         k6_errs += [compare(case + ", o", o, o_p, K6_TOL, "K6"),
                     compare(case + ", state", st, st_p, K6_TOL, "K6")]
     torch.cuda.synchronize()
@@ -1125,13 +1235,32 @@ def hymba_in_situ(dev) -> None:
     ok = launches == (cfg.n_layers, cfg.n_layers)
     for label, d, h in steps:
         d = d.cpu()
-        err = (d - h).abs().max().item()
+        diff = (d - h).abs()
+        err = diff.max().item()
         worst = max(worst, err)
-        ok &= bool(torch.isfinite(d).all()
-                   and torch.allclose(d, h, rtol=LM_TOL, atol=LM_TOL))
+        step_ok = bool(torch.isfinite(d).all()
+                       and torch.allclose(d, h, rtol=LM_TOL, atol=LM_TOL))
+        ok &= step_ok
+        # where the step comes closest to its limit: (position, vocab id)
+        ratio = diff / (LM_TOL + LM_TOL * h.abs())
+        at = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()),
+                                                    tuple(ratio.shape)))
+        row = dict(max_abs_err=err, logit_max=h.abs().max().item(),
+                   worst_over_limit=ratio.max().item(),
+                   n_over_limit=int((ratio > 1).sum()),
+                   worst_at=list(at[1:]),
+                   host_at=h[at].item(), card_at=d[at].item())
+        if not step_ok and label == "prefill":
+            # is the difference reproducible?  The same prefill once more on
+            # each side, against the first
+            lg_d2, _ = M.prefill(cfg, params, toks.to(dev),
+                                 M.init_cache(cfg, 1, s + n_dec, device=dev))
+            lg_h2, _ = M.prefill(cfg, host, toks,
+                                 M.init_cache(cfg, 1, s + n_dec, device="cpu"))
+            row.update(card_repeat_equal=bool(torch.equal(lg_d2.cpu(), d)),
+                       host_repeat_equal=bool(torch.equal(lg_h2, h)))
         emit(phase="check", case=f"hymba-1.5b 2 layers f32 {label}, card "
-             "vs host", max_abs_err=err, logit_max=h.abs().max().item(),
-             tol=LM_TOL)
+             "vs host", **row, tol=LM_TOL, ok=step_ok)
     emit(phase="check", case="hymba-1.5b 2 layers f32 in situ",
          prompt=s, decode_steps=n_dec, k4_k6_launches=list(launches),
          card_prefill_s=card_s, host_prefill_s=host_s, max_abs_err=worst,

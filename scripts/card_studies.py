@@ -1,0 +1,375 @@
+#!/usr/bin/env python3
+"""Measurements of the port's kernels on one NVIDIA card, beside
+``chip_smoke.py``: each prints JSON lines, the first naming the card as
+``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
+
+    PYTHONPATH=src python scripts/card_studies.py k5-carry
+    PYTHONPATH=src python scripts/card_studies.py k5-stream
+    PYTHONPATH=src python scripts/card_studies.py k6-time
+    PYTHONPATH=src python scripts/card_studies.py hymba-repeat [--seeds 10 --runs 5]
+    PYTHONPATH=src python scripts/card_studies.py situ-repeat [--runs 200]
+
+* ``k5-carry`` — K5 in float32 at DBRX-132B's MoE shapes (``chip_smoke.py``
+  phase 9's bundles: the gate and down products of a prefill of 2 × 2048
+  tokens and of a decode step of 64), with the tensor cores' partial sums
+  carried into the accumulator every 32-deep slice (``carry1``, the
+  shipped kernel) and without a carry (``carry0``: ``csrc/moe_gemm.cu``
+  built again with ``-DREPRO_K5_NO_CARRY``): the largest error against the
+  version and the time of each, beside ``torch.bmm`` (TF32 off); then the
+  whole layer (``moe_ffn_host``) with each, against the layer with the
+  plain ``moe_gemm`` (``chip_smoke.py``'s ``MOE_TOL``).  The decode shapes
+  run the FMA kernel, which has no carry.
+* ``k5-stream`` — how fast one DBRX-132B weight stack (16 experts of
+  6144 × 10752 float32, 4.23 GB) can be read: ``w.sum()`` (contiguous) and
+  ``w.amax(dim=1)`` (every column down the rows, the order of a decode
+  product), beside K5 and ``torch.bmm`` (TF32 off) at the decode gate's
+  shape (16 bundles of 24 rows).
+* ``k6-time`` — K6 against its plain version and its time at hymba-1.5b's
+  SSM heads (H = 25, K = 16, V = 64, chunk 64) for T = 64 … 2048 and B = 1, 2.
+* ``hymba-repeat`` — ``tests/test_torch_gpu.py::
+  test_hymba_prefill_launches_k4_and_k6_per_layer``'s inputs (2-layer
+  hymba-1.5b, float32 compute, 128 tokens; the test's params are seed 0)
+  with params seeds 0 … ``--seeds`` − 1 on the card, ``--runs`` runs each:
+  each run's logits against the host's, as the largest |card − host| over
+  the test's limit 1e-3 + 1e-3·|host|, and every K4, K6 and dense-product
+  call of the card's prefill against the host's plain version of the same
+  call on the card call's own inputs.
+* ``situ-repeat`` — ``chip_smoke.py`` phase 13's card prefill (2-layer
+  hymba-1.5b, float32 compute, 2048 tokens, params seed 71) ``--runs``
+  times, every other run with bfloat16 products running on a side stream:
+  every K4, K6 and dense output and the logits against the first run's,
+  bit for bit; then the host's prefill at 8 and at 1 thread against each
+  other, and the first card run against the host as phase 13 reads it
+  (the largest |card − host| over 1e-3 + 1e-3·|host|).
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import dataclasses
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
+
+
+def emit(**row) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def card() -> str:
+    if not torch.cuda.is_available():
+        raise SystemExit("card_studies: no CUDA device")
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    name = out[0] if out else "nvidia-smi: no output"
+    emit(study="device", kind=torch.cuda.get_device_name(0), nvidia_smi=name)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return name
+
+
+@contextlib.contextmanager
+def k5_build(carry: int):
+    """K5's wrapper bound to the shipped kernel (carry 1) or to a build of
+    the same source with ``-DREPRO_K5_NO_CARRY`` (carry 0), which lands in
+    ``build/`` under a digest of its own."""
+    from repro_torch.kernels import _build
+    flags = _build.NVCC_FLAGS
+    if not carry:
+        _build.NVCC_FLAGS = flags + ("-DREPRO_K5_NO_CARRY",)
+    _build._LOADED.pop("moe_gemm", None)
+    try:
+        yield
+    finally:
+        _build.NVCC_FLAGS = flags
+        _build._LOADED.pop("moe_gemm", None)
+
+
+def k5_carry(name: str) -> None:
+    import chip_smoke as cs
+    import repro_torch.kernels.moe_gemm as K5
+    from repro_torch.models.moe import (expert_capacity, host_route,
+                                        moe_ffn_host)
+    from repro_torch.runtime import ReapRuntime
+    dev = torch.device("cuda")
+    d, e, k = (cs.DBRX[n] for n in ("d_model", "n_experts", "top_k"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(50)
+    p = cs.dbrx_moe_weights(gen)
+    rt = ReapRuntime(device="cuda")
+    for call, (b, s) in cs.MOE_CALLS.items():
+        x = torch.randn((b, s, d), generator=gen, device=dev)
+        tokens = x.reshape(-1, d)
+        ids, _ = host_route(tokens, p["router"], top_k=k)
+        cap = expert_capacity(tokens.shape[0], e, k,
+                              cs.DBRX["capacity_factor"])
+        xb, plan, _ = rt.moe_dispatch(tokens, ids, n_experts=e, capacity=cap)
+        be = plan.schedule
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
+        h = torch.nn.functional.silu(K5.moe_gemm_plain(xb, p["w_gate"], be_t)) \
+            * K5.moe_gemm_plain(xb, p["w_up"], be_t)
+        for label, a, w in (("gate", xb, p["w_gate"]),
+                            ("down", h, p["w_down"])):
+            want = K5.moe_gemm_plain(a, w, be_t)
+            row = dict(study="k5_carry", case=f"DBRX {call} {label}",
+                       shape=list(a.shape) + [w.shape[-1]], card=name)
+            for carry in (1, 0):
+                with k5_build(carry):
+                    got = K5.moe_gemm(a, w, be)
+                    diff = (got - want).abs()
+                    row[f"carry{carry}_max_abs_err"] = diff.max().item()
+                    row[f"carry{carry}_max_err_over_tol"] = (
+                        diff / (cs.K5_TOL * (1 + want.abs()))).max().item()
+                    row[f"carry{carry}_ms"] = cs.event_ms(
+                        lambda a=a, w=w, be=be: K5.moe_gemm(a, w, be), 10)
+            row["bmm_ms"] = cs.event_ms(lambda a=a, w=w: torch.bmm(a, w), 10)
+            row["want_abs_max"] = want.abs().max().item()
+            emit(**row)
+            del want, got
+        del xb, h
+        want, _ = cs.moe_ffn_plain(x, p)
+        row = dict(study="k5_carry_layer", case=f"DBRX moe_ffn_host {call}",
+                   tol=cs.MOE_TOL, card=name)
+        for carry in (1, 0):
+            with k5_build(carry):
+                out, _ = moe_ffn_host(
+                    x, p, rt, n_experts=e, top_k=k,
+                    capacity_factor=cs.DBRX["capacity_factor"])
+            row[f"carry{carry}_max_abs_err"] = (out - want).abs().max().item()
+            row[f"carry{carry}_within_tol"] = bool(torch.allclose(
+                out, want, rtol=cs.MOE_TOL, atol=cs.MOE_TOL))
+        emit(**row)
+        del want, out
+
+
+def k5_stream(name: str) -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    dev = torch.device("cuda")
+    d, e, f = (cs.DBRX[n] for n in ("d_model", "n_experts", "d_ff_expert"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(51)
+    w = torch.randn((e, d, f), generator=gen, device=dev) * d ** -0.5
+    x = torch.randn((e, 24, d), generator=gen, device=dev)
+    be = np.arange(e, dtype=np.int32)
+    emit(study="k5_stream", bytes=w.numel() * 4,
+         sum_ms=cs.event_ms(lambda: w.sum(), 10),
+         amax_down_rows_ms=cs.event_ms(lambda: w.amax(dim=1), 10),
+         k5_decode_gate_ms=cs.event_ms(lambda: moe_gemm(x, w, be), 10),
+         bmm_ms=cs.event_ms(lambda: torch.bmm(x, w), 10),
+         hbm_bound_ms=w.numel() * 4 / cs.HBM_BYTES_S * 1e3, card=name)
+
+
+def k6_time(name: str) -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(76)
+    h, kk, vv = 25, 16, 64
+    for b in (1, 2):
+        for t in (64, 256, 1024, 2048):
+            r, k = (torch.randn((b, h, t, kk), generator=gen, device=dev)
+                    .to(torch.bfloat16) for _ in range(2))
+            v = torch.randn((b, h, t, vv), generator=gen, device=dev) \
+                .to(torch.bfloat16)
+            w = torch.sigmoid(4 * torch.randn((b, h, t, kk), generator=gen,
+                                              device=dev)).clamp(1e-6,
+                                                                 1 - 1e-6)
+            u = torch.randn((h, kk), generator=gen, device=dev)
+            args = (r, k, v, w, u)
+            (o, st), (o_p, st_p) = (fn(*args, chunk=64)
+                                    for fn in (rwkv6, rwkv6_plain))
+            emit(study="k6_time", B=b, T=t,
+                 o_max_abs_err=(o - o_p).abs().max().item(),
+                 state_max_abs_err=(st - st_p).abs().max().item(),
+                 ms=cs.event_ms(lambda a=args: rwkv6(*a, chunk=64)),
+                 device_ms=cs.device_ms(lambda a=args: rwkv6(*a, chunk=64)),
+                 plain_ms=cs.event_ms(
+                     lambda a=args: rwkv6_plain(*a, chunk=64), 5),
+                 card=name)
+
+
+def hymba_repeat(name: str, runs: int, seeds: int) -> None:
+    import repro_torch.models.blocks as B
+    import repro_torch.models.model as M
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as LY
+    from repro_torch.models import ssm as SS
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2,
+                              compute_dtype="float32")
+    toks = torch.randint(0, cfg.vocab_size, (1, 128),
+                         generator=torch.Generator().manual_seed(0))
+    calls = []
+
+    def cpu(x):
+        return x.cpu() if torch.is_tensor(x) else x
+
+    def recorded(kind, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            if args and torch.is_tensor(args[0]) and args[0].is_cuda:
+                want = fn(*map(cpu, args), **{k: cpu(v) for k, v in
+                                              kw.items()})
+                got = out if isinstance(out, tuple) else (out,)
+                want = want if isinstance(want, tuple) else (want,)
+                calls.append((kind, max((g.cpu().float() - w_.float())
+                                        .abs().max().item()
+                                        for g, w_ in zip(got, want))))
+            return out
+        return wrapper
+
+    worst, fails, worst_ratio = {}, 0, 0.0
+    for seed in range(seeds):
+        B.flash_attention, B.rwkv6_chunked, B.dense = (
+            A.flash_attention, SS.rwkv6_chunked, LY.dense)
+        params = M.init_params(cfg, seed, device=dev)
+        host_logits = M.prefill(cfg, _to_cpu(params), toks,
+                                M.init_cache(cfg, 1, 160, device="cpu"))[0]
+        B.flash_attention = recorded("k4", A.flash_attention)
+        B.rwkv6_chunked = recorded("k6", SS.rwkv6_chunked)
+        B.dense = recorded("dense", LY.dense)
+        for run in range(runs):
+            calls.clear()
+            logits, _ = M.prefill(cfg, params, toks.to(dev),
+                                  M.init_cache(cfg, 1, 160, device=dev))
+            got = logits.cpu()
+            diff = (got - host_logits).abs()
+            # the test's limit, |got - want| <= 1e-3 + 1e-3 |want|
+            ratio = (diff / (1e-3 + 1e-3 * host_logits.abs())).max().item()
+            ok = ratio <= 1.0
+            fails += not ok
+            worst_ratio = max(worst_ratio, ratio)
+            per = {}
+            for kind, e in calls:
+                per[kind] = max(per.get(kind, 0.0), e)
+                worst[kind] = max(worst.get(kind, 0.0), e)
+            emit(study="hymba_repeat", params_seed=seed, run=run,
+                 logits_max_abs_err=diff.max().item(),
+                 logits_abs_max=host_logits.abs().max().item(),
+                 err_over_limit=ratio, within_limit=ok,
+                 per_kind_max_err=per,
+                 per_call=[[k, e] for k, e in calls if k != "dense"],
+                 card=name)
+    emit(study="hymba_repeat_summary", seeds=seeds, runs_per_seed=runs,
+         failures=fails, worst_err_over_limit=worst_ratio,
+         worst_per_kind=worst, card=name)
+
+
+def situ_repeat(name: str, runs: int) -> None:
+    import chip_smoke as cs
+    import repro_torch.models.blocks as B
+    import repro_torch.models.model as M
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(cs.hymba_config(),
+                              n_layers=cs.HYMBA_SITU["n_layers"],
+                              compute_dtype="float32")
+    s, n_dec = cs.HYMBA_SITU["prompt"], cs.HYMBA_SITU["decode"]
+    params = M.init_params(cfg, 71, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(72).integers(
+        0, cfg.vocab_size, (1, s)).astype(np.int32))
+    outs, kinds = [], []
+
+    def recorded(kind, fn):
+        def wrapper(*args, **kw):
+            out = fn(*args, **kw)
+            if args and torch.is_tensor(args[0]) and args[0].is_cuda:
+                for o in out if isinstance(out, tuple) else (out,):
+                    outs.append(o.detach().clone())
+                    kinds.append(kind)
+            return out
+        return wrapper
+
+    saved = B.flash_attention, B.rwkv6_chunked, B.dense
+    B.flash_attention, B.rwkv6_chunked, B.dense = (
+        recorded("k4", saved[0]), recorded("k6", saved[1]),
+        recorded("dense", saved[2]))
+    side = torch.cuda.Stream()
+    load = torch.randn((8192, 8192), device=dev, dtype=torch.bfloat16)
+    side.wait_stream(torch.cuda.current_stream())
+    first, differing = None, 0
+    try:
+        for run in range(runs):
+            outs.clear()
+            kinds.clear()
+            if run % 2:
+                with torch.cuda.stream(side):
+                    for _ in range(4):
+                        load = (load @ load).clamp_(-1, 1)
+            logits, _ = M.prefill(cfg, params, toks.to(dev),
+                                  M.init_cache(cfg, 1, s + n_dec, device=dev))
+            outs.append(logits)
+            kinds.append("logits")
+            if first is None:
+                first = list(outs)
+                continue
+            for i, (got, want) in enumerate(zip(outs, first)):
+                if not torch.equal(got, want):
+                    differing += 1
+                    emit(study="situ_repeat", run=run, call=i,
+                         kind=kinds[i], side_load=bool(run % 2),
+                         max_abs_diff=(got - want).abs().max().item(),
+                         card=name)
+                    break
+    finally:
+        B.flash_attention, B.rwkv6_chunked, B.dense = saved
+    torch.cuda.synchronize()
+    host = _to_cpu(params)
+    threads = torch.get_num_threads()
+    host_logits = []
+    for n in (threads, 1):
+        torch.set_num_threads(n)
+        host_logits.append(M.prefill(cfg, host, toks, M.init_cache(
+            cfg, 1, s + n_dec, device="cpu"))[0])
+    torch.set_num_threads(threads)
+    want = host_logits[0]
+    diff = (first[-1].cpu() - want).abs()
+    emit(study="situ_repeat_summary", runs=runs, calls_per_run=len(first),
+         runs_differing=differing,
+         host_equal_at_1_thread=bool(torch.equal(*host_logits)),
+         host_threads=threads, max_abs_err=diff.max().item(),
+         worst_over_limit=(diff / (cs.LM_TOL + cs.LM_TOL * want.abs()))
+         .max().item(), card=name)
+
+
+def _to_cpu(tree):
+    return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
+            for k, v in tree.items()}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("study", choices=("k5-carry", "k5-stream", "k6-time",
+                                      "hymba-repeat", "situ-repeat"))
+    ap.add_argument("--runs", type=int, default=None,
+                    help="hymba-repeat: runs per params seed (5); "
+                         "situ-repeat: card prefills (200)")
+    ap.add_argument("--seeds", type=int, default=10,
+                    help="hymba-repeat: params seeds 0 .. seeds - 1")
+    args = ap.parse_args()
+    name = card()
+    if args.study == "k5-carry":
+        k5_carry(name)
+    elif args.study == "k5-stream":
+        k5_stream(name)
+    elif args.study == "k6-time":
+        k6_time(name)
+    elif args.study == "situ-repeat":
+        situ_repeat(name, args.runs or 200)
+    else:
+        hymba_repeat(name, args.runs or 5, args.seeds)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -384,9 +384,17 @@ class MoeDispatchPlan:
 
     @property
     def schedule(self) -> ScheduleBundle:
-        return ScheduleBundle("moe_dispatch", {
-            "slot_token": self.slot_token.astype(np.int32),
-            "bundle_expert": np.arange(self.n_experts, dtype=np.int32)})
+        """The plan's schedule bundle, made on first read and memoized on
+        the plan outside its dataclass fields: one object per plan, so a
+        device copy kept on it (K5's expert map) serves every warm call."""
+        sched = self.__dict__.get("_schedule")
+        if sched is None:
+            sched = self.__dict__["_schedule"] = ScheduleBundle(
+                "moe_dispatch", {
+                    "slot_token": self.slot_token.astype(np.int32),
+                    "bundle_expert": np.arange(self.n_experts,
+                                               dtype=np.int32)})
+        return sched
 
     def device_indices(self, device: torch.device):
         """``(slot_token, dest, keep)`` as tensors on ``device`` (int64,

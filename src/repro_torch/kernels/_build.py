@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` with a plain C interface.  It is
-compiled by ``nvcc`` for ``sm_90a`` into
-``build/repro_torch_kernels/<name>-<digest>.so`` at the root of the
-checkout, where ``<digest>`` covers the source and the flags, so an edited
-source rebuilds and an unchanged one is reused.  ``-Xptxas -v`` reports
+Each kernel is one ``csrc/<name>.cu`` with a plain C interface; the
+helpers they share are in ``csrc/common.cuh``.  It is compiled by ``nvcc``
+for ``sm_90a`` into ``build/repro_torch_kernels/<name>-<digest>.so`` at the
+root of the checkout, where ``<digest>`` covers the source, the shared
+headers and the flags, so an edited source rebuilds and an unchanged one is
+reused.  ``-Xptxas -v`` reports
 (registers, shared memory, spills) are kept beside each library.
 
 A failed build raises; nothing falls back to a kernel's plain version.
@@ -41,9 +42,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` builds to (digest of source + flags)."""
+    """Where ``csrc/<name>.cu`` builds to (digest of the source, the shared
+    headers and the flags)."""
     h = hashlib.blake2b(digest_size=8)
     h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()}.so"
 

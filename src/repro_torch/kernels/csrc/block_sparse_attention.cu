@@ -16,17 +16,24 @@
 // K and V, so at BS = D = 128 it is bound by fp32 operations.  Everything of
 // one q block stays on chip:
 //  * Q^T (D x BS, fp32) in shared memory for the whole kv loop;
-//  * K streamed through 32-column panels of D (stored transposed), giving the
-//    BS x BS score tile in registers: 256 threads as a 16 x 16 grid, thread
-//    (ty, tx) owns rows ty + 16*i and columns tx + 16*j;
+//  * K streamed through KD-column panels of D (KD = min(32, D), stored
+//    transposed), giving the BS x BS score tile in registers: 256 threads as
+//    a 16 x 16 grid, thread (ty, tx) owns rows ty + 16*i and columns
+//    tx + 16*j;
 //  * row max and sum by shuffles among the 16 lanes that share a row, the
-//    running max m, sum l and the BS x D accumulator (rows ty + 16*i, columns
-//    tx + 16*j) in registers, in fp32;
+//    running max m, sum l and the BS x DO accumulator (rows ty + 16*i,
+//    columns tx + 16*j) in registers, in fp32;
 //  * the probabilities of one kv block in shared memory (row-major, padded by
-//    one word), multiplied by V streamed through 32-row panels.
-// Shared memory is (D + 32 + BS) * (BS + 1) + 32 * D floats, 161 KiB at
-// BS = D = 128, above the 48 KiB static limit: the launch opts in to dynamic
-// shared memory.  Scores and products are IEEE fp32 FMAs and expf/tanhf (no
+//    one word), multiplied by V streamed through KB-row panels
+//    (KB = min(32, BS)).
+// DO is the block's share of the output's D: all of it up to D = 128; at
+// D = 256 a grid axis splits the output into two halves of 128 columns, and
+// each block still reduces the scores over the full D (the scores are
+// computed twice, the accumulator and V panel stay the size of D = 128's).
+// Shared memory is (D + KD + BS) * (BS + 1) + KB * DO floats: 161 KiB at
+// BS = D = 128 and 226 KiB at BS = 128, D = 256 (the limit a block may use
+// is 227 KiB), above the 48 KiB static limit: the launch opts in to dynamic
+// shared memory.  bs in {16, 32, 64, 128}, D in {16, 32, 64, 128, 256}.  Scores and products are IEEE fp32 FMAs and expf/tanhf (no
 // TF32, no fast math): the reference holds K3 to 1e-4.  bfloat16 inputs are
 // widened on load; the output is rounded to the input type once, on store.
 // Rows whose sum is 0 (a q block with no live slot) come out exactly 0.
@@ -37,10 +44,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int KP = 32;  // panel depth: columns of D for Q K^T, kv rows for P V
 constexpr float kNegInf = -1e30f;
 
 template <typename T>
@@ -64,10 +72,16 @@ __device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// the tile shape of one (bs, D): panel depths and the output columns a
+// block owns
 template <int BS, int D>
-constexpr int smem_floats() {
-  return (D + KP + BS) * (BS + 1) + KP * D;
-}
+struct Shape {
+  static constexpr int KD = D < 32 ? D : 32;    // Q K^T panel: columns of D
+  static constexpr int KB = BS < 32 ? BS : 32;  // P V panel: kv rows
+  static constexpr int DO = D > 128 ? 128 : D;  // output columns per block
+  static constexpr int n_split = D / DO;
+  static constexpr int smem_floats = (D + KD + BS) * (BS + 1) + KB * DO;
+};
 
 template <typename T, int BS, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -76,18 +90,21 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const int* __restrict__ n_kv, T* __restrict__ out, int h,
                   int hkv, int nq, int nk_cap, int seq, float scale,
                   float softcap) {
+  using S = Shape<BS, D>;
+  constexpr int KD = S::KD, KB = S::KB, DO = S::DO;
   constexpr int TM = BS / 16;  // q rows per thread
   constexpr int TN = BS / 16;  // score columns (kv rows) per thread
-  constexpr int TD = D / 16;   // output columns per thread
+  constexpr int TD = DO / 16;  // output columns per thread
   constexpr int LD = BS + 1;   // padded row stride of Qt, Kt and Ps
   extern __shared__ __align__(16) float smem[];
   float* Qt = smem;            // [D][LD]   Q^T of this q block
-  float* Kt = Qt + D * LD;     // [KP][LD]  K^T panel
-  float* Ps = Kt + KP * LD;    // [BS][LD]  probabilities of one kv block
-  float* Vs = Ps + BS * LD;    // [KP][D]   V panel
+  float* Kt = Qt + D * LD;     // [KD][LD]  K^T panel
+  float* Ps = Kt + KD * LD;    // [BS][LD]  probabilities of one kv block
+  float* Vs = Ps + BS * LD;    // [KB][DO]  V panel
 
   const int qi = blockIdx.x;
-  const int hi = blockIdx.y;
+  const int hi = blockIdx.y / S::n_split;
+  const int dcol0 = (blockIdx.y % S::n_split) * DO;  // first output column
   const int bi = blockIdx.z;
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -124,17 +141,17 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* K = k + kv_off + static_cast<long long>(kb) * BS * D;
     const T* V = v + kv_off + static_cast<long long>(kb) * BS * D;
 
-    // S = Q K^T over D in panels of KP.
+    // S = Q K^T over D in panels of KD.
     float s[TM][TN];
 #pragma unroll
     for (int i = 0; i < TM; ++i)
 #pragma unroll
       for (int j = 0; j < TN; ++j) s[i][j] = 0.0f;
-    for (int d0 = 0; d0 < D; d0 += KP) {
+    for (int d0 = 0; d0 < D; d0 += KD) {
       __syncthreads();  // Qt is written; earlier readers of Kt and Ps are done
-      for (int e = tid; e < BS * KP / 4; e += kThreads) {
-        const int r = e / (KP / 4);
-        const int c = (e % (KP / 4)) * 4;
+      for (int e = tid; e < BS * KD / 4; e += kThreads) {
+        const int r = e / (KD / 4);
+        const int c = (e % (KD / 4)) * 4;
         const float4 x = load4(K + r * D + d0 + c);
         Kt[(c + 0) * LD + r] = x.x;
         Kt[(c + 1) * LD + r] = x.y;
@@ -143,7 +160,7 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       __syncthreads();
 #pragma unroll
-      for (int c = 0; c < KP; ++c) {
+      for (int c = 0; c < KD; ++c) {
         float a[TM], b[TN];
 #pragma unroll
         for (int i = 0; i < TM; ++i) a[i] = Qt[(d0 + c) * LD + ty + 16 * i];
@@ -189,22 +206,23 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < TD; ++j) acc[i][j] *= alpha;
     }
 
-    // acc += P V over the kv rows in panels of KP.
-    for (int c0 = 0; c0 < BS; c0 += KP) {
+    // acc += P V over the kv rows in panels of KB, this block's DO columns.
+    for (int c0 = 0; c0 < BS; c0 += KB) {
       __syncthreads();  // Ps is written; earlier readers of Vs are done
-      for (int e = tid; e < KP * D / 4; e += kThreads) {
-        const int r = e / (D / 4);
-        const int c = (e % (D / 4)) * 4;
-        *reinterpret_cast<float4*>(&Vs[r * D + c]) = load4(V + (c0 + r) * D + c);
+      for (int e = tid; e < KB * DO / 4; e += kThreads) {
+        const int r = e / (DO / 4);
+        const int c = (e % (DO / 4)) * 4;
+        *reinterpret_cast<float4*>(&Vs[r * DO + c]) =
+            load4(V + (c0 + r) * D + dcol0 + c);
       }
       __syncthreads();
 #pragma unroll
-      for (int c = 0; c < KP; ++c) {
+      for (int c = 0; c < KB; ++c) {
         float a[TM], b[TD];
 #pragma unroll
         for (int i = 0; i < TM; ++i) a[i] = Ps[(ty + 16 * i) * LD + c0 + c];
 #pragma unroll
-        for (int j = 0; j < TD; ++j) b[j] = Vs[c * D + tx + 16 * j];
+        for (int j = 0; j < TD; ++j) b[j] = Vs[c * DO + tx + 16 * j];
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -213,7 +231,7 @@ block_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* O = out + q_off;
+  T* O = out + q_off + dcol0;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = ty + 16 * i;
@@ -227,12 +245,15 @@ template <typename T, int BS, int D>
 int launch(const void* q, const void* k, const void* v, const int* kv_ids,
            const int* n_kv, void* out, int b, int h, int hkv, int nq,
            int nk_cap, int seq, float scale, float softcap,
-           cudaStream_t stream) {
-  constexpr int bytes = smem_floats<BS, D>() * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      block_attn_kernel<T, BS, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+           cudaStream_t stream, int device) {
+  using S = Shape<BS, D>;
+  constexpr int bytes = S::smem_floats * static_cast<int>(sizeof(float));
+  static_assert(bytes <= 232448, "above the 227 KiB a block may use");
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, block_attn_kernel<T, BS, D>, bytes, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  block_attn_kernel<T, BS, D><<<dim3(nq, h, b), kThreads, bytes, stream>>>(
+  block_attn_kernel<T, BS, D><<<dim3(nq, h * S::n_split, b), kThreads, bytes,
+                                stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       kv_ids, n_kv, static_cast<T*>(out), h, hkv, nq, nk_cap, seq, scale, softcap);
   return static_cast<int>(cudaGetLastError());
@@ -242,11 +263,13 @@ template <typename T, int BS>
 int launch_d(int d, const void* q, const void* k, const void* v,
              const int* kv_ids, const int* n_kv, void* out, int b, int h,
              int hkv, int nq, int nk_cap, int seq, float scale, float softcap,
-             cudaStream_t s) {
+             cudaStream_t s, int device) {
   switch (d) {
-    case 32: return launch<T, BS, 32>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
-    case 64: return launch<T, BS, 64>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
-    case 128: return launch<T, BS, 128>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
+    case 16: return launch<T, BS, 16>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 32: return launch<T, BS, 32>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 64: return launch<T, BS, 64>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 128: return launch<T, BS, 128>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 256: return launch<T, BS, 256>(q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -255,11 +278,12 @@ template <typename T>
 int launch_t(int bs, int d, const void* q, const void* k, const void* v,
              const int* kv_ids, const int* n_kv, void* out, int b, int h,
              int hkv, int nq, int nk_cap, int seq, float scale, float softcap,
-             cudaStream_t s) {
+             cudaStream_t s, int device) {
   switch (bs) {
-    case 32: return launch_d<T, 32>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
-    case 64: return launch_d<T, 64>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
-    case 128: return launch_d<T, 128>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
+    case 16: return launch_d<T, 16>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 32: return launch_d<T, 32>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 64: return launch_d<T, 64>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
+    case 128: return launch_d<T, 128>(d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -268,7 +292,8 @@ int launch_t(int bs, int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// Launches one thread block per (q block, head, batch) on `stream`.  q and out
+// Launches one thread block per (q block, head and output half at d = 256,
+// batch) on `stream`.  q and out
 // are (b, h, nq*bs, d), k and v (b, hkv, nq*bs, d), all contiguous, 16-byte
 // aligned, of one type: dtype 0 = float32, 1 = bfloat16.  kv_ids is
 // (nq, nk_cap) and n_kv (nq,), int32, range-checked by the caller.
@@ -281,9 +306,9 @@ int block_sparse_attention(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_t<float>(bs, d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
+    return launch_t<float>(bs, d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
   if (dtype == 1)
-    return launch_t<__nv_bfloat16>(bs, d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s);
+    return launch_t<__nv_bfloat16>(bs, d, q, k, v, kv_ids, n_kv, out, b, h, hkv, nq, nk_cap, seq, scale, softcap, s, device);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -41,51 +41,11 @@
 
 #include <cuda_runtime.h>
 
-#include <atomic>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with `full` false the 16 bytes are zeroed
-// (src-size 0) and `src` is not read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// x rounded to TF32, to nearest with ties away from zero (cvt.rna.tf32's
-// rounding): add half the weight of the 13 low mantissa bits, then clear
-// them.  An add and a mask on the integer pipe; cvt.rna.tf32 in their place
-// runs on the much slower conversion pipe, which then bounds the kernel.
-__device__ __forceinline__ uint32_t round_tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-// x = big + small + r, |r| <= 2^-22 |x|: big is x rounded to TF32, small the
-// rest (exact in fp32) rounded to TF32.
-__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
-                                           uint32_t& small) {
-  big = round_tf32(x);
-  small = round_tf32(x - __uint_as_float(big));
-}
 
 // c += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulate.
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -294,20 +254,6 @@ spmm_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` on `device` once;
-// `done` is the kernel's flag word (bit d: device d), so later launches make
-// no driver call for it.
-template <typename Kernel>
-cudaError_t allow_smem_once(std::atomic<unsigned long long>& done,
-                            Kernel* kernel, int bytes, int device) {
-  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <int BS, int BT>
 int launch_tile(const float* x, const float* w, const int* w_id,
                 const int* k_blk, const int* j_blk, const int* group_start,
@@ -315,8 +261,8 @@ int launch_tile(const float* x, const float* w, const int* w_id,
                 cudaStream_t stream, int device) {
   using S = TileShape<BS, BT>;
   auto* kernel = spmm_tile_kernel<BS, BT>;
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(smem_set, kernel, S::smem_bytes, device);
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, kernel, S::smem_bytes, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<n_groups * ((t + BT - 1) / BT), S::threads, S::smem_bytes,
            stream>>>(x, w, w_id, k_blk, j_blk, group_start, t, ldx, ldy, y);

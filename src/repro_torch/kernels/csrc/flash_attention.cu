@@ -67,8 +67,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
-#include <cstdint>
+#include "common.cuh"
 
 namespace {
 
@@ -270,28 +269,14 @@ flash_attn_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Raises `kernel`'s dynamic shared-memory limit to `bytes` on `device` once;
-// `done` is the kernel's flag word (bit d: device d), so later launches make
-// no driver call for it.
-template <typename Kernel>
-cudaError_t allow_smem_once(std::atomic<unsigned long long>& done,
-                            Kernel* kernel, int bytes, int device) {
-  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
-  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
-}
-
 template <int D>
 int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
                int h, int hkv, int seq, int causal, int window, float scale,
                float softcap, cudaStream_t stream, int device) {
   constexpr int bytes = f32_smem_floats<D>() * static_cast<int>(sizeof(float));
   auto* kernel = flash_attn_f32_kernel<D>;
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(smem_set, kernel, bytes, device);
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, kernel, bytes, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + BQ32 - 1) / BQ32, h, b);
   kernel<<<grid, kThreads, bytes, stream>>>(
@@ -306,29 +291,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte global -> shared copy; with `full` false the 16 bytes are zeroed
-// (src-size 0) and `src` is not read.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(full ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile(
@@ -628,8 +590,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int b,
               float softcap, cudaStream_t stream, int device) {
   using S = TcShape<D>;
   auto* kernel = flash_attn_tc_kernel<D>;
-  static std::atomic<unsigned long long> smem_set{0};
-  cudaError_t err = allow_smem_once(smem_set, kernel, S::smem_bytes, device);
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, kernel, S::smem_bytes, device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((seq + S::BQ - 1) / S::BQ, h, b);
   kernel<<<grid, S::threads, S::smem_bytes, stream>>>(

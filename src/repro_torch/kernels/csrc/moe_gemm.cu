@@ -7,140 +7,646 @@
 // bundle->expert map as a scalar operand and walks d_in as its innermost,
 // sequential grid axis with the output tile resident in VMEM.  Here one thread
 // block owns one (bundle, cap tile, d_out tile): it reads bundle_expert[b]
-// itself, loops over d_in in BK-deep slices staged through shared memory, keeps
-// the fp32 accumulators in registers and stores the tile once in x's dtype.
+// itself, walks d_in, keeps the fp32 accumulators in registers and stores the
+// tile once in x's dtype.  The row tile is picked from cap by the caller (16,
+// 32, 64 or 128): a decode bundle of 24 rows runs in a 24-row tile of the
+// decode kernel, and each block streams its columns of the expert's weights
+// once.  Rows past cap and k past d_in load as zeros and are not stored; d_in
+// and d_out must be multiples of 4 and the operands 16-byte aligned (the
+// wrapper checks).
 //
-// Tile: BM x 128 outputs per thread block, 256 threads as a 16 x 16 grid,
-// thread (ty, tx) owns rows ty + 16*i and columns tx + 16*j.  BM is picked from
-// cap by the caller (16, 32, 64 or 128), so a decode bundle of 24 rows runs in
-// a 32-row tile instead of wasting 5/6 of a 128-row one, and each thread block
-// streams its 128-column slice of the expert's weights exactly once.  The x
-// slice is stored transposed (padded by one word); rows past cap, columns past
-// d_out and k past d_in load zeros and are not stored.  Loads are 4 elements
-// wide (float4, or 8 bytes of bfloat16), so d_in and d_out must be multiples of
-// 4 and the operands 16-byte aligned (the wrapper checks).
+//  * float32, row tiles 64 and 128 (DBRX's prefill: bound by operations):
+//    3xTF32 on the tensor cores, CUTLASS's OpMultiplyAddFastF32 idea.  Each
+//    fp32 operand is split into big = tf32(x) and small = tf32(x - big) (both
+//    rounded to nearest by an integer add and mask) and wgmma m64n128k8 sums
+//    small*big + big*small + big*big, the small terms first, which keeps
+//    fp32 accuracy at three TF32 products per product.  One warpgroup per 64
+//    rows.  Raw fp32 slices (32 deep) stream through a 2-stage cp.async
+//    ring; each thread splits the chunks it copied itself (so no barrier
+//    sits between landing and splitting) into big and small halves in one of
+//    two split buffers, once per block rather than once per warp that reads
+//    them, in the 8 x 16-byte core matrices the tensor cores read from shared
+//    memory.  TF32 takes B only K-major, so W's [k][n] tiles are transposed
+//    as they are split, each thread rotating its 4 x 4 tile so that a warp's
+//    stores spread over all banks.  One barrier per slice: slice i + 1 is
+//    split while the tensor cores multiply slice i.  The products of each
+//    slice are summed from zero and carried into the accumulator with IEEE
+//    adds: the tensor cores' own accumulation truncates, and over DBRX's
+//    d_in it breaks the MoE layer's 1e-4 limit.  (Built with
+//    -DREPRO_K5_NO_CARRY they accumulate in place; scripts/card_studies.py
+//    k5-carry builds that variant to measure what the carry buys.)
+//  * float32, row tiles 16 and 32 (decode: bound by the bytes of the
+//    weights, a stack of 4.2 GB at DBRX): IEEE FMAs, 2 columns a thread, 256
+//    a block, each thread streaming its weight rows down d_in with 8 rows in
+//    flight ahead of the FMAs and x^T in shared memory.  Tensor-core tiles of
+//    128 columns fed through shared memory read the stack at about 1.4 TB/s
+//    here, as torch.bmm does; a walk down the rows with the loads in flight
+//    reads it at the rate of a plain reduction.
+//  * bfloat16: mma.sync m16n8k16 on the raw slices (32 deep, 4-stage ring of
+//    8-byte cp.async copies: a bfloat16 row of d_in % 8 == 4 elements is only
+//    8-byte aligned), fp32 accumulation, one rounding on store.
 //
-// Products are IEEE fp32 FMAs (no TF32); bfloat16 is widened on load and the
-// output rounded once on store.
-//
-// C entry point: plain C interface for ctypes; returns cudaGetLastError()
-// after the launch (0 on success).
+// C entry point: plain C interface for ctypes; returns the first CUDA error of
+// an attribute call or the launch (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int BN = 128;
-constexpr int BK = 32;
+constexpr int BN = 128;      // output columns of a tensor-core tile
+constexpr int kThreads = 256;  // the bfloat16 kernel's block
+constexpr int STAGES = 4;      // the bfloat16 kernel's cp.async ring
+#ifdef REPRO_K5_NO_CARRY
+constexpr bool kCarry = false;
+#else
+constexpr bool kCarry = true;  // float32 wgmma: carry each slice's sum
+#endif
 
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// 8-byte global -> shared copy, zero-filled when `full` is false.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(full ? 8 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
+// c += a (16 x 16, row) * b (16 x 8, col), bfloat16 in, fp32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
+// d (64 x 128, this warpgroup's fragment) = a (64 x 8) * b (8 x 128) + (scale_d ?
+// d : 0), TF32 from shared memory (both K-major), fp32 accumulate.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a_desc,
+                                           uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
 }
 
-template <typename T, int BM>
-__global__ void __launch_bounds__(kThreads)
-moe_gemm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                const int* __restrict__ bundle_expert, int cap, int d_in,
-                int d_out, T* __restrict__ out) {
-  constexpr int TR = BM / 16;
-  constexpr int TC = BN / 16;
-  __shared__ __align__(16) float Xs[BK][BM + 1];
-  __shared__ __align__(16) float Ws[BK][BN];
+// Keeps the compiler from moving reads or writes of d across a wgmma fence,
+// commit or wait.
+__device__ __forceinline__ void fence_operand(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// orders this thread's generic-proxy shared-memory writes before the async
+// proxy's (wgmma's) reads, once a barrier follows
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared-memory matrix descriptor, no swizzle: 8-row x 16-byte core
+// matrices, `lbo` bytes between neighbours along K, `sbo` bytes between
+// neighbours along M (or N).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32);
+}
+
+// float4 v rotated left by s (0..3): element j is v[(j + s) % 4].
+__device__ __forceinline__ float4 rotate4(float4 v, int s) {
+  if (s & 1) v = make_float4(v.y, v.z, v.w, v.x);
+  if (s & 2) v = make_float4(v.z, v.w, v.x, v.y);
+  return v;
+}
+
+// ---------------------------------------------------------------------------
+// float32, row tiles of 16 and 32: IEEE FMAs over streamed weight rows
+// ---------------------------------------------------------------------------
+
+// RM rows (cap rounded up to 8), 2 columns a thread, 128 threads: a block
+// owns 256 columns of one bundle and walks d_in, each thread keeping kU rows
+// of its weights in flight ahead of the FMAs; x^T goes through shared memory
+// in KC-deep chunks.
+constexpr int kRowsThreads = 128;
+constexpr int kRowsCols = 2 * kRowsThreads;
+constexpr int kU = 8;    // weight rows a thread has in flight
+constexpr int KC = 256;  // k depth of one x chunk
+
+template <int RM>
+__global__ void __launch_bounds__(kRowsThreads)
+moe_gemm_rows_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const int* __restrict__ bundle_expert, int cap, int d_in,
+                     int d_out, float* __restrict__ out) {
+  __shared__ __align__(16) float xs[KC][RM];  // x^T of one chunk
   const int b = blockIdx.z;
-  const int row0 = blockIdx.y * BM;
-  const int col0 = blockIdx.x * BN;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const T* X = x + static_cast<long long>(b) * cap * d_in;
-  const T* W = w + static_cast<long long>(bundle_expert[b]) * d_in * d_out;
+  const int col = blockIdx.y * kRowsCols + 2 * tid;  // even: col < d_out => col + 1 < d_out
+  const bool live = col < d_out;
+  const float* X = x + static_cast<long long>(b) * cap * d_in;
+  const float* W = w + static_cast<long long>(bundle_expert[b]) * d_in * d_out +
+                   (live ? col : 0);
 
-  float acc[TR][TC];
+  float acc[RM][2];
 #pragma unroll
-  for (int i = 0; i < TR; ++i)
-#pragma unroll
-    for (int j = 0; j < TC; ++j) acc[i][j] = 0.0f;
+  for (int r = 0; r < RM; ++r) acc[r][0] = acc[r][1] = 0.0f;
 
-  for (int k0 = 0; k0 < d_in; k0 += BK) {
-    // x slice: BM rows x BK columns, 4 wide along k, stored transposed.
-    for (int v = tid; v < BM * BK / 4; v += kThreads) {
-      const int m = v / (BK / 4);
-      const int k = (v % (BK / 4)) * 4;
-      float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (row0 + m < cap && k0 + k < d_in)
-        val = load4(X + static_cast<long long>(row0 + m) * d_in + k0 + k);
-      Xs[k + 0][m] = val.x;
-      Xs[k + 1][m] = val.y;
-      Xs[k + 2][m] = val.z;
-      Xs[k + 3][m] = val.w;
-    }
-    // w slice: BK rows x BN columns, 4 wide along d_out.
-    for (int v = tid; v < BK * BN / 4; v += kThreads) {
-      const int k = v / (BN / 4);
-      const int n = (v % (BN / 4)) * 4;
-      float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (k0 + k < d_in && col0 + n < d_out)
-        val = load4(W + static_cast<long long>(k0 + k) * d_out + col0 + n);
-      *reinterpret_cast<float4*>(&Ws[k][n]) = val;
+  for (int k0 = 0; k0 < d_in; k0 += KC) {
+    const int kn = min(KC, d_in - k0);
+    __syncthreads();  // the last chunk's readers are done
+    // lanes along the rows, so that the transposed stores hit distinct banks
+    for (int e = tid; e < RM * KC / 4; e += kRowsThreads) {
+      const int r = e % RM;
+      const int kq = 4 * (e / RM);
+      float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (r < cap && kq < kn)
+        v = *reinterpret_cast<const float4*>(X + static_cast<long long>(r) * d_in + k0 + kq);
+      xs[kq][r] = v.x;
+      xs[kq + 1][r] = v.y;
+      xs[kq + 2][r] = v.z;
+      xs[kq + 3][r] = v.w;
     }
     __syncthreads();
+    float2 wn[kU];
 #pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      float ar[TR], br[TC];
+    for (int u = 0; u < kU; ++u)
+      wn[u] = live && u < kn
+                  ? *reinterpret_cast<const float2*>(W + static_cast<long long>(k0 + u) * d_out)
+                  : make_float2(0.0f, 0.0f);
+    for (int kk = 0; kk < kn; kk += kU) {
+      float2 wc[kU];
 #pragma unroll
-      for (int i = 0; i < TR; ++i) ar[i] = Xs[k][ty + 16 * i];
+      for (int u = 0; u < kU; ++u) {
+        wc[u] = wn[u];
+        const int kf = kk + kU + u;  // the next group's rows, loaded now
+        wn[u] = live && kf < kn
+                    ? *reinterpret_cast<const float2*>(W + static_cast<long long>(k0 + kf) * d_out)
+                    : make_float2(0.0f, 0.0f);
+      }
 #pragma unroll
-      for (int j = 0; j < TC; ++j) br[j] = Ws[k][tx + 16 * j];
+      for (int u = 0; u < kU; ++u) {
+        if (kk + u >= kn) break;
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+        for (int r4 = 0; r4 < RM; r4 += 4) {
+          const float4 xv = *reinterpret_cast<const float4*>(&xs[kk + u][r4]);
+          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
 #pragma unroll
-        for (int j = 0; j < TC; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  T* O = out + static_cast<long long>(b) * cap * d_out;
-#pragma unroll
-  for (int i = 0; i < TR; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r < cap) {
-#pragma unroll
-      for (int j = 0; j < TC; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c < d_out) store1(O + static_cast<long long>(r) * d_out + c, acc[i][j]);
+          for (int i = 0; i < 4; ++i) {
+            acc[r4 + i][0] = fmaf(xr[i], wc[u].x, acc[r4 + i][0]);
+            acc[r4 + i][1] = fmaf(xr[i], wc[u].y, acc[r4 + i][1]);
+          }
+        }
       }
     }
   }
+
+  if (!live) return;
+  float* O = out + static_cast<long long>(b) * cap * d_out + col;
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+    if (r < cap)
+      *reinterpret_cast<float2*>(O + static_cast<long long>(r) * d_out) =
+          make_float2(acc[r][0], acc[r][1]);
 }
 
-template <typename T>
-int launch(const T* x, const T* w, const int* bundle_expert, int nb, int cap,
-           int d_in, int d_out, int bm, T* out, cudaStream_t stream) {
-  const dim3 grid((d_out + BN - 1) / BN, (cap + bm - 1) / bm, nb);
+// ---------------------------------------------------------------------------
+// float32, row tiles of 64 and 128: 3xTF32 on wgmma
+// ---------------------------------------------------------------------------
+
+// BM = 64 WGS rows (one warpgroup of 128 threads per 64 rows) x BN columns,
+// 32-deep slices.  Shared memory: two split buffers, each A big and small
+// (BM x 32 TF32) and B big and small (BN x 32 TF32, W transposed: wgmma
+// takes TF32 only K-major), in 8 x 4 core matrices; then the raw ring.
+template <int WGS>
+struct WgShape {
+  static constexpr int BM = 64 * WGS;
+  static constexpr int BK = 32;
+  static constexpr int threads = 128 * WGS;
+  static constexpr int STAGES = 2;
+  static constexpr int LDXR = BK + 4;                    // raw X row (floats)
+  static constexpr int raw_floats = BM * LDXR + BK * BN;
+  static constexpr int a_words = BM * BK;                // one half of A
+  static constexpr int b_words = BN * BK;                // one half of B
+  static constexpr int split_words = 2 * a_words + 2 * b_words;
+  static constexpr int smem_bytes = 2 * split_words * 4 + STAGES * raw_floats * 4;
+  static constexpr uint32_t LBO = 128;                   // next 4 k
+  static constexpr uint32_t SBO = BK / 4 * 128;          // next 8 rows
+};
+
+// Word offset of element (row, k) in a K-major core-matrix layout with BK
+// columns: core (row / 8, k / 4), 16 bytes a row within it.
+template <int BK>
+__device__ __forceinline__ int core_word(int row, int k) {
+  return ((row >> 3) * (BK / 4) + (k >> 2)) * 32 + (row & 7) * 4 + (k & 3);
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(128 * WGS, 1)
+moe_gemm_wgmma_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const int* __restrict__ bundle_expert, int cap, int d_in,
+                      int d_out, float* __restrict__ out) {
+  using S = WgShape<WGS>;
+  constexpr int BM = S::BM, BK = S::BK, LDXR = S::LDXR, STAGES = S::STAGES;
+  constexpr int NT = S::threads;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  uint32_t* split = reinterpret_cast<uint32_t*>(smem_raw);        // [2]
+  float* raw = reinterpret_cast<float*>(split + 2 * S::split_words);  // [STAGES]
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const float* X = x + static_cast<long long>(b) * cap * d_in;
+  const float* W = w + static_cast<long long>(bundle_expert[b]) * d_in * d_out;
+  const int n_it = (d_in + BK - 1) / BK;
+
+  // Each thread copies, and later splits, the same pieces of every slice:
+  // X chunks e = tid + NT i (16 bytes: row r, k 4 kc..), placed so that the
+  // 32 lanes of a warp cover 8 rows x 4 chunks; W tiles of 4 k x 4 n
+  // (n4 = tau % 32, k quad kq = tau / 32).
+  auto x_chunk = [&](int e, int& r, int& kc) {
+    const int g32 = e / 32;
+    r = 8 * (g32 % (BM / 8)) + e % 8;
+    kc = 4 * (g32 / (BM / 8)) + (e / 8) % 4;
+  };
+  auto load_slice = [&](int i) {
+    float* xs = raw + (i % STAGES) * S::raw_floats;
+    float* ws = xs + BM * LDXR;
+    const int k0 = i * BK;
+#pragma unroll
+    for (int e = tid; e < BM * BK / 4; e += NT) {
+      int r, kc;
+      x_chunk(e, r, kc);
+      const int k = k0 + 4 * kc;
+      const bool in = row0 + r < cap && k < d_in;
+      cp_async16(xs + r * LDXR + 4 * kc,
+                 in ? X + static_cast<long long>(row0 + r) * d_in + k : X, in);
+    }
+#pragma unroll
+    for (int tau = tid; tau < BK * BN / 16; tau += NT) {
+      const int n = col0 + 4 * (tau % (BN / 4));
+      const int kq = tau / (BN / 4);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int k = k0 + 4 * kq + j;
+        const bool in = k < d_in && n < d_out;
+        cp_async16(ws + (4 * kq + j) * BN + n - col0,
+                   in ? W + static_cast<long long>(k) * d_out + n : W, in);
+      }
+    }
+  };
+  auto split_slice = [&](int i) {
+    const float* xs = raw + (i % STAGES) * S::raw_floats;
+    const float* ws = xs + BM * LDXR;
+    uint32_t* a_big = split + (i & 1) * S::split_words;
+    uint32_t* a_small = a_big + S::a_words;
+    uint32_t* b_big = a_small + S::a_words;
+    uint32_t* b_small = b_big + S::b_words;
+#pragma unroll
+    for (int e = tid; e < BM * BK / 4; e += NT) {
+      int r, kc;
+      x_chunk(e, r, kc);
+      const float4 v = *reinterpret_cast<const float4*>(xs + r * LDXR + 4 * kc);
+      const uint2 p0 = split_tf32(v.x), p1 = split_tf32(v.y);
+      const uint2 p2 = split_tf32(v.z), p3 = split_tf32(v.w);
+      const int off = core_word<BK>(r, 4 * kc);
+      *reinterpret_cast<uint4*>(a_big + off) = make_uint4(p0.x, p1.x, p2.x, p3.x);
+      *reinterpret_cast<uint4*>(a_small + off) = make_uint4(p0.y, p1.y, p2.y, p3.y);
+    }
+#pragma unroll
+    for (int tau = tid; tau < BK * BN / 16; tau += NT) {
+      const int n4 = tau % (BN / 4);
+      const int kq = tau / (BN / 4);
+      // rotate by n4 / 2 so that the lanes of a warp store to all 8 rows of
+      // a core matrix at each step
+      const int rot = (n4 >> 1) & 3;
+      float4 v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = rotate4(*reinterpret_cast<const float4*>(ws + (4 * kq + j) * BN + 4 * n4), rot);
+      const float* vf = reinterpret_cast<const float*>(v);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int n = 4 * n4 + ((q + rot) & 3);
+        const uint2 p0 = split_tf32(vf[q]), p1 = split_tf32(vf[4 + q]);
+        const uint2 p2 = split_tf32(vf[8 + q]), p3 = split_tf32(vf[12 + q]);
+        const int off = core_word<BK>(n, 4 * kq);
+        *reinterpret_cast<uint4*>(b_big + off) = make_uint4(p0.x, p1.x, p2.x, p3.x);
+        *reinterpret_cast<uint4*>(b_small + off) = make_uint4(p0.y, p1.y, p2.y, p3.y);
+      }
+    }
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES; ++s) {
+    if (s < n_it) load_slice(s);
+    cp_async_commit();
+  }
+  cp_async_wait<STAGES - 1>();  // this thread's pieces of slice 0
+  split_slice(0);
+  if (STAGES < n_it) load_slice(STAGES);
+  cp_async_commit();
+  fence_proxy_async();
+  __syncthreads();
+
+  for (int i = 0; i < n_it; ++i) {
+    // the slice's 4 eight-deep steps, small terms first, on the tensor cores
+    {
+      const uint32_t* a_big = split + (i & 1) * S::split_words + wg * 64 * BK;
+      const uint32_t* a_small = a_big + S::a_words;
+      const uint32_t* b_big = split + (i & 1) * S::split_words + 2 * S::a_words;
+      const uint32_t* b_small = b_big + S::b_words;
+      float (&d)[64] = kCarry ? part : acc;
+      fence_operand(d);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int off = j * 64;  // two core matrices along K: 256 bytes
+        wgmma_tf32(d, smem_desc(a_small + off, S::LBO, S::SBO),
+                   smem_desc(b_big + off, S::LBO, S::SBO), kCarry ? j > 0 : 1);
+        wgmma_tf32(d, smem_desc(a_big + off, S::LBO, S::SBO),
+                   smem_desc(b_small + off, S::LBO, S::SBO), 1);
+        wgmma_tf32(d, smem_desc(a_big + off, S::LBO, S::SBO),
+                   smem_desc(b_big + off, S::LBO, S::SBO), 1);
+      }
+      wgmma_commit();
+      fence_operand(d);
+    }
+    // meanwhile: split slice i + 1 (its buffer's last readers, slice i - 1's
+    // wgmmas, are done) and start the loads of slice i + 1 + STAGES
+    if (i + 1 < n_it) {
+      cp_async_wait<STAGES - 1>();
+      split_slice(i + 1);
+      if (i + 1 + STAGES < n_it) load_slice(i + 1 + STAGES);
+    }
+    cp_async_commit();
+    wgmma_wait_all();
+    if (kCarry) {
+      fence_operand(part);
+#pragma unroll
+      for (int e = 0; e < 64; ++e) acc[e] += part[e];
+    }
+    fence_proxy_async();
+    __syncthreads();  // slice i + 1 is split; slice i's wgmmas are done
+  }
+  cp_async_wait<0>();
+
+  // acc: warp ww of the warpgroup holds rows 16 ww + g (+ 8), columns
+  // 8 j + 2 t4 (+ 1) in acc[4 j .. 4 j + 3]
+  const int ww = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int r = row0 + wg * 64 + ww * 16 + lane / 4;
+  float* O = out + static_cast<long long>(b) * cap * d_out;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int c = col0 + 8 * j + 2 * (lane % 4);  // even: c < d_out => c + 1 < d_out
+    if (c >= d_out) continue;
+    if (r < cap)
+      *reinterpret_cast<float2*>(O + static_cast<long long>(r) * d_out + c) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+    if (r + 8 < cap)
+      *reinterpret_cast<float2*>(O + static_cast<long long>(r + 8) * d_out + c) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16
+// ---------------------------------------------------------------------------
+
+// Warp layout of a BM x BN tile: WM x WN warps, each MT m16 by NT n8 tiles.
+template <int BM>
+struct Warps {
+  static constexpr int WM = BM >= 64 ? 2 : 1;
+  static constexpr int WN = 8 / WM;
+  static constexpr int MT = BM / WM / 16;
+  static constexpr int NT = BN / WN / 8;
+};
+
+template <int BM>
+struct Bf16Shape {
+  static constexpr int BK = 32;            // k depth of one slice
+  static constexpr int LDX = BK + 8;       // padded X row (bfloat16)
+  static constexpr int LDW = BN + 8;       // padded W row (bfloat16)
+  static constexpr int stage_elems = BM * LDX + BK * LDW;
+  static constexpr int smem_bytes = STAGES * stage_elems * 2;
+};
+
+template <int BM>
+__global__ void __launch_bounds__(kThreads)
+moe_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                     const __nv_bfloat16* __restrict__ w,
+                     const int* __restrict__ bundle_expert, int cap, int d_in,
+                     int d_out, __nv_bfloat16* __restrict__ out) {
+  using S = Bf16Shape<BM>;
+  using L = Warps<BM>;
+  constexpr int BK = S::BK, LDX = S::LDX, LDW = S::LDW;
+  constexpr int MT = L::MT, NT = L::NT;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+
+  const int b = blockIdx.z;
+  const int row0 = blockIdx.x * BM;
+  const int col0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int m_base = (warp / L::WN) * (BM / L::WM);
+  const int n_base = (warp % L::WN) * (BN / L::WN);
+  const __nv_bfloat16* X = x + static_cast<long long>(b) * cap * d_in;
+  const __nv_bfloat16* W =
+      w + static_cast<long long>(bundle_expert[b]) * d_in * d_out;
+  const int n_it = (d_in + BK - 1) / BK;
+
+  auto load_slice = [&](int i, int stage) {
+    __nv_bfloat16* xs = smem + stage * S::stage_elems;
+    __nv_bfloat16* ws = xs + BM * LDX;
+    const int k0 = i * BK;
+    for (int e = tid; e < BM * BK / 4; e += kThreads) {
+      const int r = e / (BK / 4);
+      const int kc = (e % (BK / 4)) * 4;
+      const bool in = row0 + r < cap && k0 + kc < d_in;
+      cp_async8(xs + r * LDX + kc,
+                in ? X + static_cast<long long>(row0 + r) * d_in + k0 + kc : X,
+                in);
+    }
+    for (int e = tid; e < BK * BN / 4; e += kThreads) {
+      const int k = e / (BN / 4);
+      const int n = (e % (BN / 4)) * 4;
+      const bool in = k0 + k < d_in && col0 + n < d_out;
+      cp_async8(ws + k * LDW + n,
+                in ? W + static_cast<long long>(k0 + k) * d_out + col0 + n : W,
+                in);
+    }
+  };
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_it) load_slice(s, s);
+    cp_async_commit();
+  }
+  for (int i = 0; i < n_it; ++i) {
+    cp_async_wait<STAGES - 2>();  // slice i has landed
+    __syncthreads();              // ... for every thread; slice i - 1 is done
+    if (i + STAGES - 1 < n_it) load_slice(i + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    const __nv_bfloat16* xs = smem + (i % STAGES) * S::stage_elems;
+    const __nv_bfloat16* ws = xs + BM * LDX;
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 16) {
+      uint32_t a[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const __nv_bfloat16* xr = xs + (m_base + mt * 16 + g) * LDX + kk + 2 * t4;
+        a[mt][0] = *reinterpret_cast<const uint32_t*>(xr);
+        a[mt][1] = *reinterpret_cast<const uint32_t*>(xr + 8 * LDX);
+        a[mt][2] = *reinterpret_cast<const uint32_t*>(xr + 8);
+        a[mt][3] = *reinterpret_cast<const uint32_t*>(xr + 8 * LDX + 8);
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const unsigned short* wc = reinterpret_cast<const unsigned short*>(
+            ws + (kk + 2 * t4) * LDW + n_base + nt * 8 + g);
+        const uint32_t bf[2] = {
+            static_cast<uint32_t>(wc[0]) | (static_cast<uint32_t>(wc[LDW]) << 16),
+            static_cast<uint32_t>(wc[8 * LDW]) |
+                (static_cast<uint32_t>(wc[9 * LDW]) << 16)};
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], bf);
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  __nv_bfloat16* O = out + static_cast<long long>(b) * cap * d_out;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int r = row0 + m_base + mt * 16 + g;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = col0 + n_base + nt * 8 + 2 * t4;
+      if (c >= d_out) continue;
+      if (r < cap)
+        *reinterpret_cast<__nv_bfloat162*>(O + static_cast<long long>(r) * d_out + c) =
+            __floats2bfloat162_rn(acc[mt][nt][0], acc[mt][nt][1]);
+      if (r + 8 < cap)
+        *reinterpret_cast<__nv_bfloat162*>(O + static_cast<long long>(r + 8) * d_out + c) =
+            __floats2bfloat162_rn(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------------
+
+template <int RM>
+int launch_rows(const float* x, const float* w, const int* bundle_expert,
+                int nb, int cap, int d_in, int d_out, float* out,
+                cudaStream_t stream) {
+  const dim3 grid(1, (d_out + kRowsCols - 1) / kRowsCols, nb);
+  moe_gemm_rows_kernel<RM><<<grid, kRowsThreads, 0, stream>>>(
+      x, w, bundle_expert, cap, d_in, d_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int WGS>
+int launch_wgmma(const float* x, const float* w, const int* bundle_expert,
+                 int nb, int cap, int d_in, int d_out, float* out,
+                 cudaStream_t stream, int device) {
+  using S = WgShape<WGS>;
+  static_assert(S::smem_bytes <= 232448, "above the 227 KiB a block may use");
+  auto* kernel = moe_gemm_wgmma_kernel<WGS>;
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, kernel, S::smem_bytes, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((cap + S::BM - 1) / S::BM, (d_out + BN - 1) / BN, nb);
+  kernel<<<grid, S::threads, S::smem_bytes, stream>>>(x, w, bundle_expert, cap,
+                                                      d_in, d_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BM>
+int launch_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                const int* bundle_expert, int nb, int cap, int d_in, int d_out,
+                __nv_bfloat16* out, cudaStream_t stream, int device) {
+  constexpr int bytes = Bf16Shape<BM>::smem_bytes;
+  auto* kernel = moe_gemm_bf16_kernel<BM>;
+  static std::atomic<int> smem_set[64];
+  cudaError_t err = allow_smem(smem_set, kernel, bytes, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((cap + BM - 1) / BM, (d_out + BN - 1) / BN, nb);
+  kernel<<<grid, kThreads, bytes, stream>>>(x, w, bundle_expert, cap, d_in,
+                                            d_out, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_f32_bm(int bm, const float* x, const float* w,
+                  const int* bundle_expert, int nb, int cap, int d_in,
+                  int d_out, float* out, cudaStream_t s, int device) {
+  if (bm <= 32) {  // cap <= 32: rows rounded up to 8
+    switch ((cap + 7) / 8) {
+      case 1: return launch_rows<8>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s);
+      case 2: return launch_rows<16>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s);
+      case 3: return launch_rows<24>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s);
+      case 4: return launch_rows<32>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
   switch (bm) {
-    case 16: moe_gemm_kernel<T, 16><<<grid, kThreads, 0, stream>>>(x, w, bundle_expert, cap, d_in, d_out, out); break;
-    case 32: moe_gemm_kernel<T, 32><<<grid, kThreads, 0, stream>>>(x, w, bundle_expert, cap, d_in, d_out, out); break;
-    case 64: moe_gemm_kernel<T, 64><<<grid, kThreads, 0, stream>>>(x, w, bundle_expert, cap, d_in, d_out, out); break;
-    case 128: moe_gemm_kernel<T, 128><<<grid, kThreads, 0, stream>>>(x, w, bundle_expert, cap, d_in, d_out, out); break;
+    case 64: return launch_wgmma<1>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
+    case 128: return launch_wgmma<2>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bf16_bm(int bm, const __nv_bfloat16* x, const __nv_bfloat16* w,
+                   const int* bundle_expert, int nb, int cap, int d_in,
+                   int d_out, __nv_bfloat16* out, cudaStream_t s, int device) {
+  switch (bm) {
+    case 16: return launch_bf16<16>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
+    case 32: return launch_bf16<32>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
+    case 64: return launch_bf16<64>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
+    case 128: return launch_bf16<128>(x, w, bundle_expert, nb, cap, d_in, d_out, out, s, device);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -149,24 +655,28 @@ extern "C" {
 
 // Launches K5 on `stream`: nb bundles of cap rows, d_in -> d_out, row tile bm
 // in {16, 32, 64, 128}; dtype 0 = float32, 1 = bfloat16 (x, w and out alike).
-// The caller has checked dtypes, shapes (nb, cap, d_in, d_out >= 1; d_in and
-// d_out multiples of 4; nb <= 65535), 16-byte alignment, contiguity and that
-// every bundle_expert entry is a valid expert.  Returns cudaGetLastError()
-// after the launch.
+// The
+// caller has checked dtypes, shapes (nb, cap, d_in, d_out >= 1; d_in and d_out
+// multiples of 4; nb <= 65535), 16-byte alignment, contiguity and that every
+// bundle_expert entry is a valid expert.  Returns the first CUDA error of the
+// attribute call or the launch.
 int moe_gemm(const void* x, const void* w, const int* bundle_expert, int nb,
-             int cap, int d_in, int d_out, int bm, int dtype, void* out,
-             void* stream, int device) {
+             int cap, int d_in, int d_out, int bm, int dtype,
+             void* out, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch(static_cast<const float*>(x), static_cast<const float*>(w),
-                  bundle_expert, nb, cap, d_in, d_out, bm,
-                  static_cast<float*>(out), s);
+  if (dtype == 0) {
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(w);
+    float* of = static_cast<float*>(out);
+    return launch_f32_bm(bm, xf, wf, bundle_expert, nb, cap, d_in, d_out, of, s, device);
+  }
   if (dtype == 1)
-    return launch(static_cast<const __nv_bfloat16*>(x),
-                  static_cast<const __nv_bfloat16*>(w), bundle_expert, nb, cap,
-                  d_in, d_out, bm, static_cast<__nv_bfloat16*>(out), s);
+    return launch_bf16_bm(bm, static_cast<const __nv_bfloat16*>(x),
+                          static_cast<const __nv_bfloat16*>(w), bundle_expert,
+                          nb, cap, d_in, d_out,
+                          static_cast<__nv_bfloat16*>(out), s, device);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

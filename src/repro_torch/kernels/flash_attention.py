@@ -16,9 +16,11 @@ q, k, v read once and the output written once.  At bs = D = 128 a visible
 block does 8.4 MFLOP per head on 128 KiB of fp32 K and V: bound by fp32
 operations.  So K3 keeps everything of one (b, h, q block) on chip: the
 running max, sum and the (bs, D) accumulator in registers, Q in shared
-memory for the whole kv loop, K and V streamed through 32-row panels, and
-the probabilities of one kv block in shared memory between the two
-products.  Scores and products are IEEE fp32 (no TF32): the reference holds
+memory for the whole kv loop, K and V streamed through panels at most 32
+deep, and the probabilities of one kv block in shared memory between the
+two products; at D = 256 a grid axis splits the output's columns in two
+halves (each block still reduces the scores over the full D).  It takes
+bs in {16, 32, 64, 128} and D in ``K4_HEAD_DIMS``.  Scores and products are IEEE fp32 (no TF32): the reference holds
 K3 to 1e-4.  bfloat16 inputs are widened on load and the output rounded
 once on store.
 
@@ -64,11 +66,13 @@ from . import _build
 
 NEG_INF = -1e30
 
-# (bs, D) pairs K3 is built for; anything else raises on CUDA
-SUPPORTED_SHAPES = tuple((bs, d) for bs in (32, 64, 128) for d in (32, 64, 128))
 # head dims K4 is built for (every d_head of configs/ and reduced_config's
 # 16); anything else raises on CUDA
 K4_HEAD_DIMS = (16, 32, 64, 128, 256)
+# (bs, D) pairs K3 is built for: the runtime's blocks (K1 and K2 take the
+# same field) and K4's head dims; anything else raises on CUDA
+SUPPORTED_SHAPES = tuple((bs, d) for bs in (16, 32, 64, 128)
+                         for d in K4_HEAD_DIMS)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

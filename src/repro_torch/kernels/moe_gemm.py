@@ -15,18 +15,26 @@ built by ``_build`` and bound with ctypes.
 Bound on an H100: ``2·nb·cap·d_in·d_out`` FLOP against x and the experts'
 weights read once and the output written once.  At DBRX-132B's width
 (d_model 6144, d_ff_expert 10752, 16 experts) a prefill of 4096 tokens has
-cap = 1280 and is bound by fp32 operations (2.7 TFLOP per gate or up
-product, 40 ms at 67 TFLOP/s); a decode step of 64 tokens has cap = 24 and
-is bound by the 4.2 GB of one weight stack (1.26 ms at 3.35 TB/s).  So K5
-reads every weight element once per row tile and picks its row tile from
-cap (16, 32, 64 or 128 rows): the decode step is one 32-row tile per
-bundle, and the weights cross the memory bus once.  Products are IEEE fp32
-FMAs with the accumulators in registers; bfloat16 is widened on load and
-rounded once on store.  ``wgmma``/TMA is later work.
+cap = 1280 and is bound by operations (2.7 TFLOP per gate or up product);
+a decode step of 64 tokens has cap = 24 and is bound by the 4.2 GB of one
+weight stack (1.26 ms at 3.35 TB/s).  So K5 reads every weight element
+once per row tile and picks its row tile from cap (16, 32, 64 or 128
+rows): the decode step is one 32-row tile per bundle, and the weights
+cross the memory bus once.  float32 row tiles of 64 and 128 run in 3xTF32
+on ``wgmma`` (each operand split once per block into two TF32 halves,
+three TF32 products per product, 32-deep slices through a ``cp.async``
+ring, the tensor cores' partial sums carried into the accumulator with
+IEEE adds every slice); row tiles of 16 and 32 (decode) stream
+the weight rows through IEEE FMAs with many loads in flight.  bfloat16
+runs ``mma.sync`` on bfloat16 with fp32 accumulation and one rounding on
+store.
 
 ``moe_gemm`` / ``moe_gemm_schedule`` dispatch on the tensors' device: CPU
 tensors run ``moe_gemm_plain``; CUDA tensors launch the kernel or raise.
-``moe_gemm.launches`` counts kernel launches.
+``moe_gemm.launches`` counts kernel launches and ``moe_gemm.uploads`` the
+uploads of an expert map.  A dispatch plan's schedule bundle keeps the
+device copy of its map (as ``K2Schedule.device_ids`` does), so the warm
+calls of one plan upload nothing; a bare array is uploaded on every call.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..core.rir import ScheduleBundle
 from ..device import launch_target, to_device
 from . import _build
 
@@ -61,7 +70,23 @@ def _lib() -> ctypes.CDLL:
                        [p, p, p, i, i, i, i, i, i, p, p, i])
 
 
-def _launch(x: torch.Tensor, w: torch.Tensor, be: np.ndarray,
+def _device_map(bundle_expert, be: np.ndarray,
+                device: torch.device) -> torch.Tensor:
+    """``be`` (the host ids of ``bundle_expert``) on ``device``.  A
+    schedule bundle keeps its copy per device, uploaded on first use,
+    outside its fields; anything else is uploaded now."""
+    if not isinstance(bundle_expert, ScheduleBundle):
+        moe_gemm.uploads += 1
+        return to_device(be, device)
+    memo = bundle_expert.__dict__.setdefault("_device_bundle_expert", {})
+    key = str(device)
+    if key not in memo:
+        memo[key] = to_device(be, device)
+        moe_gemm.uploads += 1
+    return memo[key]
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
             out: torch.Tensor) -> None:
     nb, cap, d_in = x.shape
     d_out = w.shape[-1]
@@ -76,7 +101,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, be: np.ndarray,
                 or t.device != out.device:
             raise ValueError("K5 operands must be contiguous, 16-byte "
                              "aligned tensors on one device")
-    ids = to_device(be, out.device)
+    ids = _device_map(bundle_expert, be, out.device)
     lib = _lib()
     err = lib.moe_gemm(x.data_ptr(), w.data_ptr(), ids.data_ptr(), nb, cap,
                        d_in, d_out, row_tile(cap), _DTYPE_CODE[x.dtype],
@@ -86,6 +111,8 @@ def _launch(x: torch.Tensor, w: torch.Tensor, be: np.ndarray,
 
 
 def _host_ids(x) -> np.ndarray:
+    if isinstance(x, ScheduleBundle):
+        x = x["bundle_expert"]
     return (x.detach().cpu().numpy() if torch.is_tensor(x)
             else np.asarray(x)).astype(np.int32, copy=False)
 
@@ -96,7 +123,8 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
 
     x_bundles: (nb, cap, d_in); w: (E, d_in, d_out) of x's dtype;
     bundle_expert: (nb,) expert ids, read on the host to check their range
-    (pass numpy or a CPU tensor).  Returns (nb, cap, d_out) in x's dtype
+    (pass numpy or a CPU tensor), or a dispatch plan's schedule bundle,
+    which keeps the ids' device copy.  Returns (nb, cap, d_out) in x's dtype
     on x's device.  ``bk`` / ``bf`` are the reference's tile arguments:
     they must divide d_in / d_out (after clipping to them) as there, and
     K5 does not tile by them.  CPU tensors run the plain version; CUDA
@@ -124,16 +152,18 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
     out = torch.empty((nb, cap, d_out), dtype=x_bundles.dtype,
                       device=x_bundles.device)
     if out.numel():
-        _launch(x_bundles, w, be, out)
+        _launch(x_bundles, w, bundle_expert, be, out)
     return out
 
 
 moe_gemm.launches = 0
+moe_gemm.uploads = 0
 
 
 def moe_gemm_schedule(schedule, x_bundles: torch.Tensor, w: torch.Tensor, *,
                       bk: int = 512, bf: int = 512) -> torch.Tensor:
     """Drive K5 from a ``MoeDispatchPlan``'s schedule bundle: its
     ``bundle_expert`` array is the kernel's expert map, so a cached
-    dispatch plan replays onto fresh bundles with no re-routing."""
-    return moe_gemm(x_bundles, w, schedule["bundle_expert"], bk=bk, bf=bf)
+    dispatch plan replays onto fresh bundles with no re-routing (and, on
+    the card, with no upload: the bundle keeps the map's device copy)."""
+    return moe_gemm(x_bundles, w, schedule, bk=bk, bf=bf)

@@ -14,17 +14,22 @@ decode cache with the state at prefill.
 K6 replaces the Pallas TPU kernel ``rwkv6`` in
 ``src/repro/kernels/rwkv6_scan.py:67`` (``pl.pallas_call`` at :90), which
 returns ``o`` only.  The CUDA C++ source is ``csrc/rwkv6_scan.cu``, built by
-``_build`` and bound with ctypes: one thread block per (b, h, 16-column V
-tile), the chunks walked in order with the state tile in shared memory.
-Bound on an H100: the Pallas cost estimate's ``2·T·K·V + 2·T·C·(K+V)`` FLOP
-per (b, h) against r, k, w, v read once and o and the state written once;
-both are microseconds at hymba-1.5b's SSM heads, so the sequential chunk
-loop sets the time and the V split buys parallel width.
+``_build`` and bound with ctypes.  Bound on an H100: the Pallas cost
+estimate's ``2·T·K·V + 2·T·C·(K+V)`` FLOP per (b, h) against r, k, w, v read
+once and o and the state written once; both are microseconds at
+hymba-1.5b's SSM heads, so what sets the time is how much of the chunk axis
+runs in parallel.  Only the state carry is sequential, and it is linear
+(``S_c = diag(d_c) S_{c-1} + U_c``), so K6 runs three kernels: the
+chunk-local terms, one block per (b, h, chunk); a scan of the (K × V) state
+over the chunks, one thread per state element; the inter-chunk term
+``(r·e^{ecum}) S_{c-1}``, one block per (b, h, chunk).  The wrapper
+allocates their scratch.
 
 ``rwkv6`` dispatches on the tensors' device: CPU tensors run
 ``rwkv6_plain`` (the torch twin of the reference's ``rwkv6_chunked_jnp``);
-CUDA tensors launch K6 or raise.  ``rwkv6.launches`` counts kernel
-launches.
+CUDA tensors launch K6 or raise.  ``rwkv6.launches`` counts calls that
+launched K6: one per call of the wrapper, though K6 is three kernel
+launches on the stream.
 """
 from __future__ import annotations
 
@@ -95,7 +100,8 @@ def rwkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("rwkv6_scan", "rwkv6_scan",
-                       [p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p, i])
+                       [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, p,
+                        i])
 
 
 def _launch(r, k, v, w, u, o, state, chunk: int) -> None:
@@ -113,10 +119,17 @@ def _launch(r, k, v, w, u, o, state, chunk: int) -> None:
         if not x.is_contiguous() or x.device != o.device:
             raise ValueError("K6 operands must be contiguous tensors on one "
                              "device")
+    nc = t // chunk
+    # r·e^{ecum} (B,H,T,K), each chunk's decay (B,H,NC,K) and its state
+    # contribution (B,H,NC,K,V), which the scan overwrites with the state
+    # entering the chunk
+    scratch = torch.empty(b * h * (t * kk + nc * kk + nc * kk * vv),
+                          dtype=torch.float32, device=o.device)
     lib = _lib()
     err = lib.rwkv6_scan(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                          w.data_ptr(), u.data_ptr(), o.data_ptr(),
-                         state.data_ptr(), b, h, t, kk, vv, chunk,
+                         state.data_ptr(), scratch.data_ptr(), b, h, t, kk,
+                         vv, chunk,
                          _DTYPE_CODE[r.dtype], _DTYPE_CODE[w.dtype],
                          *launch_target(o.device))
     _build.check_launch(lib, err, "rwkv6_scan")

@@ -71,8 +71,10 @@ def expert_swiglu(x_bundles: torch.Tensor, w_gate: torch.Tensor,
 
     The three products are grouped GEMMs through ``kernels.ops.moe_gemm``
     (K5 on the card, its plain version on the host); ``bundle_expert``
-    defaults to bundle ``e`` meeting expert ``e``, the dispatch plan's
-    schedule.  Weights are cast to x's dtype, as in the reference.
+    (expert ids, or the dispatch plan's schedule bundle, which keeps their
+    device copy) defaults to bundle ``e`` meeting expert ``e``, the
+    dispatch plan's schedule.  Weights are cast to x's dtype, as in the
+    reference.
     """
     if bundle_expert is None:
         bundle_expert = np.arange(x_bundles.shape[0], dtype=np.int32)
@@ -105,7 +107,7 @@ def moe_ffn_host(x: torch.Tensor, p: Mapping[str, torch.Tensor], runtime, *,
                                               n_experts=n_experts,
                                               capacity=cap)
     y = expert_swiglu(x_bundles.float(), p["w_gate"], p["w_up"],
-                      p["w_down"], plan.schedule["bundle_expert"])
+                      p["w_down"], plan.schedule)
     out = plan.combine(y, gates).to(x.dtype).reshape(b, s, d)
     if "shared_gate" in p:                                   # shared experts
         out = out + swiglu(x.reshape(b * s, d), p["shared_gate"],

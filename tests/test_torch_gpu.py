@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import repro_torch.core as P
+from repro_torch.core.rir import ScheduleBundle
 from repro_torch.core.solver import cg_solve
 from repro_torch.kernels.bsr_spgemm import (bsr_spgemm, bsr_spgemm_plain,
                                             bsr_spgemm_schedule)
@@ -24,7 +25,8 @@ from repro_torch.kernels.flash_attention import (
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
+                                          moe_gemm_schedule)
 from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
 from repro_torch.models import model as M
 from repro_torch.models.moe import moe_ffn_host, moe_params_from_numpy
@@ -245,8 +247,12 @@ def _attention_problem(s, bs, seed, h=4, hkv=2, d=64):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("bs,d,softcap", [(64, 64, 0.0), (64, 128, 5.0),
-                                          (128, 128, 50.0), (32, 32, 0.0)])
+@pytest.mark.parametrize("bs,d,softcap", [
+    (64, 64, 0.0), (64, 128, 5.0), (128, 128, 50.0), (32, 32, 0.0),
+    # the runtime's block 16 and head dims 16 and 256 (reduced_config,
+    # gemma2-2b and paligemma-3b): D = 256 splits the output in two halves
+    (16, 16, 0.0), (16, 64, 0.0), (16, 256, 5.0), (32, 16, 0.0),
+    (128, 16, 0.0), (64, 256, 0.0), (128, 256, 50.0)])
 def test_k3_matches_plain(cuda, dtype, tol, bs, d, softcap):
     s = 4 * bs
     mask, q, k, v = _attention_problem(s, bs, seed=bs + d, d=d)
@@ -266,7 +272,7 @@ def test_k3_matches_plain(cuda, dtype, tol, bs, d, softcap):
 
 
 def test_k3_rejects_unsupported_shape(cuda):
-    q = torch.zeros(1, 1, 64, 16, device=cuda)
+    q = torch.zeros(1, 1, 64, 48, device=cuda)      # D = 48: no config's
     ids, n = np.zeros((1, 1), np.int32), np.ones(1, np.int32)
     with pytest.raises(ValueError, match="supports"):
         block_sparse_attention(q, q, q, ids, n)
@@ -281,6 +287,16 @@ def test_runtime_block_attention_launches_k3(cuda):
         assert block_sparse_attention.launches == before + 1
         assert st["cache_hit"] is hit
     np.testing.assert_allclose(out, block_attention_ref(q, k, v, mask, 64),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_runtime_block_attention_at_block_16_launches_k3(cuda):
+    mask, q, k, v = _attention_problem(128, 16, seed=10, d=16)
+    rt = ReapRuntime(device="cuda", block=16)
+    before = block_sparse_attention.launches
+    out, st = rt.run("block_attention", q, k, v, mask)
+    assert block_sparse_attention.launches == before + 1
+    np.testing.assert_allclose(out, block_attention_ref(q, k, v, mask, 16),
                                rtol=1e-4, atol=1e-4)
 
 
@@ -304,6 +320,40 @@ def test_k5_matches_plain(cuda, dtype, tol, nb, cap, din, dout, e):
     assert got.dtype == dtype and tuple(got.shape) == (nb, cap, dout)
     want = moe_gemm_plain(x, w, torch.from_numpy(be).to(cuda))
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_k5_warm_call_uploads_no_schedule(cuda):
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((4, 24, 64)).astype(
+        np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((4, 64, 128)).astype(
+        np.float32)).to(cuda)
+    be = np.array([3, 1, 0, 2], np.int32)
+    sched = ScheduleBundle("moe_dispatch", {"bundle_expert": be})
+    before = moe_gemm.uploads
+    first = moe_gemm_schedule(sched, x, w)
+    assert moe_gemm.uploads == before + 1
+    second = moe_gemm_schedule(sched, x, w)  # the bundle keeps its copy
+    assert moe_gemm.uploads == before + 1
+    assert torch.equal(first, second)
+    third = moe_gemm(x, w, be)              # a bare array uploads each call
+    assert moe_gemm.uploads == before + 2
+    assert torch.equal(first, third)
+    b, s, d, e = 1, 16, 32, 4               # the layer: one per plan
+    p = dict(router=rng.standard_normal((d, e)) * 0.1,
+             w_gate=rng.standard_normal((e, d, 48)) / np.sqrt(d),
+             w_up=rng.standard_normal((e, d, 48)) / np.sqrt(d),
+             w_down=rng.standard_normal((e, 48, d)) / np.sqrt(48))
+    pt = moe_params_from_numpy(p, cuda)
+    xt = torch.from_numpy(rng.standard_normal((b, s, d)).astype(
+        np.float32)).to(cuda)
+    rt = ReapRuntime(device="cuda")
+    kw = dict(n_experts=e, top_k=2, capacity_factor=1.25)
+    moe_ffn_host(xt, pt, rt, **kw)
+    before = moe_gemm.uploads
+    for _ in range(3):
+        moe_ffn_host(xt, pt, rt, **kw)
+    assert moe_gemm.uploads == before
 
 
 def test_k5_rejects_what_it_does_not_take(cuda):
@@ -422,6 +472,8 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     (256, 3, 16, 64, 64, torch.float32, False, None),     # u != 0
     (128, 2, 16, 24, 32, torch.float32, False, None),     # V tail tile
     (96, 2, 64, 64, 32, torch.bfloat16, False, None),     # K = 64
+    (160, 3, 8, 40, 32, torch.float32, False, None),      # K = 8 (reduced)
+    (192, 2, 32, 72, 64, torch.bfloat16, False, None),    # K = 32
     (256, 2, 16, 64, 64, torch.float32, False, 1e-6),     # extreme decay
     (256, 2, 16, 64, 64, torch.float32, False, 1 - 1e-6),
     (12, 25, 16, 64, 64, torch.float32, True, None),      # T < chunk

@@ -134,6 +134,21 @@ class TestDispatchPlanParity:
         assert_same_fields(PR.deserialize_plan(pay_r), plan_r)
         assert_same_fields(RR.deserialize_plan(pay_p), plan_p)
 
+    def test_schedule_is_one_bundle_per_plan(self):
+        # K5 keeps the expert map's device copy on the schedule bundle, so
+        # every read of a plan's schedule must give the same object; the
+        # memo stays out of the plan's payload
+        _, _, ids, _ = _routing(3)
+        plan = P.inspect_moe_dispatch(P.routing_csr(ids, E), 6)
+        payload = PR.serialize_plan(plan)
+        sched = plan.schedule
+        assert plan.schedule is sched
+        assert_payloads_equal(PR.serialize_plan(plan), payload)
+        restored = PR.deserialize_plan(payload)
+        assert restored.schedule is not sched
+        for key in ("slot_token", "bundle_expert"):
+            np.testing.assert_array_equal(restored.schedule[key], sched[key])
+
     def test_routing_csr_rejects_out_of_range(self):
         with pytest.raises(ValueError, match="expert ids"):
             P.routing_csr(np.array([[0, 6]]), 6)

@@ -154,3 +154,105 @@ def test_wrapper_runs_the_plain_version_on_cpu():
     o2, s2 = PK.rwkv6_plain(*args, chunk=8)
     assert torch.equal(o, o2) and torch.equal(s, s2)
     assert PK.rwkv6.launches == before
+
+
+def _chunk_parallel(r, k, v, w, u, chunk, sub=16):
+    """K6's chunk-parallel algebra in plain torch, float32: (1) the
+    chunk-local terms of every chunk at once (the state-free part of o,
+    r·e^{ecum}, each chunk's decay and its contribution Kd^T v), (2) the
+    scan of the state over the chunks, S_c = d_c ⊙ S_{c-1} + U_c, keeping
+    the state that enters each chunk, (3) the inter-chunk term
+    (r·e^{ecum}) S_{c-1}.  Inside the chunk, A's entries between ``sub``-token
+    sub-blocks are the product of two factors, e^{ecum_t - ref} and
+    e^{ref - cum_s} with ref the cum before t's sub-block (both exponents
+    <= 0); inside a sub-block each takes its own exponential.  Returns
+    (o, final state)."""
+    b, h, t, kk = r.shape
+    vv = v.shape[-1]
+    nc = t // chunk
+    r_, k_, w_ = (x.float().reshape(b, h, nc, chunk, kk) for x in (r, k, w))
+    v_ = v.float().reshape(b, h, nc, chunk, vv)
+    # 1. chunk-local, all chunks in parallel; exponents <= 0
+    logw = torch.log(w_)
+    cum = torch.cumsum(logw, dim=3)
+    ecum = cum - logw
+    last = cum[:, :, :, -1:, :]
+    idx = torch.arange(chunk)
+    start = idx // sub * sub                           # t's sub-block start
+    same = (idx[:, None] > idx[None, :]) & (start[:, None] == start[None, :])
+    cross = idx[None, :] < start[:, None]              # s before t's block
+    zero = torch.zeros(())
+    expo = ecum[..., :, None, :] - cum[..., None, :, :]    # (.., t, s, K)
+    expo = torch.where(same[:, :, None], expo, zero)
+    a_same = (r_[..., :, None, :] * k_[..., None, :, :]
+              * torch.exp(expo)).sum(-1)
+    ref = torch.where((start > 0)[:, None],
+                      cum[..., (start - 1).clamp_min(0), :], zero)
+    r_f = r_ * torch.exp(ecum - ref)                   # (.., t, K)
+    expo_k = ref[..., :, None, :] - cum[..., None, :, :]
+    expo_k = torch.where(cross[:, :, None], expo_k, zero)
+    a_cross = (r_f[..., :, None, :] * k_[..., None, :, :]
+               * torch.exp(expo_k)).sum(-1)
+    a = torch.where(same, a_same, torch.where(cross, a_cross, zero))
+    bonus = (r_ * u.float()[None, :, None, None, :] * k_).sum(-1,
+                                                              keepdim=True)
+    o_local = a @ v_ + bonus * v_
+    rq = r_ * torch.exp(ecum)
+    decay = torch.exp(last[:, :, :, 0])                   # (B, H, NC, K)
+    contrib = (k_ * torch.exp(last - cum)).transpose(-1, -2) @ v_
+    # 2. the state scan: the state entering each chunk
+    s = torch.zeros(b, h, kk, vv)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, :, c, :, None] * s + contrib[:, :, c]
+    # 3. the inter-chunk term
+    o = o_local + rq @ torch.stack(s_in, dim=2)
+    return o.reshape(b, h, t, vv), s
+
+
+class TestK6ChunkParallelAlgebra:
+    """The chunk-parallel split that the CUDA kernel runs, against the
+    sequential plain version and the reference's Pallas kernel."""
+
+    @pytest.mark.parametrize("t,chunk,kk,vv,w_val,u_zero", [
+        (256, 64, 16, 64, None, True),       # hymba's SSM heads, 4 chunks
+        (128, 32, 16, 24, None, False),      # u != 0, V of no tile's width
+        (96, 32, 64, 16, None, False),       # K = 64
+        # extreme decays, at test_extreme_decay_stable's shape
+        (32, 16, 4, 4, 1e-6, False),
+        (32, 16, 4, 4, 1 - 1e-6, False),
+        (64, 64, 16, 32, None, False),       # T = C: one chunk, no carry
+        (12, 64, 16, 8, None, True),         # T < chunk
+    ])
+    def test_matches_plain_and_pallas(self, t, chunk, kk, vv, w_val,
+                                      u_zero):
+        args = list(_inputs(50 + t + kk, 1, 2, t, kk, vv, w_val=w_val,
+                            lo=1e-6))
+        if u_zero:
+            args[4] = np.zeros_like(args[4])
+        c = min(chunk, t)
+        o, state = _chunk_parallel(*map(torch.from_numpy, args), c)
+        assert torch.isfinite(o).all() and torch.isfinite(state).all()
+        o_p, s_p = PK.rwkv6_plain(*map(torch.from_numpy, args), chunk=c)
+        np.testing.assert_allclose(o.numpy(), o_p.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(state.numpy(), s_p.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(o.numpy(), np.asarray(
+            rops.rwkv6(*args, chunk=c)), rtol=2e-4, atol=2e-4)
+
+    @pytest.mark.parametrize("w_val", [1e-6, 1 - 1e-6])
+    def test_extreme_decay_full_chunk_matches_plain(self, w_val):
+        # chunk 64 at w = 1e-6: |cum| reaches 884, where float32 rounding of
+        # the exponents costs about 1e-3 in both chunked forms against the
+        # Pallas kernel alike; the split itself changes nothing against the
+        # sequential plain version
+        args = _inputs(60, 1, 2, 256, 16, 64, w_val=w_val)
+        o, state = _chunk_parallel(*map(torch.from_numpy, args), 64)
+        assert torch.isfinite(o).all() and torch.isfinite(state).all()
+        o_p, s_p = PK.rwkv6_plain(*map(torch.from_numpy, args), chunk=64)
+        np.testing.assert_allclose(o.numpy(), o_p.numpy(), rtol=2e-4,
+                                   atol=2e-4)
+        np.testing.assert_allclose(state.numpy(), s_p.numpy(), rtol=2e-4,
+                                   atol=2e-4)
