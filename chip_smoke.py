@@ -17,7 +17,8 @@ Phases, in order; any failure exits non-zero without the result line:
    together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
-   dead trailing group, and at bs = 32 (limit 1e-5, TF32 off);
+   dead trailing group (both bs = 128: 3xTF32 on ``wgmma``), and at
+   bs = 32 (IEEE FMAs); limit 1e-5, TF32 off (``k1_cases``);
 4. main path — ``ReapRuntime(device="cuda")`` at Table I sizes: filter3D
    A·A (auto → chunked block path, K1), again with fresh values (plan cache
    hit), cage12 A·A (auto → gather path), filter3D through the sync block
@@ -25,11 +26,14 @@ Phases, in order; any failure exits non-zero without the result line:
    SpGEMM is held against ``spgemm_ref_numpy`` (exact CSR structure, values
    to rtol = atol = 1e-4), each factor against ``cholesky_baseline_numpy``
    and by its residual ‖L·Lᵀ − A‖_F / ‖A‖_F ≤ 1e-10 from sparse products;
+   warm SpGEMM calls must upload no K1 schedule;
 5. times — wall time per call (and the numpy references' host time),
    device busy share of warm calls under ``torch.profiler``, K1 / plain /
-   library yardstick from CUDA events at the filter3D sync-plan shapes,
-   K1 on one chunk with and without its bucketed dead tail, K1's bound,
-   peak device memory;
+   library yardstick (``torch.bmm`` + ``index_add_``) from CUDA events at
+   the filter3D sync-plan shapes, K1 on one chunk with and without its
+   bucketed dead tail, K1's bound in 3xTF32 (its design) beside one fp32
+   FMA a product, the carry depth, the timed calls' schedule uploads
+   (none), peak device memory;
 6. kernel against plain — K2 against ``bsr_spmm_plain`` at the filter3D
    ``spmm`` shapes (T = 256), the same stacked on its negation (outputs
    that nearly cancel, so the absolute term of the limit decides) and the
@@ -39,7 +43,8 @@ Phases, in order; any failure exits non-zero without the result line:
    (32 q heads, 8 kv heads, head dim 128, S = 8192, block 128, causal
    sliding window of 8 blocks plus global block 0) in float32
    with softcap 0 and 50 (limit 1e-4) and in bfloat16 (limit 2e-2), then
-   at ``K3_SHAPES`` (head dims 256 and 16, block 16) in both types;
+   at ``K3_SHAPES`` (head dims 256 and 16, blocks 16, 32 and 64) in both
+   types;
 7. main path, second slice — ``run("spmm")`` on filter3D with T = 256, cold
    and warm with fresh X and W values, against scipy's ``(Wᵀ·Xᵀ)ᵀ`` at
    1e-4; ``cg_solve`` on cant in float32 with the planned Cholesky
@@ -51,11 +56,14 @@ Phases, in order; any failure exits non-zero without the result line:
    attention on the card on 4 of the 32 heads at 1e-4, and once more with
    ``ReapRuntime(device="cuda", block=16)`` at S = 2048.  K2 must launch
    once per spmm call and once per float32 CG iteration, K3 once per
-   attention call;
+   attention call, and the warm attention call must upload no schedule;
 8. times — K2, K3, their plain versions and a library yardstick
    (``torch.sparse.mm`` on a sparse CSR tensor; ``scaled_dot_product_attention``
    with the dense boolean block mask) from CUDA events, each kernel's bound
-   (K2's in 3xTF32, its design, beside one fp32 FMA a product); K2 per
+   (K2's and K3's in 3xTF32, their design, beside one fp32 FMA a product);
+   K3 through the plan's memoized schedule (``block_sparse_attention_plan``,
+   ``block_attention_execute``'s route) in float32 and in bfloat16 beside
+   its bf16 bound, with its carry depth and the timed calls' uploads; K2 per
    call (the wrapper, host included) and on the device (calls captured in
    a CUDA graph) at T = 256 and T = 1, with the schedule uploads of the
    warm calls (none: the ids stay on the card), the host parts of one CG
@@ -71,7 +79,9 @@ Phases, in order; any failure exits non-zero without the result line:
    10752, capacity factor 1.25; float32 weights from a seeded generator on
    the card, 12.7 GB): the gate and down products of a prefill of 2 × 2048
    tokens (cap 1280) and of a decode step of 64 tokens (cap 24), limit
-   1e-3, and the bfloat16 gate products of both, limit 2e-2;
+   1e-3, and the bfloat16 gate products of both, limit 2e-2; K5's outputs
+   as SHA-256 digests, which must equal ``K5_DIGESTS`` (bit-identical to
+   the kernel before its helpers moved to ``csrc/common.cuh``);
 10. main path, third slice — ``moe_ffn_host`` through
    ``ReapRuntime(device="cuda")`` cold and warm at both token counts, each
    against the same layer with the plain ``moe_gemm`` on the card at 1e-4;
@@ -95,7 +105,8 @@ Phases, in order; any failure exits non-zero without the result line:
    ``rwkv6_plain`` at hymba's SSM heads (H = 25, K = 16, V = 64, T = 2048,
    chunk 64, u = 0, bfloat16 r/k/v), at ``generate``'s batch of 2 and
    1024 tokens, with u ≠ 0 and at decays 1e-6 and 1 − 1e-6, output and
-   state (limit 2e-4);
+   state (limit 2e-4); K4's outputs as digests, which must equal
+   ``K4_DIGESTS`` (as K5's);
 13. in situ — hymba-1.5b at full width, 2 layers, float32 compute: a
    2048-token prefill and 4 decode steps on the card (K4, K6) against the
    same params on the host (plain versions), logits within 1e-3;
@@ -119,9 +130,10 @@ Phases, in order; any failure exits non-zero without the result line:
    second slice's profiles
    and a warm hymba prefill and decode step under ``torch.profiler``; last
    the Pre_poisson Cholesky profile and the kernels line (K1 to K6, each
-   with the launches of its own main-path phase; K2's times at the spmm
-   shape, K3's at softcap 0 in float32, K5's at the prefill gate shape,
-   K4's and K6's at the 2048-token hymba prefill).
+   with the launches of its own main-path phase; K1's times at the filter3D
+   sync plan, K2's at the spmm shape, K3's at softcap 0 in float32, K5's at
+   the prefill gate shape, K4's and K6's at the 2048-token hymba prefill;
+   K1's, K2's, K3's and K5's bounds in 3xTF32, their design).
 
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
@@ -154,14 +166,17 @@ LLAMA = dict(batch=1, heads=32, kv_heads=8, head_dim=128, seq=8192,
 SPMM_TOKENS = 256
 # K3 at the shapes the Llama case leaves out: (label, H, Hkv, D, S, block,
 # softcap); head dims 16 (reduced_config) and 256 (gemma2-2b, 8 q / 4 kv
-# heads, softcap 50), and the runtime's block 16 (K1 and K2 take it too)
+# heads, softcap 50), and Llama's heads at blocks 16 (the runtime's
+# smallest; K1 and K2 take it too) and 32
 K3_SHAPES = (("gemma2-2b heads, D=256, S=2048, block 128", 8, 4, 256, 2048,
               128, 50.0),
              ("gemma2-2b heads, D=256, S=2048, block 64", 8, 4, 256, 2048, 64,
               0.0),
              ("reduced config, D=16, S=512, block 16", 4, 2, 16, 512, 16, 0.0),
              ("Llama-3-8B heads, D=128, S=1024, block 16", 32, 8, 128, 1024,
-              16, 0.0))
+              16, 0.0),
+             ("Llama-3-8B heads, D=128, S=1024, block 32", 32, 8, 128, 1024,
+              32, 0.0))
 # DBRX-132B's MoE layer (src/repro/configs/dbrx_132b.py, published
 # databricks/dbrx-base): 16 experts, top-4, capacity factor 1.25 (the
 # runtime's default); a prefill of 2 x 2048 tokens and a decode step of 64
@@ -190,6 +205,12 @@ BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
 K1_TOL = 1e-5
+# the depths over which K1's and K3's float32 products are summed on the
+# tensor cores before an IEEE carry: csrc/bsr_spgemm.cu's REPRO_K1_CARRY;
+# K3 on wgmma at the Llama shape (block_sparse_attention.cu: Q K^T over all
+# of D, P V over a 32-row sub-tile)
+K1_CARRY_DEPTH = 32
+K3_CARRY_DEPTH = {"qk": LLAMA["head_dim"], "pv": 32}
 K2_TOL = K3_TOL = SPGEMM_TOL = 1e-4
 K3_BF16_TOL = 2e-2
 K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
@@ -202,6 +223,50 @@ K2_DIGESTS = {
         "6f230640ea52dc69cbb2d41e67b69a45da7196298abdef11e68c61223627c9f5",
     "cant spmv T=1":
         "65079b5cd91cfa5629a0ea1c051dbcb2b9150421852834a776bb7009ff05aa66"}
+# SHA-256 of K4's and K5's outputs in phases 12 and 9 (``compare``'s
+# ``got``; inputs from seeded generators on the card), read from the kernels
+# before their mma.sync, ldmatrix and wgmma helpers moved to csrc/common.cuh:
+# the shared header must leave both bit-identical
+K4_DIGESTS = {
+    "K4 hymba S=2048 bf16: H=25, Hkv=5, D=64, {'window': 1024}":
+        "04a9b752dab6acb54335fce81cf26ba725fab053eb0c586e6a2257766a094e9d",
+    "K4 hymba S=2048 f32: H=25, Hkv=5, D=64, {'window': 1024}":
+        "410e6ee4ece957cb44b0a0a02cf6f6740782d51e18dae1b77ffd37e537e39102",
+    "K4 hymba S=100 (ragged) f32: H=25, Hkv=5, D=64, {'window': 1024}":
+        "6d3c9013d2ced5796006d297ba213aac0d707cf033212228d8b31827eeda3ce8",
+    "K4 qwen3-1.7b causal S=2048 bf16: H=16, Hkv=8, D=128, {}":
+        "1dde670c360aeb0c2340fc97f60ce4a0f818dcea4fdc348a0e1933185116d60b",
+    "K4 qwen3-1.7b causal S=2048 f32: H=16, Hkv=8, D=128, {}":
+        "13030cb9d6cff504de4aa8b29d00b31e7e0b5ce42f04c9376dac432785ac9130",
+    "K4 softcap 50, window 256, S=1000 f32: H=8, Hkv=4, D=128, {'window': 256, 'softcap': 50.0}":
+        "8fc2d606a973a43736bb824459fd4fd9426026ac3f82f7157e6f7d4b49661b03",
+    "K4 gemma2-2b S=2048 bf16: H=8, Hkv=4, D=256, {'window': 4096, 'softcap': 50.0}":
+        "6f16757240d0169b9d10debd25060e4529189fd6c98bdc8bf3a8f1e6dbccfb3b",
+    "K4 gemma2-2b S=2048 f32: H=8, Hkv=4, D=256, {'window': 4096, 'softcap': 50.0}":
+        "492ed6c9629b8c0146887c58630ddfba56e8384592b52e30ab98739e8a35f576",
+    "K4 reduced config S=300 bf16: H=4, Hkv=2, D=16, {'window': 32}":
+        "e2b8d752eb63bc4d7a3a02403c32e2225b3a394f3902c62b210fe1c6a29a5cab",
+    "K4 reduced config S=300 f32: H=4, Hkv=2, D=16, {'window': 32}":
+        "897757c7b464d394c0634ccbb480b8f23b56160114578a0e272e09cafafbd7ae",
+    "K4 D=32, window 16, S=300 bf16: H=4, Hkv=2, D=32, {'window': 16}":
+        "320a8c9d8780634af6fdc096efcf90ba03edf80b9626dc8c83b0170c156a5453",
+    "K4 D=32, window 16, S=300 f32: H=4, Hkv=2, D=32, {'window': 16}":
+        "dc02089b93f666d1aa9035690eef4fe50c38ff7508f132c0cd55f4c76b0c34cb"}
+K5_DIGESTS = {
+    "DBRX prefill gate: (16,1280,6144) x (16,6144,10752), row tile 128":
+        "fbefb9875c0828db430f993d76490326ac7de59f131e7445d11c41cb9b0d0baa",
+    "DBRX prefill down: (16,1280,10752) x (16,10752,6144), row tile 128":
+        "650181d45f7034e8dafee676a5de9ecf79e50561dd4aaad5f4d2840eabd18970",
+    "DBRX decode gate: (16,24,6144) x (16,6144,10752), row tile 32":
+        "400562149c4df7f4de04ad4f384837e0b25a760c437bcfd15154a40f57ff1c79",
+    "DBRX decode down: (16,24,10752) x (16,10752,6144), row tile 32":
+        "f1dc8941bae16b3849bef1fd9c815b05f3939205ce5be22fb30a6948c48a0817",
+    "DBRX decode gate, bfloat16":
+        "ee1f9b97743162138a549157b02b4767237dc2206b13b3dd5355cf8a3fed53c6",
+    "DBRX prefill gate, bfloat16":
+        "ab895429eb34146ca083df4cdb626f94f147fac94ddca55354dac6ae66687532"}
+# compare()'s kernel outputs of the kernels above, by "<kernel> <case>"
+OUTPUT_DIGESTS: dict = {}
 # bfloat16 K4 also as a whole: ||got - want|| / ||want|| against the plain
 # version.  P and the outputs rounded to bfloat16 give about 2e-3 at phase
 # 12's shapes; dropping the 63 oldest keys of each window gives about 1e-1
@@ -217,8 +282,8 @@ CG_F32_RESIDUAL, CG_F64_RESIDUAL = 1e-4, 1e-8
 TIMED_LAUNCHES = 30
 # the device kernels of K1-K6 (csrc/*.cu), for the profiles' per-kernel sums
 PORT_KERNEL_NAMES = {
-    "K1": ("bsr_spgemm_kernel",), "K2": ("spmm_tile_kernel", "spmm_gemv_kernel"),
-    "K3": ("block_attn_kernel",), "K4": ("flash_attn_",), "K5": ("moe_gemm_",),
+    "K1": ("bsr_spgemm_",), "K2": ("spmm_tile_kernel", "spmm_gemv_kernel"),
+    "K3": ("block_attn_",), "K4": ("flash_attn_",), "K5": ("moe_gemm_",),
     "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel")}
 
 
@@ -251,6 +316,7 @@ def compare(name: str, got, want, tol: float, kernel: str = "K1",
     """max |got - want| after asserting allclose(rtol=atol=tol) and, where
     ``rel_norm_tol`` is given, ||got - want|| / ||want|| <= rel_norm_tol."""
     import torch
+    got_raw = got
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     max_abs = diff.max().item() if diff.numel() else 0.0
@@ -263,7 +329,28 @@ def compare(name: str, got, want, tol: float, kernel: str = "K1",
          shape=list(got.shape), max_abs_err=max_abs, max_rel_err=max_rel,
          rel_norm=rel_norm, tol=tol, rel_norm_tol=rel_norm_tol, ok=ok)
     check(ok, f"{kernel} disagrees with its plain version ({name})")
+    if kernel in ("K4", "K5"):
+        OUTPUT_DIGESTS[f"{kernel} {name}"] = digest(got_raw)
     return max_abs
+
+
+def digest(t) -> str:
+    """SHA-256 of a tensor's bytes (any dtype, bfloat16 too)."""
+    import hashlib
+
+    import torch
+    return hashlib.sha256(t.detach().contiguous().cpu().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def check_digests(kernel: str, expected: dict, card: str) -> None:
+    """``kernel``'s recorded output digests against ``expected``."""
+    got = {k[len(kernel) + 1:]: v for k, v in OUTPUT_DIGESTS.items()
+           if k.startswith(kernel + " ")}
+    emit(phase="digests", kernel=kernel, digests=got, expected=expected,
+         equal=got == expected, card=card)
+    check(got == expected, f"{kernel}'s outputs are not bit-identical to "
+          f"{kernel}_DIGESTS")
 
 
 def cancelling_stack(w, eps: float, seed: int):
@@ -276,6 +363,49 @@ def cancelling_stack(w, eps: float, seed: int):
                np.concatenate([w.indices, w.indices]),
                np.concatenate([w.data, -w.data * (1 + eps * r)])
                .astype(np.float32))
+
+
+def k1_cases(fa, dev):
+    """Phase 3's K1 cases: filter3D's sync plan at bs = 128, its bucketed
+    chunk 1 (with the dead trailing group) and a blocky 8192 at bs = 32, as
+    label -> (schedule, A tiles, B tiles, n_out_blocks, the plain version's
+    a_id, b_id, out_id on the card); with the plan and the chunk."""
+    import torch
+    from repro_torch.core import inspect_spgemm_block, random_csr
+    from repro_torch.kernels.bsr_spgemm import prepare_schedule
+    from repro_torch.runtime import bucket_block_schedule, build_block_chunkset
+
+    def ids(*arrays):
+        return [torch.from_numpy(np.asarray(x)).to(dev) for x in arrays]
+
+    cases = {}
+    plan = inspect_spgemm_block(fa, fa, 128)
+    cases["filter3D sync plan, bs=128"] = (
+        prepare_schedule(plan.schedule),
+        torch.from_numpy(plan.a_pat.scatter(fa.data)).to(dev),
+        torch.from_numpy(plan.b_pat.scatter(fa.data)).to(dev),
+        plan.n_out_blocks, ids(plan.a_id, plan.b_id, plan.out_id))
+
+    ch = build_block_chunkset(plan, 4).chunk(1)
+    sched = bucket_block_schedule(ch)
+    check(sched["pair_cap"] > ch.n_pairs, "chunk has no dead group")
+    ca = np.zeros((sched["a_cap"], 128, 128), np.float32)
+    ca[ch.a_eblk, ch.a_erow, ch.a_ecol] = fa.data[ch.a_sel]
+    cb = np.zeros((sched["b_cap"], 128, 128), np.float32)
+    cb[ch.b_eblk, ch.b_erow, ch.b_ecol] = fa.data[ch.b_sel]
+    cases[f"filter3D bucketed chunk 1 (pairs {ch.n_pairs} -> "
+          f"{sched['pair_cap']}, dead group -> tile {sched['out_cap']})"] = (
+        sched, torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev),
+        sched["out_cap"] + 1, ids(sched["a_id"], sched["b_id"],
+                                  sched["out_id"]))
+
+    small = random_csr(8192, 8192, 0.002, np.random.default_rng(3), "blocky")
+    p32 = inspect_spgemm_block(small, small, 32)
+    s_blocks = torch.from_numpy(p32.a_pat.scatter(small.data)).to(dev)
+    cases["blocky 8192, bs=32"] = (
+        p32.schedule, s_blocks, s_blocks, p32.n_out_blocks,
+        ids(p32.a_id, p32.b_id, p32.out_id))
+    return cases, plan, ch
 
 
 def numpy_ref(a):
@@ -648,13 +778,7 @@ def spmm_solver_phases(fa, spd, card: str) -> dict:
 def k2_digests(x, tiles, k2s, n_j, v, vtiles, vs, nv_j) -> dict:
     """SHA-256 of K2's outputs at phase 6's filter3D spmm (the tile path)
     and cant spmv (the GEMV) inputs."""
-    import hashlib
-
     from repro_torch.kernels.bsr_spmm import bsr_spmm
-
-    def digest(y):
-        return hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
-
     return {"filter3D spmm T=256": digest(bsr_spmm(x, tiles, k2s,
                                                    n_j_blocks=n_j)),
             "cant spmv T=1": digest(bsr_spmm(v, vtiles, vs,
@@ -725,7 +849,7 @@ def attention_phases(card: str) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import (
         block_sparse_attention, block_sparse_attention_plain,
-        inspect_block_attention)
+        block_sparse_attention_plan, inspect_block_attention)
     from repro_torch.runtime import ReapRuntime
     dev = torch.device("cuda")
     b, h, hkv, d, s, bs = (LLAMA[k] for k in ("batch", "heads", "kv_heads",
@@ -742,18 +866,19 @@ def attention_phases(card: str) -> dict:
     q, k, v = llama_qkv(gen)
     ids = [torch.from_numpy(a).to(dev) for a in (plan.kv_ids, plan.n_kv)]
     errs = []
+    # the Llama cases through the plan's memoized schedule (the main path's
+    # route), the other shapes through raw ids
     for softcap in (0.0, 50.0):
         errs.append(compare(
             f"Llama-3-8B attention f32, softcap {softcap}",
-            block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv,
-                                   softcap=softcap),
+            block_sparse_attention_plan(q, k, v, plan, softcap=softcap),
             block_sparse_attention_plain(q, k, v, *ids, softcap=softcap,
                                          scale=d ** -0.5, seq=s),
             K3_TOL, "K3"))
     qh, kh, vh = (x.to(torch.bfloat16) for x in (q, k, v))
     errs.append(compare(
         "Llama-3-8B attention bf16, softcap 0",
-        block_sparse_attention(qh, kh, vh, plan.kv_ids, plan.n_kv),
+        block_sparse_attention_plan(qh, kh, vh, plan),
         block_sparse_attention_plain(qh, kh, vh, *ids, softcap=0.0,
                                      scale=d ** -0.5, seq=s),
         K3_BF16_TOL, "K3"))
@@ -807,17 +932,21 @@ def attention_phases(card: str) -> dict:
     for label, ops in (("cold", (q, k, v)),
                        ("warm, fresh q/k/v", llama_qkv(gen))):
         before = block_sparse_attention.launches
+        uploads = block_sparse_attention.uploads
         (out, st), wall = timed(lambda: rt.run("block_attention", *ops,
                                                mask))
+        uploads = block_sparse_attention.uploads - uploads
         check(block_sparse_attention.launches == before + 1,
               f"K3 did not launch ({label})")
+        check(label == "cold" or uploads == 0,
+              "a warm block_attention call uploaded its schedule")
         check(st["cache_hit"] is (label != "cold"), "attention cache")
         check(tuple(out.shape) == (b, h, s, d) and out.dtype == q.dtype,
               "attention output shape or dtype")
         err, ok = oracle(*ops, out)
         main_path_row(f"Llama-3-8B block_attention, {label}", wall, st,
-                      k3_launches=1, max_abs_err_4_heads=err, tol=K3_TOL,
-                      ok=ok)
+                      k3_launches=1, k3_schedule_uploads=uploads,
+                      max_abs_err_4_heads=err, tol=K3_TOL, ok=ok)
         check(ok, f"attention ({label}) differs from the float64 oracle")
         del out
     # the runtime's block 16 (the field K1 and K2 take), Llama's heads
@@ -843,8 +972,15 @@ def attention_phases(card: str) -> dict:
          max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
 
     # -- 8. times -----------------------------------------------------------
-    k3_ms = event_ms(lambda: block_sparse_attention(q, k, v, plan.kv_ids,
-                                                    plan.n_kv))
+    # through the plan's memoized schedule, block_attention_execute's route
+    uploads = block_sparse_attention.uploads
+    k3_ms = event_ms(lambda: block_sparse_attention_plan(q, k, v, plan))
+    qh, kh, vh = (x.to(torch.bfloat16) for x in (q, k, v))
+    k3_bf16_ms = event_ms(lambda: block_sparse_attention_plan(qh, kh, vh,
+                                                              plan))
+    uploads = block_sparse_attention.uploads - uploads
+    check(uploads == 0, "K3's timed calls uploaded their schedule")
+    del qh, kh, vh
     plain_ms = event_ms(lambda: block_sparse_attention_plain(
         q, k, v, *ids, softcap=0.0, scale=d ** -0.5, seq=s), 5)
     k_full, v_full = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
@@ -853,15 +989,26 @@ def attention_phases(card: str) -> dict:
                               q, k_full, v_full, attn_mask=tok), 5)
     del k_full, v_full
     flop = plan.flops(b, h, d)
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 4 \
-        + plan.kv_ids.nbytes + plan.n_kv.nbytes
-    bound_ms, bound_by = bound(flop, nbytes)
-    emit(phase="times", kernel="K3", case="Llama-3-8B attention f32",
-         n_visible=plan.n_visible, flop=flop, bytes=nbytes, k3_ms=k3_ms,
+    elems = 2 * q.numel() + k.numel() + v.numel()
+    ids_bytes = plan.kv_ids.nbytes + plan.n_kv.nbytes
+    # the design's bound, 3xTF32: three TF32 tensor-core products per
+    # product; beside it the bound of one fp32 FMA per product, and the
+    # bfloat16 call's bound (bf16 tensor cores, 2-byte elements)
+    bound_ms, bound_by = bound(3 * flop, elems * 4 + ids_bytes, TF32_FLOPS)
+    fma_bound_ms, _ = bound(flop, elems * 4 + ids_bytes)
+    bf16_bound_ms, bf16_bound_by = bound(flop, elems * 2 + ids_bytes,
+                                         BF16_FLOPS)
+    emit(phase="times", kernel="K3", case="Llama-3-8B attention",
+         n_visible=plan.n_visible, flop=flop, bytes=elems * 4 + ids_bytes,
+         k3_ms=k3_ms,
          k3_tflops=flop / k3_ms / 1e9, plain_ms=plain_ms,
          library_ms=library_ms,
          library="scaled_dot_product_attention, dense boolean block mask",
-         bound_ms=bound_ms, bound_by=bound_by, card=card)
+         bound_ms=bound_ms, bound_by=bound_by,
+         bound_fp32_fma_ms=fma_bound_ms, carry_depth=K3_CARRY_DEPTH,
+         k3_bf16_ms=k3_bf16_ms, k3_bf16_tflops=flop / k3_bf16_ms / 1e9,
+         bf16_bound_ms=bf16_bound_ms, bf16_bound_by=bf16_bound_by,
+         warm_schedule_uploads=uploads, card=card)
     return {
         "name": "block_sparse_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/block_sparse_attention.cu",
@@ -1571,16 +1718,12 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False)", file=sys.stderr)
         return 2
-    from repro_torch.core import (CSR, cholesky_baseline_numpy,
-                                  inspect_spgemm_block, random_csr,
-                                  random_spd_csr)
+    from repro_torch.core import CSR, cholesky_baseline_numpy, random_spd_csr
     from repro_torch.kernels import _build
     from repro_torch.kernels.bsr_spgemm import (bsr_spgemm,
                                                 bsr_spgemm_plain,
-                                                bsr_spgemm_schedule,
-                                                prepare_schedule)
-    from repro_torch.runtime import (ReapRuntime, bucket_block_schedule,
-                                     build_block_chunkset)
+                                                bsr_spgemm_schedule)
+    from repro_torch.runtime import ReapRuntime
 
     # -- 1. device ----------------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -1617,59 +1760,24 @@ def main() -> int:
     emit(phase="generate", seconds=time.perf_counter() - t0,
          filter3D_nnz=fa.nnz, cage12_nnz=cage.nnz, pre_poisson_nnz=spd.nnz)
 
-    def ids(*arrays):
-        return [torch.from_numpy(np.asarray(x)).to(dev) for x in arrays]
-
-    plan = inspect_spgemm_block(fa, fa, 128)
-    a_blocks = torch.from_numpy(plan.a_pat.scatter(fa.data)).to(dev)
-    b_blocks = torch.from_numpy(plan.b_pat.scatter(fa.data)).to(dev)
-    k1_sched = prepare_schedule(plan.schedule)
-    plan_ids = ids(plan.a_id, plan.b_id, plan.out_id)
-    n_out = plan.n_out_blocks
-    errs = [compare("filter3D sync plan, bs=128",
-                    bsr_spgemm_schedule(k1_sched, a_blocks, b_blocks,
-                                        n_out_blocks=n_out),
-                    bsr_spgemm_plain(a_blocks, b_blocks, *plan_ids,
-                                     n_out_blocks=n_out), K1_TOL)]
-
-    chunkset = build_block_chunkset(plan, 4)
-    ch = chunkset.chunk(1)
-    sched = bucket_block_schedule(ch)
-    check(sched["pair_cap"] > ch.n_pairs, "chunk has no dead group")
-    ca = np.zeros((sched["a_cap"], 128, 128), np.float32)
-    ca[ch.a_eblk, ch.a_erow, ch.a_ecol] = fa.data[ch.a_sel]
-    cb = np.zeros((sched["b_cap"], 128, 128), np.float32)
-    cb[ch.b_eblk, ch.b_erow, ch.b_ecol] = fa.data[ch.b_sel]
-    ca, cb = torch.from_numpy(ca).to(dev), torch.from_numpy(cb).to(dev)
-    n_cap = sched["out_cap"] + 1
-    errs.append(compare(
-        f"filter3D bucketed chunk 1 (pairs {ch.n_pairs} -> "
-        f"{sched['pair_cap']}, dead group -> tile {sched['out_cap']})",
-        bsr_spgemm_schedule(sched, ca, cb, n_out_blocks=n_cap),
-        bsr_spgemm_plain(ca, cb, *ids(sched["a_id"], sched["b_id"],
-                                      sched["out_id"]),
-                         n_out_blocks=n_cap), K1_TOL))
-
-    small = random_csr(8192, 8192, 0.002, np.random.default_rng(3), "blocky")
-    p32 = inspect_spgemm_block(small, small, 32)
-    s_blocks = torch.from_numpy(p32.a_pat.scatter(small.data)).to(dev)
-    errs.append(compare(
-        "blocky 8192, bs=32",
-        bsr_spgemm_schedule(p32.schedule, s_blocks, s_blocks,
-                            n_out_blocks=p32.n_out_blocks),
-        bsr_spgemm_plain(s_blocks, s_blocks,
-                         *ids(p32.a_id, p32.b_id, p32.out_id),
-                         n_out_blocks=p32.n_out_blocks), K1_TOL))
+    cases, plan, ch = k1_cases(fa, dev)
+    errs = [compare(label, bsr_spgemm_schedule(sched, a, b, n_out_blocks=n),
+                    bsr_spgemm_plain(a, b, *ids, n_out_blocks=n), K1_TOL)
+            for label, (sched, a, b, n, ids) in cases.items()]
+    (k1_sched, a_blocks, b_blocks, n_out, plan_ids), \
+        (sched, ca, cb, n_cap, _), _ = cases.values()
     torch.cuda.synchronize()
 
     # -- 4. main path -------------------------------------------------------
     calls = []
 
     def call(case, fn, launches_before):
+        uploads = bsr_spgemm.uploads
         out, wall = timed(fn)
         stats = out[-1]
         row = dict(phase="main_path", case=case, call_s=wall,
                    k1_launches=bsr_spgemm.launches - launches_before,
+                   k1_schedule_uploads=bsr_spgemm.uploads - uploads,
                    **{k: stats.get(k) for k in (
                        "method", "cache_hit", "inspect_s", "plan_s",
                        "execute_s", "wall_s", "hidden_s", "n_chunks",
@@ -1697,6 +1805,8 @@ def main() -> int:
     c, st = call("filter3D A@A auto, fresh values (warm)",
                  lambda: rt.spgemm(fa2, fa2), n0)
     check(st["cache_hit"] is True, "same pattern missed the plan cache")
+    check(calls[-1]["k1_schedule_uploads"] == 0,
+          "a warm chunked call uploaded a K1 schedule")
     check_spgemm("filter3D block_chunked warm", c, *numpy_ref(fa2))
 
     for label in ("cold", "warm"):
@@ -1712,6 +1822,8 @@ def main() -> int:
                      lambda: rt_sync.spgemm(fa, fa), n0)
         check(st["method"] == "block", f"route {st['method']}")
         check(bsr_spgemm.launches > n0, "K1 did not launch on the sync path")
+        check(label == "cold" or calls[-1]["k1_schedule_uploads"] == 0,
+              "a warm sync call uploaded a K1 schedule")
     check_spgemm("filter3D block sync", c, ref_fa, ref_fa_s)
 
     for label, overlap in (("overlapped, cold", True), ("sync, warm", False)):
@@ -1745,8 +1857,10 @@ def main() -> int:
     device_share("cage12 A@A chunked, warm", lambda: rt.spgemm(cage, cage))
 
     # -- 5. times at the filter3D sync-plan shapes -------------------------
+    uploads = bsr_spgemm.uploads
     k1_ms = event_ms(lambda: bsr_spgemm_schedule(
         k1_sched, a_blocks, b_blocks, n_out_blocks=n_out))
+    uploads = bsr_spgemm.uploads - uploads
     plain_ms = event_ms(lambda: bsr_spgemm_plain(
         a_blocks, b_blocks, *plan_ids, n_out_blocks=n_out))
 
@@ -1759,12 +1873,18 @@ def main() -> int:
     flop = 2 * plan.n_pairs * 128 ** 3
     nbytes = (a_blocks.numel() + b_blocks.numel() + n_out * 128 * 128) * 4 \
         + k1_sched.ids.nbytes
-    bound_ms, bound_by = bound(flop, nbytes)
-    emit(phase="times", case="filter3D sync plan", n_pairs=plan.n_pairs,
-         n_out_blocks=n_out, flop=flop, bytes=nbytes, k1_ms=k1_ms,
-         plain_ms=plain_ms, library_ms=library_ms,
-         k1_tflops=flop / k1_ms / 1e9, bound_ms=bound_ms, bound_by=bound_by,
-         card=card)
+    # the design's bound, 3xTF32: three TF32 tensor-core products per
+    # product; beside it the bound of one fp32 FMA per product
+    bound_ms, bound_by = bound(3 * flop, nbytes, TF32_FLOPS)
+    fma_bound_ms, _ = bound(flop, nbytes)
+    emit(phase="times", kernel="K1", case="filter3D sync plan",
+         n_pairs=plan.n_pairs, n_out_blocks=n_out, flop=flop, bytes=nbytes,
+         k1_ms=k1_ms, plain_ms=plain_ms, library_ms=library_ms,
+         library="torch.bmm + index_add_", k1_tflops=flop / k1_ms / 1e9,
+         bound_ms=bound_ms, bound_by=bound_by,
+         bound_fp32_fma_ms=fma_bound_ms, carry_depth=K1_CARRY_DEPTH,
+         warm_schedule_uploads=uploads, card=card)
+    check(uploads == 0, "K1's timed calls uploaded their schedule")
     # the chunk path hands K1 the live pairs only; the bucketed schedule's
     # dead tail is one group that a single thread block would run alone
     emit(phase="times", case=f"filter3D chunk 1, {ch.n_pairs} live pairs",
@@ -1781,16 +1901,18 @@ def main() -> int:
         "ms": k1_ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": library_ms}
-    del a_blocks, b_blocks, ca, cb, s_blocks
+    del a_blocks, b_blocks, ca, cb, cases
     torch.cuda.empty_cache()
 
     k2_row = spmm_solver_phases(fa, spd, card)
     k3_row = attention_phases(card)
     k5_row = moe_phases(card)
+    check_digests("K5", K5_DIGESTS, card)
     torch.cuda.empty_cache()
 
     # -- 12.-15. the LM stack: hymba-1.5b, K4 and K6 -----------------------
     k4_err, k6_err = k4_k6_against_plain(dev)
+    check_digests("K4", K4_DIGESTS, card)
     hymba_in_situ(dev)
     torch.cuda.empty_cache()
     k4_launches, k6_launches = hymba_serving(dev, card)

@@ -3,12 +3,37 @@
 ``chip_smoke.py``: each prints JSON lines, the first naming the card as
 ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` gives it.
 
+    PYTHONPATH=src python scripts/card_studies.py k1-carry
+    PYTHONPATH=src python scripts/card_studies.py k3-numerics
     PYTHONPATH=src python scripts/card_studies.py k5-carry
+    PYTHONPATH=src python scripts/card_studies.py kernel-times
     PYTHONPATH=src python scripts/card_studies.py k5-stream
     PYTHONPATH=src python scripts/card_studies.py k6-time
     PYTHONPATH=src python scripts/card_studies.py hymba-repeat [--seeds 10 --runs 5]
     PYTHONPATH=src python scripts/card_studies.py situ-repeat [--runs 200]
 
+* ``k1-carry`` — K1 at ``chip_smoke.py`` phase 3's three cases (filter3D's
+  sync plan and its bucketed chunk 1 at bs = 128, a blocky 8192 at
+  bs = 32) with the tensor cores' partial sums carried into the IEEE fp32
+  accumulator every N = 8, 16, 32, 64 and 128 deep (the shipped kernel's
+  N is ``chip_smoke.K1_CARRY_DEPTH``; the others are ``csrc/bsr_spgemm.cu``
+  built again with ``-DREPRO_K1_CARRY=N`` into libraries of their own):
+  each one's largest error against the plain
+  version, its largest error over K1's limit (1e-5 (1 + |plain|), 1 at the
+  limit), both its and the plain version's error against a float64 run of
+  the plain version, and its time.  bs = 32 runs the FMA kernel, which has
+  no carry.
+* ``k3-numerics`` — K3 in float32 through the plan route: on ``wgmma`` at
+  the Llama-3-8B shape (softcap 0 and 50) and at Llama's heads with V
+  stacked on its near negation (outputs that cancel); on ``mma.sync`` at
+  Llama's heads with block 64 and at gemma2-2b's heads (D = 256, softcap
+  50).  The shipped kernel (its TF32 split: big part by truncation, the
+  small part as is; ``mma.sync`` carrying every 64 deep)
+  against builds whose ``mma.sync`` path carries every 32 deep
+  (``-DREPRO_K3_CARRY=32``) or once a sub-tile (``=0``) and one with
+  split_tf32's rounding of both parts (``-DREPRO_K3_SPLIT_RN``): each
+  one's largest error against the plain version and over K3's limit
+  (1e-4 (1 + |plain|)), and its time.
 * ``k5-carry`` — K5 in float32 at DBRX-132B's MoE shapes (``chip_smoke.py``
   phase 9's bundles: the gate and down products of a prefill of 2 × 2048
   tokens and of a decode step of 64), with the tensor cores' partial sums
@@ -19,6 +44,13 @@
   whole layer (``moe_ffn_host``) with each, against the layer with the
   plain ``moe_gemm`` (``chip_smoke.py``'s ``MOE_TOL``).  The decode shapes
   run the FMA kernel, which has no carry.
+* ``kernel-times`` — K2 (filter3D ``spmm``, T = 256), K4 (hymba-1.5b's
+  2048-token bfloat16 prefill), K6 (hymba's SSM heads, T = 2048) and K5
+  (DBRX-132B's gate product at cap 1280 and 24, expert map on the card)
+  on random inputs: per call by CUDA events and on the device (calls
+  captured in a CUDA graph), with the tree whose ``repro_torch`` ran.  To
+  hold two trees against each other on one card, copy this file into the
+  other tree's ``scripts/`` and run both in turns (A, B, B, A).
 * ``k5-stream`` — how fast one DBRX-132B weight stack (16 experts of
   6144 × 10752 float32, 4.23 GB) can be read: ``w.sum()`` (contiguous) and
   ``w.amax(dim=1)`` (every column down the rows, the order of a decode
@@ -77,20 +109,176 @@ def card() -> str:
 
 
 @contextlib.contextmanager
-def k5_build(carry: int):
-    """K5's wrapper bound to the shipped kernel (carry 1) or to a build of
-    the same source with ``-DREPRO_K5_NO_CARRY`` (carry 0), which lands in
-    ``build/`` under a digest of its own."""
+def kernel_build(kernel: str, *defines: str):
+    """``kernel``'s wrapper bound to a build of ``csrc/<kernel>.cu`` with
+    ``-D`` ``defines`` (none: the shipped kernel), which lands in ``build/``
+    under a digest of its own."""
     from repro_torch.kernels import _build
     flags = _build.NVCC_FLAGS
-    if not carry:
-        _build.NVCC_FLAGS = flags + ("-DREPRO_K5_NO_CARRY",)
-    _build._LOADED.pop("moe_gemm", None)
+    _build.NVCC_FLAGS = flags + tuple(f"-D{d}" for d in defines)
+    _build._LOADED.pop(kernel, None)
     try:
         yield
     finally:
         _build.NVCC_FLAGS = flags
-        _build._LOADED.pop("moe_gemm", None)
+        _build._LOADED.pop(kernel, None)
+
+
+def k1_carry(name: str) -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels.bsr_spgemm import (bsr_spgemm_plain,
+                                                bsr_spgemm_schedule)
+    dev = torch.device("cuda")
+    cases, _, _ = cs.k1_cases(cs.table1_csr(cs.FILTER3D, 0), dev)
+    for label, (sched, a, b, n, ids) in cases.items():
+        want = bsr_spgemm_plain(a, b, *ids, n_out_blocks=n)
+        exact = bsr_spgemm_plain(a.double(), b.double(), *ids,
+                                 n_out_blocks=n)
+        row = dict(study="k1_carry", case=label, tol=cs.K1_TOL,
+                   want_abs_max=want.abs().max().item(),
+                   plain_vs_float64_max_abs_err=(want - exact).abs().max()
+                   .item(), card=name)
+        for carry in (8, 16, 32, 64, 128):
+            shipped = carry == cs.K1_CARRY_DEPTH
+            with kernel_build("bsr_spgemm", *([] if shipped else
+                                              [f"REPRO_K1_CARRY={carry}"])):
+                got = bsr_spgemm_schedule(sched, a, b, n_out_blocks=n)
+                diff = (got - want).abs()
+                row[f"n{carry}_max_abs_err"] = diff.max().item()
+                row[f"n{carry}_err_over_limit"] = (
+                    diff / (cs.K1_TOL * (1 + want.abs()))).max().item()
+                row[f"n{carry}_vs_float64_max_abs_err"] = (
+                    got - exact).abs().max().item()
+                row[f"n{carry}_ms"] = cs.event_ms(
+                    lambda: bsr_spgemm_schedule(sched, a, b, n_out_blocks=n))
+        emit(**row)
+
+
+def cancelling_attention(gen, s=2048, bs=128, h=32, hkv=8, d=128):
+    """Attention whose outputs nearly cancel: kv blocks past s / 2 repeat
+    the keys of the first half with V stacked as -V (1 + 1e-3 r), and each
+    q block sees a block and its twin (``tests/test_torch_gpu.py::
+    test_k3_holds_cancelling_sums`` at Llama-3-8B's heads).  Returns q, k,
+    v and the plan."""
+    from repro_torch.core import COO, CSR
+    from repro_torch.kernels.flash_attention import inspect_block_attention
+    nb = s // bs // 2
+    rng = np.random.default_rng(31)
+    vis = rng.random((2 * nb, nb)) < 0.6
+    vis[np.arange(2 * nb), rng.integers(0, nb, 2 * nb)] = True
+    qb, kb = np.nonzero(np.concatenate([vis, vis], axis=1))
+    mask = CSR.from_coo(COO(s, s, qb * bs, kb * bs,
+                            np.ones(qb.size, np.float32)))
+    dev = gen.device
+    q = torch.randn((1, h, s, d), generator=gen, device=dev)
+    k0, v0 = (torch.randn((1, hkv, s // 2, d), generator=gen, device=dev)
+              for _ in range(2))
+    r = torch.randn(v0.shape, generator=gen, device=dev)
+    return (q, torch.cat([k0, k0], 2), torch.cat([v0, -v0 * (1 + 1e-3 * r)],
+                                                 2),
+            inspect_block_attention(mask, bs))
+
+
+def k3_numerics(name: str) -> None:
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import (
+        block_sparse_attention_plain, block_sparse_attention_plan,
+        inspect_block_attention)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+    q, k, v = cs.llama_qkv(gen)
+    plan = inspect_block_attention(cs.llama_mask()[0], cs.LLAMA["block"])
+    gemma = [torch.randn((1, n, 2048, 256), generator=gen, device=dev)
+             for n in (8, 4, 4)]
+    llama64 = [torch.randn((1, n, 2048, 128), generator=gen, device=dev)
+               for n in (32, 8, 8)]
+    cases = {"Llama-3-8B f32, softcap 0 (wgmma)": (q, k, v, plan, 0.0),
+             "Llama-3-8B f32, softcap 50 (wgmma)": (q, k, v, plan, 50.0),
+             "Llama-3-8B heads, S=2048, V cancelling (wgmma)": (
+                 *cancelling_attention(gen), 0.0),
+             "Llama-3-8B heads, S=2048, block 64 (mma.sync)": (
+                 *llama64, inspect_block_attention(
+                     cs.window_mask(2048, 64, 16)[0], 64), 0.0),
+             "gemma2-2b heads, D=256, S=2048, block 128, softcap 50 "
+             "(mma.sync)": (*gemma, inspect_block_attention(
+                 cs.window_mask(2048, 128, 8)[0], 128), 50.0)}
+    variants = {"shipped": (), "carry32": ("REPRO_K3_CARRY=32",),
+                "no_carry": ("REPRO_K3_CARRY=0",),
+                "split_rn": ("REPRO_K3_SPLIT_RN",)}
+    for label, (q, k, v, p, cap) in cases.items():
+        ids = [torch.from_numpy(x).to(dev) for x in (p.kv_ids, p.n_kv)]
+        want = block_sparse_attention_plain(q, k, v, *ids, softcap=cap,
+                                            scale=q.shape[-1] ** -0.5,
+                                            seq=p.seq)
+        row = dict(study="k3_numerics", case=label, tol=cs.K3_TOL,
+                   want_abs_max=want.abs().max().item(), card=name)
+        for variant, defines in variants.items():
+            with kernel_build("block_sparse_attention", *defines):
+                diff = (block_sparse_attention_plan(q, k, v, p, softcap=cap)
+                        - want).abs()
+                row[f"{variant}_max_abs_err"] = diff.max().item()
+                row[f"{variant}_err_over_limit"] = (
+                    diff / (cs.K3_TOL * (1 + want.abs()))).max().item()
+                row[f"{variant}_ms"] = cs.event_ms(
+                    lambda: block_sparse_attention_plan(q, k, v, p,
+                                                        softcap=cap))
+        emit(**row)
+
+
+def kernel_times(name: str) -> None:
+    import chip_smoke as cs
+    import repro_torch
+    from repro_torch.core.rir import ScheduleBundle
+    from repro_torch.kernels.bsr_spmm import (bsr_spmm, inspect_spmm,
+                                              prepare_spmm_schedule)
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.moe_gemm import moe_gemm_schedule
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def row(kernel, case, fn):
+        emit(study="kernel_times", tree=str(Path(repro_torch.__file__)
+                                            .parents[2]),
+             kernel=kernel, case=case, ms=cs.event_ms(fn),
+             device_ms=cs.device_ms(fn), card=name)
+
+    fa = cs.table1_csr(cs.FILTER3D, 0)
+    plan = inspect_spmm(fa, 128)
+    k2s = prepare_spmm_schedule(plan.schedule, plan.n_j_blocks)
+    x = randn(cs.SPMM_TOKENS, plan.pat.n_rows)
+    tiles = torch.from_numpy(plan.scatter(fa.data)).to(dev)
+    row("K2", f"filter3D spmm T={cs.SPMM_TOKENS}",
+        lambda: bsr_spmm(x, tiles, k2s, n_j_blocks=plan.n_j_blocks))
+    del x, tiles
+    cfg = cs.hymba_config()
+    bf16 = torch.bfloat16
+    q = randn(1, cfg.n_heads, 2048, cfg.d_head, dtype=bf16)
+    k, v = (randn(1, cfg.n_kv_heads, 2048, cfg.d_head, dtype=bf16)
+            for _ in range(2))
+    row("K4", "hymba-1.5b prefill S=2048 bf16",
+        lambda: flash_attention(q, k, v, window=cfg.window))
+    r, kk = (randn(1, cfg.n_heads, 2048, cfg.ssm_state, dtype=bf16)
+             for _ in range(2))
+    vv = randn(1, cfg.n_heads, 2048, cfg.d_head, dtype=bf16)
+    w = torch.sigmoid(4 * randn(1, cfg.n_heads, 2048, cfg.ssm_state)).clamp(
+        1e-6, 1 - 1e-6)
+    u = torch.zeros(cfg.n_heads, cfg.ssm_state, device=dev)
+    row("K6", "hymba-1.5b SSM heads T=2048",
+        lambda: rwkv6(r, kk, vv, w, u, chunk=64))
+    d, e, f = (cs.DBRX[n] for n in ("d_model", "n_experts", "d_ff_expert"))
+    wt = randn(e, d, f) * d ** -0.5
+    be = ScheduleBundle("moe_dispatch",
+                        {"bundle_expert": np.arange(e, dtype=np.int32)})
+    for label, cap in (("prefill gate, cap 1280", 1280),
+                       ("decode gate, cap 24", 24)):
+        xb = randn(e, cap, d)
+        row("K5", f"DBRX {label}", lambda xb=xb: moe_gemm_schedule(be, xb, wt))
 
 
 def k5_carry(name: str) -> None:
@@ -105,6 +293,7 @@ def k5_carry(name: str) -> None:
     gen.manual_seed(50)
     p = cs.dbrx_moe_weights(gen)
     rt = ReapRuntime(device="cuda")
+    no_carry = {1: (), 0: ("REPRO_K5_NO_CARRY",)}
     for call, (b, s) in cs.MOE_CALLS.items():
         x = torch.randn((b, s, d), generator=gen, device=dev)
         tokens = x.reshape(-1, d)
@@ -122,7 +311,7 @@ def k5_carry(name: str) -> None:
             row = dict(study="k5_carry", case=f"DBRX {call} {label}",
                        shape=list(a.shape) + [w.shape[-1]], card=name)
             for carry in (1, 0):
-                with k5_build(carry):
+                with kernel_build("moe_gemm", *no_carry[carry]):
                     got = K5.moe_gemm(a, w, be)
                     diff = (got - want).abs()
                     row[f"carry{carry}_max_abs_err"] = diff.max().item()
@@ -139,7 +328,7 @@ def k5_carry(name: str) -> None:
         row = dict(study="k5_carry_layer", case=f"DBRX moe_ffn_host {call}",
                    tol=cs.MOE_TOL, card=name)
         for carry in (1, 0):
-            with k5_build(carry):
+            with kernel_build("moe_gemm", *no_carry[carry]):
                 out, _ = moe_ffn_host(
                     x, p, rt, n_experts=e, top_k=k,
                     capacity_factor=cs.DBRX["capacity_factor"])
@@ -349,7 +538,8 @@ def _to_cpu(tree):
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("study", choices=("k5-carry", "k5-stream", "k6-time",
+    ap.add_argument("study", choices=("k1-carry", "k3-numerics", "k5-carry",
+                                      "k5-stream", "k6-time", "kernel-times",
                                       "hymba-repeat", "situ-repeat"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
@@ -358,12 +548,18 @@ def main() -> int:
                     help="hymba-repeat: params seeds 0 .. seeds - 1")
     args = ap.parse_args()
     name = card()
-    if args.study == "k5-carry":
+    if args.study == "k1-carry":
+        k1_carry(name)
+    elif args.study == "k3-numerics":
+        k3_numerics(name)
+    elif args.study == "k5-carry":
         k5_carry(name)
     elif args.study == "k5-stream":
         k5_stream(name)
     elif args.study == "k6-time":
         k6_time(name)
+    elif args.study == "kernel-times":
+        kernel_times(name)
     elif args.study == "situ-repeat":
         situ_repeat(name, args.runs or 200)
     else:

@@ -13,18 +13,23 @@ Replaces the Pallas TPU kernel ``bsr_spgemm`` in
 
 Bound on an H100: ``2·n_pairs·bs³`` fp32 FLOP against the input tiles read
 once plus the output tiles written once.  At bs = 128 a pair does 4.2 MFLOP
-on 128 KiB of operands (32 FLOP/B), above the fp32 ridge of 67 TFLOP/s over
-3.35 TB/s (20 FLOP/B), so K1 is bound by fp32 operations.  IEEE fp32 is
-required (the reference holds K1 to 1e-5), which rules out TF32 tensor
-cores.  So the design spends nothing on memory tricks: one thread block per
-output group keeps the 128×128 accumulator in registers (256 threads × an
-8×8 sub-tile), stages 32-deep panels of A and B in shared memory and issues
-fp32 FMAs, and writes each tile once with no atomics.  ``wgmma``/TMA or
-3xTF32 are later work.
+on 128 KiB of operands (32 FLOP/B), so K1 is bound by operations.  A
+thread block keeps an output group's accumulator in registers and writes
+its tile once with no atomics.  At bs = 64 and 128 (the runtime's default
+block) a group is one GEMM over the gathered tiles, on the tensor cores in
+3xTF32 (``wgmma``, as K5): persistent blocks each take a run of groups
+balanced by pairs, 32-deep slices of A and B stream through a ``cp.async``
+ring, are split once per block into TF32 big and small halves (B
+transposed, since TF32 ``wgmma`` reads B only K-major), and each slice's
+products are carried into an IEEE fp32 sum (the tensor cores'
+accumulation truncates; the reference holds K1 to 1e-5).  At bs = 16 and
+32, off the main path, K1 keeps IEEE fp32 FMAs, one block per group.
 
 ``bsr_spgemm`` / ``bsr_spgemm_schedule`` dispatch on the tensors' device:
 CPU tensors run ``bsr_spgemm_plain``; CUDA tensors launch the kernel or
-raise.  ``bsr_spgemm.launches`` counts kernel launches.
+raise.  ``bsr_spgemm.launches`` counts kernel launches and
+``bsr_spgemm.uploads`` schedule uploads (one per ``K1Schedule`` and device:
+a plan's or chunk's memoized schedule keeps its device copy).
 """
 from __future__ import annotations
 
@@ -45,10 +50,13 @@ SUPPORTED_BS = (16, 32, 64, 128)
 class K1Schedule:
     """A validated schedule in the kernel's form (host arrays, no device).
 
-    ``ids`` is one int32 array ``a_id | b_id | out_id | group_start`` so a
-    launch uploads it with one copy; ``group_start`` (``n_groups + 1``
-    entries) holds each group's first pair and ends with ``n_pairs``.
-    Pattern-pure: callers memoize it per plan or chunk.
+    ``ids`` is one int32 array ``a_id | b_id | out_id | group_start``,
+    uploaded with one copy on the first launch on a device and kept there
+    (``device_ids``); ``group_start`` (``n_groups + 1`` entries) holds each
+    group's first pair and ends with ``n_pairs``.  ``dense``: the groups'
+    output tiles are ``0 .. n_groups - 1``, so a launch writes each of them
+    and only the tiles past them need zeros.  Pattern-pure: callers memoize
+    it per plan or chunk.
     """
 
     ids: np.ndarray
@@ -57,6 +65,17 @@ class K1Schedule:
     a_max: int
     b_max: int
     out_max: int
+    dense: bool
+
+    def device_ids(self, device: torch.device) -> torch.Tensor:
+        """``ids`` on ``device``, uploaded on first use and memoized on the
+        schedule outside its dataclass fields."""
+        memo = self.__dict__.setdefault("_device_ids", {})
+        key = str(device)
+        if key not in memo:
+            memo[key] = to_device(self.ids, device)
+            bsr_spgemm.uploads += 1
+        return memo[key]
 
 
 def prepare_schedule(schedule: Union[Mapping, "K1Schedule"]) -> K1Schedule:
@@ -86,9 +105,12 @@ def prepare_schedule(schedule: Union[Mapping, "K1Schedule"]) -> K1Schedule:
     maxima = [int(x.max()) if n else -1 for x in (a_id, b_id, out_id)]
     starts = np.flatnonzero(step) + 1
     group_start = np.concatenate([[0] if n else [], starts, [n]])
+    n_groups = group_start.shape[0] - 1
+    dense = np.array_equal(out_id[group_start[:-1].astype(np.int64)],
+                           np.arange(n_groups))
     return K1Schedule(
         np.concatenate([a_id, b_id, out_id, group_start.astype(np.int32)]),
-        n, group_start.shape[0] - 1, *maxima)
+        n, n_groups, *maxima, dense)
 
 
 def bsr_spgemm_plain(a_blocks: torch.Tensor, b_blocks: torch.Tensor,
@@ -117,7 +139,7 @@ def _launch(sched: K1Schedule, a_blocks: torch.Tensor,
                 or t.data_ptr() % 16 or t.device != out.device:
             raise ValueError("K1 operands must be contiguous, 16-byte "
                              "aligned float32 tiles on the output's device")
-    ids = to_device(sched.ids, out.device)
+    ids = sched.device_ids(out.device)
     n, lib = sched.n_pairs, _lib()
     base, step = ids.data_ptr(), 4 * n
     err = lib.bsr_spgemm_f32(
@@ -151,8 +173,13 @@ def bsr_spgemm_schedule(schedule, a_blocks: torch.Tensor,
         raise ValueError(f"unsupported device {a_blocks.device}")
     if bs not in SUPPORTED_BS:
         raise ValueError(f"K1 supports bs in {SUPPORTED_BS}, got {bs}")
-    out = torch.zeros((n_out_blocks, bs, bs), dtype=torch.float32,
+    # the kernel writes each group's tile; only the others need zeros
+    out = torch.empty((n_out_blocks, bs, bs), dtype=torch.float32,
                       device=a_blocks.device)
+    if sched.dense:
+        out[sched.n_groups:].zero_()
+    else:
+        out.zero_()
     if sched.n_groups:
         _launch(sched, a_blocks, b_blocks, out)
     return out
@@ -179,3 +206,4 @@ def bsr_spgemm(a_blocks: torch.Tensor, b_blocks: torch.Tensor, a_id, b_id,
 
 
 bsr_spgemm.launches = 0
+bsr_spgemm.uploads = 0

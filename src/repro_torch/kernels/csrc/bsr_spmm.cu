@@ -47,16 +47,6 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// c += a (16 x 8, row) * b (8 x 8, col), TF32 in, fp32 accumulate.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-
 template <int BS, int BT>
 struct TileShape {
   static constexpr int WM = BT == 128 ? 4 : 2;  // warps along the rows

@@ -51,7 +51,7 @@
 //   P is rounded to bfloat16 before the PV product, as flash_attention_jnp
 //   does (the Pallas kernel keeps it in float32): within the 2e-2 limit.
 // * float32 (flash_attn_f32_kernel), IEEE fp32 FMAs (the 1e-4 limit rules
-//   out TF32): K3's inner loop on 64 x 64 tiles, 256 threads as a 16 x 16
+//   out one-pass TF32) on 64 x 64 tiles, 256 threads as a 16 x 16
 //   grid, thread (ty, tx) owning rows ty + 16*i and columns tx + 16*j; Q^T in
 //   shared memory for the whole kv loop, K streamed in panels of min(32, D)
 //   columns of D (stored transposed), P through shared memory, V in 32-row
@@ -291,46 +291,6 @@ int launch_f32(const void* q, const void* k, const void* v, void* out, int b,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a (16 x 16, row) * b (16 x 8, col), bfloat16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU (ex2.approx, about 2 ulp; denormal results flush to 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// Two floats as a bfloat16 pair: `lo` in the low half (the lower column).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
 
 // Per head dim: 8 warps (a 128-row q tile) up to D = 64, capped at 128
 // registers so that two blocks share an SM; 4 warps (64 rows) above, where

@@ -74,74 +74,6 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src,
                : "memory");
 }
 
-// c += a (16 x 16, row) * b (16 x 8, col), bfloat16 in, fp32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d (64 x 128, this warpgroup's fragment) = a (64 x 8) * b (8 x 128) + (scale_d ?
-// d : 0), TF32 from shared memory (both K-major), fp32 accumulate.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a_desc,
-                                           uint64_t b_desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
-}
-
-// Keeps the compiler from moving reads or writes of d across a wgmma fence,
-// commit or wait.
-__device__ __forceinline__ void fence_operand(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// orders this thread's generic-proxy shared-memory writes before the async
-// proxy's (wgmma's) reads, once a barrier follows
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// Shared-memory matrix descriptor, no swizzle: 8-row x 16-byte core
-// matrices, `lbo` bytes between neighbours along K, `sbo` bytes between
-// neighbours along M (or N).
-__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((smem_addr(p) & 0x3ffff) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32);
-}
-
-// float4 v rotated left by s (0..3): element j is v[(j + s) % 4].
-__device__ __forceinline__ float4 rotate4(float4 v, int s) {
-  if (s & 1) v = make_float4(v.y, v.z, v.w, v.x);
-  if (s & 2) v = make_float4(v.z, v.w, v.x, v.y);
-  return v;
-}
-
 // ---------------------------------------------------------------------------
 // float32, row tiles of 16 and 32: IEEE FMAs over streamed weight rows
 // ---------------------------------------------------------------------------
@@ -254,13 +186,6 @@ struct WgShape {
   static constexpr uint32_t LBO = 128;                   // next 4 k
   static constexpr uint32_t SBO = BK / 4 * 128;          // next 8 rows
 };
-
-// Word offset of element (row, k) in a K-major core-matrix layout with BK
-// columns: core (row / 8, k / 4), 16 bytes a row within it.
-template <int BK>
-__device__ __forceinline__ int core_word(int row, int k) {
-  return ((row >> 3) * (BK / 4) + (k >> 2)) * 32 + (row & 7) * 4 + (k & 3);
-}
 
 template <int WGS>
 __global__ void __launch_bounds__(128 * WGS, 1)
@@ -549,7 +474,7 @@ moe_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
             static_cast<uint32_t>(wc[8 * LDW]) |
                 (static_cast<uint32_t>(wc[9 * LDW]) << 16)};
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], bf);
+        for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], bf[0], bf[1]);
       }
     }
   }

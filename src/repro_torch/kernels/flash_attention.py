@@ -11,18 +11,28 @@ invisible kv blocks are never read.  It replaces the Pallas TPU kernel
 (``pl.pallas_call`` at :317).  The CUDA C++ source is
 ``csrc/block_sparse_attention.cu``.
 
-Bound on an H100: ``4·B·H·n_visible·bs²·D`` fp32 FLOP (QKᵀ and PV) against
+Bound on an H100: ``4·B·H·n_visible·bs²·D`` FLOP (QKᵀ and PV) against
 q, k, v read once and the output written once.  At bs = D = 128 a visible
-block does 8.4 MFLOP per head on 128 KiB of fp32 K and V: bound by fp32
-operations.  So K3 keeps everything of one (b, h, q block) on chip: the
-running max, sum and the (bs, D) accumulator in registers, Q in shared
-memory for the whole kv loop, K and V streamed through panels at most 32
-deep, and the probabilities of one kv block in shared memory between the
-two products; at D = 256 a grid axis splits the output's columns in two
-halves (each block still reduces the scores over the full D).  It takes
-bs in {16, 32, 64, 128} and D in ``K4_HEAD_DIMS``.  Scores and products are IEEE fp32 (no TF32): the reference holds
-K3 to 1e-4.  bfloat16 inputs are widened on load and the output rounded
-once on store.
+block does 8.4 MFLOP per head on 128 KiB of fp32 K and V: bound by
+operations.  So K3 keeps everything of one (b, h, q block) on chip and runs
+both products on the tensor cores, FlashAttention-2's shape: Q stays in
+shared memory for the whole kv loop, K and V rows stream through
+``cp.async`` in sub-tiles, and the running max, sum and the accumulator
+stay in registers.  float32 runs 3xTF32 (each operand split into TF32 big
+and small parts, three products, the tensor cores' partial sums carried
+into IEEE fp32 sums: the reference holds K3 to 1e-4) with the online
+softmax in IEEE fp32: on ``wgmma`` at bs = 128 and D = 64 or 128 (Q's and
+P's fragments split in registers as A operands, K and V split once per
+block into shared memory, the next sub-tile split while this one's QKᵀ
+runs), on ``mma.sync`` at the other shapes.  bfloat16 runs bf16
+``mma.sync`` with fp32 accumulation and P rounded to bfloat16, as K4 does.
+At D = 256 a grid axis splits the output's columns in two halves (each
+block still reduces the scores over the full D).  It takes bs in
+{16, 32, 64, 128} and D in ``K4_HEAD_DIMS``.  The planned route
+(``block_sparse_attention_plan``, which ``block_attention_execute`` takes)
+keeps a range-checked device copy of the plan's ``kv_ids | n_kv`` on the
+plan, so a warm call uploads nothing; the array route
+(``block_sparse_attention``) checks and uploads its ids on every call.
 
 K4 (``flash_attention``): causal / sliding-window attention over the
 contiguous kv range each q tile can see (``attention_block_schedule``'s
@@ -34,8 +44,9 @@ the input type: bfloat16 on the tensor cores (``mma.sync`` m16n8k16 on
 128-row q tiles, 64-row at head dims 128 and 256, K and V through a
 2-stage ``cp.async`` ring, the online
 softmax in fp32 registers, P rounded to bfloat16 for the PV product, masks
-only on boundary tiles), and float32 in IEEE FMAs (K3's inner loop on
-64 × 64 tiles, masks per element; the 1e-4 limit rules out TF32).  Both
+only on boundary tiles), and float32 in IEEE FMAs (64 × 64 tiles, the
+FMA loop K3 ran until it moved to the tensor cores, masks per element; the
+1e-4 limit rules out one-pass TF32).  Both
 take ragged S (kv ≥ S masked, q rows ≥ S never stored) and head dims
 ``K4_HEAD_DIMS``, every head dim of the port's configs and of
 ``reduced_config``.  Bound: ``4·D`` FLOP per visible (q, k) pair against
@@ -45,7 +56,8 @@ q, k, v read once and the output written once; at hymba-1.5b's prefill
 Both wrappers dispatch on the tensors' device: CPU tensors run the plain
 version (``block_sparse_attention_plain``, ``flash_attention_plain``);
 CUDA tensors launch the kernel or raise.  ``block_sparse_attention.launches``
-and ``flash_attention.launches`` count kernel launches.  Both are built by
+and ``flash_attention.launches`` count kernel launches,
+``block_sparse_attention.uploads`` K3's schedule uploads.  Both are built by
 ``_build`` and bound with ctypes.
 """
 from __future__ import annotations
@@ -177,9 +189,10 @@ def _lib() -> ctypes.CDLL:
                         i])
 
 
-def _launch(q, k, v, kv_ids, n_kv, out, *, softcap, scale, seq) -> None:
+def _launch(q, k, v, sched, nq, nk_cap, out, *, softcap, scale, seq) -> None:
+    """Launch K3 on the device schedule ``sched`` = ``kv_ids | n_kv``
+    (int32, range-checked by the caller)."""
     b, h, s_pad, d = q.shape
-    nq, nk_cap = kv_ids.shape
     bs = s_pad // nq
     if (bs, d) not in SUPPORTED_SHAPES:
         raise ValueError(f"K3 supports (bs, D) in {SUPPORTED_SHAPES}, got "
@@ -192,8 +205,6 @@ def _launch(q, k, v, kv_ids, n_kv, out, *, softcap, scale, seq) -> None:
                 or t.device != out.device:
             raise ValueError("K3 operands must be contiguous, 16-byte "
                              "aligned tensors on one device")
-    sched = to_device(np.concatenate([kv_ids.reshape(-1), n_kv]),
-                      out.device)
     lib = _lib()
     err = lib.block_sparse_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), sched.data_ptr(),
@@ -209,6 +220,62 @@ def _host_ids(x) -> np.ndarray:
             else np.asarray(x)).astype(np.int32, copy=False)
 
 
+def _check_qkv(q, k, v) -> None:
+    b, h = q.shape[:2]
+    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
+            or h % k.shape[1]:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+
+
+def _check_ids(ids: np.ndarray, counts: np.ndarray, s_pad: int) -> None:
+    nq, nk_cap = ids.shape
+    if s_pad % max(nq, 1) or counts.shape != (nq,):
+        raise ValueError("kv_ids must be (S_pad // bs, nk_cap) and n_kv "
+                         "(S_pad // bs,)")
+    if ids.size and (ids.min() < 0 or ids.max() >= nq) \
+            or counts.size and (counts.min() < 0 or counts.max() > nk_cap):
+        raise ValueError("kv_ids or n_kv out of range")
+
+
+def _upload(ids: np.ndarray, counts: np.ndarray,
+            device: torch.device) -> torch.Tensor:
+    sched = to_device(np.concatenate([ids.reshape(-1), counts]), device)
+    block_sparse_attention.uploads += 1
+    return sched
+
+
+def plan_schedule(plan: BlockAttentionPlan,
+                  device: torch.device) -> torch.Tensor:
+    """The plan's ``kv_ids | n_kv`` on ``device`` as one int32 tensor:
+    range-checked and uploaded on first use, then memoized on the plan
+    outside its dataclass fields (which, with the plan's serialization,
+    stay the reference's)."""
+    memo = plan.__dict__.setdefault("_device_schedule", {})
+    key = str(device)
+    if key not in memo:
+        ids, counts = _host_ids(plan.kv_ids), _host_ids(plan.n_kv)
+        _check_ids(ids, counts, plan.n_q_blocks * plan.block)
+        memo[key] = _upload(ids, counts, device)
+    return memo[key]
+
+
+def _run(q, k, v, sched, nq, nk_cap, *, softcap, scale, seq):
+    """Plain version on CPU tensors, K3 on CUDA tensors, from a schedule
+    already on q's device."""
+    if q.device.type == "cpu":
+        return block_sparse_attention_plain(
+            q, k, v, sched[:nq * nk_cap].view(nq, nk_cap),
+            sched[nq * nk_cap:], softcap=softcap, scale=scale, seq=seq)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    out = torch.empty_like(q)
+    if q.numel():
+        _launch(q, k, v, sched, nq, nk_cap, out, softcap=softcap,
+                scale=scale, seq=seq)
+    return out
+
+
 def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            kv_ids, n_kv, *, softcap: float = 0.0,
                            scale: Optional[float] = None,
@@ -218,38 +285,44 @@ def block_sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     of live slots.  Returns q's shape and dtype on q's device.
 
     ``kv_ids``/``n_kv`` are read on the host to check their ranges (a raw
-    kernel has no bounds checks): pass numpy or CPU tensors.  CPU tensors
-    run the plain version; CUDA tensors launch K3 or raise.
+    kernel has no bounds checks) and uploaded on every call: pass numpy or
+    CPU tensors.  A plan's memoized copy is ``block_sparse_attention_plan``'s
+    route.  CPU tensors run the plain version; CUDA tensors launch K3 or
+    raise.
     """
-    b, h, s_pad, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
-            or h % k.shape[1]:
-        raise ValueError(f"incompatible q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    _check_qkv(q, k, v)
     ids, counts = _host_ids(kv_ids), _host_ids(n_kv)
-    nq, nk_cap = ids.shape
-    if s_pad % max(nq, 1) or counts.shape != (nq,):
-        raise ValueError("kv_ids must be (S_pad // bs, nk_cap) and n_kv "
-                         "(S_pad // bs,)")
-    if ids.size and (ids.min() < 0 or ids.max() >= nq) \
-            or counts.size and (counts.min() < 0 or counts.max() > nk_cap):
-        raise ValueError("kv_ids or n_kv out of range")
+    s_pad, d = q.shape[2:]
+    _check_ids(ids, counts, s_pad)
     scale = float(d ** -0.5) if scale is None else float(scale)
     seq = s_pad if seq is None else int(seq)
-    if q.device.type == "cpu":
-        return block_sparse_attention_plain(
-            q, k, v, torch.from_numpy(ids), torch.from_numpy(counts),
-            softcap=softcap, scale=scale, seq=seq)
-    if q.device.type != "cuda":
-        raise ValueError(f"unsupported device {q.device}")
-    out = torch.empty_like(q)
-    if q.numel():
-        _launch(q, k, v, ids, counts, out, softcap=softcap, scale=scale,
+    sched = torch.from_numpy(np.concatenate([ids.reshape(-1), counts])) \
+        if q.device.type == "cpu" else _upload(ids, counts, q.device)
+    return _run(q, k, v, sched, *ids.shape, softcap=softcap, scale=scale,
                 seq=seq)
-    return out
+
+
+def block_sparse_attention_plan(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, plan: BlockAttentionPlan, *,
+                                softcap: float = 0.0,
+                                scale: Optional[float] = None
+                                ) -> torch.Tensor:
+    """``block_sparse_attention`` on a plan's schedule: q (B, H,
+    n_q_blocks·block, D), k and v (B, Hkv, n_q_blocks·block, D), positions
+    from ``plan.seq`` on masked.  The schedule comes from ``plan_schedule``,
+    so only the first call on a device uploads it."""
+    _check_qkv(q, k, v)
+    s_pad, d = q.shape[2:]
+    if s_pad != plan.n_q_blocks * plan.block:
+        raise ValueError(f"q has {s_pad} rows, the plan "
+                         f"{plan.n_q_blocks * plan.block}")
+    scale = float(d ** -0.5) if scale is None else float(scale)
+    return _run(q, k, v, plan_schedule(plan, q.device), plan.n_q_blocks,
+                plan.nk_cap, softcap=softcap, scale=scale, seq=plan.seq)
 
 
 block_sparse_attention.launches = 0
+block_sparse_attention.uploads = 0
 
 
 # ---------------------------------------------------------------------------
@@ -412,9 +485,8 @@ def block_attention_execute(plan: BlockAttentionPlan, q, k, v,
         q, k, v = (torch.nn.functional.pad(x, pad) for x in (q, k, v))
     d_scale = float(d ** -0.5) if scale is None else float(scale)
     if use_kernel:
-        out = block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv,
-                                     softcap=softcap, scale=d_scale,
-                                     seq=plan.seq)
+        out = block_sparse_attention_plan(q, k, v, plan, softcap=softcap,
+                                          scale=d_scale)
     else:
         out = block_sparse_attention_plain(
             q, k, v, to_device(plan.kv_ids, dev), to_device(plan.n_kv, dev),

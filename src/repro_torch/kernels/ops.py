@@ -9,6 +9,7 @@ from __future__ import annotations
 from .bsr_spgemm import bsr_spgemm, bsr_spgemm_schedule  # noqa: F401
 from .bsr_spmm import bsr_spmm  # noqa: F401
 from .flash_attention import (attention_block_schedule,  # noqa: F401
-                              block_sparse_attention, flash_attention)
+                              block_sparse_attention,
+                              block_sparse_attention_plan, flash_attention)
 from .moe_gemm import moe_gemm, moe_gemm_schedule  # noqa: F401
 from .rwkv6_scan import rwkv6  # noqa: F401

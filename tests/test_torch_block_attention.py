@@ -7,6 +7,8 @@ its dense float64 oracle at ``TestBlockAttention``'s cases and tolerance
 (rtol = atol = 1e-4): S = 200 and 256, block 64, GQA 4/2, softcap 5 with
 scale 0.2, masked-out rows exactly 0; bfloat16 against a float32 oracle at
 2e-2; the ``block_attention`` op through ``ReapRuntime(device="cpu")``."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -143,6 +145,62 @@ class TestExecute:
         with pytest.raises(ValueError, match="incompatible"):
             kops.block_sparse_attention(q, torch.zeros(1, 3, 64, 32),
                                         torch.zeros(1, 3, 64, 32), ids, n)
+
+
+class TestPlanSchedule:
+    """K3's plan route: a range-checked device copy of ``kv_ids | n_kv``
+    memoized on the plan, outside its dataclass fields."""
+
+    def test_memoized_outside_fields(self):
+        m_p = family_csr(P, "banded", 256, 256, 0.03, 21)
+        m_r = family_csr(R, "banded", 256, 256, 0.03, 21)
+        plan_p = PF.inspect_block_attention(m_p, 32)
+        plan_r = RF.inspect_block_attention(m_r, 32)
+        payload = PR.serialize_plan(plan_p)
+        before = kops.block_sparse_attention.uploads
+        sched = PF.plan_schedule(plan_p, torch.device(CPU))
+        assert kops.block_sparse_attention.uploads == before + 1
+        assert PF.plan_schedule(plan_p, torch.device(CPU)) is sched
+        assert kops.block_sparse_attention.uploads == before + 1
+        np.testing.assert_array_equal(
+            sched.numpy(), np.concatenate([plan_p.kv_ids.reshape(-1),
+                                           plan_p.n_kv]))
+        assert_same_fields(plan_p, plan_r)       # fields: the reference's
+        after = PR.serialize_plan(plan_p)
+        assert sorted(after) == sorted(payload) == \
+            sorted(RR.serialize_plan(plan_r))
+        for key in payload:
+            assert np.asarray(after[key]).tobytes() == \
+                np.asarray(payload[key]).tobytes() == \
+                np.asarray(RR.serialize_plan(plan_r)[key]).tobytes(), key
+
+    def test_plan_route_vs_array_route_and_warm_op(self):
+        m_p, q, k, v = _problem(P, s=256)
+        plan = PF.inspect_block_attention(m_p, 64)
+        q, k, v = (torch.from_numpy(x) for x in (q, k, v))
+        got = PF.block_sparse_attention_plan(q, k, v, plan, softcap=5.0)
+        want = kops.block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv,
+                                           softcap=5.0)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        with pytest.raises(ValueError, match="rows"):
+            PF.block_sparse_attention_plan(q[:, :, :192], k[:, :, :192],
+                                           v[:, :, :192], plan)
+        rt = PR.ReapRuntime(n_chunks=1, overlap=False, block=64, device=CPU)
+        rt.run("block_attention", q, k, v, m_p)
+        before = kops.block_sparse_attention.uploads
+        for _ in range(3):
+            rt.run("block_attention", q, k, v, m_p)
+        assert kops.block_sparse_attention.uploads == before
+
+    def test_plan_schedule_checks_ranges(self):
+        m_p = _problem(P, s=256)[0]
+        plan = PF.inspect_block_attention(m_p, 64)
+        bad = PF.BlockAttentionPlan(**{
+            f.name: getattr(plan, f.name)
+            for f in dataclasses.fields(plan)})
+        bad.kv_ids = plan.kv_ids + plan.n_q_blocks
+        with pytest.raises(ValueError, match="out of range"):
+            PF.plan_schedule(bad, torch.device(CPU))
 
 
 class TestBlockAttentionOp:

@@ -14,14 +14,16 @@ import repro_torch.core as P
 from repro_torch.core.rir import ScheduleBundle
 from repro_torch.core.solver import cg_solve
 from repro_torch.kernels.bsr_spgemm import (bsr_spgemm, bsr_spgemm_plain,
-                                            bsr_spgemm_schedule)
+                                            bsr_spgemm_schedule,
+                                            prepare_schedule)
 from repro_torch.kernels.bsr_spmm import (bsr_spmm, bsr_spmm_plain,
                                           inspect_spmm,
                                           prepare_spmm_schedule,
                                           spmm_ref_numpy)
 from repro_torch.kernels.flash_attention import (
     block_attention_ref, block_sparse_attention,
-    block_sparse_attention_plain, inspect_block_attention)
+    block_sparse_attention_plain, block_sparse_attention_plan,
+    inspect_block_attention)
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
@@ -107,6 +109,67 @@ def test_runtime_block_path_launches_k1(cuda, n_chunks):
     assert np.array_equal(c.indptr, ref.indptr)
     assert np.array_equal(c.indices, ref.indices)
     np.testing.assert_allclose(c.data, ref.data, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k1_holds_cancelling_sums(cuda, seed):
+    # filter3D-like tiles (banded, about 25 stored values a row, bs = 128):
+    # every pair (a, b) of the schedule is joined by (a', b) with A_a' =
+    # -A_a (1 + 1e-3 r), so each output tile is -1e-3 sum (A_a r) B_b, a
+    # small difference of the products' sums: only the absolute term of the
+    # limit holds.  Values are scaled by 1/4, so that the uncancelled sums
+    # are near 1 and fp32's own rounding of them (the plain version's, near
+    # 5e-7) stays far inside 1e-5, while TF32 products (three decimal
+    # digits) or a lost carry would not
+    a = P.random_csr(1536, 1536, 25 / 1536, np.random.default_rng(seed),
+                     "banded")
+    a.data *= 0.25
+    plan = P.inspect_spgemm_block(a, a, 128)
+    tiles = plan.a_pat.scatter(a.data)
+    r = np.random.default_rng(seed + 10).standard_normal(tiles.shape)
+    a_tiles = np.concatenate([tiles, -tiles * (1 + 1e-3 * r)]).astype(
+        np.float32)
+    n_a = tiles.shape[0]
+    order = np.argsort(np.concatenate([plan.out_id, plan.out_id]),
+                       kind="stable")
+    sched = {k: np.concatenate([x, x + n_a if k == "a_id" else x])[order]
+             for k, x in (("a_id", plan.a_id), ("b_id", plan.b_id),
+                          ("out_id", plan.out_id))}
+    a_t = torch.from_numpy(a_tiles).to(cuda)
+    b_t = torch.from_numpy(plan.b_pat.scatter(a.data)).to(cuda)
+    got = bsr_spgemm_schedule(sched, a_t, b_t,
+                              n_out_blocks=plan.n_out_blocks)
+    want = bsr_spgemm_plain(a_t, b_t, *_ids(cuda, sched["a_id"],
+                                            sched["b_id"], sched["out_id"]),
+                            n_out_blocks=plan.n_out_blocks)
+    assert want.abs().max().item() < 0.02      # the sums did cancel
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_k1_warm_call_uploads_no_schedule(cuda):
+    a = P.random_csr(3000, 3000, 0.004, np.random.default_rng(12), "banded")
+    plan = P.inspect_spgemm_block(a, a, 128)
+    tiles = torch.from_numpy(plan.a_pat.scatter(a.data)).to(cuda)
+    sched = prepare_schedule(plan.schedule)
+    before = bsr_spgemm.uploads
+    first = bsr_spgemm_schedule(sched, tiles, tiles,
+                                n_out_blocks=plan.n_out_blocks)
+    assert bsr_spgemm.uploads == before + 1
+    second = bsr_spgemm_schedule(sched, tiles, tiles,   # the memoized copy
+                                 n_out_blocks=plan.n_out_blocks)
+    assert bsr_spgemm.uploads == before + 1
+    assert torch.equal(first, second)
+    third = bsr_spgemm(tiles, tiles, plan.a_id, plan.b_id, plan.out_id,
+                       None, None, n_out_blocks=plan.n_out_blocks)
+    assert bsr_spgemm.uploads == before + 2     # an array schedule: each call
+    assert torch.equal(first, third)
+    for n_chunks in (1, 4):                     # the runtime: once per plan
+        rt = ReapRuntime(device="cuda", n_chunks=n_chunks)
+        rt.spgemm(a, a, method="block")
+        before = bsr_spgemm.uploads
+        for _ in range(3):
+            rt.spgemm(a, a, method="block")
+        assert bsr_spgemm.uploads == before
 
 
 def test_runtime_gather_and_cholesky_on_card(cuda):
@@ -252,7 +315,9 @@ def _attention_problem(s, bs, seed, h=4, hkv=2, d=64):
     # the runtime's block 16 and head dims 16 and 256 (reduced_config,
     # gemma2-2b and paligemma-3b): D = 256 splits the output in two halves
     (16, 16, 0.0), (16, 64, 0.0), (16, 256, 5.0), (32, 16, 0.0),
-    (128, 16, 0.0), (64, 256, 0.0), (128, 256, 50.0)])
+    (128, 16, 0.0), (64, 256, 0.0), (128, 256, 50.0),
+    # softcap 50 (gemma2's) at the other block sizes
+    (16, 128, 50.0), (32, 64, 50.0), (64, 128, 50.0)])
 def test_k3_matches_plain(cuda, dtype, tol, bs, d, softcap):
     s = 4 * bs
     mask, q, k, v = _attention_problem(s, bs, seed=bs + d, d=d)
@@ -269,6 +334,59 @@ def test_k3_matches_plain(cuda, dtype, tol, bs, d, softcap):
         scale=d ** -0.5, seq=s - 7)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
     assert not got[:, :, -bs:].any()        # the empty q block: exact zeros
+
+
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("bs,d", [(16, 64), (32, 128), (64, 256), (128, 128),
+                                  (128, 256)])
+def test_k3_holds_cancelling_sums(cuda, bs, d, softcap):
+    # kv blocks 4..7 repeat the keys of blocks 0..3 with V stacked as
+    # -V (1 + 1e-3 r), and every q block sees a block and its twin, so each
+    # output is -1e-3 sum p v r / (2 sum p): a small difference of large
+    # sums, where only the absolute term of the 1e-4 limit holds
+    rng = np.random.default_rng(bs + d)
+    nb = 4
+    vis = rng.random((2 * nb, nb)) < 0.6
+    vis[np.arange(2 * nb), rng.integers(0, nb, 2 * nb)] = True
+    qb, kb = np.nonzero(np.concatenate([vis, vis], axis=1))
+    s = 2 * nb * bs
+    mask = P.CSR.from_coo(P.COO(s, s, qb * bs, kb * bs,
+                                np.ones(qb.size, np.float32)))
+    plan = inspect_block_attention(mask, bs)
+    q = rng.standard_normal((1, 4, s, d))
+    k0, v0 = (rng.standard_normal((1, 2, s // 2, d)) for _ in range(2))
+    k = np.concatenate([k0, k0], axis=2)
+    v = np.concatenate(
+        [v0, -v0 * (1 + 1e-3 * rng.standard_normal(v0.shape))], axis=2)
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda)
+               for x in (q, k, v))
+    got = block_sparse_attention_plan(q, k, v, plan, softcap=softcap)
+    want = block_sparse_attention_plain(
+        q, k, v, *_ids(cuda, plan.kv_ids, plan.n_kv), softcap=softcap,
+        scale=d ** -0.5, seq=s)
+    assert want.abs().max().item() < 0.05       # the sums did cancel
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_k3_warm_call_uploads_no_schedule(cuda):
+    mask, q, k, v = _attention_problem(256, 64, seed=12, d=64)
+    plan = inspect_block_attention(mask, 64)
+    q, k, v = (torch.from_numpy(x).to(cuda) for x in (q, k, v))
+    before = block_sparse_attention.uploads
+    first = block_sparse_attention_plan(q, k, v, plan)
+    assert block_sparse_attention.uploads == before + 1
+    second = block_sparse_attention_plan(q, k, v, plan)  # the plan's copy
+    assert block_sparse_attention.uploads == before + 1
+    assert torch.equal(first, second)
+    third = block_sparse_attention(q, k, v, plan.kv_ids, plan.n_kv)
+    assert block_sparse_attention.uploads == before + 2  # raw ids: each call
+    assert torch.equal(first, third)
+    rt = ReapRuntime(device="cuda", block=64)   # the op reuses its plan's
+    rt.run("block_attention", q, k, v, mask)
+    before = block_sparse_attention.uploads
+    for _ in range(3):
+        rt.run("block_attention", q, k, v, mask)
+    assert block_sparse_attention.uploads == before
 
 
 def test_k3_rejects_unsupported_shape(cuda):

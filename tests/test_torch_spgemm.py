@@ -3,6 +3,8 @@ Pallas kernel (interpret mode), and ``repro_torch.core.spgemm`` on the CPU
 against ``repro.core.spgemm`` — exact CSR structure, values within the
 reference's own tolerances (``tests/test_spgemm.py``: rtol 1e-4, atol
 1e-5; ``tests/test_kernels.py``: 1e-5 for K1)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -137,6 +139,33 @@ class TestK1Plain:
         starts = k1.ids[3 * n:]
         assert np.array_equal(starts[:-1], np.flatnonzero(plan.is_first))
         assert starts[-1] == n
+        assert k1.dense                          # a plan's groups: 0, 1, ...
+        sparse = prepare_schedule(dict(a_id=[0, 1], b_id=[0, 0],
+                                       out_id=[1, 3]))
+        assert not sparse.dense                  # tiles 0 and 2: no group
+
+    def test_schedule_device_ids_memoized(self):
+        # K1's launches take the ids from here: the first call on a device
+        # uploads them, later calls (a warm plan's) reuse that copy
+        plan = P.inspect_spgemm_block(
+            P.random_csr(96, 96, 0.08, np.random.default_rng(11), "banded"),
+            P.random_csr(96, 96, 0.08, np.random.default_rng(12), "banded"),
+            16)
+        k1 = prepare_schedule(plan.schedule)
+        fields = dataclasses.astuple(k1)
+        before = kops.bsr_spgemm.uploads
+        ids = k1.device_ids(torch.device(CPU))
+        assert kops.bsr_spgemm.uploads == before + 1
+        assert k1.device_ids(torch.device(CPU)) is ids
+        assert kops.bsr_spgemm.uploads == before + 1
+        assert ids.dtype == torch.int32
+        np.testing.assert_array_equal(ids.numpy(), k1.ids)
+        assert prepare_schedule(k1) is k1        # a memoized schedule stays
+        assert [f.name for f in dataclasses.fields(k1)] == [
+            "ids", "n_pairs", "n_groups", "a_max", "b_max", "out_max",
+            "dense"]
+        for x, y in zip(dataclasses.astuple(k1), fields):
+            assert np.array_equal(x, y)
 
 
 class TestSpgemm:
