@@ -123,17 +123,62 @@ Phases, in order; any failure exits non-zero without the result line:
    and K6 at the 2048-token prefill by CUDA events, beside their bounds and
    plain versions; K4 and SDPA also at qwen3-1.7b's and gemma2-2b's
    2048-token prefill shapes;
-16. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
-   2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b and
-   gemma2-2b (reduced configs, as the CLI forces: head dim 16), each exit 0
-   with K4 launched (and K6 for hymba); then, in child processes, the
-   second slice's profiles
-   and a warm hymba prefill and decode step under ``torch.profiler``; last
-   the Pre_poisson Cholesky profile and the kernels line (K1 to K6, each
-   with the launches of its own main-path phase; K1's times at the filter3D
-   sync plan, K2's at the spmm shape, K3's at softcap 0 in float32, K5's at
-   the prefill gate shape, K4's and K6's at the 2048-token hymba prefill;
-   K1's, K2's, K3's and K5's bounds in 3xTF32, their design).
+Phases 16-20 run model by model: rwkv6-1.6b's parts of 16, 17, 18 and 20,
+then dbrx-132b's parts of 16, 17, 19 and 20.
+
+16. kernel against plain — K6 against ``rwkv6_plain`` at rwkv6-1.6b's
+   prefill (B = 2, H = 32, K = V = 64, T = 1024 and 2048, chunk 64,
+   u != 0, bfloat16 r/k/v), output and state (limit 2e-4); K5 against
+   ``moe_gemm_plain`` at the bundles the in-graph ``moe_ffn`` builds for
+   dbrx-132b (a prefill of 2 x 1024: 32 bundles of cap 320; a decode step
+   of batch 2: 16 bundles of cap 8), gate and down, bfloat16 (limit 2e-2,
+   and 5e-4 on ||err|| / ||want||, beside a control reading: the plain
+   version with its sums rounded to bfloat16 every 512-deep slice;
+   labelled ``K5-LM``, outside ``K5_DIGESTS``); K4 against
+   ``flash_attention_plain`` at dbrx-132b's prefill (B = 2, 48 / 8 heads of
+   128, causal, S = 1024, bfloat16; K4's bfloat16 limits);
+17. in situ — rwkv6-1.6b at full width, 2 layers (a 1024-token prefill, 4
+   decode steps) and dbrx-132b at full width, 1 layer (a 64-token prompt, 4
+   decode steps), float32 compute, card against host, logits within 1e-3;
+   K6 once per layer per prefill, K4 once and K5 three times per layer per
+   prefill and K5 three times per decode step;
+18. main path, eighth slice, rwkv6-1.6b as published (24 layers, float32
+   params, bfloat16 compute): ``generate`` (batch 2, prompt 1024, gen 16) and
+   ``ServeScheduler.run`` on a seeded 8-request trace (prompts 64-2048, gen
+   8-32, 4 slots of 4096), K6 24 times per prefill, then request isolation
+   in float32 compute, as phase 14; at every eviction the slot's K/V and
+   recurrent state (``wkv``, ``shift``, ``shift_cm``) must read zero
+   (``cache_slot_residue``; occupancy sees no recurrent-only cache), on
+   every served model;
+19. main path, eighth slice, dbrx-132b at full width, depth cut to 4 layers
+   (bfloat16, 28.6 GB): ``generate`` (batch 2, prompt 1024, gen 16), K4 4
+   times per prefill and K5 12 times per prefill and per decode step;
+   ``ServeScheduler.run`` on a seeded 8-request trace; then 6 decode steps
+   with a host-dispatch runtime installed, logits bit-equal to the in-graph
+   run, ``moe_dispatch`` missing on the first step and a replay answered
+   from warm plans at every step;
+20. times — K6 at rwkv6-1.6b's two prefill shapes, K5 at the four
+   in-graph DBRX shapes and K4 at dbrx-132b's prefill by CUDA events, each
+   beside its bound (bf16 peak) and plain version, K5 also beside one
+   ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
+21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
+   2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
+   gemma2-2b and rwkv6-1.6b (reduced configs, as the CLI forces: head dim
+   16), each exit 0 with its kernels launched (K4; K6 for hymba and rwkv6),
+   and dbrx-132b with ``--routing host --plan-store build/serve_plan_store``
+   twice, the second run answering its dispatch plans from the store; then,
+   in child processes, the second slice's profiles and a warm prefill and
+   decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
+   ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
+   script's time and the kernels line (K1 to K6, each with the launches of
+   its main-path phases — K4's of 14 and 19, K5's of 10 and 19, K6's of 14
+   and 18; K1's
+   times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
+   0 in float32, K5's at the prefill gate shape, K4's and K6's at the
+   2048-token hymba prefill, nested beside them K4's at dbrx-132b's
+   prefill, K5's at the in-graph DBRX shapes and K6's at rwkv6-1.6b's;
+   K1's, K2's, K3's and
+   K5's bounds in 3xTF32, their design).
 
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
@@ -151,6 +196,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 # Table I of the paper: (name, rows, nnz, structure of the stand-in)
@@ -194,9 +240,36 @@ HYMBA_TRACE = dict(n_requests=8, seed=60, prompt_lens=(64, 256, 1024, 2048),
 HYMBA_SERVE = dict(max_batch=4, max_seq=4096)
 HYMBA_GENERATE = dict(batch=2, prompt=1024, gen=16)
 HYMBA_SITU = dict(n_layers=2, prompt=2048, decode=4)
-# the serving CLI on the card (reduced configs, head dim 16)
-SERVE_CLI_ARCHS = ("hymba-1.5b", "qwen3-1.7b", "gemma2-2b")
+# rwkv6-1.6b (src/repro_torch/configs/rwkv6_1p6b.py, arXiv:2404.05892) as
+# published: 24 layers, d_model 2048, 32 heads of K = V = 64, d_ff 7168,
+# vocab 65536, untied; float32 params, bfloat16 compute.  K6 at its prefill
+# shapes: generate's batch of 2 at T = 1024 and 2048 (chunk 64, u != 0)
+RWKV6 = "rwkv6-1.6b"
+RWKV_K6_T = (1024, 2048)
+RWKV_TRACE = dict(HYMBA_TRACE, seed=86)
+RWKV_SERVE = dict(max_batch=4, max_seq=4096)
+RWKV_GENERATE = dict(batch=2, prompt=1024, gen=16)
+RWKV_SITU = dict(n_layers=2, prompt=1024, decode=4)
+# dbrx-132b (src/repro_torch/configs/dbrx_132b.py, databricks/dbrx-base) at
+# full width: d_model 6144, 48 q / 8 kv heads of 128, 16 experts top-4 of
+# d_ff 10752, vocab 100352; bfloat16 params and compute.  Depth cut 40 -> 4
+# layers (28.6 GB of params; 40 would be about 263 GB).  K5 at the bundles
+# the in-graph moe_ffn builds: a prefill of 2 x 1024 (32 bundles of cap
+# 320) and a decode step of batch 2 (16 bundles of cap 8)
+DBRX_LM = "dbrx-132b"
+DBRX_LAYERS = 4
+DBRX_K5_CALLS = {"prefill": (2, 1024), "decode": (1, 2)}
+DBRX_TRACE = dict(HYMBA_TRACE, seed=95)
+DBRX_SERVE = dict(max_batch=4, max_seq=4096)
+DBRX_GENERATE = dict(batch=2, prompt=1024, gen=16)
+DBRX_HOST = dict(prompt=256, steps=6)
+DBRX_SITU = dict(n_layers=1, prompt=64, decode=4)
+# the serving CLI on the card (reduced configs, head dim 16); dbrx-132b
+# also twice with host routing and one plan store, the second run a restart
+SERVE_CLI_ARCHS = ("hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b")
 SERVE_CLI_ARGS = ["--batch", "2", "--prompt-len", "64", "--gen", "4"]
+SERVE_CLI_HOST_MOE = ["--arch", "dbrx-132b", "--routing", "host",
+                      "--plan-store"]
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -214,6 +287,12 @@ K3_CARRY_DEPTH = {"qk": LLAMA["head_dim"], "pv": 32}
 K2_TOL = K3_TOL = SPGEMM_TOL = 1e-4
 K3_BF16_TOL = 2e-2
 K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
+# bfloat16 K5 on the in-graph DBRX bundles as a whole: ||got - want|| /
+# ||want|| against the plain version.  Both sum in float32 and round the
+# result once, which reads 1.8e-4 to 2.8e-4 at phase 16's four shapes;
+# sums rounded to bfloat16 every 512-deep slice read more
+# (``k5_lm_limit_reading``)
+K5_LM_REL_NORM = 5e-4
 K4_TOL, K4_BF16_TOL, K6_TOL = 1e-4, 2e-2, 2e-4
 # SHA-256 of K2's float32 outputs at phase 6's inputs (numpy-seeded), read
 # from the kernel before its helpers moved to csrc/common.cuh: the shared
@@ -1342,44 +1421,45 @@ def k4_k6_against_plain(dev) -> tuple:
     return max(k4_errs), max(k6_errs)
 
 
-def hymba_in_situ(dev) -> None:
-    """Phase 13: hymba-1.5b at full width, depth cut to 2 layers, float32
-    compute: prefill (2048 tokens: the ring cache, 32 K6 chunks) and 4 decode
-    steps on the card against the same params on the host."""
-    import dataclasses
-
+def lm_in_situ(name: str, cfg, params, s: int, n_dec: int, seed: int,
+               kernels: dict, per_prefill: dict, per_step: dict) -> None:
+    """Card against host: ``cfg`` (float32 compute) with ``params`` on the
+    card (the hand-written kernels) and a host copy (plain versions); a
+    prefill of ``s`` tokens and ``n_dec`` decode steps, logits within
+    ``LM_TOL``.  ``kernels`` maps a label to a wrapper whose launches during
+    the prefill must be ``per_prefill[label]`` and during each decode step
+    ``per_step.get(label, 0)``."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rwkv6_scan import rwkv6
     from repro_torch.models import model as M
-    cfg = dataclasses.replace(hymba_config(),
-                              n_layers=HYMBA_SITU["n_layers"],
-                              compute_dtype="float32")
-    s, n_dec = HYMBA_SITU["prompt"], HYMBA_SITU["decode"]
-    params = M.init_params(cfg, 71, device=dev)
     host = to_host(params)
-    toks = torch.from_numpy(np.random.default_rng(72).integers(
+    dev = params["embed"].device
+    toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, s)).astype(np.int32))
     worst = 0.0
-    k4, k6 = flash_attention.launches, rwkv6.launches
+    before = {k: w.launches for k, w in kernels.items()}
     t0 = time.perf_counter()
     lg_d, c_d = M.prefill(cfg, params, toks.to(dev),
                           M.init_cache(cfg, 1, s + n_dec, device=dev))
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = (flash_attention.launches - k4, rwkv6.launches - k6)
+    launches = {k: w.launches - before[k] for k, w in kernels.items()}
     t0 = time.perf_counter()
     lg_h, c_h = M.prefill(cfg, host, toks,
                           M.init_cache(cfg, 1, s + n_dec, device="cpu"))
     host_s = time.perf_counter() - t0
     steps = [("prefill", lg_d, lg_h)]
     tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    dec_launches = dict.fromkeys(kernels, 0)
     for i in range(n_dec):
+        before = {k: w.launches for k, w in kernels.items()}
         lg_d, c_d = M.decode_step(cfg, params, c_d, tok.to(dev), s + i)
+        for k, w in kernels.items():
+            dec_launches[k] += w.launches - before[k]
         lg_h, c_h = M.decode_step(cfg, host, c_h, tok, s + i)
         steps.append((f"decode {i}", lg_d, lg_h))
         tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-    ok = launches == (cfg.n_layers, cfg.n_layers)
+    ok = launches == per_prefill and dec_launches == {
+        k: per_step.get(k, 0) * n_dec for k in kernels}
     for label, d, h in steps:
         d = d.cpu()
         diff = (d - h).abs()
@@ -1406,19 +1486,37 @@ def hymba_in_situ(dev) -> None:
                                  M.init_cache(cfg, 1, s + n_dec, device="cpu"))
             row.update(card_repeat_equal=bool(torch.equal(lg_d2.cpu(), d)),
                        host_repeat_equal=bool(torch.equal(lg_h2, h)))
-        emit(phase="check", case=f"hymba-1.5b 2 layers f32 {label}, card "
-             "vs host", **row, tol=LM_TOL, ok=step_ok)
-    emit(phase="check", case="hymba-1.5b 2 layers f32 in situ",
-         prompt=s, decode_steps=n_dec, k4_k6_launches=list(launches),
-         card_prefill_s=card_s, host_prefill_s=host_s, max_abs_err=worst,
-         tol=LM_TOL, ok=ok)
-    check(ok, "hymba in situ: card and host logits differ, or K4/K6 did "
-          "not launch once per layer")
+        emit(phase="check", case=f"{name} {cfg.n_layers} layers f32 {label},"
+             " card vs host", **row, tol=LM_TOL, ok=step_ok)
+    emit(phase="check", case=f"{name} {cfg.n_layers} layers f32 in situ",
+         prompt=s, decode_steps=n_dec, prefill_launches=launches,
+         decode_launches=dec_launches, card_prefill_s=card_s,
+         host_prefill_s=host_s, max_abs_err=worst, tol=LM_TOL, ok=ok)
+    check(ok, f"{name} in situ: card and host logits differ, or a kernel "
+          f"did not launch as the path needs ({launches}, {dec_launches})")
 
 
-def serve_trace(cfg):
+def hymba_in_situ(dev) -> None:
+    """Phase 13: hymba-1.5b at full width, depth cut to 2 layers, float32
+    compute: prefill (2048 tokens: the ring cache, 32 K6 chunks) and 4 decode
+    steps on the card against the same params on the host."""
+    import dataclasses
+
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(hymba_config(),
+                              n_layers=HYMBA_SITU["n_layers"],
+                              compute_dtype="float32")
+    n = cfg.n_layers
+    lm_in_situ(HYMBA, cfg, M.init_params(cfg, 71, device=dev),
+               HYMBA_SITU["prompt"], HYMBA_SITU["decode"], 72,
+               {"K4": flash_attention, "K6": rwkv6}, {"K4": n, "K6": n}, {})
+
+
+def serve_trace(cfg, spec=None):
     from repro_torch.launch.scheduler import synthetic_trace
-    kw = dict(HYMBA_TRACE)
+    kw = dict(spec or HYMBA_TRACE)
     return synthetic_trace(kw.pop("n_requests"), vocab=cfg.vocab_size, **kw)
 
 
@@ -1444,107 +1542,141 @@ def solo_generate(cfg, params, prompt, gen, max_seq):
     return toks, torch.stack(gaps).cpu().numpy()
 
 
-def hymba_serving(dev, card: str) -> tuple:
-    """Phase 14, the main path: hymba-1.5b at full width through
-    ``generate`` and ``ServeScheduler.run``; then request isolation in
-    float32 compute.  Returns (K4 launches, K6 launches) of the main path."""
+def init_model(name: str, cfg, seed: int, dev):
+    """``cfg``'s parameters on the card from ``seed``; reports their count
+    and the time."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import count_params
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, seed, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="generate", case=f"{name} params, {cfg.n_layers} layers, "
+         f"{cfg.param_dtype}", seconds=time.perf_counter() - t0,
+         n_params=count_params(params))
+    return params
+
+
+def lm_serving(name: str, cfg, params, card: str, *, kernels: dict,
+               per_prefill: dict, per_step: dict, gen_spec: dict,
+               prompt_seed: int, trace, serve_spec: dict,
+               isolation: bool) -> dict:
+    """One model's main path: ``generate`` and ``ServeScheduler.run`` on the
+    card, every count zeroed just before and read just after.  A prefill
+    must launch each kernel of ``kernels`` ``per_prefill[label]`` times and
+    a decode step ``per_step.get(label, 0)`` times.  Then, with
+    ``isolation``, each request's tokens in float32 compute against its solo
+    generation's.  Returns the main path's launches by label."""
     import dataclasses
 
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.rwkv6_scan import rwkv6
     from repro_torch.launch.scheduler import ServeScheduler
     from repro_torch.launch.serve import generate
     from repro_torch.models import model as M
-    from repro_torch.models.params import count_params
-    cfg = hymba_config()
-    t0 = time.perf_counter()
-    params = M.init_params(cfg, 73, device=dev)
-    torch.cuda.synchronize()
-    emit(phase="generate", case="hymba-1.5b params, float32",
-         seconds=time.perf_counter() - t0,
-         n_params=count_params(params))
-    trace = serve_trace(cfg)
-    per_prefill = []
+    per_prefill_seen = []
+
+    def counts():
+        return {k: w.launches for k, w in kernels.items()}
+
+    residue = []
 
     class Timed(ServeScheduler):
+        def _retire(self, slot):
+            super()._retire(slot)
+            residue.append(int(M.cache_slot_residue(self.cache)[slot]))
+
         def _prefill_into(self, slot, req):
-            k4, k6 = flash_attention.launches, rwkv6.launches
+            c0 = counts()
             t0 = time.perf_counter()
             super()._prefill_into(slot, req)
-            per_prefill.append((len(req.prompt), time.perf_counter() - t0,
-                                flash_attention.launches - k4,
-                                rwkv6.launches - k6))
+            c1 = counts()
+            per_prefill_seen.append((len(req.prompt),
+                                     time.perf_counter() - t0,
+                                     {k: c1[k] - c0[k] for k in c1}))
 
-    g = HYMBA_GENERATE
-    prompt = np.random.default_rng(74).integers(
+    g = gen_spec
+    prompt = np.random.default_rng(prompt_seed).integers(
         0, cfg.vocab_size, (g["batch"], g["prompt"])).astype(np.int32)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    flash_attention.launches = rwkv6.launches = 0
+    for w in kernels.values():
+        w.launches = 0
     # -- the main path ------------------------------------------------------
     (seqs, lat), gen_s = timed(lambda: generate(
         cfg, params, prompt, gen=g["gen"], max_seq=g["prompt"] + g["gen"] + 1,
-        device=dev))
-    gen_launches = (flash_attention.launches, rwkv6.launches)
-    sch = Timed(cfg, params, device=dev, **HYMBA_SERVE)
+        device=params["embed"].device))
+    gen_launches = counts()
+    sch = Timed(cfg, params, device=params["embed"].device, **serve_spec)
     comps, run_s = timed(lambda: sch.run(trace))
-    launches = (flash_attention.launches, rwkv6.launches)
+    launches = counts()
     # ------------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
     new = seqs[:, g["prompt"]:].cpu().numpy()
+    want_gen = {k: per_prefill[k] + per_step.get(k, 0) * (g["gen"] - 1)
+                for k in kernels}
     ok = bool(tuple(seqs.shape) == (g["batch"], g["prompt"] + g["gen"])
               and new.min() >= 0 and new.max() < cfg.vocab_size
-              and gen_launches == (cfg.n_layers, cfg.n_layers))
-    emit(phase="main_path", case=f"hymba-1.5b generate, batch {g['batch']}, "
+              and gen_launches == want_gen)
+    emit(phase="main_path", case=f"{name} generate, batch {g['batch']}, "
          f"prompt {g['prompt']}, gen {g['gen']}", call_s=gen_s,
-         k4_k6_launches=list(gen_launches),
+         launches=gen_launches, expected_launches=want_gen,
          decode_step_p50_s=float(np.percentile(lat, 50)),
          decode_step_p99_s=float(np.percentile(lat, 99)),
-         tokens_per_s=g["batch"] * g["gen"] / gen_s, ok=ok)
-    check(ok, "generate: wrong shape, out-of-vocabulary tokens, or K4/K6 "
-          "not launched once per layer")
+         tokens_per_s=g["batch"] * g["gen"] / gen_s, ok=ok, card=card)
+    check(ok, f"{name} generate: wrong shape, out-of-vocabulary tokens, or "
+          f"launches {gen_launches} where the path needs {want_gen}")
     by_rid = {c.rid: c for c in comps}
     occupancy = M.cache_slot_occupancy(sch.cache)
+    run_launches = {k: launches[k] - gen_launches[k] for k in kernels}
+    want_run = {k: per_prefill[k] * len(trace)
+                + per_step.get(k, 0) * sch.stats["decode_steps"]
+                for k in kernels}
     ok = bool(sorted(by_rid) == [r.rid for r in trace]
               and all(len(by_rid[r.rid].tokens) == r.gen for r in trace)
               and all(0 <= t < cfg.vocab_size for c in comps
                       for t in c.tokens)
-              and not occupancy.any()
-              and all(n4 == n6 == cfg.n_layers
-                      for _, _, n4, n6 in per_prefill))
+              and not occupancy.any() and len(residue) == len(trace)
+              and not any(residue)
+              and all(n == per_prefill for *_, n in per_prefill_seen)
+              and run_launches == want_run)
     lat = sch.latency_summary()
     n_tok = sum(len(c.tokens) for c in comps)
     prefill_s = {}
-    for n, sec, _, _ in per_prefill:
+    for n, sec, _ in per_prefill_seen:
         prefill_s.setdefault(str(n), []).append(sec)
-    emit(phase="main_path", case="hymba-1.5b ServeScheduler.run, "
+    emit(phase="main_path", case=f"{name} ServeScheduler.run, "
          f"{len(trace)} requests", call_s=run_s,
          steps=sch.stats["steps"], decode_steps=sch.stats["decode_steps"],
          tokens=n_tok, tokens_per_s=n_tok / run_s,
          prefill_s_by_prompt_len=prefill_s,
-         k4_k6_launches_per_prefill=[[n4, n6] for *_, n4, n6 in per_prefill],
+         launches_per_prefill=[n for *_, n in per_prefill_seen],
+         launches=run_launches, expected_launches=want_run,
          ttft_p50_s=lat["ttft"]["p50_s"], ttft_p99_s=lat["ttft"]["p99_s"],
          decode_step_p50_s=lat["decode_step"]["p50_s"],
          decode_step_p99_s=lat["decode_step"]["p99_s"],
          occupancy_after_drain=occupancy.tolist(),
+         state_nonzero_at_eviction=residue,
          max_memory_allocated_bytes=peak, ok=ok, card=card)
-    check(ok, "ServeScheduler: a request did not complete, a token is out "
-          "of the vocabulary, a slot was left occupied, or K4/K6 did not "
-          "launch once per layer per prefill")
+    check(ok, f"{name} ServeScheduler: a request did not complete, a token "
+          "is out of the vocabulary, a slot was left occupied, an evicted "
+          "slot kept K/V or state, or a kernel did not launch as the path "
+          "needs")
     del sch, seqs
     torch.cuda.empty_cache()
+    if not isolation:
+        return launches
 
     # request isolation, float32 compute: each request's tokens are its
     # solo generation's, up to a reported tie
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     comps32 = {c.rid: c for c in ServeScheduler(
-        cfg32, params, device=dev, **HYMBA_SERVE).run(trace)}
-    params32 = M.compute_params(cfg32, params, dev)
+        cfg32, params, device=params["embed"].device,
+        **serve_spec).run(trace)}
+    params32 = M.compute_params(cfg32, params, params["embed"].device)
     ties, fails = [], []
     for r in trace:
         solo, gaps = solo_generate(cfg32, params32, r.prompt, r.gen,
-                                   HYMBA_SERVE["max_seq"])
+                                   serve_spec["max_seq"])
         got = comps32[r.rid].tokens
         if got == solo:
             continue
@@ -1552,17 +1684,36 @@ def hymba_serving(dev, card: str) -> tuple:
         row = dict(rid=r.rid, prompt_len=len(r.prompt), first_diff_step=i,
                    top2_gap=float(gaps[i]))
         (ties if gaps[i] < TIE_GAP else fails).append(row)
-    emit(phase="check", case="hymba-1.5b request isolation, float32 "
+    emit(phase="check", case=f"{name} request isolation, float32 "
          "compute", requests=len(trace), identical=len(trace) - len(ties)
          - len(fails), ties=ties, failures=fails, tie_gap=TIE_GAP,
          ok=not fails)
-    check(not fails, f"request isolation: tokens differ beyond a tie: "
-          f"{fails}")
+    check(not fails, f"{name} request isolation: tokens differ beyond a "
+          f"tie: {fails}")
+    del params32
+    torch.cuda.empty_cache()
     return launches
 
 
+def hymba_serving(dev, card: str) -> tuple:
+    """Phase 14, the main path: hymba-1.5b at full width through
+    ``generate`` and ``ServeScheduler.run``; then request isolation in
+    float32 compute.  Returns (K4 launches, K6 launches) of the main path."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    cfg = hymba_config()
+    n = cfg.n_layers
+    launches = lm_serving(
+        HYMBA, cfg, init_model(HYMBA, cfg, 73, dev), card,
+        kernels={"K4": flash_attention, "K6": rwkv6},
+        per_prefill={"K4": n, "K6": n}, per_step={},
+        gen_spec=HYMBA_GENERATE, prompt_seed=74, trace=serve_trace(cfg),
+        serve_spec=HYMBA_SERVE, isolation=True)
+    return launches["K4"], launches["K6"]
+
+
 def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
-            kw: dict) -> dict:
+            kw: dict, b: int = 1) -> dict:
     """K4 on one bfloat16 prefill shape by CUDA events, beside its bound, its
     plain version and ``scaled_dot_product_attention`` (the masks as an
     explicit boolean mask, kv heads repeated for GQA; and, where the mask
@@ -1579,11 +1730,11 @@ def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
         return torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16)
 
-    q, k, v = randn(1, h, s, d), randn(1, hkv, s, d), randn(1, hkv, s, d)
+    q, k, v = randn(b, h, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
     window = kw.get("window", 0)
     mask = attention_mask(s, causal=True, window=window, device=dev)
     pairs = int(mask.sum())
-    flop = 4 * h * pairs * d
+    flop = 4 * b * h * pairs * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
     k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
@@ -1599,7 +1750,8 @@ def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
                library_ms=min(t for t in (sdpa_mask_ms, sdpa_causal_ms)
                               if t is not None) if same else None)
     emit(phase="times", kernel="K4", case=f"{name} prefill S={s} bf16, "
-         f"H={h}, Hkv={hkv}, D={d}, {kw}", visible_pairs=pairs, flop=flop,
+         f"B={b}, H={h}, Hkv={hkv}, D={d}, {kw}", visible_pairs=pairs,
+         flop=flop,
          bytes=nbytes, k4_tflops=flop / row["ms"] / 1e9,
          sdpa_boolean_mask_ms=sdpa_mask_ms, sdpa_is_causal_ms=sdpa_causal_ms,
          sdpa_same_function=same, **row, card=card)
@@ -1612,9 +1764,7 @@ def hymba_kernel_times(dev, card: str) -> tuple:
     versions and, for K4, ``scaled_dot_product_attention``; K4 also at
     qwen3-1.7b's and gemma2-2b's 2048-token prefill shapes.  Returns the two
     hymba rows of the kernels line without launches and errors."""
-    import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
     cfg = hymba_config()
     s, b = max(HYMBA_TRACE["prompt_lens"]), 1
     h, d, st = cfg.n_heads, cfg.d_head, cfg.ssm_state
@@ -1626,72 +1776,387 @@ def hymba_kernel_times(dev, card: str) -> tuple:
         if c.attn_softcap:
             kw["softcap"] = c.attn_softcap
         time_k4(dev, card, name, c.n_heads, c.n_kv_heads, c.d_head, s, kw)
+    k6 = k6_times(dev, card, "hymba-1.5b SSM heads", b, h, s, st, d,
+                  u_zero=True, seed=76)
+    return k4, k6
+
+
+def k6_times(dev, card: str, case: str, b: int, h: int, t: int, kk: int,
+             vv: int, u_zero: bool, seed: int) -> dict:
+    """K6 on one bfloat16 prefill shape (f32 w, chunk 64) by CUDA events,
+    beside its bound and its plain version; no library call computes it."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
     gen = torch.Generator(device=dev)
-    gen.manual_seed(76)
+    gen.manual_seed(seed)
 
     def randn(*shape, dtype=torch.bfloat16):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    chunk = min(64, s)
-    r, kk_, vv_ = randn(b, h, s, st), randn(b, h, s, st), randn(b, h, s, d)
-    w = torch.sigmoid(4 * randn(b, h, s, st, dtype=torch.float32)).clamp(
+    chunk = min(64, t)
+    r, kk_, vv_ = randn(b, h, t, kk), randn(b, h, t, kk), randn(b, h, t, vv)
+    w = torch.sigmoid(4 * randn(b, h, t, kk, dtype=torch.float32)).clamp(
         1e-6, 1 - 1e-6)
-    u = torch.zeros(h, st, device=dev)
-    flop = 2 * b * h * s * st * d + 2 * b * h * s * chunk * (st + d)
+    u = torch.zeros(h, kk, device=dev) if u_zero else randn(
+        h, kk, dtype=torch.float32)
+    flop = 2 * b * h * t * kk * vv + 2 * b * h * t * chunk * (kk + vv)
     nbytes = (r.numel() + kk_.numel() + vv_.numel()) * r.element_size() \
-        + w.numel() * 4 + b * h * s * d * 4 + b * h * st * d * 4
+        + w.numel() * 4 + u.numel() * 4 + b * h * t * vv * 4 \
+        + b * h * kk * vv * 4
     bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
-    k6 = dict(ms=event_ms(lambda: rwkv6(r, kk_, vv_, w, u, chunk=chunk)),
-              plain_ms=event_ms(lambda: rwkv6_plain(r, kk_, vv_, w, u,
-                                                    chunk=chunk), 5),
-              bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
-    emit(phase="times", kernel="K6", case=f"hymba-1.5b SSM heads T={s}, "
-         "bf16 r/k/v, f32 w", flop=flop, bytes=nbytes, library="none",
-         **k6, card=card)
-    return k4, k6
+    row = dict(ms=event_ms(lambda: rwkv6(r, kk_, vv_, w, u, chunk=chunk)),
+               plain_ms=event_ms(lambda: rwkv6_plain(r, kk_, vv_, w, u,
+                                                     chunk=chunk), 5),
+               bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    emit(phase="times", kernel="K6", case=f"{case} B={b}, H={h}, K={kk}, "
+         f"V={vv}, T={t}, chunk {chunk}, bf16 r/k/v, f32 w", flop=flop,
+         bytes=nbytes, library="none", **row, card=card)
+    return row
+
+
+# -- the eighth slice: rwkv6-1.6b (K6) and dbrx-132b's in-graph MoE (K5) -----
+
+def rwkv_config(**overrides):
+    from repro_torch.configs import get_config
+    return get_config(RWKV6, **overrides)
+
+
+def dbrx_config(**overrides):
+    from repro_torch.configs import get_config
+    return get_config(DBRX_LM, n_layers=DBRX_LAYERS, **overrides)
+
+
+def rwkv_phases(dev, card: str) -> tuple:
+    """Phases 16-18 and 20 for rwkv6-1.6b: K6 against its plain version at
+    its prefill shapes, 2 layers at full width on the card against the host,
+    the model as published through ``generate`` and ``ServeScheduler.run``
+    (with request isolation), and K6's times.  Returns (the main path's K6
+    launches, K6's worst error, K6's times at the 2048-token prefill)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    cfg = rwkv_config()
+    h, kk = cfg.n_heads, cfg.d_head
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(80)
+    errs = []
+    for t in RWKV_K6_T:
+        b = RWKV_GENERATE["batch"]
+        r, k, v = (torch.randn((b, h, t, kk), generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(3))
+        w = torch.sigmoid(4 * torch.randn((b, h, t, kk), generator=gen,
+                                          device=dev)).clamp(1e-6, 1 - 1e-6)
+        u = 0.5 * torch.randn((h, kk), generator=gen, device=dev)
+        (o, st), (o_p, st_p) = (fn(r, k, v, w, u, chunk=64)
+                                for fn in (rwkv6, rwkv6_plain))
+        case = (f"K6 rwkv6-1.6b prefill, u != 0, bf16 r/k/v: B={b}, H={h}, "
+                f"K=V={kk}, T={t}, chunk 64")
+        errs += [compare(case + ", o", o, o_p, K6_TOL, "K6"),
+                 compare(case + ", state", st, st_p, K6_TOL, "K6")]
+    del r, k, v, w, o, st, o_p, st_p
+    torch.cuda.empty_cache()
+
+    n = cfg.n_layers
+    situ = dataclasses.replace(cfg, n_layers=RWKV_SITU["n_layers"],
+                               compute_dtype="float32")
+    from repro_torch.models import model as M
+    lm_in_situ(RWKV6, situ, M.init_params(situ, 81, device=dev),
+               RWKV_SITU["prompt"], RWKV_SITU["decode"], 82, {"K6": rwkv6},
+               {"K6": situ.n_layers}, {})
+    torch.cuda.empty_cache()
+    launches = lm_serving(
+        RWKV6, cfg, init_model(RWKV6, cfg, 83, dev), card,
+        kernels={"K6": rwkv6}, per_prefill={"K6": n}, per_step={},
+        gen_spec=RWKV_GENERATE, prompt_seed=84,
+        trace=serve_trace(cfg, RWKV_TRACE), serve_spec=RWKV_SERVE,
+        isolation=True)["K6"]
+    torch.cuda.empty_cache()
+    times = {t: k6_times(dev, card, "rwkv6-1.6b heads, u != 0",
+                         RWKV_GENERATE["batch"], h, t, kk, kk, u_zero=False,
+                         seed=85)
+             for t in RWKV_K6_T}
+    return launches, max(errs), times[max(RWKV_K6_T)]
+
+
+def in_graph_bundles(x, p, cfg):
+    """The bundles ``moe_ffn`` hands K5 for ``x`` (B, S, d), built by its
+    own ``_bundles``, and its expert map."""
+    from repro_torch.models.moe import _bundle_map, _bundles, expert_capacity
+    b, s, _ = x.shape
+    e, k = cfg.n_experts, cfg.moe_top_k
+    cap = expert_capacity(s, e, k, cfg.capacity_factor)
+    return _bundles(x, p["router"], n_experts=e, top_k=k,
+                    capacity=cap)[0], _bundle_map(b, e)
+
+
+def sliced_bf16_sums(a, w, be_t, depth: int = 512):
+    """``moe_gemm_plain`` with its float32 sums rounded to bfloat16 after
+    every ``depth``-deep slice: a kernel that accumulates in bfloat16, the
+    fault ``K5_LM_REL_NORM`` must catch."""
+    import torch
+    acc = None
+    for j in range(0, a.shape[-1], depth):
+        part = torch.bmm(a[..., j:j + depth].float(),
+                         w[be_t.long(), j:j + depth].float())
+        acc = (part if acc is None else acc + part).to(torch.bfloat16) \
+            .float()
+    return acc.to(a.dtype)
+
+
+def dbrx_host_routing(cfg, params, card: str) -> None:
+    """Host-routed decode: the same decode steps with the runtime installed
+    (``set_host_dispatch_runtime``) give logits bit-equal to the in-graph
+    run; the first pass misses ``moe_dispatch`` on its first step, and a
+    replay of the same steps answers every step from warm plans."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.moe import set_host_dispatch_runtime
+    from repro_torch.runtime import ReapRuntime
+    dev = params["embed"].device
+    b, s, n = DBRX_GENERATE["batch"], DBRX_HOST["prompt"], DBRX_HOST["steps"]
+    toks = torch.from_numpy(np.random.default_rng(91).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+    cparams = M.compute_params(cfg, params, dev)
+
+    def decode_run(rt):
+        logits, cache = M.prefill(cfg, cparams, toks,
+                                  M.init_cache(cfg, b, s + n, device=dev))
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        outs, per_step = [], []
+        for i in range(n):
+            before = dict(rt.cache_stats()["per_op"]["moe_dispatch"]) \
+                if rt else None
+            lg, cache = M.decode_step(cfg, cparams, cache, tok, s + i)
+            outs.append(lg)
+            if rt:
+                after = rt.cache_stats()["per_op"]["moe_dispatch"]
+                per_step.append({k: after[k] - before[k]
+                                 for k in ("hits", "misses")})
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        return outs, per_step
+
+    in_graph, _ = decode_run(None)
+    rt = ReapRuntime(device="cuda")
+    set_host_dispatch_runtime(rt)
+    try:
+        (first, first_steps), first_s = timed(lambda: decode_run(rt))
+        (replay, replay_steps), replay_s = timed(lambda: decode_run(rt))
+    finally:
+        set_host_dispatch_runtime(None)
+    equal = all(torch.equal(a, c) and torch.equal(a, r)
+                for a, c, r in zip(in_graph, first, replay))
+    ok = bool(equal and first_steps[0]["misses"] > 0
+              and all(st["misses"] == 0 and st["hits"] > 0
+                      for st in replay_steps))
+    emit(phase="main_path", case=f"{DBRX_LM} {cfg.n_layers} layers, "
+         f"host-routed decode, batch {b}, prompt {s}, {n} steps",
+         bit_equal_to_in_graph=equal, first_pass_per_step=first_steps,
+         replay_per_step=replay_steps, first_pass_s=first_s,
+         replay_s=replay_s, ok=ok, card=card)
+    check(ok, "host-routed DBRX decode: logits differ from the in-graph "
+          "run, or moe_dispatch did not miss first and hit on the replay")
+
+
+def dbrx_phases(dev, card: str) -> dict:
+    """Phases 16, 17, 19 and 20 for dbrx-132b at full width, depth cut to 4
+    layers (bfloat16 params, 28.6 GB): K5 against its plain version at the
+    in-graph bundles and K4 at the model's prefill, 1 layer on the card
+    against the host (float32 compute), the main path (``generate``,
+    ``ServeScheduler.run``, host-routed decode) and K4's and K5's times.
+    Returns the main path's launches by kernel, each kernel's worst error
+    and the times (K4 at the prefill; K5 by bundle shape and product)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.models import params as P
+    cfg = dbrx_config()
+    e, n = cfg.n_experts, cfg.n_layers
+    params = init_model(DBRX_LM, cfg, 90, dev)
+    layer0 = {k: w.to(cfg.cdtype) for k, w in P.tree_slice(
+        params["layers"], 0)["pos0"]["ffn"].items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(92)
+
+    # -- K5 against plain at the bundles moe_ffn builds -------------------
+    errs, bundles = [], {}
+    for name, (b, s) in DBRX_K5_CALLS.items():
+        x = torch.randn((b, s, cfg.d_model), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        xb, be = in_graph_bundles(x, layer0, cfg)
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
+        h = torch.nn.functional.silu(moe_gemm(xb, layer0["w_gate"], be)) \
+            * moe_gemm(xb, layer0["w_up"], be)
+        bundles[name] = (xb, h, be)
+        for label, a, w in (("gate", xb, layer0["w_gate"]),
+                            ("down", h, layer0["w_down"])):
+            errs.append(compare(
+                f"in-graph DBRX {name} {label}, bf16: ({a.shape[0]},"
+                f"{a.shape[1]},{a.shape[2]}) x ({e},{w.shape[1]},"
+                f"{w.shape[2]})", moe_gemm(a, w, be),
+                moe_gemm_plain(a, w, be_t), K5_BF16_TOL, "K5-LM",
+                K5_LM_REL_NORM))
+    # beside the relative-norm limit, what it would catch: sums rounded to
+    # bfloat16 every 512-deep slice, at the prefill's gate product
+    xb, _, be = bundles["prefill"]
+    be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
+    want = moe_gemm_plain(xb, layer0["w_gate"], be_t).float()
+    cut = sliced_bf16_sums(xb, layer0["w_gate"], be_t).float()
+    emit(phase="k5_lm_limit_reading", case="in-graph DBRX prefill gate, "
+         "plain version with its sums rounded to bf16 every 512 deep",
+         rel_norm=((cut - want).norm() / want.norm()).item(),
+         rel_norm_tol=K5_LM_REL_NORM)
+    del want, cut
+
+    # -- K4 against plain at the model's prefill --------------------------
+    b, s = DBRX_GENERATE["batch"], DBRX_GENERATE["prompt"]
+    q = torch.randn((b, cfg.n_heads, s, cfg.d_head), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, cfg.n_kv_heads, s, cfg.d_head), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+    k4_err = compare(
+        f"K4 {DBRX_LM} prefill causal S={s} bf16: B={b}, H={cfg.n_heads}, "
+        f"Hkv={cfg.n_kv_heads}, D={cfg.d_head}", flash_attention(q, k, v),
+        flash_attention_plain(q, k, v), K4_BF16_TOL, "K4", K4_BF16_REL_NORM)
+    del q, k, v
+    torch.cuda.synchronize()
+
+    # -- in situ: 1 layer, float32 compute, card against host -------------
+    situ = dataclasses.replace(cfg, n_layers=DBRX_SITU["n_layers"],
+                               compute_dtype="float32")
+    one = dict(params, layers=P.tree_map(lambda v: v[:situ.n_layers],
+                                         params["layers"]))
+    lm_in_situ(DBRX_LM, situ, one, DBRX_SITU["prompt"], DBRX_SITU["decode"],
+               93, {"K4": flash_attention, "K5": moe_gemm},
+               {"K4": 1, "K5": 3}, {"K5": 3})
+    del one
+    torch.cuda.empty_cache()
+
+    # -- the main path ------------------------------------------------------
+    launches = lm_serving(
+        DBRX_LM, cfg, params, card,
+        kernels={"K4": flash_attention, "K5": moe_gemm},
+        per_prefill={"K4": n, "K5": 3 * n}, per_step={"K5": 3 * n},
+        gen_spec=DBRX_GENERATE, prompt_seed=94,
+        trace=serve_trace(cfg, DBRX_TRACE), serve_spec=DBRX_SERVE,
+        isolation=False)
+    dbrx_host_routing(cfg, params, card)
+
+    # -- times: K4 at the prefill, K5 at the in-graph bundles --------------
+    k4_times = time_k4(dev, card, DBRX_LM, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head, s, {}, b=b)
+    k5_times = {}
+    for name, (xb, h, be) in bundles.items():
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
+        for label, a, w in (("gate", xb, layer0["w_gate"]),
+                            ("down", h, layer0["w_down"])):
+            nb, cap, d_in = a.shape
+            d_out = w.shape[-1]
+            flop = 2 * nb * cap * d_in * d_out
+            nbytes = (a.numel() + w.numel() + nb * cap * d_out) * 2 \
+                + be["bundle_expert"].nbytes
+            bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
+            # the library call: one bmm over the experts, each taking the
+            # bundles of every row that meet it
+            rows = nb // e
+            a_e = a.reshape(rows, e, cap, d_in).transpose(0, 1).reshape(
+                e, rows * cap, d_in)
+            n_t = TIMED_LAUNCHES if name == "decode" else 10
+            row = dict(ms=event_ms(lambda: moe_gemm(a, w, be), n_t),
+                       plain_ms=event_ms(lambda: moe_gemm_plain(a, w, be_t),
+                                         5),
+                       library_ms=event_ms(lambda: torch.bmm(a_e, w), n_t),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            k5_times.setdefault(f"dbrx_in_graph_{name}", {})[label] = row
+            emit(phase="times", kernel="K5",
+                 case=f"in-graph DBRX {name} {label}, bf16",
+                 shape=[nb, cap, d_in, d_out], flop=flop, bytes=nbytes,
+                 k5_tflops=flop / row["ms"] / 1e9,
+                 k5_bytes_per_s=nbytes / row["ms"] * 1e3,
+                 library="torch.bmm over (E, rows x cap, d)", **row,
+                 card=card)
+    del params, bundles, layer0
+    torch.cuda.empty_cache()
+    return dict(launches=launches, k4_err=k4_err, k5_err=max(errs),
+                k4_times=k4_times, k5_times=k5_times)
 
 
 def serve_cli(card: str) -> None:
-    """Phase 16: the port's serving CLI on the card, one process per arch,
+    """Phase 21: the port's serving CLI on the card, one process per arch,
     all started together (``--reduced`` is forced, as in the reference:
-    head dim 16); each must exit 0 having launched K4 (and K6 for hymba)."""
+    head dim 16); each must exit 0 having launched its kernels (K4 for
+    attention, K6 for hymba and rwkv6).  dbrx-132b runs with ``--routing
+    host --plan-store`` beside them and once more after them: a restart,
+    which must answer its dispatch plans from the store; both launch K5."""
     import os
     import re
+    import shutil
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    store = ROOT / "build" / "serve_plan_store"
+    shutil.rmtree(store, ignore_errors=True)
+    host_moe = [*SERVE_CLI_HOST_MOE, str(store)]
     t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch,
-         *SERVE_CLI_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True) for arch in SERVE_CLI_ARCHS}
+
+    def start(args):
+        return subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve", *args,
+             *SERVE_CLI_ARGS], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+
+    procs = {arch: start(["--arch", arch]) for arch in SERVE_CLI_ARCHS}
+    procs["dbrx-132b host routing"] = start(host_moe)
     outs = {}
     try:
-        for arch, proc in procs.items():
+        for arch, proc in list(procs.items()):
             outs[arch] = proc.communicate(timeout=600)[0]
+        procs["dbrx-132b host routing, restart"] = proc = start(host_moe)
+        outs["dbrx-132b host routing, restart"] = proc.communicate(
+            timeout=600)[0]
     finally:
         for proc in procs.values():
             proc.kill()
     for arch, proc in procs.items():
         out = outs[arch]
         found = re.search(r"kernel launches: flash_attention=(\d+) "
-                          r"rwkv6=(\d+)", out)
-        k4, k6 = (int(x) for x in found.groups()) if found else (0, 0)
-        ok = proc.returncode == 0 and k4 > 0 and (k6 > 0) == (arch == HYMBA)
+                          r"rwkv6=(\d+) moe_gemm=(\d+)", out)
+        k4, k6, k5 = (int(x) for x in found.groups()) if found else (0, 0, 0)
+        plans = re.search(r"moe_dispatch\[h=(\d+),s=(\d+),m=(\d+)", out)
+        hits, store_hits, misses = (int(x) for x in plans.groups()) \
+            if plans else (0, 0, 0)
+        if arch.startswith("dbrx"):
+            restart = arch.endswith("restart")
+            ok = k4 > 0 and k5 > 0 and (
+                store_hits > 0 and misses == 0 if restart else misses > 0)
+        else:
+            ok = (k4 > 0) == (arch != RWKV6) and \
+                (k6 > 0) == (arch in (HYMBA, RWKV6))
+        ok = ok and proc.returncode == 0
         emit(phase="serve_cli", arch=arch, args=SERVE_CLI_ARGS,
              rc=proc.returncode, k4_launches=k4, k6_launches=k6,
+             k5_launches=k5, moe_dispatch=dict(hits=hits,
+                                               store_hits=store_hits,
+                                               misses=misses),
              seconds=time.perf_counter() - t0, ok=ok,
              tail=out.strip().splitlines()[-4:], card=card)
-        check(ok, f"serve CLI --arch {arch}: exit {proc.returncode}, K4 "
-              f"launches {k4}, K6 launches {k6}")
+        check(ok, f"serve CLI {arch}: exit {proc.returncode}, K4 / K6 / K5 "
+              f"launches {k4} / {k6} / {k5}, moe_dispatch hits {hits}, "
+              f"store hits {store_hits}, misses {misses}")
 
 
-def profile_lm() -> None:
-    """Device busy share of one warm hymba-1.5b prefill (1024 tokens) and
-    one warm decode step (batch 4), in a child process (see
+def profile_lm(arch: str) -> None:
+    """Device busy share of one warm prefill (1024 tokens) and one warm
+    decode step (batch 4) of ``arch`` (hymba-1.5b and rwkv6-1.6b as
+    published, dbrx-132b at 4 layers), in a child process of its own (see
     ``profile_second_slice``)."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.models import model as M
     dev = torch.device("cuda")
-    cfg = hymba_config()
+    cfg = dbrx_config() if arch == DBRX_LM else get_config(arch)
     params = M.compute_params(cfg, M.init_params(cfg, 76, device=dev), dev)
     toks = torch.from_numpy(np.random.default_rng(77).integers(
         0, cfg.vocab_size, (4, 1024)).astype(np.int32)).to(dev)
@@ -1706,8 +2171,8 @@ def profile_lm() -> None:
         return M.decode_step(cfg, params, cache, toks[:, :1],
                              torch.full((4,), 1024, device=dev))
 
-    for case, fn in (("hymba-1.5b prefill 1024 tokens, warm", prefill),
-                     ("hymba-1.5b decode step, batch 4, warm", decode)):
+    for case, fn in ((f"{arch} prefill 1024 tokens, warm", prefill),
+                     (f"{arch} decode step, batch 4, warm", decode)):
         timed(fn)
         device_share(case, fn)
 
@@ -1918,25 +2383,46 @@ def main() -> int:
     k4_launches, k6_launches = hymba_serving(dev, card)
     torch.cuda.empty_cache()
     k4_times, k6_times = hymba_kernel_times(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 16.-20. rwkv6-1.6b (K6) and dbrx-132b's in-graph MoE (K5) ---------
+    k6_rwkv_launches, k6_rwkv_err, k6_rwkv_times = rwkv_phases(dev, card)
+    torch.cuda.empty_cache()
+    dbrx = dbrx_phases(dev, card)
     serve_cli(card)
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:116",
-        "launches": k4_launches, "max_abs_err": k4_err, **k4_times}
+        "launches": k4_launches + dbrx["launches"]["K4"],
+        "launches_by_path": {HYMBA: k4_launches,
+                             DBRX_LM: dbrx["launches"]["K4"]},
+        "max_abs_err": max(k4_err, dbrx["k4_err"]), **k4_times,
+        "dbrx_132b_prefill": dbrx["k4_times"]}
     k6_row = {
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:67",
-        "launches": k6_launches, "max_abs_err": k6_err, **k6_times}
+        "launches": k6_launches + k6_rwkv_launches,
+        "launches_by_path": {HYMBA: k6_launches, RWKV6: k6_rwkv_launches},
+        "max_abs_err": max(k6_err, k6_rwkv_err), **k6_times,
+        "rwkv6_1p6b_prefill": k6_rwkv_times}
+    k5_lm_launches = dbrx["launches"]["K5"]
+    k5_row.update(launches=k5_row["launches"] + k5_lm_launches,
+                  launches_by_path={"moe_ffn_host": k5_row["launches"],
+                                    DBRX_LM: k5_lm_launches},
+                  max_abs_err=max(k5_row["max_abs_err"], dbrx["k5_err"]),
+                  **dbrx["k5_times"])
     sys.stdout.flush()
-    for child in ("--profile-second-slice", "--profile-lm"):
+    for child in (["--profile-second-slice"], ["--profile-lm", HYMBA],
+                  ["--profile-lm", RWKV6], ["--profile-lm", DBRX_LM]):
         subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        child], check=True, timeout=600)
+                        *child], check=True, timeout=600)
     # last: after this session (12,000 levels of small launches) later
     # profiler sessions in the same process recorded no device event
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
+    emit(phase="script", seconds=time.perf_counter() - T_START, card=card)
     print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row, k5_row,
                                   k6_row]}), flush=True)
     print(card, flush=True)
@@ -1949,6 +2435,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:] == ["--profile-second-slice"]:
         sys.exit(profile_second_slice())
-    if sys.argv[1:] == ["--profile-lm"]:
-        sys.exit(profile_lm())
+    if sys.argv[1:2] == ["--profile-lm"] and len(sys.argv) == 3:
+        sys.exit(profile_lm(sys.argv[2]))
     sys.exit(main())

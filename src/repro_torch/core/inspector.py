@@ -553,8 +553,8 @@ register_op(OpSpec(
     execute_sync=_exec_moe_dispatch,
     plan_types={"moe_dispatch": MoeDispatchPlan},
     allowed_kw=("n_experts", "capacity"),
-    # host routing only: the reference's traced in-graph twin comes with
-    # the LM stack (ROADMAP queue 1 item 10) and its shard hook with
-    # sharding (item 9), so the op is not shardable yet
-    capabilities=OpCapabilities(routing="host"),
+    # in_graph, as the reference declares: the LM's ``models.moe.moe_ffn``
+    # is the op's on-device twin.  The shard hook comes with sharding
+    # (ROADMAP queue 1 item 9), so the op is not shardable yet
+    capabilities=OpCapabilities(routing="in_graph"),
 ))

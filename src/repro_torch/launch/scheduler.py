@@ -27,8 +27,9 @@ Scheduling policy (deliberately simple and fully deterministic):
 Prefill lengths are bucketed to powers of two only for pure-attention
 SwiGLU decoders, where causal masking makes right-padding exact for the
 real tokens (pad KV is invalidated via ``cache_write_slot(valid_upto=L)``).
-Recurrent mixers (hymba) prefill at exact length, because right pads would
-pollute the carried state.
+MoE models prefill at exact length — pad tokens would contend for expert
+capacity and perturb real-token outputs — and recurrent mixers (rwkv,
+hymba) do too, because right pads would pollute the carried state.
 
 Everything here is wall-clock-free: progress is step counting, so traces
 replay exactly.  Latency is *observed* (submit→first-token and

@@ -1,10 +1,10 @@
 """Serving driver: one-shot batch generation or a continuous-batching loop.
 
-Port of ``repro.launch.serve`` for the decoder-only models the port runs
-(the ``attn`` and ``hymba`` mixers with the SwiGLU FFN).  One-shot (fixed
-batch, every row the same prompt length and gen):
+Port of ``repro.launch.serve`` for the decoder-only models (the ``attn``,
+``rwkv`` and ``hymba`` mixers; the ``swiglu``, ``moe`` and ``rwkv_cm``
+FFNs).  One-shot (fixed batch, every row the same prompt length and gen):
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch hymba-1.5b \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --batch 2 --prompt-len 32 --gen 8 --device cpu
 
 Continuous batching (trace-driven scheduler, per-request lengths, KV-cache
@@ -14,9 +14,20 @@ request slots — see ``launch/scheduler.py``):
         --continuous --requests 8 --max-batch 3 --max-seq 32 \\
         --expect-completions 8 --device cpu
 
+MoE architectures can route decode-step expert dispatch through the
+process's ReapRuntime (``--routing host``, or its legacy alias
+``--host-moe``): each decode step hands its routing pattern to the
+registered ``moe_dispatch`` op, so repeated per-token routings hit warm
+bundling plans and — with ``--plan-store DIR`` — a restarted server reuses
+the plans a previous process inspected.  ``--routing auto`` follows each
+op's declared routing (``moe_dispatch`` declares ``in_graph``).
+
 ``--reduced`` is on and cannot be turned off, as in the reference (a
-``store_true`` flag whose default is True).  The reference's exec-store,
-routing, host-MoE, plan-store and mesh flags are not offered.
+``store_true`` flag whose default is True).  The runtime flags come from
+``repro_torch.runtime.add_runtime_args``; ``--exec-store`` and
+``--mesh-shape`` raise until their slices are ported, and the reference's
+``--prewarm`` and ``--expect-zero-compiles`` (executable store) are not
+offered.
 """
 from __future__ import annotations
 
@@ -36,7 +47,59 @@ def print_kernel_launches() -> None:
     """The hand-written kernels this process launched (0 on the CPU, where
     their plain versions run)."""
     print(f"[serve] kernel launches: flash_attention="
-          f"{kops.flash_attention.launches} rwkv6={kops.rwkv6.launches}")
+          f"{kops.flash_attention.launches} rwkv6={kops.rwkv6.launches} "
+          f"moe_gemm={kops.moe_gemm.launches}")
+
+
+def _store_op_report(rt) -> str:
+    """Warm-plan counts per registered op tag (registry-enumerated)."""
+    from ..runtime.ops import op_tag_for_fingerprint
+    counts: dict = {}
+    for fp in rt.store.fingerprints():
+        tag = op_tag_for_fingerprint(fp.op) or "other"
+        counts[tag] = counts.get(tag, 0) + 1
+    parts = [f"{tag}={n}" for tag, n in sorted(counts.items())]
+    return " ".join(parts) if parts else "none"
+
+
+def _resolve_routing(mode: str) -> dict:
+    """Per-op serving route, decided from declared ``OpCapabilities``.
+
+    ``auto`` takes each concrete op's own ``routing`` declaration;
+    ``host``/``in_graph`` force every concrete op one way.  Routers are
+    skipped — they own no execution path.
+    """
+    from ..runtime.ops import capability_summary, get_op, list_ops
+    routes = {}
+    for tag in list_ops():
+        spec = get_op(tag)
+        if spec.route is not None:
+            continue
+        declared = capability_summary(spec)["routing"]
+        routes[tag] = declared if mode == "auto" else mode
+    return routes
+
+
+def _runtime_report(rt) -> None:
+    """The plan cache's hits, store hits and misses, overall and per op."""
+    cs = rt.cache_stats()
+    line = (f"[serve] plan cache: {cs['hits']} hits, "
+            f"{cs['store_hits']} store hits, {cs['misses']} misses")
+    if rt.store is not None:
+        line += (f"; store holds {cs['store']['entries']} plans "
+                 f"({cs['store']['saves']} saved this run)")
+    print(line)
+    active = {tag: rec for tag, rec in cs["per_op"].items()
+              if any(rec.values())}
+    if active:
+        print("[serve] per-op:", " ".join(
+            f"{tag}[h={rec['hits']},s={rec['store_hits']},"
+            f"m={rec['misses']},warm={rec['warm_rate']:.2f}]"
+            for tag, rec in sorted(active.items())))
+    elif rt.store is not None:
+        print("[serve] note: no sparse op consulted the runtime this run — "
+              "decode routes on the device; pass --routing host on an MoE "
+              "arch to route dispatch through it")
 
 
 def generate(cfg, params, tokens, *, gen: int, max_seq: int,
@@ -125,11 +188,13 @@ def serve_continuous(cfg, args):
                 f"{len(completions)} / {streamed[0]} streamed")
         print(f"[serve] smoke OK: {args.expect_completions} completions, "
               f"{streamed[0]} streamed tokens, no orphaned slots")
-    print_kernel_launches()
     return completions
 
 
 def main(argv=None):
+    from ..runtime import (ReapRuntime, RuntimeConfig, add_runtime_args,
+                           set_default_runtime)
+    from ..models.moe import set_host_dispatch_runtime
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="gemma2-2b")
     ap.add_argument("--reduced", action="store_true", default=True,
@@ -158,15 +223,67 @@ def main(argv=None):
                     help="[--continuous] exit nonzero unless exactly this "
                          "many requests complete with streamed output "
                          "(CI smoke gate)")
-    ap.add_argument("--device", default="cuda",
-                    help="cuda (default; raises without a card) or cpu")
+    ap.add_argument("--host-moe", action="store_true",
+                    help="route decode-step MoE dispatch through the "
+                         "runtime's registered moe_dispatch op: only the "
+                         "routing pattern leaves the device, and repeated "
+                         "per-token routings hit warm bundling plans (with "
+                         "--plan-store they survive restarts). Legacy alias "
+                         "for --routing=host")
+    ap.add_argument("--routing", choices=("auto", "host", "in_graph"),
+                    default="auto",
+                    help="per-op dispatch route: 'auto' follows each "
+                         "registered op's declared OpCapabilities.routing, "
+                         "'host'/'in_graph' force every op one way")
+    add_runtime_args(ap)       # --plan-store, --device (default cuda), ...
     args = ap.parse_args(argv)
+    args.device = args.device or "cuda"
+    if args.host_moe and args.routing == "auto":
+        args.routing = "host"            # legacy alias keeps its meaning
+    resolve_device(args.device)
+
+    rt = None
+    if args.plan_store or args.exec_store or args.routing == "host":
+        rt = set_default_runtime(ReapRuntime(RuntimeConfig.from_args(args)))
+        if rt.store is not None:
+            s = rt.store.summary()
+            print(f"[serve] plan store {args.plan_store}: {s['entries']} "
+                  f"warm plans ({_store_op_report(rt)}), "
+                  f"{s['bytes'] / 1e6:.2f} MB on disk")
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
-    if args.continuous:
-        return serve_continuous(cfg, args)
+    # the route ACTS on declared capabilities: moe_dispatch is the op a
+    # decode step can route on the host, so its resolved route decides
+    # whether the host dispatch runtime is installed
+    routes = _resolve_routing(args.routing)
+    host_moe = routes.get("moe_dispatch") == "host"
+    if host_moe and cfg.ffn != "moe":
+        print(f"[serve] note: host routing has no effect on {args.arch} "
+              "(no MoE layers)")
+        host_moe = False
+    if rt is not None:
+        print(f"[serve] routing ({args.routing}): " + " ".join(
+            f"{tag}={route}" for tag, route in sorted(routes.items())))
+    if host_moe:
+        set_host_dispatch_runtime(rt)
+    try:
+        if args.continuous:
+            seqs = serve_continuous(cfg, args)
+        else:
+            seqs = serve_one_shot(cfg, args)
+    finally:
+        if host_moe:
+            set_host_dispatch_runtime(None)
+    if rt is not None:
+        _runtime_report(rt)
+    print_kernel_launches()
+    return seqs
+
+
+def serve_one_shot(cfg, args):
+    """One fixed batch through ``generate``."""
     params = M.init_params(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab_size,
@@ -183,7 +300,6 @@ def main(argv=None):
         print(f"[serve] decode latency p50={np.median(lat) * 1e3:.1f}ms "
               f"p99={np.percentile(lat, 99) * 1e3:.1f}ms")
     print("[serve] first sequence:", seqs[0].cpu().numpy()[:16], "...")
-    print_kernel_launches()
     return seqs
 
 

@@ -1,5 +1,5 @@
-"""Transformer-block assembly for the ``attn`` and ``hymba`` mixers with the
-SwiGLU FFN.
+"""Transformer-block assembly for the ``attn``, ``rwkv`` and ``hymba`` mixers
+with the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs.
 
 Port of ``repro.models.blocks``.  A block = mixer + ffn with pre-norms
 (and gemma-style post-norms).  Every block provides three entry points
@@ -11,15 +11,16 @@ with identical parameters:
 
 Param declarations (Meta) live beside the compute so shapes cannot drift;
 the param tree equals the reference's key for key and shape for shape
-(hymba's unused ``wo_s`` included).  Attention over a sequence goes
-through kernel K4 and the SSM heads through kernel K6 on the card.
+(hymba's unused ``wo_s`` included).  On the card, attention over a
+sequence goes through kernel K4, the RWKV6 WKV and hymba's SSM heads
+through kernel K6, and the MoE FFN's expert products through kernel K5
+(``moe.moe_ffn``).
 
 Caches are updated functionally, as in the reference: each entry point
 returns new cache tensors and leaves its inputs unchanged.
 
 Not ported yet (ROADMAP queue 1 item 10), each raising
-``NotImplementedError``: the ``rwkv`` mixer, the ``rwkv_cm`` and ``moe``
-FFNs, cross-attention (enc-dec) and prefix-LM attention.
+``NotImplementedError``: cross-attention (enc-dec) and prefix-LM attention.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 
 from .attention import AttnSpec, decode_attention, flash_attention
 from .layers import dense, grad_fence, rms_norm, rotary, swiglu
+from .moe import moe_ffn
 from .params import Meta
 from .ssm import rwkv6_chunked, rwkv6_decode_step
 
@@ -72,10 +74,51 @@ def _ssm_metas(cfg) -> Dict[str, Meta]:
     }
 
 
+def _rwkv_metas(cfg) -> Dict[str, Meta]:
+    d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+    return {
+        "mu_r": Meta((d,), (None,), init="zeros"),
+        "mu_k": Meta((d,), (None,), init="zeros"),
+        "mu_v": Meta((d,), (None,), init="zeros"),
+        "mu_w": Meta((d,), (None,), init="zeros"),
+        "mu_g": Meta((d,), (None,), init="zeros"),
+        "wr": Meta((d, h * dh), ("embed", "heads")),
+        "wk": Meta((d, h * dh), ("embed", "heads")),
+        "wv": Meta((d, h * dh), ("embed", "heads")),
+        "ww": Meta((d, h * dh), ("embed", "heads"), scale=0.01),
+        "w_bias": Meta((h * dh,), (None,), init="zeros"),
+        "wg": Meta((d, h * dh), ("embed", "heads")),
+        "u": Meta((h, dh), (None, None), scale=0.5),
+        "wo": Meta((h * dh, d), ("heads", "embed")),
+        "out_norm": Meta((h * dh,), (None,), init="ones"),
+    }
+
+
 def _ffn_metas(cfg) -> Dict[str, Meta]:
-    if cfg.ffn != "swiglu":
-        raise _not_ported(f"the {cfg.ffn!r} FFN")
     d = cfg.d_model
+    if cfg.ffn == "moe":
+        e, dff = cfg.n_experts, cfg.d_ff_expert
+        m = {
+            "router": Meta((d, e), ("embed", None), scale=0.02),
+            "w_gate": Meta((e, d, dff), ("experts", "embed", None)),
+            "w_up": Meta((e, d, dff), ("experts", "embed", None)),
+            "w_down": Meta((e, dff, d), ("experts", None, "embed")),
+        }
+        if cfg.n_shared_experts:
+            sdff = dff * cfg.n_shared_experts
+            m.update({
+                "shared_gate": Meta((d, sdff), ("embed", "mlp")),
+                "shared_up": Meta((d, sdff), ("embed", "mlp")),
+                "shared_down": Meta((sdff, d), ("mlp", "embed")),
+            })
+        return m
+    if cfg.ffn == "rwkv_cm":
+        return {
+            "mu_cm": Meta((cfg.d_model,), (None,), init="zeros"),
+            "w_rcm": Meta((d, d), ("embed", "embed2")),
+            "w_in": Meta((d, cfg.d_ff), ("embed", "mlp")),
+            "w_out": Meta((cfg.d_ff, d), ("mlp", "embed")),
+        }
     return {
         "w_gate": Meta((d, cfg.d_ff), ("embed", "mlp")),
         "w_up": Meta((d, cfg.d_ff), ("embed", "mlp")),
@@ -94,11 +137,11 @@ def block_metas(cfg, layer_type: str) -> Dict:
                              init="zeros" if cfg.gemma_style else "ones")
     if cfg.mixer == "attn":
         m["attn"] = _attn_metas(cfg)
+    elif cfg.mixer == "rwkv":
+        m["rwkv"] = _rwkv_metas(cfg)
     elif cfg.mixer == "hymba":
         m["attn"] = _attn_metas(cfg)
         m["ssm"] = _ssm_metas(cfg)
-    else:
-        raise _not_ported(f"the {cfg.mixer!r} mixer")
     if layer_type == "decoder":
         raise _not_ported("cross-attention (enc-dec)")
     m["ffn"] = _ffn_metas(cfg)
@@ -258,6 +301,85 @@ def attn_decode(cfg, p, x_t, cache, pos, layer_type):
 
 
 # ---------------------------------------------------------------------------
+# Mixer: RWKV6
+# ---------------------------------------------------------------------------
+
+def _lerp(x, x_prev, mu):
+    return x + (x_prev - x) * mu.to(x.dtype)
+
+
+def _shift_tokens(x: torch.Tensor) -> torch.Tensor:
+    """Each position's previous token, zeros before the first."""
+    return torch.cat([torch.zeros_like(x[:, :1]), x[:, :-1]], dim=1)
+
+
+def _rwkv_project(cfg, p, x, x_prev):
+    b, s, d = x.shape
+    h, dh = cfg.n_heads, cfg.d_head
+    r = dense(_lerp(x, x_prev, p["mu_r"]), p["wr"])
+    k = dense(_lerp(x, x_prev, p["mu_k"]), p["wk"])
+    v = dense(_lerp(x, x_prev, p["mu_v"]), p["wv"])
+    g = dense(_lerp(x, x_prev, p["mu_g"]), p["wg"])
+    wraw = dense(_lerp(x, x_prev, p["mu_w"]), p["ww"]) + p["w_bias"].to(
+        x.dtype)
+    # decay in (0,1): exp(-softplus(-wraw)-0.5) keeps a useful dynamic range
+    w = torch.exp(-torch.exp(wraw.float() - 0.5))
+    w = torch.clamp(w, 1e-6, 1 - 1e-6)
+
+    def heads(z):
+        return z.reshape(b, s, h, dh).transpose(1, 2)
+    return heads(r), heads(k), heads(v), heads(w), g
+
+
+def rwkv_forward(cfg, p, x, state_in=None):
+    """x: (B, S, d). Returns (out, {"wkv": final state, "shift": last x}).
+
+    As in the reference, the WKV state starts from zero; ``state_in``
+    supplies only the token shift's first previous token."""
+    b, s, d = x.shape
+    x_prev = _shift_tokens(x)
+    if state_in is not None:
+        x_prev[:, 0] = state_in["shift"].to(x.dtype)
+    r, k, v, w, g = _rwkv_project(cfg, p, x, x_prev)
+    o, wkv_state = rwkv6_chunked(r, k, v, w, p["u"], chunk=min(64, s))
+    o = rms_norm(_merge_heads(o).to(x.dtype), p["out_norm"])
+    o = o * torch.nn.functional.silu(g)
+    return dense(o, p["wo"]), {"wkv": wkv_state, "shift": x[:, -1]}
+
+
+def rwkv_make_cache(cfg, batch, dtype, device):
+    h, dh = cfg.n_heads, cfg.d_head
+    return {"wkv": torch.zeros((batch, h, dh, dh), dtype=torch.float32,
+                               device=device),
+            "shift": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                 device=device),
+            "shift_cm": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device)}
+
+
+def rwkv_decode(cfg, p, x_t, cache):
+    """x_t: (B, 1, d)."""
+    b = x_t.shape[0]
+    h, dh = cfg.n_heads, cfg.d_head
+    x = x_t[:, 0]
+    x_prev = cache["shift"].to(x.dtype)
+    r, k, v, w, g = _rwkv_project(cfg, p, x[:, None, :], x_prev[:, None, :])
+    o, state = rwkv6_decode_step(r[:, :, 0], k[:, :, 0], v[:, :, 0],
+                                 w[:, :, 0], p["u"], cache["wkv"])
+    o = o.reshape(b, h * dh).to(x.dtype)
+    o = rms_norm(o, p["out_norm"]) * torch.nn.functional.silu(g[:, 0])
+    out = dense(o, p["wo"])[:, None, :]
+    return out, {"wkv": state, "shift": x, "shift_cm": cache["shift_cm"]}
+
+
+def rwkv_channel_mix(cfg, p, x, x_prev):
+    xk = _lerp(x, x_prev, p["mu_cm"])
+    rgate = torch.sigmoid(dense(xk, p["w_rcm"]))
+    hidden = torch.square(torch.relu(dense(xk, p["w_in"])))
+    return rgate * dense(hidden, p["w_out"])
+
+
+# ---------------------------------------------------------------------------
 # Mixer: Hymba (parallel attention + SSM heads)
 # ---------------------------------------------------------------------------
 
@@ -345,10 +467,13 @@ def _norm(cfg, x, w):
     return rms_norm(x, w, plus_one=cfg.gemma_style)
 
 
-def _apply_ffn(cfg, p, x):
+def _apply_ffn(cfg, p, x, x_prev_for_cm=None):
     """Returns (out, aux_loss)."""
-    if cfg.ffn != "swiglu":
-        raise _not_ported(f"the {cfg.ffn!r} FFN")
+    if cfg.ffn == "moe":
+        return moe_ffn(x, p, n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.capacity_factor)
+    if cfg.ffn == "rwkv_cm":
+        return rwkv_channel_mix(cfg, p, x, x_prev_for_cm), 0.0
     return swiglu(x, p["w_gate"], p["w_up"], p["w_down"]), 0.0
 
 
@@ -358,11 +483,17 @@ def _mixer_out(cfg, p, mixed, x):
     return x + mixed
 
 
-def _ffn_out(cfg, p, x):
-    out, aux = _apply_ffn(cfg, p["ffn"], _norm(cfg, x, p["ln2"]))
+def _ffn_out(cfg, p, x, cm_prev=None):
+    """The FFN sub-layer.  ``cm_prev`` is the channel mix's previous token
+    at decode (the cached ``shift_cm``); over a sequence it is each
+    position's predecessor.  Returns (x, aux_loss, the FFN's input)."""
+    h2 = _norm(cfg, x, p["ln2"])
+    if cfg.ffn == "rwkv_cm" and cm_prev is None:
+        cm_prev = _shift_tokens(h2)
+    out, aux = _apply_ffn(cfg, p["ffn"], h2, cm_prev)
     if cfg.post_norm:
         out = _norm(cfg, out, p["ln2_post"])
-    return x + out, aux
+    return x + out, aux, h2
 
 
 def block_forward(cfg, layer_type, p, x, positions, prefix: int = 0):
@@ -370,20 +501,25 @@ def block_forward(cfg, layer_type, p, x, positions, prefix: int = 0):
     h = grad_fence(_norm(cfg, x, p["ln1"]))
     if cfg.mixer == "attn":
         mixed = attn_forward(cfg, p["attn"], h, positions, layer_type, prefix)
+    elif cfg.mixer == "rwkv":
+        mixed, _ = rwkv_forward(cfg, p["rwkv"], h)
     elif cfg.mixer == "hymba":
         mixed = hymba_forward(cfg, p, h, positions, layer_type)
     else:
-        raise _not_ported(f"the {cfg.mixer!r} mixer")
-    return _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x))
+        raise ValueError(cfg.mixer)
+    x, aux, _ = _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x))
+    return x, aux
 
 
 def block_make_cache(cfg, layer_type, batch, max_seq, dtype, device):
     if cfg.mixer == "attn":
         return attn_make_cache(cfg, layer_type, batch, max_seq, dtype, device)
+    if cfg.mixer == "rwkv":
+        return rwkv_make_cache(cfg, batch, dtype, device)
     if cfg.mixer == "hymba":
         return hymba_make_cache(cfg, layer_type, batch, max_seq, dtype,
                                 device)
-    raise _not_ported(f"the {cfg.mixer!r} mixer")
+    raise ValueError(cfg.mixer)
 
 
 def block_prefill(cfg, layer_type, p, x, positions, cache):
@@ -393,11 +529,16 @@ def block_prefill(cfg, layer_type, p, x, positions, cache):
     if cfg.mixer == "attn":
         mixed, cache = attn_prefill(cfg, p["attn"], h, positions, layer_type,
                                     cache)
+    elif cfg.mixer == "rwkv":
+        mixed, st = rwkv_forward(cfg, p["rwkv"], h)
+        cache = dict(cache, wkv=st["wkv"], shift=st["shift"])
     elif cfg.mixer == "hymba":
         mixed, cache = hymba_prefill(cfg, p, h, positions, layer_type, cache)
     else:
-        raise _not_ported(f"the {cfg.mixer!r} mixer")
-    x, aux = _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x))
+        raise ValueError(cfg.mixer)
+    x, aux, h2 = _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x))
+    if cfg.ffn == "rwkv_cm":
+        cache = dict(cache, shift_cm=h2[:, -1])
     return x, cache, aux
 
 
@@ -410,9 +551,16 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
             pos, layer_type)
         cache = dict(cache)
         cache.update(new_attn)
+    elif cfg.mixer == "rwkv":
+        mixed, cache = rwkv_decode(cfg, p["rwkv"], h, cache)
     elif cfg.mixer == "hymba":
         mixed, cache = hymba_decode(cfg, p, h, cache, pos, layer_type)
     else:
-        raise _not_ported(f"the {cfg.mixer!r} mixer")
-    x_t, _ = _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x_t))
+        raise ValueError(cfg.mixer)
+    x_t = _mixer_out(cfg, p, mixed, x_t)
+    cm = cfg.ffn == "rwkv_cm"
+    x_t, _, h2 = _ffn_out(cfg, p, x_t, cache["shift_cm"].to(
+        x_t.dtype)[:, None, :] if cm else None)
+    if cm:
+        cache = dict(cache, shift_cm=h2[:, 0])
     return x_t, cache

@@ -1,4 +1,5 @@
-"""Model assembly: decoder-only LMs with the ``attn`` and ``hymba`` mixers.
+"""Model assembly: decoder-only LMs with the ``attn``, ``rwkv`` and ``hymba``
+mixers and the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs.
 
 Port of ``repro.models.model`` (the serving half).  Layers are stacked per
 *pattern period* (gemma2's local + global = period 2), with any remainder
@@ -11,11 +12,11 @@ Entry points:
   lm_metas / init_params
   forward(cfg, params, tokens)      → (logits, aux_loss)
   init_cache / prefill / decode_step
-  cache_write_slot / cache_evict_slot / cache_slot_occupancy
+  cache_write_slot / cache_evict_slot / cache_slot_occupancy /
+  cache_slot_residue
 
 Encoder-decoder models (whisper) and image prefixes (paligemma) raise
-``NotImplementedError`` (ROADMAP queue 1 item 10), as do the blocks this
-slice does not port (see ``blocks``).
+``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -88,7 +89,9 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
 # are, since ``rms_norm`` widens its weight to float32
 _COMPUTE_CAST = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo",
                            "wr_s", "wk_s", "wv_s", "ww_s", "wo_s",
-                           "w_gate", "w_up", "w_down"})
+                           "wr", "wg", "ww", "w_rcm", "w_in", "w_out",
+                           "w_gate", "w_up", "w_down",
+                           "shared_gate", "shared_up", "shared_down"})
 
 
 def compute_params(cfg, params: Dict, device="cuda") -> Dict:
@@ -98,7 +101,9 @@ def compute_params(cfg, params: Dict, device="cuda") -> Dict:
     The reference casts those weights on every call (``dense``); casting
     once at load gives the same values, and at hymba-1.5b's width (float32
     params, bfloat16 compute) saves a cast of each weight per layer call.
-    Other leaves are moved to ``device`` as they are.
+    Other leaves are moved to ``device`` as they are: norms, biases, the
+    token-shift mixes, RWKV6's ``u`` and the MoE router, which the model
+    reads in float32.
     """
     dev = resolve_device(device)
 
@@ -240,7 +245,9 @@ def decode_step(cfg, params, cache, token, pos):
 # independent *request slot*: a new request prefills into a free row, decodes
 # at its own position, and is evicted when it retires.  These helpers are the
 # only code that needs to know where the batch axis sits in each cache
-# subtree (axis 1 under the stacked "layers", axis 0 for tail blocks).
+# subtree (axis 1 under the stacked "layers", axis 0 for tail blocks).  The
+# recurrent state leaves (hymba's ``ssm_state``; rwkv's ``wkv``, ``shift``
+# and ``shift_cm``) sit on the same batch axis as the K/V caches.
 
 
 def _cache_batch_axis(key: str) -> int:
@@ -312,7 +319,8 @@ def cache_slot_occupancy(cache) -> np.ndarray:
     """Per-slot count of valid (position >= 0) KV entries summed over every
     attention cache in the tree — 0 for a free/evicted slot.  The serve-loop
     tests assert a drained scheduler leaves this all-zero.  (Copies the
-    slot→position maps to the host.)"""
+    slot→position maps to the host.)  A recurrent-only family (rwkv) has no
+    attention cache: all zeros, as in the reference."""
     total = None
     for key, sub in cache.items():
         axis = _cache_batch_axis(key)
@@ -321,4 +329,34 @@ def cache_slot_occupancy(cache) -> np.ndarray:
             other = tuple(i for i in range(valid.ndim) if i != axis)
             cnt = valid.sum(axis=other)
             total = cnt if total is None else total + cnt
+    if total is None:
+        key = next(iter(cache))
+        _, leaf = next(_named_leaves(cache[key]))
+        total = np.zeros(leaf.shape[_cache_batch_axis(key)], dtype=np.int64)
     return total
+
+
+def cache_slot_residue(cache) -> np.ndarray:
+    """Per-slot count of nonzero entries in every K/V and recurrent-state
+    leaf (``wkv``, ``shift``, ``shift_cm``, ``ssm_state``; every leaf but
+    the slot→position maps) — 0 right after ``cache_evict_slot``.  Unlike
+    ``cache_slot_occupancy`` it sees a recurrent-only cache's state.  An
+    idle row decodes a dummy token, so its recurrent state may be nonzero
+    again later: read this at eviction, not after a drain."""
+    total = 0
+    for key, sub in cache.items():
+        axis = _cache_batch_axis(key)
+        for name, leaf in _named_leaves(sub):
+            if name != "slot_pos":
+                nz = (leaf != 0).movedim(axis, 0)
+                total = total + nz.reshape(nz.shape[0], -1).sum(1)
+    return total.cpu().numpy()
+
+
+def _named_leaves(tree):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _named_leaves(v)
+        else:
+            yield k, v
+

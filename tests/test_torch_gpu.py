@@ -31,7 +31,8 @@ from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_plain,
                                           moe_gemm_schedule)
 from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
 from repro_torch.models import model as M
-from repro_torch.models.moe import moe_ffn_host, moe_params_from_numpy
+from repro_torch.models.moe import (moe_ffn, moe_ffn_host,
+                                    moe_params_from_numpy)
 from repro_torch.runtime import (ReapRuntime, bucket_block_schedule,
                                  build_block_chunkset)
 
@@ -590,6 +591,8 @@ def test_k4_rejects_what_it_does_not_take(cuda):
     (256, 3, 16, 64, 64, torch.float32, False, None),     # u != 0
     (128, 2, 16, 24, 32, torch.float32, False, None),     # V tail tile
     (96, 2, 64, 64, 32, torch.bfloat16, False, None),     # K = 64
+    (256, 32, 64, 64, 64, torch.bfloat16, False, None),   # rwkv6-1.6b's heads
+    (192, 4, 64, 64, 64, torch.float32, False, None),     # K = 64, chunk 64
     (160, 3, 8, 40, 32, torch.float32, False, None),      # K = 8 (reduced)
     (192, 2, 32, 72, 64, torch.bfloat16, False, None),    # K = 32
     (256, 2, 16, 64, 64, torch.float32, False, 1e-6),     # extreme decay
@@ -650,3 +653,52 @@ def test_hymba_prefill_launches_k4_and_k6_per_layer(cuda):
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
+
+
+# -- the LM stack: rwkv6 (K6 per layer) and the in-graph MoE FFN (K5 x 3) -----
+
+def test_rwkv6_prefill_launches_k6_per_layer(cuda):
+    import dataclasses
+    cfg = dataclasses.replace(get_config("rwkv6-1.6b"), n_layers=2,
+                              d_model=256, n_heads=4, n_kv_heads=4,
+                              d_ff=512, vocab_size=512,
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 0, device=cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator().manual_seed(1))
+    k6 = rwkv6.launches
+    logits, cache = M.prefill(cfg, params, toks.to(cuda),
+                              M.init_cache(cfg, 2, 132, device=cuda))
+    torch.cuda.synchronize()
+    assert rwkv6.launches - k6 == cfg.n_layers
+    host, host_cache = M.prefill(cfg, _to_cpu(params), toks,
+                                 M.init_cache(cfg, 2, 132, device="cpu"))
+    torch.testing.assert_close(logits.cpu(), host, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(cache["layers"]["pos0"]["wkv"].cpu(),
+                               host_cache["layers"]["pos0"]["wkv"],
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_in_graph_moe_launches_k5_and_decodes_deterministically(cuda):
+    b, d, e, k, dff = 4, 64, 8, 2, 96
+    rng = np.random.default_rng(5)
+    p = dict(router=rng.standard_normal((d, e)) * 0.1,
+             w_gate=rng.standard_normal((e, d, dff)) / np.sqrt(d),
+             w_up=rng.standard_normal((e, d, dff)) / np.sqrt(d),
+             w_down=rng.standard_normal((e, dff, d)) / np.sqrt(dff))
+    kw = dict(n_experts=e, top_k=k, capacity_factor=1.25)
+    pt = moe_params_from_numpy(p, cuda)
+    for s in (32, 1):                          # a prefill, a decode step
+        x = rng.standard_normal((b, s, d)).astype(np.float32)
+        want, aux_want = moe_ffn(torch.from_numpy(x),
+                                 moe_params_from_numpy(p, "cpu"), **kw)
+        xc = torch.from_numpy(x).to(cuda)
+        before = moe_gemm.launches
+        runs = [moe_ffn(xc, pt, **kw) for _ in range(2)]
+        assert moe_gemm.launches == before + 6       # 3 per call
+        (out, aux), (again, aux_again) = runs
+        # the combine gathers and sums in a fixed order: bit-identical
+        assert torch.equal(out, again) and torch.equal(aux, aux_again)
+        torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(aux.cpu(), aux_want, rtol=1e-4,
+                                   atol=1e-4)

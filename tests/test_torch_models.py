@@ -4,16 +4,21 @@
 * every architecture config equal to the reference's, field by field, full
   and reduced;
 * the param tree of ``lm_metas`` equal to the reference's, key for key and
-  shape for shape, for hymba-1.5b, qwen3-1.7b and gemma2-2b; hymba's full
+  shape for shape, for hymba-1.5b, qwen3-1.7b, gemma2-2b, rwkv6-1.6b,
+  dbrx-132b and kimi-k2 (its shared experts included); hymba's full
   parameter count, from metas, within ``tests/test_arch_smoke.py``'s bounds;
 * the layers (``rms_norm``, ``rotary``, ``softcap``, ``dense``,
   ``embed_lookup``, ``unembed``, ``swiglu``) against the reference's;
-* at the reduced configs of the three, in float32 with the reference's
-  params carried across by ``params_from_numpy``: ``forward`` logits,
-  ``prefill`` logits and cache (the ring branch included), and 4 decode
+* at the reduced configs of the six, in float32 with the reference's
+  params carried across by ``params_from_numpy``: ``forward`` logits (and
+  the MoE aux loss), ``prefill`` logits and cache (the ring branch
+  included; rwkv's ``wkv``, ``shift`` and ``shift_cm``), and 4 decode
   steps at per-row positions, all within 1e-4; the slot-wise cache helpers;
-* the entry points default to ``cuda`` and raise without a card; what this
-  slice does not port raises ``NotImplementedError``.
+* the rwkv mixer's pieces (``rwkv_forward`` with a carried shift,
+  ``rwkv_decode``, ``rwkv_channel_mix``) against the reference's;
+* the entry points default to ``cuda`` and raise without a card; what the
+  port does not have yet (enc-dec, image prefixes) raises
+  ``NotImplementedError``.
 """
 import dataclasses
 
@@ -35,7 +40,8 @@ from repro_torch.models.params import (count_params, params_from_numpy,
                                        tree_slice)
 
 CPU = "cpu"
-ARCHS = ["hymba-1.5b", "qwen3-1.7b", "gemma2-2b"]
+ARCHS = ["hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "dbrx-132b",
+         "kimi-k2-1t-a32b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 
@@ -201,9 +207,11 @@ class TestModelParity:
         cfg, pcfg, params, pp = model
         toks = np.random.default_rng(0).integers(
             0, cfg.vocab_size, (2, 48)).astype(np.int32)
-        want, _ = RM.forward(cfg, params, jnp.asarray(toks))
+        want, want_aux = RM.forward(cfg, params, jnp.asarray(toks))
         got, aux = PM.forward(pcfg, pp, torch.from_numpy(toks))
-        assert got.dtype == torch.float32 and float(aux) == 0.0
+        assert got.dtype == torch.float32 and aux.dtype == torch.float32
+        assert (float(aux) == 0.0) == (cfg.ffn != "moe")
+        np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
     @pytest.mark.parametrize("prompt,max_seq", [(32, 40), (48, 64),
@@ -256,6 +264,67 @@ class TestModelParity:
         assert all(torch.equal(before[k], after[k]) for k in before)
 
 
+class TestRwkvMixer:
+    """The rwkv mixer's pieces at rwkv6-1.6b's reduced config, float32."""
+
+    @pytest.fixture(scope="class")
+    def rwkv(self):
+        cfg = RC.reduced_config(RC.get_config("rwkv6-1.6b"))
+        pcfg = PC.reduced_config(PC.get_config("rwkv6-1.6b"))
+        params = RM.init_params(cfg, jax.random.PRNGKey(1))
+        blk = jax.tree.map(lambda a: np.asarray(a)[0],
+                           params["layers"]["pos0"])
+        # the mixes start at zero: give them values, as training would
+        rng = np.random.default_rng(3)
+        for key in ("mu_r", "mu_k", "mu_v", "mu_w", "mu_g"):
+            blk["rwkv"][key] = rng.uniform(0, 1, cfg.d_model).astype(
+                np.float32)
+        blk["ffn"]["mu_cm"] = rng.uniform(0, 1, cfg.d_model).astype(
+            np.float32)
+        return cfg, pcfg, blk, params_from_numpy(blk, device=CPU)
+
+    def test_forward_with_carried_shift(self, rwkv):
+        import repro.models.blocks as RB
+        import repro_torch.models.blocks as PB
+        cfg, pcfg, blk, pb = rwkv
+        rng = np.random.default_rng(4)
+        x = rng.standard_normal((2, 64, cfg.d_model)).astype(np.float32)
+        shift = rng.standard_normal((2, cfg.d_model)).astype(np.float32)
+        for state in (None, {"shift": shift}):
+            want, wst = RB.rwkv_forward(cfg, blk["rwkv"], jnp.asarray(x),
+                                        state)
+            got, gst = PB.rwkv_forward(
+                pcfg, pb["rwkv"], torch.from_numpy(x), None if state is None
+                else {"shift": torch.from_numpy(shift)})
+            np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+            _tree_close(gst, jax.tree.map(np.asarray, wst), **TOL)
+
+    def test_decode_and_channel_mix(self, rwkv):
+        import repro.models.blocks as RB
+        import repro_torch.models.blocks as PB
+        cfg, pcfg, blk, pb = rwkv
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((3, 1, cfg.d_model)).astype(np.float32)
+        cache = {"wkv": rng.standard_normal(
+                     (3, cfg.n_heads, cfg.d_head, cfg.d_head)).astype(
+                     np.float32),
+                 "shift": rng.standard_normal((3, cfg.d_model)).astype(
+                     np.float32),
+                 "shift_cm": rng.standard_normal((3, cfg.d_model)).astype(
+                     np.float32)}
+        want, wc = RB.rwkv_decode(cfg, blk["rwkv"], jnp.asarray(x), cache)
+        got, gc = PB.rwkv_decode(pcfg, pb["rwkv"], torch.from_numpy(x),
+                                 params_from_numpy(cache, device=CPU))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+        _tree_close(gc, jax.tree.map(np.asarray, wc), **TOL)
+        prev = cache["shift_cm"][:, None, :]
+        np.testing.assert_allclose(
+            PB.rwkv_channel_mix(pcfg, pb["ffn"], torch.from_numpy(x),
+                                torch.from_numpy(prev)).numpy(),
+            np.asarray(RB.rwkv_channel_mix(cfg, blk["ffn"], jnp.asarray(x),
+                                           jnp.asarray(prev))), **TOL)
+
+
 class TestSlotCache:
     def test_write_evict_occupancy_match_reference(self, model):
         cfg, pcfg, params, pp = model
@@ -271,10 +340,20 @@ class TestSlotCache:
         _tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
         occ = PM.cache_slot_occupancy(pc)
         assert np.array_equal(occ, RM.cache_slot_occupancy(c))
-        assert occ[1] > 0 and occ[0] == occ[2] == 0
+        if cfg.mixer == "rwkv":
+            # no attention cache: zero occupancy, as the reference reports;
+            # the written row holds the recurrent state
+            wkv = pc["layers"]["pos0"]["wkv"]          # (periods, B, ...)
+            assert not occ.any() and wkv[:, 1].abs().sum() > 0
+            assert not wkv[:, 0].any() and not wkv[:, 2].any()
+        else:
+            assert occ[1] > 0 and occ[0] == occ[2] == 0
+        res = PM.cache_slot_residue(pc)
+        assert res[1] > 0 and res[0] == res[2] == 0
         c, pc = RM.cache_evict_slot(c, 1), PM.cache_evict_slot(pc, 1)
         _tree_close(pc, jax.tree.map(np.asarray, c), rtol=0, atol=0)
         assert not PM.cache_slot_occupancy(pc).any()
+        assert not PM.cache_slot_residue(pc).any()
 
 
 class TestEntryPoints:
@@ -299,13 +378,32 @@ class TestEntryPoints:
         assert p["w"].float().tolist() == [1.5, -2.25]
 
     @pytest.mark.parametrize("arch,what", [
-        ("rwkv6-1.6b", "mixer"), ("dbrx-132b", "FFN"),
         ("whisper-small", "encoder-decoder"), ("paligemma-3b", "image")])
     def test_unported_parts_raise(self, arch, what):
         cfg = PC.reduced_config(PC.get_config(arch))
         with pytest.raises(NotImplementedError, match="item 10") as e:
             PM.lm_metas(cfg)
         assert what in str(e.value)
+
+    @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "kimi-k2-1t-a32b"])
+    def test_compute_params_keeps_float32_reads(self, arch):
+        cfg = dataclasses.replace(PC.reduced_config(PC.get_config(arch)),
+                                  compute_dtype="bfloat16")
+        p = PM.init_params(cfg, 0, device=CPU)
+        cp = PM.compute_params(cfg, p, CPU)
+        blk = cp["layers"]["pos0"]
+        if cfg.mixer == "rwkv":
+            assert blk["rwkv"]["wr"].dtype == torch.bfloat16
+            assert blk["ffn"]["w_in"].dtype == torch.bfloat16
+            assert blk["rwkv"]["u"].dtype == torch.float32
+            assert blk["rwkv"]["mu_r"].dtype == torch.float32
+        else:
+            assert blk["ffn"]["shared_up"].dtype == torch.bfloat16
+            assert blk["ffn"]["router"].dtype == torch.float32
+        toks = torch.arange(16, dtype=torch.int32)[None]
+        a, aux_a = PM.forward(cfg, p, toks)
+        b, aux_b = PM.forward(cfg, cp, toks)
+        assert torch.equal(a, b) and torch.equal(aux_a, aux_b)
 
     def test_compute_params_cast_once_same_values(self):
         cfg = dataclasses.replace(

@@ -1,8 +1,10 @@
 """Port parity, MoE dispatch: ``repro_torch.core.routing`` (numpy and torch
 branches), ``routing_csr`` / ``MoeDispatchPlan`` / the ``moe_dispatch`` op,
-``host_route``, kernel K5's plain version (``repro_torch.kernels.ops.moe_gemm``)
-and the host-routed expert FFN ``moe_ffn_host``, each against ``repro``
-on the same inputs made with numpy from a seed.  The reference's Pallas
+``host_route``, kernel K5's plain version (``repro_torch.kernels.ops.moe_gemm``),
+the host-routed expert FFN ``moe_ffn_host`` and the LM's in-graph path
+(``route_and_bundle``, ``_row_dispatch``, ``unbundle``, ``moe_ffn`` and
+the host-routed decode dispatch ``_host_plan_dest``), each against
+``repro`` on the same inputs made with numpy from a seed.  The reference's Pallas
 ``moe_gemm`` runs in interpret mode, as its own tests run it on the CPU."""
 import jax.numpy as jnp
 import numpy as np
@@ -356,3 +358,128 @@ class TestMoeFfnHost:
                                  pt["w_up"], pt["w_down"])
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    rtol=2e-4, atol=2e-4)
+
+
+# ---------------------------------------------------------------------------
+# The in-graph path: routing on the device, K5, a gather combine
+# ---------------------------------------------------------------------------
+
+def _tied_router(seed, d=D, e=E):
+    """A router whose experts 1 and 3 copy experts 0 and 2: equal logits,
+    so every token's top-k breaks exact ties."""
+    rng = np.random.default_rng(seed)
+    w = (rng.standard_normal((d, e)) * 0.5).astype(np.float32)
+    w[:, 1], w[:, 3] = w[:, 0], w[:, 2]
+    return w
+
+
+def _in_graph_routing(seed, tied):
+    tokens, router_w, _, _ = _routing(seed)
+    return tokens, (_tied_router(seed) if tied else router_w)
+
+
+@pytest.fixture
+def host_rt():
+    rt = PR.ReapRuntime(device=CPU)
+    pmoe.set_host_dispatch_runtime(rt)
+    yield rt
+    pmoe.set_host_dispatch_runtime(None)
+
+
+class TestInGraphMoe:
+    # capacity 8 of 48 tokens × top-2 over 6 experts drops assignments
+    @pytest.mark.parametrize("tied", [False, True])
+    @pytest.mark.parametrize("cap", [8, 24])
+    def test_route_and_bundle_integers_equal(self, tied, cap):
+        tokens, router_w = _in_graph_routing(11, tied)
+        kw = dict(n_experts=E, top_k=K, capacity=cap)
+        xb_r, comb_r, aux_r, drop_r = rmoe.route_and_bundle(
+            jnp.asarray(tokens), jnp.asarray(router_w), **kw)
+        xb, comb, aux, drop = pmoe.route_and_bundle(
+            torch.from_numpy(tokens), torch.from_numpy(router_w), **kw)
+        for key in ("dest", "keep"):
+            np.testing.assert_array_equal(comb[key].numpy(),
+                                          np.asarray(comb_r[key]))
+        assert cap > 8 or bool((~comb["keep"]).any())      # drops at cap 8
+        np.testing.assert_allclose(comb["gate"].numpy(),
+                                   np.asarray(comb_r["gate"]), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(xb.numpy(), np.asarray(xb_r), rtol=0,
+                                   atol=0)
+        np.testing.assert_allclose(float(aux), float(aux_r), rtol=1e-5)
+        assert float(drop) == pytest.approx(float(drop_r), abs=1e-7)
+        y = np.random.default_rng(12).standard_normal(
+            (E, cap, 20)).astype(np.float32)
+        np.testing.assert_allclose(
+            pmoe.unbundle(torch.from_numpy(y), comb, 20).numpy(),
+            np.asarray(rmoe.unbundle(jnp.asarray(y), comb_r, 20)),
+            rtol=1e-5, atol=1e-6)
+
+    @pytest.mark.parametrize("tied", [False, True])
+    @pytest.mark.parametrize("cap", [8, 24])
+    def test_row_dispatch_slot_maps_equal(self, tied, cap):
+        tokens, router_w = _in_graph_routing(13, tied)
+        kw = dict(n_experts=E, top_k=K, capacity=cap)
+        st_r, sg_r, aux_r = rmoe._row_dispatch(
+            jnp.asarray(tokens), jnp.asarray(router_w), **kw)
+        st, sg, aux = pmoe._row_dispatch(
+            torch.from_numpy(tokens), torch.from_numpy(router_w), **kw)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(st_r))
+        np.testing.assert_allclose(sg.numpy(), np.asarray(sg_r), rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_allclose(float(aux), float(aux_r), rtol=1e-5)
+
+    # (b, s): a prefill, a batch-wide decode step, one token; capacity
+    # factor 0.5 makes the prefill drop assignments
+    @pytest.mark.parametrize("b,s", [(2, 16), (3, 1), (1, 1)])
+    @pytest.mark.parametrize("shared", [False, True])
+    @pytest.mark.parametrize("capacity_factor", [1.25, 0.5])
+    def test_moe_ffn_matches_reference(self, b, s, shared, capacity_factor):
+        x, p, kw = _moe_inputs(14, shared)
+        x = np.random.default_rng(15).standard_normal(
+            (b, s, x.shape[-1])).astype(np.float32)
+        kw = dict(kw, capacity_factor=capacity_factor)
+        want, aux_r = rmoe.moe_ffn(jnp.asarray(x), {
+            k: jnp.asarray(v) for k, v in p.items()}, **kw)
+        pops.moe_gemm.launches = 0
+        got, aux = pmoe.moe_ffn(torch.from_numpy(x),
+                                pmoe.moe_params_from_numpy(p, CPU), **kw)
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert pops.moe_gemm.launches == 0        # CPU: the plain version
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(float(aux), float(aux_r), rtol=1e-4,
+                                   atol=1e-4)
+
+    def test_host_plan_dest_equals_assignment_and_warms(self, host_rt):
+        _, _, ids, _ = _routing(16)
+        cap = 8
+        want = RRT.expert_assignment(ids.reshape(-1), cap, E)[2]
+        got = pmoe._host_plan_dest(ids, n_experts=E, capacity=cap)
+        assert got.dtype == np.int32
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(
+            got, rmoe._host_plan_dest(ids, n_experts=E, capacity=cap))
+        first = host_rt.cache_stats()["per_op"]["moe_dispatch"]
+        assert first["misses"] > 0
+        again = pmoe._host_plan_dest(ids, n_experts=E, capacity=cap)
+        np.testing.assert_array_equal(again, got)
+        second = host_rt.cache_stats()["per_op"]["moe_dispatch"]
+        assert second["misses"] == first["misses"]
+        assert second["hits"] == first["hits"] + len(ids)
+
+    def test_decode_routed_on_host_bit_equal(self, host_rt):
+        x, p, kw = _moe_inputs(17, True)
+        pt = pmoe.moe_params_from_numpy(p, CPU)
+        x1 = torch.from_numpy(np.ascontiguousarray(x[:, :1]))   # decode
+        xs = torch.from_numpy(x)                                # prefill
+        kw = dict(kw, capacity_factor=1.25)
+        got = [pmoe.moe_ffn(z, pt, **kw) for z in (x1, xs)]
+        per = host_rt.cache_stats()["per_op"]["moe_dispatch"]
+        assert per["misses"] == x1.shape[0]      # one plan per token pattern
+        pmoe.set_host_dispatch_runtime(None)
+        want = [pmoe.moe_ffn(z, pt, **kw) for z in (x1, xs)]
+        for (a, aa), (b, bb) in zip(got, want):
+            assert torch.equal(a, b) and torch.equal(aa, bb)
+        # the prefill stayed on the device: only the decode step asked
+        assert host_rt.cache_stats()["per_op"]["moe_dispatch"] == per

@@ -6,10 +6,15 @@
   exact retirement steps, streaming order, idle-slot hygiene, request
   isolation, rejected requests, enc-dec rejected);
 * ``ServeScheduler.run`` completions identical to the reference's on the
-  same trace and weights (reduced qwen3-1.7b, gemma2-2b and hymba-1.5b,
-  params carried across by ``params_from_numpy``);
+  same trace and weights (reduced qwen3-1.7b, gemma2-2b, hymba-1.5b,
+  rwkv6-1.6b, dbrx-132b and kimi-k2, params carried across by
+  ``params_from_numpy``), and request isolation;
 * ``generate``'s greedy tokens identical to the reference's;
-* the entry points default to ``cuda`` and raise without a card; the CLI.
+* host-routed MoE decode (``set_host_dispatch_runtime``) bit-equal to the
+  in-graph path, with warm ``moe_dispatch`` hits after the first step (the
+  cases of ``tests/test_serve_loop.py``'s ``TestHostMoeRegression``);
+* the entry points default to ``cuda`` and raise without a card; the CLI,
+  with ``--routing host --plan-store`` (a restart answers from the store).
 """
 import numpy as np
 import pytest
@@ -26,11 +31,14 @@ import repro_torch.configs as PC
 import repro_torch.launch.scheduler as PS
 import repro_torch.launch.serve as PV
 import repro_torch.models.model as PM
+import repro_torch.runtime as PR
+from repro_torch.models import moe as pmoe
 from repro_torch.models.params import params_from_numpy
 
 CPU = "cpu"
 MAX_SEQ = 32
-ARCHS = ["qwen3-1.7b", "gemma2-2b", "hymba-1.5b"]
+ARCHS = ["qwen3-1.7b", "gemma2-2b", "hymba-1.5b", "rwkv6-1.6b", "dbrx-132b",
+         "kimi-k2-1t-a32b"]
 
 
 def _models(arch):
@@ -195,6 +203,28 @@ class TestIdleSlotHygiene:
             assert not PM.cache_slot_occupancy(sch.cache)[1:].any()
         assert not PM.cache_slot_occupancy(sch.cache).any()
 
+    # a retired slot's K/V and recurrent state (rwkv's wkv / shift /
+    # shift_cm, hymba's ssm_state) are zero at eviction, where occupancy
+    # sees no recurrent-only cache
+    @pytest.mark.parametrize("arch", ["qwen3-1.7b", "hymba-1.5b",
+                                      "rwkv6-1.6b"])
+    def test_eviction_clears_slot_state(self, arch):
+        _, pcfg, _, pp = _models(arch)
+        residue = []
+
+        class Checked(PS.ServeScheduler):
+            def _retire(self, slot):
+                before = PM.cache_slot_residue(self.cache)[slot]
+                super()._retire(slot)
+                residue.append((before, PM.cache_slot_residue(
+                    self.cache)[slot]))
+
+        trace = _trace(pcfg, 5, seed=3)
+        Checked(pcfg, pp, device=CPU, max_seq=MAX_SEQ, max_batch=2).run(
+            trace)
+        assert len(residue) == 5
+        assert all(b > 0 and a == 0 for b, a in residue)
+
 
 def _solo(pcfg, pp, prompt, gen):
     cache = PM.init_cache(pcfg, 1, MAX_SEQ, device=CPU)
@@ -224,7 +254,11 @@ class TestAgainstReference:
             [(c.rid, c.prompt_len, c.tokens, c.submitted_step,
               c.admitted_step, c.finished_step) for c in want]
         assert not PM.cache_slot_occupancy(sch.cache).any()
-        # request isolation: each request's tokens are its solo generation
+        # request isolation: each request's tokens are its solo generation.
+        # For the MoE models this relies on decode dispatch being
+        # batch-wide with capacity expert_capacity(3, 4, 2, 1.25) = 8: each
+        # token picks distinct experts, so an expert gets at most 3 of the
+        # 3 slots' tokens and none overflows
         for r in trace[:4]:
             assert {c.rid: c.tokens for c in got}[r.rid] == _solo(
                 pcfg, pp, r.prompt, r.gen), f"rid {r.rid}"
@@ -249,6 +283,81 @@ class TestAgainstReference:
                            temperature=1.0, seed=3, device=CPU)
         assert torch.equal(a, b)
         assert int(a.max()) < cfg.vocab_size and int(a.min()) >= 0
+
+
+@pytest.fixture(scope="module")
+def moe_model():
+    _, pcfg, _, pp = _models("dbrx-132b")
+    return pcfg, pp
+
+
+@pytest.fixture()
+def host_runtime():
+    rt = PR.ReapRuntime(device=CPU)
+    pmoe.set_host_dispatch_runtime(rt)
+    yield rt
+    pmoe.set_host_dispatch_runtime(None)
+
+
+class TestHostMoe:
+    """Decode steps with a host dispatch runtime installed route their
+    slot destinations through ``moe_dispatch``; nothing else changes."""
+
+    def _decode_logits(self, cfg, params, n_steps):
+        b, n = 4, 8
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (b, n)).astype(np.int32))
+        cache = PM.init_cache(cfg, b, MAX_SEQ, device=CPU)
+        logits, cache = PM.prefill(cfg, params, toks, cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        pos = torch.full((b,), n, dtype=torch.int32)
+        outs = []
+        for _ in range(n_steps):
+            lg, cache = PM.decode_step(cfg, params, cache, tok, pos)
+            outs.append(lg)
+            tok = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+            pos = pos + 1
+        return outs
+
+    def test_host_routed_decode_bit_for_bit_with_in_graph(self, moe_model,
+                                                          host_runtime):
+        cfg, params = moe_model
+        pmoe.set_host_dispatch_runtime(None)
+        ref = self._decode_logits(cfg, params, 8)
+        pmoe.set_host_dispatch_runtime(host_runtime)
+        got = self._decode_logits(cfg, params, 8)
+        for i, (a, b) in enumerate(zip(ref, got)):
+            assert torch.equal(a, b), f"step {i}"
+
+    def test_warm_dispatch_hits_after_first_step(self, moe_model,
+                                                 host_runtime):
+        cfg, params = moe_model
+        self._decode_logits(cfg, params, 1)
+        first = host_runtime.cache_stats()["per_op"]["moe_dispatch"]
+        assert first["misses"] > 0, "decode never reached the registry"
+        self._decode_logits(cfg, params, 1)       # identical step replayed
+        second = host_runtime.cache_stats()["per_op"]["moe_dispatch"]
+        assert second["hits"] > first["hits"]
+        assert second["misses"] == first["misses"]
+
+    def test_decode_traffic_is_warm_after_warmup(self, moe_model,
+                                                 host_runtime):
+        cfg, params = moe_model
+        trace = _trace(cfg, 10, seed=1)
+        comps = _sched(cfg, params, max_batch=4).run(trace)
+        assert len(comps) == len(trace)
+        rec = host_runtime.cache_stats()["per_op"]["moe_dispatch"]
+        assert rec["warm_rate"] >= 0.5, rec   # most per-token plans reused
+        assert rec["hits"] > rec["misses"]
+
+    def test_scheduler_streams_with_host_moe(self, moe_model, host_runtime):
+        cfg, params = moe_model
+        streamed = []
+        sch = _sched(cfg, params, max_batch=3,
+                     on_token=lambda rid, tok, step: streamed.append(rid))
+        comps = sch.run(_trace(cfg, 6, seed=2))
+        assert len(comps) == 6 and streamed
+        assert not PM.cache_slot_occupancy(sch.cache).any()
 
 
 class TestEntryPoints:
@@ -281,3 +390,37 @@ class TestEntryPoints:
         seqs = PV.main(["--arch", "qwen3-1.7b", "--batch", "2",
                         "--prompt-len", "6", "--gen", "3", "--device", CPU])
         assert tuple(seqs.shape) == (2, 9)
+
+    @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "dbrx-132b"])
+    def test_cli_serves_the_new_archs(self, arch, capsys):
+        PV.main(["--arch", arch, "--continuous", "--requests", "4",
+                 "--max-batch", "2", "--max-seq", "24",
+                 "--expect-completions", "4", "--device", CPU])
+        assert "smoke OK: 4 completions" in capsys.readouterr().out
+
+    def test_cli_host_routing_with_plan_store(self, tmp_path, capsys):
+        argv = ["--arch", "dbrx-132b", "--batch", "2", "--prompt-len", "8",
+                "--gen", "4", "--routing", "host", "--plan-store",
+                str(tmp_path), "--device", CPU]
+        first = PV.main(argv)
+        out = capsys.readouterr().out
+        assert "moe_dispatch=host" in out and ",s=0,m=" in out
+        assert pmoe._HOST_DISPATCH_RT is None      # uninstalled at exit
+        again = PV.main(argv)                      # a restarted server
+        out = capsys.readouterr().out
+        assert "warm plans (moe_dispatch=" in out and ",m=0,warm=1.00]" in out
+        assert torch.equal(first, again)
+        # --host-moe is the legacy alias; --routing auto follows the
+        # declaration (in_graph): the runtime is never consulted
+        PV.main(argv[:-6] + ["--host-moe", "--device", CPU])
+        assert "moe_dispatch=host" in capsys.readouterr().out
+        PV.main(argv[:-6] + ["--routing", "auto", "--plan-store",
+                             str(tmp_path), "--device", CPU])
+        out = capsys.readouterr().out
+        assert "moe_dispatch=in_graph" in out and "per-op" not in out
+
+    def test_resolve_routing_follows_declarations(self):
+        routes = PV._resolve_routing("auto")
+        assert routes == RV._resolve_routing("auto")
+        assert routes["moe_dispatch"] == "in_graph"
+        assert set(PV._resolve_routing("host").values()) == {"host"}
