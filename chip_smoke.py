@@ -79,9 +79,11 @@ Phases, in order; any failure exits non-zero without the result line:
    10752, capacity factor 1.25; float32 weights from a seeded generator on
    the card, 12.7 GB): the gate and down products of a prefill of 2 × 2048
    tokens (cap 1280) and of a decode step of 64 tokens (cap 24), limit
-   1e-3, and the bfloat16 gate products of both, limit 2e-2; K5's outputs
-   as SHA-256 digests, which must equal ``K5_DIGESTS`` (bit-identical to
-   the kernel before its helpers moved to ``csrc/common.cuh``);
+   1e-3, and the bfloat16 gate products of both, limit 2e-2 (the TMA
+   routes: tiles at cap 1280, decode at cap 24); K5's outputs as SHA-256
+   digests, which must equal ``K5_DIGESTS`` (float32: bit-identical to the
+   kernel before its helpers moved to ``csrc/common.cuh``; bfloat16: the
+   ``mma.sync`` kernel's, which the TMA routes reproduce bit for bit);
 10. main path, third slice — ``moe_ffn_host`` through
    ``ReapRuntime(device="cuda")`` cold and warm at both token counts, each
    against the same layer with the plain ``moe_gemm`` on the card at 1e-4;
@@ -131,7 +133,9 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    u != 0, bfloat16 r/k/v), output and state (limit 2e-4); K5 against
    ``moe_gemm_plain`` at the bundles the in-graph ``moe_ffn`` builds for
    dbrx-132b (a prefill of 2 x 1024: 32 bundles of cap 320; a decode step
-   of batch 2: 16 bundles of cap 8), gate and down, bfloat16 (limit 2e-2,
+   of batch 2: 16 bundles of cap 8), gate and down, bfloat16, each on the
+   route ``bf16_route`` names for its shape and counted there
+   (``wgmma_tiles`` at cap 320, ``wgmma_decode`` at cap 8; limit 2e-2,
    and 5e-4 on ||err|| / ||want||, beside a control reading: the plain
    version with its sums rounded to bfloat16 every 512-deep slice;
    labelled ``K5-LM``, outside ``K5_DIGESTS``); K4 against
@@ -153,14 +157,16 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
 19. main path, eighth slice, dbrx-132b at full width, depth cut to 4 layers
    (bfloat16, 28.6 GB): ``generate`` (batch 2, prompt 1024, gen 16), K4 4
    times per prefill and K5 12 times per prefill and per decode step;
-   ``ServeScheduler.run`` on a seeded 8-request trace; then 6 decode steps
-   with a host-dispatch runtime installed, logits bit-equal to the in-graph
-   run, ``moe_dispatch`` missing on the first step and a replay answered
-   from warm plans at every step;
+   ``ServeScheduler.run`` on a seeded 8-request trace; K5's launches of
+   both, by route, on the two TMA routes only (``moe_gemm.routes``); then
+   6 decode steps with a host-dispatch runtime installed, logits bit-equal
+   to the in-graph run, ``moe_dispatch`` missing on the first step and a
+   replay answered from warm plans at every step;
 20. times — K6 at rwkv6-1.6b's two prefill shapes, K5 at the four
-   in-graph DBRX shapes and K4 at dbrx-132b's prefill by CUDA events, each
-   beside its bound (bf16 peak) and plain version, K5 also beside one
-   ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
+   in-graph DBRX shapes (prefill on the tile route, decode on the decode
+   route, each named) and K4 at dbrx-132b's prefill by CUDA events, each
+   beside its bound (bf16 peak; HBM for decode) and plain version, K5 also
+   beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b and rwkv6-1.6b (reduced configs, as the CLI forces: head dim
@@ -293,6 +299,13 @@ K5_TOL, K5_BF16_TOL, MOE_TOL = 1e-3, 2e-2, 1e-4
 # sums rounded to bfloat16 every 512-deep slice read more
 # (``k5_lm_limit_reading``)
 K5_LM_REL_NORM = 5e-4
+# what the kernels line says of K5's bfloat16 kernels (csrc/moe_gemm.cu)
+K5_BF16_DESIGN = (
+    "cap > 32: TMA-fed wgmma m64n256k16, 2 consumer warpgroups x 64 rows, "
+    "1 producer warp, 4-stage ring of 64-deep slices, persistent blocks on an "
+    "expert-grouped walk; cap <= 32: A and B swapped, wgmma m64n32k16 on "
+    "two 64-column weight boxes a slice, 5 stages, 2 blocks an SM; widths "
+    "not a multiple of 8: mma.sync m16n8k16")
 K4_TOL, K4_BF16_TOL, K6_TOL = 1e-4, 2e-2, 2e-4
 # SHA-256 of K2's float32 outputs at phase 6's inputs (numpy-seeded), read
 # from the kernel before its helpers moved to csrc/common.cuh: the shared
@@ -305,7 +318,9 @@ K2_DIGESTS = {
 # SHA-256 of K4's and K5's outputs in phases 12 and 9 (``compare``'s
 # ``got``; inputs from seeded generators on the card), read from the kernels
 # before their mma.sync, ldmatrix and wgmma helpers moved to csrc/common.cuh:
-# the shared header must leave both bit-identical
+# the shared header must leave both bit-identical.  K5's two bfloat16 entries
+# are the mma.sync kernel's; its TMA routes, which now take these shapes, sum
+# each output in the same 16-deep steps and reproduce them bit for bit
 K4_DIGESTS = {
     "K4 hymba S=2048 bf16: H=25, Hkv=5, D=64, {'window': 1024}":
         "04a9b752dab6acb54335fce81cf26ba725fab053eb0c586e6a2257766a094e9d",
@@ -1972,7 +1987,8 @@ def dbrx_phases(dev, card: str) -> dict:
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
-    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.moe_gemm import (bf16_route, moe_gemm,
+                                              moe_gemm_plain)
     from repro_torch.models import params as P
     cfg = dbrx_config()
     e, n = cfg.n_experts, cfg.n_layers
@@ -1994,12 +2010,17 @@ def dbrx_phases(dev, card: str) -> dict:
         bundles[name] = (xb, h, be)
         for label, a, w in (("gate", xb, layer0["w_gate"]),
                             ("down", h, layer0["w_down"])):
+            route = bf16_route(a.shape[1], a.shape[2], w.shape[2])
+            taken = moe_gemm.routes.get(route, 0)
+            got = moe_gemm(a, w, be)
+            check(moe_gemm.routes.get(route, 0) == taken + 1,
+                  f"K5 at the in-graph {name} {label} did not take {route}")
             errs.append(compare(
-                f"in-graph DBRX {name} {label}, bf16: ({a.shape[0]},"
+                f"in-graph DBRX {name} {label}, bf16, {route}: ({a.shape[0]},"
                 f"{a.shape[1]},{a.shape[2]}) x ({e},{w.shape[1]},"
-                f"{w.shape[2]})", moe_gemm(a, w, be),
-                moe_gemm_plain(a, w, be_t), K5_BF16_TOL, "K5-LM",
-                K5_LM_REL_NORM))
+                f"{w.shape[2]})", got, moe_gemm_plain(a, w, be_t),
+                K5_BF16_TOL, "K5-LM", K5_LM_REL_NORM))
+            del got
     # beside the relative-norm limit, what it would catch: sums rounded to
     # bfloat16 every 512-deep slice, at the prefill's gate product
     xb, _, be = bundles["prefill"]
@@ -2037,6 +2058,7 @@ def dbrx_phases(dev, card: str) -> dict:
     torch.cuda.empty_cache()
 
     # -- the main path ------------------------------------------------------
+    moe_gemm.routes.clear()
     launches = lm_serving(
         DBRX_LM, cfg, params, card,
         kernels={"K4": flash_attention, "K5": moe_gemm},
@@ -2044,6 +2066,14 @@ def dbrx_phases(dev, card: str) -> dict:
         gen_spec=DBRX_GENERATE, prompt_seed=94,
         trace=serve_trace(cfg, DBRX_TRACE), serve_spec=DBRX_SERVE,
         isolation=False)
+    # K5's routes on the main path: prefills of cap > 32 on the tiles, decode
+    # steps and short prompts on the decode route, nothing on mma.sync
+    routes = dict(moe_gemm.routes)
+    emit(phase="main_path", case=f"{DBRX_LM} K5 routes", routes=routes,
+         k5_launches=launches["K5"], card=card)
+    check(set(routes) == {"wgmma_tiles", "wgmma_decode"}
+          and sum(routes.values()) == launches["K5"],
+          f"K5's main-path routes {routes}: expected both TMA routes only")
     dbrx_host_routing(cfg, params, card)
 
     # -- times: K4 at the prefill, K5 at the in-graph bundles --------------
@@ -2066,7 +2096,8 @@ def dbrx_phases(dev, card: str) -> dict:
             a_e = a.reshape(rows, e, cap, d_in).transpose(0, 1).reshape(
                 e, rows * cap, d_in)
             n_t = TIMED_LAUNCHES if name == "decode" else 10
-            row = dict(ms=event_ms(lambda: moe_gemm(a, w, be), n_t),
+            row = dict(route=bf16_route(cap, d_in, d_out),
+                       ms=event_ms(lambda: moe_gemm(a, w, be), n_t),
                        plain_ms=event_ms(lambda: moe_gemm_plain(a, w, be_t),
                                          5),
                        library_ms=event_ms(lambda: torch.bmm(a_e, w), n_t),
@@ -2082,7 +2113,7 @@ def dbrx_phases(dev, card: str) -> dict:
     del params, bundles, layer0
     torch.cuda.empty_cache()
     return dict(launches=launches, k4_err=k4_err, k5_err=max(errs),
-                k4_times=k4_times, k5_times=k5_times)
+                k4_times=k4_times, k5_times=k5_times, k5_routes=routes)
 
 
 def serve_cli(card: str) -> None:
@@ -2411,6 +2442,8 @@ def main() -> int:
     k5_row.update(launches=k5_row["launches"] + k5_lm_launches,
                   launches_by_path={"moe_ffn_host": k5_row["launches"],
                                     DBRX_LM: k5_lm_launches},
+                  bf16_design=K5_BF16_DESIGN,
+                  bf16_routes_on_main_path=dbrx["k5_routes"],
                   max_abs_err=max(k5_row["max_abs_err"], dbrx["k5_err"]),
                   **dbrx["k5_times"])
     sys.stdout.flush()

@@ -6,6 +6,7 @@
     PYTHONPATH=src python scripts/card_studies.py k1-carry
     PYTHONPATH=src python scripts/card_studies.py k3-numerics
     PYTHONPATH=src python scripts/card_studies.py k5-carry
+    PYTHONPATH=src python scripts/card_studies.py k5-bf16
     PYTHONPATH=src python scripts/card_studies.py kernel-times
     PYTHONPATH=src python scripts/card_studies.py k5-stream
     PYTHONPATH=src python scripts/card_studies.py k6-time
@@ -44,6 +45,27 @@
   whole layer (``moe_ffn_host``) with each, against the layer with the
   plain ``moe_gemm`` (``chip_smoke.py``'s ``MOE_TOL``).  The decode shapes
   run the FMA kernel, which has no carry.
+* ``k5-bf16`` — K5 in bfloat16 at dbrx-132b's in-graph bundles
+  (``chip_smoke.py`` phases 16 and 20: gate and down of a prefill of
+  2 × 1024 tokens, 32 bundles of cap 320, and of decode steps at batch 1
+  and 2, 16 and 32 bundles of cap 8; random weights, seed 96), each build
+  of ``csrc/moe_gemm.cu`` timed by CUDA events and held against the plain
+  version by ||got − want|| / ||want||: on the tile route the shipped
+  kernel (256 columns, 4 stages, sums in place) against 3 stages, 128
+  columns at 4 and 6 stages, and 128 columns with the tensor cores' sums
+  carried into an IEEE fp32 accumulator every 64 and 512 deep
+  (``-DREPRO_K5_TMA_BN``, ``_STAGES``, ``_CARRY``); on the decode route
+  the shipped kernel (two 64-column weight boxes a slice, 5 stages, two
+  blocks an SM) against 8 stages (one block an SM), one box a slice at 4,
+  8 and 16 stages, four boxes at 4 (``-DREPRO_K5_DECODE_BOXES``,
+  ``_STAGES``) and the other candidate, the float32 rows kernel's
+  streaming in bfloat16 (``-DREPRO_K5_DECODE_ROWS``); on both routes TMA
+  reading without L2 promotion (``-DREPRO_K5_NO_L2_PROMOTION``; shipped: 256
+  bytes),
+  the shipped kernel walking the bundles in their own order
+  (``pack_schedule(grouped=False)``: no expert grouping) and the
+  ``mma.sync`` kernel; beside one ``torch.bmm`` over (E, rows × cap, d)
+  and the bound (bf16 peak, HBM).
 * ``kernel-times`` — K2 (filter3D ``spmm``, T = 256), K4 (hymba-1.5b's
   2048-token bfloat16 prefill), K6 (hymba's SSM heads, T = 2048) and K5
   (DBRX-132B's gate product at cap 1280 and 24, expert map on the card)
@@ -339,6 +361,90 @@ def k5_carry(name: str) -> None:
         del want, out
 
 
+def k5_bf16(name: str) -> None:
+    import functools
+    from unittest import mock
+
+    import chip_smoke as cs
+    import repro_torch.kernels.moe_gemm as K
+    from repro_torch.core.rir import ScheduleBundle
+    dev = torch.device("cuda")
+    cfg = cs.dbrx_config()
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff_expert
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(96)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    weights = {"gate": randn(e, d, f, scale=d ** -0.5),
+               "down": randn(e, f, d, scale=f ** -0.5)}
+    variants = {
+        "wgmma_tiles": {"shipped": (), "stages3": ("REPRO_K5_TMA_STAGES=3",),
+                        "bn128_stages4": ("REPRO_K5_TMA_BN=128",
+                                          "REPRO_K5_TMA_STAGES=4"),
+                        "bn128_stages6": ("REPRO_K5_TMA_BN=128",),
+                        "bn128_carry64": ("REPRO_K5_TMA_BN=128",
+                                          "REPRO_K5_TMA_CARRY=64"),
+                        "bn128_carry512": ("REPRO_K5_TMA_BN=128",
+                                           "REPRO_K5_TMA_CARRY=512")},
+        "wgmma_decode": {"shipped": (),
+                         "boxes2_stages8": ("REPRO_K5_DECODE_STAGES=8",),
+                         "boxes1_stages4": ("REPRO_K5_DECODE_BOXES=1",
+                                            "REPRO_K5_DECODE_STAGES=4"),
+                         "boxes1_stages8": ("REPRO_K5_DECODE_BOXES=1",
+                                            "REPRO_K5_DECODE_STAGES=8"),
+                         "boxes1_stages16": ("REPRO_K5_DECODE_BOXES=1",
+                                             "REPRO_K5_DECODE_STAGES=16"),
+                         "boxes4_stages4": ("REPRO_K5_DECODE_BOXES=4",
+                                            "REPRO_K5_DECODE_STAGES=4"),
+                         "rows_candidate": ("REPRO_K5_DECODE_ROWS",)}}
+    for route in variants.values():   # TMA's L2 promotion: 256 bytes, none
+        route["l2_none"] = ("REPRO_K5_NO_L2_PROMOTION",)
+    cases = [("prefill", 2, 320), ("decode, batch 1", 1, 8),
+             ("decode, batch 2", 2, 8)]
+    for case, rows, cap in cases:
+        nb = rows * e
+        be = np.tile(np.arange(e, dtype=np.int32), rows)
+        be_t = torch.from_numpy(be).to(dev)
+        for label, w in weights.items():
+            d_in, d_out = w.shape[1:]
+            x = randn(nb, cap, d_in)
+            want = K.moe_gemm_plain(x, w, be_t).float()
+            flop = 2 * nb * cap * d_in * d_out
+            nbytes = (x.numel() + w.numel() + nb * cap * d_out) * 2
+            route = K.bf16_route(cap, d_in, d_out)
+            a_e = x.reshape(rows, e, cap, d_in).transpose(0, 1).reshape(
+                e, rows * cap, d_in)
+            row = dict(study="k5_bf16", case=f"in-graph DBRX {case} {label}",
+                       shape=[nb, cap, d_in, d_out], route=route,
+                       bound_ms=max(flop / cs.BF16_FLOPS,
+                                    nbytes / cs.HBM_BYTES_S) * 1e3,
+                       bmm_ms=cs.event_ms(lambda: torch.bmm(a_e, w), 10),
+                       card=name)
+
+            def read(key, sched, n=10):
+                got = K.moe_gemm(x, w, sched)
+                row[f"{key}_rel_norm"] = ((got.float() - want).norm()
+                                          / want.norm()).item()
+                row[f"{key}_ms"] = cs.event_ms(
+                    lambda: K.moe_gemm(x, w, sched), n)
+
+            for variant, defines in variants[route].items():
+                with kernel_build("moe_gemm", *defines):
+                    read(variant, ScheduleBundle("moe_ffn",
+                                                 {"bundle_expert": be}))
+            with mock.patch.object(K, "pack_schedule", functools.partial(
+                    K.pack_schedule, grouped=False)):
+                read("ungrouped", ScheduleBundle("moe_ffn",
+                                                 {"bundle_expert": be}))
+            with mock.patch.object(K, "bf16_route", lambda *a: "mma_sync"):
+                read("mma_sync", be_t.cpu().numpy(), 3)
+            emit(**row)
+            del x, want, a_e
+
+
 def k5_stream(name: str) -> None:
     import chip_smoke as cs
     from repro_torch.kernels.moe_gemm import moe_gemm
@@ -539,8 +645,9 @@ def _to_cpu(tree):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("study", choices=("k1-carry", "k3-numerics", "k5-carry",
-                                      "k5-stream", "k6-time", "kernel-times",
-                                      "hymba-repeat", "situ-repeat"))
+                                      "k5-bf16", "k5-stream", "k6-time",
+                                      "kernel-times", "hymba-repeat",
+                                      "situ-repeat"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
                          "situ-repeat: card prefills (200)")
@@ -554,6 +661,8 @@ def main() -> int:
         k3_numerics(name)
     elif args.study == "k5-carry":
         k5_carry(name)
+    elif args.study == "k5-bf16":
+        k5_bf16(name)
     elif args.study == "k5-stream":
         k5_stream(name)
     elif args.study == "k6-time":

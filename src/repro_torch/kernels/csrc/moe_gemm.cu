@@ -42,15 +42,42 @@
 //    128 columns fed through shared memory read the stack at about 1.4 TB/s
 //    here, as torch.bmm does; a walk down the rows with the loads in flight
 //    reads it at the rate of a plain reduction.
-//  * bfloat16: mma.sync m16n8k16 on the raw slices (32 deep, 4-stage ring of
-//    8-byte cp.async copies: a bfloat16 row of d_in % 8 == 4 elements is only
-//    8-byte aligned), fp32 accumulation, one rounding on store.
+//  * bfloat16, fp32 accumulation and one rounding on store, three routes
+//    picked by the wrapper from the shape (kernels/moe_gemm.py, bf16_route):
+//    - cap > 32 (DBRX's prefill: bound by operations): TMA loads x as
+//      (nb, cap, d_in) and w as (E, d_in, d_out) boxes of 64 x 64 with the
+//      128-byte swizzle into a 4-stage ring of 64-deep slices (rows past cap
+//      read as zeros); one producer thread keeps the ring full behind
+//      mbarriers, two consumer warpgroups run wgmma m64n256k16 with the fp32
+//      sums in registers.  For 16-bit types wgmma takes B MN-major, so w's
+//      [k][n] boxes feed the tensor cores as they land: no transpose pass,
+//      no thread touching an operand.  A block computes a unit of two 64-row
+//      tiles of one expert (cap 320 is five such tiles, with none wasted on
+//      rows past cap) by 256 columns; persistent blocks walk the
+//      expert-grouped schedule (Walk), so an expert's weight columns are
+//      read by its units side by side and cross the memory bus about once.
+//    - cap <= 32 (decode: bound by the bytes of the weights): A and B
+//      swapped, w's 64-column boxes as wgmma's A (MN-major) and x^T as its
+//      B (m64n32k16: up to 32 rows of the bundles that meet one expert), two
+//      boxes a slice (256 contiguous bytes of each weight row), a 5-stage
+//      ring, two blocks an SM; the expert-grouped walk reads each weight
+//      column once for all the bundles that meet its expert.
+//    - d_in or d_out not a multiple of 8 (TMA needs 16-byte row strides):
+//      mma.sync m16n8k16 on the raw slices (32 deep, 4-stage ring of 8-byte
+//      cp.async copies: a bfloat16 row of d_in % 8 == 4 elements is only
+//      8-byte aligned).
+//    No route splits d_in or uses atomics: each output is summed in one
+//    fixed order, so two calls are bit-identical.
 //
-// C entry point: plain C interface for ctypes; returns the first CUDA error of
-// an attribute call or the launch (0 on success).
+// C entry points: plain C interfaces for ctypes; each returns the first CUDA
+// error of an attribute call or the launch (0 on success).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encode is reached at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdio>
 
 #include "common.cuh"
 
@@ -499,6 +526,580 @@ moe_gemm_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 on TMA and wgmma (d_in and d_out multiples of 8)
+// ---------------------------------------------------------------------------
+
+// The schedule both kernels walk, one int32 buffer on the card:
+//   [0, nb)            bundle_expert
+//   [nb, 2 nb)         order: the bundles sorted by expert (stably)
+//   [2 nb, 2 nb+G+1)   group starts: group g (one expert) owns
+//                      order[starts[g] .. starts[g + 1])
+// Group g's n_g bundles give n_g * per slots (per: 64-row tiles of a bundle
+// on the tile route, 1 on the decode route), cut into units of `span`
+// consecutive slots.  A work item is (group, column tile, unit), the units
+// innermost: every unit of one column tile of one expert's weights runs side
+// by side on neighbouring SMs, so that tile crosses the memory bus about once
+// per product, not once per bundle.  Persistent blocks take items t =
+// blockIdx.x, + gridDim.x, ... in this order.
+struct Walk {
+  const int* be;
+  const int* order;
+  const int* starts;
+  int n_groups, per, span, n_col;
+  int g = 0;             // the cursor: group of the last item sought,
+  long long first = 0;   // its first item,
+  int units = 0;         // its units
+
+  // moves the cursor to item t (t never decreases); false past the last
+  __device__ bool seek(long long t) {
+    while (g < n_groups) {
+      units = ((starts[g + 1] - starts[g]) * per + span - 1) / span;
+      if (t < first + static_cast<long long>(units) * n_col) return true;
+      first += static_cast<long long>(units) * n_col;
+      ++g;
+    }
+    return false;
+  }
+};
+
+// One work item, up to kMaxSlots slots: its expert, column tile and each
+// slot's bundle and row tile.
+constexpr int kMaxSlots = 4;
+struct Item {
+  int expert, col, n_slots;
+  int bundle[kMaxSlots], tile[kMaxSlots];
+};
+
+__device__ __forceinline__ Item item_at(const Walk& w, long long t) {
+  Item it;
+  const long long local = t - w.first;
+  const int unit = static_cast<int>(local % w.units);
+  it.col = static_cast<int>(local / w.units);
+  const int base = w.starts[w.g];
+  const int slots = (w.starts[w.g + 1] - base) * w.per;
+  it.n_slots = min(w.span, slots - unit * w.span);
+#pragma unroll
+  for (int i = 0; i < kMaxSlots; ++i) {
+    const int s = min(unit * w.span + i, slots - 1);
+    it.bundle[i] = w.order[base + s / w.per];
+    it.tile[i] = s % w.per;
+  }
+  it.expert = w.be[it.bundle[0]];
+  return it;
+}
+
+// mbarriers and TMA
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// returns once the barrier's phase of parity `parity` has completed; a wait
+// that outlasts 2^26 polls (seconds, where a slice takes microseconds) traps,
+// so that a fault in the pipeline fails the launch rather than hanging it
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (uint32_t polls = 0; !mbar_try_wait(bar, parity);)
+    if (++polls == (1u << 26)) __trap();
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// box (c0, c1, c2) of `map` into shared memory at `dst`, completing on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Shared-memory descriptor of a tile that TMA wrote with the 128-byte
+// swizzle: rows of 128 bytes in 8-row atoms of 1 KiB.  K-major (x as A, x as
+// B): sbo = 1024 between the 8-row atoms along M (N), lbo unused.  MN-major
+// (w's [k][n] boxes): lbo = 8192 between the 64-column boxes along N (M),
+// sbo = 1024 between the 8-deep atoms along K.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// wgmma in bfloat16, fp32 accumulate: d = a * b + (scale_d ? d : 0).  n256
+// and n128: A (64 x 16) K-major, B (16 x N) MN-major (transposed).  n32_wt:
+// A MN-major (w's tile as A: 64 output columns), B K-major (x^T: 32 rows).
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t a_desc,
+    uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t a_desc,
+    uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n32_wt(float (&d)[16], uint64_t a_desc,
+    uint64_t b_desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a_desc), "l"(b_desc), "r"(scale_d));
+}
+
+// -- the tile route: cap > 32, bound by operations ---------------------------
+
+// BN output columns a block, two consumer warpgroups of 64 rows each (a
+// unit: two 64-row tiles of one expert, from one bundle or two), one
+// producer warp; 64-deep slices through a ring of STAGES.  288 threads a
+// block and one block an SM leave 224 registers a thread: the consumers'
+// 128 accumulators fit without moving registers between warpgroups.
+#ifndef REPRO_K5_TMA_BN
+#define REPRO_K5_TMA_BN 256
+#endif
+#ifndef REPRO_K5_TMA_STAGES
+#define REPRO_K5_TMA_STAGES (REPRO_K5_TMA_BN == 256 ? 4 : 6)
+#endif
+#ifndef REPRO_K5_TMA_CARRY
+#define REPRO_K5_TMA_CARRY 0  // 0: the tensor cores accumulate in place
+#endif
+
+template <int BN, int STAGES>
+struct TileShape {
+  static constexpr int a_bytes = 64 * 64 * 2;        // one 64 x 64 x tile: 8 KiB
+  static constexpr int b_bytes = 64 * BN * 2;        // BN / 64 boxes of 64 x 64
+  static constexpr int stage_bytes = 2 * a_bytes + b_bytes;
+  static constexpr int bar_bytes = 2 * STAGES * 8;   // full and empty barriers
+  static constexpr int smem_bytes = STAGES * stage_bytes + bar_bytes + 1024;
+  static constexpr int threads = 288;                // 2 consumer warpgroups + 1 producer warp
+};
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  if constexpr (BN == 256) wgmma_bf16_n256(d, a, b, scale_d);
+  else wgmma_bf16_n128(d, a, b, scale_d);
+}
+
+template <int BN, int STAGES, int CARRY>
+__global__ void __launch_bounds__(288, 1)
+moe_gemm_tma_kernel(const __grid_constant__ CUtensorMap tx,
+                    const __grid_constant__ CUtensorMap tw,
+                    const int* __restrict__ sched, int nb, int n_groups,
+                    int cap, int d_in, int d_out, long long n_items,
+                    __nv_bfloat16* __restrict__ out) {
+  using S = TileShape<BN, STAGES>;
+  static_assert(CARRY == 0 || (BN <= 128 && CARRY % 64 == 0),
+                "a carry needs a second accumulator: BN 128, whole slices");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t smem = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = smem + STAGES * S::stage_bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  Walk walk{sched, sched + nb, sched + 2 * nb, n_groups, (cap + 63) / 64, 2,
+            (d_out + BN - 1) / BN};
+  const int n_k = (d_in + 63) / 64;
+
+  if (tid >= 256) {
+    // producer: one thread keeps the ring full
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (long long t = blockIdx.x; t < n_items && walk.seek(t); t += gridDim.x) {
+        const Item it = item_at(walk, t);
+        for (int k = 0; k < n_k; ++k) {
+          mbar_wait(empty(stage), phase ^ 1);
+          const uint32_t st = smem + stage * S::stage_bytes;
+          mbar_expect_tx(full(stage), it.n_slots * S::a_bytes + S::b_bytes);
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            if (i < it.n_slots)
+              tma_load_3d(st + i * S::a_bytes, &tx, 64 * k, 64 * it.tile[i],
+                          it.bundle[i], full(stage));
+#pragma unroll
+          for (int j = 0; j < BN / 64; ++j)
+            tma_load_3d(st + 2 * S::a_bytes + j * 8192, &tw, it.col * BN + 64 * j,
+                        64 * k, it.expert, full(stage));
+          if (++stage == STAGES) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    __syncwarp();
+  } else {
+    // consumers: warpgroup wg multiplies the unit's slot wg (rows 64 wg ..)
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32;
+    const int lane = tid % 32;
+    auto release = [&](int s) {  // this warp is done with stage s
+      if (lane == 0) mbar_arrive(empty(s));
+    };
+    float acc[BN / 2];
+    float part[BN / 2];  // CARRY > 0: the span's sum
+    int stage = 0, phase = 0;
+    for (long long t = blockIdx.x; t < n_items && walk.seek(t); t += gridDim.x) {
+      const Item it = item_at(walk, t);
+      const bool live = wg < it.n_slots;
+      int prev = 0;
+      for (int k = 0; k < n_k; ++k) {
+        mbar_wait(full(stage), phase);
+        if (live) {
+          const uint32_t st = smem + stage * S::stage_bytes;
+          const uint64_t da = desc_sw128(st + wg * S::a_bytes, 16, 1024);
+          const uint64_t db = desc_sw128(st + 2 * S::a_bytes, 8192, 1024);
+          if constexpr (CARRY == 0) {
+            fence_operand(acc);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)  // 16 deep: A +32 bytes, B +2048
+              wgmma_tile<BN>(acc, da + 2 * kk, db + 128 * kk, (k | kk) != 0);
+            wgmma_commit();
+            fence_operand(acc);
+            wgmma_wait<1>();  // slice k - 1's products are done
+          } else {
+            // sum each CARRY-deep span from zero, then add it to acc in IEEE fp32
+            constexpr int span = CARRY / 64;
+            float (&d)[BN / 2] = part;
+            fence_operand(d);
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_tile<BN>(d, da + 2 * kk, db + 128 * kk, (k % span) | kk);
+            wgmma_commit();
+            fence_operand(d);
+            if (k % span == span - 1 || k == n_k - 1) {
+              wgmma_wait<0>();
+              fence_operand(d);
+#pragma unroll
+              for (int e = 0; e < BN / 2; ++e) acc[e] = (k < span ? 0.0f : acc[e]) + d[e];
+            } else {
+              wgmma_wait<1>();
+            }
+          }
+        }
+        if (k > 0) release(prev);
+        prev = stage;
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+      wgmma_wait<0>();  // on every path: without rows nothing is outstanding
+      fence_operand(acc);
+      release(prev);
+      if (!live) continue;
+
+      // acc: warp `warp` holds rows 16 warp + lane / 4 (+ 8) of the slot,
+      // columns 8 j + 2 (lane % 4) (+ 1) in acc[4 j .. 4 j + 3]
+      const int r = 64 * it.tile[wg] + 16 * warp + lane / 4;
+      __nv_bfloat16* O = out + static_cast<long long>(it.bundle[wg]) * cap * d_out;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const int c = it.col * BN + 8 * j + 2 * (lane % 4);
+        if (c >= d_out) continue;  // d_out % 8 == 0: c < d_out => c + 1 < d_out
+        if (r < cap)
+          *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r) * d_out + c) =
+              pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        if (r + 8 < cap)
+          *reinterpret_cast<uint32_t*>(O + static_cast<long long>(r + 8) * d_out + c) =
+              pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+    }
+  }
+}
+
+// -- the decode route: cap <= 32, bound by the bytes of the weights ---------
+
+// A and B swapped: each of w's NW 64-column boxes is wgmma's A (M = 64
+// output columns, MN-major), x^T its B (N = 32: the item's bundles' rows,
+// each rounded up to rn = 8, 16, 24 or 32 rows, 32 / rn bundles of one
+// expert side by side).  One consumer warpgroup, one producer warp; 64-deep
+// slices of NW = 2 boxes (128 columns: 256 contiguous bytes a weight row)
+// through a ring of 5 STAGES, two blocks an SM.
+#ifndef REPRO_K5_DECODE_STAGES
+#define REPRO_K5_DECODE_STAGES 5
+#endif
+#ifndef REPRO_K5_DECODE_BOXES
+#define REPRO_K5_DECODE_BOXES 2
+#endif
+
+template <int STAGES, int NW>
+struct DecodeShape {
+  static constexpr int w_bytes = NW * 64 * 64 * 2;
+  static constexpr int x_bytes = 32 * 128;
+  static constexpr int stage_bytes = w_bytes + x_bytes;
+  static constexpr int smem_bytes = STAGES * stage_bytes + 2 * STAGES * 8 + 1024;
+  static constexpr int threads = 160;
+};
+
+template <int STAGES, int NW>
+__global__ void __launch_bounds__(160, 2)
+moe_gemm_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                       const __grid_constant__ CUtensorMap tw,
+                       const int* __restrict__ sched, int nb, int n_groups,
+                       int cap, int d_in, int d_out, long long n_items,
+                       __nv_bfloat16* __restrict__ out) {
+  using S = DecodeShape<STAGES, NW>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t smem = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = smem + STAGES * S::stage_bytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int rn = (cap + 7) / 8 * 8;
+  Walk walk{sched, sched + nb, sched + 2 * nb, n_groups, 1, 32 / rn,
+            (d_out + 64 * NW - 1) / (64 * NW)};
+  const int n_k = (d_in + 63) / 64;
+
+  if (tid >= 128) {
+    if (tid != 128) return;
+    int stage = 0, phase = 0;
+    for (long long t = blockIdx.x; t < n_items && walk.seek(t); t += gridDim.x) {
+      const Item it = item_at(walk, t);
+      for (int k = 0; k < n_k; ++k) {
+        mbar_wait(empty(stage), phase ^ 1);
+        const uint32_t st = smem + stage * S::stage_bytes;
+        mbar_expect_tx(full(stage), S::w_bytes + it.n_slots * rn * 128);
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          tma_load_3d(st + j * 8192, &tw, 64 * (NW * it.col + j), 64 * k,
+                      it.expert, full(stage));
+        for (int i = 0; i < it.n_slots; ++i)
+          tma_load_3d(st + S::w_bytes + i * rn * 128, &tx, 64 * k, 0,
+                      it.bundle[i], full(stage));
+        if (++stage == STAGES) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  float acc[NW][16];
+  int stage = 0, phase = 0;
+  for (long long t = blockIdx.x; t < n_items && walk.seek(t); t += gridDim.x) {
+    const Item it = item_at(walk, t);
+    int prev = 0;
+    for (int k = 0; k < n_k; ++k) {
+      mbar_wait(full(stage), phase);
+      const uint32_t st = smem + stage * S::stage_bytes;
+      const uint64_t db = desc_sw128(st + S::w_bytes, 16, 1024);
+#pragma unroll
+      for (int j = 0; j < NW; ++j) fence_operand(acc[j]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)  // 16 deep: A +2048 bytes, B +32
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+          wgmma_bf16_n32_wt(acc[j], desc_sw128(st + j * 8192, 8192, 1024) + 128 * kk,
+                            db + 2 * kk, (k | kk) != 0);
+      wgmma_commit();
+#pragma unroll
+      for (int j = 0; j < NW; ++j) fence_operand(acc[j]);
+      wgmma_wait<1>();
+      if (k > 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = stage;
+      if (++stage == STAGES) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int j = 0; j < NW; ++j) fence_operand(acc[j]);
+    if (lane == 0) mbar_arrive(empty(prev));
+
+    // acc[b][4 j + e]: output column 64 (NW col + b) + 16 warp + lane / 4 (+ 8
+    // for e >= 2), x^T column n = 8 j + 2 (lane % 4) + (e & 1): row n % rn of
+    // slot n / rn
+#pragma unroll
+    for (int b = 0; b < NW; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 64 * (NW * it.col + b) + 16 * warp + lane / 4 + 8 * (e >> 1);
+          const int n = 8 * j + 2 * (lane % 4) + (e & 1);
+          const int slot = n / rn, row = n % rn;
+          if (slot < it.n_slots && row < cap && c < d_out)
+            out[(static_cast<long long>(it.bundle[slot]) * cap + row) * d_out + c] =
+                __float2bfloat16_rn(acc[b][4 * j + e]);
+        }
+  }
+}
+
+#ifdef REPRO_K5_DECODE_ROWS
+// The other decode candidate, built only for scripts/card_studies.py
+// k5-bf16: moe_gemm_rows_kernel's streaming in bfloat16, 4 columns a
+// thread (8-byte weight loads), x^T in float through shared memory.
+constexpr int kRowsCols16 = 4 * kRowsThreads;
+
+template <int RM>
+__global__ void __launch_bounds__(kRowsThreads)
+moe_gemm_rows_bf16_kernel(const __nv_bfloat16* __restrict__ x,
+                          const __nv_bfloat16* __restrict__ w,
+                          const int* __restrict__ bundle_expert, int cap,
+                          int d_in, int d_out, __nv_bfloat16* __restrict__ out) {
+  __shared__ __align__(16) float xs[KC][RM];
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int col = blockIdx.y * kRowsCols16 + 4 * tid;  // d_out % 8 == 0
+  const bool live = col < d_out;
+  const __nv_bfloat16* X = x + static_cast<long long>(b) * cap * d_in;
+  const __nv_bfloat16* W = w + static_cast<long long>(bundle_expert[b]) * d_in * d_out +
+                           (live ? col : 0);
+  auto wrow = [&](int k) {
+    uint2 v = make_uint2(0u, 0u);
+    if (live) v = *reinterpret_cast<const uint2*>(W + static_cast<long long>(k) * d_out);
+    return v;
+  };
+  float acc[RM][4];
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+
+  for (int k0 = 0; k0 < d_in; k0 += KC) {
+    const int kn = min(KC, d_in - k0);
+    __syncthreads();
+    for (int e = tid; e < RM * KC / 8; e += kRowsThreads) {
+      const int r = e % RM;
+      const int kq = 8 * (e / RM);
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (r < cap && kq < kn)
+        v = *reinterpret_cast<const uint4*>(X + static_cast<long long>(r) * d_in + k0 + kq);
+      const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) xs[kq + i][r] = __bfloat162float(h[i]);
+    }
+    __syncthreads();
+    uint2 wn[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) wn[u] = u < kn ? wrow(k0 + u) : make_uint2(0u, 0u);
+    for (int kk = 0; kk < kn; kk += kU) {
+      uint2 wc[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        wc[u] = wn[u];
+        const int kf = kk + kU + u;
+        wn[u] = kf < kn ? wrow(k0 + kf) : make_uint2(0u, 0u);
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        if (kk + u >= kn) break;
+        const __nv_bfloat16* h = reinterpret_cast<const __nv_bfloat16*>(&wc[u]);
+        float wf[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wf[c] = __bfloat162float(h[c]);
+#pragma unroll
+        for (int r4 = 0; r4 < RM; r4 += 4) {
+          const float4 xv = *reinterpret_cast<const float4*>(&xs[kk + u][r4]);
+          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[r4 + i][c] = fmaf(xr[i], wf[c], acc[r4 + i][c]);
+        }
+      }
+    }
+  }
+  if (!live) return;
+  __nv_bfloat16* O = out + static_cast<long long>(b) * cap * d_out + col;
+#pragma unroll
+  for (int r = 0; r < RM; ++r)
+    if (r < cap)
+      *reinterpret_cast<uint2*>(O + static_cast<long long>(r) * d_out) =
+          make_uint2(pack_bf16(acc[r][0], acc[r][1]), pack_bf16(acc[r][2], acc[r][3]));
+}
+#endif  // REPRO_K5_DECODE_ROWS
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -574,6 +1175,126 @@ int launch_bf16_bm(int bm, const __nv_bfloat16* x, const __nv_bfloat16* w,
   }
 }
 
+
+// -- the TMA routes ----------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point:
+// the library links no libcuda of its own.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// TMA's L2 promotion of the boxes' reads: 256 bytes (scripts/card_studies.py
+// k5-bf16 times a build without it beside the shipped one)
+#ifdef REPRO_K5_NO_L2_PROMOTION
+constexpr CUtensorMapL2promotion kL2Promotion = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+#else
+constexpr CUtensorMapL2promotion kL2Promotion = CU_TENSOR_MAP_L2_PROMOTION_L2_256B;
+#endif
+
+// A failed encode returns kEncodeFailed + its CUresult, above CUDA's codes.
+constexpr int kEncodeFailed = 1 << 20;
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                         cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The bfloat16 row-major (d2, d1, d0) tensor at p as a TMA map of (1, b1, b0)
+// boxes with the 128-byte swizzle; what a box reads past an edge is zero.
+int bf16_map(CUtensorMap* map, const void* p, uint64_t d0, uint64_t d1,
+             uint64_t d2, uint32_t b0, uint32_t b1) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return kEncodeFailed + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {d0, d1, d2};
+  const cuuint64_t strides[2] = {d0 * 2, d0 * d1 * 2};  // bytes, dims 1 and 2
+  const cuuint32_t box[3] = {b0, b1, 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(p), dims,
+      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, kL2Promotion,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
+}
+
+int sm_count(int device, int* count) {
+  static std::atomic<int> known[64];
+  if (device < 64 && (*count = known[device].load(std::memory_order_acquire)))
+    return 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < 64)
+    known[device].store(*count, std::memory_order_release);
+  return static_cast<int>(err);
+}
+
+// x: (nb, cap, d_in), w: (n_experts, d_in, d_out); n_units: the schedule's
+// units (Walk), so n_units * column tiles work items.
+template <int BN, int STAGES, int CARRY>
+int launch_tma_tiles(const void* x, const void* w, const int* sched, int nb,
+                     int n_groups, int cap, int d_in, int d_out, int n_experts,
+                     long long n_units, void* out, cudaStream_t stream,
+                     int device) {
+  using S = TileShape<BN, STAGES>;
+  static_assert(S::smem_bytes <= 232448, "above the 227 KiB a block may use");
+  CUtensorMap tx, tw;
+  int err = bf16_map(&tx, x, d_in, cap, nb, 64, 64);
+  if (!err) err = bf16_map(&tw, w, d_out, d_in, n_experts, 64, 64);
+  int sms = 0;
+  if (!err) err = sm_count(device, &sms);
+  if (err) return err;
+  auto* kernel = moe_gemm_tma_kernel<BN, STAGES, CARRY>;
+  static std::atomic<int> smem_set[64];
+  cudaError_t e = allow_smem(smem_set, kernel, S::smem_bytes, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n_items = n_units * ((d_out + BN - 1) / BN);
+  const int grid = static_cast<int>(std::min<long long>(n_items, sms));
+  kernel<<<grid, S::threads, S::smem_bytes, stream>>>(
+      tx, tw, sched, nb, n_groups, cap, d_in, d_out, n_items,
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int STAGES, int NW>
+int launch_tma_decode(const void* x, const void* w, const int* sched, int nb,
+                      int n_groups, int cap, int d_in, int d_out,
+                      int n_experts, long long n_units, void* out,
+                      cudaStream_t stream, int device) {
+  using S = DecodeShape<STAGES, NW>;
+  CUtensorMap tx, tw;
+  int err = bf16_map(&tx, x, d_in, cap, nb, 64, (cap + 7) / 8 * 8);
+  if (!err) err = bf16_map(&tw, w, d_out, d_in, n_experts, 64, 64);
+  int sms = 0;
+  if (!err) err = sm_count(device, &sms);
+  if (err) return err;
+  auto* kernel = moe_gemm_decode_kernel<STAGES, NW>;
+  static std::atomic<int> smem_set[64];
+  cudaError_t e = allow_smem(smem_set, kernel, S::smem_bytes, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, S::threads,
+                                                    S::smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long n_items = n_units * ((d_out + 64 * NW - 1) / (64 * NW));
+  const int grid = static_cast<int>(std::min<long long>(n_items, per_sm * sms));
+  kernel<<<grid, S::threads, S::smem_bytes, stream>>>(
+      tx, tw, sched, nb, n_groups, cap, d_in, d_out, n_items,
+      static_cast<__nv_bfloat16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -605,7 +1326,52 @@ int moe_gemm(const void* x, const void* w, const int* bundle_expert, int nb,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// Launches K5's bfloat16 TMA routes on `stream`: route 1 the tiles (cap >
+// 32), route 2 decode (cap <= 32).  `sched` is the schedule buffer (the
+// layout above Walk) with n_groups groups and n_units units; d_in and d_out
+// are multiples of 8 and x, w and out 16-byte aligned (the caller has
+// checked).  Returns the first error of the tensor-map encodes (kEncodeFailed
+// + its CUresult), the attribute calls or the launch.
+int moe_gemm_bf16_tma(const void* x, const void* w, const int* sched, int nb,
+                      int n_groups, int cap, int d_in, int d_out, int n_experts,
+                      long long n_units, int route, void* out, void* stream,
+                      int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == 1)
+    return launch_tma_tiles<REPRO_K5_TMA_BN, REPRO_K5_TMA_STAGES, REPRO_K5_TMA_CARRY>(
+        x, w, sched, nb, n_groups, cap, d_in, d_out, n_experts, n_units, out, s,
+        device);
+#ifdef REPRO_K5_DECODE_ROWS
+  if (route == 2) {
+    const dim3 grid(1, (d_out + kRowsCols16 - 1) / kRowsCols16, nb);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* wb = static_cast<const __nv_bfloat16*>(w);
+    auto* ob = static_cast<__nv_bfloat16*>(out);
+    switch ((cap + 7) / 8) {
+      case 1: moe_gemm_rows_bf16_kernel<8><<<grid, kRowsThreads, 0, s>>>(xb, wb, sched, cap, d_in, d_out, ob); break;
+      case 2: moe_gemm_rows_bf16_kernel<16><<<grid, kRowsThreads, 0, s>>>(xb, wb, sched, cap, d_in, d_out, ob); break;
+      case 3: moe_gemm_rows_bf16_kernel<24><<<grid, kRowsThreads, 0, s>>>(xb, wb, sched, cap, d_in, d_out, ob); break;
+      default: moe_gemm_rows_bf16_kernel<32><<<grid, kRowsThreads, 0, s>>>(xb, wb, sched, cap, d_in, d_out, ob); break;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+#endif
+  if (route == 2)
+    return launch_tma_decode<REPRO_K5_DECODE_STAGES, REPRO_K5_DECODE_BOXES>(
+        x, w, sched, nb, n_groups, cap, d_in, d_out, n_experts, n_units, out, s,
+        device);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 const char* repro_cuda_error_string(int err) {
+  if (err >= kEncodeFailed) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - kEncodeFailed);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

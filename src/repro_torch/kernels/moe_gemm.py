@@ -25,16 +25,44 @@ on ``wgmma`` (each operand split once per block into two TF32 halves,
 three TF32 products per product, 32-deep slices through a ``cp.async``
 ring, the tensor cores' partial sums carried into the accumulator with
 IEEE adds every slice); row tiles of 16 and 32 (decode) stream
-the weight rows through IEEE FMAs with many loads in flight.  bfloat16
-runs ``mma.sync`` on bfloat16 with fp32 accumulation and one rounding on
-store.
+the weight rows through IEEE FMAs with many loads in flight.
+
+bfloat16 (fp32 accumulation, one rounding on store) takes one of three
+routes, picked from the shape by ``bf16_route`` before launch and counted
+in ``moe_gemm.routes``:
+
+* ``wgmma_tiles`` (cap > 32; DBRX's prefill, bound by operations): TMA
+  loads x and w into a 4-stage ring of 64-deep slices (128-byte swizzle,
+  rows past cap read as zeros), one producer warp, two consumer
+  warpgroups on ``wgmma`` m64n256k16 with w's [k][n] tiles taken as they
+  are (MN-major B); a block computes two 64-row tiles of one expert (from
+  one bundle or two) by 256 columns, persistent blocks walk the
+  expert-grouped work list.
+* ``wgmma_decode`` (cap <= 32; decode, bound by the weights' bytes): A and
+  B swapped, w's 64-column boxes as ``wgmma``'s A and x^T as its B, up to
+  32 rows of the bundles that meet one expert side by side; 128 columns a
+  block (256 contiguous bytes of each weight row a slice), a 5-stage ring,
+  two blocks an SM.
+* ``mma_sync`` (d_in or d_out not a multiple of 8: TMA needs 16-byte row
+  strides): ``mma.sync`` m16n8k16 on 8-byte ``cp.async`` copies.
+
+Every width of the port's MoE configs takes a TMA route: dbrx-132b 6144 /
+10752, kimi-k2 7168 / 2048, and their reduced configs 64 / 64.
+
+The TMA routes walk an expert-grouped order (``pack_schedule``): the
+bundles sorted by expert, and for each expert its column tiles in turn,
+each with every row tile of every bundle that meets the expert side by
+side, so an expert's weights cross the memory bus about once per product
+rather than once per bundle.  The expert map and that order are one int32
+buffer on the card (``bundle_expert`` first, which the other routes read).
 
 ``moe_gemm`` / ``moe_gemm_schedule`` dispatch on the tensors' device: CPU
 tensors run ``moe_gemm_plain``; CUDA tensors launch the kernel or raise.
-``moe_gemm.launches`` counts kernel launches and ``moe_gemm.uploads`` the
-uploads of an expert map.  A dispatch plan's schedule bundle keeps the
-device copy of its map (as ``K2Schedule.device_ids`` does), so the warm
-calls of one plan upload nothing; a bare array is uploaded on every call.
+``moe_gemm.launches`` counts kernel launches, ``moe_gemm.routes`` them by
+route, and ``moe_gemm.uploads`` the uploads of a schedule buffer.  A
+dispatch plan's schedule bundle keeps the device copy of its buffer (as
+``K2Schedule.device_ids`` does), so the warm calls of one plan upload
+nothing; a bare array is uploaded on every call.
 """
 from __future__ import annotations
 
@@ -49,12 +77,81 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILES = (16, 32, 64, 128)
-MAX_BUNDLES = 65535         # the grid's z extent
+MAX_BUNDLES = 65535         # the grid's z extent (float32 and mma_sync)
+# the bfloat16 TMA routes: a tile-route block's columns and rows a unit
+# (two 64-row tiles), a decode block's columns and its x^T width
+TILE_COLS, TILE_ROWS, TILE_UNIT = 256, 64, 2
+DECODE_COLS, DECODE_ROWS = 128, 32
+_TMA_ROUTES = {"wgmma_tiles": 1, "wgmma_decode": 2}
 
 
 def row_tile(cap: int) -> int:
     """The smallest row tile that holds ``cap`` rows, at most 128."""
     return next((bm for bm in ROW_TILES if cap <= bm), ROW_TILES[-1])
+
+
+def bf16_route(cap: int, d_in: int, d_out: int) -> str:
+    """The kernel a bfloat16 call of these widths takes: ``wgmma_tiles``
+    (cap > 32), ``wgmma_decode`` (cap <= 32) or, where TMA's 16-byte row
+    strides rule it out (d_in or d_out not a multiple of 8), ``mma_sync``."""
+    if d_in % 8 or d_out % 8:
+        return "mma_sync"
+    return "wgmma_decode" if cap <= DECODE_ROWS else "wgmma_tiles"
+
+
+def pack_schedule(be: np.ndarray, grouped: bool = True):
+    """The TMA routes' schedule as one int32 buffer, and its group count G:
+    ``[bundle_expert (nb) | order (nb) | starts (G + 1)]``, ``order`` the
+    bundles sorted by expert (stably) and group g, one expert,
+    ``order[starts[g]:starts[g + 1]]``.  ``grouped=False`` makes every
+    bundle a group of its own, in bundle order: the walk without the
+    expert grouping (``scripts/card_studies.py k5-bf16``)."""
+    be = np.asarray(be, np.int32)
+    nb = be.size
+    if grouped:
+        order = np.argsort(be, kind="stable").astype(np.int32)
+        starts = np.r_[0, np.flatnonzero(np.diff(be[order])) + 1, nb] \
+            if nb else np.zeros(1, np.int64)
+    else:
+        order = np.arange(nb, dtype=np.int32)
+        starts = np.arange(nb + 1)
+    return np.concatenate([be, order, starts]).astype(np.int32), \
+        starts.size - 1
+
+
+def _walk(route: str, cap: int):
+    """(slots a bundle, slots a unit) of a TMA route: 64-row tiles paired
+    on the tile route; on the decode route whole bundles, as many as fit
+    in 32 rows at cap rounded up to 8."""
+    if route == "wgmma_tiles":
+        return -(-cap // TILE_ROWS), TILE_UNIT
+    return 1, DECODE_ROWS // (-(-cap // 8) * 8)
+
+
+def _units(buf: np.ndarray, nb: int, route: str, cap: int) -> int:
+    """The schedule's units: each group's slots cut into units."""
+    per, span = _walk(route, cap)
+    sizes = np.diff(buf[2 * nb:]).astype(np.int64)
+    return int((-(-sizes * per // span)).sum())
+
+
+def tile_order(buf: np.ndarray, nb: int, route: str, cap: int, d_out: int):
+    """The work items of a TMA route in the order its persistent blocks
+    take them (``csrc/moe_gemm.cu``'s ``Walk`` and ``item_at``): a list of
+    ``(expert, column tile, ((bundle, row tile), ...))``, row tiles of 64
+    rows on the tile route, 0 (the whole bundle) on the decode route."""
+    per, span = _walk(route, cap)
+    cols = -(-d_out // (TILE_COLS if route == "wgmma_tiles"
+                        else DECODE_COLS))
+    be, order, starts = buf[:nb], buf[nb:2 * nb], buf[2 * nb:]
+    items = []
+    for g in range(starts.size - 1):
+        members = order[starts[g]:starts[g + 1]]
+        slots = [(int(b), i) for b in members for i in range(per)]
+        units = [tuple(slots[u:u + span]) for u in range(0, len(slots), span)]
+        items += [(int(be[members[0]]), col, unit) for col in range(cols)
+                  for unit in units]
+    return items
 
 
 def moe_gemm_plain(x_bundles: torch.Tensor, w: torch.Tensor,
@@ -64,25 +161,28 @@ def moe_gemm_plain(x_bundles: torch.Tensor, w: torch.Tensor,
                         w[bundle_expert.long()].float()).to(x_bundles.dtype)
 
 
-def _lib() -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    return _build.bind("moe_gemm", "moe_gemm",
-                       [p, p, p, i, i, i, i, i, i, p, p, i])
+def _lib(entry: str = "moe_gemm") -> ctypes.CDLL:
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    args = {"moe_gemm": [p, p, p, i, i, i, i, i, i, p, p, i],
+            "moe_gemm_bf16_tma": [p, p, p, i, i, i, i, i, i, q, i, p, p, i]}
+    return _build.bind("moe_gemm", entry, args[entry])
 
 
-def _device_map(bundle_expert, be: np.ndarray,
-                device: torch.device) -> torch.Tensor:
-    """``be`` (the host ids of ``bundle_expert``) on ``device``.  A
-    schedule bundle keeps its copy per device, uploaded on first use,
-    outside its fields; anything else is uploaded now."""
-    if not isinstance(bundle_expert, ScheduleBundle):
+def _device_schedule(bundle_expert, be: np.ndarray, device: torch.device):
+    """``(buffer on device, its host copy, G)``: ``pack_schedule(be)``.  A
+    schedule bundle keeps it per device, uploaded on first use, outside its
+    fields; anything else is packed and uploaded now."""
+    def upload():
         moe_gemm.uploads += 1
-        return to_device(be, device)
-    memo = bundle_expert.__dict__.setdefault("_device_bundle_expert", {})
+        buf, n_groups = pack_schedule(be)
+        return to_device(buf, device), buf, n_groups
+
+    if not isinstance(bundle_expert, ScheduleBundle):
+        return upload()
+    memo = bundle_expert.__dict__.setdefault("_device_schedule", {})
     key = str(device)
     if key not in memo:
-        memo[key] = to_device(be, device)
-        moe_gemm.uploads += 1
+        memo[key] = upload()
     return memo[key]
 
 
@@ -101,13 +201,24 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
                 or t.device != out.device:
             raise ValueError("K5 operands must be contiguous, 16-byte "
                              "aligned tensors on one device")
-    ids = _device_map(bundle_expert, be, out.device)
-    lib = _lib()
-    err = lib.moe_gemm(x.data_ptr(), w.data_ptr(), ids.data_ptr(), nb, cap,
-                       d_in, d_out, row_tile(cap), _DTYPE_CODE[x.dtype],
-                       out.data_ptr(), *launch_target(out.device))
+    sched, host, n_groups = _device_schedule(bundle_expert, be, out.device)
+    route = "float32" if x.dtype == torch.float32 \
+        else bf16_route(cap, d_in, d_out)
+    if route in _TMA_ROUTES:
+        lib = _lib("moe_gemm_bf16_tma")
+        err = lib.moe_gemm_bf16_tma(
+            x.data_ptr(), w.data_ptr(), sched.data_ptr(), nb, n_groups, cap,
+            d_in, d_out, w.shape[0], _units(host, nb, route, cap),
+            _TMA_ROUTES[route], out.data_ptr(), *launch_target(out.device))
+    else:
+        lib = _lib()
+        err = lib.moe_gemm(x.data_ptr(), w.data_ptr(), sched.data_ptr(), nb,
+                           cap, d_in, d_out, row_tile(cap),
+                           _DTYPE_CODE[x.dtype], out.data_ptr(),
+                           *launch_target(out.device))
     _build.check_launch(lib, err, "moe_gemm")
     moe_gemm.launches += 1
+    moe_gemm.routes[route] = moe_gemm.routes.get(route, 0) + 1
 
 
 def _host_ids(x) -> np.ndarray:
@@ -157,6 +268,7 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
 
 
 moe_gemm.launches = 0
+moe_gemm.routes = {}
 moe_gemm.uploads = 0
 
 

@@ -425,7 +425,8 @@ def test_runtime_block_attention_at_block_16_launches_k3(cuda):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("nb,cap,din,dout,e", [
     (4, 8, 32, 64, 3), (7, 16, 128, 128, 8), (2, 128, 256, 512, 2),
-    (5, 24, 96, 200, 6), (3, 131, 36, 260, 4), (16, 40, 64, 132, 16)])
+    (5, 24, 96, 200, 6), (3, 131, 36, 260, 4), (16, 40, 64, 132, 16),
+    (8, 320, 512, 1024, 4), (4, 1, 64, 64, 4), (6, 32, 128, 264, 3)])
 def test_k5_matches_plain(cuda, dtype, tol, nb, cap, din, dout, e):
     rng = np.random.default_rng(nb * cap)
     x = torch.from_numpy(rng.standard_normal((nb, cap, din)).astype(
@@ -473,6 +474,81 @@ def test_k5_warm_call_uploads_no_schedule(cuda):
     for _ in range(3):
         moe_ffn_host(xt, pt, rt, **kw)
     assert moe_gemm.uploads == before
+
+
+# ||got - want|| / ||want|| of bfloat16 K5 against its plain version: both sum
+# in float32 and round once, 1.8e-4 to 2.8e-4 at dbrx-132b's in-graph shapes
+# (chip_smoke.py, phase 16)
+K5_BF16_REL_NORM = 5e-4
+
+
+@pytest.mark.parametrize("nb,cap,din,dout,e,route", [
+    (8, 320, 512, 1024, 4, "wgmma_tiles"),     # b*E+e: two bundles an expert
+    (6, 131, 256, 520, 3, "wgmma_tiles"),      # ragged rows and columns
+    (10, 40, 64, 136, 5, "wgmma_tiles"),       # a unit spans two bundles
+    (4, 320, 6144, 10752, 2, "wgmma_tiles"),   # dbrx-132b's gate widths
+    (4, 320, 10752, 6144, 2, "wgmma_tiles"),   # ... and down's
+    (8, 1, 512, 384, 4, "wgmma_decode"),
+    (16, 8, 512, 384, 4, "wgmma_decode"),      # four bundles a unit
+    (8, 24, 512, 384, 4, "wgmma_decode"),
+    (8, 32, 256, 200, 4, "wgmma_decode"),
+    (4, 8, 10752, 6144, 2, "wgmma_decode")])
+def test_k5_bf16_tma_routes_match_plain(cuda, nb, cap, din, dout, e, route):
+    rng = np.random.default_rng(nb + cap + din)
+    x = torch.from_numpy(rng.standard_normal((nb, cap, din)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((e, din, dout)).astype(
+        np.float32) / np.sqrt(din)).to(cuda, torch.bfloat16)
+    be = np.tile(np.arange(e, dtype=np.int32), -(-nb // e))[:nb]
+    before = moe_gemm.routes.get(route, 0)
+    got = moe_gemm(x, w, be, bk=8, bf=8)
+    again = moe_gemm(x, w, be, bk=8, bf=8)
+    assert moe_gemm.routes[route] == before + 2
+    assert torch.equal(got, again)              # one fixed order of sums
+    want = moe_gemm_plain(x, w, torch.from_numpy(be).to(cuda)).float()
+    torch.testing.assert_close(got.float(), want, rtol=2e-2, atol=2e-2)
+    assert ((got.float() - want).norm() / want.norm()).item() \
+        <= K5_BF16_REL_NORM
+
+
+@pytest.mark.parametrize("nb,cap,din,dout", [(3, 131, 36, 260),
+                                             (16, 8, 64, 132)])
+def test_k5_bf16_odd_widths_take_mma_sync(cuda, nb, cap, din, dout):
+    rng = np.random.default_rng(cap)
+    x = torch.from_numpy(rng.standard_normal((nb, cap, din)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((2, din, dout)).astype(
+        np.float32) / np.sqrt(din)).to(cuda, torch.bfloat16)
+    be = rng.integers(0, 2, nb).astype(np.int32)
+    before = dict(moe_gemm.routes)
+    got = moe_gemm(x, w, be)
+    assert moe_gemm.routes.get("mma_sync", 0) == before.get("mma_sync", 0) + 1
+    assert all(moe_gemm.routes.get(r, 0) == before.get(r, 0)
+               for r in ("wgmma_tiles", "wgmma_decode"))
+    torch.testing.assert_close(got.float(), moe_gemm_plain(
+        x, w, torch.from_numpy(be).to(cuda)).float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.parametrize("cap", [24, 131])
+def test_k5_bf16_warm_call_uploads_no_schedule(cuda, cap):
+    rng = np.random.default_rng(22)
+    x = torch.from_numpy(rng.standard_normal((8, cap, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    w = torch.from_numpy(rng.standard_normal((4, 64, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    be = np.array([3, 1, 0, 2, 3, 1, 0, 2], np.int32)
+    sched = ScheduleBundle("moe_dispatch", {"bundle_expert": be})
+    before = moe_gemm.uploads
+    first = moe_gemm_schedule(sched, x, w)
+    down = moe_gemm_schedule(sched, x[..., :64].contiguous(),
+                             w[:, :, :64].contiguous())  # another width
+    assert moe_gemm.uploads == before + 1
+    second = moe_gemm_schedule(sched, x, w)
+    assert moe_gemm.uploads == before + 1
+    assert torch.equal(first, second) and down.shape[-1] == 64
+    third = moe_gemm(x, w, be)                  # a bare array uploads
+    assert moe_gemm.uploads == before + 2
+    assert torch.equal(first, third)
 
 
 def test_k5_rejects_what_it_does_not_take(cuda):
