@@ -167,22 +167,52 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    route, each named) and K4 at dbrx-132b's prefill by CUDA events, each
    beside its bound (bf16 peak; HBM for decode) and plain version, K5 also
    beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
+Phases 22 and 23 run after phase 20, before phase 21.
+
+22. paligemma-3b — K4 against ``flash_attention_plain`` at the image
+   prefill's shape (B = 2, 8 q heads / 1 kv head of 256, causal, S = 256 +
+   768, bfloat16; K4's bfloat16 limits); in situ, 2 layers at full width in
+   float32, card against host within 1e-3: ``forward`` with 256 image tokens
+   (prefix-LM, plain attention: no K4), ``prefill`` with the images (causal,
+   as in the reference: K4 once a layer) and 4 decode steps; then as
+   published (18 layers, float32 params, bfloat16 compute, 15.1 GB): an
+   image prefill of batch 2 x (256 + 768) tokens and 16 greedy decode
+   steps (K4 18 times, all in the prefill), text-only ``generate`` (batch 2,
+   prompt 1024, gen 16) and ``ServeScheduler.run`` on a seeded 8-request
+   trace shaped like hymba's (K4 18 times a prefill; no slot left occupied
+   or holding K/V at its eviction); K4's time at the image prefill's shape
+   beside its bound, plain version and SDPA (``is_causal``, kv repeated to
+   8 heads);
+23. whisper-small — K4 against ``flash_attention_plain`` at the encoder's
+   shape (B = 4, 12 heads of 64, non-causal, S_enc = 1024, bfloat16); in
+   situ, 2 + 2 layers at full width in float32: ``forward`` (K4 at each
+   encoder layer and each decoder self-attention), ``encdec_prefill``
+   (``enc_out``, ``xk``, ``xv``; K4 at each encoder layer) and 4 decode
+   steps (no K4), card against host within 1e-3; then as published (12 +
+   12 layers): ``generate`` with batch 4, S_enc 1024 (the published 1500
+   is refused by both packages' block-size assertion), prompt 4, gen 32:
+   K4 12 times, in its ``encdec_prefill``, and never in its 35 decode steps;
+   in float32 compute each row's tokens equal its solo generation's (a
+   top-2 gap under 1e-3 reported as a tie); K4's time at the encoder's
+   shape beside its bound, plain version and SDPA with no mask;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
-   gemma2-2b and rwkv6-1.6b (reduced configs, as the CLI forces: head dim
-   16), each exit 0 with its kernels launched (K4; K6 for hymba and rwkv6),
+   gemma2-2b, rwkv6-1.6b, paligemma-3b (text) and whisper-small (frames of
+   64 from the seed) (reduced configs, as the CLI forces: head dim 16),
+   each exit 0 with its kernels launched (K4; K6 for hymba and rwkv6),
    and dbrx-132b with ``--routing host --plan-store build/serve_plan_store``
    twice, the second run answering its dispatch plans from the store; then,
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
    script's time and the kernels line (K1 to K6, each with the launches of
-   its main-path phases — K4's of 14 and 19, K5's of 10 and 19, K6's of 14
-   and 18; K1's
+   its main-path phases — K4's of 14, 19, 22 and 23, K5's of 10 and 19, K6's
+   of 14 and 18; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
    0 in float32, K5's at the prefill gate shape, K4's and K6's at the
    2048-token hymba prefill, nested beside them K4's at dbrx-132b's
-   prefill, K5's at the in-graph DBRX shapes and K6's at rwkv6-1.6b's;
+   prefill, paligemma-3b's image prefill and whisper-small's encoder, K5's
+   at the in-graph DBRX shapes and K6's at rwkv6-1.6b's;
    K1's, K2's, K3's and
    K5's bounds in 3xTF32, their design).
 
@@ -270,9 +300,31 @@ DBRX_SERVE = dict(max_batch=4, max_seq=4096)
 DBRX_GENERATE = dict(batch=2, prompt=1024, gen=16)
 DBRX_HOST = dict(prompt=256, steps=6)
 DBRX_SITU = dict(n_layers=1, prompt=64, decode=4)
+# paligemma-3b (src/repro_torch/configs/paligemma_3b.py, arXiv:2407.07726) as
+# published: 18 layers, d_model 2048, 8 q heads / 1 kv head of 256, d_ff
+# 16384, vocab 257216, tied; 256 image tokens of 1152 (the SigLIP front end
+# is a stub in both packages: patch embeddings from a seed); float32 params,
+# bfloat16 compute.  An image prefill of batch 2 x (256 + 768) tokens and 16
+# decode steps; text-only serving on a trace shaped like hymba's
+PALIGEMMA = "paligemma-3b"
+PALI_IMAGE = dict(batch=2, text=768, decode=16)
+PALI_TRACE = dict(HYMBA_TRACE, seed=101)
+PALI_SERVE = dict(max_batch=4, max_seq=4096)
+PALI_GENERATE = dict(batch=2, prompt=1024, gen=16)
+PALI_SITU = dict(n_layers=2, text=256, decode=4)
+# whisper-small (src/repro_torch/configs/whisper_small.py, arXiv:2212.04356)
+# as published: 12 encoder + 12 decoder layers, d_model 768, 12 heads of 64,
+# d_ff 3072, vocab 51865 (the conv front end is a stub in both packages:
+# frame embeddings from a seed).  S_enc 1024, not the published 1500 (30 s
+# of audio): both packages refuse 1500, which is no multiple of
+# min(1024, S), the attention's block size
+WHISPER = "whisper-small"
+WHISPER_GENERATE = dict(batch=4, s_enc=1024, prompt=4, gen=32)
+WHISPER_SITU = dict(n_layers=2, s_enc=1024, text=16, decode=4)
 # the serving CLI on the card (reduced configs, head dim 16); dbrx-132b
 # also twice with host routing and one plan store, the second run a restart
-SERVE_CLI_ARCHS = ("hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b")
+SERVE_CLI_ARCHS = ("hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b",
+                   "paligemma-3b", "whisper-small")
 SERVE_CLI_ARGS = ["--batch", "2", "--prompt-len", "64", "--gen", "4"]
 SERVE_CLI_HOST_MOE = ["--arch", "dbrx-132b", "--routing", "host",
                       "--plan-store"]
@@ -1436,6 +1488,39 @@ def k4_k6_against_plain(dev) -> tuple:
     return max(k4_errs), max(k6_errs)
 
 
+def card_host_rows(name: str, steps, repeat=None) -> tuple:
+    """Each ``(label, card, host)`` of ``steps`` within ``LM_TOL``, one check
+    row each.  Where the step labelled ``prefill`` fails, ``repeat()`` gives
+    a second (card, host) pair of it, to read whether the difference is
+    reproducible.  Returns (all within, worst max abs error)."""
+    import torch
+    ok, worst = True, 0.0
+    for label, d, h in steps:
+        d = d.cpu()
+        diff = (d - h).abs()
+        err = diff.max().item()
+        worst = max(worst, err)
+        step_ok = bool(torch.isfinite(d).all()
+                       and torch.allclose(d, h, rtol=LM_TOL, atol=LM_TOL))
+        ok &= step_ok
+        # where the step comes closest to its limit: (position, vocab id)
+        ratio = diff / (LM_TOL + LM_TOL * h.abs())
+        at = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()),
+                                                    tuple(ratio.shape)))
+        row = dict(max_abs_err=err, logit_max=h.abs().max().item(),
+                   worst_over_limit=ratio.max().item(),
+                   n_over_limit=int((ratio > 1).sum()),
+                   worst_at=list(at[1:]),
+                   host_at=h[at].item(), card_at=d[at].item())
+        if not step_ok and label == "prefill" and repeat is not None:
+            d2, h2 = repeat()
+            row.update(card_repeat_equal=bool(torch.equal(d2.cpu(), d)),
+                       host_repeat_equal=bool(torch.equal(h2, h)))
+        emit(phase="check", case=f"{name} f32 {label}, card vs host", **row,
+             tol=LM_TOL, ok=step_ok)
+    return ok, worst
+
+
 def lm_in_situ(name: str, cfg, params, s: int, n_dec: int, seed: int,
                kernels: dict, per_prefill: dict, per_step: dict) -> None:
     """Card against host: ``cfg`` (float32 compute) with ``params`` on the
@@ -1450,7 +1535,6 @@ def lm_in_situ(name: str, cfg, params, s: int, n_dec: int, seed: int,
     dev = params["embed"].device
     toks = torch.from_numpy(np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (1, s)).astype(np.int32))
-    worst = 0.0
     before = {k: w.launches for k, w in kernels.items()}
     t0 = time.perf_counter()
     lg_d, c_d = M.prefill(cfg, params, toks.to(dev),
@@ -1473,36 +1557,16 @@ def lm_in_situ(name: str, cfg, params, s: int, n_dec: int, seed: int,
         lg_h, c_h = M.decode_step(cfg, host, c_h, tok, s + i)
         steps.append((f"decode {i}", lg_d, lg_h))
         tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
-    ok = launches == per_prefill and dec_launches == {
+
+    def repeat():
+        return (M.prefill(cfg, params, toks.to(dev),
+                          M.init_cache(cfg, 1, s + n_dec, device=dev))[0],
+                M.prefill(cfg, host, toks,
+                          M.init_cache(cfg, 1, s + n_dec, device="cpu"))[0])
+    ok, worst = card_host_rows(f"{name} {cfg.n_layers} layers", steps,
+                               repeat)
+    ok &= launches == per_prefill and dec_launches == {
         k: per_step.get(k, 0) * n_dec for k in kernels}
-    for label, d, h in steps:
-        d = d.cpu()
-        diff = (d - h).abs()
-        err = diff.max().item()
-        worst = max(worst, err)
-        step_ok = bool(torch.isfinite(d).all()
-                       and torch.allclose(d, h, rtol=LM_TOL, atol=LM_TOL))
-        ok &= step_ok
-        # where the step comes closest to its limit: (position, vocab id)
-        ratio = diff / (LM_TOL + LM_TOL * h.abs())
-        at = tuple(int(i) for i in np.unravel_index(int(ratio.argmax()),
-                                                    tuple(ratio.shape)))
-        row = dict(max_abs_err=err, logit_max=h.abs().max().item(),
-                   worst_over_limit=ratio.max().item(),
-                   n_over_limit=int((ratio > 1).sum()),
-                   worst_at=list(at[1:]),
-                   host_at=h[at].item(), card_at=d[at].item())
-        if not step_ok and label == "prefill":
-            # is the difference reproducible?  The same prefill once more on
-            # each side, against the first
-            lg_d2, _ = M.prefill(cfg, params, toks.to(dev),
-                                 M.init_cache(cfg, 1, s + n_dec, device=dev))
-            lg_h2, _ = M.prefill(cfg, host, toks,
-                                 M.init_cache(cfg, 1, s + n_dec, device="cpu"))
-            row.update(card_repeat_equal=bool(torch.equal(lg_d2.cpu(), d)),
-                       host_repeat_equal=bool(torch.equal(lg_h2, h)))
-        emit(phase="check", case=f"{name} {cfg.n_layers} layers f32 {label},"
-             " card vs host", **row, tol=LM_TOL, ok=step_ok)
     emit(phase="check", case=f"{name} {cfg.n_layers} layers f32 in situ",
          prompt=s, decode_steps=n_dec, prefill_launches=launches,
          decode_launches=dec_launches, card_prefill_s=card_s,
@@ -1728,12 +1792,13 @@ def hymba_serving(dev, card: str) -> tuple:
 
 
 def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
-            kw: dict, b: int = 1) -> dict:
-    """K4 on one bfloat16 prefill shape by CUDA events, beside its bound, its
-    plain version and ``scaled_dot_product_attention`` (the masks as an
-    explicit boolean mask, kv heads repeated for GQA; and, where the mask
-    is plainly causal, with ``is_causal``).  SDPA has no softcap: with one,
-    its time is of another function and is not the library time."""
+            kw: dict, b: int = 1, stage: str = "prefill") -> dict:
+    """K4 on one bfloat16 shape by CUDA events, beside its bound, its plain
+    version and ``scaled_dot_product_attention`` (the masks as an explicit
+    boolean mask, kv heads repeated for GQA; and, where the mask is plainly
+    causal or absent, with ``is_causal`` and no mask tensor).  SDPA has no
+    softcap: with one, its time is of another function and is not the
+    library time."""
     import torch
     from repro_torch.kernels.flash_attention import (attention_mask,
                                                      flash_attention,
@@ -1746,8 +1811,8 @@ def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
             torch.bfloat16)
 
     q, k, v = randn(b, h, s, d), randn(b, hkv, s, d), randn(b, hkv, s, d)
-    window = kw.get("window", 0)
-    mask = attention_mask(s, causal=True, window=window, device=dev)
+    window, causal = kw.get("window", 0), kw.get("causal", True)
+    mask = attention_mask(s, causal=causal, window=window, device=dev)
     pairs = int(mask.sum())
     flop = 4 * b * h * pairs * d
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
@@ -1755,20 +1820,22 @@ def time_k4(dev, card: str, name: str, h: int, hkv: int, d: int, s: int,
     k_rep, v_rep = (x.repeat_interleave(h // hkv, dim=1) for x in (k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     sdpa_mask_ms = event_ms(lambda: sdpa(q, k_rep, v_rep, attn_mask=mask))
-    sdpa_causal_ms = event_ms(lambda: sdpa(q, k_rep, v_rep, is_causal=True)) \
+    sdpa_plain_ms = event_ms(lambda: sdpa(q, k_rep, v_rep,
+                                          is_causal=causal)) \
         if window == 0 or window >= s else None
     same = not kw.get("softcap")
     row = dict(ms=event_ms(lambda: flash_attention(q, k, v, **kw)),
                plain_ms=event_ms(lambda: flash_attention_plain(q, k, v,
                                                                **kw), 5),
                bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=min(t for t in (sdpa_mask_ms, sdpa_causal_ms)
+               library_ms=min(t for t in (sdpa_mask_ms, sdpa_plain_ms)
                               if t is not None) if same else None)
-    emit(phase="times", kernel="K4", case=f"{name} prefill S={s} bf16, "
+    plain_key = "sdpa_is_causal_ms" if causal else "sdpa_no_mask_ms"
+    emit(phase="times", kernel="K4", case=f"{name} {stage} S={s} bf16, "
          f"B={b}, H={h}, Hkv={hkv}, D={d}, {kw}", visible_pairs=pairs,
          flop=flop,
          bytes=nbytes, k4_tflops=flop / row["ms"] / 1e9,
-         sdpa_boolean_mask_ms=sdpa_mask_ms, sdpa_is_causal_ms=sdpa_causal_ms,
+         sdpa_boolean_mask_ms=sdpa_mask_ms, **{plain_key: sdpa_plain_ms},
          sdpa_same_function=same, **row, card=card)
     return row
 
@@ -1985,8 +2052,7 @@ def dbrx_phases(dev, card: str) -> dict:
     import dataclasses
 
     import torch
-    from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.moe_gemm import (bf16_route, moe_gemm,
                                               moe_gemm_plain)
     from repro_torch.models import params as P
@@ -2035,16 +2101,8 @@ def dbrx_phases(dev, card: str) -> dict:
 
     # -- K4 against plain at the model's prefill --------------------------
     b, s = DBRX_GENERATE["batch"], DBRX_GENERATE["prompt"]
-    q = torch.randn((b, cfg.n_heads, s, cfg.d_head), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((b, cfg.n_kv_heads, s, cfg.d_head), generator=gen,
-                        device=dev).to(torch.bfloat16) for _ in range(2))
-    k4_err = compare(
-        f"K4 {DBRX_LM} prefill causal S={s} bf16: B={b}, H={cfg.n_heads}, "
-        f"Hkv={cfg.n_kv_heads}, D={cfg.d_head}", flash_attention(q, k, v),
-        flash_attention_plain(q, k, v), K4_BF16_TOL, "K4", K4_BF16_REL_NORM)
-    del q, k, v
-    torch.cuda.synchronize()
+    k4_err = k4_at_shape(dev, f"{DBRX_LM} prefill causal", b, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.d_head, s, {}, 96)
 
     # -- in situ: 1 layer, float32 compute, card against host -------------
     situ = dataclasses.replace(cfg, n_layers=DBRX_SITU["n_layers"],
@@ -2116,11 +2174,371 @@ def dbrx_phases(dev, card: str) -> dict:
                 k4_times=k4_times, k5_times=k5_times, k5_routes=routes)
 
 
+# -- the tenth slice: paligemma-3b (image prefixes) and whisper-small -------
+
+def k4_at_shape(dev, label: str, b: int, h: int, hkv: int, d: int, s: int,
+                kw: dict, seed: int) -> float:
+    """K4 against its plain version at one bfloat16 shape of an LM's path
+    (K4's bfloat16 limits), inputs from ``seed``; returns the max abs
+    error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2))
+    err = compare(f"K4 {label} S={s} bf16: B={b}, H={h}, Hkv={hkv}, D={d}, "
+                  f"{kw}", flash_attention(q, k, v, **kw),
+                  flash_attention_plain(q, k, v, **kw), K4_BF16_TOL, "K4",
+                  K4_BF16_REL_NORM)
+    torch.cuda.synchronize()
+    return err
+
+
+def vlm_in_situ(dev) -> None:
+    """Phase 22, in situ: paligemma-3b at full width, 2 layers, float32
+    compute, card against host: ``forward`` with 256 image tokens
+    (prefix-LM: plain attention, no K4), ``prefill`` with the images (causal:
+    K4 once a layer) and 4 decode steps, logits within ``LM_TOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(PALIGEMMA),
+                              n_layers=PALI_SITU["n_layers"],
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 104, device=dev)
+    host = to_host(params)
+    rng = np.random.default_rng(105)
+    text, n_dec = PALI_SITU["text"], PALI_SITU["decode"]
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, text)).astype(
+        np.int32))
+    images = torch.from_numpy(rng.standard_normal(
+        (1, cfg.n_image_tokens, cfg.d_image)).astype(np.float32))
+    s = cfg.n_image_tokens + text
+    k4 = flash_attention.launches
+    fwd_d, _ = M.forward(cfg, params, toks.to(dev), images=images.to(dev))
+    torch.cuda.synchronize()
+    fwd_launches = flash_attention.launches - k4
+    fwd_h, _ = M.forward(cfg, host, toks, images=images)
+    k4 = flash_attention.launches
+    lg_d, c_d = M.prefill(cfg, params, toks.to(dev),
+                          M.init_cache(cfg, 1, s + n_dec, device=dev),
+                          images=images.to(dev))
+    torch.cuda.synchronize()
+    prefill_launches = flash_attention.launches - k4
+    lg_h, c_h = M.prefill(cfg, host, toks,
+                          M.init_cache(cfg, 1, s + n_dec, device="cpu"),
+                          images=images)
+    steps = [("forward, prefix-LM", fwd_d, fwd_h),
+             ("prefill", lg_d, lg_h)]
+    tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    k4 = flash_attention.launches
+    for i in range(n_dec):
+        lg_d, c_d = M.decode_step(cfg, params, c_d, tok.to(dev), s + i)
+        lg_h, c_h = M.decode_step(cfg, host, c_h, tok, s + i)
+        steps.append((f"decode {i}", lg_d, lg_h))
+        tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    dec_launches = flash_attention.launches - k4
+    ok, worst = card_host_rows(f"{PALIGEMMA} {cfg.n_layers} layers", steps)
+    ok &= (fwd_launches, prefill_launches, dec_launches) == (
+        0, cfg.n_layers, 0)
+    emit(phase="check", case=f"{PALIGEMMA} {cfg.n_layers} layers f32 in "
+         "situ", image_tokens=cfg.n_image_tokens, text=text,
+         decode_steps=n_dec, k4_forward_launches=fwd_launches,
+         k4_prefill_launches=prefill_launches,
+         k4_decode_launches=dec_launches, max_abs_err=worst, tol=LM_TOL,
+         ok=ok)
+    check(ok, f"{PALIGEMMA} in situ: card and host logits differ, or K4 did "
+          f"not launch as the path needs ({fwd_launches}, "
+          f"{prefill_launches}, {dec_launches})")
+
+
+def paligemma_image_prefill(cfg, params, card: str) -> int:
+    """Phase 22, the main path's image half: an image prefill (batch 2,
+    256 image + 768 text tokens) through ``prefill(images=)``, then 16
+    greedy decode steps; K4 once a layer in the prefill and never in a
+    decode step.  Returns K4's launches."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    dev = params["embed"].device
+    g = PALI_IMAGE
+    rng = np.random.default_rng(106)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (g["batch"], g["text"])).astype(np.int32)).to(dev)
+    images = torch.from_numpy(rng.standard_normal(
+        (g["batch"], cfg.n_image_tokens, cfg.d_image)).astype(
+            np.float32)).to(dev)
+    s = cfg.n_image_tokens + g["text"]
+    cparams = M.compute_params(cfg, params, dev)
+    torch.cuda.synchronize()
+    flash_attention.launches = 0
+    # -- the main path ------------------------------------------------------
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(cfg, cparams, toks,
+                              M.init_cache(cfg, g["batch"], s + g["decode"],
+                                           device=dev), images=images)
+    cur = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = flash_attention.launches
+    out, lat = [cur], []
+    for i in range(g["decode"]):
+        t0 = time.perf_counter()
+        lg, cache = M.decode_step(cfg, cparams, cache, cur, s + i)
+        cur = lg[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+        out.append(cur)
+    launches = flash_attention.launches
+    # ------------------------------------------------------------------------
+    new = torch.cat(out, dim=1).cpu().numpy()
+    ok = bool(new.shape == (g["batch"], g["decode"] + 1)
+              and new.min() >= 0 and new.max() < cfg.vocab_size
+              and prefill_launches == launches == cfg.n_layers)
+    emit(phase="main_path", case=f"{PALIGEMMA} image prefill, batch "
+         f"{g['batch']}, {cfg.n_image_tokens} image + {g['text']} text "
+         f"tokens, {g['decode']} decode steps", prefill_s=prefill_s,
+         decode_step_p50_s=float(np.percentile(lat, 50)),
+         decode_step_p99_s=float(np.percentile(lat, 99)),
+         k4_prefill_launches=prefill_launches, k4_launches=launches,
+         first_tokens=new[0, :8].tolist(), ok=ok, card=card)
+    check(ok, f"{PALIGEMMA} image prefill: wrong shape, out-of-vocabulary "
+          f"tokens, or K4 launches {prefill_launches} / {launches} where "
+          f"the path needs {cfg.n_layers}")
+    del cparams, cache, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def paligemma_phases(dev, card: str) -> dict:
+    """Phase 22: paligemma-3b.  K4 against its plain version at the image
+    prefill's shape (B 2, 8 q heads / 1 kv head of 256, causal, S = 1024),
+    2 layers in situ, then as published (18 layers, float32 params,
+    bfloat16 compute): the image prefill and its decode steps, text-only
+    ``generate`` and ``ServeScheduler.run`` on a trace shaped like hymba's
+    (K4 18 times a prefill; no slot left occupied or holding K/V), and K4's
+    times at the image prefill's shape beside SDPA ``is_causal`` with kv
+    repeated to 8 heads.  Returns the main path's K4 launches, K4's worst
+    error and its times."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    cfg = get_config(PALIGEMMA)
+    b, s = PALI_IMAGE["batch"], cfg.n_image_tokens + PALI_IMAGE["text"]
+    shape = (b, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, s)
+    k4_err = k4_at_shape(dev, f"{PALIGEMMA} image prefill causal", *shape,
+                          {}, 107)
+    vlm_in_situ(dev)
+    torch.cuda.empty_cache()
+    params = init_model(PALIGEMMA, cfg, 108, dev)
+    image_launches = paligemma_image_prefill(cfg, params, card)
+    n = cfg.n_layers
+    launches = lm_serving(
+        PALIGEMMA, cfg, params, card, kernels={"K4": flash_attention},
+        per_prefill={"K4": n}, per_step={}, gen_spec=PALI_GENERATE,
+        prompt_seed=109, trace=serve_trace(cfg, PALI_TRACE),
+        serve_spec=PALI_SERVE, isolation=False)
+    del params
+    torch.cuda.empty_cache()
+    k4_times = time_k4(dev, card, PALIGEMMA, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head, s, {}, b=b, stage="image prefill")
+    return dict(launches=image_launches + launches["K4"], k4_err=k4_err,
+                k4_times=k4_times)
+
+
+def encdec_in_situ(dev) -> None:
+    """Phase 23, in situ: whisper-small at full width, 2 encoder and 2
+    decoder layers, float32 compute, card against host: ``forward`` (K4 at
+    each encoder and each decoder self-attention), ``encdec_prefill``
+    (``enc_out``, ``xk``, ``xv``; K4 at each encoder layer) and 4 decode
+    steps (no K4), within ``LM_TOL``."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import model as M
+    w = WHISPER_SITU
+    cfg = dataclasses.replace(get_config(WHISPER), n_layers=w["n_layers"],
+                              n_enc_layers=w["n_layers"],
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 112, device=dev)
+    host = to_host(params)
+    rng = np.random.default_rng(113)
+    toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, w["text"])).astype(np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (1, w["s_enc"], cfg.d_frame)).astype(np.float32))
+    n_dec, max_seq = w["decode"], w["decode"] + 1
+    k4 = flash_attention.launches
+    fwd_d, _ = M.forward(cfg, params, toks.to(dev), frames=frames.to(dev))
+    torch.cuda.synchronize()
+    fwd_launches = flash_attention.launches - k4
+    fwd_h, _ = M.forward(cfg, host, toks, frames=frames)
+    k4 = flash_attention.launches
+    enc_d, c_d = M.encdec_prefill(
+        cfg, params, frames.to(dev),
+        M.init_cache(cfg, 1, max_seq, s_enc=w["s_enc"], device=dev))
+    torch.cuda.synchronize()
+    prefill_launches = flash_attention.launches - k4
+    enc_h, c_h = M.encdec_prefill(
+        cfg, host, frames,
+        M.init_cache(cfg, 1, max_seq, s_enc=w["s_enc"], device="cpu"))
+    steps = [("forward", fwd_d, fwd_h), ("encdec_prefill enc_out", enc_d,
+                                         enc_h)]
+    steps += [(f"encdec_prefill {key}", c_d["layers"][key],
+               c_h["layers"][key]) for key in ("xk", "xv")]
+    tok = toks[:, :1]
+    k4 = flash_attention.launches
+    for i in range(n_dec):
+        lg_d, c_d = M.decode_step(cfg, params, c_d, tok.to(dev), i)
+        lg_h, c_h = M.decode_step(cfg, host, c_h, tok, i)
+        steps.append((f"decode {i}", lg_d, lg_h))
+        tok = lg_h[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    dec_launches = flash_attention.launches - k4
+    name = f"{WHISPER} {cfg.n_enc_layers} + {cfg.n_layers} layers"
+    ok, worst = card_host_rows(name, steps)
+    ok &= (fwd_launches, prefill_launches, dec_launches) == (
+        cfg.n_enc_layers + cfg.n_layers, cfg.n_enc_layers, 0)
+    emit(phase="check", case=f"{name} f32 in situ", s_enc=w["s_enc"],
+         text=w["text"], decode_steps=n_dec,
+         k4_forward_launches=fwd_launches,
+         k4_prefill_launches=prefill_launches,
+         k4_decode_launches=dec_launches, max_abs_err=worst, tol=LM_TOL,
+         ok=ok)
+    check(ok, f"{WHISPER} in situ: card and host differ, or K4 did not "
+          f"launch as the path needs ({fwd_launches}, {prefill_launches}, "
+          f"{dec_launches})")
+
+
+def encdec_solo(cfg, params, toks, frames, gen: int, max_seq: int):
+    """One row alone (batch 1) as ``generate`` serves it: its tokens and
+    each step's top-2 logit gap."""
+    import torch
+    from repro_torch.models import model as M
+    dev = params["embed"].device
+    cache = M.init_cache(cfg, 1, max_seq, s_enc=frames.shape[1], device=dev)
+    _, cache = M.encdec_prefill(cfg, params, frames.to(dev), cache)
+    toks = toks.to(dev)
+    for i in range(toks.shape[1]):
+        logits, cache = M.decode_step(cfg, params, cache, toks[:, i:i + 1],
+                                      i)
+    step, out, gaps = logits[:, -1], [], []
+    for i in range(gen):
+        if i:
+            lg, cache = M.decode_step(cfg, params, cache, torch.tensor(
+                [[out[-1]]], dtype=torch.int32, device=dev),
+                toks.shape[1] + i - 1)
+            step = lg[:, -1]
+        top = step[0].topk(2).values
+        gaps.append(float(top[0] - top[1]))
+        out.append(int(step[0].argmax()))
+    return out, gaps
+
+
+def whisper_phases(dev, card: str) -> dict:
+    """Phase 23: whisper-small.  K4 against its plain version at the
+    encoder's shape (B 4, 12 heads of 64, non-causal, S_enc = 1024), 2 + 2
+    layers in situ, then as published (12 + 12 layers, float32 params,
+    bfloat16 compute): ``generate`` (batch 4, S_enc 1024, prompt 4, gen 32),
+    K4 12 times in its ``encdec_prefill`` and never in its 35 decode steps;
+    then each row's tokens in float32 compute against its solo generation's,
+    and K4's times at the encoder's shape beside SDPA with no mask.  Returns
+    the main path's K4 launches, K4's worst error and its times."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as M
+    cfg = get_config(WHISPER)
+    g = WHISPER_GENERATE
+    shape = (g["batch"], cfg.n_heads, cfg.n_kv_heads, cfg.d_head, g["s_enc"])
+    k4_err = k4_at_shape(dev, f"{WHISPER} encoder", *shape,
+                          dict(causal=False), 114)
+    encdec_in_situ(dev)
+    torch.cuda.empty_cache()
+    params = init_model(WHISPER, cfg, 115, dev)
+    rng = np.random.default_rng(116)
+    toks = rng.integers(0, cfg.vocab_size, (g["batch"], g["prompt"])).astype(
+        np.int32)
+    frames = torch.from_numpy(rng.standard_normal(
+        (g["batch"], g["s_enc"], cfg.d_frame)).astype(np.float32))
+    max_seq = g["prompt"] + g["gen"] + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention.launches = 0
+    # -- the main path ------------------------------------------------------
+    (seqs, lat), gen_s = timed(lambda: generate(
+        cfg, params, toks, gen=g["gen"], max_seq=max_seq, frames=frames,
+        device=dev))
+    launches = flash_attention.launches
+    # ------------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    new = seqs[:, g["prompt"]:].cpu().numpy()
+    n_decode = g["prompt"] + g["gen"] - 1
+    ok = bool(tuple(seqs.shape) == (g["batch"], g["prompt"] + g["gen"])
+              and new.min() >= 0 and new.max() < cfg.vocab_size
+              and launches == cfg.n_enc_layers)
+    cparams = M.compute_params(cfg, params, dev)
+    (_, _), prefill_s = timed(lambda: M.encdec_prefill(
+        cfg, cparams, frames.to(dev), M.init_cache(
+            cfg, g["batch"], max_seq, s_enc=g["s_enc"], device=dev)))
+    emit(phase="main_path", case=f"{WHISPER} generate, batch {g['batch']}, "
+         f"S_enc {g['s_enc']}, prompt {g['prompt']}, gen {g['gen']}",
+         call_s=gen_s, encdec_prefill_s=prefill_s, decode_steps=n_decode,
+         decode_step_p50_s=float(np.percentile(lat, 50)),
+         decode_step_p99_s=float(np.percentile(lat, 99)),
+         tokens_per_s=g["batch"] * g["gen"] / gen_s, k4_launches=launches,
+         expected_k4_launches=cfg.n_enc_layers,
+         max_memory_allocated_bytes=peak, ok=ok, card=card)
+    check(ok, f"{WHISPER} generate: wrong shape, out-of-vocabulary tokens, "
+          f"or K4 launches {launches} where the path needs "
+          f"{cfg.n_enc_layers}")
+    del cparams
+    # each row against its solo generation, float32 compute
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    seqs32, _ = generate(cfg32, params, toks, gen=g["gen"], max_seq=max_seq,
+                         frames=frames, device=dev)
+    params32 = M.compute_params(cfg32, params, dev)
+    ties, fails = [], []
+    for r in range(g["batch"]):
+        solo, gaps = encdec_solo(cfg32, params32, torch.from_numpy(
+            toks[r:r + 1]), frames[r:r + 1], g["gen"], max_seq)
+        got = seqs32[r, g["prompt"]:].tolist()
+        if got == solo:
+            continue
+        i = next(j for j, (a, b) in enumerate(zip(got, solo)) if a != b)
+        row = dict(row=r, first_diff_step=i, top2_gap=gaps[i])
+        (ties if gaps[i] < TIE_GAP else fails).append(row)
+    emit(phase="check", case=f"{WHISPER} rows against solo generation, "
+         "float32 compute", rows=g["batch"],
+         identical=g["batch"] - len(ties) - len(fails), ties=ties,
+         failures=fails, tie_gap=TIE_GAP, ok=not fails)
+    check(not fails, f"{WHISPER} batch rows differ from their solo "
+          f"generation beyond a tie: {fails}")
+    del params, params32
+    torch.cuda.empty_cache()
+    k4_times = time_k4(dev, card, WHISPER, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.d_head, g["s_enc"], dict(causal=False),
+                       b=g["batch"], stage="encoder")
+    return dict(launches=launches, k4_err=k4_err, k4_times=k4_times)
+
+
 def serve_cli(card: str) -> None:
     """Phase 21: the port's serving CLI on the card, one process per arch,
     all started together (``--reduced`` is forced, as in the reference:
-    head dim 16); each must exit 0 having launched its kernels (K4 for
-    attention, K6 for hymba and rwkv6).  dbrx-132b runs with ``--routing
+    head dim 16; whisper-small encodes frames of ``--prompt-len`` from the
+    seed); each must exit 0 having launched its kernels (K4 for attention,
+    K6 for hymba and rwkv6).  dbrx-132b runs with ``--routing
     host --plan-store`` beside them and once more after them: a restart,
     which must answer its dispatch plans from the store; both launch K5."""
     import os
@@ -2420,16 +2838,27 @@ def main() -> int:
     k6_rwkv_launches, k6_rwkv_err, k6_rwkv_times = rwkv_phases(dev, card)
     torch.cuda.empty_cache()
     dbrx = dbrx_phases(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 22.-23. paligemma-3b (image prefixes) and whisper-small (enc-dec) --
+    pali = paligemma_phases(dev, card)
+    torch.cuda.empty_cache()
+    whisper = whisper_phases(dev, card)
+    torch.cuda.empty_cache()
     serve_cli(card)
+    k4_by_path = {HYMBA: k4_launches, DBRX_LM: dbrx["launches"]["K4"],
+                  PALIGEMMA: pali["launches"], WHISPER: whisper["launches"]}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:116",
-        "launches": k4_launches + dbrx["launches"]["K4"],
-        "launches_by_path": {HYMBA: k4_launches,
-                             DBRX_LM: dbrx["launches"]["K4"]},
-        "max_abs_err": max(k4_err, dbrx["k4_err"]), **k4_times,
-        "dbrx_132b_prefill": dbrx["k4_times"]}
+        "launches": sum(k4_by_path.values()),
+        "launches_by_path": k4_by_path,
+        "max_abs_err": max(k4_err, dbrx["k4_err"], pali["k4_err"],
+                           whisper["k4_err"]), **k4_times,
+        "dbrx_132b_prefill": dbrx["k4_times"],
+        "paligemma_3b_image_prefill": pali["k4_times"],
+        "whisper_small_encoder": whisper["k4_times"]}
     k6_row = {
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",

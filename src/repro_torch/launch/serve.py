@@ -1,8 +1,10 @@
 """Serving driver: one-shot batch generation or a continuous-batching loop.
 
-Port of ``repro.launch.serve`` for the decoder-only models (the ``attn``,
-``rwkv`` and ``hymba`` mixers; the ``swiglu``, ``moe`` and ``rwkv_cm``
-FFNs).  One-shot (fixed batch, every row the same prompt length and gen):
+Port of ``repro.launch.serve`` for every architecture of ``configs``
+(the ``attn``, ``rwkv`` and ``hymba`` mixers; the ``swiglu``, ``moe`` and
+``rwkv_cm`` FFNs; image-prefix models served on text; the
+encoder-decoder, one-shot only, on frames made from the seed).  One-shot
+(fixed batch, every row the same prompt length and gen):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --batch 2 --prompt-len 32 --gen 8 --device cpu
@@ -103,25 +105,35 @@ def _runtime_report(rt) -> None:
 
 
 def generate(cfg, params, tokens, *, gen: int, max_seq: int,
-             temperature: float = 0.0, seed: int = 0, device="cuda"):
+             temperature: float = 0.0, seed: int = 0, frames=None,
+             device="cuda"):
     """Greedy / temperature sampling. tokens: (B, prompt_len) int.
 
     Prefills the prompt, then decodes ``gen - 1`` steps (the first token
-    comes from the prefill logits).  Temperature sampling draws from a
-    ``torch.Generator`` seeded with ``seed`` (other numbers than JAX's).
-    ``device`` is ``"cuda"`` unless the caller asks for ``"cpu"``; raises
-    without a card.  Returns ``(tokens (B, prompt_len + gen), per-step
-    decode latencies in seconds)``.
+    comes from the prefill logits).  An encoder-decoder runs
+    ``encdec_prefill`` on ``frames`` (B, S_enc, d_frame) and consumes the
+    prompt token by token through ``decode_step`` instead, as the reference
+    does.  Temperature sampling draws from a ``torch.Generator`` seeded
+    with ``seed`` (other numbers than JAX's).  ``device`` is ``"cuda"``
+    unless the caller asks for ``"cpu"``; raises without a card.  Returns
+    ``(tokens (B, prompt_len + gen), per-step decode latencies in
+    seconds)``.
     """
-    if cfg.enc_dec:
-        raise NotImplementedError("encoder-decoder serving is not ported yet "
-                                  "(ROADMAP queue 1 item 10)")
     dev = resolve_device(device)
     params = M.compute_params(cfg, params, dev)
     tokens = torch.as_tensor(tokens, dtype=torch.int32).to(dev)
     b, prompt_len = tokens.shape
-    cache = M.init_cache(cfg, b, max_seq, device=dev)
-    logits, cache = M.prefill(cfg, params, tokens, cache)
+    if cfg.enc_dec:
+        frames = torch.as_tensor(frames).to(dev)
+        cache = M.init_cache(cfg, b, max_seq, s_enc=frames.shape[1],
+                             device=dev)
+        _, cache = M.encdec_prefill(cfg, params, frames, cache)
+        for i in range(prompt_len):
+            logits, cache = M.decode_step(cfg, params, cache,
+                                          tokens[:, i:i + 1], i)
+    else:
+        cache = M.init_cache(cfg, b, max_seq, device=dev)
+        logits, cache = M.prefill(cfg, params, tokens, cache)
     step_logits = logits[:, -1]
     gen_rng = torch.Generator(device=dev)
     gen_rng.manual_seed(seed)
@@ -283,16 +295,21 @@ def main(argv=None):
 
 
 def serve_one_shot(cfg, args):
-    """One fixed batch through ``generate``."""
+    """One fixed batch through ``generate``; an encoder-decoder's frames
+    (batch, prompt_len, d_frame) come from the seed, as in the reference."""
     params = M.init_params(cfg, args.seed, device=args.device)
     rng = np.random.default_rng(args.seed)
     tokens = rng.integers(0, cfg.vocab_size,
                           (args.batch, args.prompt_len)).astype(np.int32)
+    frames = None
+    if cfg.enc_dec:
+        frames = torch.from_numpy(rng.standard_normal(
+            (args.batch, args.prompt_len, cfg.d_frame)).astype(np.float32))
     max_seq = args.prompt_len + args.gen + 1
     t0 = time.time()
     seqs, lat = generate(cfg, params, tokens, gen=args.gen, max_seq=max_seq,
                          temperature=args.temperature, seed=args.seed,
-                         device=args.device)
+                         frames=frames, device=args.device)
     total = time.time() - t0
     print(f"[serve] {args.batch} seqs × {args.gen} new tokens in "
           f"{total:.2f}s ({args.batch * args.gen / total:.1f} tok/s)")

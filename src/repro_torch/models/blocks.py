@@ -1,5 +1,7 @@
 """Transformer-block assembly for the ``attn``, ``rwkv`` and ``hymba`` mixers
-with the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs.
+with the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs, prefix-LM attention
+(paligemma) and the ``encoder`` / ``decoder`` blocks of an encoder-decoder
+(whisper: the decoder's cross-attention sub-layer).
 
 Port of ``repro.models.blocks``.  A block = mixer + ffn with pre-norms
 (and gemma-style post-norms).  Every block provides three entry points
@@ -14,13 +16,12 @@ the param tree equals the reference's key for key and shape for shape
 (hymba's unused ``wo_s`` included).  On the card, attention over a
 sequence goes through kernel K4, the RWKV6 WKV and hymba's SSM heads
 through kernel K6, and the MoE FFN's expert products through kernel K5
-(``moe.moe_ffn``).
+(``moe.moe_ffn``).  Prefix-LM attention and cross-attention are plain
+masked products in float32, as in the reference, which computes them
+outside any kernel.
 
 Caches are updated functionally, as in the reference: each entry point
 returns new cache tensors and leaves its inputs unchanged.
-
-Not ported yet (ROADMAP queue 1 item 10), each raising
-``NotImplementedError``: cross-attention (enc-dec) and prefix-LM attention.
 """
 from __future__ import annotations
 
@@ -28,17 +29,11 @@ from typing import Dict
 
 import torch
 
-from .attention import AttnSpec, decode_attention, flash_attention
+from .attention import NEG_INF, AttnSpec, decode_attention, flash_attention
 from .layers import dense, grad_fence, rms_norm, rotary, swiglu
 from .moe import moe_ffn
 from .params import Meta
 from .ssm import rwkv6_chunked, rwkv6_decode_step
-
-_LATER = "not ported yet (ROADMAP queue 1 item 10)"
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -142,8 +137,9 @@ def block_metas(cfg, layer_type: str) -> Dict:
     elif cfg.mixer == "hymba":
         m["attn"] = _attn_metas(cfg)
         m["ssm"] = _ssm_metas(cfg)
-    if layer_type == "decoder":
-        raise _not_ported("cross-attention (enc-dec)")
+    if layer_type == "decoder":       # enc-dec: cross-attention sub-layer
+        m["xattn"] = _attn_metas(cfg)
+        m["lnx"] = Meta((d,), (None,), init="ones")
     m["ffn"] = _ffn_metas(cfg)
     return m
 
@@ -190,11 +186,40 @@ def _merge_heads(out: torch.Tensor) -> torch.Tensor:
 
 
 def attn_forward(cfg, p, x, positions, layer_type, prefix: int = 0):
-    if cfg.prefix_lm and prefix > 0:
-        raise _not_ported("prefix-LM attention")
     q, k, v = _qkv(cfg, p, x, positions, layer_type)
-    out = flash_attention(q, k, v, _attn_spec(cfg, layer_type))
+    spec = _attn_spec(cfg, layer_type)
+    if cfg.prefix_lm and prefix > 0:
+        out = _prefix_attention(q, k, v, spec, prefix)
+    else:
+        out = flash_attention(q, k, v, spec)
     return dense(_merge_heads(out), p["wo"])
+
+
+def _masked_attention(q, k, v, scale: float, mask=None):
+    """Plain attention in float32 over unequal q and kv lengths; ``mask``
+    (S_q, S_kv) bool marks the visible pairs (None: all)."""
+    b, h, sq, d = q.shape
+    hkv = k.shape[1]
+    qg = q.reshape(b, hkv, h // hkv, sq, d)
+    logits = torch.einsum("bhgqd,bhkd->bhgqk", qg.float(), k.float()) * scale
+    if mask is not None:
+        logits = torch.where(mask, logits,
+                             torch.full((), NEG_INF, device=q.device))
+    pr = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqk,bhkd->bhgqd", pr, v.float())
+    return out.reshape(b, h, sq, d).to(q.dtype)
+
+
+def _prefix_attention(q, k, v, spec: AttnSpec, prefix: int):
+    """Prefix-LM (paligemma): bidirectional over the first ``prefix``
+    positions, causal elsewhere.  Plain masked attention, as in the
+    reference, which also ignores ``spec.softcap`` and ``spec.window``
+    here."""
+    s, d = q.shape[2], q.shape[3]
+    scale = spec.scale if spec.scale is not None else d ** -0.5
+    pos = torch.arange(s, device=q.device)
+    mask = (pos[None, :] <= pos[:, None]) | (pos[None, :] < prefix)
+    return _masked_attention(q, k, v, scale, mask)
 
 
 def attn_make_cache(cfg, layer_type, batch, max_seq, dtype, device):
@@ -298,6 +323,46 @@ def attn_decode(cfg, p, x_t, cache, pos, layer_type):
     """x_t: (B, 1, d); cache k/v: (B, Hkv, S_cache, D); pos: () or (B,)."""
     out, new_cache = _attn_decode_heads(cfg, p, x_t, cache, pos, layer_type)
     return dense(out, p["wo"]), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (enc-dec / whisper)
+# ---------------------------------------------------------------------------
+
+def cross_kv(cfg, p, enc_out):
+    """The encoder output (B, S_enc, d) projected by a cross-attention's
+    ``wk`` and ``wv`` to kv heads: two (B, Hkv, S_enc, D)."""
+    b, s_enc, _ = enc_out.shape
+
+    def heads(w):
+        return dense(enc_out, w).reshape(b, s_enc, cfg.n_kv_heads,
+                                         cfg.d_head).transpose(1, 2)
+    return heads(p["wk"]), heads(p["wv"])
+
+
+def cross_attn_forward(cfg, p, h, enc_out):
+    """h: (B, S_dec, d); enc_out: (B, S_enc, d).  Full (unmasked)
+    attention of every decoder position over the encoder's."""
+    b, s, _ = h.shape
+    q = dense(h, p["wq"]).reshape(b, s, cfg.n_heads, cfg.d_head).transpose(
+        1, 2)
+    k, v = cross_kv(cfg, p, enc_out)
+    out = _masked_attention(q, k, v, cfg.d_head ** -0.5)
+    return dense(_merge_heads(out), p["wo"])
+
+
+def cross_attn_decode(cfg, p, x_t, xk, xv):
+    """x_t: (B, 1, d); xk / xv: the encoder's K/V (B, Hkv, S_enc, D), built
+    once by ``encdec_prefill``."""
+    b = x_t.shape[0]
+    q = dense(x_t, p["wq"]).reshape(b, 1, cfg.n_heads,
+                                    cfg.d_head).transpose(1, 2)
+    spec = AttnSpec(causal=False, window=0, softcap=0.0,
+                    scale=cfg.d_head ** -0.5)
+    s_enc = xk.shape[2]
+    slot_pos = torch.arange(s_enc, dtype=torch.int32, device=x_t.device)
+    out = decode_attention(q, xk, xv, slot_pos, s_enc, spec)
+    return dense(_merge_heads(out), p["wo"])
 
 
 # ---------------------------------------------------------------------------
@@ -496,8 +561,10 @@ def _ffn_out(cfg, p, x, cm_prev=None):
     return x + out, aux, h2
 
 
-def block_forward(cfg, layer_type, p, x, positions, prefix: int = 0):
-    """Full-sequence block. Returns (x, aux_loss)."""
+def block_forward(cfg, layer_type, p, x, positions, prefix: int = 0,
+                  enc_out=None):
+    """Full-sequence block; a ``decoder`` block given ``enc_out`` attends
+    over it after its mixer. Returns (x, aux_loss)."""
     h = grad_fence(_norm(cfg, x, p["ln1"]))
     if cfg.mixer == "attn":
         mixed = attn_forward(cfg, p["attn"], h, positions, layer_type, prefix)
@@ -507,7 +574,11 @@ def block_forward(cfg, layer_type, p, x, positions, prefix: int = 0):
         mixed = hymba_forward(cfg, p, h, positions, layer_type)
     else:
         raise ValueError(cfg.mixer)
-    x, aux, _ = _ffn_out(cfg, p, _mixer_out(cfg, p, mixed, x))
+    x = _mixer_out(cfg, p, mixed, x)
+    if layer_type == "decoder" and enc_out is not None:
+        x = x + cross_attn_forward(cfg, p["xattn"], _norm(cfg, x, p["lnx"]),
+                                   enc_out)
+    x, aux, _ = _ffn_out(cfg, p, x)
     return x, aux
 
 
@@ -558,6 +629,10 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
     else:
         raise ValueError(cfg.mixer)
     x_t = _mixer_out(cfg, p, mixed, x_t)
+    if layer_type == "decoder" and "xk" in cache:
+        x_t = x_t + cross_attn_decode(cfg, p["xattn"],
+                                      _norm(cfg, x_t, p["lnx"]),
+                                      cache["xk"], cache["xv"])
     cm = cfg.ffn == "rwkv_cm"
     x_t, _, h2 = _ffn_out(cfg, p, x_t, cache["shift_cm"].to(
         x_t.dtype)[:, None, :] if cm else None)

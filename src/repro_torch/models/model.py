@@ -1,22 +1,21 @@
 """Model assembly: decoder-only LMs with the ``attn``, ``rwkv`` and ``hymba``
-mixers and the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs.
+mixers and the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs, image prefixes
+(paligemma) and the encoder-decoder (whisper).
 
 Port of ``repro.models.model`` (the serving half).  Layers are stacked per
 *pattern period* (gemma2's local + global = period 2), with any remainder
 layers as explicit tail blocks, so the param and cache trees are the
-reference's.  The reference scans the stack with ``lax.scan``; here a
-Python loop walks its leading dimension.  ``constrain`` (sharding hints)
-is dropped: there is one device.
+reference's.  An encoder-decoder's two stacks are uniform (one ``encoder``
+or ``decoder`` block a layer, no ``pos{i}`` level).  The reference scans
+each stack with ``lax.scan``; here a Python loop walks its leading
+dimension.  ``constrain`` (sharding hints) is dropped: there is one device.
 
 Entry points:
-  lm_metas / init_params
-  forward(cfg, params, tokens)      → (logits, aux_loss)
-  init_cache / prefill / decode_step
+  lm_metas / init_params / compute_params
+  forward(cfg, params, tokens, images=, frames=)  → (logits, aux_loss)
+  init_cache / prefill / decode_step / encdec_prefill
   cache_write_slot / cache_evict_slot / cache_slot_occupancy /
   cache_slot_residue
-
-Encoder-decoder models (whisper) and image prefixes (paligemma) raise
-``NotImplementedError`` (ROADMAP queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -28,18 +27,9 @@ import torch
 from ..device import resolve_device
 from . import params as P
 from .blocks import (block_decode, block_forward, block_make_cache,
-                     block_metas, block_prefill)
-from .layers import embed_lookup, rms_norm, unembed
+                     block_metas, block_prefill, cross_kv)
+from .layers import dense, embed_lookup, rms_norm, unembed
 from .params import Meta
-
-_LATER = "not ported yet (ROADMAP queue 1 item 10)"
-
-
-def _decoder_only(cfg) -> None:
-    if cfg.enc_dec:
-        raise NotImplementedError(f"encoder-decoder models are {_LATER}")
-    if cfg.n_image_tokens:
-        raise NotImplementedError(f"image-prefix models are {_LATER}")
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +49,6 @@ def _stack(metas: Dict, n: int) -> Dict:
 
 
 def lm_metas(cfg) -> Dict:
-    _decoder_only(cfg)
     d = cfg.d_model
     metas: Dict = {
         "embed": Meta((cfg.vocab_size, d), ("vocab", None), scale=1.0),
@@ -69,6 +58,15 @@ def lm_metas(cfg) -> Dict:
     if not cfg.tie_embeddings:
         metas["unembed"] = Meta((cfg.vocab_size, d), ("vocab", None),
                                 scale=d ** -0.5)
+    if cfg.n_image_tokens:
+        metas["img_proj"] = Meta((cfg.d_image, d), (None, "embed"))
+    if cfg.enc_dec:
+        metas["frame_proj"] = Meta((cfg.d_frame, d), (None, "embed"))
+        metas["enc_layers"] = _stack(block_metas(cfg, "encoder"),
+                                     cfg.n_enc_layers)
+        metas["enc_norm"] = Meta((d,), (None,), init="ones")
+        metas["layers"] = _stack(block_metas(cfg, "decoder"), cfg.n_layers)
+        return metas
     if cfg.n_periods > 0:
         period = {f"pos{i}": block_metas(cfg, lt)
                   for i, lt in enumerate(cfg.layer_pattern)}
@@ -87,7 +85,8 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
 # the weights every use of which casts them to the compute dtype first
 # (``dense``, ``embed_lookup``, ``unembed``); norms and biases stay as they
 # are, since ``rms_norm`` widens its weight to float32
-_COMPUTE_CAST = frozenset({"embed", "unembed", "wq", "wk", "wv", "wo",
+_COMPUTE_CAST = frozenset({"embed", "unembed", "img_proj", "frame_proj",
+                           "wq", "wk", "wv", "wo",
                            "wr_s", "wk_s", "wv_s", "ww_s", "wo_s",
                            "wr", "wg", "ww", "w_rcm", "w_in", "w_out",
                            "w_gate", "w_up", "w_down",
@@ -124,6 +123,27 @@ def _embed_in(cfg, params, tokens):
                         compute_dtype=cfg.cdtype)
 
 
+def _image_in(cfg, params, images):
+    """Precomputed patch embeddings (B, n_img, d_image) → the image prefix
+    (B, n_img, d_model) in the compute dtype."""
+    w = params["img_proj"]
+    return dense(images.to(w.device, cfg.cdtype), w)
+
+
+def _sinusoid_np(s: int, d: int) -> np.ndarray:
+    """The reference's sinusoid position table (whisper), (s, d) float64."""
+    pos = np.arange(s)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    return np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+
+
+def _sinusoid(s: int, d: int, dtype, device="cpu") -> torch.Tensor:
+    """``_sinusoid_np`` cast to ``dtype`` from float64 on the host, as the
+    reference casts it: bit-equal to its table."""
+    return torch.from_numpy(_sinusoid_np(s, d)).to(dtype).to(device)
+
+
 def _out_head(cfg, params, x):
     x = rms_norm(x, params["final_norm"], plus_one=cfg.gemma_style)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
@@ -134,25 +154,83 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device).expand(b, s)
 
 
+def _n_stacked(stacked) -> int:
+    """The leading (layer) dim of a stacked tree."""
+    return next(_named_leaves(stacked))[1].shape[0]
+
+
+def _forward_stack(cfg, stacked, x, positions, prefix: int = 0,
+                   enc_out=None, pattern=None):
+    """``block_forward`` over a stacked tree: per period (``pos{j}``
+    subtrees cycling ``pattern``) or, for a uniform stack (an
+    encoder-decoder's), ``pattern[0]`` at every layer.  Returns (x, aux)."""
+    pattern = pattern or cfg.layer_pattern
+    aux = 0.0
+    for i in range(_n_stacked(stacked)):
+        layer_p = P.tree_slice(stacked, i)
+        if "pos0" in layer_p:
+            for j, lt in enumerate(pattern):
+                x, a = block_forward(cfg, lt, layer_p[f"pos{j}"], x,
+                                     positions, prefix, enc_out)
+                aux = aux + a
+        else:
+            x, a = block_forward(cfg, pattern[0], layer_p, x, positions,
+                                 prefix, enc_out)
+            aux = aux + a
+    return x, aux
+
+
 def forward(cfg, params, tokens, *, images=None, frames=None):
-    """tokens: (B, S).  Returns (logits (B, S, vocab) float32, aux_loss)."""
-    _decoder_only(cfg)
-    if images is not None or frames is not None:
-        raise NotImplementedError(f"image and frame inputs are {_LATER}")
+    """tokens: (B, S); images: (B, n_img, d_image); frames: (B, S_enc,
+    d_frame).  Returns (logits float32, aux_loss).
+
+    An image-prefix model prepends the projected images and attends
+    bidirectionally over them (prefix-LM); its logits cover the whole
+    (prefix + text) sequence.  An encoder-decoder encodes ``frames`` and
+    decodes ``tokens`` over them."""
+    if cfg.enc_dec:
+        return _encdec_forward(cfg, params, tokens, frames)
     x = _embed_in(cfg, params, tokens)
+    prefix = 0
+    if cfg.n_image_tokens and images is not None:
+        x = torch.cat([_image_in(cfg, params, images), x], dim=1)
+        prefix = images.shape[1]
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = 0.0
-    for i in range(cfg.n_periods if "layers" in params else 0):
-        layer_p = P.tree_slice(params["layers"], i)
-        for j, lt in enumerate(cfg.layer_pattern):
-            x, a = block_forward(cfg, lt, layer_p[f"pos{j}"], x, positions)
-            aux = aux + a
+    if "layers" in params:
+        x, aux = _forward_stack(cfg, params["layers"], x, positions, prefix)
     for i, lt in enumerate(cfg.tail_layers):
-        x, a = block_forward(cfg, lt, params[f"tail{i}"], x, positions)
+        x, a = block_forward(cfg, lt, params[f"tail{i}"], x, positions,
+                             prefix)
         aux = aux + a
     return _out_head(cfg, params, x), torch.as_tensor(
         aux, dtype=torch.float32, device=x.device)
+
+
+def _encode(cfg, params, frames):
+    """The encoder: projected frames plus the sinusoid table through the
+    ``encoder`` stack (non-causal), then ``enc_norm``."""
+    w = params["frame_proj"]
+    b, s_enc, _ = frames.shape
+    xe = dense(frames.to(w.device, cfg.cdtype), w)
+    xe = xe + _sinusoid(s_enc, cfg.d_model, xe.dtype, xe.device)[None]
+    xe, _ = _forward_stack(cfg, params["enc_layers"], xe,
+                           _positions(b, s_enc, xe.device),
+                           pattern=("encoder",))
+    return rms_norm(xe, params["enc_norm"])
+
+
+def _encdec_forward(cfg, params, tokens, frames):
+    enc_out = _encode(cfg, params, frames)
+    xd = _embed_in(cfg, params, tokens)
+    b, s_dec = tokens.shape
+    xd = xd + _sinusoid(s_dec, cfg.d_model, xd.dtype, xd.device)[None]
+    xd, aux = _forward_stack(cfg, params["layers"], xd,
+                             _positions(b, s_dec, xd.device),
+                             enc_out=enc_out, pattern=("decoder",))
+    return _out_head(cfg, params, xd), torch.as_tensor(
+        aux, dtype=torch.float32, device=xd.device)
 
 
 # ---------------------------------------------------------------------------
@@ -166,11 +244,19 @@ def _stack_trees(trees):
             torch.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def init_cache(cfg, batch: int, max_seq: int, *, device="cuda") -> Dict:
+def init_cache(cfg, batch: int, max_seq: int, *, s_enc: int = 0,
+               device="cuda") -> Dict:
     """Zero cache tree on ``device``: ``layers`` stacked per period (batch
-    on axis 1), ``tail{i}`` blocks (batch on axis 0)."""
-    _decoder_only(cfg)
+    on axis 1), ``tail{i}`` blocks (batch on axis 0).  An encoder-decoder's
+    is one uniform ``layers`` stack whose decoder blocks also hold the
+    cross K/V of ``s_enc`` encoder positions (``xk``, ``xv``)."""
     dev = resolve_device(device)
+    if cfg.enc_dec:
+        c = block_make_cache(cfg, "decoder", batch, max_seq, cfg.cdtype, dev)
+        shape = (batch, cfg.n_kv_heads, s_enc, cfg.d_head)
+        c["xk"] = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+        c["xv"] = torch.zeros(shape, dtype=cfg.cdtype, device=dev)
+        return {"layers": _stack_trees([c] * cfg.n_layers)}
     cache: Dict = {}
     if cfg.n_periods > 0:
         per_period = {
@@ -184,19 +270,25 @@ def init_cache(cfg, batch: int, max_seq: int, *, device="cuda") -> Dict:
     return cache
 
 
-def _run_stack(cfg, params, cache, x, step):
+def _run_stack(cfg, params, cache, x, step, pattern=None):
     """Apply ``step(layer_type, layer_params, x, layer_cache) → (x,
-    new_layer_cache)`` over the stacked periods and the tail blocks."""
+    new_layer_cache)`` over the stacked layers (per period, or
+    ``pattern[0]`` at every layer of a uniform stack) and the tail
+    blocks."""
+    pattern = pattern or cfg.layer_pattern
     new_cache: Dict = {}
     if "layers" in params:
         new_layers = []
-        for i in range(cfg.n_periods):
+        for i in range(_n_stacked(params["layers"])):
             layer_p = P.tree_slice(params["layers"], i)
             layer_c = P.tree_slice(cache["layers"], i)
-            new_c = {}
-            for j, lt in enumerate(cfg.layer_pattern):
-                key = f"pos{j}"
-                x, new_c[key] = step(lt, layer_p[key], x, layer_c[key])
+            if "pos0" not in layer_p:          # uniform stack (enc-dec)
+                x, new_c = step(pattern[0], layer_p, x, layer_c)
+            else:
+                new_c = {}
+                for j, lt in enumerate(pattern):
+                    key = f"pos{j}"
+                    x, new_c[key] = step(lt, layer_p[key], x, layer_c[key])
             new_layers.append(new_c)
         new_cache["layers"] = _stack_trees(new_layers)
     for i, lt in enumerate(cfg.tail_layers):
@@ -205,12 +297,28 @@ def _run_stack(cfg, params, cache, x, step):
     return x, new_cache
 
 
+def encdec_prefill(cfg, params, frames, cache):
+    """Run the encoder and build every decoder layer's cross K/V
+    (whisper serving).  Returns (enc_out, cache with ``xk`` / ``xv``)."""
+    enc_out = _encode(cfg, params, frames)
+    xattn = params["layers"]["xattn"]
+    pairs = [cross_kv(cfg, P.tree_slice(xattn, i), enc_out)
+             for i in range(_n_stacked(xattn))]
+    layers = dict(cache["layers"],
+                  xk=torch.stack([k for k, _ in pairs]),
+                  xv=torch.stack([v for _, v in pairs]))
+    return enc_out, dict(cache, layers=layers)
+
+
 def prefill(cfg, params, tokens, cache, *, images=None):
-    """Forward + cache population. Returns (logits, cache)."""
-    _decoder_only(cfg)
-    if images is not None:
-        raise NotImplementedError(f"image inputs are {_LATER}")
+    """Forward + cache population. Returns (logits, cache).
+
+    An image-prefix model prepends the projected images; as in the
+    reference, attention here is causal over the whole sequence (only
+    ``forward`` is prefix-LM)."""
     x = _embed_in(cfg, params, tokens)
+    if cfg.n_image_tokens and images is not None:
+        x = torch.cat([_image_in(cfg, params, images), x], dim=1)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
 
@@ -227,15 +335,24 @@ def decode_step(cfg, params, cache, token, pos):
     A scalar ``pos`` decodes the whole batch at one position (the one-shot
     batch path); a vector decodes every batch row at its own position —
     continuous batching, where each row is an independent request slot.
-    Returns (logits, new_cache)."""
-    _decoder_only(cfg)
+    An encoder-decoder decodes every row at the first row's position (its
+    serving is one-shot only), with the sinusoid row at that position
+    (the cache's last row past its end).  Returns (logits, new_cache)."""
     x = _embed_in(cfg, params, token)
-    pos = torch.as_tensor(pos, dtype=torch.int32,
-                          device=x.device).expand(token.shape[0])
+    pattern = None
+    if cfg.enc_dec:
+        pos = int(torch.as_tensor(pos).reshape(-1)[0])
+        s_cache = cache["layers"]["k"].shape[3]
+        row = _sinusoid_np(s_cache, cfg.d_model)[min(pos, s_cache - 1)]
+        x = x + torch.from_numpy(row).to(x.dtype).to(x.device)
+        pattern = ("decoder",)
+    else:
+        pos = torch.as_tensor(pos, dtype=torch.int32,
+                              device=x.device).expand(token.shape[0])
 
     def step(lt, p, h, c):
         return block_decode(cfg, lt, p, h, c, pos)
-    x, new_cache = _run_stack(cfg, params, cache, x, step)
+    x, new_cache = _run_stack(cfg, params, cache, x, step, pattern)
     return _out_head(cfg, params, x), new_cache
 
 

@@ -1,10 +1,11 @@
 """Shared helpers of the port's parity tests (``test_torch_*.py``): the five
 pattern families of ``tests/test_runtime_overlap.py``, generated through
 either package's own formats module, and the comparisons that hold the
-port to the reference."""
+port to the reference (plans, CSR results, model param and cache trees)."""
 import dataclasses
 
 import numpy as np
+import torch
 
 FAMILIES = ["banded", "random", "powerlaw", "blockdiag", "empty_rows"]
 
@@ -61,3 +62,26 @@ def assert_same_fields(x, y, path="plan"):
             assert_same_fields(u, v, f"{path}[{i}]")
     else:
         assert x == y, path
+
+
+def to_np32(x):
+    """A port tensor or a reference array as float32 numpy."""
+    return x.float().numpy() if torch.is_tensor(x) \
+        else np.asarray(x, np.float32)
+
+
+def tree_close(port, ref, **tol):
+    """A port tree of tensors against a reference tree of arrays: the same
+    keys, shapes and values within ``tol`` (int leaves exact)."""
+    assert sorted(port) == sorted(ref)
+    for key in ref:
+        if isinstance(ref[key], dict):
+            tree_close(port[key], ref[key], **tol)
+            continue
+        a, b = port[key], np.asarray(ref[key])
+        assert tuple(a.shape) == b.shape, key
+        if b.dtype.kind == "i":
+            assert np.array_equal(a.numpy(), b), key
+        else:
+            np.testing.assert_allclose(to_np32(a), b.astype(np.float32),
+                                       **tol, err_msg=key)

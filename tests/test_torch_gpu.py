@@ -778,3 +778,100 @@ def test_in_graph_moe_launches_k5_and_decodes_deterministically(cuda):
         torch.testing.assert_close(out.cpu(), want, rtol=1e-4, atol=1e-4)
         torch.testing.assert_close(aux.cpu(), aux_want, rtol=1e-4,
                                    atol=1e-4)
+
+
+# -- the LM stack: paligemma-3b (image prefixes) and whisper-small (enc-dec) --
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,h,hkv,d,kw", [
+    (4, 12, 12, 64, dict(causal=False)),   # whisper-small's encoder
+    (2, 8, 1, 256, dict()),                # paligemma-3b's prefill: MQA
+])
+def test_k4_at_the_encoder_and_image_prefill_shapes(cuda, dtype, tol, b, h,
+                                                    hkv, d, kw):
+    s = 1024
+    q = _randn(cuda, d, b, h, s, d, dtype=dtype)
+    k = _randn(cuda, d + 1, b, hkv, s, d, dtype=dtype)
+    v = _randn(cuda, d + 2, b, hkv, s, d, dtype=dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    if dtype == torch.bfloat16:
+        err = (got.float() - want.float()).norm() / want.float().norm()
+        assert err <= K4_BF16_REL_NORM, err
+
+
+def _reduced(arch):
+    from repro_torch.configs import reduced_config
+    return reduced_config(get_config(arch))
+
+
+def test_paligemma_image_prefill_on_card(cuda):
+    cfg = _reduced("paligemma-3b")
+    params = M.init_params(cfg, 0, device=cuda)
+    host = _to_cpu(params)
+    rng = np.random.default_rng(2)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24)).astype(
+        np.int32))
+    images = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_image_tokens, cfg.d_image)).astype(np.float32))
+    n = cfg.n_image_tokens + 24
+    k4 = flash_attention.launches
+    fwd, _ = M.forward(cfg, params, toks.to(cuda), images=images.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == k4      # prefix-LM: plain attention
+    logits, cache = M.prefill(cfg, params, toks.to(cuda),
+                              M.init_cache(cfg, 2, n + 1, device=cuda),
+                              images=images.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - k4 == cfg.n_layers
+    host_fwd, _ = M.forward(cfg, host, toks, images=images)
+    host_logits, host_cache = M.prefill(cfg, host, toks,
+                                        M.init_cache(cfg, 2, n + 1,
+                                                     device="cpu"),
+                                        images=images)
+    torch.testing.assert_close(fwd.cpu(), host_fwd, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(logits.cpu(), host_logits, rtol=1e-3,
+                               atol=1e-3)
+    torch.testing.assert_close(cache["layers"]["pos0"]["k"].cpu(),
+                               host_cache["layers"]["pos0"]["k"],
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_whisper_generate_on_card(cuda):
+    from repro_torch.launch.serve import generate
+    cfg = _reduced("whisper-small")
+    params = M.init_params(cfg, 0, device=cuda)
+    host = _to_cpu(params)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 4)).astype(
+        np.int32))
+    frames = torch.from_numpy(rng.standard_normal(
+        (2, 64, cfg.d_frame)).astype(np.float32))
+    k4 = flash_attention.launches
+    enc, cache = M.encdec_prefill(cfg, params, frames.to(cuda),
+                                  M.init_cache(cfg, 2, 8, s_enc=64,
+                                               device=cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches - k4 == cfg.n_enc_layers
+    host_enc, host_cache = M.encdec_prefill(
+        cfg, host, frames, M.init_cache(cfg, 2, 8, s_enc=64, device="cpu"))
+    torch.testing.assert_close(enc.cpu(), host_enc, rtol=1e-3, atol=1e-3)
+    k4 = flash_attention.launches
+    for i in range(4):
+        lg, cache = M.decode_step(cfg, params, cache, toks[:, i:i + 1].to(
+            cuda), i)
+        host_lg, host_cache = M.decode_step(cfg, host, host_cache,
+                                            toks[:, i:i + 1], i)
+        torch.testing.assert_close(lg.cpu(), host_lg, rtol=1e-3, atol=1e-3)
+    assert flash_attention.launches == k4      # decode runs no K4
+    k4 = flash_attention.launches
+    seqs, lat = generate(cfg, params, toks, gen=6, max_seq=11,
+                         frames=frames, device=cuda)
+    assert flash_attention.launches - k4 == cfg.n_enc_layers
+    assert tuple(seqs.shape) == (2, 10) and len(lat) == 5
+    assert 0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size

@@ -16,9 +16,10 @@
   steps at per-row positions, all within 1e-4; the slot-wise cache helpers;
 * the rwkv mixer's pieces (``rwkv_forward`` with a carried shift,
   ``rwkv_decode``, ``rwkv_channel_mix``) against the reference's;
-* the entry points default to ``cuda`` and raise without a card; what the
-  port does not have yet (enc-dec, image prefixes) raises
-  ``NotImplementedError``.
+* the entry points default to ``cuda`` and raise without a card.
+
+paligemma-3b and whisper-small have files of their own
+(``test_torch_vlm.py``, ``test_torch_encdec.py``).
 """
 import dataclasses
 
@@ -35,6 +36,7 @@ import repro.models.model as RM
 import repro_torch.configs as PC
 import repro_torch.models.layers as PL
 import repro_torch.models.model as PM
+from _torch_parity import to_np32, tree_close
 from repro.models.params import _walk as r_walk
 from repro_torch.models.params import (count_params, params_from_numpy,
                                        tree_slice)
@@ -43,27 +45,6 @@ CPU = "cpu"
 ARCHS = ["hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "dbrx-132b",
          "kimi-k2-1t-a32b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
-
-
-def _np(x):
-    return np.asarray(x, np.float32) if not torch.is_tensor(x) \
-        else x.float().numpy()
-
-
-def _tree_close(port, ref, **tol):
-    """Same keys, shapes and values within ``tol`` (int leaves exact)."""
-    assert sorted(port) == sorted(ref)
-    for key in ref:
-        if isinstance(ref[key], dict):
-            _tree_close(port[key], ref[key], **tol)
-            continue
-        a, b = port[key], np.asarray(ref[key])
-        assert tuple(a.shape) == b.shape, key
-        if b.dtype.kind == "i":
-            assert np.array_equal(a.numpy(), b), key
-        else:
-            np.testing.assert_allclose(_np(a), b.astype(np.float32), **tol,
-                                       err_msg=key)
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -186,7 +167,7 @@ class TestLayers:
                 want = RL.embed_lookup(tok, table, scale=scale,
                                        compute_dtype=jdt)
                 assert got.dtype == pdt
-                np.testing.assert_array_equal(_np(got), _np(want))
+                np.testing.assert_array_equal(to_np32(got), to_np32(want))
         for xdt, jdt in ((torch.float32, jnp.float32),
                          (torch.bfloat16, jnp.bfloat16)):
             got = PL.unembed(torch.from_numpy(x).to(xdt),
@@ -224,11 +205,11 @@ class TestModelParity:
             0, cfg.vocab_size, (2, prompt)).astype(np.int32)
         c = RM.init_cache(cfg, 2, max_seq)
         pc = PM.init_cache(pcfg, 2, max_seq, device=CPU)
-        _tree_close(pc, jax.tree.map(np.asarray, c), rtol=0, atol=0)
+        tree_close(pc, jax.tree.map(np.asarray, c), rtol=0, atol=0)
         want, c = RM.prefill(cfg, params, jnp.asarray(toks), c)
         got, pc = PM.prefill(pcfg, pp, torch.from_numpy(toks), pc)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-        _tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
+        tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
         tok = np.argmax(np.asarray(want)[:, -1], -1)[:, None].astype(
             np.int32)
         pos = np.array([prompt, prompt - 2], np.int32)   # per-row positions
@@ -241,7 +222,7 @@ class TestModelParity:
             tok = np.argmax(np.asarray(want)[:, -1], -1)[:, None].astype(
                 np.int32)
             pos = pos + 1
-        _tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
+        tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
 
     def test_scalar_position_decode(self, model):
         cfg, pcfg, params, pp = model
@@ -252,7 +233,7 @@ class TestModelParity:
                                  jnp.int32(0))
         got, pc = PM.decode_step(pcfg, pp, pc, torch.from_numpy(tok), 0)
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-        _tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
+        tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
 
     def test_inputs_left_unchanged(self, model):
         _, pcfg, _, pp = model
@@ -297,7 +278,7 @@ class TestRwkvMixer:
                 pcfg, pb["rwkv"], torch.from_numpy(x), None if state is None
                 else {"shift": torch.from_numpy(shift)})
             np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-            _tree_close(gst, jax.tree.map(np.asarray, wst), **TOL)
+            tree_close(gst, jax.tree.map(np.asarray, wst), **TOL)
 
     def test_decode_and_channel_mix(self, rwkv):
         import repro.models.blocks as RB
@@ -316,7 +297,7 @@ class TestRwkvMixer:
         got, gc = PB.rwkv_decode(pcfg, pb["rwkv"], torch.from_numpy(x),
                                  params_from_numpy(cache, device=CPU))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-        _tree_close(gc, jax.tree.map(np.asarray, wc), **TOL)
+        tree_close(gc, jax.tree.map(np.asarray, wc), **TOL)
         prev = cache["shift_cm"][:, None, :]
         np.testing.assert_allclose(
             PB.rwkv_channel_mix(pcfg, pb["ffn"], torch.from_numpy(x),
@@ -337,7 +318,7 @@ class TestSlotCache:
                                 valid_upto=4)
         pc = PM.cache_write_slot(PM.init_cache(pcfg, 3, 24, device=CPU), 1,
                                  prow, valid_upto=4)
-        _tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
+        tree_close(pc, jax.tree.map(np.asarray, c), **TOL)
         occ = PM.cache_slot_occupancy(pc)
         assert np.array_equal(occ, RM.cache_slot_occupancy(c))
         if cfg.mixer == "rwkv":
@@ -351,7 +332,7 @@ class TestSlotCache:
         res = PM.cache_slot_residue(pc)
         assert res[1] > 0 and res[0] == res[2] == 0
         c, pc = RM.cache_evict_slot(c, 1), PM.cache_evict_slot(pc, 1)
-        _tree_close(pc, jax.tree.map(np.asarray, c), rtol=0, atol=0)
+        tree_close(pc, jax.tree.map(np.asarray, c), rtol=0, atol=0)
         assert not PM.cache_slot_occupancy(pc).any()
         assert not PM.cache_slot_residue(pc).any()
 
@@ -376,14 +357,6 @@ class TestEntryPoints:
         p = params_from_numpy({"w": leaf}, CPU)
         assert p["w"].dtype == torch.bfloat16
         assert p["w"].float().tolist() == [1.5, -2.25]
-
-    @pytest.mark.parametrize("arch,what", [
-        ("whisper-small", "encoder-decoder"), ("paligemma-3b", "image")])
-    def test_unported_parts_raise(self, arch, what):
-        cfg = PC.reduced_config(PC.get_config(arch))
-        with pytest.raises(NotImplementedError, match="item 10") as e:
-            PM.lm_metas(cfg)
-        assert what in str(e.value)
 
     @pytest.mark.parametrize("arch", ["rwkv6-1.6b", "kimi-k2-1t-a32b"])
     def test_compute_params_keeps_float32_reads(self, arch):

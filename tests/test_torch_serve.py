@@ -4,12 +4,13 @@
 * the policy cases of ``tests/test_serve_loop.py`` run on the port's
   ``ServeScheduler`` (token budget, FIFO admission, head-of-line blocking,
   exact retirement steps, streaming order, idle-slot hygiene, request
-  isolation, rejected requests, enc-dec rejected);
+  isolation, rejected requests, enc-dec rejected by the scheduler);
 * ``ServeScheduler.run`` completions identical to the reference's on the
   same trace and weights (reduced qwen3-1.7b, gemma2-2b, hymba-1.5b,
   rwkv6-1.6b, dbrx-132b and kimi-k2, params carried across by
   ``params_from_numpy``), and request isolation;
-* ``generate``'s greedy tokens identical to the reference's;
+* ``generate``'s greedy tokens identical to the reference's (whisper-small's
+  too, on frames);
 * host-routed MoE decode (``set_host_dispatch_runtime``) bit-equal to the
   in-graph path, with warm ``moe_dispatch`` hits after the first step (the
   cases of ``tests/test_serve_loop.py``'s ``TestHostMoeRegression``);
@@ -366,9 +367,18 @@ class TestEntryPoints:
         with pytest.raises(ValueError, match="one-shot"):
             PS.ServeScheduler(cfg, {}, max_batch=2, max_seq=MAX_SEQ,
                               device=CPU)
-        with pytest.raises(NotImplementedError, match="item 10"):
-            PV.generate(cfg, {}, np.zeros((1, 2), np.int32), gen=1,
-                        max_seq=4, device=CPU)
+
+    def test_generate_serves_enc_dec(self):
+        cfg, pcfg, params, pp = _models("whisper-small")
+        rng = np.random.default_rng(2)
+        toks = rng.integers(0, cfg.vocab_size, (2, 3)).astype(np.int32)
+        frames = rng.standard_normal((2, 16, cfg.d_frame)).astype(np.float32)
+        want, _ = RV.generate(cfg, params, jnp.asarray(toks), gen=4,
+                              max_seq=8, frames=jnp.asarray(frames))
+        got, lat = PV.generate(pcfg, pp, toks, gen=4, max_seq=8,
+                               frames=torch.from_numpy(frames), device=CPU)
+        assert got.dtype == torch.int32 and len(lat) == 3
+        assert np.array_equal(got.numpy(), np.asarray(want))
 
     def test_default_to_cuda_and_raise_without_card(self, attn_model,
                                                      monkeypatch):
