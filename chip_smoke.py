@@ -5,8 +5,8 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``--profile-second-slice`` and ``--profile-lm`` are the child processes
-that ``main`` starts.)
+(``--profile-second-slice``, ``--profile-lm`` and ``--store-child`` are the
+child processes that ``main`` starts.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -197,17 +197,19 @@ Phases 22 and 23 run after phase 20, before phase 21.
    shape beside its bound, plain version and SDPA with no mask;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
-   gemma2-2b, rwkv6-1.6b, paligemma-3b (text) and whisper-small (frames of
-   64 from the seed) (reduced configs, as the CLI forces: head dim 16),
+   gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
+   64 from the seed) and gemma3-27b (the one config with tail layers and
+   ``rope_theta_local``) (reduced configs, as the CLI forces: head dim 16),
    each exit 0 with its kernels launched (K4; K6 for hymba and rwkv6),
    and dbrx-132b with ``--routing host --plan-store build/serve_plan_store``
-   twice, the second run answering its dispatch plans from the store; then,
+   twice, the second run answering its dispatch plans from the store;
+   then phases 24-26 (below); then,
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
    script's time and the kernels line (K1 to K6, each with the launches of
-   its main-path phases — K4's of 14, 19, 22 and 23, K5's of 10 and 19, K6's
-   of 14 and 18; K1's
+   its main-path phases — K2's of 7 and 24, K4's of 14, 19, 22, 23 and 26,
+   K5's of 10 and 19, K6's of 14, 18 and 26; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
    0 in float32, K5's at the prefill gate shape, K4's and K6's at the
    2048-token hymba prefill, nested beside them K4's at dbrx-132b's
@@ -215,6 +217,37 @@ Phases 22 and 23 run after phase 20, before phase 21.
    at the in-graph DBRX shapes and K6's at rwkv6-1.6b's;
    K1's, K2's, K3's and
    K5's bounds in 3xTF32, their design).
+
+Phases 24-26 run after phase 21's CLI runs, before its profiles.
+
+24. sharding — a mesh of 4 shards on the one card (``make_mesh((4,),
+   ("data",), devices=["cuda:0"] * 4)``): ``run("spgemm_gather")`` on
+   cage12 (exact structure, 1e-4 against ``spgemm_ref_numpy`` and phase
+   4's single-host card call; phase 4's two calls are compared bit for bit
+   as a reading: atomics merge the partial products), ``run("spmm")`` on
+   filter3D at T = 256 and T = 16 (bit-equal to the single-host card call,
+   K2 once a shard, at the whole call's regime; K2 on one shard's rows
+   timed; a row's bits independent of its place in a row tile) and
+   ``run("moe_dispatch")`` at dbrx-132b's prefill routing (4096 tokens, 16
+   experts, top-4, capacity 1280, d 6144) on 4 shards and on 3 (the
+   fallback), bit-equal; each call cold, warm and from a fresh runtime on
+   the same plan store;
+25. the kernel-library store — child processes over a fresh
+   ``ExecStore``: the first builds K1-K6 into it (6 ``nvcc`` runs; started
+   before phase 9, it runs on the host while phases 9-23 run), then, at
+   once, a second loads all six with none, and a third, over a copy of the
+   store with one entry's bytes corrupted, counts it corrupt, rebuilds it
+   alone and loads five; those two run every kernel once against its plain
+   version at a small shape;
+26. serving with the store — ``python -m repro_torch.launch.serve --arch
+   hymba-1.5b --continuous --prewarm --exec-store DIR`` on a fresh store
+   (its prewarm builds K4 and K6; it runs beside phase 21's CLIs), then
+   again, beside phase 25's later children, with
+   ``--expect-zero-compiles`` (no ``nvcc``, both loaded from the store,
+   exit 0), each process's time and time to first token; then
+   ``ServeScheduler.prewarm`` at full width on phase 14's trace: its
+   buckets, scheduler state untouched, the first request's time to first
+   token without and with it, the completions of both runs equal.
 
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
@@ -324,10 +357,28 @@ WHISPER_SITU = dict(n_layers=2, s_enc=1024, text=16, decode=4)
 # the serving CLI on the card (reduced configs, head dim 16); dbrx-132b
 # also twice with host routing and one plan store, the second run a restart
 SERVE_CLI_ARCHS = ("hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b",
-                   "paligemma-3b", "whisper-small")
+                   "paligemma-3b", "whisper-small", "gemma3-27b")
 SERVE_CLI_ARGS = ["--batch", "2", "--prompt-len", "64", "--gen", "4"]
 SERVE_CLI_HOST_MOE = ["--arch", "dbrx-132b", "--routing", "host",
                       "--plan-store"]
+# sharded execution (phase 24): 4 shards on the one card, and 3 for the
+# MoE fallback (16 experts do not split 3 ways); spmm at phase 7's T and at
+# a T whose shards (4 rows) would take K2's GEMV on their own; dbrx-132b's
+# prefill routing of 2 x 2048 tokens (capacity 1280 at factor 1.25)
+SHARDS, SHARDS_FALLBACK = 4, 3
+SHARD_SPMM_TOKENS = (256, 16)
+SHARD_MOE = dict(tokens=4096, capacity=1280)
+# the kernel-library store (phase 25): the six libraries, the entry the
+# third child finds corrupted (K2: the shortest rebuild), and the stores
+# of phases 25 and 26
+KERNEL_SOURCES = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
+                  "flash_attention", "moe_gemm", "rwkv6_scan")
+STORE_CORRUPT = "bsr_spmm"
+STORE_DIR = ROOT / "build" / "kernel_store"
+STORE_DIR_CORRUPT = ROOT / "build" / "kernel_store_corrupt"
+SERVE_STORE_DIR = ROOT / "build" / "serve_kernel_store"
+SERVE_STORE_ARGS = ["--requests", "8", "--max-batch", "3", "--max-seq", "32",
+                    "--expect-completions", "8"]
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -413,6 +464,8 @@ K5_DIGESTS = {
         "ab895429eb34146ca083df4cdb626f94f147fac94ddca55354dac6ae66687532"}
 # compare()'s kernel outputs of the kernels above, by "<kernel> <case>"
 OUTPUT_DIGESTS: dict = {}
+# the child processes phases 24-26 start (killed if a phase fails first)
+CHILDREN: list = []
 # bfloat16 K4 also as a whole: ||got - want|| / ||want|| against the plain
 # version.  P and the outputs rounded to bfloat16 give about 2e-3 at phase
 # 12's shapes; dropping the 63 oldest keys of each window gives about 1e-1
@@ -2596,6 +2649,408 @@ def serve_cli(card: str) -> None:
               f"store hits {store_hits}, misses {misses}")
 
 
+def start_child(args):
+    """A child process (this script, or ``-m`` a module of the port) from
+    the checkout's root, its output piped; ``finish_child`` reads it."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    CHILDREN.append(proc)
+    return proc, time.perf_counter()
+
+
+def finish_child(started, what: str, timeout: float = 600) -> tuple:
+    """(output, seconds from its start to its exit); fails the phase on a
+    nonzero exit, and kills the child on a timeout."""
+    proc, t0 = started
+    try:
+        out = proc.communicate(timeout=timeout)[0]
+    finally:
+        proc.kill()
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
+          + "\n".join(out.strip().splitlines()[-30:]))
+    return out, wall
+
+
+def child_rows(out: str, phase: str) -> list:
+    return [r for r in (json.loads(line) for line in out.splitlines()
+                        if line.startswith("{"))
+            if r.get("phase") == phase]
+
+
+def sharding_phases(fa, cage, cage_ref, cage_runs, card: str) -> dict:
+    """Phase 24: sharded execution over ``make_mesh((4,), ("data",),
+    devices=["cuda:0"] * 4)`` (and 3 shards for the MoE fallback), each op
+    cold, warm (a cache hit) and from a fresh runtime on the same plan
+    store (a store hit), against the single-host card call (for cage12,
+    phase 4's two calls).  Returns K2's launches on the sharded path and
+    its per-shard times."""
+    import shutil
+
+    import torch
+    from repro_torch.kernels.bsr_spmm import (_k2_schedule, bsr_spmm,
+                                              inspect_spmm)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime import ReapRuntime
+    dev = torch.device("cuda")
+    store = ROOT / "build" / "shard_plan_store"
+    shutil.rmtree(store, ignore_errors=True)
+    meshes = {n: make_mesh((n,), ("data",), devices=["cuda:0"] * n)
+              for n in (SHARDS, SHARDS_FALLBACK)}
+    out = dict(k2_launches=0, k2_shard_ms={})
+
+    def three_calls(case, tag, operands, kw, n, agree):
+        """cold, warm, store (a plan store of the case's own: spmm's plan
+        is W's alone, so its two T share one); ``agree(result, stats, K2
+        launches)`` gives (ok, readings)."""
+        case_store = str(store / f"{case} {n}".replace(" ", "_"))
+        rt = ReapRuntime(device="cuda", store_dir=case_store)
+        for label in ("cold", "warm", "store"):
+            if label == "store":
+                rt = ReapRuntime(device="cuda", store_dir=case_store)
+            k2 = bsr_spmm.launches
+            (res, st), wall = timed(lambda: rt.run(
+                tag, *operands, mesh=meshes[n], **kw))
+            k2 = bsr_spmm.launches - k2
+            ok, reading = agree(res, st, k2)
+            ok = ok and st["n_shards"] == n and \
+                bool(st["cache_hit"]) == (label != "cold") and \
+                bool(st["store_hit"]) == (label == "store")
+            emit(phase="sharding", case=case, call=label, n_shards=n,
+                 call_s=wall, method=st["method"],
+                 cache_hit=st["cache_hit"], store_hit=st["store_hit"],
+                 sharded=st.get("sharded"), k2_launches=k2, ok=ok,
+                 **reading, card=card)
+            check(ok, f"{case} ({label}) on {n} shards")
+
+    # gather SpGEMM on cage12: atomics merge on the card, so within 1e-4 of
+    # spgemm_ref_numpy and of the single-host card call, exact structure;
+    # phase 4's cold and warm calls, compared bit for bit, are the reading
+    # of whether the atomics reorder anything here
+    ref = cage_ref[0]
+    c1, c2 = cage_runs["cold"], cage_runs["warm"]
+    single_repeat = c1.data.tobytes() == c2.data.tobytes()
+    emit(phase="sharding", case="cage12 gather, single-host (phase 4)",
+         two_calls_bit_identical=single_repeat, card=card)
+    out["gather_single_host_bit_identical"] = single_repeat
+
+    def gather_agrees(c, st, k2):
+        same = bool(np.array_equal(c.indptr, ref.indptr)
+                    and np.array_equal(c.indices, ref.indices))
+        ok = same and np.allclose(c.data, ref.data, rtol=SPGEMM_TOL,
+                                  atol=SPGEMM_TOL) and \
+            np.allclose(c.data, c2.data, rtol=SPGEMM_TOL, atol=SPGEMM_TOL)
+        return bool(ok), dict(
+            structure_exact=same,
+            max_abs_err=float(np.abs(c.data.astype(np.float64)
+                                     - ref.data).max()),
+            max_abs_err_vs_single_host=float(np.abs(
+                c.data.astype(np.float64) - c2.data).max()),
+            bit_equal_single_host=c.data.tobytes() == c2.data.tobytes(),
+            tol=SPGEMM_TOL, partial_products=st["n_pp"], nnz=int(c.nnz))
+
+    three_calls("cage12 spgemm_gather", "spgemm_gather", (cage, cage), {},
+                SHARDS, gather_agrees)
+
+    # spmm on filter3D: bit-equal to the single-host card call, K2 once a
+    # shard, every shard at the whole call's regime
+    plan = inspect_spmm(fa, 128)
+    tiles = torch.from_numpy(plan.scatter(fa.data)).to(dev)
+    k2s = _k2_schedule(plan)
+    for t in SHARD_SPMM_TOKENS:
+        x = np.random.default_rng(240 + t).standard_normal(
+            (t, fa.n_rows)).astype(np.float32)
+        (y0, _), single = timed(lambda: ReapRuntime(device="cuda").run(
+            "spmm", x, fa))
+
+        def spmm_agrees(y, st, k2, y0=y0, single=single, t=t):
+            same = y.shape == y0.shape and y.tobytes() == y0.tobytes()
+            return same and k2 == SHARDS, dict(
+                bit_equal_single_host=same, tokens=t, single_host_s=single)
+
+        before = bsr_spmm.launches
+        three_calls(f"filter3D spmm T={t}", "spmm", (x, fa), {}, SHARDS,
+                    spmm_agrees)
+        out["k2_launches"] += bsr_spmm.launches - before
+        # K2 on one shard's rows (the first shard's T / 4, at the whole
+        # call's regime) against the whole call's launch
+        xs = torch.from_numpy(np.pad(x, ((0, 0), (0, plan.pat.n_rows
+                                                  - fa.n_rows)))).to(dev)
+        n = t // SHARDS
+        shard_ms = event_ms(lambda: bsr_spmm(
+            xs[:n], tiles, k2s, n_j_blocks=plan.n_j_blocks, regime_t=t))
+        whole_ms = event_ms(lambda: bsr_spmm(
+            xs, tiles, k2s, n_j_blocks=plan.n_j_blocks))
+        # a row's result does not depend on its place in a row tile: the
+        # same rows shifted down by 37 within one call
+        shifted = torch.cat([xs.new_zeros((37, xs.shape[1])), xs])
+        a = bsr_spmm(xs, tiles, k2s, n_j_blocks=plan.n_j_blocks)
+        b = bsr_spmm(shifted, tiles, k2s, n_j_blocks=plan.n_j_blocks,
+                     regime_t=t)
+        same_rows = bool(torch.equal(a, b[37:]))
+        emit(phase="times", kernel="K2", case=f"one shard of T={t}",
+             shard_rows=n, shard_ms=shard_ms, whole_call_ms=whole_ms,
+             rows_shifted_by_37_bit_equal=same_rows, card=card)
+        check(same_rows, f"K2 at T={t}: a row's bits depend on its place "
+              "in the row tile")
+        out["k2_shard_ms"][f"T={t}"] = dict(rows=n, ms=shard_ms,
+                                            whole_call_ms=whole_ms)
+    del tiles
+
+    # moe_dispatch at dbrx-132b's prefill routing: bit-equal on 4 shards
+    # and on the fallback of 3 (16 experts do not split 3 ways)
+    g = torch.Generator(device=dev)
+    g.manual_seed(241)
+    tokens = torch.randn((SHARD_MOE["tokens"], DBRX["d_model"]),
+                         generator=g, device=dev)
+    router = torch.randn((DBRX["d_model"], DBRX["n_experts"]), generator=g,
+                         device=dev) / DBRX["d_model"] ** 0.5
+    ids = (tokens @ router).topk(DBRX["top_k"], dim=-1).indices.cpu().numpy()
+    kw = dict(n_experts=DBRX["n_experts"])
+    ((b0, _), st0), single = timed(lambda: ReapRuntime(device="cuda").run(
+        "moe_dispatch", tokens, ids, **kw))
+    check(st0["capacity"] == SHARD_MOE["capacity"],
+          f"moe capacity {st0['capacity']}")
+
+    def moe_agrees(res, st, k2, n):
+        same = bool(res[0].shape == b0.shape and torch.equal(res[0], b0))
+        return same and st["sharded"] == (DBRX["n_experts"] % n == 0), \
+            dict(bit_equal_single_host=same, capacity=st["capacity"],
+                 single_host_s=single)
+
+    for n in (SHARDS, SHARDS_FALLBACK):
+        three_calls(f"dbrx-132b prefill moe_dispatch, {SHARD_MOE['tokens']}"
+                    " tokens", "moe_dispatch", (tokens, ids), kw, n,
+                    functools.partial(moe_agrees, n=n))
+    return out
+
+
+def kernels_against_plain_small(dev) -> None:
+    """Each of K1-K6 once against its plain version at one small shape (a
+    library from the store computes)."""
+    import torch
+    from repro_torch.core import COO, CSR, inspect_spgemm_block, random_csr
+    from repro_torch.kernels.bsr_spgemm import (bsr_spgemm_plain,
+                                                bsr_spgemm_schedule)
+    from repro_torch.kernels.bsr_spmm import (bsr_spmm, bsr_spmm_plain,
+                                              inspect_spmm)
+    from repro_torch.kernels.flash_attention import (
+        block_sparse_attention, block_sparse_attention_plain,
+        flash_attention, flash_attention_plain, inspect_block_attention)
+    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    rng = np.random.default_rng(250)
+
+    def on(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in arrays]
+
+    a = random_csr(600, 600, 0.03, rng, "blocky")
+    p1 = inspect_spgemm_block(a, a, 32)
+    (t1,) = on(p1.a_pat.scatter(a.data))
+    compare("store child, 600x600 bs=32", bsr_spgemm_schedule(
+        p1.schedule, t1, t1, n_out_blocks=p1.n_out_blocks),
+        bsr_spgemm_plain(t1, t1, *on(p1.a_id, p1.b_id, p1.out_id),
+                         n_out_blocks=p1.n_out_blocks), K1_TOL, "K1")
+    w = random_csr(700, 600, 0.02, rng, "blocky")
+    p2 = inspect_spmm(w, 128)
+    x, t2 = on(rng.standard_normal((33, p2.pat.n_rows)).astype(np.float32),
+               p2.scatter(w.data))
+    compare("store child, T=33 bs=128", bsr_spmm(
+        x, t2, p2.schedule, n_j_blocks=p2.n_j_blocks),
+        bsr_spmm_plain(x, t2, *on(p2.w_id, p2.k_blk, p2.j_blk),
+                       n_j_blocks=p2.n_j_blocks), K2_TOL, "K2")
+    s, bs, d = 256, 64, 64
+    row, col = rng.integers(0, s - bs, 6 * s), rng.integers(0, s, 6 * s)
+    p3 = inspect_block_attention(CSR.from_coo(COO(
+        s, s, row, col, np.ones(row.size, np.float32))), bs)
+    q, k, v = on(*(rng.standard_normal((2, n, s, d)).astype(np.float32)
+                   for n in (4, 2, 2)))
+    compare("store child, S=256 block 64", block_sparse_attention(
+        q, k, v, p3.kv_ids, p3.n_kv, softcap=0.0, seq=s),
+        block_sparse_attention_plain(q, k, v, *on(p3.kv_ids, p3.n_kv),
+                                     softcap=0.0, scale=d ** -0.5, seq=s),
+        K3_TOL, "K3")
+    compare("store child, S=256 window 128", flash_attention(
+        q, k, v, window=128), flash_attention_plain(q, k, v, window=128),
+        K4_TOL, "K4")
+    xb, wb = on(rng.standard_normal((4, 16, 128)).astype(np.float32),
+                (rng.standard_normal((3, 128, 128)) / 128 ** 0.5)
+                .astype(np.float32))
+    be = rng.integers(0, 3, 4).astype(np.int32)
+    compare("store child, 4 bundles of 16", moe_gemm(xb, wb, be, bk=4, bf=4),
+            moe_gemm_plain(xb, wb, *on(be)), K5_TOL, "K5")
+    r, kk, vv, wr = on(*(rng.standard_normal((1, 2, 128, n)).astype(
+        np.float32) for n in (16, 16, 64, 16)))
+    wd = torch.sigmoid(4 * wr).clamp(1e-6, 1 - 1e-6)
+    (u,) = on(rng.standard_normal((2, 16)).astype(np.float32))
+    o, st = rwkv6(r, kk, vv, wd, u, chunk=64)
+    o_want, st_want = rwkv6_plain(r, kk, vv, wd, u, chunk=64)
+    compare("store child, T=128 output", o, o_want, K6_TOL, "K6")
+    compare("store child, T=128 state", st, st_want, K6_TOL, "K6")
+
+
+def store_child(root: str, checks: bool) -> int:
+    """One process over the kernel-library store at ``root``: load K1-K6
+    through it (building what it misses), then, with ``checks``, each
+    kernel once against its plain version; prints the counts as a
+    ``store_child`` row."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.exec_store import (ExecCache, ExecStore,
+                                               set_default_exec_cache)
+    store = ExecStore(root)
+    cache = ExecCache(store)
+    set_default_exec_cache(cache)
+    t0 = time.perf_counter()
+    _build.load_all(*KERNEL_SOURCES)
+    load_s = time.perf_counter() - t0
+    if checks:
+        kernels_against_plain_small(torch.device("cuda"))
+        torch.cuda.synchronize()
+    emit(phase="store_child", compiles=cache.stats.compiles,
+         loads=cache.stats.loads, saves=cache.stats.saves,
+         corrupt=store.stats.corrupt, env_miss=store.stats.env_miss,
+         load_or_build_s=load_s, compile_s=cache.stats.compile_s,
+         env=store.env, entries=store.summary()["entries"])
+    return 0
+
+
+def serve_store_args(*extra) -> list:
+    return ["-m", "repro_torch.launch.serve", "--arch", HYMBA,
+            "--continuous", "--prewarm", "--exec-store",
+            str(SERVE_STORE_DIR), *SERVE_STORE_ARGS, *extra]
+
+
+def store_phases(store_build, cold_cli, card: str) -> None:
+    """Phases 25 and 26's CLI runs: the kernel-library store across
+    processes.  Started by ``main``: a child that builds K1-K6 into a fresh
+    store (6 ``nvcc`` runs, 0 loads; started before phase 9) and the serving
+    CLI on hymba-1.5b with ``--prewarm --exec-store`` on a fresh store of
+    its own (its prewarm builds K4 and K6; beside phase 21's CLIs).  Then,
+    at once: a child that loads all six from the store with no ``nvcc``, a
+    child over a copy of the store with one entry's bytes corrupted (it
+    counts the entry corrupt, rebuilds it alone and loads the other five),
+    and the CLI again with ``--expect-zero-compiles`` (no ``nvcc``, both
+    libraries from the store, exit 0).  The two later store children run
+    each kernel once against its plain version."""
+    import re
+    import shutil
+
+    def store_row(started, label, expect):
+        out, wall = finish_child(started, f"store child ({label})")
+        row = child_rows(out, "store_child")[-1]
+        checks = child_rows(out, "kernel_vs_plain")
+        ok = (row["compiles"], row["loads"], row["corrupt"]) == expect \
+            and len(checks) == (0 if label == "build" else 7) \
+            and all(c["ok"] for c in checks)
+        emit(phase="kernel_store", child=label, process_s=wall,
+             kernel_checks=len(checks),
+             max_abs_err={c["kernel"]: c["max_abs_err"] for c in checks},
+             ok=ok, card=card,
+             **{k: v for k, v in row.items() if k != "phase"})
+        check(ok, f"kernel store, {label}: {row}")
+
+    nvcc_re = re.compile(r"exec cache: (\d+) nvcc runs, (\d+) loaded")
+    prewarm_re = re.compile(r"prewarmed (\d+) prefill bucket\(s\) in "
+                            r"([0-9.]+)s")
+    ttft_re = re.compile(r"ttft p50=([0-9.]+)ms")
+
+    def cli_row(started, label, expect):
+        out, wall = finish_child(started, f"serve CLI with the store "
+                                 f"({label})")
+        found, prewarm, ttft = (r.search(out)
+                                for r in (nvcc_re, prewarm_re, ttft_re))
+        nvcc, loads = (int(x) for x in found.groups()) if found else (-1, -1)
+        ok = (nvcc, loads) == expect and prewarm is not None and \
+            "registered ops" in out and \
+            (label == "cold store" or "warm-restart OK" in out)
+        emit(phase="serve_store", run=label, process_s=wall,
+             nvcc_runs=nvcc, loaded_from_store=loads,
+             prewarm_buckets=int(prewarm.group(1)) if prewarm else None,
+             prewarm_s=float(prewarm.group(2)) if prewarm else None,
+             ttft_p50_ms=float(ttft.group(1)) if ttft else None, ok=ok,
+             tail=out.strip().splitlines()[-6:], card=card)
+        check(ok, f"serve CLI with the store ({label}): {nvcc} nvcc runs, "
+              f"{loads} loads")
+
+    store_row(store_build, "build", (6, 0, 0))
+    shutil.copytree(STORE_DIR, STORE_DIR_CORRUPT)
+    manifest = json.loads((STORE_DIR_CORRUPT / "manifest.json").read_text())
+    key, ent = next((k, e) for k, e in manifest["entries"].items()
+                    if e["label"] == STORE_CORRUPT)
+    path = STORE_DIR_CORRUPT / "lib" / ent["payload"]
+    blob = bytearray(path.read_bytes())
+    blob[len(blob) // 2] ^= 0xFF
+    path.write_bytes(bytes(blob))
+    emit(phase="kernel_store", corrupted=STORE_CORRUPT, key=key,
+         bytes=len(blob))
+    cli_row(cold_cli, "cold store", (2, 0))
+    script = str(Path(__file__).resolve())
+    later = [(start_child([script, "--store-child", str(STORE_DIR)]),
+              "restart", (0, 6, 0)),
+             (start_child([script, "--store-child", str(STORE_DIR_CORRUPT)]),
+              "after corrupting one entry", (1, 5, 1))]
+    restart_cli = start_child(serve_store_args("--expect-zero-compiles"))
+    for started, label, expect in later:
+        store_row(started, label, expect)
+    cli_row(restart_cli, "restart, --expect-zero-compiles", (0, 2))
+
+
+def serve_prewarm(dev, card: str) -> dict:
+    """Phase 26's in-process part: ``ServeScheduler.prewarm`` at full width
+    on phase 14's trace (hymba-1.5b as published): its buckets against
+    ``prefill_buckets``, scheduler state untouched, the first request's
+    time to first token without and with it, and both runs' completions
+    equal.  Returns K4's and K6's launches in the prewarmed run (prewarm
+    included)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    from repro_torch.launch.scheduler import ServeScheduler
+    from repro_torch.models import model as M
+    cfg = hymba_config()
+    params = init_model(HYMBA, cfg, 73, dev)
+    trace = serve_trace(cfg)
+    lens = [len(r.prompt) for r in trace]
+    runs, counts = {}, {}
+    for label in ("without prewarm", "with prewarm"):
+        first = {}
+
+        def on_token(rid, token, step, first=first):
+            first.setdefault(rid, time.perf_counter())
+
+        sch = ServeScheduler(cfg, params, on_token=on_token, device=dev,
+                             **HYMBA_SERVE)
+        flash_attention.launches = rwkv6.launches = 0
+        buckets, prewarm_s = None, None
+        if label == "with prewarm":
+            stats = dict(sch.stats)
+            buckets, prewarm_s = timed(lambda: sch.prewarm(lens))
+            check(buckets == len(sch.prefill_buckets(lens))
+                  and sch.stats == stats and sch.drained()
+                  and not M.cache_slot_occupancy(sch.cache).any(),
+                  "prewarm left scheduler state behind")
+        t0 = time.perf_counter()
+        done, wall = timed(lambda: sch.run(trace))
+        counts[label] = {"K4": flash_attention.launches,
+                         "K6": rwkv6.launches}
+        runs[label] = [(c.rid, c.tokens) for c in done]
+        emit(phase="serve_store", run=f"hymba-1.5b ServeScheduler.run, "
+             f"{label}", buckets=sch.prefill_buckets(lens),
+             prewarmed=buckets, prewarm_s=prewarm_s, run_s=wall,
+             first_request_ttft_s=first[min(first)] - t0,
+             completions=len(done), launches=counts[label], card=card)
+        check(len(done) == len(trace), f"hymba serving ({label})")
+    same = runs["without prewarm"] == runs["with prewarm"]
+    emit(phase="serve_store", case="completions with and without prewarm",
+         equal=same, card=card)
+    check(same, "prewarm changed the completions")
+    return counts["with prewarm"]
+
+
 def profile_lm(arch: str) -> None:
     """Device busy share of one warm prefill (1024 tokens) and one warm
     decode step (batch 4) of ``arch`` (hymba-1.5b and rwkv6-1.6b as
@@ -2653,8 +3108,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
-               "flash_attention", "moe_gemm", "rwkv6_scan")
+    kernels = KERNEL_SOURCES
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -2723,11 +3177,14 @@ def main() -> int:
           "a warm chunked call uploaded a K1 schedule")
     check_spgemm("filter3D block_chunked warm", c, *numpy_ref(fa2))
 
+    cage_runs = {}
     for label in ("cold", "warm"):
         c, st = call(f"cage12 A@A auto, {label}",
                      lambda: rt.spgemm(cage, cage), bsr_spgemm.launches)
         check(st["method"] == "gather_chunked", f"route {st['method']}")
-    check_spgemm("cage12 gather_chunked", c, *numpy_ref(cage))
+        cage_runs[label] = c
+    cage_ref = numpy_ref(cage)
+    check_spgemm("cage12 gather_chunked", c, *cage_ref)
 
     rt_sync = ReapRuntime(device="cuda", n_chunks=1, overlap=False)
     for label in ("cold", "warm"):
@@ -2820,6 +3277,14 @@ def main() -> int:
 
     k2_row = spmm_solver_phases(fa, spd, card)
     k3_row = attention_phases(card)
+    # phase 25's first child builds K1-K6 into a fresh kernel-library store
+    # (nvcc on the host, no kernel on the card) while phases 9-23 run: their
+    # times are CUDA events or the card's, their host work light
+    import shutil
+    for d in (STORE_DIR, STORE_DIR_CORRUPT, SERVE_STORE_DIR):
+        shutil.rmtree(d, ignore_errors=True)
+    store_build = start_child([str(Path(__file__).resolve()), "--store-child",
+                               str(STORE_DIR), "--no-checks"])
     k5_row = moe_phases(card)
     check_digests("K5", K5_DIGESTS, card)
     torch.cuda.empty_cache()
@@ -2845,9 +3310,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = whisper_phases(dev, card)
     torch.cuda.empty_cache()
+    # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
+    # runs beside phase 21's CLIs
+    cold_cli = start_child(serve_store_args())
     serve_cli(card)
+
+    # -- 24.-26. sharding, the kernel-library store, serving with it --------
+    shard = sharding_phases(fa, cage, cage_ref, cage_runs, card)
+    del cage_runs
+    torch.cuda.empty_cache()
+    store_phases(store_build, cold_cli, card)
+    prewarm = serve_prewarm(dev, card)
+    torch.cuda.empty_cache()
+    k2_row.update(launches=k2_row["launches"] + shard["k2_launches"],
+                  launches_by_path={"spmm/spmv/CG": k2_row["launches"],
+                                    "sharded spmm": shard["k2_launches"]},
+                  sharded_one_shard=shard["k2_shard_ms"])
     k4_by_path = {HYMBA: k4_launches, DBRX_LM: dbrx["launches"]["K4"],
-                  PALIGEMMA: pali["launches"], WHISPER: whisper["launches"]}
+                  PALIGEMMA: pali["launches"], WHISPER: whisper["launches"],
+                  "hymba-1.5b with prewarm": prewarm["K4"]}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -2863,8 +3344,9 @@ def main() -> int:
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:67",
-        "launches": k6_launches + k6_rwkv_launches,
-        "launches_by_path": {HYMBA: k6_launches, RWKV6: k6_rwkv_launches},
+        "launches": k6_launches + k6_rwkv_launches + prewarm["K6"],
+        "launches_by_path": {HYMBA: k6_launches, RWKV6: k6_rwkv_launches,
+                             "hymba-1.5b with prewarm": prewarm["K6"]},
         "max_abs_err": max(k6_err, k6_rwkv_err), **k6_times,
         "rwkv6_1p6b_prefill": k6_rwkv_times}
     k5_lm_launches = dbrx["launches"]["K5"]
@@ -2899,4 +3381,10 @@ if __name__ == "__main__":
         sys.exit(profile_second_slice())
     if sys.argv[1:2] == ["--profile-lm"] and len(sys.argv) == 3:
         sys.exit(profile_lm(sys.argv[2]))
-    sys.exit(main())
+    if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):
+        sys.exit(store_child(sys.argv[2], sys.argv[3:] != ["--no-checks"]))
+    try:
+        sys.exit(main())
+    finally:
+        for proc in CHILDREN:       # stop every child a failed phase left
+            proc.kill()

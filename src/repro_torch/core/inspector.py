@@ -545,16 +545,23 @@ def _exec_moe_dispatch(plan: MoeDispatchPlan, operands, cfg, *, overlap,
     return (x_bundles, plan), stats
 
 
+def _shard_moe_dispatch(cached, operands, cfg, *, mesh, routing, capacity,
+                        **kw):
+    from ..runtime.shard import sharded_moe_dispatch
+    return sharded_moe_dispatch(operands[0], routing, capacity, mesh,
+                                plan=cached, device=cfg.device)
+
+
 register_op(OpSpec(
     tag="moe_dispatch",
     prepare=_prepare_moe_dispatch,
     fingerprint=_fp_moe_dispatch,
     inspect=_inspect_moe_dispatch,
     execute_sync=_exec_moe_dispatch,
+    shard_plan=_shard_moe_dispatch,
     plan_types={"moe_dispatch": MoeDispatchPlan},
     allowed_kw=("n_experts", "capacity"),
     # in_graph, as the reference declares: the LM's ``models.moe.moe_ffn``
-    # is the op's on-device twin.  The shard hook comes with sharding
-    # (ROADMAP queue 1 item 9), so the op is not shardable yet
-    capabilities=OpCapabilities(routing="in_graph"),
+    # is the op's on-device twin
+    capabilities=OpCapabilities(routing="in_graph", shardable=True),
 ))

@@ -254,7 +254,7 @@ def spgemm(a: CSR, b: CSR, method: str = "auto", block: int = 128,
 # concrete specs keep the reference's fingerprint op strings and params, so
 # both packages key the same pattern alike.
 
-from ..runtime.ops import OpSpec, register_op  # noqa: E402
+from ..runtime.ops import OpCapabilities, OpSpec, register_op  # noqa: E402
 
 
 def _spgemm_digests(a: CSR, b: CSR, digests):
@@ -311,6 +311,12 @@ def _exec_spgemm_gather_chunked(cached, operands, cfg, *, overlap, **kw):
     return c, stats, chunkset
 
 
+def _shard_spgemm_gather(cached, operands, cfg, *, mesh, **kw):
+    from ..runtime.shard import sharded_spgemm_gather
+    a, b = operands
+    return sharded_spgemm_gather(a, b, mesh, tile=cfg.tile, plan=cached)
+
+
 def _fp_spgemm_block(operands, cfg, *, chunked, digests=None, **kw):
     a, b = operands
     digests = _spgemm_digests(a, b, digests)
@@ -351,9 +357,11 @@ register_op(OpSpec(
     inspect=_inspect_spgemm_gather,
     execute_sync=_exec_spgemm_gather,
     execute_chunked=_exec_spgemm_gather_chunked,
+    shard_plan=_shard_spgemm_gather,
     plan_types={"spgemm_gather": SpGemmGatherPlan},
     fingerprint_ops=("spgemm_gather", "spgemm_gather_chunked"),
     allowed_kw=("digests",),
+    capabilities=OpCapabilities(shardable=True),
 ))
 
 register_op(OpSpec(

@@ -34,8 +34,12 @@ The planned op (``SpmmPlan`` / ``inspect_spmm`` / ``spmm_execute`` and the
 ``spmm`` registration) keeps the reference's plan and contract.  Two
 differences of route, none of result: K2 takes the true token count T (the
 reference buckets T to a power of two for XLA's compile shapes; the result
-is sliced to ``[:t, :n_cols]`` either way), and the ``spmm`` op is not
-shardable yet (the reference's ``_shard_spmm`` comes with sharding).
+is sliced to ``[:t, :n_cols]`` either way), and the sharded form
+(``runtime.shard.sharded_spmm``) runs K2 on each shard's token rows, where
+the reference's shard body is its jnp tile math.  K2 picks its variant
+(GEMV, 32-row or 128-row tiles) from ``regime_t``, the whole call's token
+count, so a shard of a sharded call computes each row as the unsharded
+call does.
 """
 from __future__ import annotations
 
@@ -205,11 +209,11 @@ def bsr_spmm_plain(x: torch.Tensor, w_blocks: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     return _build.bind("bsr_spmm", "bsr_spmm_f32",
-                       [p, p, p, p, p, p, i, i, i, i, i, p, p, i])
+                       [p, p, p, p, p, p, i, i, i, i, i, i, p, p, i])
 
 
 def _launch(sched: K2Schedule, x: torch.Tensor, w_blocks: torch.Tensor,
-            out: torch.Tensor) -> None:
+            out: torch.Tensor, regime_t: int) -> None:
     for t in (x, w_blocks):
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.data_ptr() % 16 or t.device != out.device:
@@ -221,20 +225,24 @@ def _launch(sched: K2Schedule, x: torch.Tensor, w_blocks: torch.Tensor,
     err = lib.bsr_spmm_f32(
         x.data_ptr(), w_blocks.data_ptr(), base, base + step,
         base + 2 * step, base + 3 * step, sched.n_j_blocks, x.shape[0],
-        x.shape[1], out.shape[1], w_blocks.shape[-1], out.data_ptr(),
+        regime_t, x.shape[1], out.shape[1], w_blocks.shape[-1],
+        out.data_ptr(),
         *launch_target(out.device))
     _build.check_launch(lib, err, "bsr_spmm")
     bsr_spmm.launches += 1
 
 
 def bsr_spmm(x: torch.Tensor, w_blocks: torch.Tensor, schedule, *,
-             n_j_blocks: int) -> torch.Tensor:
+             n_j_blocks: int, regime_t: Optional[int] = None
+             ) -> torch.Tensor:
     """``out = x @ W_bsr`` from a job schedule (dict or ``K2Schedule``).
 
     ``x`` (T, d_in) with ``d_in`` a multiple of the block; ``w_blocks``
     (n_tiles, bs, bs).  Returns (T, n_j_blocks·bs) in x's dtype on x's
     device.  CPU tensors run the plain version; CUDA tensors launch K2
-    (float32, bs in ``SUPPORTED_BS``) or raise.
+    (float32, bs in ``SUPPORTED_BS``) or raise.  ``regime_t`` (default T)
+    is the token count K2 picks its variant from: a shard of a larger call
+    passes the call's T.
     """
     sched = prepare_spmm_schedule(schedule, n_j_blocks)
     bs = w_blocks.shape[-1]
@@ -253,8 +261,11 @@ def bsr_spmm(x: torch.Tensor, w_blocks: torch.Tensor, schedule, *,
         raise ValueError(f"K2 supports bs in {SUPPORTED_BS}, got {bs}")
     out = torch.empty((x.shape[0], n_j_blocks * bs), dtype=torch.float32,
                       device=x.device)
+    regime_t = x.shape[0] if regime_t is None else int(regime_t)
+    if regime_t < 1:
+        raise ValueError(f"regime_t must be positive, got {regime_t}")
     if x.shape[0] and n_j_blocks:
-        _launch(sched, x, w_blocks, out)
+        _launch(sched, x, w_blocks, out, regime_t)
     return out
 
 
@@ -416,15 +427,21 @@ def _exec_spmm(plan, operands, cfg, *, overlap, dtype=np.float32, **kw):
     return y, stats
 
 
-# not shardable yet: the reference's token-range shard hook comes with
-# sharding (ROADMAP queue 1 item 9)
+def _shard_spmm(cached, operands, cfg, *, mesh, dtype=np.float32, **kw):
+    from ..runtime.shard import sharded_spmm
+    x, w = operands
+    return sharded_spmm(x, w, mesh, cfg.block, plan=cached, dtype=dtype,
+                        use_kernel=cfg.use_kernel)
+
+
 register_op(OpSpec(
     tag="spmm",
     fingerprint=_fp_spmm,
     inspect=_inspect_spmm,
     execute_sync=_exec_spmm,
+    shard_plan=_shard_spmm,
     plan_types={"spmm": SpmmPlan, "bsr_pattern": BsrPattern},
     allowed_kw=("dtype",),
     capabilities=OpCapabilities(dtypes=("float32", "float64"),
-                                routing="host", shardable=False),
+                                routing="host", shardable=True),
 ))

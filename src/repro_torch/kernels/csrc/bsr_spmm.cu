@@ -10,7 +10,9 @@
 // The schedule holds one group per output block-column (coverage jobs multiply
 // an appended zero tile), so every output element is written exactly once.
 //
-// Two variants, picked from the token count t of the call:
+// Two variants, picked from the token count regime_t (the call's t, or the
+// whole call's t when the caller runs one shard of a larger call, so that a
+// row's result does not depend on the split):
 //  * tile (t > 8): a BT x BS output tile per thread block (BT = 128 with 8
 //    warps, or 32 with 4 warps when t < 64) on the tensor cores in 3xTF32,
 //    CUTLASS's OpMultiplyAddFastF32 idea: each fp32 operand is split into
@@ -262,13 +264,14 @@ int launch_tile(const float* x, const float* w, const int* w_id,
 template <int BS>
 int launch(const float* x, const float* w, const int* w_id, const int* k_blk,
            const int* j_blk, const int* group_start, int n_groups, int t,
-           int ldx, int ldy, float* y, cudaStream_t stream, int device) {
-  if (t <= 8) {
+           int regime_t, int ldx, int ldy, float* y, cudaStream_t stream,
+           int device) {
+  if (regime_t <= 8) {
     spmm_gemv_kernel<BS><<<dim3(n_groups, t), kThreads, 0, stream>>>(
         x, w, w_id, k_blk, j_blk, group_start, ldx, ldy, y);
     return static_cast<int>(cudaGetLastError());
   }
-  if (t < 64)
+  if (regime_t < 64)
     return launch_tile<BS, 32>(x, w, w_id, k_blk, j_blk, group_start,
                                n_groups, t, ldx, ldy, y, stream, device);
   return launch_tile<BS, 128>(x, w, w_id, k_blk, j_blk, group_start, n_groups,
@@ -280,22 +283,23 @@ int launch(const float* x, const float* w, const int* w_id, const int* k_blk,
 extern "C" {
 
 // Launches K2 on `stream` over n_groups output block-columns and t token rows
-// of x (row stride ldx floats) into y (row stride ldy floats).  The caller has
-// checked dtypes, shapes, 16-byte alignment, index ranges and that group g
-// writes block-column g, and passes n_groups >= 1 and t >= 1.  Returns
-// the first CUDA error of the attribute call or the launch (0 on success).
+// of x (row stride ldx floats) into y (row stride ldy floats), in the variant
+// that regime_t token rows take.  The caller has checked dtypes, shapes,
+// 16-byte alignment, index ranges and that group g writes block-column g, and
+// passes n_groups >= 1, t >= 1 and regime_t >= 1.  Returns the first CUDA
+// error of the attribute call or the launch (0 on success).
 int bsr_spmm_f32(const float* x, const float* w, const int* w_id,
                  const int* k_blk, const int* j_blk, const int* group_start,
-                 int n_groups, int t, int ldx, int ldy, int bs, float* y,
-                 void* stream, int device) {
+                 int n_groups, int t, int regime_t, int ldx, int ldy, int bs,
+                 float* y, void* stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (bs) {
-    case 16: return launch<16>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
-    case 32: return launch<32>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
-    case 64: return launch<64>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
-    case 128: return launch<128>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, ldx, ldy, y, s, device);
+    case 16: return launch<16>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, regime_t, ldx, ldy, y, s, device);
+    case 32: return launch<32>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, regime_t, ldx, ldy, y, s, device);
+    case 64: return launch<64>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, regime_t, ldx, ldy, y, s, device);
+    case 128: return launch<128>(x, w, w_id, k_blk, j_blk, group_start, n_groups, t, regime_t, ldx, ldy, y, s, device);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -35,22 +35,28 @@ Everything here is wall-clock-free: progress is step counting, so traces
 replay exactly.  Latency is *observed* (submit→first-token and
 per-decode-step wall times for ``latency_summary()``) but never consulted.
 
-The model runs eagerly: the reference's ``persistent_jit`` executables
-have no counterpart yet (ROADMAP queue 1 item 12), so ``prewarm`` is not
-offered.  One host drain per decode step (the sampled tokens) and one per
-prefill (the first token) are the only synchronizations.
+The model runs eagerly: the reference's ``persistent_jit`` prefill and
+decode programs have no counterpart, and what a restart pays instead is
+``nvcc`` building the hand-written kernels.  ``prewarm`` moves that out of
+the serving window: it loads every kernel library the model launches —
+through the kernel-library store when one is in effect
+(``runtime.exec_store``), so a restarted server runs no ``nvcc`` — and runs
+each prefill bucket once.  One host drain per decode step (the sampled
+tokens) and one per prefill (the first token) are the only
+synchronizations.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import time
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels import _build
 from ..models import model as M
 
 IDLE_POS = -1     # idle decode rows write position -1 — the empty sentinel
@@ -109,6 +115,21 @@ def _bucket_len(n: int) -> int:
     while p < n:
         p *= 2
     return p
+
+
+def kernel_libraries(cfg) -> Tuple[str, ...]:
+    """The hand-written kernels (``kernels/csrc/<name>.cu``) a prefill or
+    decode step of ``cfg`` launches on a card: K4 for attention (and
+    hymba's attention heads), K6 for the rwkv and hymba scans, K5 for an
+    MoE FFN."""
+    names = []
+    if cfg.mixer in ("attn", "hymba"):
+        names.append("flash_attention")
+    if cfg.mixer in ("rwkv", "hymba"):
+        names.append("rwkv6_scan")
+    if cfg.ffn == "moe":
+        names.append("moe_gemm")
+    return tuple(names)
 
 
 @dataclasses.dataclass
@@ -178,6 +199,32 @@ class ServeScheduler:
         if _bucketed_prefill_ok(self.cfg):
             return sorted({_bucket_len(int(n)) for n in prompt_lens})
         return sorted({int(n) for n in prompt_lens})
+
+    def prewarm(self, prompt_lens) -> int:
+        """Ready every prefill the given prompts will run before the first
+        request arrives.
+
+        On a card, loads every kernel library the model launches
+        (``kernel_libraries``) — built together, or loaded from the
+        kernel-library store when one is in effect, so a restarted server
+        runs no ``nvcc``.  Then runs each bucket's prefill once against a
+        throwaway row cache.  Returns the number of buckets warmed.
+        Scheduler state (cache, slots, queue, stats, latency observations)
+        is untouched.
+        """
+        buckets = self.prefill_buckets(prompt_lens)
+        if self.device.type == "cuda":
+            _build.load_all(*kernel_libraries(self.cfg))
+        for n_pad in buckets:
+            row_cache = M.init_cache(self.cfg, 1, self.max_seq,
+                                     device=self.device)
+            M.prefill(self.cfg, self.params,
+                      torch.zeros((1, n_pad), dtype=torch.int32,
+                                  device=self.device), row_cache)
+        if self.device.type == "cuda":
+            # deliberate drain: the warm-up is done when prewarm returns
+            torch.cuda.synchronize(self.device)
+        return len(buckets)
 
     # -- accounting ---------------------------------------------------------
 

@@ -24,12 +24,18 @@ bundling plans and — with ``--plan-store DIR`` — a restarted server reuses
 the plans a previous process inspected.  ``--routing auto`` follows each
 op's declared routing (``moe_dispatch`` declares ``in_graph``).
 
+``--exec-store DIR`` keeps the hand-written kernels' libraries in a
+kernel-library store, and ``--prewarm`` loads them (and runs every prefill
+bucket of the trace) before serving; run the same command twice with
+``--expect-zero-compiles`` on the second to check a warm restart: it exits
+nonzero unless that process ran no ``nvcc`` and loaded at least one library
+from the store.  Whenever a runtime is attached the CLI prints the
+registered ops' capabilities, as the reference does.
+
 ``--reduced`` is on and cannot be turned off, as in the reference (a
 ``store_true`` flag whose default is True).  The runtime flags come from
-``repro_torch.runtime.add_runtime_args``; ``--exec-store`` and
-``--mesh-shape`` raise until their slices are ported, and the reference's
-``--prewarm`` and ``--expect-zero-compiles`` (executable store) are not
-offered.
+``repro_torch.runtime.add_runtime_args`` (``--mesh-shape`` is accepted;
+serving runs no shardable op).
 """
 from __future__ import annotations
 
@@ -64,6 +70,25 @@ def _store_op_report(rt) -> str:
     return " ".join(parts) if parts else "none"
 
 
+def _capability_report() -> str:
+    """One line per registered op from its declared capability metadata,
+    in the reference's format (``list_ops`` + ``capability_summary``);
+    routers own no plans and are marked as such."""
+    from ..runtime.ops import capability_summary, get_op, list_ops
+    lines = []
+    for tag in list_ops():
+        spec = get_op(tag)
+        if spec.route is not None:
+            lines.append(f"  {tag}: (router)")
+            continue
+        cap = capability_summary(spec)
+        chunk = "+chunked" if cap["chunked"] else ""
+        shard = "+shardable" if cap["shardable"] else ""
+        lines.append(f"  {tag}: [{','.join(cap['dtypes'])}] "
+                     f"{cap['routing']}{chunk}{shard}")
+    return "\n".join(lines)
+
+
 def _resolve_routing(mode: str) -> dict:
     """Per-op serving route, decided from declared ``OpCapabilities``.
 
@@ -91,6 +116,10 @@ def _runtime_report(rt) -> None:
         line += (f"; store holds {cs['store']['entries']} plans "
                  f"({cs['store']['saves']} saved this run)")
     print(line)
+    if rt.exec is not None:
+        ex = cs["exec"]
+        print(f"[serve] exec cache: {ex['compiles']} nvcc runs, "
+              f"{ex['loads']} loaded from store, {ex['saves']} persisted")
     active = {tag: rec for tag, rec in cs["per_op"].items()
               if any(rec.values())}
     if active:
@@ -158,7 +187,7 @@ def generate(cfg, params, tokens, *, gen: int, max_seq: int,
     return torch.cat(out, dim=1), lat
 
 
-def serve_continuous(cfg, args):
+def serve_continuous(cfg, args, rt=None):
     """Trace-driven continuous-batching serve (the scheduler front end)."""
     from .scheduler import ServeScheduler, synthetic_trace
     params = M.init_params(cfg, args.seed, device=args.device)
@@ -173,6 +202,13 @@ def serve_continuous(cfg, args):
                          max_seq=args.max_seq,
                          token_budget=args.token_budget, on_token=on_token,
                          device=args.device)
+    if args.prewarm:
+        t0 = time.time()
+        n = sch.prewarm([len(r.prompt) for r in trace])
+        print(f"[serve] prewarmed {n} prefill bucket(s) in "
+              f"{time.time() - t0:.2f}s"
+              + (" (kernel libraries through the exec store)"
+                 if rt is not None and rt.exec is not None else ""))
     t0 = time.time()
     completions = sch.run(trace)
     total = time.time() - t0
@@ -247,6 +283,16 @@ def main(argv=None):
                     help="per-op dispatch route: 'auto' follows each "
                          "registered op's declared OpCapabilities.routing, "
                          "'host'/'in_graph' force every op one way")
+    ap.add_argument("--prewarm", action="store_true",
+                    help="[--continuous] load every kernel library the "
+                         "model launches (from the exec store when one is "
+                         "given) and run each prefill bucket of the trace "
+                         "once before serving")
+    ap.add_argument("--expect-zero-compiles", action="store_true",
+                    help="[--exec-store] exit nonzero unless the serve ran "
+                         "no nvcc and loaded >= 1 kernel library from the "
+                         "store (warm-restart gate: run the same command "
+                         "twice)")
     add_runtime_args(ap)       # --plan-store, --device (default cuda), ...
     args = ap.parse_args(argv)
     args.device = args.device or "cuda"
@@ -262,6 +308,12 @@ def main(argv=None):
             print(f"[serve] plan store {args.plan_store}: {s['entries']} "
                   f"warm plans ({_store_op_report(rt)}), "
                   f"{s['bytes'] / 1e6:.2f} MB on disk")
+        if rt.exec is not None:
+            es = rt.exec.store.summary()
+            print(f"[serve] exec store {args.exec_store}: {es['entries']} "
+                  f"kernel libraries, {es['bytes'] / 1e6:.2f} MB on disk")
+        print("[serve] registered ops (dtypes/routing, registry-enumerated):")
+        print(_capability_report())
 
     cfg = get_config(args.arch)
     if args.reduced:
@@ -282,7 +334,7 @@ def main(argv=None):
         set_host_dispatch_runtime(rt)
     try:
         if args.continuous:
-            seqs = serve_continuous(cfg, args)
+            seqs = serve_continuous(cfg, args, rt)
         else:
             seqs = serve_one_shot(cfg, args)
     finally:
@@ -291,6 +343,18 @@ def main(argv=None):
     if rt is not None:
         _runtime_report(rt)
     print_kernel_launches()
+    if args.expect_zero_compiles:
+        if rt is None or rt.exec is None:
+            raise SystemExit("[serve] ERROR: --expect-zero-compiles "
+                             "requires --exec-store")
+        ex = rt.exec.summary()
+        if ex["compiles"] != 0 or ex["loads"] < 1:
+            raise SystemExit(
+                f"[serve] ERROR: warm restart expected zero nvcc runs and "
+                f">=1 store load, got {ex['compiles']} nvcc runs / "
+                f"{ex['loads']} loads (store: {ex.get('store')})")
+        print(f"[serve] warm-restart OK: zero nvcc runs, {ex['loads']} "
+              f"kernel libraries loaded from the store")
     return seqs
 
 

@@ -1,9 +1,10 @@
 """REAP runtime layer: op registry, plan caching, persistence, overlap.
 
 ``ReapRuntime`` (api.py) is a generic dispatcher over the registered
-planned-op protocol (ops.py); plan_cache.py, plan_store.py (with the fleet
-layout of shared_store.py) and pipeline.py are its mechanisms.  The
-executable store and sharding come with later slices.
+planned-op protocol (ops.py); plan_cache.py, plan_store.py and
+exec_store.py (the kernel-library store), the fleet layout of
+shared_store.py, pipeline.py and shard.py (sharded execution over a device
+mesh) are its mechanisms.
 """
 from .api import (ReapRuntime, RunStats, RuntimeConfig,  # noqa: F401
                   add_runtime_args, configure_default_runtime,

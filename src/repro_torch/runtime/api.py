@@ -18,12 +18,14 @@ entry points the library exposes (``core.spgemm.spgemm(plan=...)``,
 
 Executors run on ``RuntimeConfig.device`` (``cuda`` unless the caller asks
 for ``cpu``); a runtime built for CUDA on a machine without a card raises.
-The plan store and the fleet store's plan half are ported; the executable
-store and sharding are not yet: their config fields exist and raise
-``NotImplementedError`` when set.
+Every field of the reference's ``RuntimeConfig`` and every argument of its
+``run`` is taken: the plan store, the kernel-library store (the port's
+executable store, ``exec_store.py``), the fleet store with both halves, and
+sharded execution over a device mesh (``shard.py``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import threading
 import time
@@ -36,13 +38,6 @@ import torch
 from ..device import resolve_device
 from . import ops as _ops
 from .plan_cache import PlanCache
-
-# config fields of features a later slice ports, and the ROADMAP item
-# (queue 1) that ports each
-_NOT_PORTED = {
-    "exec_store_dir": "queue 1 item 12 (kernel library store)",
-    "mesh_shape": "queue 1 item 9 (sharding)",
-}
 
 
 @dataclasses.dataclass
@@ -60,16 +55,22 @@ class RuntimeConfig:
     built plan is write-through-persisted, so a restarted process starts
     warm for every pattern any previous run inspected.
 
-    ``shared_store_dir`` attaches the plan store under a fleet-shared,
-    content-addressed layout (shared_store.SharedBlobs): every process
-    pointed at the same directory — of either package — shares one plan
-    namespace.  An explicit ``store_dir`` wins.  Only the plan half is
-    attached: the reference's executable half has no port yet.
+    ``exec_store_dir`` attaches a persistent kernel-library store
+    (exec_store.ExecStore, budget ``exec_budget_bytes``): the hand-written
+    kernels' libraries resolve memory → disk → ``nvcc``, so a restarted
+    process runs no ``nvcc`` for a kernel any earlier run built.
 
-    ``exec_store_dir`` and ``mesh_shape`` keep the reference's fields;
-    setting either raises ``NotImplementedError`` naming the ROADMAP item
-    that ports it.  The executable store's ``exec_budget_bytes`` comes back
-    with that store.
+    ``shared_store_dir`` attaches *both* stores under a fleet-shared,
+    content-addressed layout (shared_store.SharedBlobs): the plan store
+    under ``plans/`` — shared with processes of either package — and the
+    kernel-library store under ``kernels/`` (the reference's ``exec/``
+    holds XLA payloads).  Explicit ``store_dir``/``exec_store_dir`` win
+    over the shared layout for that store.
+
+    ``mesh_shape`` declares the default device mesh for shardable ops:
+    ``run()`` routes them through their ``shard_plan`` hook over that mesh
+    (an explicit ``mesh=`` argument wins).  The mesh holds ``device``
+    repeated on the CPU and the first cards that exist on CUDA.
 
     Entry points build the config with ``RuntimeConfig.from_args`` over a
     parser extended by ``add_runtime_args``; programmatic callers use the
@@ -86,6 +87,7 @@ class RuntimeConfig:
     store_dir: Optional[str] = None
     store_budget_bytes: int = 1 << 30
     exec_store_dir: Optional[str] = None
+    exec_budget_bytes: int = 1 << 30
     shared_store_dir: Optional[str] = None
     mesh_shape: Optional[Tuple[int, ...]] = None
     device: str = "cuda"
@@ -108,6 +110,9 @@ class RuntimeConfig:
         exec_dir = getattr(args, "exec_store", None)
         if exec_dir is not None:
             kw["exec_store_dir"] = exec_dir
+        exec_mb = getattr(args, "exec_store_budget_mb", None)
+        if exec_mb is not None:
+            kw["exec_budget_bytes"] = int(exec_mb * 1e6)
         shared_dir = getattr(args, "shared_store", None)
         if shared_dir is not None:
             kw["shared_store_dir"] = shared_dir
@@ -152,9 +157,7 @@ def add_runtime_args(parser) -> None:
 
     Every CLI entry point that builds a ``ReapRuntime`` uses this one
     helper plus ``RuntimeConfig.from_args``.  Numeric defaults are None so
-    ``from_args`` only overrides what the user actually set.  The
-    executable-store and mesh flags are accepted and raise at runtime
-    construction until their slice is ported.
+    ``from_args`` only overrides what the user actually set.
     """
     g = parser.add_argument_group("runtime")
     g.add_argument("--plan-store", metavar="DIR", default=None,
@@ -163,15 +166,20 @@ def add_runtime_args(parser) -> None:
     g.add_argument("--plan-store-budget-mb", type=float, default=None,
                    metavar="MB", help="plan-store disk LRU budget")
     g.add_argument("--exec-store", metavar="DIR", default=None,
-                   help="persist compiled executables under DIR (not "
-                        "ported yet: raises)")
+                   help="persist the built kernel libraries under DIR; "
+                        "restarted processes run no nvcc for a kernel an "
+                        "earlier run built")
+    g.add_argument("--exec-store-budget-mb", type=float, default=None,
+                   metavar="MB", help="exec-store disk LRU budget")
     g.add_argument("--shared-store", metavar="DIR", default=None,
-                   help="fleet store: the plan store under DIR, backed by "
-                        "a content-addressed blob area that processes of "
-                        "either package share (plan half only)")
+                   help="fleet store: plan + kernel-library stores under "
+                        "DIR backed by one content-addressed blob area; "
+                        "every process pointed here (plans: of either "
+                        "package) shares one warm namespace")
     g.add_argument("--mesh-shape", metavar="N[xM]", default=None,
-                   help="device mesh for shardable ops (not ported yet: "
-                        "raises)")
+                   help="device mesh for shardable ops, e.g. 8 or 2x4; "
+                        "ops with a shard_plan hook run each shard on its "
+                        "mesh device")
     g.add_argument("--cache-entries", type=int, default=None,
                    help="in-memory plan cache capacity")
     g.add_argument("--n-chunks", type=int, default=None,
@@ -273,16 +281,11 @@ class ReapRuntime:
         cfg = config or RuntimeConfig()
         if overrides:
             cfg = dataclasses.replace(cfg, **overrides)
-        for field, item in _NOT_PORTED.items():
-            if getattr(cfg, field) is not None:
-                raise NotImplementedError(
-                    f"RuntimeConfig.{field} is not ported to repro_torch "
-                    f"yet; ROADMAP.md {item} ports it")
         self.device = resolve_device(cfg.device)
         self.config = cfg
         self.shared = None
         if cfg.shared_store_dir is not None:
-            from .shared_store import PLANS_SUBDIR, SharedBlobs
+            from .shared_store import SharedBlobs
             self.shared = SharedBlobs(cfg.shared_store_dir)
         self.store = None
         if cfg.store_dir is not None:        # explicit dir wins: local store
@@ -290,9 +293,22 @@ class ReapRuntime:
             self.store = PlanStore(cfg.store_dir, cfg.store_budget_bytes)
         elif self.shared is not None:
             from .plan_store import PlanStore
+            from .shared_store import PLANS_SUBDIR
             self.store = PlanStore(self.shared.store_root(PLANS_SUBDIR),
                                    cfg.store_budget_bytes,
                                    shared=self.shared)
+        self.exec = None
+        if cfg.exec_store_dir is not None:
+            from .exec_store import ExecCache, ExecStore
+            self.exec = ExecCache(
+                ExecStore(cfg.exec_store_dir, cfg.exec_budget_bytes))
+        elif self.shared is not None:
+            from .exec_store import ExecCache, ExecStore
+            from .shared_store import KERNELS_SUBDIR
+            self.exec = ExecCache(
+                ExecStore(self.shared.store_root(KERNELS_SUBDIR),
+                          cfg.exec_budget_bytes, shared=self.shared))
+        self._mesh = None                    # built lazily from mesh_shape
         self.cache = PlanCache(cfg.cache_entries, store=self.store)
         # routing decisions are tiny strings; keep them out of the plan
         # cache so they neither consume plan capacity nor skew hit stats
@@ -308,6 +324,46 @@ class ReapRuntime:
         with self._op_stats_lock:
             self._op_stats.clear()
 
+    @contextlib.contextmanager
+    def _exec_scope(self):
+        """Route kernel-library loads through this runtime's exec cache.
+
+        Yields a probe that reports whether execution completed without a
+        single ``nvcc`` run (the ``exec_cache_hit`` stat); yields None when
+        no exec store is configured.
+        """
+        if self.exec is None:
+            yield None
+            return
+        from .exec_store import use_exec_cache
+        before = self.exec.stats.compiles
+        with use_exec_cache(self.exec):
+            yield lambda: self.exec.stats.compiles == before
+
+    def _default_mesh(self):
+        """Mesh declared by ``config.mesh_shape`` (built once, lazily) —
+        None when the runtime is single-host.  Axes as in the reference:
+        ``("data",)``, or ``("pod", "data")`` for two axes (both
+        data-parallel).  On the CPU every entry is the host; on CUDA the
+        mesh takes the cards that exist and raises if they are too few."""
+        if self.config.mesh_shape is None:
+            return None
+        if self._mesh is None:
+            from ..launch.mesh import make_mesh
+            shape = tuple(self.config.mesh_shape)
+            if len(shape) == 1:
+                axes = ("data",)
+            elif len(shape) == 2:
+                axes = ("pod", "data")
+            else:
+                raise ValueError(
+                    f"mesh_shape supports 1 or 2 axes, got {shape}")
+            devices = None
+            if self.device.type == "cpu":
+                devices = [self.device] * int(np.prod(shape))
+            self._mesh = make_mesh(shape, axes, devices)
+        return self._mesh
+
     # -- Generic dispatch --------------------------------------------------
 
     def run(self, op_tag: str, *operands, overlap: Optional[bool] = None,
@@ -318,13 +374,16 @@ class ReapRuntime:
         Returns ``(result, stats)``; ``result`` is op-defined (the
         wrappers unpack it).  ``stats`` is a ``RunStats`` (dict-compatible):
         always ``cache_hit`` and ``fingerprint``; synchronous calls also get
-        ``inspect_s`` (plan acquisition time — ≈ digest cost when warm).
-        ``mesh`` (sharded execution) is not ported yet and raises.
+        ``inspect_s`` (plan acquisition time — ≈ digest cost when warm);
+        with an exec store configured, ``exec_cache_hit`` reports whether
+        execution ran no ``nvcc``.
+
+        ``mesh`` (a ``launch.mesh.DeviceMesh``, or ``config.mesh_shape``)
+        routes ops that registered a ``shard_plan`` hook through sharded
+        execution; the hook owns the partitioning and reproduces the
+        single-host result (bit for bit on the host).  Non-shardable ops
+        ignore the mesh.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "sharded execution is not ported to repro_torch yet; "
-                f"ROADMAP.md {_NOT_PORTED['mesh_shape']} ports it")
         spec = _ops.get_op(op_tag)
         hops = 0
         while spec.route is not None:          # resolve router/alias ops
@@ -342,38 +401,56 @@ class ReapRuntime:
                     f"op {op_tag!r} got unexpected keyword arguments "
                     f"{sorted(unknown)}; accepts {sorted(spec.allowed_kw)}")
         overlap = cfg.overlap if overlap is None else overlap
-        chunked = spec.execute_chunked is not None and cfg.n_chunks > 1
+        mesh = mesh if mesh is not None else self._default_mesh()
+        sharded = (mesh is not None and spec.shard_plan is not None
+                   and spec.capabilities.shardable)
+        chunked = (not sharded and spec.execute_chunked is not None
+                   and cfg.n_chunks > 1)
         if spec.prepare is not None:    # derive once what fingerprint +
             kw = spec.prepare(operands, cfg, **kw)   # inspect both need
         fp = spec.fingerprint(operands, cfg, chunked=chunked, **kw)
+        if sharded:
+            # namespace sharded plans by mesh extent: the shard_plan
+            # artifact partitions rows for exactly this many shards, so a
+            # different mesh must miss and re-partition
+            from ..parallel.sharding import axis_size, dp_axes
+            n_shards = axis_size(mesh, dp_axes(mesh))
+            fp = dataclasses.replace(
+                fp, params=tuple(fp.params) + (("shards", n_shards),))
 
         inspect_s: Optional[float] = None
-        if chunked:
-            cached, source = self.cache.get_with_source(fp)
-            self._record_op(op_tag, source)
-            result, op_stats, artifact = spec.execute_chunked(
-                cached, operands, cfg, overlap=overlap, **kw)
-            if cached is None and artifact is not None:
-                try:
-                    artifact.fingerprint = fp
-                except (AttributeError, TypeError):
-                    pass    # custom artifacts need not carry a slot
-                self.cache.put(fp, artifact)
-            hit = cached is not None
-        else:
-            t0 = time.perf_counter()
-            plan, source = self.cache.get_with_source(fp)
-            self._record_op(op_tag, source)
-            if plan is None:
-                plan = spec.inspect(operands, cfg, fp, **kw)
-                self.cache.put(fp, plan)
-            inspect_s = time.perf_counter() - t0
-            hit = source is not None
-            result, op_stats = spec.execute_sync(plan, operands, cfg,
-                                                 overlap=overlap, **kw)
+        with self._exec_scope() as exec_probe:
+            if sharded or chunked:
+                cached, source = self.cache.get_with_source(fp)
+                self._record_op(op_tag, source)
+                if sharded:
+                    result, op_stats, artifact = spec.shard_plan(
+                        cached, operands, cfg, mesh=mesh, **kw)
+                else:
+                    result, op_stats, artifact = spec.execute_chunked(
+                        cached, operands, cfg, overlap=overlap, **kw)
+                if cached is None and artifact is not None:
+                    try:
+                        artifact.fingerprint = fp
+                    except (AttributeError, TypeError):
+                        pass    # custom artifacts need not carry a slot
+                    self.cache.put(fp, artifact)
+                hit = cached is not None
+            else:
+                t0 = time.perf_counter()
+                plan, source = self.cache.get_with_source(fp)
+                self._record_op(op_tag, source)
+                if plan is None:
+                    plan = spec.inspect(operands, cfg, fp, **kw)
+                    self.cache.put(fp, plan)
+                inspect_s = time.perf_counter() - t0
+                hit = source is not None
+                result, op_stats = spec.execute_sync(plan, operands, cfg,
+                                                     overlap=overlap, **kw)
         return result, RunStats(
             cache_hit=hit,
             store_hit=source == "store",
+            exec_cache_hit=exec_probe() if exec_probe is not None else None,
             fingerprint=fp.digest,
             inspect_s=inspect_s,
             extra=dict(op_stats))
@@ -447,6 +524,8 @@ class ReapRuntime:
         out["per_op"] = per_op
         if self.store is not None:
             out["store"] = self.store.summary()
+        if self.exec is not None:
+            out["exec"] = self.exec.summary()
         return out
 
 
@@ -462,9 +541,16 @@ def default_runtime() -> ReapRuntime:
 
 
 def set_default_runtime(rt: Optional[ReapRuntime]) -> Optional[ReapRuntime]:
-    """Install ``rt`` as the process-wide runtime."""
+    """Install ``rt`` as the process-wide runtime.
+
+    The runtime's exec cache (if configured) also becomes the process
+    default, so kernel loads *outside* ``run()`` — the serve scheduler's
+    model, ``prewarm`` — resolve through the same kernel-library store.
+    """
     global _DEFAULT
     _DEFAULT = rt
+    from .exec_store import set_default_exec_cache
+    set_default_exec_cache(None if rt is None else rt.exec)
     return rt
 
 

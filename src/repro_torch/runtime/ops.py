@@ -262,7 +262,8 @@ def _ensure_builtin_ops() -> None:
     `moe_dispatch`, `core/spgemm.py`,
     `core/cholesky.py`, `runtime/pipeline.py` for the chunk-set plan
     types, `kernels/bsr_spmm.py`, `kernels/flash_attention.py`,
-    `core/solver.py`); importing any of
+    `core/solver.py`, `runtime/shard.py` for the sharded plan type);
+    importing any of
     them registers their ops as a side effect, and this hook makes the
     registry complete regardless of which module the process touched
     first.  Concurrent consumers block on the (re-entrant) lock until the
@@ -284,6 +285,7 @@ def _ensure_builtin_ops() -> None:
         import repro_torch.kernels.bsr_spmm  # noqa: F401  spmm
         import repro_torch.kernels.flash_attention  # noqa: F401  block_attention
         import repro_torch.core.solver       # noqa: F401  spmv
+        import repro_torch.runtime.shard     # noqa: F401  sharded_plan type
         _BUILTINS_LOADED = True
 
 

@@ -4,11 +4,12 @@ Copy of ``repro.runtime.shared_store`` (numpy-free, stdlib only).  The
 layout, manifest schema and payload refs are the reference's, so a fleet
 directory is shared by processes of both packages: ``SharedBlobs.gc``
 counts the refs of *every* manifest directory under the root — the
-reference's ``exec/`` store included, though the port writes only
-``plans/`` — and never removes a blob any of them references.
+reference's ``exec/`` store included, though the port writes ``plans/``
+and ``kernels/`` — and never removes a blob any of them references.
 
 In the reference, the plan store (plan_store.py) and the executable store
-(exec_store.py; not ported) each made one half of the REAP split durable per *directory*; a fleet of
+(exec_store.py; the port's is a kernel-library store under ``kernels/``)
+each made one half of the REAP split durable per *directory*; a fleet of
 serve processes pointed at per-host directories still warms per-host.
 This module closes that gap with two layers:
 
@@ -26,6 +27,7 @@ This module closes that gap with two layers:
         <shared_root>/blobs/<sha256>     one blob per distinct content
         <shared_root>/plans/manifest.json   a PlanStore root (refs only)
         <shared_root>/exec/manifest.json    an ExecStore root (refs only)
+        <shared_root>/kernels/manifest.json the port's ExecStore (refs only)
 
     Manifest entries whose ``payload`` is ``"blob:<sha256>"`` resolve
     against ``blobs/``; identical content (the common case: every process
@@ -82,9 +84,12 @@ LOCKFILE = "manifest.lock"
 BLOBS_DIR = "blobs"
 #: manifest ``payload`` prefix marking a content-addressed ref
 BLOB_PREFIX = "blob:"
-#: default sub-roots a shared layout gives the two stores
+#: default sub-roots a shared layout gives the stores: the reference's plan
+#: and executable stores, and the port's kernel-library store (its payloads
+#: are no XLA executables, so it does not share ``exec/``)
 PLANS_SUBDIR = "plans"
 EXEC_SUBDIR = "exec"
+KERNELS_SUBDIR = "kernels"
 
 
 @contextlib.contextmanager

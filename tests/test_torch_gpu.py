@@ -875,3 +875,100 @@ def test_whisper_generate_on_card(cuda):
     assert flash_attention.launches - k4 == cfg.n_enc_layers
     assert tuple(seqs.shape) == (2, 10) and len(lat) == 5
     assert 0 <= int(seqs.min()) and int(seqs.max()) < cfg.vocab_size
+
+
+# -- sharded execution over a mesh of one card, and the kernel-library store
+
+def _card_mesh(n):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh((n,), ("data",), ["cuda:0"] * n)
+
+
+@pytest.mark.parametrize("t", [16, 256])
+def test_sharded_spmm_bit_equal_on_one_card(cuda, t):
+    """Each shard launches K2 at the whole call's regime: at T = 16 a shard
+    of 4 rows takes the 32-row tiles, as the unsharded call does."""
+    w = P.random_csr(1000, 768, 0.03, np.random.default_rng(t), "blocky")
+    x = np.random.default_rng(t + 1).standard_normal((t, 1000)).astype(
+        np.float32)
+    y0, _ = ReapRuntime(device="cuda").run("spmm", x, w)
+    before = bsr_spmm.launches
+    y1, st = ReapRuntime(device="cuda").run("spmm", x, w,
+                                            mesh=_card_mesh(4))
+    assert bsr_spmm.launches == before + 4
+    assert st["method"] == "spmm_sharded" and st["n_shards"] == 4
+    assert y0.tobytes() == y1.tobytes()
+
+
+@pytest.mark.parametrize("t", [16, 256])
+def test_k2_rows_do_not_depend_on_their_tile_position(cuda, t):
+    w = P.random_csr(700, 600, 0.02, np.random.default_rng(3), "blocky")
+    plan = inspect_spmm(w, 128)
+    x = torch.from_numpy(np.random.default_rng(t).standard_normal(
+        (t, plan.pat.n_rows)).astype(np.float32)).to(cuda)
+    tiles = torch.from_numpy(plan.scatter(w.data)).to(cuda)
+    a = bsr_spmm(x, tiles, plan.schedule, n_j_blocks=plan.n_j_blocks)
+    for shift in (1, 37):
+        xs = torch.cat([x.new_zeros((shift, x.shape[1])), x])
+        b = bsr_spmm(xs, tiles, plan.schedule, n_j_blocks=plan.n_j_blocks,
+                     regime_t=t)
+        assert torch.equal(a, b[shift:])
+    part = bsr_spmm(x[:t // 4], tiles, plan.schedule,
+                    n_j_blocks=plan.n_j_blocks, regime_t=t)
+    assert torch.equal(part, a[:t // 4])
+
+
+@pytest.mark.parametrize("n,sharded", [(4, True), (3, False)])
+def test_sharded_moe_dispatch_bit_equal_on_one_card(cuda, n, sharded):
+    rng = np.random.default_rng(n)
+    tokens = torch.from_numpy(rng.standard_normal((256, 64)).astype(
+        np.float32)).to(cuda)
+    ids = np.argsort(rng.random((256, 16)), axis=1)[:, :4]
+    (b0, _), _ = ReapRuntime(device="cuda").run("moe_dispatch", tokens, ids,
+                                                 n_experts=16)
+    (b1, _), st = ReapRuntime(device="cuda").run(
+        "moe_dispatch", tokens, ids, n_experts=16, mesh=_card_mesh(n))
+    assert st["sharded"] is sharded and b1.is_cuda
+    assert torch.equal(b0, b1)
+
+
+def test_sharded_gather_on_one_card(cuda):
+    a = P.random_csr(3000, 3000, 0.003, np.random.default_rng(4))
+    c, st = ReapRuntime(device="cuda").run("spgemm_gather", a, a,
+                                           mesh=_card_mesh(4))
+    ref = P.spgemm_ref_numpy(a, a)
+    assert st["method"] == "gather_sharded"
+    assert np.array_equal(c.indptr, ref.indptr)
+    assert np.array_equal(c.indices, ref.indices)
+    np.testing.assert_allclose(c.data, ref.data, rtol=1e-4, atol=1e-4)
+
+
+_STORE_RESTART = r"""
+import sys
+from repro_torch.runtime.exec_store import ExecCache, ExecStore
+cache = ExecCache(ExecStore(sys.argv[1]))
+cache.load_many(("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
+                 "flash_attention", "moe_gemm", "rwkv6_scan"))
+print("COUNTS", cache.stats.compiles, cache.stats.loads)
+"""
+
+
+def test_store_restart_loads_every_library_without_nvcc(cuda, tmp_path):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve()
+                                          .parents[1] / "src"))
+
+    def run():
+        out = subprocess.run([sys.executable, "-c", _STORE_RESTART,
+                              str(tmp_path / "store")], capture_output=True,
+                             text=True, env=env, timeout=900)
+        assert out.returncode == 0, out.stderr
+        line = next(x for x in out.stdout.splitlines()
+                    if x.startswith("COUNTS"))
+        return tuple(int(v) for v in line.split()[1:])
+
+    assert run() == (6, 0)
+    assert run() == (0, 6)

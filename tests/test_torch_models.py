@@ -5,11 +5,12 @@
   and reduced;
 * the param tree of ``lm_metas`` equal to the reference's, key for key and
   shape for shape, for hymba-1.5b, qwen3-1.7b, gemma2-2b, rwkv6-1.6b,
-  dbrx-132b and kimi-k2 (its shared experts included); hymba's full
+  dbrx-132b, kimi-k2 (its shared experts included), gemma3-27b (the only
+  config with tail layers and ``rope_theta_local``) and qwen3-4b; hymba's full
   parameter count, from metas, within ``tests/test_arch_smoke.py``'s bounds;
 * the layers (``rms_norm``, ``rotary``, ``softcap``, ``dense``,
   ``embed_lookup``, ``unembed``, ``swiglu``) against the reference's;
-* at the reduced configs of the six, in float32 with the reference's
+* at the reduced configs of the eight, in float32 with the reference's
   params carried across by ``params_from_numpy``: ``forward`` logits (and
   the MoE aux loss), ``prefill`` logits and cache (the ring branch
   included; rwkv's ``wkv``, ``shift`` and ``shift_cm``), and 4 decode
@@ -43,7 +44,7 @@ from repro_torch.models.params import (count_params, params_from_numpy,
 
 CPU = "cpu"
 ARCHS = ["hymba-1.5b", "qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "dbrx-132b",
-         "kimi-k2-1t-a32b"]
+         "kimi-k2-1t-a32b", "gemma3-27b", "qwen3-4b"]
 TOL = dict(rtol=1e-4, atol=1e-4)
 
 

@@ -185,15 +185,20 @@ class TestGuards:
         ("store_dir", "plans"), ("exec_store_dir", "exec"),
         ("shared_store_dir", "fleet"), ("mesh_shape", (2,))])
     def test_unported_fields_raise(self, field, value, tmp_path):
-        """The executable store and the mesh still raise; the plan and
-        fleet stores are ported and attach a plan store."""
-        if field in ("store_dir", "shared_store_dir"):
-            rt = PR.ReapRuntime(device=CPU, **{field: str(tmp_path / value)})
-            assert rt.store is not None
-            assert (rt.shared is not None) == (field == "shared_store_dir")
+        """No field of the reference's config raises any more: the plan,
+        kernel-library and fleet stores attach, and a mesh shape builds a
+        host mesh on the CPU."""
+        if field == "mesh_shape":
+            rt = PR.ReapRuntime(device=CPU, mesh_shape=value)
+            mesh = rt._default_mesh()
+            assert mesh.devices.shape == value
+            assert mesh.axis_names == ("data",)
+            assert all(d.type == "cpu" for d in mesh.devices.flat)
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            PR.ReapRuntime(device=CPU, **{field: value})
+        rt = PR.ReapRuntime(device=CPU, **{field: str(tmp_path / value)})
+        assert (rt.store is not None) == (field != "exec_store_dir")
+        assert (rt.exec is not None) == (field != "store_dir")
+        assert (rt.shared is not None) == (field == "shared_store_dir")
 
     def test_from_args(self):
         import argparse

@@ -7,8 +7,8 @@
   isolation, rejected requests, enc-dec rejected by the scheduler);
 * ``ServeScheduler.run`` completions identical to the reference's on the
   same trace and weights (reduced qwen3-1.7b, gemma2-2b, hymba-1.5b,
-  rwkv6-1.6b, dbrx-132b and kimi-k2, params carried across by
-  ``params_from_numpy``), and request isolation;
+  rwkv6-1.6b, dbrx-132b, kimi-k2, gemma3-27b and qwen3-4b, params carried
+  across by ``params_from_numpy``), and request isolation;
 * ``generate``'s greedy tokens identical to the reference's (whisper-small's
   too, on frames);
 * host-routed MoE decode (``set_host_dispatch_runtime``) bit-equal to the
@@ -39,7 +39,7 @@ from repro_torch.models.params import params_from_numpy
 CPU = "cpu"
 MAX_SEQ = 32
 ARCHS = ["qwen3-1.7b", "gemma2-2b", "hymba-1.5b", "rwkv6-1.6b", "dbrx-132b",
-         "kimi-k2-1t-a32b"]
+         "kimi-k2-1t-a32b", "gemma3-27b", "qwen3-4b"]
 
 
 def _models(arch):

@@ -197,5 +197,6 @@ class TestSpmmOp:
         ref_cap = RR.ops.capability_summary(RR.get_op("spmm"))
         assert cap["dtypes"] == ref_cap["dtypes"]
         assert cap["routing"] == ref_cap["routing"]
-        # the shard hook comes with sharding: flag and hook agree
-        assert cap["shardable"] is False and spec.shard_plan is None
+        # flag and hook agree, and both packages declare the op shardable
+        assert cap["shardable"] is ref_cap["shardable"] is True
+        assert spec.shard_plan is not None
