@@ -5,16 +5,16 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``--profile-second-slice``, ``--profile-lm`` and ``--store-child`` are the
-child processes that ``main`` starts.)
+(``--profile-second-slice``, ``--profile-lm``, ``--store-child`` and
+``--train-full`` are the child processes that ``main`` starts.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``), K3
-   (``block_sparse_attention``), K4 (``flash_attention``), K5
-   (``moe_gemm``) and K6 (``rwkv6_scan``), one nvcc each, all started
-   together, and print ptxas's report;
+   (``block_sparse_attention``), K4 (``flash_attention``) and its backward
+   (``flash_attention_bwd``), K5 (``moe_gemm``) and K6 (``rwkv6_scan``),
+   one nvcc each, all started together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
    dead trailing group (both bs = 128: 3xTF32 on ``wgmma``), and at
@@ -142,8 +142,8 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    ``flash_attention_plain`` at dbrx-132b's prefill (B = 2, 48 / 8 heads of
    128, causal, S = 1024, bfloat16; K4's bfloat16 limits);
 17. in situ — rwkv6-1.6b at full width, 2 layers (a 1024-token prefill, 4
-   decode steps) and dbrx-132b at full width, 1 layer (a 64-token prompt, 4
-   decode steps), float32 compute, card against host, logits within 1e-3;
+   decode steps) and dbrx-132b at full width, 1 layer (a 64-token prompt, 1
+   decode step), float32 compute, card against host, logits within 1e-3;
    K6 once per layer per prefill, K4 once and K5 three times per layer per
    prefill and K5 three times per decode step;
 18. main path, eighth slice, rwkv6-1.6b as published (24 layers, float32
@@ -167,7 +167,8 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    route, each named) and K4 at dbrx-132b's prefill by CUDA events, each
    beside its bound (bf16 peak; HBM for decode) and plain version, K5 also
    beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
-Phases 22 and 23 run after phase 20, before phase 21.
+Phases 22 and 23 run after phase 20, then phases 27-31 (31's first runs
+before 27, its resumed processes beside 27-29, 30 last), then phase 21.
 
 22. paligemma-3b — K4 against ``flash_attention_plain`` at the image
    prefill's shape (B = 2, 8 q heads / 1 kv head of 256, causal, S = 256 +
@@ -195,6 +196,39 @@ Phases 22 and 23 run after phase 20, before phase 21.
    in float32 compute each row's tokens equal its solo generation's (a
    top-2 gap under 1e-3 reported as a tie); K4's time at the encoder's
    shape beside its bound, plain version and SDPA with no mask;
+27. kernel against plain — K4's backward (``flash_attention_bwd``: dq,
+   dk, dv) against the autograd of ``flash_attention_plain`` at phase 12's
+   shapes and at qwen3-1.7b's training shape (B 8, S 256, 16 / 8 heads of
+   128, causal), float32 within 1e-4 and bfloat16 within a relative norm
+   of 5e-3 for each of dq, dk and dv (max abs error a reading); each case
+   run twice, the two bit-identical; a K5 and a K6 call on CUDA tensors
+   that require grad must raise (no backward kernel yet);
+28. in situ — qwen3-1.7b at full width, 2 layers, float32 compute, batch
+   1 x 256: the loss and every param leaf's gradient on the card (K4 and
+   its backward) against the host (plain versions), each within 1e-3 in
+   relative norm; K4 twice a layer (remat) and its backward once;
+29. main path, twelfth slice — the train CLI (``repro_torch.launch.
+   train.main``) on qwen3-1.7b at full width and depth (28 layers, 1.72 B
+   float32 params, bfloat16 compute, remat; params, grads and AdamW m / v
+   27.5 GB) for 20 steps of batch 8 x 256, in a child process
+   (``--train-full``): losses finite and falling, K4 56 and its backward 28
+   times a step, the plain versions never; step time p50 / p99 after the
+   first, tokens/s, peak memory; then the device busy share of one warm
+   step under ``torch.profiler``;
+30. times — K4's backward at qwen3-1.7b's training shape and at S = 2048
+   (B 1) by CUDA events, beside its bound (five S x S x D products per head
+   over the visible pairs at the bf16 peak, against q, k, v, out and dout
+   read once and dq, dk, dv written once), its plain version
+   (``flash_attention_plain``'s autograd) and the backward of
+   ``scaled_dot_product_attention`` (``is_causal``, kv heads repeated);
+31. the reduced train CLI on the card for qwen3-1.7b and gemma2-2b
+   (softcap, window; head dim 16): 3 steps into a checkpoint through
+   ``train.main`` in this process, then ``python -m
+   repro_torch.launch.train`` in a process of its own resuming from it to
+   step 6, against 6 uninterrupted steps through ``train.main``; every run
+   launches K4 twice a layer a step and its backward once, and the resumed
+   losses equal the uninterrupted run's within 1e-4 (bit equality a
+   reading);
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -207,9 +241,10 @@ Phases 22 and 23 run after phase 20, before phase 21.
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
-   script's time and the kernels line (K1 to K6, each with the launches of
-   its main-path phases — K2's of 7 and 24, K4's of 14, 19, 22, 23 and 26,
-   K5's of 10 and 19, K6's of 14, 18 and 26; K1's
+   script's time and the kernels line (K1 to K6 and K4's backward, each
+   with the launches of its main-path phases — K2's of 7 and 24, K4's of
+   14, 19, 22, 23, 26 and 29, K4's backward's of 29, K5's of 10 and 19,
+   K6's of 14, 18 and 26; K4's backward's times at phase 30's shapes; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
    0 in float32, K5's at the prefill gate shape, K4's and K6's at the
    2048-token hymba prefill, nested beside them K4's at dbrx-132b's
@@ -332,7 +367,9 @@ DBRX_TRACE = dict(HYMBA_TRACE, seed=95)
 DBRX_SERVE = dict(max_batch=4, max_seq=4096)
 DBRX_GENERATE = dict(batch=2, prompt=1024, gen=16)
 DBRX_HOST = dict(prompt=256, steps=6)
-DBRX_SITU = dict(n_layers=1, prompt=64, decode=4)
+# in situ at 1 layer and one decode step: each host pass reads the layer's
+# 16 experts in float32, the slowest part of the in-situ checks
+DBRX_SITU = dict(n_layers=1, prompt=64, decode=1)
 # paligemma-3b (src/repro_torch/configs/paligemma_3b.py, arXiv:2407.07726) as
 # published: 18 layers, d_model 2048, 8 q heads / 1 kv head of 256, d_ff
 # 16384, vocab 257216, tied; 256 image tokens of 1152 (the SigLIP front end
@@ -379,6 +416,42 @@ STORE_DIR_CORRUPT = ROOT / "build" / "kernel_store_corrupt"
 SERVE_STORE_DIR = ROOT / "build" / "serve_kernel_store"
 SERVE_STORE_ARGS = ["--requests", "8", "--max-batch", "3", "--max-seq", "32",
                     "--expect-completions", "8"]
+
+# qwen3-1.7b (src/repro_torch/configs/qwen3_1p7b.py, Qwen/Qwen3-1.7B) as
+# published: 28 layers, d_model 2048, 16 q / 8 kv heads of 128, d_ff 6144,
+# vocab 151936, tied, 1.72 B float32 params, bfloat16 compute, remat on.
+# The training path: the train CLI at full width and depth, 20 steps of
+# batch 8 x 256 (the reference CLI's batch and sequence); in situ, 2 layers
+# in float32 compute at batch 1 x 256
+QWEN3 = "qwen3-1.7b"
+TRAIN_FULL = dict(steps=20, batch=8, seq=256)
+TRAIN_SITU = dict(n_layers=2, batch=1, seq=256)
+# K4's backward against its plain version (phase 27): phase 12's shapes and
+# qwen3-1.7b's training shape, label -> (B, H, Hkv, D, S, masks)
+K4_BWD_CASES = {
+    "qwen3-1.7b training": (TRAIN_FULL["batch"], 16, 8, 128, TRAIN_FULL[
+        "seq"], {}),
+    "hymba S=2048": (1, 25, 5, 64, 2048, dict(window=1024)),
+    "hymba S=100 (ragged)": (1, 25, 5, 64, 100, dict(window=1024)),
+    "qwen3-1.7b causal S=2048": (1, 16, 8, 128, 2048, {}),
+    "softcap 50, window 256, S=1000": (1, 8, 4, 128, 1000, dict(
+        window=256, softcap=50.0)),
+    "gemma2-2b S=2048": (1, 8, 4, 256, 2048, dict(window=4096,
+                                                  softcap=50.0)),
+    "reduced config S=300": (1, 4, 2, 16, 300, dict(window=32)),
+    "D=32, window 16, S=300": (1, 4, 2, 32, 300, dict(window=16))}
+# K4's backward timed (phase 30) at qwen3-1.7b's heads: (label, B, S)
+K4_BWD_TIMED = (("qwen3-1.7b training", TRAIN_FULL["batch"],
+                 TRAIN_FULL["seq"]), ("qwen3-1.7b S=2048", 1, 2048))
+# the reduced train CLI on the card with a checkpoint resume (phase 31):
+# qwen3-1.7b and gemma2-2b (softcap, window; head dim 256 reduced to 16)
+TRAIN_CLI_ARCHS = ("qwen3-1.7b", "gemma2-2b")
+TRAIN_CLI_ARGS = ["--reduced", "--batch", "4", "--seq", "64"]
+# in situ: each gradient leaf of the card (K4 and its backward, cuBLAS)
+# against the host's (plain versions), ||card - host|| / ||host||
+TRAIN_GRAD_TOL = 1e-3
+# the reduced CLI's resumed losses against the uninterrupted run's
+TRAIN_RESUME_RTOL = 1e-4
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -482,12 +555,15 @@ TIMED_LAUNCHES = 30
 # the device kernels of K1-K6 (csrc/*.cu), for the profiles' per-kernel sums
 PORT_KERNEL_NAMES = {
     "K1": ("bsr_spgemm_",), "K2": ("spmm_tile_kernel", "spmm_gemv_kernel"),
-    "K3": ("block_attn_",), "K4": ("flash_attn_",), "K5": ("moe_gemm_",),
+    "K3": ("block_attn_",), "K4": ("flash_attn_",),
+    "K4 backward": ("attn_bwd_",), "K5": ("moe_gemm_",),
     "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel")}
 
 
 def emit(**row) -> None:
-    print(json.dumps(row), flush=True)
+    """One JSON row, with ``t``: this process's seconds since it started."""
+    print(json.dumps({**row, "t": round(time.perf_counter() - T_START, 2)}),
+          flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -3081,6 +3157,359 @@ def profile_lm(arch: str) -> None:
         device_share(case, fn)
 
 
+def compare_grads(name: str, got, want, dtype) -> float:
+    """K4's backward against its plain version, each of dq, dk and dv:
+    float32 within ``K4_TOL`` (rtol = atol); bfloat16 within
+    ``K4_BF16_REL_NORM`` on ||got - want|| / ||want||, its max abs error a
+    reading.  Returns the worst max abs error."""
+    import torch
+    worst = 0.0
+    for label, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        diff = (g - w).abs()
+        max_abs = diff.max().item()
+        rel_norm = (diff.norm() / w.norm().clamp_min(1e-30)).item()
+        ok = bool(torch.allclose(g, w, rtol=K4_TOL, atol=K4_TOL)) \
+            if dtype == torch.float32 else rel_norm <= K4_BF16_REL_NORM
+        emit(phase="kernel_vs_plain", kernel="K4 backward",
+             case=f"{name}, {label}", shape=list(g.shape),
+             max_abs_err=max_abs, rel_norm=rel_norm,
+             tol=K4_TOL if dtype == torch.float32 else None,
+             rel_norm_tol=None if dtype == torch.float32
+             else K4_BF16_REL_NORM, ok=ok)
+        check(ok, f"K4's backward disagrees with its plain version ({name}, "
+              f"{label})")
+        worst = max(worst, max_abs)
+    return worst
+
+
+def k4_backward_against_plain(dev) -> float:
+    """Phase 27: K4's backward (``flash_attention_bwd``) against the
+    autograd of ``flash_attention_plain`` at phase 12's shapes and at
+    qwen3-1.7b's training shape (B 8, S 256), each run twice and the two
+    bit-identical (no atomics); then a K5 and a K6 call on CUDA tensors
+    that require grad, which must raise (no backward kernel yet).  Returns
+    the worst max abs error."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    from repro_torch.kernels.rwkv6_scan import rwkv6
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(90)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    worst = 0.0
+    for label, (b, h, hkv, d, s, kw) in K4_BWD_CASES.items():
+        for dtype in (bf16, f32):
+            q = randn(b, h, s, d, dtype=dtype)
+            k, v = (randn(b, hkv, s, d, dtype=dtype) for _ in range(2))
+            dout = randn(b, h, s, d, dtype=dtype)
+            with torch.no_grad():
+                out = flash_attention(q, k, v, **kw)
+            got = flash_attention_bwd(q, k, v, out, dout, **kw)
+            again = flash_attention_bwd(q, k, v, out, dout, **kw)
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            name = f"{label} {str(dtype)[6:]}: B={b}, H={h}, Hkv={hkv}, " \
+                f"D={d}, {kw}"
+            emit(phase="check", case=f"K4 backward {name}, two runs",
+                 bit_identical=same, ok=same)
+            check(same, f"K4's backward: two runs differ ({name})")
+            worst = max(worst, compare_grads(
+                name, got, flash_attention_bwd_plain(q, k, v, dout, **kw),
+                dtype))
+    x = torch.randn((2, 8, 64), device=dev, requires_grad=True)
+    r = torch.randn((1, 2, 64, 16), device=dev, requires_grad=True)
+    for kernel, call in (
+            ("K5", lambda: moe_gemm(x, torch.randn((2, 64, 64), device=dev),
+                                    np.arange(2, dtype=np.int32))),
+            ("K6", lambda: rwkv6(r, r, r, torch.rand_like(r),
+                                 torch.zeros((2, 16), device=dev)))):
+        try:
+            call()
+            raised = ""
+        except NotImplementedError as err:
+            raised = str(err)
+        emit(phase="check", case=f"{kernel} on CUDA tensors that require "
+             "grad", raised=raised, ok=bool(raised))
+        check(bool(raised), f"{kernel} gave a result where a gradient was "
+              "asked for")
+    return worst
+
+
+def grads_of(cfg, params, batch) -> tuple:
+    """(loss, {path: gradient}) of ``loss_fn`` by autograd."""
+    import torch
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _walk
+    leaves = list(_walk(params))
+    for _, p in leaves:
+        p.requires_grad_(True)
+    loss, _ = M.loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(loss, [p for _, p in leaves],
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), {path: g for (path, _), g in zip(leaves, grads)}
+
+
+def train_in_situ(dev) -> None:
+    """Phase 28: qwen3-1.7b at full width, depth cut to 2 layers, float32
+    compute: the loss and the gradient of every param leaf on the card (K4
+    and its backward) against the same params on the host (plain versions),
+    each leaf within ``TRAIN_GRAD_TOL`` in relative norm; under remat K4's
+    forward runs twice a layer and its backward once."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import model as M
+    st = TRAIN_SITU
+    cfg = dataclasses.replace(get_config(QWEN3), n_layers=st["n_layers"],
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 80, device=dev)
+    host = to_host(params)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=st["seq"],
+                                   global_batch=st["batch"],
+                                   seed=81)).get_batch(0)
+    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    loss_d, g_d = grads_of(cfg, params, {k: torch.from_numpy(v).to(dev)
+                                         for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    launches = (FA.flash_attention.launches, FA.flash_attention_bwd.launches)
+    t0 = time.perf_counter()
+    loss_h, g_h = grads_of(cfg, host, {k: torch.from_numpy(v)
+                                       for k, v in batch.items()})
+    host_s = time.perf_counter() - t0
+    rel = {"/".join(path): ((g_d[path].cpu() - g).norm()
+                            / g.norm().clamp_min(1e-30)).item()
+           for path, g in g_h.items()}
+    worst = max(rel, key=rel.get)
+    n = cfg.n_layers
+    ok = bool(torch.isfinite(loss_d)) and abs(
+        loss_d.item() - loss_h.item()) <= LM_TOL * abs(loss_h.item()) \
+        and rel[worst] <= TRAIN_GRAD_TOL and launches == (2 * n, n)
+    emit(phase="check", case=f"{QWEN3} {n} layers f32 loss and gradients, "
+         f"card vs host, B={st['batch']} x {st['seq']}",
+         loss_card=loss_d.item(), loss_host=loss_h.item(),
+         leaves=len(rel), worst_leaf=worst, worst_rel_norm=rel[worst],
+         tol=TRAIN_GRAD_TOL, k4_launches=launches[0],
+         k4_backward_launches=launches[1], card_s=card_s, host_s=host_s,
+         ok=ok)
+    check(ok, f"{QWEN3} in situ: card and host gradients differ ({worst}: "
+          f"{rel[worst]}), or K4 launched {launches}")
+
+
+def train_full() -> int:
+    """Phase 29, in a child process of its own (``--train-full``): the
+    train CLI (``repro_torch.launch.train.main``, what ``python -m
+    repro_torch.launch.train`` runs) on qwen3-1.7b at full width and depth,
+    ``TRAIN_FULL``, every count zeroed just before and read just after; its
+    losses finite and falling, K4's forward 2 x 28 and its backward 28
+    times a step, the plain versions never.  Then the device busy share of
+    one warm step on a fresh state of the same size."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _set, count_params
+    from repro_torch.optim import adamw
+    dev = torch.device("cuda")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    plain = {"forward": 0, "backward": 0}
+
+    def counted(fn, key):
+        def wrapper(*args, **kw):
+            plain[key] += 1
+            return fn(*args, **kw)
+        return wrapper
+    FA.flash_attention_plain = counted(FA.flash_attention_plain, "forward")
+    FA.flash_attention_bwd_plain = counted(FA.flash_attention_bwd_plain,
+                                           "backward")
+    cfg, t = get_config(QWEN3), TRAIN_FULL
+    argv = ["--arch", QWEN3, "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]),
+            "--log-every", "5", "--metrics-out",
+            str(ROOT / "build" / "train_full_metrics.json")]
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    hist = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    n_params = count_params(M.abstract_params(cfg))
+    losses = [h["loss"] for h in hist]
+    dts = np.array([h["dt"] for h in hist[1:]])
+    steps, n = len(hist), cfg.n_layers
+    ok = steps == t["steps"] and bool(np.all(np.isfinite(losses))) \
+        and losses[-1] < losses[0] and (fwd, bwd) == (2 * n * steps,
+                                                      n * steps) \
+        and plain == {"forward": 0, "backward": 0}
+    emit(phase="main_path", case=f"{QWEN3} train CLI, full width and depth",
+         argv=argv, steps=steps, n_layers=n, n_params=n_params,
+         training_state_bytes=4 * 4 * n_params, losses=losses,
+         first_step_s=hist[0]["dt"], step_s_p50=float(np.median(dts)),
+         step_s_p99=float(np.percentile(dts, 99)),
+         tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts)),
+         max_memory_allocated_bytes=peak, k4_launches=fwd,
+         k4_backward_launches=bwd, k4_per_step=fwd / steps,
+         k4_backward_per_step=bwd / steps, plain_calls=plain,
+         cli_s=wall, ok=ok, card=card)
+    check(ok, f"{QWEN3} training: losses {losses[0]} -> {losses[-1]}, "
+          f"K4 {fwd} / backward {bwd} launches, plain {plain}")
+    # the busy share of one warm step on a fresh state of the same size
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
+    params = M.init_params(cfg, 1, device=dev)
+    opt = adamw.init(opt_cfg, params)
+    step = make_train_step(cfg, opt_cfg)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=t["seq"],
+                   global_batch=t["batch"], seed=2)).get_batch(0).items()}
+    for _ in range(2):
+        timed(lambda: step(params, opt, batch))
+    device_share(f"{QWEN3} train step, B={t['batch']} x {t['seq']}, warm",
+                 lambda: step(params, opt, batch))
+    # the step's split: the loss and its gradients, then the AdamW update
+    grads, fb_s = timed(lambda: grads_of(cfg, params, batch)[1])
+    tree = {}
+    for path, g in grads.items():
+        _set(tree, path, g)
+    _, opt_s = timed(lambda: adamw.update(opt_cfg, tree, opt, params))
+    emit(phase="times", case=f"{QWEN3} train step split, B={t['batch']} x "
+         f"{t['seq']}, warm", loss_and_grads_s=fb_s, adamw_update_s=opt_s,
+         card=card)
+    return 0
+
+
+def train_cli_args(arch: str, steps: int, label: str, ckpt: bool) -> list:
+    """The reduced train CLI's arguments: ``steps`` steps, metrics to
+    ``<label>.json``, with ``ckpt`` a checkpoint directory (written by the
+    first run, resumed from by the second)."""
+    root = ROOT / "build" / f"train_cli_{arch}"
+    return ["--arch", arch, *TRAIN_CLI_ARGS, "--steps", str(steps),
+            *(["--ckpt-dir", str(root / "ckpt")] if ckpt else []),
+            "--metrics-out", str(root / f"{label}.json")]
+
+
+def train_cli_in_process(arch: str, steps: int, label: str, ckpt: bool
+                         ) -> dict:
+    """The train CLI's entry point (``train.main``) in this process, every
+    count zeroed just before and read just after."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train
+    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    hist = train.main(train_cli_args(arch, steps, label, ckpt))
+    return dict(seconds=time.perf_counter() - t0,
+                steps=[h["step"] for h in hist],
+                losses=[h["loss"] for h in hist],
+                launches=[FA.flash_attention.launches,
+                          FA.flash_attention_bwd.launches])
+
+
+def train_cli_phase(first: dict, resumed: dict, card: str) -> None:
+    """Phase 31: the reduced train CLI on the card with a checkpoint
+    resume: ``first`` holds each arch's first run (3 steps into a
+    checkpoint, through ``train.main`` here), ``resumed`` its second, a
+    process of its own (``python -m repro_torch.launch.train``) that
+    resumes from the checkpoint to step 6.  Then 6
+    uninterrupted steps through ``train.main`` here.  Each run launches K4
+    twice a layer a step (remat) and its backward once; the resumed losses
+    must equal the uninterrupted run's within ``TRAIN_RESUME_RTOL``."""
+    import re
+    from repro_torch.configs import get_config, reduced_config
+    for arch in TRAIN_CLI_ARCHS:
+        n = reduced_config(get_config(arch)).n_layers
+        out, wall = finish_child(resumed[arch], f"train CLI {arch} (resumed)")
+        found = re.search(r"kernel launches: flash_attention=(\d+) "
+                          r"flash_attention_bwd=(\d+)", out)
+        with open(train_cli_args(arch, 6, "resumed", True)[-1]) as f:
+            hist = json.load(f)
+        runs = {"first": first[arch],
+                "resumed": dict(process_s=wall,
+                                steps=[h["step"] for h in hist],
+                                losses=[h["loss"] for h in hist],
+                                launches=[int(x) for x in found.groups()]
+                                if found else None),
+                "whole": train_cli_in_process(arch, 6, "whole", False)}
+        got = runs["first"]["losses"] + runs["resumed"]["losses"]
+        want = runs["whole"]["losses"]
+        ok = all(r["launches"] == [2 * n * len(r["steps"]), n * len(r["steps"])]
+                 for r in runs.values()) \
+            and runs["resumed"]["steps"] == [3, 4, 5] and len(want) == 6 \
+            and bool(np.allclose(got, want, rtol=TRAIN_RESUME_RTOL, atol=0)) \
+            and want[-1] < want[0]
+        emit(phase="train_cli", arch=arch, args=TRAIN_CLI_ARGS, runs=runs,
+             resumed_bit_equal=got == want, rtol=TRAIN_RESUME_RTOL, ok=ok,
+             card=card)
+        check(ok, f"train CLI {arch}: {runs}")
+
+
+def k4_backward_times(dev, card: str) -> dict:
+    """Phase 30: K4's backward by CUDA events at qwen3-1.7b's training shape
+    (B 8, S 256) and at S = 2048 (B 1), bfloat16, causal, beside its bound
+    (five S x S x D products per head over the visible pairs, bf16 peak,
+    against q, k, v, out and dout read once and dq, dk, dv written once),
+    its plain version (``flash_attention_plain``'s autograd) and the
+    backward of ``scaled_dot_product_attention`` (``is_causal``, kv heads
+    repeated for GQA) on the same inputs.  Returns the training shape's row
+    for the kernels line."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        attention_mask, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(91)
+    rows = {}
+    h, hkv, d = 16, 8, 128                       # qwen3-1.7b's heads
+    for label, b, s in K4_BWD_TIMED:
+        q, dout = (torch.randn((b, h, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        with torch.no_grad():
+            out = flash_attention(q, k, v)
+        pairs = int(attention_mask(s, causal=True, window=0,
+                                   device=dev).sum())
+        flop = 5 * 2 * b * h * pairs * d
+        nbytes = (3 * q.numel() + 2 * k.numel()) * 2 \
+            + (q.numel() + 2 * k.numel()) * 2
+        bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS)
+        qs, ks, vs = (x.detach().requires_grad_(True) for x in (
+            q, k.repeat_interleave(h // hkv, 1),
+            v.repeat_interleave(h // hkv, 1)))
+        o = torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True)
+        row = dict(
+            ms=event_ms(lambda: flash_attention_bwd(q, k, v, out, dout)),
+            plain_ms=event_ms(lambda: flash_attention_bwd_plain(q, k, v,
+                                                                dout), 5),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=event_ms(lambda: torch.autograd.grad(
+                o, (qs, ks, vs), dout, retain_graph=True)))
+        emit(phase="times", kernel="K4 backward", case=f"{label} bf16, B={b}"
+             f", H={h}, Hkv={hkv}, D={d}, S={s}, causal", visible_pairs=pairs,
+             flop=flop, bytes=nbytes, tflops=flop / row["ms"] / 1e9,
+             library="autograd of scaled_dot_product_attention(is_causal)",
+             **row, card=card)
+        rows[label] = row
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3108,7 +3537,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = KERNEL_SOURCES
+    kernels = KERNEL_SOURCES + ("flash_attention_bwd",)
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -3310,6 +3739,32 @@ def main() -> int:
     torch.cuda.empty_cache()
     whisper = whisper_phases(dev, card)
     torch.cuda.empty_cache()
+
+    # -- 27.-31. training: K4's backward, qwen3-1.7b on the card -----------
+    # phase 31's first runs write a checkpoint here; the processes resuming
+    # from it run beside phases 27 and 28 and the start of phase 29's child
+    # (phase 30's timings wait until after that child)
+    for arch in TRAIN_CLI_ARCHS:
+        shutil.rmtree(ROOT / "build" / f"train_cli_{arch}",
+                      ignore_errors=True)
+    train_first = {arch: train_cli_in_process(arch, 3, "first", True)
+                   for arch in TRAIN_CLI_ARCHS}
+    train_resumed = {arch: start_child(["-m", "repro_torch.launch.train",
+                                        *train_cli_args(arch, 6, "resumed",
+                                                        True)])
+                     for arch in TRAIN_CLI_ARCHS}
+    k4_bwd_err = k4_backward_against_plain(dev)
+    torch.cuda.empty_cache()
+    train_in_situ(dev)
+    torch.cuda.empty_cache()
+    out, _ = finish_child(start_child([str(Path(__file__).resolve()),
+                                       "--train-full"]),
+                          "train CLI at full width", timeout=900)
+    sys.stdout.write(out)
+    full = child_rows(out, "main_path")[-1]
+    train_cli_phase(train_first, train_resumed, card)
+    k4_bwd_times = k4_backward_times(dev, card)
+    torch.cuda.empty_cache()
     # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
     # runs beside phase 21's CLIs
     cold_cli = start_child(serve_store_args())
@@ -3328,7 +3783,8 @@ def main() -> int:
                   sharded_one_shard=shard["k2_shard_ms"])
     k4_by_path = {HYMBA: k4_launches, DBRX_LM: dbrx["launches"]["K4"],
                   PALIGEMMA: pali["launches"], WHISPER: whisper["launches"],
-                  "hymba-1.5b with prewarm": prewarm["K4"]}
+                  "hymba-1.5b with prewarm": prewarm["K4"],
+                  f"{QWEN3} training": full["k4_launches"]}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3340,6 +3796,17 @@ def main() -> int:
         "dbrx_132b_prefill": dbrx["k4_times"],
         "paligemma_3b_image_prefill": pali["k4_times"],
         "whisper_small_encoder": whisper["k4_times"]}
+    k4_bwd_row = {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:67",
+        "replaces_what": "the XLA autodiff of flash_attention_jnp (the "
+                         "reference has no backward Pallas kernel)",
+        "launches": full["k4_backward_launches"],
+        "launches_by_path": {f"{QWEN3} training": full[
+            "k4_backward_launches"]},
+        "max_abs_err": k4_bwd_err, **k4_bwd_times[f"{QWEN3} training"],
+        "qwen3_1p7b_s2048": k4_bwd_times[f"{QWEN3} S=2048"]}
     k6_row = {
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -3367,8 +3834,8 @@ def main() -> int:
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
     emit(phase="script", seconds=time.perf_counter() - T_START, card=card)
-    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row, k5_row,
-                                  k6_row]}), flush=True)
+    print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row,
+                                  k4_bwd_row, k5_row, k6_row]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3381,6 +3848,8 @@ if __name__ == "__main__":
         sys.exit(profile_second_slice())
     if sys.argv[1:2] == ["--profile-lm"] and len(sys.argv) == 3:
         sys.exit(profile_lm(sys.argv[2]))
+    if sys.argv[1:] == ["--train-full"]:
+        sys.exit(train_full())
     if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):
         sys.exit(store_child(sys.argv[2], sys.argv[3:] != ["--no-checks"]))
     try:

@@ -14,6 +14,8 @@ build that is admitted to the store.  The store's bytes are digest-checked
 before they reach ``dlopen``.
 
 A failed build raises; nothing falls back to a kernel's plain version.
+``refuse_grad`` is the one guard of the kernels that have no backward kernel
+yet: a CUDA call that would have to give a gradient raises.
 Nothing here runs at import: this module is imported on machines without
 ``nvcc``.
 """
@@ -28,6 +30,8 @@ import tempfile
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
@@ -189,3 +193,17 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
     if err:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()}")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise ``NotImplementedError`` if a CUDA call of ``kernel``, which has
+    no backward kernel yet, is asked for a gradient: grad mode is on and an
+    input requires grad.  Without this the call would return a result with
+    no gradient and nothing would say so.  (On the CPU the plain versions
+    differentiate; they do not call this.)"""
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel: it cannot give a gradient on "
+            "the card (call it under torch.no_grad(), or on CPU tensors, "
+            "whose plain version differentiates)")

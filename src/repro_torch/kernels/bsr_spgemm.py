@@ -157,7 +157,8 @@ def bsr_spgemm_schedule(schedule, a_blocks: torch.Tensor,
 
     ``a_blocks`` (na, bs, bs) and ``b_blocks`` (nb, bs, bs) are float32 on
     one device; returns the (n_out_blocks, bs, bs) float32 output there.
-    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    CPU tensors run the plain version; CUDA tensors launch the kernel or
+    raise (also when a gradient is asked for: K1 has no backward kernel).
     """
     sched = prepare_schedule(schedule)
     if sched.a_max >= a_blocks.shape[0] or sched.b_max >= b_blocks.shape[0] \
@@ -171,6 +172,7 @@ def bsr_spgemm_schedule(schedule, a_blocks: torch.Tensor,
                                 ids[2 * n:3 * n], n_out_blocks=n_out_blocks)
     if a_blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {a_blocks.device}")
+    _build.refuse_grad("K1 (bsr_spgemm)", a_blocks, b_blocks)
     if bs not in SUPPORTED_BS:
         raise ValueError(f"K1 supports bs in {SUPPORTED_BS}, got {bs}")
     # the kernel writes each group's tile; only the others need zeros

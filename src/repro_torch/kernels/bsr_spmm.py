@@ -240,7 +240,8 @@ def bsr_spmm(x: torch.Tensor, w_blocks: torch.Tensor, schedule, *,
     ``x`` (T, d_in) with ``d_in`` a multiple of the block; ``w_blocks``
     (n_tiles, bs, bs).  Returns (T, n_j_blocks·bs) in x's dtype on x's
     device.  CPU tensors run the plain version; CUDA tensors launch K2
-    (float32, bs in ``SUPPORTED_BS``) or raise.  ``regime_t`` (default T)
+    (float32, bs in ``SUPPORTED_BS``) or raise (also when a gradient is
+    asked for: K2 has no backward kernel).  ``regime_t`` (default T)
     is the token count K2 picks its variant from: a shard of a larger call
     passes the call's T.
     """
@@ -257,6 +258,7 @@ def bsr_spmm(x: torch.Tensor, w_blocks: torch.Tensor, schedule, *,
                               ids[2 * n:3 * n], n_j_blocks=n_j_blocks)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
+    _build.refuse_grad("K2 (bsr_spmm)", x, w_blocks)
     if bs not in SUPPORTED_BS:
         raise ValueError(f"K2 supports bs in {SUPPORTED_BS}, got {bs}")
     out = torch.empty((x.shape[0], n_j_blocks * bs), dtype=torch.float32,

@@ -53,10 +53,24 @@ take ragged S (kv ≥ S masked, q rows ≥ S never stored) and head dims
 q, k, v read once and the output written once; at hymba-1.5b's prefill
 (bfloat16, D = 64, window 1024) it is bound by operations.
 
+K4's backward (``flash_attention_bwd``): ``flash_attention`` on CUDA
+tensors under grad mode goes through a ``torch.autograd.Function`` whose
+forward launches K4 as above and whose backward launches the kernels of
+``csrc/flash_attention_bwd.cu``: a dq pass that rebuilds each row's
+logsumexp and ``D = rowsum(dout ∘ out)``, then a dk/dv pass per kv head
+over its q heads, float32 sums, no atomics (two runs are bit-identical).
+It replaces the XLA autodiff of the reference's ``flash_attention_jnp``,
+which the reference's models train through (the reference has no backward
+Pallas kernel).  Bound: five S × S × D products per head, half of them
+under a causal mask.  Its plain version is ``flash_attention_plain``'s
+autograd (``flash_attention_bwd_plain``).  K3 has no backward kernel: a
+CUDA call that would need a gradient raises (``_build.refuse_grad``).
+
 Both wrappers dispatch on the tensors' device: CPU tensors run the plain
 version (``block_sparse_attention_plain``, ``flash_attention_plain``);
-CUDA tensors launch the kernel or raise.  ``block_sparse_attention.launches``
-and ``flash_attention.launches`` count kernel launches,
+CUDA tensors launch the kernel or raise.  ``block_sparse_attention.launches``,
+``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+kernel launches,
 ``block_sparse_attention.uploads`` K3's schedule uploads.  Both are built by
 ``_build`` and bound with ctypes.
 """
@@ -269,6 +283,7 @@ def _run(q, k, v, sched, nq, nk_cap, *, softcap, scale, seq):
             sched[nq * nk_cap:], softcap=softcap, scale=scale, seq=seq)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    _build.refuse_grad("K3 (block_sparse_attention)", q, k, v)
     out = torch.empty_like(q)
     if q.numel():
         _launch(q, k, v, sched, nq, nk_cap, out, softcap=softcap,
@@ -395,8 +410,11 @@ def _k4_lib() -> ctypes.CDLL:
                        [p, p, p, p, i, i, i, i, i, i, i, f, f, i, p, i])
 
 
-def _k4_launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
-    b, h, s, d = q.shape
+def _check_k4(q, k, v, out) -> None:
+    """What K4's kernels take: head dims ``K4_HEAD_DIMS``, q, k, v all
+    float32 or all bfloat16, contiguous, 16-byte aligned, on ``out``'s
+    device."""
+    d = q.shape[3]
     if d not in K4_HEAD_DIMS:
         raise ValueError(f"K4 supports head dims {K4_HEAD_DIMS}, got {d}")
     if q.dtype not in _DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -407,6 +425,19 @@ def _k4_launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
                 or t.device != out.device:
             raise ValueError("K4 operands must be contiguous, 16-byte "
                              "aligned tensors on one device")
+
+
+def _k4(q, k, v, **kw) -> torch.Tensor:
+    """K4's output on the card (a launch unless q is empty)."""
+    out = torch.empty_like(q)
+    if q.numel():
+        _k4_launch(q, k, v, out, **kw)
+    return out
+
+
+def _k4_launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
+    b, h, s, d = q.shape
+    _check_k4(q, k, v, out)
     lib = _k4_lib()
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, h,
@@ -414,6 +445,105 @@ def _k4_launch(q, k, v, out, *, causal, window, softcap, scale) -> None:
         float(softcap), _DTYPE_CODE[q.dtype], *launch_target(out.device))
     _build.check_launch(lib, err, "flash_attention")
     flash_attention.launches += 1
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = True, window: int = 0,
+                              softcap: float = 0.0,
+                              scale: Optional[float] = None):
+    """Plain version of K4's backward: ``(dq, dk, dv)`` by autograd through
+    ``flash_attention_plain`` (float32 sums, each result in its input's
+    dtype).  The CPU path differentiates the plain version itself; this
+    is what ``chip_smoke.py`` and the card tests hold the kernel to."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = flash_attention_plain(*leaves, causal=causal, window=window,
+                                    softcap=softcap, scale=scale)
+        return torch.autograd.grad(out, leaves, dout)
+
+
+def _k4_bwd_lib() -> ctypes.CDLL:
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    return _build.bind("flash_attention_bwd", "flash_attention_bwd",
+                       [p] * 10 + [i] * 7 + [f, f, i, p, i])
+
+
+def _k4_bwd_launch(q, k, v, out, dout, *, causal, window, softcap, scale):
+    """K4's backward on the card: ``(dq, dk, dv)`` in the inputs' dtype.
+    Scratch: each row's logsumexp and ``rowsum(dout * out)`` in float32,
+    which the kernel rebuilds (the forward saves neither)."""
+    b, h, s, d = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if not q.numel():
+        return dq, dk, dv
+    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    lib = _k4_bwd_lib()
+    err = lib.flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), b, h, k.shape[1], s, d,
+        int(causal), int(window), float(scale), float(softcap),
+        _DTYPE_CODE[q.dtype], *launch_target(q.device))
+    _build.check_launch(lib, err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softcap: float = 0.0,
+                        scale: Optional[float] = None):
+    """K4's backward: ``(dq, dk, dv)`` of ``flash_attention(q, k, v)`` whose
+    output ``out`` met the gradient ``dout``; each in its input's dtype.
+    CPU tensors run ``flash_attention_bwd_plain`` (which needs no
+    ``out``); CUDA tensors launch the kernel of
+    ``csrc/flash_attention_bwd.cu`` or raise.  ``flash_attention``'s
+    autograd calls it; ``flash_attention_bwd.launches`` counts the
+    launches (one a call: the dq pass, then the dk/dv pass)."""
+    b, h, s, d = q.shape
+    scale = float(d ** -0.5) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal=causal,
+                                         window=window, softcap=softcap,
+                                         scale=scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_k4(q, k, v, out)
+    dout = dout.contiguous()
+    if dout.shape != q.shape or dout.dtype != q.dtype \
+            or out.shape != q.shape or out.dtype != q.dtype \
+            or not out.is_contiguous() \
+            or any(t.data_ptr() % 16 for t in (out, dout)):
+        raise ValueError("K4's backward takes out and dout of q's shape and "
+                         "dtype, contiguous and 16-byte aligned")
+    return _k4_bwd_launch(q, k, v, out, dout, causal=causal, window=window,
+                          softcap=softcap, scale=scale)
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 with its backward kernel: the forward launches K4 as it is (its
+    outputs bit-identical to a call without grad), the backward launches
+    ``flash_attention_bwd``'s kernel.  CUDA tensors only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        ctx.args = dict(causal=causal, window=window, softcap=softcap,
+                        scale=scale)
+        out = _k4(q, k, v, **ctx.args)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, dout, **ctx.args)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -428,7 +558,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     before the masks.  Returns q's shape and dtype on q's device.  Any S is
     taken (the reference's kernel asserts ``S % bq == 0``; its tile
     arguments ``bq`` / ``bk`` are not offered, as K4 picks its own tiles).
-    CPU tensors run the plain version; CUDA tensors launch K4 or raise.
+    CPU tensors run the plain version (autograd differentiates it); CUDA
+    tensors launch K4 or raise, and under grad mode with q, k or v
+    requiring grad go through ``_FlashAttention``, whose backward is K4's
+    backward kernel.
     """
     b, h, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
@@ -441,11 +574,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    out = torch.empty_like(q)
-    if q.numel():
-        _k4_launch(q, k, v, out, causal=causal, window=window,
-                   softcap=softcap, scale=scale)
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+    return _k4(q, k, v, causal=causal, window=window, softcap=softcap,
+               scale=scale)
 
 
 flash_attention.launches = 0

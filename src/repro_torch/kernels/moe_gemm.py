@@ -239,7 +239,8 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
     on x's device.  ``bk`` / ``bf`` are the reference's tile arguments:
     they must divide d_in / d_out (after clipping to them) as there, and
     K5 does not tile by them.  CPU tensors run the plain version; CUDA
-    tensors launch K5 or raise.
+    tensors launch K5 or raise (also when a gradient is asked for: K5 has
+    no backward kernel yet).
     """
     nb, cap, d_in = x_bundles.shape
     n_experts, w_in, d_out = w.shape
@@ -260,6 +261,7 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
         return moe_gemm_plain(x_bundles, w, torch.from_numpy(be))
     if x_bundles.device.type != "cuda":
         raise ValueError(f"unsupported device {x_bundles.device}")
+    _build.refuse_grad("K5 (moe_gemm)", x_bundles, w)
     out = torch.empty((nb, cap, d_out), dtype=x_bundles.dtype,
                       device=x_bundles.device)
     if out.numel():

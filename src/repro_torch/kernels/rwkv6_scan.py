@@ -144,7 +144,8 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
 
     Returns ``(o (B, H, T, V), final state (B, H, K, V))``, float32, on
     r's device.  CPU tensors run the plain version; CUDA tensors launch K6
-    or raise.
+    or raise (also when a gradient is asked for: K6 has no backward kernel
+    yet).
     """
     b, h, t, kk = r.shape
     if k.shape != r.shape or w.shape != r.shape or v.shape[:3] != r.shape[:3] \
@@ -157,6 +158,7 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         return rwkv6_plain(r, k, v, w, u, chunk=chunk)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
+    _build.refuse_grad("K6 (rwkv6)", r, k, v, w, u)
     vv = v.shape[-1]
     o = torch.empty((b, h, t, vv), dtype=torch.float32, device=r.device)
     state = torch.empty((b, h, kk, vv), dtype=torch.float32, device=r.device)

@@ -1,11 +1,11 @@
 """Shared model layers: norms, rotary embeddings, dense projections, embed.
 
-Port of ``repro.models.layers`` (the inference half).  Params are plain
-dicts of tensors produced by the Meta system (``params``).  Compute dtype
-policy as in the reference: inputs are cast to ``cfg.compute_dtype`` at
-block boundaries; norms and softmax statistics accumulate in fp32.
-``layer_norm``, ``gelu_mlp`` and ``cross_entropy_loss`` (whisper and
-training) are not ported yet.
+Port of ``repro.models.layers``.  Params are plain dicts of tensors
+produced by the Meta system (``params``).  Compute dtype policy as in the
+reference: inputs are cast to ``cfg.compute_dtype`` at block boundaries;
+norms, softmax statistics and the loss accumulate in fp32.  Every cast of a
+weight (``dense``, ``embed_lookup``, ``unembed``) is an op of the autograd
+graph, so training's gradients reach the float32 leaves.
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ import torch
 
 
 def grad_fence(x: torch.Tensor) -> torch.Tensor:
-    """The identity.  The reference's ``grad_fence`` casts the backward
-    cotangent to the primal dtype, which only training sees."""
+    """The identity.  The reference's ``grad_fence`` is an identity whose
+    backward casts the cotangent to the primal's dtype; torch's autograd
+    already hands every tensor a gradient of its own dtype (the backward
+    of each cast casts back), so nothing is left to do here."""
     return x
 
 
@@ -30,6 +32,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
     if plus_one:
         w = 1.0 + w
     return (y * w).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics (population variance)."""
+    x32 = x.float()
+    mu = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, correction=0)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(x.dtype)
 
 
 def rotary(x: torch.Tensor, positions: torch.Tensor, *,
@@ -92,3 +104,31 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     g = torch.nn.functional.silu(dense(x, w_gate))
     u = dense(x, w_up)
     return dense(g * u, w_down)
+
+
+def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,
+             w_down: torch.Tensor, b_down: torch.Tensor) -> torch.Tensor:
+    """Whisper-style GELU MLP with biases (the tanh approximation, as
+    ``jax.nn.gelu``'s default)."""
+    h = torch.nn.functional.gelu(dense(x, w_up) + b_up.to(x.dtype),
+                                 approximate="tanh")
+    return dense(h, w_down) + b_down.to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32. logits: (B, S, V), labels: (B, S).
+
+    The float32 logsumexp minus the gold logit.  The reference extracts the
+    gold logit with a one-hot contraction so that vocab-sharded logits stay
+    sharded; on one device a gather reads the same value.  ``mask`` (B, S)
+    weights each token; the mean is then over ``max(mask.sum(), 1)``.
+    """
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

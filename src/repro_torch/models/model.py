@@ -2,17 +2,25 @@
 mixers and the ``swiglu``, ``moe`` and ``rwkv_cm`` FFNs, image prefixes
 (paligemma) and the encoder-decoder (whisper).
 
-Port of ``repro.models.model`` (the serving half).  Layers are stacked per
-*pattern period* (gemma2's local + global = period 2), with any remainder
-layers as explicit tail blocks, so the param and cache trees are the
-reference's.  An encoder-decoder's two stacks are uniform (one ``encoder``
-or ``decoder`` block a layer, no ``pos{i}`` level).  The reference scans
-each stack with ``lax.scan``; here a Python loop walks its leading
-dimension.  ``constrain`` (sharding hints) is dropped: there is one device.
+Port of ``repro.models.model``.  Layers are stacked per *pattern period*
+(gemma2's local + global = period 2), with any remainder layers as explicit
+tail blocks, so the param and cache trees are the reference's.  An
+encoder-decoder's two stacks are uniform (one ``encoder`` or ``decoder``
+block a layer, no ``pos{i}`` level).  The reference scans each stack with
+``lax.scan``; here a Python loop walks its leading dimension.  With
+``cfg.remat`` and grad mode on, each period runs under a non-reentrant
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
+``nothing_saveable``): its activations are recomputed in the backward.
+``constrain`` (sharding hints) is dropped: there is one device.
+
+Training differentiates ``loss_fn`` through the float32 params as they
+are (never ``compute_params``), so every cast to the compute dtype is an
+op of the graph and the gradients reach the float32 leaves.
 
 Entry points:
-  lm_metas / init_params / compute_params
+  lm_metas / init_params / abstract_params / compute_params
   forward(cfg, params, tokens, images=, frames=)  → (logits, aux_loss)
+  loss_fn(cfg, params, batch)                     → (loss, {ce, aux})
   init_cache / prefill / decode_step / encdec_prefill
   cache_write_slot / cache_evict_slot / cache_slot_occupancy /
   cache_slot_residue
@@ -23,12 +31,14 @@ from typing import Dict
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ..device import resolve_device
 from . import params as P
 from .blocks import (block_decode, block_forward, block_make_cache,
                      block_metas, block_prefill, cross_kv)
-from .layers import dense, embed_lookup, rms_norm, unembed
+from .layers import (cross_entropy_loss, dense, embed_lookup, rms_norm,
+                     unembed)
 from .params import Meta
 
 
@@ -80,6 +90,12 @@ def init_params(cfg, seed: int = 0, device="cuda") -> Dict:
     """Random parameters from ``seed`` on ``device`` (``"cuda"`` unless the
     caller asks for ``"cpu"``; raises without a card)."""
     return P.init_params(lm_metas(cfg), seed, cfg.pdtype, device)
+
+
+def abstract_params(cfg) -> Dict:
+    """The param tree's shapes and dtypes as tensors on the ``meta``
+    device (no storage)."""
+    return P.abstract_params(lm_metas(cfg), cfg.pdtype)
 
 
 # the weights every use of which casts them to the compute dtype first
@@ -159,24 +175,52 @@ def _n_stacked(stacked) -> int:
     return next(_named_leaves(stacked))[1].shape[0]
 
 
+def _unstack(stacked) -> list:
+    """A stacked tree as one tree per layer, each leaf a view of its layer.
+
+    ``torch.unbind`` takes every layer at once, so the backward stacks the
+    layers' gradients in one pass; indexing each layer on its own would
+    have each layer's backward write a zero-filled gradient of the whole
+    stack and add it in (the stack's bytes times the layer count)."""
+    n = _n_stacked(stacked)
+    out = [{} for _ in range(n)]
+    for k, v in stacked.items():
+        parts = _unstack(v) if isinstance(v, dict) else torch.unbind(v)
+        for layer, part in zip(out, parts):
+            layer[k] = part
+    return out
+
+
 def _forward_stack(cfg, stacked, x, positions, prefix: int = 0,
                    enc_out=None, pattern=None):
     """``block_forward`` over a stacked tree: per period (``pos{j}``
     subtrees cycling ``pattern``) or, for a uniform stack (an
     encoder-decoder's), ``pattern[0]`` at every layer.  Returns (x, aux)."""
     pattern = pattern or cfg.layer_pattern
-    aux = 0.0
-    for i in range(_n_stacked(stacked)):
-        layer_p = P.tree_slice(stacked, i)
-        if "pos0" in layer_p:
-            for j, lt in enumerate(pattern):
-                x, a = block_forward(cfg, lt, layer_p[f"pos{j}"], x,
-                                     positions, prefix, enc_out)
-                aux = aux + a
-        else:
-            x, a = block_forward(cfg, pattern[0], layer_p, x, positions,
+    layers = _unstack(stacked)
+
+    def period(i, x):
+        layer_p = layers[i]
+        if "pos0" not in layer_p:              # uniform stack (enc-dec)
+            return block_forward(cfg, pattern[0], layer_p, x, positions,
+                                 prefix, enc_out)
+        aux = 0.0
+        for j, lt in enumerate(pattern):
+            x, a = block_forward(cfg, lt, layer_p[f"pos{j}"], x, positions,
                                  prefix, enc_out)
             aux = aux + a
+        return x, aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = 0.0
+    for i in range(len(layers)):
+        if remat:
+            # the blocks draw no random numbers: no RNG state to replay
+            x, a = torch.utils.checkpoint.checkpoint(
+                period, i, x, use_reentrant=False, preserve_rng_state=False)
+        else:
+            x, a = period(i, x)
+        aux = aux + a
     return x, aux
 
 
@@ -231,6 +275,20 @@ def _encdec_forward(cfg, params, tokens, frames):
                              enc_out=enc_out, pattern=("decoder",))
     return _out_head(cfg, params, xd), torch.as_tensor(
         aux, dtype=torch.float32, device=xd.device)
+
+
+def loss_fn(cfg, params, batch):
+    """batch: tokens (B, S), labels (B, S) [, images | frames], tensors on
+    the params' device.  Returns ``(ce + router_aux_coef · aux, {"ce",
+    "aux"})``; an image-prefix model's logits over its prefix are
+    dropped before the loss."""
+    logits, aux = forward(cfg, params, batch["tokens"],
+                          images=batch.get("images"),
+                          frames=batch.get("frames"))
+    if cfg.n_image_tokens and "images" in batch:
+        logits = logits[:, batch["images"].shape[1]:]
+    loss = cross_entropy_loss(logits, batch["labels"])
+    return loss + cfg.router_aux_coef * aux, {"ce": loss, "aux": aux}
 
 
 # ---------------------------------------------------------------------------

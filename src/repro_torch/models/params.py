@@ -5,8 +5,9 @@ Port of ``repro.models.params``.  Each model declares a tree of ``Meta``
 tree of tensors, with one seeded ``torch.Generator`` per parameter path
 (the reference's per-path key derivation; the values differ from JAX's).
 ``params_from_numpy`` carries a reference param tree across, so both
-packages compute with the same weights.  The sharding half
-(``abstract_params``, ``param_pspecs``) waits for sharding.
+packages compute with the same weights; ``abstract_params`` gives the
+tree's shapes and dtypes without storage.  ``param_pspecs`` (sharding
+rules) waits for sharded training.
 """
 from __future__ import annotations
 
@@ -93,6 +94,18 @@ def init_params(metas: MetaTree, seed: int = 0,
                                        dtype=torch.float32, device=dev)
                    ).to(dtype)
         _set(out, path, val)
+    return out
+
+
+def abstract_params(metas: MetaTree, param_dtype=torch.float32) -> Dict:
+    """``metas`` as tensors on the ``meta`` device: the shapes and dtypes
+    of ``init_params``'s tree, with no storage (the reference's
+    ``ShapeDtypeStruct`` tree)."""
+    out: Dict = {}
+    for path, meta in _walk(metas):
+        _set(out, path, torch.empty(meta.shape,
+                                    dtype=meta.dtype or param_dtype,
+                                    device="meta"))
     return out
 
 

@@ -12,12 +12,17 @@ against ``repro``.
   (S > window + bq) and at head dims 256 and 16, and ``decode_attention``
   against the reference's;
 * every head dim of the configs (and of ``reduced_config``) is one K4
-  takes on the card.
+  takes on the card;
+* K4's backward as the CPU runs it (autograd through the plain version;
+  ``flash_attention_bwd`` on CPU tensors) against ``jax.vjp`` of
+  ``flash_attention_jnp``, and the one guard of the kernels without a
+  backward (``_build.refuse_grad``).
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import repro.kernels.flash_attention as RF
@@ -202,6 +207,52 @@ class TestModelAttention:
                                    RA.AttnSpec(**kw))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                    atol=1e-5)
+
+
+class TestBackward:
+    """K4's backward as the CPU runs it (autograd through the plain
+    version, which ``flash_attention_bwd`` calls on CPU tensors) against
+    ``jax.vjp`` of ``flash_attention_jnp``, the function the reference's
+    models differentiate: float32, within 1e-5 (the same sums in another
+    order)."""
+
+    @pytest.mark.parametrize("b,h,hkv,s,d,spec", [
+        (2, 4, 2, 96, 16, dict()),
+        (1, 8, 4, 128, 32, dict(window=32)),
+        (2, 4, 4, 64, 64, dict(causal=False)),
+        (1, 4, 1, 80, 16, dict(softcap=5.0, window=24)),
+        (1, 2, 2, 48, 256, dict(softcap=50.0))])
+    def test_grads_match_flash_attention_jnp(self, b, h, hkv, s, d, spec):
+        q, k, v = _qkv(b * s + d, b, h, hkv, s, d)
+        dout = np.random.default_rng(s).standard_normal(q.shape).astype(
+            np.float32)
+        _, vjp = jax.vjp(lambda *a: RA.flash_attention_jnp(
+            *a, RA.AttnSpec(**spec)), q, k, v)
+        want = vjp(jnp.asarray(dout))
+        leaves = [torch.from_numpy(x).requires_grad_(True) for x in (q, k, v)]
+        out = pops.flash_attention(*leaves, **spec)
+        got = torch.autograd.grad(out, leaves, torch.from_numpy(dout))
+        direct = PF.flash_attention_bwd(*(torch.from_numpy(x)
+                                          for x in (q, k, v)), out.detach(),
+                                        torch.from_numpy(dout), **spec)
+        for g, dg, w in zip(got, direct, want):
+            assert g.shape == w.shape and torch.equal(g, dg)
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
+                                       atol=1e-5)
+
+    def test_no_grad_needed_no_graph(self):
+        q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 2, 2, 32, 16))
+        assert not pops.flash_attention(q, k, v).requires_grad
+
+
+def test_refuse_grad_raises_only_when_a_gradient_is_asked_for():
+    from repro_torch.kernels import _build
+    x = torch.zeros(2, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K5 .* no backward"):
+        _build.refuse_grad("K5 (moe_gemm)", x, torch.zeros(2))
+    with torch.no_grad():
+        _build.refuse_grad("K5 (moe_gemm)", x)
+    _build.refuse_grad("K5 (moe_gemm)", torch.zeros(2), None)
 
 
 def test_k4_takes_every_head_dim_the_configs_use():

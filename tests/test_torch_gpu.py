@@ -1,5 +1,7 @@
-"""Kernels K1 to K6 on the card: each CUDA kernel against its plain
-version, and the port's paths through them.  Every test here carries the ``gpu``
+"""Kernels K1 to K6 and K4's backward on the card: each CUDA kernel
+against its plain version, and the port's paths through them (training
+too: K4 under autograd, the kernels without a backward raising where a
+gradient is asked for, train steps on the card against the host).  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
 machine with only PyTorch:
@@ -972,3 +974,124 @@ def test_store_restart_loads_every_library_without_nvcc(cuda, tmp_path):
 
     assert run() == (6, 0)
     assert run() == (0, 6)
+
+
+# -- training: K4's backward, the kernels without one, the train step --------
+
+K4_BWD_F32_TOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,hkv,d,s,kw", [
+    (8, 16, 8, 128, 256, dict()),                 # qwen3-1.7b training
+    (1, 25, 5, 64, 2048, dict(window=1024)),      # hymba-1.5b
+    (1, 25, 5, 64, 100, dict(window=1024)),       # ragged S
+    (1, 8, 4, 256, 2048, dict(window=4096, softcap=50.0)),   # gemma2-2b
+    (2, 4, 2, 16, 300, dict(window=32)),          # reduced_config
+    (2, 4, 2, 32, 300, dict(window=16)),
+    (1, 8, 4, 128, 1000, dict(window=256, softcap=50.0)),
+    (2, 4, 4, 64, 130, dict(causal=False)),
+    (2, 2, 1, 256, 130, dict(causal=False, scale=0.2)),
+])
+def test_k4_backward_matches_plain_autograd(cuda, dtype, b, h, hkv, d, s,
+                                            kw):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd, flash_attention_bwd_plain)
+    q = _randn(cuda, s, b, h, s, d, dtype=dtype)
+    k = _randn(cuda, s + 1, b, hkv, s, d, dtype=dtype)
+    v = _randn(cuda, s + 2, b, hkv, s, d, dtype=dtype)
+    dout = _randn(cuda, s + 3, b, h, s, d, dtype=dtype)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, **kw)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, dout, **kw)
+    again = flash_attention_bwd(q, k, v, out, dout, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))   # no atomics
+    want = flash_attention_bwd_plain(q, k, v, dout, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == t.shape
+        if dtype == torch.float32:
+            torch.testing.assert_close(g, w, rtol=K4_BWD_F32_TOL,
+                                       atol=K4_BWD_F32_TOL)
+        else:
+            err = (g.float() - w.float()).norm() / w.float().norm()
+            assert err <= K4_BF16_REL_NORM, err
+
+
+def test_k4_autograd_runs_both_kernels(cuda):
+    q, k, v = (_randn(cuda, i, 2, n, 200, 64).requires_grad_(True)
+               for i, n in ((1, 4), (2, 2), (3, 2)))
+    dout = _randn(cuda, 4, 2, 4, 200, 64)
+    from repro_torch.kernels import flash_attention as FA
+    f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    out = flash_attention(q, k, v, window=64)
+    with torch.no_grad():            # the forward's bits do not change
+        assert torch.equal(out, flash_attention(q, k, v, window=64))
+    grads = torch.autograd.grad(out, (q, k, v), dout)
+    assert (FA.flash_attention.launches - f0,
+            FA.flash_attention_bwd.launches - b0) == (2, 1)
+    want = FA.flash_attention_bwd(q.detach(), k.detach(), v.detach(),
+                                  out.detach(), dout, window=64)
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+
+
+def test_kernels_without_a_backward_raise_under_grad(cuda):
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    x = torch.randn(4, 64, device=cuda, requires_grad=True)
+    w = torch.randn(2, 64, 64, device=cuda)
+    with pytest.raises(NotImplementedError, match="K5"):
+        moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
+    with torch.no_grad():
+        moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
+    r = torch.randn(1, 2, 64, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K6"):
+        rwkv6(r, r, r, torch.rand(1, 2, 64, 16, device=cuda),
+              torch.zeros(2, 16, device=cuda))
+    tiles = torch.randn(2, 32, 32, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K1"):
+        bsr_spgemm_schedule(dict(a_id=np.array([0]), b_id=np.array([1]),
+                                 out_id=np.array([0])), tiles, tiles,
+                            n_out_blocks=1)
+    with pytest.raises(NotImplementedError, match="K2"):
+        bsr_spmm(x, w[:, :32, :32].contiguous().requires_grad_(True),
+                 dict(w_id=np.array([0]), k_blk=np.array([0]),
+                      j_blk=np.array([0])), n_j_blocks=1)
+    qq = torch.randn(1, 2, 64, 16, device=cuda, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K3"):
+        block_sparse_attention(qq, qq, qq, np.zeros((2, 1), np.int32),
+                               np.ones(2, np.int32))
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b"])
+def test_train_step_card_against_host(cuda, arch):
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import adamw
+    cfg = reduced_config(get_config(arch))
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    from repro_torch.models.params import tree_map
+    host = M.init_params(cfg, 0, device="cpu")
+    card = {"cpu": host, "cuda": tree_map(lambda t: t.to(cuda), host)}
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                  global_batch=2))
+    losses = {}
+    for name, params in card.items():
+        opt = adamw.init(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg)
+        f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+        losses[name] = []
+        for i in range(2):
+            batch = {k: torch.from_numpy(v).to(name)
+                     for k, v in data.get_batch(i).items()}
+            params, opt, m = step(params, opt, batch)
+            losses[name].append(float(m["loss"]))
+        fwd, bwd = (FA.flash_attention.launches - f0,
+                    FA.flash_attention_bwd.launches - b0)
+        # under remat each layer's forward runs twice
+        assert (fwd, bwd) == ((0, 0) if name == "cpu" else
+                              (2 * 2 * cfg.n_layers, 2 * cfg.n_layers))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
