@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero without the result line:
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``), K3
    (``block_sparse_attention``), K4 (``flash_attention``) and its backward
-   (``flash_attention_bwd``), K5 (``moe_gemm``) and K6 (``rwkv6_scan``),
+   (``flash_attention_bwd``), K5 (``moe_gemm``), K6 (``rwkv6_scan``) and
+   its backward (``rwkv6_scan_bwd``),
    one nvcc each, all started together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
@@ -168,7 +169,8 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    beside its bound (bf16 peak; HBM for decode) and plain version, K5 also
    beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
 Phases 22 and 23 run after phase 20, then phases 27-31 (31's first runs
-before 27, its resumed processes beside 27-29, 30 last), then phase 21.
+before 27, its resumed processes beside 27-29, 30 last), then phases
+32-35, then phase 21.
 
 22. paligemma-3b — K4 against ``flash_attention_plain`` at the image
    prefill's shape (B = 2, 8 q heads / 1 kv head of 256, causal, S = 256 +
@@ -201,8 +203,8 @@ before 27, its resumed processes beside 27-29, 30 last), then phase 21.
    shapes and at qwen3-1.7b's training shape (B 8, S 256, 16 / 8 heads of
    128, causal), float32 within 1e-4 and bfloat16 within a relative norm
    of 5e-3 for each of dq, dk and dv (max abs error a reading); each case
-   run twice, the two bit-identical; a K5 and a K6 call on CUDA tensors
-   that require grad must raise (no backward kernel yet);
+   run twice, the two bit-identical; a K5 call on CUDA tensors that
+   require grad must raise (no backward kernel yet);
 28. in situ — qwen3-1.7b at full width, 2 layers, float32 compute, batch
    1 x 256: the loss and every param leaf's gradient on the card (K4 and
    its backward) against the host (plain versions), each within 1e-3 in
@@ -211,24 +213,49 @@ before 27, its resumed processes beside 27-29, 30 last), then phase 21.
    train.main``) on qwen3-1.7b at full width and depth (28 layers, 1.72 B
    float32 params, bfloat16 compute, remat; params, grads and AdamW m / v
    27.5 GB) for 20 steps of batch 8 x 256, in a child process
-   (``--train-full``): losses finite and falling, K4 56 and its backward 28
-   times a step, the plain versions never; step time p50 / p99 after the
-   first, tokens/s, peak memory; then the device busy share of one warm
-   step under ``torch.profiler``;
+   (``--train-full qwen3-1.7b``): losses finite and falling, K4 56 and its
+   backward 28 times a step, the plain versions never; step time p50 / p99
+   after the first, tokens/s, peak memory; then the device busy share of
+   one warm step under ``torch.profiler``;
 30. times — K4's backward at qwen3-1.7b's training shape and at S = 2048
    (B 1) by CUDA events, beside its bound (five S x S x D products per head
    over the visible pairs at the bf16 peak, against q, k, v, out and dout
    read once and dq, dk, dv written once), its plain version
    (``flash_attention_plain``'s autograd) and the backward of
    ``scaled_dot_product_attention`` (``is_causal``, kv heads repeated);
-31. the reduced train CLI on the card for qwen3-1.7b and gemma2-2b
-   (softcap, window; head dim 16): 3 steps into a checkpoint through
-   ``train.main`` in this process, then ``python -m
+31. the reduced train CLI on the card for qwen3-1.7b, gemma2-2b
+   (softcap, window; head dim 16), rwkv6-1.6b and hymba-1.5b: 3 steps into
+   a checkpoint through ``train.main`` in this process, then ``python -m
    repro_torch.launch.train`` in a process of its own resuming from it to
    step 6, against 6 uninterrupted steps through ``train.main``; every run
-   launches K4 twice a layer a step and its backward once, and the resumed
-   losses equal the uninterrupted run's within 1e-4 (bit equality a
-   reading);
+   launches K4 (where the layers attend) and K6 (where they scan) twice a
+   layer a step and their backward kernels once, and the resumed losses
+   equal the uninterrupted run's within 1e-4 (bit equality a reading);
+32. kernel against plain — K6's backward (``rwkv6_bwd``: dr, dk, dv, dw,
+   du) against its plain version (``rwkv6_plain``'s autograd, run on
+   float64 copies of the inputs: in float32 its dw, a difference of two
+   sums of order one divided by w, is about 1e-2 off, a reading) at
+   hymba-1.5b's SSM heads (B 2, H 25, K 16, V 64, u = 0) and rwkv6-1.6b's
+   (B 2, H 32, K = V = 64, learned u), at T 2048 (chunk 64) and T 2016
+   (chunk 32), with and without a dstate, float32 within 1e-4 and bfloat16
+   r, k, v within 5e-3 in relative norm for each gradient, each case run
+   twice and the two bit-identical; extreme decays (1e-6, 1 - 1e-6); then
+   K4's backward at hymba-1.5b's training shape (B 2, 25 / 5 heads of 64,
+   window 1024, S 2048), as phase 27;
+33. in situ — rwkv6-1.6b and hymba-1.5b at full width, 2 layers, float32
+   compute, batch 1 x 256 (4 chunks of 64), as phase 28: every leaf's
+   gradient within 1e-3 of the host's; K6 (and hymba's K4) twice a layer,
+   their backward kernels once;
+34. main path, thirteenth slice — the train CLI on rwkv6-1.6b (24 layers,
+   1.68 B params) and hymba-1.5b (32 layers) at full width and depth, 10
+   steps of batch 2 x 2048 each, each in a child process (``--train-full
+   ARCH``), as phase 29: rwkv6 launches K6 48 and its backward 24 times a
+   step, hymba K6 and K4 64 and their backward kernels 32 times a step;
+35. times — K6's backward at the two training shapes (bfloat16 r, k, v,
+   float32 w, no dstate) by CUDA events, beside its bound (the FLOP of
+   ``k6_bwd_flop`` at the bf16 peak, against its inputs read once and its
+   outputs written once: bytes-bound), the design's FLOP at the fp32 peak,
+   its plain version and K6's forward;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -241,10 +268,11 @@ before 27, its resumed processes beside 27-29, 30 last), then phase 21.
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
-   script's time and the kernels line (K1 to K6 and K4's backward, each
-   with the launches of its main-path phases — K2's of 7 and 24, K4's of
-   14, 19, 22, 23, 26 and 29, K4's backward's of 29, K5's of 10 and 19,
-   K6's of 14, 18 and 26; K4's backward's times at phase 30's shapes; K1's
+   script's time and the kernels line (K1 to K6 and K4's and K6's
+   backward, each with the launches of its main-path phases — K2's of 7
+   and 24, K4's of 14, 19, 22, 23, 26, 29 and 34, K4's backward's of 29 and
+   34, K5's of 10 and 19, K6's of 14, 18, 26 and 34, K6's backward's of 34;
+   K4's backward's times at phase 30's shapes, K6's at phase 35's; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
    0 in float32, K5's at the prefill gate shape, K4's and K6's at the
    2048-token hymba prefill, nested beside them K4's at dbrx-132b's
@@ -268,12 +296,12 @@ Phases 24-26 run after phase 21's CLI runs, before its profiles.
    fallback), bit-equal; each call cold, warm and from a fresh runtime on
    the same plan store;
 25. the kernel-library store — child processes over a fresh
-   ``ExecStore``: the first builds K1-K6 into it (6 ``nvcc`` runs; started
-   before phase 9, it runs on the host while phases 9-23 run), then, at
-   once, a second loads all six with none, and a third, over a copy of the
-   store with one entry's bytes corrupted, counts it corrupt, rebuilds it
-   alone and loads five; those two run every kernel once against its plain
-   version at a small shape;
+   ``ExecStore``: the first builds K1-K6 and K6's backward into it (7
+   ``nvcc`` runs; started before phase 9, it runs on the host while phases
+   9-23 run), then, at once, a second loads all seven with none, and a
+   third, over a copy of the store with one entry's bytes corrupted, counts
+   it corrupt, rebuilds it alone and loads six; those two run every kernel
+   once against its plain version at a small shape;
 26. serving with the store — ``python -m repro_torch.launch.serve --arch
    hymba-1.5b --continuous --prewarm --exec-store DIR`` on a fresh store
    (its prewarm builds K4 and K6; it runs beside phase 21's CLIs), then
@@ -405,11 +433,13 @@ SERVE_CLI_HOST_MOE = ["--arch", "dbrx-132b", "--routing", "host",
 SHARDS, SHARDS_FALLBACK = 4, 3
 SHARD_SPMM_TOKENS = (256, 16)
 SHARD_MOE = dict(tokens=4096, capacity=1280)
-# the kernel-library store (phase 25): the six libraries, the entry the
+# the kernel-library store (phase 25): the six kernels' libraries, the entry the
 # third child finds corrupted (K2: the shortest rebuild), and the stores
 # of phases 25 and 26
 KERNEL_SOURCES = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
                   "flash_attention", "moe_gemm", "rwkv6_scan")
+# what the store children load: K1-K6 and K6's backward
+STORE_KERNELS = KERNEL_SOURCES + ("rwkv6_scan_bwd",)
 STORE_CORRUPT = "bsr_spmm"
 STORE_DIR = ROOT / "build" / "kernel_store"
 STORE_DIR_CORRUPT = ROOT / "build" / "kernel_store_corrupt"
@@ -424,13 +454,20 @@ SERVE_STORE_ARGS = ["--requests", "8", "--max-batch", "3", "--max-seq", "32",
 # batch 8 x 256 (the reference CLI's batch and sequence); in situ, 2 layers
 # in float32 compute at batch 1 x 256
 QWEN3 = "qwen3-1.7b"
-TRAIN_FULL = dict(steps=20, batch=8, seq=256)
+# the train CLI at full width and depth (phases 29 and 34): qwen3-1.7b 20
+# steps of batch 8 x 256; rwkv6-1.6b and hymba-1.5b (both as published,
+# f32 params, bf16 compute, remat) 10 steps of batch 2 x 2048, 32 chunks of
+# 64 a sequence, so that hymba's 1024 window slides.  In situ (phases 28
+# and 33): 2 layers at full width in float32, batch 1 x 256 (4 chunks of 64)
+TRAIN_FULL = {QWEN3: dict(steps=20, batch=8, seq=256),
+              RWKV6: dict(steps=10, batch=2, seq=2048),
+              HYMBA: dict(steps=10, batch=2, seq=2048)}
 TRAIN_SITU = dict(n_layers=2, batch=1, seq=256)
 # K4's backward against its plain version (phase 27): phase 12's shapes and
 # qwen3-1.7b's training shape, label -> (B, H, Hkv, D, S, masks)
 K4_BWD_CASES = {
-    "qwen3-1.7b training": (TRAIN_FULL["batch"], 16, 8, 128, TRAIN_FULL[
-        "seq"], {}),
+    "qwen3-1.7b training": (TRAIN_FULL[QWEN3]["batch"], 16, 8, 128,
+                            TRAIN_FULL[QWEN3]["seq"], {}),
     "hymba S=2048": (1, 25, 5, 64, 2048, dict(window=1024)),
     "hymba S=100 (ragged)": (1, 25, 5, 64, 100, dict(window=1024)),
     "qwen3-1.7b causal S=2048": (1, 16, 8, 128, 2048, {}),
@@ -441,11 +478,29 @@ K4_BWD_CASES = {
     "reduced config S=300": (1, 4, 2, 16, 300, dict(window=32)),
     "D=32, window 16, S=300": (1, 4, 2, 32, 300, dict(window=16))}
 # K4's backward timed (phase 30) at qwen3-1.7b's heads: (label, B, S)
-K4_BWD_TIMED = (("qwen3-1.7b training", TRAIN_FULL["batch"],
-                 TRAIN_FULL["seq"]), ("qwen3-1.7b S=2048", 1, 2048))
+K4_BWD_TIMED = (("qwen3-1.7b training", TRAIN_FULL[QWEN3]["batch"],
+                 TRAIN_FULL[QWEN3]["seq"]), ("qwen3-1.7b S=2048", 1, 2048))
+# K4's backward at hymba-1.5b's training shape (phase 32), as K4_BWD_CASES
+K4_BWD_HYMBA = {"hymba-1.5b training": (TRAIN_FULL[HYMBA]["batch"], 25, 5,
+                                        64, TRAIN_FULL[HYMBA]["seq"],
+                                        dict(window=1024))}
+# K6's backward against its plain version (phase 32) at the heads of the
+# two training shapes, label -> (B, H, K, V, u = 0), at each (T, chunk):
+# 2048 in chunks of 64, and 2016 (no multiple of 64) in chunks of 32
+K6_BWD_HEADS = {"hymba-1.5b SSM heads": (2, 25, 16, 64, True),
+                "rwkv6-1.6b": (2, 32, 64, 64, False)}
+K6_BWD_T = ((2048, 64), (2016, 32))
+# ||kernel - plain|| / ||plain|| of each of dr, dk, dv, dw, du, the plain
+# version run on float64 copies of the inputs: its float32 dw divides a
+# difference of two sums of order one by w (about 1e-2 off float64, a
+# reading of phase 32), which the kernel does not; bfloat16 at K4's
+# backward's limit (each gradient rounded to bfloat16 once)
+K6_BWD_REL_NORM = 1e-4
+K6_BWD_BF16_REL_NORM = 5e-3
 # the reduced train CLI on the card with a checkpoint resume (phase 31):
-# qwen3-1.7b and gemma2-2b (softcap, window; head dim 256 reduced to 16)
-TRAIN_CLI_ARCHS = ("qwen3-1.7b", "gemma2-2b")
+# qwen3-1.7b and gemma2-2b (softcap, window; head dim 256 reduced to 16),
+# rwkv6-1.6b and hymba-1.5b (K6 and its backward; hymba with K4)
+TRAIN_CLI_ARCHS = ("qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "hymba-1.5b")
 TRAIN_CLI_ARGS = ["--reduced", "--batch", "4", "--seq", "64"]
 # in situ: each gradient leaf of the card (K4 and its backward, cuBLAS)
 # against the host's (plain versions), ||card - host|| / ||host||
@@ -552,12 +607,15 @@ TIE_GAP = 1e-3
 CHOL_RESIDUAL = 1e-10
 CG_F32_RESIDUAL, CG_F64_RESIDUAL = 1e-4, 1e-8
 TIMED_LAUNCHES = 30
-# the device kernels of K1-K6 (csrc/*.cu), for the profiles' per-kernel sums
+# the device kernels of K1-K6 and the backward kernels (csrc/*.cu), for the
+# profiles' per-kernel sums
 PORT_KERNEL_NAMES = {
     "K1": ("bsr_spgemm_",), "K2": ("spmm_tile_kernel", "spmm_gemv_kernel"),
     "K3": ("block_attn_",), "K4": ("flash_attn_",),
     "K4 backward": ("attn_bwd_",), "K5": ("moe_gemm_",),
-    "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel")}
+    "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel"),
+    "K6 backward": ("bwd_local_kernel", "bwd_scan_kernel", "bwd_inter_kernel",
+                    "bwd_du_kernel")}
 
 
 def emit(**row) -> None:
@@ -741,11 +799,15 @@ def device_share(case: str, fn) -> None:
     # each of the port's kernels, its launches summed over their kernel names
     port_us = {k: sum(us for key, us in events if any(n in key for n in names))
                for k, names in PORT_KERNEL_NAMES.items()}
+    # and each of their launches alone (K6 backward: the share of its scan)
+    by_name = {n: sum(us for key, us in events if n in key)
+               for names in PORT_KERNEL_NAMES.values() for n in names}
     # a session that recorded no device event measured nothing: no share
     emit(phase="profile", case=case, wall_s=wall, device_events=len(top),
          device_busy_s=busy if top else None,
          device_busy_share=busy / wall if top else None,
          port_kernels_us={k: us for k, us in port_us.items() if us},
+         port_kernel_names_us={n: us for n, us in by_name.items() if us},
          top_device_us=[[k[:60], us] for k, us in top[:6]])
 
 
@@ -1096,9 +1158,11 @@ def profile_second_slice() -> None:
     ``block_attention``.  ``main`` runs this in a child process: the first
     profiler sessions of a process record every kernel and copy, but
     sessions late in the full run recorded only some device events or none
-    (after the Cholesky session none at all)."""
+    (after the Cholesky session none at all).  It starts early and waits
+    (``wait_for_turn``)."""
     import torch
     from repro_torch.runtime import ReapRuntime
+    wait_for_turn("bsr_spmm", "block_sparse_attention")
     fa, cant, (mask, _) = table1_csr(FILTER3D, 0), cant_csr(), llama_mask()
     rng = np.random.default_rng(40)
     x = rng.standard_normal((SPMM_TOKENS, fa.n_rows)).astype(np.float32)
@@ -2725,14 +2789,14 @@ def serve_cli(card: str) -> None:
               f"store hits {store_hits}, misses {misses}")
 
 
-def start_child(args):
+def start_child(args, stdin=None):
     """A child process (this script, or ``-m`` a module of the port) from
     the checkout's root, its output piped; ``finish_child`` reads it."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.Popen([sys.executable, *args], cwd=ROOT, env=env,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
+                            stdin=stdin, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
     CHILDREN.append(proc)
     return proc, time.perf_counter()
 
@@ -2749,6 +2813,27 @@ def finish_child(started, what: str, timeout: float = 600) -> tuple:
     check(proc.returncode == 0, f"{what}: exit {proc.returncode}\n"
           + "\n".join(out.strip().splitlines()[-30:]))
     return out, wall
+
+
+def wait_for_turn(*kernels) -> None:
+    """In a child that ``main`` starts early: set up CUDA and load
+    ``kernels`` now, then wait for the line that ``go_child`` sends on stdin
+    when the child's phase comes, so that the child's start-up overlaps
+    ``main``'s phases and not its own.  Run by hand, such a child takes its
+    line from a pipe (``echo | python3 chip_smoke.py --train-full``)."""
+    import torch
+    from repro_torch.kernels import _build
+    torch.zeros(1, device="cuda")
+    _build.load_all(*kernels)
+    sys.stdin.readline()
+
+
+def go_child(started, what: str, timeout: float = 600) -> str:
+    """Send a waiting child (``wait_for_turn``) its line, then
+    ``finish_child``; returns its output."""
+    started[0].stdin.write("go\n")
+    started[0].stdin.flush()                # finish_child closes it
+    return finish_child(started, what, timeout)[0]
 
 
 def child_rows(out: str, phase: str) -> list:
@@ -2905,8 +2990,8 @@ def sharding_phases(fa, cage, cage_ref, cage_runs, card: str) -> dict:
 
 
 def kernels_against_plain_small(dev) -> None:
-    """Each of K1-K6 once against its plain version at one small shape (a
-    library from the store computes)."""
+    """Each of K1-K6 and K6's backward once against its plain version at
+    one small shape (a library from the store computes)."""
     import torch
     from repro_torch.core import COO, CSR, inspect_spgemm_block, random_csr
     from repro_torch.kernels.bsr_spgemm import (bsr_spgemm_plain,
@@ -2917,7 +3002,7 @@ def kernels_against_plain_small(dev) -> None:
         block_sparse_attention, block_sparse_attention_plain,
         flash_attention, flash_attention_plain, inspect_block_attention)
     from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
-    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_plain
+    from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_bwd, rwkv6_plain
     rng = np.random.default_rng(250)
 
     def on(*arrays):
@@ -2967,13 +3052,19 @@ def kernels_against_plain_small(dev) -> None:
     o_want, st_want = rwkv6_plain(r, kk, vv, wd, u, chunk=64)
     compare("store child, T=128 output", o, o_want, K6_TOL, "K6")
     compare("store child, T=128 state", st, st_want, K6_TOL, "K6")
+    do, ds = on(*(rng.standard_normal(x.shape).astype(np.float32)
+                  for x in (o, st)))
+    compare_k6_grads("store child, T=128",
+                     rwkv6_bwd(r, kk, vv, wd, u, do, ds, chunk=64),
+                     k6_bwd_plain64(r, kk, vv, wd, u, do, ds, 64),
+                     torch.float32)
 
 
 def store_child(root: str, checks: bool) -> int:
-    """One process over the kernel-library store at ``root``: load K1-K6
-    through it (building what it misses), then, with ``checks``, each
-    kernel once against its plain version; prints the counts as a
-    ``store_child`` row."""
+    """One process over the kernel-library store at ``root``: load K1-K6 and
+    K6's backward through it (building what it misses), then, with
+    ``checks``, each kernel once against its plain version; prints the
+    counts as a ``store_child`` row."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.runtime.exec_store import (ExecCache, ExecStore,
@@ -2982,7 +3073,7 @@ def store_child(root: str, checks: bool) -> int:
     cache = ExecCache(store)
     set_default_exec_cache(cache)
     t0 = time.perf_counter()
-    _build.load_all(*KERNEL_SOURCES)
+    _build.load_all(*STORE_KERNELS)
     load_s = time.perf_counter() - t0
     if checks:
         kernels_against_plain_small(torch.device("cuda"))
@@ -3003,13 +3094,14 @@ def serve_store_args(*extra) -> list:
 
 def store_phases(store_build, cold_cli, card: str) -> None:
     """Phases 25 and 26's CLI runs: the kernel-library store across
-    processes.  Started by ``main``: a child that builds K1-K6 into a fresh
-    store (6 ``nvcc`` runs, 0 loads; started before phase 9) and the serving
-    CLI on hymba-1.5b with ``--prewarm --exec-store`` on a fresh store of
-    its own (its prewarm builds K4 and K6; beside phase 21's CLIs).  Then,
-    at once: a child that loads all six from the store with no ``nvcc``, a
-    child over a copy of the store with one entry's bytes corrupted (it
-    counts the entry corrupt, rebuilds it alone and loads the other five),
+    processes.  Started by ``main``: a child that builds ``STORE_KERNELS``
+    (K1-K6 and K6's backward) into a fresh store (7 ``nvcc`` runs, 0 loads;
+    started before phase 9) and the serving CLI on hymba-1.5b with
+    ``--prewarm --exec-store`` on a fresh store of its own (its prewarm
+    builds K4 and K6; beside phase 21's CLIs).  Then, at once: a child that
+    loads all seven from the store with no ``nvcc``, a child over a copy of
+    the store with one entry's bytes corrupted (it counts the entry
+    corrupt, rebuilds it alone and loads the other six),
     and the CLI again with ``--expect-zero-compiles`` (no ``nvcc``, both
     libraries from the store, exit 0).  The two later store children run
     each kernel once against its plain version."""
@@ -3021,7 +3113,7 @@ def store_phases(store_build, cold_cli, card: str) -> None:
         row = child_rows(out, "store_child")[-1]
         checks = child_rows(out, "kernel_vs_plain")
         ok = (row["compiles"], row["loads"], row["corrupt"]) == expect \
-            and len(checks) == (0 if label == "build" else 7) \
+            and len(checks) == (0 if label == "build" else 8) \
             and all(c["ok"] for c in checks)
         emit(phase="kernel_store", child=label, process_s=wall,
              kernel_checks=len(checks),
@@ -3053,7 +3145,8 @@ def store_phases(store_build, cold_cli, card: str) -> None:
         check(ok, f"serve CLI with the store ({label}): {nvcc} nvcc runs, "
               f"{loads} loads")
 
-    store_row(store_build, "build", (6, 0, 0))
+    n = len(STORE_KERNELS)
+    store_row(store_build, "build", (n, 0, 0))
     shutil.copytree(STORE_DIR, STORE_DIR_CORRUPT)
     manifest = json.loads((STORE_DIR_CORRUPT / "manifest.json").read_text())
     key, ent = next((k, e) for k, e in manifest["entries"].items()
@@ -3067,9 +3160,9 @@ def store_phases(store_build, cold_cli, card: str) -> None:
     cli_row(cold_cli, "cold store", (2, 0))
     script = str(Path(__file__).resolve())
     later = [(start_child([script, "--store-child", str(STORE_DIR)]),
-              "restart", (0, 6, 0)),
+              "restart", (0, n, 0)),
              (start_child([script, "--store-child", str(STORE_DIR_CORRUPT)]),
-              "after corrupting one entry", (1, 5, 1))]
+              "after corrupting one entry", (1, n - 1, 1))]
     restart_cli = start_child(serve_store_args("--expect-zero-compiles"))
     for started, label, expect in later:
         store_row(started, label, expect)
@@ -3131,10 +3224,11 @@ def profile_lm(arch: str) -> None:
     """Device busy share of one warm prefill (1024 tokens) and one warm
     decode step (batch 4) of ``arch`` (hymba-1.5b and rwkv6-1.6b as
     published, dbrx-132b at 4 layers), in a child process of its own (see
-    ``profile_second_slice``)."""
+    ``profile_second_slice``), started early as it is."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    wait_for_turn("flash_attention", "rwkv6_scan", "moe_gemm")
     dev = torch.device("cuda")
     cfg = dbrx_config() if arch == DBRX_LM else get_config(arch)
     params = M.compute_params(cfg, M.init_params(cfg, 76, device=dev), dev)
@@ -3183,28 +3277,23 @@ def compare_grads(name: str, got, want, dtype) -> float:
     return worst
 
 
-def k4_backward_against_plain(dev) -> float:
-    """Phase 27: K4's backward (``flash_attention_bwd``) against the
-    autograd of ``flash_attention_plain`` at phase 12's shapes and at
-    qwen3-1.7b's training shape (B 8, S 256), each run twice and the two
-    bit-identical (no atomics); then a K5 and a K6 call on CUDA tensors
-    that require grad, which must raise (no backward kernel yet).  Returns
-    the worst max abs error."""
+def k4_backward_cases(dev, cases: dict, seed: int) -> float:
+    """K4's backward (``flash_attention_bwd``: dq, dk, dv) against the
+    autograd of ``flash_attention_plain`` at ``cases`` (label -> (B, H, Hkv,
+    D, S, masks)) in bfloat16 and float32, each case run twice and the two
+    bit-identical (no atomics).  Returns the worst max abs error."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
-    from repro_torch.kernels.moe_gemm import moe_gemm
-    from repro_torch.kernels.rwkv6_scan import rwkv6
     gen = torch.Generator(device=dev)
-    gen.manual_seed(90)
+    gen.manual_seed(seed)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    bf16, f32 = torch.bfloat16, torch.float32
     worst = 0.0
-    for label, (b, h, hkv, d, s, kw) in K4_BWD_CASES.items():
-        for dtype in (bf16, f32):
+    for label, (b, h, hkv, d, s, kw) in cases.items():
+        for dtype in (torch.bfloat16, torch.float32):
             q = randn(b, h, s, d, dtype=dtype)
             k, v = (randn(b, hkv, s, d, dtype=dtype) for _ in range(2))
             dout = randn(b, h, s, d, dtype=dtype)
@@ -3222,23 +3311,181 @@ def k4_backward_against_plain(dev) -> float:
             worst = max(worst, compare_grads(
                 name, got, flash_attention_bwd_plain(q, k, v, dout, **kw),
                 dtype))
-    x = torch.randn((2, 8, 64), device=dev, requires_grad=True)
-    r = torch.randn((1, 2, 64, 16), device=dev, requires_grad=True)
-    for kernel, call in (
-            ("K5", lambda: moe_gemm(x, torch.randn((2, 64, 64), device=dev),
-                                    np.arange(2, dtype=np.int32))),
-            ("K6", lambda: rwkv6(r, r, r, torch.rand_like(r),
-                                 torch.zeros((2, 16), device=dev)))):
-        try:
-            call()
-            raised = ""
-        except NotImplementedError as err:
-            raised = str(err)
-        emit(phase="check", case=f"{kernel} on CUDA tensors that require "
-             "grad", raised=raised, ok=bool(raised))
-        check(bool(raised), f"{kernel} gave a result where a gradient was "
-              "asked for")
     return worst
+
+
+def k4_backward_against_plain(dev) -> float:
+    """Phase 27: K4's backward against its plain version at phase 12's
+    shapes and at qwen3-1.7b's training shape (B 8, S 256); then a K5 call
+    on CUDA tensors that require grad, which must raise (no backward kernel
+    yet).  Returns the worst max abs error."""
+    import torch
+    from repro_torch.kernels.moe_gemm import moe_gemm
+    worst = k4_backward_cases(dev, K4_BWD_CASES, 90)
+    x = torch.randn((2, 8, 64), device=dev, requires_grad=True)
+    try:
+        moe_gemm(x, torch.randn((2, 64, 64), device=dev),
+                 np.arange(2, dtype=np.int32))
+        raised = ""
+    except NotImplementedError as err:
+        raised = str(err)
+    emit(phase="check", case="K5 on CUDA tensors that require grad",
+         raised=raised, ok=bool(raised))
+    check(bool(raised), "K5 gave a result where a gradient was asked for")
+    return worst
+
+
+K6_GRADS = ("dr", "dk", "dv", "dw", "du")
+
+
+def k6_bwd_inputs(gen, dev, b: int, h: int, t: int, kk: int, vv: int,
+                  dtype, u_zero: bool, w_val: float = None) -> tuple:
+    """(r, k, v, w, u, do, dstate): r, k, v in ``dtype``; w float32 through
+    the models' own map, exp(-exp(x - 0.5)) clamped to [1e-6, 1 - 1e-6] (or
+    the constant ``w_val``); u zero or normal; do, dstate normal."""
+    import torch
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    r, k, v = (randn(b, h, t, n).to(dtype) for n in (kk, kk, vv))
+    w = torch.exp(-torch.exp(randn(b, h, t, kk) - 0.5)) if w_val is None \
+        else torch.full((b, h, t, kk), w_val, device=dev)
+    u = torch.zeros((h, kk), device=dev) if u_zero else randn(h, kk)
+    return (r, k, v, w.clamp(1e-6, 1 - 1e-6), u, randn(b, h, t, vv),
+            randn(b, h, kk, vv))
+
+
+def k6_bwd_plain64(r, k, v, w, u, do, dstate, chunk: int,
+                   group: int = 8) -> list:
+    """K6's plain backward (``rwkv6_bwd_plain``) on float64 copies of the
+    inputs, ``group`` heads at a time (autograd keeps a (C, C, K) array a
+    chunk); du's rows are its heads'."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd_plain
+    parts = []
+    for h0 in range(0, r.shape[1], group):
+        hs = slice(h0, h0 + group)
+        parts.append(rwkv6_bwd_plain(
+            *(x[:, hs].double() for x in (r, k, v, w)), u[hs].double(),
+            do[:, hs].double(),
+            None if dstate is None else dstate[:, hs].double(), chunk=chunk))
+    return [torch.cat(g, dim=0 if i == 4 else 1)
+            for i, g in enumerate(zip(*parts))]
+
+
+def compare_k6_grads(name: str, got, want, dtype) -> float:
+    """K6's backward against its plain version in float64, one row: each of
+    dr, dk, dv, dw and du within ``K6_BWD_REL_NORM`` on ||got - want|| /
+    ||want|| (bfloat16 r, k, v: ``K6_BWD_BF16_REL_NORM``), its max abs error
+    a reading.  Returns the worst max abs error."""
+    import torch
+    rel, max_abs = {}, {}
+    for label, g, w in zip(K6_GRADS, got, want):
+        diff = (g.double() - w).abs()
+        max_abs[label] = diff.max().item()
+        rel[label] = (diff.norm() / w.norm().clamp_min(1e-300)).item()
+    tol = K6_BWD_REL_NORM if dtype == torch.float32 else K6_BWD_BF16_REL_NORM
+    ok = all(x <= tol for x in rel.values())
+    emit(phase="kernel_vs_plain", kernel="K6 backward", case=name,
+         shape=list(got[0].shape), max_abs_err=max(max_abs.values()),
+         max_abs_by_grad=max_abs, rel_norm=rel, rel_norm_tol=tol,
+         reference="rwkv6_bwd_plain on float64 copies", ok=ok)
+    check(ok, f"K6's backward disagrees with its plain version ({name}): "
+          f"{rel}")
+    return max(max_abs.values())
+
+
+def k6_backward_against_plain(dev) -> tuple:
+    """Phase 32: K6's backward (``rwkv6_bwd``) against its plain version
+    (``rwkv6_bwd_plain`` on float64 copies) at ``K6_BWD_HEADS`` (hymba-1.5b's
+    SSM heads with u = 0, rwkv6-1.6b's with a learned u; B 2) and
+    ``K6_BWD_T`` (T 2048 in chunks of 64, T 2016 in chunks of 32), in
+    float32 and bfloat16, with and without a dstate; each case run twice,
+    the two bit-identical, each gradient in its input's dtype; the plain
+    version's own float32 gradients against float64 as a reading; extreme
+    decays (w = 1e-6 and 1 - 1e-6) at hymba's heads; then K4's backward at
+    hymba-1.5b's training shape (``K4_BWD_HYMBA``).  Returns the worst max
+    abs errors of K6's and of K4's backward."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd, rwkv6_bwd_plain
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(120)
+
+    def run(name, args, chunk, dtype, reading=False):
+        r, k, v, w, u, do, ds = args
+        got = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
+        again = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
+        torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        ok = same and all(g.dtype == x.dtype
+                          for g, x in zip(got, (r, k, v, w, u)))
+        emit(phase="check", case=f"K6 backward {name}, two runs",
+             bit_identical=same, dtypes=[str(g.dtype)[6:] for g in got],
+             ok=ok)
+        check(ok, f"K6's backward: two runs differ, or a gradient is not "
+              f"in its input's dtype ({name})")
+        want = k6_bwd_plain64(r, k, v, w, u, do, ds, chunk)
+        err = compare_k6_grads(name, got, want, dtype)
+        if reading:
+            plain = rwkv6_bwd_plain(r, k, v, w, u, do, ds, chunk=chunk)
+            emit(phase="reading", case="K6's plain backward in float32 "
+                 f"against float64, {name}", rel_norm={
+                     label: ((p.double() - x).norm()
+                             / x.norm().clamp_min(1e-300)).item()
+                     for label, p, x in zip(K6_GRADS, plain, want)})
+        return err
+
+    worst = 0.0
+    for label, (b, h, kk, vv, u_zero) in K6_BWD_HEADS.items():
+        for t, chunk in K6_BWD_T:
+            for dtype in (torch.float32, torch.bfloat16):
+                args = k6_bwd_inputs(gen, dev, b, h, t, kk, vv, dtype,
+                                     u_zero)
+                for with_ds in (True, False):
+                    name = f"{label} {str(dtype)[6:]}: B={b}, H={h}, " \
+                        f"K={kk}, V={vv}, T={t}, chunk {chunk}, " \
+                        f"{'with' if with_ds else 'no'} dstate"
+                    worst = max(worst, run(
+                        name, args if with_ds else (*args[:6], None), chunk,
+                        dtype, reading=with_ds and dtype == torch.float32))
+                del args
+                torch.cuda.empty_cache()
+    for w_val in (1e-6, 1 - 1e-6):
+        worst = max(worst, run(
+            f"hymba-1.5b SSM heads float32: B=1, H=25, K=16, V=64, T=256, "
+            f"chunk 64, w = {w_val}", k6_bwd_inputs(
+                gen, dev, 1, 25, 256, 16, 64, torch.float32, False, w_val),
+            64, torch.float32))
+    return worst, k4_backward_cases(dev, K4_BWD_HYMBA, 121)
+
+
+def train_counters() -> dict:
+    """The launch counters of the kernels a training step runs: K4, K6 and
+    their backward kernels."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
+    return {"flash_attention": FA.flash_attention,
+            "flash_attention_bwd": FA.flash_attention_bwd,
+            "rwkv6": RK.rwkv6, "rwkv6_bwd": RK.rwkv6_bwd}
+
+
+def zero_train_counts() -> None:
+    for fn in train_counters().values():
+        fn.launches = 0
+
+
+def read_train_counts() -> dict:
+    return {name: fn.launches for name, fn in train_counters().items()}
+
+
+def expected_train_counts(cfg, steps: int) -> dict:
+    """Under remat each layer's forward runs twice a step and its backward
+    once: K4 where the mixer attends, K6 where it scans (hymba: both)."""
+    n = cfg.n_layers * steps
+    att, ssm = cfg.mixer in ("attn", "hymba"), cfg.mixer in ("rwkv", "hymba")
+    return {"flash_attention": 2 * n * att, "flash_attention_bwd": n * att,
+            "rwkv6": 2 * n * ssm, "rwkv6_bwd": n * ssm}
 
 
 def grads_of(cfg, params, batch) -> tuple:
@@ -3255,21 +3502,21 @@ def grads_of(cfg, params, batch) -> tuple:
     return loss.detach(), {path: g for (path, _), g in zip(leaves, grads)}
 
 
-def train_in_situ(dev) -> None:
-    """Phase 28: qwen3-1.7b at full width, depth cut to 2 layers, float32
-    compute: the loss and the gradient of every param leaf on the card (K4
-    and its backward) against the same params on the host (plain versions),
-    each leaf within ``TRAIN_GRAD_TOL`` in relative norm; under remat K4's
-    forward runs twice a layer and its backward once."""
+def train_in_situ(dev, arch: str) -> None:
+    """Phases 28 (qwen3-1.7b) and 33 (rwkv6-1.6b, hymba-1.5b): ``arch`` at
+    full width, depth cut to 2 layers, float32 compute, ``TRAIN_SITU``: the
+    loss and the gradient of every param leaf on the card (K4, K6 and their
+    backward kernels) against the same params on the host (plain versions),
+    each leaf within ``TRAIN_GRAD_TOL`` in relative norm; under remat each
+    kernel's forward runs twice a layer and its backward once."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.models import model as M
     st = TRAIN_SITU
-    cfg = dataclasses.replace(get_config(QWEN3), n_layers=st["n_layers"],
+    cfg = dataclasses.replace(get_config(arch), n_layers=st["n_layers"],
                               compute_dtype="float32")
     params = M.init_params(cfg, 80, device=dev)
     host = to_host(params)
@@ -3277,13 +3524,13 @@ def train_in_situ(dev) -> None:
                                    seq_len=st["seq"],
                                    global_batch=st["batch"],
                                    seed=81)).get_batch(0)
-    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    zero_train_counts()
     t0 = time.perf_counter()
     loss_d, g_d = grads_of(cfg, params, {k: torch.from_numpy(v).to(dev)
                                          for k, v in batch.items()})
     torch.cuda.synchronize()
     card_s = time.perf_counter() - t0
-    launches = (FA.flash_attention.launches, FA.flash_attention_bwd.launches)
+    launches = read_train_counts()
     t0 = time.perf_counter()
     loss_h, g_h = grads_of(cfg, host, {k: torch.from_numpy(v)
                                        for k, v in batch.items()})
@@ -3295,82 +3542,93 @@ def train_in_situ(dev) -> None:
     n = cfg.n_layers
     ok = bool(torch.isfinite(loss_d)) and abs(
         loss_d.item() - loss_h.item()) <= LM_TOL * abs(loss_h.item()) \
-        and rel[worst] <= TRAIN_GRAD_TOL and launches == (2 * n, n)
-    emit(phase="check", case=f"{QWEN3} {n} layers f32 loss and gradients, "
+        and rel[worst] <= TRAIN_GRAD_TOL \
+        and launches == expected_train_counts(cfg, 1)
+    emit(phase="check", case=f"{arch} {n} layers f32 loss and gradients, "
          f"card vs host, B={st['batch']} x {st['seq']}",
          loss_card=loss_d.item(), loss_host=loss_h.item(),
          leaves=len(rel), worst_leaf=worst, worst_rel_norm=rel[worst],
-         tol=TRAIN_GRAD_TOL, k4_launches=launches[0],
-         k4_backward_launches=launches[1], card_s=card_s, host_s=host_s,
-         ok=ok)
-    check(ok, f"{QWEN3} in situ: card and host gradients differ ({worst}: "
-          f"{rel[worst]}), or K4 launched {launches}")
+         tol=TRAIN_GRAD_TOL, launches=launches, card_s=card_s,
+         host_s=host_s, ok=ok)
+    check(ok, f"{arch} in situ: card and host gradients differ ({worst}: "
+          f"{rel[worst]}), or the kernels launched {launches}")
 
 
-def train_full() -> int:
-    """Phase 29, in a child process of its own (``--train-full``): the
-    train CLI (``repro_torch.launch.train.main``, what ``python -m
-    repro_torch.launch.train`` runs) on qwen3-1.7b at full width and depth,
-    ``TRAIN_FULL``, every count zeroed just before and read just after; its
-    losses finite and falling, K4's forward 2 x 28 and its backward 28
-    times a step, the plain versions never.  Then the device busy share of
-    one warm step on a fresh state of the same size."""
+def train_full(arch: str = QWEN3) -> int:
+    """Phases 29 (qwen3-1.7b) and 34 (rwkv6-1.6b, hymba-1.5b), each in a
+    child process of its own (``--train-full ARCH``): the train CLI
+    (``repro_torch.launch.train.main``, what ``python -m
+    repro_torch.launch.train`` runs) on ``arch`` at full width and depth,
+    ``TRAIN_FULL[arch]``, every count zeroed just before and read just
+    after; its losses finite and falling, K4 (where the model attends) and
+    K6 (where it scans) twice a layer a step and their backward kernels
+    once, the plain versions never.  Then the device busy share of one warm
+    step on a fresh state of the same size, and the step's split.  It
+    starts early and waits (``wait_for_turn``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
     from repro_torch.models.params import _set, count_params
     from repro_torch.optim import adamw
+    wait_for_turn("flash_attention", "flash_attention_bwd", "rwkv6_scan",
+                  "rwkv6_scan_bwd")
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    plain = {"forward": 0, "backward": 0}
+    plain = {}
 
-    def counted(fn, key):
+    def counted(module, name):
+        fn = getattr(module, name)
+        plain[name] = 0
+
         def wrapper(*args, **kw):
-            plain[key] += 1
+            plain[name] += 1
             return fn(*args, **kw)
-        return wrapper
-    FA.flash_attention_plain = counted(FA.flash_attention_plain, "forward")
-    FA.flash_attention_bwd_plain = counted(FA.flash_attention_bwd_plain,
-                                           "backward")
-    cfg, t = get_config(QWEN3), TRAIN_FULL
-    argv = ["--arch", QWEN3, "--steps", str(t["steps"]), "--batch",
+        setattr(module, name, wrapper)
+
+    for module, name in ((FA, "flash_attention_plain"),
+                         (FA, "flash_attention_bwd_plain"),
+                         (RK, "rwkv6_plain"), (RK, "rwkv6_bwd_plain")):
+        counted(module, name)
+    cfg, t = get_config(arch), TRAIN_FULL[arch]
+    argv = ["--arch", arch, "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]),
             "--log-every", "5", "--metrics-out",
-            str(ROOT / "build" / "train_full_metrics.json")]
+            str(ROOT / "build" / f"train_full_{arch}_metrics.json")]
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    zero_train_counts()
     t0 = time.perf_counter()
     hist = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fwd, bwd = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+    launches = read_train_counts()
     peak = torch.cuda.max_memory_allocated()
     n_params = count_params(M.abstract_params(cfg))
     losses = [h["loss"] for h in hist]
     dts = np.array([h["dt"] for h in hist[1:]])
-    steps, n = len(hist), cfg.n_layers
+    steps = len(hist)
     ok = steps == t["steps"] and bool(np.all(np.isfinite(losses))) \
-        and losses[-1] < losses[0] and (fwd, bwd) == (2 * n * steps,
-                                                      n * steps) \
-        and plain == {"forward": 0, "backward": 0}
-    emit(phase="main_path", case=f"{QWEN3} train CLI, full width and depth",
-         argv=argv, steps=steps, n_layers=n, n_params=n_params,
-         training_state_bytes=4 * 4 * n_params, losses=losses,
-         first_step_s=hist[0]["dt"], step_s_p50=float(np.median(dts)),
+        and losses[-1] < losses[0] \
+        and launches == expected_train_counts(cfg, steps) \
+        and not any(plain.values())
+    emit(phase="main_path", case=f"{arch} train CLI, full width and depth",
+         arch=arch, argv=argv, steps=steps, n_layers=cfg.n_layers,
+         n_params=n_params, training_state_bytes=4 * 4 * n_params,
+         losses=losses, first_step_s=hist[0]["dt"],
+         step_s_p50=float(np.median(dts)),
          step_s_p99=float(np.percentile(dts, 99)),
          tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts)),
-         max_memory_allocated_bytes=peak, k4_launches=fwd,
-         k4_backward_launches=bwd, k4_per_step=fwd / steps,
-         k4_backward_per_step=bwd / steps, plain_calls=plain,
-         cli_s=wall, ok=ok, card=card)
-    check(ok, f"{QWEN3} training: losses {losses[0]} -> {losses[-1]}, "
-          f"K4 {fwd} / backward {bwd} launches, plain {plain}")
+         max_memory_allocated_bytes=peak, launches=launches,
+         per_step={k: v / steps for k, v in launches.items()},
+         plain_calls=plain, cli_s=wall, ok=ok, card=card)
+    check(ok, f"{arch} training: losses {losses[0]} -> {losses[-1]}, "
+          f"launches {launches}, plain {plain}")
     # the busy share of one warm step on a fresh state of the same size
     opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
     params = M.init_params(cfg, 1, device=dev)
@@ -3381,7 +3639,7 @@ def train_full() -> int:
                    global_batch=t["batch"], seed=2)).get_batch(0).items()}
     for _ in range(2):
         timed(lambda: step(params, opt, batch))
-    device_share(f"{QWEN3} train step, B={t['batch']} x {t['seq']}, warm",
+    device_share(f"{arch} train step, B={t['batch']} x {t['seq']}, warm",
                  lambda: step(params, opt, batch))
     # the step's split: the loss and its gradients, then the AdamW update
     grads, fb_s = timed(lambda: grads_of(cfg, params, batch)[1])
@@ -3389,7 +3647,7 @@ def train_full() -> int:
     for path, g in grads.items():
         _set(tree, path, g)
     _, opt_s = timed(lambda: adamw.update(opt_cfg, tree, opt, params))
-    emit(phase="times", case=f"{QWEN3} train step split, B={t['batch']} x "
+    emit(phase="times", case=f"{arch} train step split, B={t['batch']} x "
          f"{t['seq']}, warm", loss_and_grads_s=fb_s, adamw_update_s=opt_s,
          card=card)
     return 0
@@ -3409,16 +3667,14 @@ def train_cli_in_process(arch: str, steps: int, label: str, ckpt: bool
                          ) -> dict:
     """The train CLI's entry point (``train.main``) in this process, every
     count zeroed just before and read just after."""
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch import train
-    FA.flash_attention.launches = FA.flash_attention_bwd.launches = 0
+    zero_train_counts()
     t0 = time.perf_counter()
     hist = train.main(train_cli_args(arch, steps, label, ckpt))
     return dict(seconds=time.perf_counter() - t0,
                 steps=[h["step"] for h in hist],
                 losses=[h["loss"] for h in hist],
-                launches=[FA.flash_attention.launches,
-                          FA.flash_attention_bwd.launches])
+                launches=read_train_counts())
 
 
 def train_cli_phase(first: dict, resumed: dict, card: str) -> None:
@@ -3428,27 +3684,30 @@ def train_cli_phase(first: dict, resumed: dict, card: str) -> None:
     process of its own (``python -m repro_torch.launch.train``) that
     resumes from the checkpoint to step 6.  Then 6
     uninterrupted steps through ``train.main`` here.  Each run launches K4
-    twice a layer a step (remat) and its backward once; the resumed losses
-    must equal the uninterrupted run's within ``TRAIN_RESUME_RTOL``."""
+    and K6 (as the arch's layers have them) twice a layer a step (remat)
+    and their backward kernels once; the resumed losses must equal the
+    uninterrupted run's within ``TRAIN_RESUME_RTOL``."""
     import re
     from repro_torch.configs import get_config, reduced_config
+    found_re = re.compile(r"kernel launches: " + " ".join(
+        f"{name}=(\\d+)" for name in train_counters()))
     for arch in TRAIN_CLI_ARCHS:
-        n = reduced_config(get_config(arch)).n_layers
+        cfg = reduced_config(get_config(arch))
         out, wall = finish_child(resumed[arch], f"train CLI {arch} (resumed)")
-        found = re.search(r"kernel launches: flash_attention=(\d+) "
-                          r"flash_attention_bwd=(\d+)", out)
+        found = found_re.search(out)
         with open(train_cli_args(arch, 6, "resumed", True)[-1]) as f:
             hist = json.load(f)
         runs = {"first": first[arch],
                 "resumed": dict(process_s=wall,
                                 steps=[h["step"] for h in hist],
                                 losses=[h["loss"] for h in hist],
-                                launches=[int(x) for x in found.groups()]
+                                launches=dict(zip(train_counters(), (
+                                    int(x) for x in found.groups())))
                                 if found else None),
                 "whole": train_cli_in_process(arch, 6, "whole", False)}
         got = runs["first"]["losses"] + runs["resumed"]["losses"]
         want = runs["whole"]["losses"]
-        ok = all(r["launches"] == [2 * n * len(r["steps"]), n * len(r["steps"])]
+        ok = all(r["launches"] == expected_train_counts(cfg, len(r["steps"]))
                  for r in runs.values()) \
             and runs["resumed"]["steps"] == [3, 4, 5] and len(want) == 6 \
             and bool(np.allclose(got, want, rtol=TRAIN_RESUME_RTOL, atol=0)) \
@@ -3510,6 +3769,65 @@ def k4_backward_times(dev, card: str) -> dict:
     return rows
 
 
+def k6_bwd_flop(b: int, h: int, t: int, kk: int, vv: int, chunk: int,
+                design: bool = False) -> int:
+    """FLOP of K6's backward (an FMA is two; the exponentials not counted,
+    as in K6's bound): per chunk, the pairs s < t for A, dr and dk (2 + 2 +
+    2 per channel), the pairs s <= t for dA and A^T do (2 + 2 per column),
+    and 10 C K V for Q, U, do S^T, v G^T and (k e^{L - cum}) G.  dw then
+    needs O(T K) from dr and dk.  ``design`` adds the 4 per pair and channel
+    of the kernel's own dw recurrence (csrc/rwkv6_scan_bwd.cu, step d),
+    which the function does not need."""
+    c = chunk
+    per_pair = (10 if design else 6) * kk
+    per_chunk = c * (c - 1) // 2 * per_pair + c * (c + 1) * 2 * vv \
+        + 10 * c * kk * vv
+    return b * h * (t // c) * per_chunk
+
+
+def k6_backward_times(dev, card: str) -> dict:
+    """Phase 35: K6's backward by CUDA events at the two training shapes
+    (``K6_BWD_HEADS`` at T 2048, chunk 64; bfloat16 r, k, v and float32 w,
+    as the models pass them; no dstate, as the loss leaves the final state
+    unused), beside its bound (``k6_bwd_flop`` at the peak of r, k, v's
+    type, bf16's here, as K4's backward takes it, against r, k, v, w, u and
+    do read once and dr, dk, dv, dw and du written once), its
+    plain version (``rwkv6_plain``'s autograd) and K6's forward on the same
+    inputs.  No library call computes it.  Returns the rows by label."""
+    import torch
+    from repro_torch.kernels.rwkv6_scan import (rwkv6, rwkv6_bwd,
+                                                rwkv6_bwd_plain)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(122)
+    rows = {}
+    t, chunk = TRAIN_FULL[RWKV6]["seq"], 64
+    for label, (b, h, kk, vv, u_zero) in K6_BWD_HEADS.items():
+        r, k, v, w, u, do, _ = k6_bwd_inputs(gen, dev, b, h, t, kk, vv,
+                                             torch.bfloat16, u_zero)
+        flop = k6_bwd_flop(b, h, t, kk, vv, chunk)
+        nbytes = 2 * (sum(x.numel() * x.element_size()
+                          for x in (r, k, v, w, u))) \
+            + do.numel() * do.element_size()
+        bound_ms, bound_by = bound(flop, nbytes, BF16_FLOPS
+                                   if r.dtype == torch.bfloat16
+                                   else FP32_FLOPS)
+        design_flop = k6_bwd_flop(b, h, t, kk, vv, chunk, design=True)
+        row = dict(
+            ms=event_ms(lambda: rwkv6_bwd(r, k, v, w, u, do, chunk=chunk)),
+            plain_ms=event_ms(lambda: rwkv6_bwd_plain(r, k, v, w, u, do,
+                                                      chunk=chunk), 3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+        emit(phase="times", kernel="K6 backward", case=f"{label} training "
+             f"shape B={b}, H={h}, K={kk}, V={vv}, T={t}, chunk {chunk}, bf16 "
+             "r/k/v, f32 w, no dstate", flop=flop, design_flop=design_flop,
+             bytes=nbytes, design_tflops=design_flop / row["ms"] / 1e9,
+             fp32_flop_ms=design_flop / FP32_FLOPS * 1e3, library="none",
+             forward_ms=event_ms(lambda: rwkv6(r, k, v, w, u, chunk=chunk)),
+             **row, card=card)
+        rows[label] = row
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3537,7 +3855,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = KERNEL_SOURCES + ("flash_attention_bwd",)
+    kernels = KERNEL_SOURCES + ("flash_attention_bwd", "rwkv6_scan_bwd")
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -3753,17 +4071,42 @@ def main() -> int:
                                         *train_cli_args(arch, 6, "resumed",
                                                         True)])
                      for arch in TRAIN_CLI_ARCHS}
+    # phases 29 and 34's full-width train CLIs and the profiles after phase
+    # 26, each a child that sets up now and waits for its turn
+    script = str(Path(__file__).resolve())
+    train_children = {arch: start_child(
+        [script, "--train-full", arch], stdin=subprocess.PIPE)
+        for arch in TRAIN_FULL}
+    profile_children = {args: start_child(
+        [script, *args], stdin=subprocess.PIPE) for args in (
+            ("--profile-second-slice",), ("--profile-lm", HYMBA),
+            ("--profile-lm", RWKV6), ("--profile-lm", DBRX_LM))}
     k4_bwd_err = k4_backward_against_plain(dev)
     torch.cuda.empty_cache()
-    train_in_situ(dev)
+    train_in_situ(dev, QWEN3)
     torch.cuda.empty_cache()
-    out, _ = finish_child(start_child([str(Path(__file__).resolve()),
-                                       "--train-full"]),
-                          "train CLI at full width", timeout=900)
-    sys.stdout.write(out)
-    full = child_rows(out, "main_path")[-1]
+    full = {}
+
+    def train_full_child(arch):
+        out = go_child(train_children[arch], f"train CLI {arch} at full "
+                       "width", timeout=900)
+        sys.stdout.write(out)
+        full[arch] = child_rows(out, "main_path")[-1]
+
+    train_full_child(QWEN3)
     train_cli_phase(train_first, train_resumed, card)
     k4_bwd_times = k4_backward_times(dev, card)
+    torch.cuda.empty_cache()
+
+    # -- 32.-35. training: K6's backward, rwkv6-1.6b and hymba-1.5b --------
+    k6_bwd_err, k4_bwd_hymba_err = k6_backward_against_plain(dev)
+    torch.cuda.empty_cache()
+    for arch in (RWKV6, HYMBA):
+        train_in_situ(dev, arch)
+        torch.cuda.empty_cache()
+    for arch in (RWKV6, HYMBA):
+        train_full_child(arch)
+    k6_bwd_times = k6_backward_times(dev, card)
     torch.cuda.empty_cache()
     # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
     # runs beside phase 21's CLIs
@@ -3784,7 +4127,8 @@ def main() -> int:
     k4_by_path = {HYMBA: k4_launches, DBRX_LM: dbrx["launches"]["K4"],
                   PALIGEMMA: pali["launches"], WHISPER: whisper["launches"],
                   "hymba-1.5b with prewarm": prewarm["K4"],
-                  f"{QWEN3} training": full["k4_launches"]}
+                  **{f"{arch} training": full[arch]["launches"][
+                      "flash_attention"] for arch in (QWEN3, HYMBA)}}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3796,26 +4140,43 @@ def main() -> int:
         "dbrx_132b_prefill": dbrx["k4_times"],
         "paligemma_3b_image_prefill": pali["k4_times"],
         "whisper_small_encoder": whisper["k4_times"]}
+    # the training paths' launches (phases 29 and 34), kernel -> path -> N
+    by_path = {name: {f"{arch} training": row["launches"][name]
+                      for arch, row in full.items() if row["launches"][name]}
+               for name in ("flash_attention_bwd", "rwkv6", "rwkv6_bwd")}
     k4_bwd_row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         "replaces": "src/repro/models/attention.py:67",
         "replaces_what": "the XLA autodiff of flash_attention_jnp (the "
                          "reference has no backward Pallas kernel)",
-        "launches": full["k4_backward_launches"],
-        "launches_by_path": {f"{QWEN3} training": full[
-            "k4_backward_launches"]},
-        "max_abs_err": k4_bwd_err, **k4_bwd_times[f"{QWEN3} training"],
+        "launches": sum(by_path["flash_attention_bwd"].values()),
+        "launches_by_path": by_path["flash_attention_bwd"],
+        "max_abs_err": max(k4_bwd_err, k4_bwd_hymba_err),
+        **k4_bwd_times[f"{QWEN3} training"],
         "qwen3_1p7b_s2048": k4_bwd_times[f"{QWEN3} S=2048"]}
+    k6_by_path = {HYMBA: k6_launches, RWKV6: k6_rwkv_launches,
+                  "hymba-1.5b with prewarm": prewarm["K6"],
+                  **by_path["rwkv6"]}
     k6_row = {
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
         "replaces": "src/repro/kernels/rwkv6_scan.py:67",
-        "launches": k6_launches + k6_rwkv_launches + prewarm["K6"],
-        "launches_by_path": {HYMBA: k6_launches, RWKV6: k6_rwkv_launches,
-                             "hymba-1.5b with prewarm": prewarm["K6"]},
+        "launches": sum(k6_by_path.values()),
+        "launches_by_path": k6_by_path,
         "max_abs_err": max(k6_err, k6_rwkv_err), **k6_times,
         "rwkv6_1p6b_prefill": k6_rwkv_times}
+    hymba_heads, rwkv_heads = K6_BWD_HEADS
+    k6_bwd_row = {
+        "name": "rwkv6_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rwkv6_scan_bwd.cu",
+        "replaces": "src/repro/models/ssm.py:17",
+        "replaces_what": "the XLA autodiff of rwkv6_chunked_jnp (the "
+                         "reference has no backward Pallas kernel)",
+        "launches": sum(by_path["rwkv6_bwd"].values()),
+        "launches_by_path": by_path["rwkv6_bwd"],
+        "max_abs_err": k6_bwd_err, **k6_bwd_times[rwkv_heads],
+        "hymba_1p5b_training": k6_bwd_times[hymba_heads]}
     k5_lm_launches = dbrx["launches"]["K5"]
     k5_row.update(launches=k5_row["launches"] + k5_lm_launches,
                   launches_by_path={"moe_ffn_host": k5_row["launches"],
@@ -3825,17 +4186,16 @@ def main() -> int:
                   max_abs_err=max(k5_row["max_abs_err"], dbrx["k5_err"]),
                   **dbrx["k5_times"])
     sys.stdout.flush()
-    for child in (["--profile-second-slice"], ["--profile-lm", HYMBA],
-                  ["--profile-lm", RWKV6], ["--profile-lm", DBRX_LM]):
-        subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                        *child], check=True, timeout=600)
+    for args, started in profile_children.items():
+        sys.stdout.write(go_child(started, " ".join(args)))
     # last: after this session (12,000 levels of small launches) later
     # profiler sessions in the same process recorded no device event
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
     emit(phase="script", seconds=time.perf_counter() - T_START, card=card)
     print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row,
-                                  k4_bwd_row, k5_row, k6_row]}), flush=True)
+                                  k4_bwd_row, k5_row, k6_row, k6_bwd_row]}),
+          flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3844,12 +4204,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["--profile-second-slice"]:
+    ARGS = sys.argv[1:]
+    if ARGS == ["--profile-second-slice"]:
         sys.exit(profile_second_slice())
-    if sys.argv[1:2] == ["--profile-lm"] and len(sys.argv) == 3:
-        sys.exit(profile_lm(sys.argv[2]))
-    if sys.argv[1:] == ["--train-full"]:
-        sys.exit(train_full())
+    if ARGS[:1] == ["--profile-lm"] and len(ARGS) == 2:
+        sys.exit(profile_lm(ARGS[1]))
+    if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2):
+        sys.exit(train_full(*ARGS[1:]))
     if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):
         sys.exit(store_child(sys.argv[2], sys.argv[3:] != ["--no-checks"]))
     try:

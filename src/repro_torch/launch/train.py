@@ -11,9 +11,10 @@ the caller asks for ``cpu``).  Sharded training waits for a later slice:
         --device cpu
 
 On the card, attention's forward and backward run through kernel K4
-(``kernels/flash_attention.py``); the last line counts their launches.
-A family whose training would need a backward kernel not written yet (K5's
-MoE experts, K6's WKV scan) raises on the card; on the CPU every family
+(``kernels/flash_attention.py``) and the WKV scan's (rwkv6, hymba's SSM
+heads) through kernel K6 (``kernels/rwkv6_scan.py``); the last line counts
+their launches.  A family whose training would need a backward kernel not
+written yet (K5's MoE experts) raises on the card; on the CPU every family
 trains through the plain versions.
 """
 from __future__ import annotations
@@ -30,6 +31,7 @@ from ..configs import ARCHS, get_config, reduced_config
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..device import resolve_device
 from ..kernels import flash_attention as fa
+from ..kernels import rwkv6_scan as wkv
 from ..models import model as M
 from ..optim import adamw
 from ..runtime.elastic import StepWatchdog
@@ -49,11 +51,12 @@ def build_mesh(device: torch.device):
 
 
 def print_kernel_launches() -> None:
-    """K4's forward and backward launches in this process (0 on the CPU,
-    where the plain version runs)."""
+    """K4's and K6's forward and backward launches in this process (0 on
+    the CPU, where the plain versions run)."""
     print(f"[train] kernel launches: flash_attention="
           f"{fa.flash_attention.launches} flash_attention_bwd="
-          f"{fa.flash_attention_bwd.launches}", flush=True)
+          f"{fa.flash_attention_bwd.launches} rwkv6={wkv.rwkv6.launches} "
+          f"rwkv6_bwd={wkv.rwkv6_bwd.launches}", flush=True)
 
 
 def main(argv=None):

@@ -3,9 +3,9 @@
 Port of ``repro.models.ssm``.  ``rwkv6_chunked`` is the counterpart of the
 reference's ``rwkv6_chunked_jnp`` (which mirrors the Pallas kernel's math
 and names it the TPU hot path): it goes through ``kernels.ops.rwkv6``,
-kernel K6 on the card and its plain version on the host, and returns the
-output and the final state.  Hymba's SSM heads use the same recurrence
-with ``u = 0``.
+kernel K6 on the card (under grad with K6's backward kernel) and its plain
+version on the host, and returns the output and the final state.  Hymba's
+SSM heads use the same recurrence with ``u = 0``.
 """
 from __future__ import annotations
 

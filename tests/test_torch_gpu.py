@@ -1,7 +1,7 @@
-"""Kernels K1 to K6 and K4's backward on the card: each CUDA kernel
+"""Kernels K1 to K6 and K4's and K6's backward on the card: each CUDA kernel
 against its plain version, and the port's paths through them (training
-too: K4 under autograd, the kernels without a backward raising where a
-gradient is asked for, train steps on the card against the host).  Every test here carries the ``gpu``
+too: K4 and K6 under autograd, the kernels without a backward raising where
+a gradient is asked for, train steps on the card against the host).  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
 machine with only PyTorch:
@@ -950,7 +950,8 @@ import sys
 from repro_torch.runtime.exec_store import ExecCache, ExecStore
 cache = ExecCache(ExecStore(sys.argv[1]))
 cache.load_many(("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
-                 "flash_attention", "moe_gemm", "rwkv6_scan"))
+                 "flash_attention", "moe_gemm", "rwkv6_scan",
+                 "rwkv6_scan_bwd"))
 print("COUNTS", cache.stats.compiles, cache.stats.loads)
 """
 
@@ -972,8 +973,8 @@ def test_store_restart_loads_every_library_without_nvcc(cuda, tmp_path):
                     if x.startswith("COUNTS"))
         return tuple(int(v) for v in line.split()[1:])
 
-    assert run() == (6, 0)
-    assert run() == (0, 6)
+    assert run() == (7, 0)
+    assert run() == (0, 7)
 
 
 # -- training: K4's backward, the kernels without one, the train step --------
@@ -1045,10 +1046,6 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
         moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
     with torch.no_grad():
         moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
-    r = torch.randn(1, 2, 64, 16, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K6"):
-        rwkv6(r, r, r, torch.rand(1, 2, 64, 16, device=cuda),
-              torch.zeros(2, 16, device=cuda))
     tiles = torch.randn(2, 32, 32, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K1"):
         bsr_spgemm_schedule(dict(a_id=np.array([0]), b_id=np.array([1]),
@@ -1064,11 +1061,13 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
                                np.ones(2, np.int32))
 
 
-@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b",
+                                  "hymba-1.5b"])
 def test_train_step_card_against_host(cuda, arch):
     from repro_torch.configs import reduced_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
     cfg = reduced_config(get_config(arch))
@@ -1082,16 +1081,129 @@ def test_train_step_card_against_host(cuda, arch):
     for name, params in card.items():
         opt = adamw.init(opt_cfg, params)
         step = make_train_step(cfg, opt_cfg)
-        f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
+        counters = (FA.flash_attention, FA.flash_attention_bwd, RK.rwkv6,
+                    RK.rwkv6_bwd)
+        before = [c.launches for c in counters]
         losses[name] = []
         for i in range(2):
             batch = {k: torch.from_numpy(v).to(name)
                      for k, v in data.get_batch(i).items()}
             params, opt, m = step(params, opt, batch)
             losses[name].append(float(m["loss"]))
-        fwd, bwd = (FA.flash_attention.launches - f0,
-                    FA.flash_attention_bwd.launches - b0)
-        # under remat each layer's forward runs twice
-        assert (fwd, bwd) == ((0, 0) if name == "cpu" else
-                              (2 * 2 * cfg.n_layers, 2 * cfg.n_layers))
+        got = [c.launches - n for c, n in zip(counters, before)]
+        # two steps; under remat each layer's forward runs twice
+        n = 2 * cfg.n_layers
+        att, ssm = cfg.mixer in ("attn", "hymba"), cfg.mixer in ("rwkv",
+                                                                 "hymba")
+        assert got == ([0] * 4 if name == "cpu" else
+                       [2 * n * att, n * att, 2 * n * ssm, n * ssm])
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
+
+
+# -- training: K6's backward -------------------------------------------------
+
+K6_BWD_REL_NORM = 1e-4
+K6_BWD_BF16_REL_NORM = 5e-3
+
+
+def _k6_bwd_problem(dev, seed, b, h, t, kk, vv, dtype, u_zero):
+    r, k = (_randn(dev, seed + i, b, h, t, kk, dtype=dtype) for i in (0, 1))
+    v = _randn(dev, seed + 2, b, h, t, vv, dtype=dtype)
+    w = torch.exp(-torch.exp(_randn(dev, seed + 3, b, h, t, kk) - 0.5)
+                  ).clamp(1e-6, 1 - 1e-6)
+    u = torch.zeros(h, kk, device=dev) if u_zero else \
+        _randn(dev, seed + 4, h, kk)
+    return (r, k, v, w, u, _randn(dev, seed + 5, b, h, t, vv),
+            _randn(dev, seed + 6, b, h, kk, vv))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,kk,vv,chunk,u_zero,with_ds", [
+    (2, 25, 2048, 16, 64, 64, True, False),    # hymba-1.5b's training heads
+    (2, 32, 2048, 64, 64, 64, False, False),   # rwkv6-1.6b's
+    (2, 25, 2016, 16, 64, 32, True, True),     # T no multiple of 64
+    (1, 3, 160, 8, 40, 32, False, True),       # K = 8, a V tail tile
+    (1, 2, 12, 32, 72, 64, False, True),       # T < chunk
+])
+def test_k6_backward_matches_plain(cuda, dtype, b, h, t, kk, vv, chunk,
+                                   u_zero, with_ds):
+    """Against the plain version's autograd on float64 copies: its float32
+    dw divides a difference of two sums of order one by w."""
+    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd, rwkv6_bwd_plain
+    r, k, v, w, u, do, ds = _k6_bwd_problem(cuda, t, b, h, t, kk, vv, dtype,
+                                            u_zero)
+    ds = ds if with_ds else None
+    before = rwkv6_bwd.launches
+    got = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
+    again = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
+    torch.cuda.synchronize()
+    assert rwkv6_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))   # no atomics
+    want = rwkv6_bwd_plain(*(x.double() for x in (r, k, v, w, u, do)),
+                           None if ds is None else ds.double(), chunk=chunk)
+    tol = K6_BWD_REL_NORM if dtype == torch.float32 else K6_BWD_BF16_REL_NORM
+    for g, x, ref in zip(got, want, (r, k, v, w, u)):
+        assert g.dtype == ref.dtype and g.shape == ref.shape
+        assert torch.isfinite(g).all()
+        err = (g.double() - x).norm() / x.norm()
+        assert err <= tol, err
+
+
+def test_k6_autograd_runs_forward_and_backward_kernels(cuda):
+    from repro_torch.kernels import rwkv6_scan as RK
+    r, k, v, w, u, do, ds = _k6_bwd_problem(cuda, 1, 2, 3, 256, 16, 64,
+                                            torch.bfloat16, False)
+    leaves = [x.detach().requires_grad_(True) for x in (r, k, v, w, u)]
+    f0, b0 = RK.rwkv6.launches, RK.rwkv6_bwd.launches
+    o, state = rwkv6(*leaves, chunk=64)
+    with torch.no_grad():            # the forward's bits do not change
+        o2, state2 = rwkv6(r, k, v, w, u, chunk=64)
+    assert torch.equal(o, o2) and torch.equal(state, state2)
+    grads = torch.autograd.grad((o, state), leaves, (do, ds))
+    assert (RK.rwkv6.launches - f0, RK.rwkv6_bwd.launches - b0) == (2, 1)
+    want = RK.rwkv6_bwd(r, k, v, w, u, do, ds, chunk=64)
+    assert all(torch.equal(g, x) for g, x in zip(grads, want))
+    # the final state unused (dstate None), u without a gradient
+    leaves = leaves[:4]
+    o, _ = rwkv6(*leaves, u, chunk=64)
+    grads = torch.autograd.grad(o, leaves, do)
+    want = RK.rwkv6_bwd(r, k, v, w, u, do, chunk=64)
+    assert all(torch.equal(g, x) for g, x in zip(grads, want))
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "hymba-1.5b"])
+def test_two_layer_loss_backward_card_against_host(cuda, arch):
+    """Full width, 2 layers, float32 compute, 4 chunks of 64: every param
+    leaf's gradient on the card (K6, K4 and their backward kernels) within
+    1e-3 of the host's in relative norm; under remat K6 (and hymba's K4)
+    runs twice a layer and its backward once."""
+    import dataclasses
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
+    from repro_torch.models.params import _walk, tree_map
+    cfg = dataclasses.replace(get_config(arch), n_layers=2,
+                              compute_dtype="float32")
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=256,
+                                   global_batch=1, seed=3)).get_batch(0)
+    params = M.init_params(cfg, 2, device="cpu")
+    grads = {}
+    for dev in ("cpu", cuda):
+        tree = tree_map(lambda t: t.detach().to(dev), params)
+        leaves = list(_walk(tree))
+        for _, p in leaves:
+            p.requires_grad_(True)
+        counters = (FA.flash_attention, FA.flash_attention_bwd, RK.rwkv6,
+                    RK.rwkv6_bwd)
+        before = [c.launches for c in counters]
+        loss, _ = M.loss_fn(cfg, tree, {k: torch.from_numpy(x).to(dev)
+                                        for k, x in batch.items()})
+        g = torch.autograd.grad(loss, [p for _, p in leaves],
+                                allow_unused=True, materialize_grads=True)
+        got = [c.launches - n for c, n in zip(counters, before)]
+        att = int(cfg.mixer == "hymba")
+        assert got == ([0] * 4 if dev == "cpu" else [4 * att, 2 * att, 4, 2])
+        grads[str(dev)] = {path: x.cpu() for (path, _), x in zip(leaves, g)}
+    for path, g in grads["cpu"].items():
+        err = (grads["cuda"][path] - g).norm() / g.norm().clamp_min(1e-30)
+        assert err <= 1e-3, (path, err)
