@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero without the result line:
 1. device — the card's name, and its name and power limit from nvidia-smi;
 2. build — compile kernels K1 (``bsr_spgemm``), K2 (``bsr_spmm``), K3
    (``block_sparse_attention``), K4 (``flash_attention``) and its backward
-   (``flash_attention_bwd``), K5 (``moe_gemm``), K6 (``rwkv6_scan``) and
-   its backward (``rwkv6_scan_bwd``),
+   (``flash_attention_bwd``), K5 (``moe_gemm``) and its backward
+   (``moe_gemm_bwd``), K6 (``rwkv6_scan``) and its backward
+   (``rwkv6_scan_bwd``),
    one nvcc each, all started together, and print ptxas's report;
 3. kernel against plain — K1 against ``bsr_spgemm_plain`` on the card at
    the filter3D sync-plan shapes, on one bucketed chunk schedule with its
@@ -170,7 +171,7 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
 Phases 22 and 23 run after phase 20, then phases 27-31 (31's first runs
 before 27, its resumed processes beside 27-29, 30 last), then phases
-32-35, then phase 21.
+32-35, then 36-39, then phase 21.
 
 22. paligemma-3b — K4 against ``flash_attention_plain`` at the image
    prefill's shape (B = 2, 8 q heads / 1 kv head of 256, causal, S = 256 +
@@ -203,8 +204,7 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    shapes and at qwen3-1.7b's training shape (B 8, S 256, 16 / 8 heads of
    128, causal), float32 within 1e-4 and bfloat16 within a relative norm
    of 5e-3 for each of dq, dk and dv (max abs error a reading); each case
-   run twice, the two bit-identical; a K5 call on CUDA tensors that
-   require grad must raise (no backward kernel yet);
+   run twice, the two bit-identical;
 28. in situ — qwen3-1.7b at full width, 2 layers, float32 compute, batch
    1 x 256: the loss and every param leaf's gradient on the card (K4 and
    its backward) against the host (plain versions), each within 1e-3 in
@@ -224,12 +224,15 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    (``flash_attention_plain``'s autograd) and the backward of
    ``scaled_dot_product_attention`` (``is_causal``, kv heads repeated);
 31. the reduced train CLI on the card for qwen3-1.7b, gemma2-2b
-   (softcap, window; head dim 16), rwkv6-1.6b and hymba-1.5b: 3 steps into
+   (softcap, window; head dim 16), rwkv6-1.6b, hymba-1.5b, dbrx-132b and
+   kimi-k2 (a shared expert; both K5 and its backward in float32 at width
+   64): 3 steps into
    a checkpoint through ``train.main`` in this process, then ``python -m
    repro_torch.launch.train`` in a process of its own resuming from it to
    step 6, against 6 uninterrupted steps through ``train.main``; every run
    launches K4 (where the layers attend) and K6 (where they scan) twice a
-   layer a step and their backward kernels once, and the resumed losses
+   layer a step and their backward kernels once, K5 six times an MoE layer
+   a step and its backward three times, and the resumed losses
    equal the uninterrupted run's within 1e-4 (bit equality a reading);
 32. kernel against plain — K6's backward (``rwkv6_bwd``: dr, dk, dv, dw,
    du) against its plain version (``rwkv6_plain``'s autograd, run on
@@ -256,6 +259,39 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    ``k6_bwd_flop`` at the bf16 peak, against its inputs read once and its
    outputs written once: bytes-bound), the design's FLOP at the fp32 peak,
    its plain version and K6's forward;
+36. kernel against plain — K5's backward (``moe_gemm_bwd``: dx, dw)
+   against its plain version (``moe_gemm_bwd_plain``) at ``K5_BWD_CASES``:
+   dbrx-132b's training bundles (32 of cap 320, 6144 -> 10752 and 10752 ->
+   6144), cap 8, kimi-k2's widths (7168 -> 2048) at cap 24, width 64,
+   widths 36 / 260 at cap 131, a map with an expert that no bundle meets
+   (its dw must be zeros) and one of a single repeated expert; float32
+   within 1e-5 and bfloat16 within 5e-3 in relative norm for each of dx and
+   dw, each case run twice and the two bit-identical; then K5 under
+   autograd at dbrx-132b's gate shape in bfloat16: its forward bit-equal to
+   the no-grad call, its gradients equal to ``moe_gemm_bwd``'s, one K5
+   launch and one backward call (dx and dw);
+37. in situ — dbrx-132b at full width, 1 layer, float32 compute (bfloat16
+   params, the config's), batch 1 x 256 (16 bundles of cap 80), as phase
+   28: every leaf's gradient within 1e-3 of the host's; K5 six times, its
+   backward three, K4 twice and its backward once;
+38. main path, fourteenth slice — the train CLI's code (``train.train``,
+   the loop of ``train.main``, on ``get_config("dbrx-132b", n_layers=1)``)
+   at full width (d_model 6144, 16 experts top-4 of 10752, vocab 100352),
+   depth cut 40 -> 1, bfloat16 params and compute, remat, 10 steps of
+   batch 2 x 1024 (32 bundles of cap 320) at ``--lr 1e-4``, in a child
+   process
+   (``--train-full dbrx-132b``) with the card to itself (53.9 GB of
+   params, grads and AdamW state), as phase 29: losses finite and falling,
+   K5 six times and its backward three times a step, K4 twice and its
+   backward once, the plain versions never, K5's expert map and its
+   backward's CSR walk each uploaded once in the run; step p50 / p99, the
+   first step, tokens/s, peak memory, the busy share and split of a warm
+   step;
+39. times — K5's backward at dbrx-132b's training bundles, both
+   orientations, bfloat16, by CUDA events: the call (dx and dw) beside its
+   bound (each entry 2 x 10240 x 6144 x 10752 FLOP at the bf16 peak), its
+   plain version and ``torch.bmm`` on inputs grouped by expert beforehand;
+   dx and dw each beside theirs;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -268,11 +304,13 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
-   script's time and the kernels line (K1 to K6 and K4's and K6's
+   script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
-   and 24, K4's of 14, 19, 22, 23, 26, 29 and 34, K4's backward's of 29 and
-   34, K5's of 10 and 19, K6's of 14, 18, 26 and 34, K6's backward's of 34;
-   K4's backward's times at phase 30's shapes, K6's at phase 35's; K1's
+   and 24, K4's of 14, 19, 22, 23, 26, 29, 34 and 38, K4's backward's of
+   29, 34 and 38, K5's of 10, 19 and 38, K5's backward's of 38, K6's of
+   14, 18, 26 and 34, K6's backward's of 34;
+   K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
+   phase 39's; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
    0 in float32, K5's at the prefill gate shape, K4's and K6's at the
    2048-token hymba prefill, nested beside them K4's at dbrx-132b's
@@ -296,12 +334,13 @@ Phases 24-26 run after phase 21's CLI runs, before its profiles.
    fallback), bit-equal; each call cold, warm and from a fresh runtime on
    the same plan store;
 25. the kernel-library store — child processes over a fresh
-   ``ExecStore``: the first builds K1-K6 and K6's backward into it (7
-   ``nvcc`` runs; started before phase 9, it runs on the host while phases
-   9-23 run), then, at once, a second loads all seven with none, and a
-   third, over a copy of the store with one entry's bytes corrupted, counts
-   it corrupt, rebuilds it alone and loads six; those two run every kernel
-   once against its plain version at a small shape;
+   ``ExecStore``: the first builds every library of ``csrc/`` into it (K1-K6
+   and K4's, K6's and K5's backward: 9 ``nvcc`` runs; started before phase
+   9, it runs on the host while phases 9-23 run), then, at once, a second
+   loads all nine with none, and a third, over a copy of the store with one
+   entry's bytes corrupted, counts it corrupt, rebuilds it alone and loads
+   eight; those two run every kernel once against its plain version at a
+   small shape;
 26. serving with the store — ``python -m repro_torch.launch.serve --arch
    hymba-1.5b --continuous --prewarm --exec-store DIR`` on a fresh store
    (its prewarm builds K4 and K6; it runs beside phase 21's CLIs), then
@@ -438,8 +477,10 @@ SHARD_MOE = dict(tokens=4096, capacity=1280)
 # of phases 25 and 26
 KERNEL_SOURCES = ("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
                   "flash_attention", "moe_gemm", "rwkv6_scan")
-# what the store children load: K1-K6 and K6's backward
-STORE_KERNELS = KERNEL_SOURCES + ("rwkv6_scan_bwd",)
+# the backward kernels' libraries: K4's, K6's and K5's
+BACKWARD_SOURCES = ("flash_attention_bwd", "rwkv6_scan_bwd", "moe_gemm_bwd")
+# what the store children load: every library in csrc/
+STORE_KERNELS = KERNEL_SOURCES + BACKWARD_SOURCES
 STORE_CORRUPT = "bsr_spmm"
 STORE_DIR = ROOT / "build" / "kernel_store"
 STORE_DIR_CORRUPT = ROOT / "build" / "kernel_store_corrupt"
@@ -459,10 +500,22 @@ QWEN3 = "qwen3-1.7b"
 # f32 params, bf16 compute, remat) 10 steps of batch 2 x 2048, 32 chunks of
 # 64 a sequence, so that hymba's 1024 window slides.  In situ (phases 28
 # and 33): 2 layers at full width in float32, batch 1 x 256 (4 chunks of 64)
+# dbrx-132b (phases 37-38) at full width with its depth cut 40 -> 1:
+# bfloat16 params and grads and float32 AdamW m / v are 12 bytes a param,
+# 53.9 GB for one layer with its embedding and head (4.49 B params), and a
+# second layer adds 39.1 GB, past the card's 80 GB.  10 steps of batch
+# 2 x 1024: 32 bundles of cap 320, the shapes phase 20 times K5 at.  At the
+# CLI's default lr of 3e-3 its loss rose once the warm-up passed 6e-4
+# (11.96 -> 14.90 over 10 steps); it trains at --lr 1e-4
 TRAIN_FULL = {QWEN3: dict(steps=20, batch=8, seq=256),
               RWKV6: dict(steps=10, batch=2, seq=2048),
-              HYMBA: dict(steps=10, batch=2, seq=2048)}
+              HYMBA: dict(steps=10, batch=2, seq=2048),
+              DBRX_LM: dict(steps=10, batch=2, seq=1024, n_layers=1,
+                            lr=1e-4)}
 TRAIN_SITU = dict(n_layers=2, batch=1, seq=256)
+# dbrx-132b in situ (phase 37): 1 layer at full width, float32 compute,
+# batch 1 x 256 (16 bundles of cap 80)
+DBRX_TRAIN_SITU = dict(TRAIN_SITU, n_layers=1)
 # K4's backward against its plain version (phase 27): phase 12's shapes and
 # qwen3-1.7b's training shape, label -> (B, H, Hkv, D, S, masks)
 K4_BWD_CASES = {
@@ -497,10 +550,33 @@ K6_BWD_T = ((2048, 64), (2016, 32))
 # backward's limit (each gradient rounded to bfloat16 once)
 K6_BWD_REL_NORM = 1e-4
 K6_BWD_BF16_REL_NORM = 5e-3
+# K5's backward against its plain version (phase 36): label -> (bundles,
+# cap, d_in, d_out, experts, map): dbrx-132b's training bundles both ways
+# round (the gate and up products, and down), a decode-sized cap of 8,
+# kimi-k2's widths at a small cap, the reduced configs' width, widths not a
+# multiple of 8 at a ragged cap, a map that leaves an expert without a
+# bundle and one that meets one expert only.  Map "in_graph": bundle b
+# meets expert b % E, as moe_ffn's; "random": seeded
+K5_BWD_CASES = {
+    "dbrx-132b training, gate and up": (32, 320, 6144, 10752, 16,
+                                        "in_graph"),
+    "dbrx-132b training, down": (32, 320, 10752, 6144, 16, "in_graph"),
+    "dbrx-132b widths, cap 8": (16, 8, 6144, 10752, 16, "in_graph"),
+    "kimi-k2 widths, cap 24": (16, 24, 7168, 2048, 8, "random"),
+    "reduced configs, width 64, cap 40": (8, 40, 64, 64, 4, "in_graph"),
+    "widths 36 / 260, cap 131": (3, 131, 36, 260, 4, "random"),
+    "expert 4 without a bundle": (6, 64, 256, 512, 5, [0, 1, 2, 3, 0, 1]),
+    "one expert, repeated": (8, 48, 512, 256, 4, [2] * 8)}
+# ||kernel - plain|| / ||plain|| of dx and of dw: float32 sums in another
+# order; bfloat16 at K4's backward's limit (each result rounded once)
+K5_BWD_REL_NORM = {"float32": 1e-5, "bfloat16": 5e-3}
 # the reduced train CLI on the card with a checkpoint resume (phase 31):
 # qwen3-1.7b and gemma2-2b (softcap, window; head dim 256 reduced to 16),
-# rwkv6-1.6b and hymba-1.5b (K6 and its backward; hymba with K4)
-TRAIN_CLI_ARCHS = ("qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "hymba-1.5b")
+# rwkv6-1.6b and hymba-1.5b (K6 and its backward; hymba with K4),
+# dbrx-132b and kimi-k2 (K5 and its backward in float32 at width 64;
+# kimi-k2 with a shared expert)
+TRAIN_CLI_ARCHS = ("qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b", "hymba-1.5b",
+                   "dbrx-132b", "kimi-k2-1t-a32b")
 TRAIN_CLI_ARGS = ["--reduced", "--batch", "4", "--seq", "64"]
 # in situ: each gradient leaf of the card (K4 and its backward, cuBLAS)
 # against the host's (plain versions), ||card - host|| / ||host||
@@ -615,7 +691,8 @@ PORT_KERNEL_NAMES = {
     "K4 backward": ("attn_bwd_",), "K5": ("moe_gemm_",),
     "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel"),
     "K6 backward": ("bwd_local_kernel", "bwd_scan_kernel", "bwd_inter_kernel",
-                    "bwd_du_kernel")}
+                    "bwd_du_kernel"),
+    "K5 backward": ("moe_bwd_dx_", "moe_bwd_dw_")}
 
 
 def emit(**row) -> None:
@@ -2990,8 +3067,9 @@ def sharding_phases(fa, cage, cage_ref, cage_runs, card: str) -> dict:
 
 
 def kernels_against_plain_small(dev) -> None:
-    """Each of K1-K6 and K6's backward once against its plain version at
-    one small shape (a library from the store computes)."""
+    """Each of K1-K6 and K4's, K6's and K5's backward once against its
+    plain version at one small shape (a library from the store
+    computes)."""
     import torch
     from repro_torch.core import COO, CSR, inspect_spgemm_block, random_csr
     from repro_torch.kernels.bsr_spgemm import (bsr_spgemm_plain,
@@ -3000,8 +3078,11 @@ def kernels_against_plain_small(dev) -> None:
                                               inspect_spmm)
     from repro_torch.kernels.flash_attention import (
         block_sparse_attention, block_sparse_attention_plain,
-        flash_attention, flash_attention_plain, inspect_block_attention)
-    from repro_torch.kernels.moe_gemm import moe_gemm, moe_gemm_plain
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain,
+        flash_attention_plain, inspect_block_attention)
+    from repro_torch.kernels.moe_gemm import (moe_gemm, moe_gemm_bwd,
+                                              moe_gemm_bwd_plain,
+                                              moe_gemm_plain)
     from repro_torch.kernels.rwkv6_scan import rwkv6, rwkv6_bwd, rwkv6_plain
     rng = np.random.default_rng(250)
 
@@ -3058,11 +3139,22 @@ def kernels_against_plain_small(dev) -> None:
                      rwkv6_bwd(r, kk, vv, wd, u, do, ds, chunk=64),
                      k6_bwd_plain64(r, kk, vv, wd, u, do, ds, 64),
                      torch.float32)
+    (dout,) = on(rng.standard_normal(q.shape).astype(np.float32))
+    with torch.no_grad():
+        out = flash_attention(q, k, v, window=128)
+    compare_grads("store child, S=256 window 128",
+                  flash_attention_bwd(q, k, v, out, dout, window=128),
+                  flash_attention_bwd_plain(q, k, v, dout, window=128),
+                  torch.float32)
+    (dy,) = on(rng.standard_normal((4, 16, 128)).astype(np.float32))
+    compare_k5_grads("store child, 4 bundles of 16",
+                     moe_gemm_bwd(xb, wb, be, dy),
+                     moe_gemm_bwd_plain(xb, wb, *on(be), dy), torch.float32)
 
 
 def store_child(root: str, checks: bool) -> int:
-    """One process over the kernel-library store at ``root``: load K1-K6 and
-    K6's backward through it (building what it misses), then, with
+    """One process over the kernel-library store at ``root``: load every
+    library of ``csrc/`` through it (building what it misses), then, with
     ``checks``, each kernel once against its plain version; prints the
     counts as a ``store_child`` row."""
     import torch
@@ -3095,13 +3187,14 @@ def serve_store_args(*extra) -> list:
 def store_phases(store_build, cold_cli, card: str) -> None:
     """Phases 25 and 26's CLI runs: the kernel-library store across
     processes.  Started by ``main``: a child that builds ``STORE_KERNELS``
-    (K1-K6 and K6's backward) into a fresh store (7 ``nvcc`` runs, 0 loads;
-    started before phase 9) and the serving CLI on hymba-1.5b with
-    ``--prewarm --exec-store`` on a fresh store of its own (its prewarm
-    builds K4 and K6; beside phase 21's CLIs).  Then, at once: a child that
-    loads all seven from the store with no ``nvcc``, a child over a copy of
-    the store with one entry's bytes corrupted (it counts the entry
-    corrupt, rebuilds it alone and loads the other six),
+    (every library of ``csrc/``: K1-K6 and K4's, K6's and K5's backward)
+    into a fresh store (9 ``nvcc`` runs, 0 loads; started before phase 9)
+    and the serving CLI on hymba-1.5b with ``--prewarm --exec-store`` on a
+    fresh store of its own (its prewarm builds K4 and K6; beside phase 21's
+    CLIs).  Then, at once: a child that loads all nine from the store with
+    no ``nvcc``, a child over a copy of the store with one entry's bytes
+    corrupted (it counts the entry corrupt, rebuilds it alone and loads the
+    other eight),
     and the CLI again with ``--expect-zero-compiles`` (no ``nvcc``, both
     libraries from the store, exit 0).  The two later store children run
     each kernel once against its plain version."""
@@ -3113,11 +3206,13 @@ def store_phases(store_build, cold_cli, card: str) -> None:
         row = child_rows(out, "store_child")[-1]
         checks = child_rows(out, "kernel_vs_plain")
         ok = (row["compiles"], row["loads"], row["corrupt"]) == expect \
-            and len(checks) == (0 if label == "build" else 8) \
+            and len(checks) == (0 if label == "build" else 12) \
             and all(c["ok"] for c in checks)
         emit(phase="kernel_store", child=label, process_s=wall,
              kernel_checks=len(checks),
-             max_abs_err={c["kernel"]: c["max_abs_err"] for c in checks},
+             max_abs_err={c["kernel"]: max(
+                 d["max_abs_err"] for d in checks
+                 if d["kernel"] == c["kernel"]) for c in checks},
              ok=ok, card=card,
              **{k: v for k, v in row.items() if k != "phase"})
         check(ok, f"kernel store, {label}: {row}")
@@ -3316,23 +3411,9 @@ def k4_backward_cases(dev, cases: dict, seed: int) -> float:
 
 def k4_backward_against_plain(dev) -> float:
     """Phase 27: K4's backward against its plain version at phase 12's
-    shapes and at qwen3-1.7b's training shape (B 8, S 256); then a K5 call
-    on CUDA tensors that require grad, which must raise (no backward kernel
-    yet).  Returns the worst max abs error."""
-    import torch
-    from repro_torch.kernels.moe_gemm import moe_gemm
-    worst = k4_backward_cases(dev, K4_BWD_CASES, 90)
-    x = torch.randn((2, 8, 64), device=dev, requires_grad=True)
-    try:
-        moe_gemm(x, torch.randn((2, 64, 64), device=dev),
-                 np.arange(2, dtype=np.int32))
-        raised = ""
-    except NotImplementedError as err:
-        raised = str(err)
-    emit(phase="check", case="K5 on CUDA tensors that require grad",
-         raised=raised, ok=bool(raised))
-    check(bool(raised), "K5 gave a result where a gradient was asked for")
-    return worst
+    shapes and at qwen3-1.7b's training shape (B 8, S 256).  Returns the
+    worst max abs error."""
+    return k4_backward_cases(dev, K4_BWD_CASES, 90)
 
 
 K6_GRADS = ("dr", "dk", "dv", "dw", "du")
@@ -3461,13 +3542,16 @@ def k6_backward_against_plain(dev) -> tuple:
 
 
 def train_counters() -> dict:
-    """The launch counters of the kernels a training step runs: K4, K6 and
-    their backward kernels."""
+    """The launch counters of the kernels a training step runs: K4, K6, K5
+    and their backward kernels, in the order of the train CLI's last
+    line."""
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
     from repro_torch.kernels import rwkv6_scan as RK
     return {"flash_attention": FA.flash_attention,
             "flash_attention_bwd": FA.flash_attention_bwd,
-            "rwkv6": RK.rwkv6, "rwkv6_bwd": RK.rwkv6_bwd}
+            "rwkv6": RK.rwkv6, "rwkv6_bwd": RK.rwkv6_bwd,
+            "moe_gemm": K5.moe_gemm, "moe_gemm_bwd": K5.moe_gemm_bwd}
 
 
 def zero_train_counts() -> None:
@@ -3481,11 +3565,15 @@ def read_train_counts() -> dict:
 
 def expected_train_counts(cfg, steps: int) -> dict:
     """Under remat each layer's forward runs twice a step and its backward
-    once: K4 where the mixer attends, K6 where it scans (hymba: both)."""
+    once: K4 where the mixer attends, K6 where it scans (hymba: both), K5
+    three times (gate, up, down) where the FFN is an MoE, and its backward
+    once a product (dx and dw in one call)."""
     n = cfg.n_layers * steps
     att, ssm = cfg.mixer in ("attn", "hymba"), cfg.mixer in ("rwkv", "hymba")
+    moe = 3 * (cfg.ffn == "moe")
     return {"flash_attention": 2 * n * att, "flash_attention_bwd": n * att,
-            "rwkv6": 2 * n * ssm, "rwkv6_bwd": n * ssm}
+            "rwkv6": 2 * n * ssm, "rwkv6_bwd": n * ssm,
+            "moe_gemm": 2 * n * moe, "moe_gemm_bwd": n * moe}
 
 
 def grads_of(cfg, params, batch) -> tuple:
@@ -3502,20 +3590,21 @@ def grads_of(cfg, params, batch) -> tuple:
     return loss.detach(), {path: g for (path, _), g in zip(leaves, grads)}
 
 
-def train_in_situ(dev, arch: str) -> None:
-    """Phases 28 (qwen3-1.7b) and 33 (rwkv6-1.6b, hymba-1.5b): ``arch`` at
-    full width, depth cut to 2 layers, float32 compute, ``TRAIN_SITU``: the
-    loss and the gradient of every param leaf on the card (K4, K6 and their
-    backward kernels) against the same params on the host (plain versions),
-    each leaf within ``TRAIN_GRAD_TOL`` in relative norm; under remat each
-    kernel's forward runs twice a layer and its backward once."""
+def train_in_situ(dev, arch: str, st: dict = TRAIN_SITU) -> None:
+    """Phases 28 (qwen3-1.7b), 33 (rwkv6-1.6b, hymba-1.5b) and 37
+    (dbrx-132b, ``DBRX_TRAIN_SITU``): ``arch`` at full width, depth cut to
+    ``st``'s layers (2, dbrx-132b 1), float32 compute (params in the
+    config's dtype), batch ``st``: the loss and the gradient of every param
+    leaf on the card (K4, K6, K5 and their backward kernels) against the
+    same params on the host (plain versions), each leaf within
+    ``TRAIN_GRAD_TOL`` in relative norm; under remat each kernel's forward
+    runs twice a layer and its backward once."""
     import dataclasses
 
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models import model as M
-    st = TRAIN_SITU
     cfg = dataclasses.replace(get_config(arch), n_layers=st["n_layers"],
                               compute_dtype="float32")
     params = M.init_params(cfg, 80, device=dev)
@@ -3535,8 +3624,8 @@ def train_in_situ(dev, arch: str) -> None:
     loss_h, g_h = grads_of(cfg, host, {k: torch.from_numpy(v)
                                        for k, v in batch.items()})
     host_s = time.perf_counter() - t0
-    rel = {"/".join(path): ((g_d[path].cpu() - g).norm()
-                            / g.norm().clamp_min(1e-30)).item()
+    rel = {"/".join(path): ((g_d[path].cpu().float() - g.float()).norm()
+                            / g.float().norm().clamp_min(1e-30)).item()
            for path, g in g_h.items()}
     worst = max(rel, key=rel.get)
     n = cfg.n_layers
@@ -3555,28 +3644,33 @@ def train_in_situ(dev, arch: str) -> None:
 
 
 def train_full(arch: str = QWEN3) -> int:
-    """Phases 29 (qwen3-1.7b) and 34 (rwkv6-1.6b, hymba-1.5b), each in a
-    child process of its own (``--train-full ARCH``): the train CLI
-    (``repro_torch.launch.train.main``, what ``python -m
-    repro_torch.launch.train`` runs) on ``arch`` at full width and depth,
-    ``TRAIN_FULL[arch]``, every count zeroed just before and read just
-    after; its losses finite and falling, K4 (where the model attends) and
-    K6 (where it scans) twice a layer a step and their backward kernels
-    once, the plain versions never.  Then the device busy share of one warm
-    step on a fresh state of the same size, and the step's split.  It
-    starts early and waits (``wait_for_turn``)."""
+    """Phases 29 (qwen3-1.7b), 34 (rwkv6-1.6b, hymba-1.5b) and 38
+    (dbrx-132b), each in a child process of its own (``--train-full
+    ARCH``): the train CLI's code on ``arch`` at full width,
+    ``TRAIN_FULL[arch]``: ``repro_torch.launch.train.main`` (what ``python
+    -m repro_torch.launch.train`` runs) at full depth, or, where
+    ``TRAIN_FULL`` cuts the depth, ``train.train`` (the loop ``main`` runs
+    once it has built the config) on the config with its depth cut.  Every
+    count zeroed just before and read just after; its losses finite and
+    falling, K4 (where the model attends) and K6 (where it scans) twice a
+    layer a step and their backward kernels once, K5 six times a MoE layer
+    a step and its backward three times, the plain versions never.  Then
+    the device busy share of one warm step on a fresh state of the same
+    size (the first freed), and the step's split.  It starts early and
+    waits (``wait_for_turn``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
     from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
-    from repro_torch.models.params import _set, count_params
+    from repro_torch.models.params import _set, _walk, count_params
     from repro_torch.optim import adamw
-    wait_for_turn("flash_attention", "flash_attention_bwd", "rwkv6_scan",
-                  "rwkv6_scan_bwd")
+    wait_for_turn("flash_attention", "rwkv6_scan", "moe_gemm",
+                  *BACKWARD_SOURCES)
     dev = torch.device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -3594,33 +3688,54 @@ def train_full(arch: str = QWEN3) -> int:
 
     for module, name in ((FA, "flash_attention_plain"),
                          (FA, "flash_attention_bwd_plain"),
-                         (RK, "rwkv6_plain"), (RK, "rwkv6_bwd_plain")):
+                         (RK, "rwkv6_plain"), (RK, "rwkv6_bwd_plain"),
+                         (K5, "moe_gemm_plain"), (K5, "moe_gemm_bwd_plain")):
         counted(module, name)
-    cfg, t = get_config(arch), TRAIN_FULL[arch]
+    t = TRAIN_FULL[arch]
+    cut = {"n_layers": t["n_layers"]} if "n_layers" in t else {}
+    cfg = get_config(arch, **cut)
     argv = ["--arch", arch, "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]),
+            *(["--lr", str(t["lr"])] if "lr" in t else []),
             "--log-every", "5", "--metrics-out",
             str(ROOT / "build" / f"train_full_{arch}_metrics.json")]
     torch.cuda.reset_peak_memory_stats()
     zero_train_counts()
+    for fn in (K5.moe_gemm, K5.moe_gemm_bwd):
+        fn.routes.clear()
+        fn.uploads = 0
     t0 = time.perf_counter()
-    hist = train.main(argv)
+    hist = train.train(cfg, train.parse_args(argv)) if cut \
+        else train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_train_counts()
+    routes = {"moe_gemm": dict(K5.moe_gemm.routes),
+              "moe_gemm_bwd": dict(K5.moe_gemm_bwd.routes)}
+    # the in-graph expert map is one object per shape: K5's schedule and
+    # its backward's CSR walk are each uploaded once in the whole run
+    uploads = {"moe_gemm": K5.moe_gemm.uploads,
+               "moe_gemm_bwd": K5.moe_gemm_bwd.uploads}
     peak = torch.cuda.max_memory_allocated()
+    leaves = [p for _, p in _walk(M.abstract_params(cfg))]
     n_params = count_params(M.abstract_params(cfg))
+    # params and grads in the params' dtype, AdamW's m and v in float32
+    state_bytes = sum(p.numel() * (2 * p.element_size() + 8) for p in leaves)
     losses = [h["loss"] for h in hist]
     dts = np.array([h["dt"] for h in hist[1:]])
     steps = len(hist)
     ok = steps == t["steps"] and bool(np.all(np.isfinite(losses))) \
         and losses[-1] < losses[0] \
         and launches == expected_train_counts(cfg, steps) \
-        and not any(plain.values())
-    emit(phase="main_path", case=f"{arch} train CLI, full width and depth",
+        and not any(plain.values()) \
+        and set(uploads.values()) == {int(cfg.ffn == "moe")}
+    emit(phase="main_path", case=f"{arch} train CLI, full width, "
+         + (f"depth cut to {cfg.n_layers}" if cut else "full depth"),
          arch=arch, argv=argv, steps=steps, n_layers=cfg.n_layers,
-         n_params=n_params, training_state_bytes=4 * 4 * n_params,
-         losses=losses, first_step_s=hist[0]["dt"],
+         n_params=n_params, training_state_bytes=state_bytes,
+         param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+         k5_routes=routes, k5_schedule_uploads=uploads, losses=losses,
+         first_step_s=hist[0]["dt"],
          step_s_p50=float(np.median(dts)),
          step_s_p99=float(np.percentile(dts, 99)),
          tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts)),
@@ -3628,8 +3743,11 @@ def train_full(arch: str = QWEN3) -> int:
          per_step={k: v / steps for k, v in launches.items()},
          plain_calls=plain, cli_s=wall, ok=ok, card=card)
     check(ok, f"{arch} training: losses {losses[0]} -> {losses[-1]}, "
-          f"launches {launches}, plain {plain}")
+          f"launches {launches}, plain {plain}, K5 uploads {uploads}")
     # the busy share of one warm step on a fresh state of the same size
+    # (the CLI's state is freed: at dbrx-132b two would not fit)
+    del hist
+    torch.cuda.empty_cache()
     opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
     params = M.init_params(cfg, 1, device=dev)
     opt = adamw.init(opt_cfg, params)
@@ -3828,6 +3946,184 @@ def k6_backward_times(dev, card: str) -> dict:
     return rows
 
 
+def k5_map(kind, nb: int, n_experts: int, rng) -> np.ndarray:
+    """A ``K5_BWD_CASES`` expert map: ``in_graph`` (bundle b meets expert
+    b % E), ``random`` (seeded), or the ids given."""
+    if kind == "in_graph":
+        return np.arange(nb, dtype=np.int32) % n_experts
+    if kind == "random":
+        return rng.integers(0, n_experts, nb).astype(np.int32)
+    return np.asarray(kind, np.int32)
+
+
+def k5_bwd_inputs(gen, dev, nb: int, cap: int, d_in: int, d_out: int,
+                  n_experts: int, dtype) -> tuple:
+    """(x, w, dy) in ``dtype`` from normals on the card, w scaled by
+    d_in^-1/2 as the models' init scales it."""
+    import torch
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(shape, generator=gen, device=dev)).to(
+            dtype)
+
+    return (randn(nb, cap, d_in), randn(n_experts, d_in, d_out,
+                                        scale=d_in ** -0.5),
+            randn(nb, cap, d_out))
+
+
+def compare_k5_grads(name: str, got, want, dtype) -> float:
+    """K5's backward against its plain version, one row: dx and dw each
+    within ``K5_BWD_REL_NORM`` on ||got - want|| / ||want||, its max abs
+    error a reading.  Returns the worst max abs error."""
+    rel, max_abs = {}, {}
+    for label, g, w in zip(("dx", "dw"), got, want):
+        diff = (g.float() - w.float()).abs()
+        max_abs[label] = diff.max().item()
+        rel[label] = (diff.norm() / w.float().norm().clamp_min(1e-30)).item()
+    tol = K5_BWD_REL_NORM[str(dtype)[6:]]
+    ok = all(x <= tol for x in rel.values()) \
+        and all(g.dtype == dtype for g in got)
+    emit(phase="kernel_vs_plain", kernel="K5 backward", case=name,
+         shape=[list(g.shape) for g in got],
+         max_abs_err=max(max_abs.values()), max_abs_by_grad=max_abs,
+         rel_norm=rel, rel_norm_tol=tol, ok=ok)
+    check(ok, f"K5's backward disagrees with its plain version ({name}): "
+          f"{rel}")
+    return max(max_abs.values())
+
+
+def k5_backward_against_plain(dev) -> float:
+    """Phase 36: K5's backward (``moe_gemm_bwd``: dx, dw) against its plain
+    version (``moe_gemm_bwd_plain``) at ``K5_BWD_CASES`` in float32 and
+    bfloat16, each case run twice and the two bit-identical (no atomics),
+    an expert no bundle meets getting zeros; then K5 under autograd at
+    dbrx-132b's training gate shape in bfloat16: its forward's bits equal
+    the no-grad call's, its gradients the backward entry's called directly,
+    and the counts exact (one forward launch, one backward call of dx and
+    dw).  Returns the worst max abs error."""
+    import torch
+    from repro_torch.kernels import moe_gemm as K5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(130)
+    rng = np.random.default_rng(131)
+    worst = 0.0
+    for label, (nb, cap, d_in, d_out, n_exp, kind) in K5_BWD_CASES.items():
+        be = k5_map(kind, nb, n_exp, rng)
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dy = k5_bwd_inputs(gen, dev, nb, cap, d_in, d_out, n_exp,
+                                     dtype)
+            got = K5.moe_gemm_bwd(x, w, be, dy)
+            again = K5.moe_gemm_bwd(x, w, be, dy)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            empty = sorted(set(range(n_exp)) - set(be.tolist()))
+            zeros = all(not got[1][e].any() for e in empty)
+            name = f"{label} {str(dtype)[6:]}: {nb} bundles of {cap}, " \
+                f"{d_in} -> {d_out}, {n_exp} experts"
+            emit(phase="check", case=f"K5 backward {name}, two runs",
+                 bit_identical=same, experts_without_bundle=empty,
+                 their_dw_zero=zeros, ok=same and zeros)
+            check(same and zeros, f"K5's backward: two runs differ, or an "
+                  f"expert with no bundle got a nonzero dw ({name})")
+            del again
+            worst = max(worst, compare_k5_grads(
+                name, got, K5.moe_gemm_bwd_plain(
+                    x, w, torch.from_numpy(be).to(dev), dy), dtype))
+            del x, w, dy, got
+            torch.cuda.empty_cache()
+    nb, cap, d_in, d_out, n_exp, kind = K5_BWD_CASES[
+        "dbrx-132b training, gate and up"]
+    be = k5_map(kind, nb, n_exp, rng)
+    x, w, dy = k5_bwd_inputs(gen, dev, nb, cap, d_in, d_out, n_exp,
+                             torch.bfloat16)
+    xl, wl = (t.detach().requires_grad_(True) for t in (x, w))
+    with torch.no_grad():
+        want_out = K5.moe_gemm(x, w, be)
+    f0, b0 = K5.moe_gemm.launches, K5.moe_gemm_bwd.launches
+    r0 = dict(K5.moe_gemm_bwd.routes)
+    out = K5.moe_gemm(xl, wl, be)
+    grads = torch.autograd.grad(out, (xl, wl), dy)
+    counts = (K5.moe_gemm.launches - f0, K5.moe_gemm_bwd.launches - b0,
+              {k: v - r0.get(k, 0) for k, v in K5.moe_gemm_bwd.routes.items()})
+    direct = K5.moe_gemm_bwd(x, w, be, dy)
+    torch.cuda.synchronize()
+    fwd_same = torch.equal(out, want_out)
+    grads_same = all(torch.equal(g, d) for g, d in zip(grads, direct))
+    ok = fwd_same and grads_same and counts == (1, 1, {"dx": 1, "dw": 1})
+    emit(phase="check", case=f"K5 under autograd, dbrx-132b training gate "
+         f"bf16: {nb} bundles of {cap}, {d_in} -> {d_out}",
+         forward_bit_equal_no_grad=fwd_same,
+         grads_equal_backward_entry=grads_same,
+         launches={"moe_gemm": counts[0], "moe_gemm_bwd": counts[1],
+                   "moe_gemm_bwd_routes": counts[2]}, ok=ok)
+    check(ok, f"K5 under autograd: forward {fwd_same}, grads {grads_same}, "
+          f"launches {counts}")
+    return worst
+
+
+def k5_backward_times(dev, card: str) -> dict:
+    """Phase 39: K5's backward by CUDA events at dbrx-132b's training
+    bundles (32 of cap 320, the in-graph map), the gate and up products'
+    widths (6144 -> 10752) and down's (10752 -> 6144), bfloat16: the whole
+    call (dx and dw) and each entry, beside the bound (each entry 2 x rows
+    x d_in x d_out FLOP at the bf16 peak, against x, w and dy read once and
+    dx and dw written once), the plain version and the library's
+    ``torch.bmm`` on inputs grouped by expert beforehand (dx: one
+    ``bmm(dy_grouped, w.transpose(1, 2))`` over (E, rows x cap, .); dw: one
+    ``bmm(x_grouped^T, dy_grouped)``), as phase 20 times K5.  Returns the
+    rows by label."""
+    import torch
+    from repro_torch.kernels import moe_gemm as K5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(132)
+    rows = {}
+    for label in ("dbrx-132b training, gate and up",
+                  "dbrx-132b training, down"):
+        nb, cap, d_in, d_out, n_exp, kind = K5_BWD_CASES[label]
+        be = k5_map(kind, nb, n_exp, None)
+        x, w, dy = k5_bwd_inputs(gen, dev, nb, cap, d_in, d_out, n_exp,
+                                 torch.bfloat16)
+        rep = nb // n_exp                    # bundle r * E + e meets e
+
+        def grouped(t):
+            return t.reshape(rep, n_exp, cap, -1).transpose(0, 1).reshape(
+                n_exp, rep * cap, -1).contiguous()
+
+        xg, dyg = grouped(x), grouped(dy)
+        flop = 2 * nb * cap * d_in * d_out             # an entry
+        nbytes = 2 * (2 * x.numel() + 2 * w.numel() + dy.numel())
+        bound_ms, bound_by = bound(2 * flop, nbytes, BF16_FLOPS)
+        entry = {}
+        for name, need in (("dx", (True, False)), ("dw", (False, True))):
+            e_bytes = 2 * (dy.numel() + w.numel() + x.numel()) \
+                if name == "dx" else 2 * (x.numel() + dy.numel() + w.numel())
+            e_bound, e_by = bound(flop, e_bytes, BF16_FLOPS)
+            ms = event_ms(lambda: K5._k5_bwd(x, w, be, be, dy, *need), 10)
+            lib = event_ms((lambda: torch.bmm(dyg, w.transpose(1, 2)))
+                           if name == "dx" else
+                           (lambda: torch.bmm(xg.transpose(1, 2), dyg)), 10)
+            entry[name] = dict(ms=ms, bound_ms=e_bound, bound_by=e_by,
+                               library_ms=lib, tflops=flop / ms / 1e9)
+        row = dict(
+            ms=event_ms(lambda: K5.moe_gemm_bwd(x, w, be, dy), 10),
+            plain_ms=event_ms(lambda: K5.moe_gemm_bwd_plain(
+                x, w, torch.from_numpy(be).to(dev), dy), 3),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=entry["dx"]["library_ms"]
+            + entry["dw"]["library_ms"])
+        emit(phase="times", kernel="K5 backward", case=f"{label} bf16: {nb} "
+             f"bundles of {cap}, {d_in} -> {d_out}, {n_exp} experts",
+             flop=2 * flop, bytes=nbytes, tflops=2 * flop / row["ms"] / 1e9,
+             library="torch.bmm on inputs grouped by expert: dx "
+             "bmm(dy_g, w^T), dw bmm(x_g^T, dy_g)", entries=entry,
+             forward_ms=event_ms(lambda: K5.moe_gemm(x, w, be), 10),
+             **row, card=card)
+        rows[label] = dict(row, entries=entry)
+        del x, w, dy, xg, dyg
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3855,7 +4151,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # -- 2. build -----------------------------------------------------------
-    kernels = KERNEL_SOURCES + ("flash_attention_bwd", "rwkv6_scan_bwd")
+    kernels = KERNEL_SOURCES + BACKWARD_SOURCES
     t0 = time.perf_counter()
     _build.build(*kernels)
     emit(phase="build", kernels=list(kernels),
@@ -4108,6 +4404,19 @@ def main() -> int:
         train_full_child(arch)
     k6_bwd_times = k6_backward_times(dev, card)
     torch.cuda.empty_cache()
+
+    # -- 36.-39. training: K5's backward, dbrx-132b on the card ------------
+    k5_bwd_err = k5_backward_against_plain(dev)
+    torch.cuda.empty_cache()
+    train_in_situ(dev, DBRX_LM, DBRX_TRAIN_SITU)
+    torch.cuda.empty_cache()
+    # phase 38's child holds 54 GB of training state: the card is its alone
+    emit(phase="check", case="main process's device memory before the "
+         "dbrx-132b train child", allocated_bytes=torch.cuda.memory_allocated(),
+         reserved_bytes=torch.cuda.memory_reserved())
+    train_full_child(DBRX_LM)
+    k5_bwd_times = k5_backward_times(dev, card)
+    torch.cuda.empty_cache()
     # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
     # runs beside phase 21's CLIs
     cold_cli = start_child(serve_store_args())
@@ -4128,7 +4437,8 @@ def main() -> int:
                   PALIGEMMA: pali["launches"], WHISPER: whisper["launches"],
                   "hymba-1.5b with prewarm": prewarm["K4"],
                   **{f"{arch} training": full[arch]["launches"][
-                      "flash_attention"] for arch in (QWEN3, HYMBA)}}
+                      "flash_attention"] for arch in (QWEN3, HYMBA,
+                                                      DBRX_LM)}}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4143,7 +4453,8 @@ def main() -> int:
     # the training paths' launches (phases 29 and 34), kernel -> path -> N
     by_path = {name: {f"{arch} training": row["launches"][name]
                       for arch, row in full.items() if row["launches"][name]}
-               for name in ("flash_attention_bwd", "rwkv6", "rwkv6_bwd")}
+               for name in ("flash_attention_bwd", "rwkv6", "rwkv6_bwd",
+                            "moe_gemm_bwd")}
     k4_bwd_row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4166,6 +4477,18 @@ def main() -> int:
         "launches_by_path": k6_by_path,
         "max_abs_err": max(k6_err, k6_rwkv_err), **k6_times,
         "rwkv6_1p6b_prefill": k6_rwkv_times}
+    gate, down = k5_bwd_times
+    k5_bwd_row = {
+        "name": "moe_gemm_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
+        "replaces": "src/repro/models/moe.py:313",
+        "replaces_what": "the XLA autodiff of the in-graph expert einsums "
+                         "(models/moe.py:313-317; expert_swiglu :203-212); "
+                         "the reference has no backward Pallas kernel",
+        "launches": sum(by_path["moe_gemm_bwd"].values()),
+        "launches_by_path": by_path["moe_gemm_bwd"],
+        "max_abs_err": k5_bwd_err, **k5_bwd_times[gate],
+        "dbrx_132b_down": k5_bwd_times[down]}
     hymba_heads, rwkv_heads = K6_BWD_HEADS
     k6_bwd_row = {
         "name": "rwkv6_bwd", "route": "cuda",
@@ -4178,9 +4501,12 @@ def main() -> int:
         "max_abs_err": k6_bwd_err, **k6_bwd_times[rwkv_heads],
         "hymba_1p5b_training": k6_bwd_times[hymba_heads]}
     k5_lm_launches = dbrx["launches"]["K5"]
-    k5_row.update(launches=k5_row["launches"] + k5_lm_launches,
+    k5_train_launches = full[DBRX_LM]["launches"]["moe_gemm"]
+    k5_row.update(launches=k5_row["launches"] + k5_lm_launches
+                  + k5_train_launches,
                   launches_by_path={"moe_ffn_host": k5_row["launches"],
-                                    DBRX_LM: k5_lm_launches},
+                                    DBRX_LM: k5_lm_launches,
+                                    f"{DBRX_LM} training": k5_train_launches},
                   bf16_design=K5_BF16_DESIGN,
                   bf16_routes_on_main_path=dbrx["k5_routes"],
                   max_abs_err=max(k5_row["max_abs_err"], dbrx["k5_err"]),
@@ -4194,8 +4520,8 @@ def main() -> int:
                  lambda: rt.cholesky(spd, dtype=torch.float64))
     emit(phase="script", seconds=time.perf_counter() - T_START, card=card)
     print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row,
-                                  k4_bwd_row, k5_row, k6_row, k6_bwd_row]}),
-          flush=True)
+                                  k4_bwd_row, k5_row, k5_bwd_row, k6_row,
+                                  k6_bwd_row]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

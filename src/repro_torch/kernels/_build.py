@@ -15,7 +15,8 @@ before they reach ``dlopen``.
 
 A failed build raises; nothing falls back to a kernel's plain version.
 ``refuse_grad`` is the one guard of the kernels that have no backward kernel
-yet: a CUDA call that would have to give a gradient raises.
+(K1-K3: the reference trains nothing through them): a CUDA call that would
+have to give a gradient raises.
 Nothing here runs at import: this module is imported on machines without
 ``nvcc``.
 """
@@ -197,7 +198,7 @@ def check_launch(lib: ctypes.CDLL, err: int, name: str) -> None:
 
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise ``NotImplementedError`` if a CUDA call of ``kernel``, which has
-    no backward kernel yet, is asked for a gradient: grad mode is on and an
+    no backward kernel, is asked for a gradient: grad mode is on and an
     input requires grad.  Without this the call would return a result with
     no gradient and nothing would say so.  (On the CPU the plain versions
     differentiate; they do not call this.)"""

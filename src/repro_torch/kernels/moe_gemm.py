@@ -63,6 +63,21 @@ route, and ``moe_gemm.uploads`` the uploads of a schedule buffer.  A
 dispatch plan's schedule bundle keeps the device copy of its buffer (as
 ``K2Schedule.device_ids`` does), so the warm calls of one plan upload
 nothing; a bare array is uploaded on every call.
+
+K5's backward (``moe_gemm_bwd``): ``moe_gemm`` on CUDA tensors under grad
+mode goes through ``_MoeGemm``, a ``torch.autograd.Function`` whose forward
+is K5's call as above and whose backward launches the kernels of
+``csrc/moe_gemm_bwd.cu``: ``dx[b] = dy[b] @ w[e_b]ᵀ`` (w read through its
+transpose, no transposed copy) and ``dw[e] = Σ_{b: e_b = e} x[b]ᵀ dy[b]``
+(one writer per output tile walking its expert's bundles in a fixed order,
+fp32 sums, zeros for an expert with no bundle; no atomics).  dw walks the
+CSR ``bwd_schedule`` of the ids: ``[ptr (E + 1) | bundles by expert
+(nb)]``, kept on a schedule bundle as the forward's buffer is.  It replaces
+the XLA autodiff of the reference's expert einsums
+(``src/repro/models/moe.py:313-317``; the reference has no backward Pallas
+kernel).  Its plain version is ``moe_gemm_bwd_plain``.
+``moe_gemm_bwd.launches`` counts the calls that launched it,
+``moe_gemm_bwd.routes`` the launches of each entry (``dx``, ``dw``).
 """
 from __future__ import annotations
 
@@ -77,7 +92,7 @@ from . import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILES = (16, 32, 64, 128)
-MAX_BUNDLES = 65535         # the grid's z extent (float32 and mma_sync)
+MAX_BUNDLES = 65535         # the grid's z extent (float32, mma_sync, bwd)
 # the bfloat16 TMA routes: a tile-route block's columns and rows a unit
 # (two 64-row tiles), a decode block's columns and its x^T width
 TILE_COLS, TILE_ROWS, TILE_UNIT = 256, 64, 2
@@ -161,11 +176,63 @@ def moe_gemm_plain(x_bundles: torch.Tensor, w: torch.Tensor,
                         w[bundle_expert.long()].float()).to(x_bundles.dtype)
 
 
+def moe_gemm_bwd_plain(x_bundles: torch.Tensor, w: torch.Tensor,
+                       bundle_expert: torch.Tensor, dy: torch.Tensor):
+    """Plain PyTorch version of K5's backward: ``(dx, dw)`` of
+    ``out = moe_gemm(x_bundles, w, bundle_expert)`` against ``dy``.
+    ``dx[b] = dy[b] @ w[e_b]ᵀ``; ``dw[e] = Σ_{b: e_b = e} x[b]ᵀ @ dy[b]``,
+    zeros for an expert with no bundle; float32 products, each result in
+    x's dtype.  One expert at a time, so no gathered copy of the weights is
+    made."""
+    be = torch.as_tensor(bundle_expert).to(x_bundles.device).long()
+    nb, cap, d_in = x_bundles.shape
+    n_experts, _, d_out = w.shape
+    dx = torch.zeros((nb, cap, d_in), dtype=torch.float32,
+                     device=x_bundles.device)
+    dw = torch.zeros((n_experts, d_in, d_out), dtype=torch.float32,
+                     device=w.device)
+    for e in torch.unique(be).tolist():
+        sel = torch.nonzero(be == e).flatten()
+        d_e = dy[sel].float()
+        dx[sel] = d_e @ w[e].float().T
+        dw[e] = x_bundles[sel].float().reshape(-1, d_in).T \
+            @ d_e.reshape(-1, d_out)
+    return dx.to(x_bundles.dtype), dw.to(x_bundles.dtype)
+
+
+def bwd_schedule(be: np.ndarray, n_experts: int) -> np.ndarray:
+    """dw's walk as one int32 CSR buffer: ``[ptr (E + 1) | ids (nb)]``,
+    expert e's bundles ``ids[ptr[e]:ptr[e + 1]]`` in bundle order (a stable
+    sort by expert); an expert with no bundle has ``ptr[e] == ptr[e + 1]``."""
+    be = np.asarray(be, np.int64)
+    ids = np.argsort(be, kind="stable")
+    ptr = np.searchsorted(be[ids], np.arange(n_experts + 1), side="left")
+    return np.concatenate([ptr, ids]).astype(np.int32)
+
+
 def _lib(entry: str = "moe_gemm") -> ctypes.CDLL:
     p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     args = {"moe_gemm": [p, p, p, i, i, i, i, i, i, p, p, i],
             "moe_gemm_bf16_tma": [p, p, p, i, i, i, i, i, i, q, i, p, p, i]}
     return _build.bind("moe_gemm", entry, args[entry])
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    args = [p, p, p, i, i, i, i, i, p, p, i]
+    _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dx", args)
+    return _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dw", args)
+
+
+def _memo(bundle_expert, name: str, key, make):
+    """``make()``, kept per ``key`` on a schedule bundle (outside its
+    fields) under ``name``; anything else makes it anew."""
+    if not isinstance(bundle_expert, ScheduleBundle):
+        return make()
+    memo = bundle_expert.__dict__.setdefault(name, {})
+    if key not in memo:
+        memo[key] = make()
+    return memo[key]
 
 
 def _device_schedule(bundle_expert, be: np.ndarray, device: torch.device):
@@ -177,30 +244,45 @@ def _device_schedule(bundle_expert, be: np.ndarray, device: torch.device):
         buf, n_groups = pack_schedule(be)
         return to_device(buf, device), buf, n_groups
 
-    if not isinstance(bundle_expert, ScheduleBundle):
-        return upload()
-    memo = bundle_expert.__dict__.setdefault("_device_schedule", {})
-    key = str(device)
-    if key not in memo:
-        memo[key] = upload()
-    return memo[key]
+    return _memo(bundle_expert, "_device_schedule", str(device), upload)
+
+
+def _device_bwd_schedule(bundle_expert, be: np.ndarray, n_experts: int,
+                         device: torch.device) -> torch.Tensor:
+    """``bwd_schedule(be, n_experts)`` on the card, kept on a schedule
+    bundle per (device, E) as the forward's buffer is."""
+    def upload():
+        moe_gemm_bwd.uploads += 1
+        return to_device(bwd_schedule(be, n_experts), device)
+
+    return _memo(bundle_expert, "_device_bwd_schedule",
+                 (str(device), n_experts), upload)
+
+
+def _check_operands(what: str, device: torch.device, nb: int, d_in: int,
+                    d_out: int, *tensors) -> None:
+    """What K5 and its backward take: float32 or bfloat16, d_in and d_out
+    multiples of 4, at most ``MAX_BUNDLES`` bundles, contiguous 16-byte
+    aligned tensors on ``device``."""
+    if tensors[0].dtype not in _DTYPE_CODE:
+        raise ValueError(f"{what} takes float32 or bfloat16, got "
+                         f"{tensors[0].dtype}")
+    if d_in % 4 or d_out % 4 or nb > MAX_BUNDLES:
+        raise ValueError(f"{what} needs d_in and d_out divisible by 4 and "
+                         f"at most {MAX_BUNDLES} bundles, got nb={nb}, "
+                         f"d_in={d_in}, d_out={d_out}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16 \
+                or t.device != device:
+            raise ValueError(f"{what} operands must be contiguous, 16-byte "
+                             "aligned tensors on one device")
 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
             out: torch.Tensor) -> None:
     nb, cap, d_in = x.shape
     d_out = w.shape[-1]
-    if x.dtype not in _DTYPE_CODE:
-        raise ValueError(f"K5 takes float32 or bfloat16, got {x.dtype}")
-    if d_in % 4 or d_out % 4 or nb > MAX_BUNDLES:
-        raise ValueError(f"K5 needs d_in and d_out divisible by 4 and at "
-                         f"most {MAX_BUNDLES} bundles, got nb={nb}, "
-                         f"d_in={d_in}, d_out={d_out}")
-    for t in (x, w):
-        if not t.is_contiguous() or t.data_ptr() % 16 \
-                or t.device != out.device:
-            raise ValueError("K5 operands must be contiguous, 16-byte "
-                             "aligned tensors on one device")
+    _check_operands("K5", out.device, nb, d_in, d_out, x, w)
     sched, host, n_groups = _device_schedule(bundle_expert, be, out.device)
     route = "float32" if x.dtype == torch.float32 \
         else bf16_route(cap, d_in, d_out)
@@ -221,6 +303,80 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
     moe_gemm.routes[route] = moe_gemm.routes.get(route, 0) + 1
 
 
+def _k5(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray
+        ) -> torch.Tensor:
+    """K5's output on the card (a launch unless it is empty)."""
+    out = torch.empty((x.shape[0], x.shape[1], w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    if out.numel():
+        _launch(x, w, bundle_expert, be, out)
+    return out
+
+
+def _k5_bwd(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
+            dy: torch.Tensor, need_dx: bool = True, need_dw: bool = True):
+    """K5's backward on the card: ``(dx, dw)`` in x's dtype, either None
+    where it is not needed.  dx is one launch of ``moe_gemm_bwd_dx`` (none
+    where it is empty); dw one of ``moe_gemm_bwd_dw``, which writes every
+    element (zeros for an expert with no bundle)."""
+    nb, cap, d_in = x.shape
+    n_experts, _, d_out = w.shape
+    _check_operands("K5's backward", x.device, nb, d_in, d_out, x, w, dy)
+    if n_experts > MAX_BUNDLES:     # dw's grid runs an expert a z index
+        raise ValueError(f"K5's backward takes at most {MAX_BUNDLES} "
+                         f"experts, got {n_experts}")
+    if dy.dtype != x.dtype or tuple(dy.shape) != (nb, cap, d_out):
+        raise ValueError(f"dy must be ({nb}, {cap}, {d_out}) of x's dtype, "
+                         f"got {tuple(dy.shape)} {dy.dtype}")
+    dev, code = x.device, _DTYPE_CODE[x.dtype]
+    dx = torch.empty_like(x) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    launched = False
+    if need_dx and dx.numel():
+        lib = _bwd_lib()
+        sched = _device_schedule(bundle_expert, be, dev)[0]
+        err = lib.moe_gemm_bwd_dx(dy.data_ptr(), w.data_ptr(),
+                                  sched.data_ptr(), nb, cap, d_in, d_out,
+                                  code, dx.data_ptr(), *launch_target(dev))
+        _build.check_launch(lib, err, "moe_gemm_bwd_dx")
+        moe_gemm_bwd.routes["dx"] = moe_gemm_bwd.routes.get("dx", 0) + 1
+        launched = True
+    if need_dw and dw.numel():
+        lib = _bwd_lib()
+        sched = _device_bwd_schedule(bundle_expert, be, n_experts, dev)
+        err = lib.moe_gemm_bwd_dw(x.data_ptr(), dy.data_ptr(),
+                                  sched.data_ptr(), n_experts, cap, d_in,
+                                  d_out, code, dw.data_ptr(),
+                                  *launch_target(dev))
+        _build.check_launch(lib, err, "moe_gemm_bwd_dw")
+        moe_gemm_bwd.routes["dw"] = moe_gemm_bwd.routes.get("dw", 0) + 1
+        launched = True
+    moe_gemm_bwd.launches += launched
+    return dx, dw
+
+
+class _MoeGemm(torch.autograd.Function):
+    """K5 with its backward kernels: the forward launches K5 as it is (its
+    output bit-identical to a call without grad, nothing kept but the
+    inputs), the backward launches ``moe_gemm_bwd_dx`` and
+    ``moe_gemm_bwd_dw`` (``_k5_bwd``) for the inputs that need a gradient.
+    CUDA tensors only; ``bundle_expert`` as ``moe_gemm`` takes it, ``be``
+    its ids on the host."""
+
+    @staticmethod
+    def forward(ctx, x, w, bundle_expert, be):
+        ctx.bundle_expert, ctx.be = bundle_expert, be
+        ctx.save_for_backward(x, w)
+        return _k5(x, w, bundle_expert, be)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = _k5_bwd(x, w, ctx.bundle_expert, ctx.be, dy.contiguous(),
+                         *ctx.needs_input_grad[:2])
+        return dx, dw, None, None
+
+
 def _host_ids(x) -> np.ndarray:
     if isinstance(x, ScheduleBundle):
         x = x["bundle_expert"]
@@ -228,20 +384,10 @@ def _host_ids(x) -> np.ndarray:
             else np.asarray(x)).astype(np.int32, copy=False)
 
 
-def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
-             bk: int = 512, bf: int = 512) -> torch.Tensor:
-    """out[b] = x_bundles[b] @ w[bundle_expert[b]].
-
-    x_bundles: (nb, cap, d_in); w: (E, d_in, d_out) of x's dtype;
-    bundle_expert: (nb,) expert ids, read on the host to check their range
-    (pass numpy or a CPU tensor), or a dispatch plan's schedule bundle,
-    which keeps the ids' device copy.  Returns (nb, cap, d_out) in x's dtype
-    on x's device.  ``bk`` / ``bf`` are the reference's tile arguments:
-    they must divide d_in / d_out (after clipping to them) as there, and
-    K5 does not tile by them.  CPU tensors run the plain version; CUDA
-    tensors launch K5 or raise (also when a gradient is asked for: K5 has
-    no backward kernel yet).
-    """
+def _check_call(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert,
+                bk: int = 512, bf: int = 512) -> np.ndarray:
+    """Check a K5 call's shapes, dtypes and expert ids; returns the ids on
+    the host."""
     nb, cap, d_in = x_bundles.shape
     n_experts, w_in, d_out = w.shape
     bk, bf = min(bk, d_in), min(bf, d_out)
@@ -257,21 +403,65 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
         raise ValueError(f"bundle_expert must be ({nb},), got {be.shape}")
     if nb and (be.min() < 0 or be.max() >= n_experts):
         raise ValueError(f"bundle_expert must be in [0, {n_experts})")
+    return be
+
+
+def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
+             bk: int = 512, bf: int = 512) -> torch.Tensor:
+    """out[b] = x_bundles[b] @ w[bundle_expert[b]].
+
+    x_bundles: (nb, cap, d_in); w: (E, d_in, d_out) of x's dtype;
+    bundle_expert: (nb,) expert ids, read on the host to check their range
+    (pass numpy or a CPU tensor), or a dispatch plan's schedule bundle,
+    which keeps the ids' device copies.  Returns (nb, cap, d_out) in x's
+    dtype on x's device.  ``bk`` / ``bf`` are the reference's tile
+    arguments: they must divide d_in / d_out (after clipping to them) as
+    there, and K5 does not tile by them.  CPU tensors run the plain version
+    (autograd differentiates it); CUDA tensors launch K5 or raise, and under
+    grad mode with x or w requiring grad go through ``_MoeGemm``, whose
+    backward is K5's backward kernels.
+    """
+    be = _check_call(x_bundles, w, bundle_expert, bk, bf)
     if x_bundles.device.type == "cpu":
         return moe_gemm_plain(x_bundles, w, torch.from_numpy(be))
     if x_bundles.device.type != "cuda":
         raise ValueError(f"unsupported device {x_bundles.device}")
-    _build.refuse_grad("K5 (moe_gemm)", x_bundles, w)
-    out = torch.empty((nb, cap, d_out), dtype=x_bundles.dtype,
-                      device=x_bundles.device)
-    if out.numel():
-        _launch(x_bundles, w, bundle_expert, be, out)
-    return out
+    if torch.is_grad_enabled() and (x_bundles.requires_grad
+                                    or w.requires_grad):
+        return _MoeGemm.apply(x_bundles, w, bundle_expert, be)
+    return _k5(x_bundles, w, bundle_expert, be)
 
 
 moe_gemm.launches = 0
 moe_gemm.routes = {}
 moe_gemm.uploads = 0
+
+
+def moe_gemm_bwd(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert,
+                 dy: torch.Tensor):
+    """K5's backward: ``(dx, dw)`` of ``moe_gemm(x_bundles, w,
+    bundle_expert)`` whose output met ``dy`` (nb, cap, d_out), each in x's
+    dtype: ``dx[b] = dy[b] @ w[e_b]ᵀ``, ``dw[e] = Σ_{b: e_b = e} x[b]ᵀ
+    dy[b]`` (zeros for an expert no bundle meets).  CPU tensors run
+    ``moe_gemm_bwd_plain``; CUDA tensors launch the kernels of
+    ``csrc/moe_gemm_bwd.cu`` or raise.  ``moe_gemm``'s autograd calls the
+    kernels; ``moe_gemm_bwd.launches`` counts the calls that launched
+    them."""
+    be = _check_call(x_bundles, w, bundle_expert)
+    if tuple(dy.shape) != (*x_bundles.shape[:2], w.shape[-1]):
+        raise ValueError(f"dy {tuple(dy.shape)} does not match x "
+                         f"{tuple(x_bundles.shape)} and w {tuple(w.shape)}")
+    if x_bundles.device.type == "cpu":
+        return moe_gemm_bwd_plain(x_bundles, w, torch.from_numpy(be), dy)
+    if x_bundles.device.type != "cuda":
+        raise ValueError(f"unsupported device {x_bundles.device}")
+    return _k5_bwd(x_bundles, w, bundle_expert, be,
+                   dy.to(x_bundles.dtype).contiguous())
+
+
+moe_gemm_bwd.launches = 0
+moe_gemm_bwd.routes = {}
+moe_gemm_bwd.uploads = 0
 
 
 def moe_gemm_schedule(schedule, x_bundles: torch.Tensor, w: torch.Tensor, *,

@@ -11,5 +11,6 @@ from .bsr_spmm import bsr_spmm  # noqa: F401
 from .flash_attention import (attention_block_schedule,  # noqa: F401
                               block_sparse_attention,
                               block_sparse_attention_plan, flash_attention)
-from .moe_gemm import moe_gemm, moe_gemm_schedule  # noqa: F401
+from .moe_gemm import (moe_gemm, moe_gemm_bwd,  # noqa: F401
+                       moe_gemm_bwd_plain, moe_gemm_schedule)
 from .rwkv6_scan import rwkv6  # noqa: F401

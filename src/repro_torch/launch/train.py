@@ -11,11 +11,13 @@ the caller asks for ``cpu``).  Sharded training waits for a later slice:
         --device cpu
 
 On the card, attention's forward and backward run through kernel K4
-(``kernels/flash_attention.py``) and the WKV scan's (rwkv6, hymba's SSM
-heads) through kernel K6 (``kernels/rwkv6_scan.py``); the last line counts
-their launches.  A family whose training would need a backward kernel not
-written yet (K5's MoE experts) raises on the card; on the CPU every family
-trains through the plain versions.
+(``kernels/flash_attention.py``), the WKV scan's (rwkv6, hymba's SSM
+heads) through kernel K6 (``kernels/rwkv6_scan.py``) and the MoE experts'
+products (dbrx-132b, kimi-k2) through kernel K5 (``kernels/moe_gemm.py``),
+each with its backward kernels; the last line counts their launches.  On
+the CPU every family trains through the plain versions.  ``main`` parses
+the arguments and builds the config; ``train`` runs the loop on a given
+``ModelConfig``.
 """
 from __future__ import annotations
 
@@ -27,10 +29,11 @@ import time
 import torch
 
 from ..checkpoint import manager as ckpt
-from ..configs import ARCHS, get_config, reduced_config
+from ..configs import ARCHS, ModelConfig, get_config, reduced_config
 from ..data.pipeline import DataConfig, SyntheticLM
 from ..device import resolve_device
 from ..kernels import flash_attention as fa
+from ..kernels import moe_gemm as k5
 from ..kernels import rwkv6_scan as wkv
 from ..models import model as M
 from ..optim import adamw
@@ -51,15 +54,17 @@ def build_mesh(device: torch.device):
 
 
 def print_kernel_launches() -> None:
-    """K4's and K6's forward and backward launches in this process (0 on
-    the CPU, where the plain versions run)."""
+    """K4's, K6's and K5's forward and backward launches in this process (0
+    on the CPU, where the plain versions run)."""
     print(f"[train] kernel launches: flash_attention="
           f"{fa.flash_attention.launches} flash_attention_bwd="
           f"{fa.flash_attention_bwd.launches} rwkv6={wkv.rwkv6.launches} "
-          f"rwkv6_bwd={wkv.rwkv6_bwd.launches}", flush=True)
+          f"rwkv6_bwd={wkv.rwkv6_bwd.launches} moe_gemm="
+          f"{k5.moe_gemm.launches} moe_gemm_bwd={k5.moe_gemm_bwd.launches}",
+          flush=True)
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", choices=ARCHS, default="qwen3-1.7b")
     ap.add_argument("--steps", type=int, default=100)
@@ -77,11 +82,21 @@ def main(argv=None):
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
+
+def main(argv=None):
+    args = parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = reduced_config(cfg)
+    return train(cfg, args)
+
+
+def train(cfg: ModelConfig, args: argparse.Namespace):
+    """The training loop of ``main`` on ``cfg`` (the config ``args.arch``
+    names, or any other, e.g. one with its depth cut) with the parsed
+    ``args``; returns the per-step metrics."""
     dev = resolve_device(args.device)
     mesh = build_mesh(dev)
 

@@ -23,6 +23,13 @@ Two paths:
 * ``moe_ffn_host`` — the eager registry-routed API: ``host_route`` (the
   router's logits to the host, numpy routing), ``ReapRuntime.moe_dispatch``
   (plan-cached bundling), ``expert_swiglu`` through K5, ``plan.combine``.
+  It is a serving path.
+
+Training differentiates ``moe_ffn`` on the card: each K5 product under grad
+goes through ``kernels.moe_gemm._MoeGemm``, whose backward is K5's backward
+kernels (dx and dw, six backward GEMMs a layer); the routing, the gather
+and the combine are torch ops and keep their autograd (the router's
+gradient comes through the gates and the aux loss).
 """
 from __future__ import annotations
 
@@ -80,9 +87,10 @@ def expert_swiglu(x_bundles: torch.Tensor, w_gate: torch.Tensor,
     The three products are grouped GEMMs through ``kernels.ops.moe_gemm``
     (K5 on the card, its plain version on the host); ``bundle_expert``
     (expert ids, or the dispatch plan's schedule bundle, which keeps their
-    device copy) defaults to bundle ``e`` meeting expert ``e``, the
+    device copies) defaults to bundle ``e`` meeting expert ``e``, the
     dispatch plan's schedule.  Weights are cast to x's dtype, as in the
-    reference.
+    reference.  Under grad mode the products differentiate: on the card
+    through K5's backward kernels.
     """
     if bundle_expert is None:
         bundle_expert = np.arange(x_bundles.shape[0], dtype=np.int32)
@@ -304,8 +312,9 @@ def _row_dispatch(tokens: torch.Tensor, router_w: torch.Tensor, *,
 @functools.lru_cache(maxsize=64)
 def _bundle_map(n_rows: int, n_experts: int) -> ScheduleBundle:
     """K5's expert map for ``n_rows`` rows of E bundles (bundle ``b·E + e``
-    meets expert ``e``); one object per shape, so K5 keeps its device copy
-    on it and uploads it once."""
+    meets expert ``e``); one object per shape, so K5 keeps its device
+    copies on it (the forward's schedule and the backward's CSR walk) and
+    uploads each once."""
     return ScheduleBundle("moe_ffn", {"bundle_expert": np.tile(
         np.arange(n_experts, dtype=np.int32), n_rows)})
 

@@ -8,7 +8,12 @@ reference's ``donate_argnums``: one step needs no second copy of the
 training state.  Its arithmetic is the reference's, op for op in float32:
 the learning rate and the bias corrections from the int32 step counter,
 clipping by the global norm, then each leaf's moments and decoupled weight
-decay.
+decay.  A leaf of more than ``SLICE_ELEMENTS`` elements is updated in
+slices of its flattened storage (its leading dimensions first), so the
+update's float32 temporaries stay a few slices' size whatever the leaf's
+(one dbrx-132b expert stack is 1.06 B elements, 4.2 GB a float32 copy);
+the arithmetic is elementwise, so the result is bit-equal to the whole-leaf
+update.
 """
 from __future__ import annotations
 
@@ -22,6 +27,11 @@ import numpy as np
 import torch
 
 from ..models.params import _walk, tree_map
+
+
+#: leaves above this many elements are updated slice by slice (256 MB of
+#: float32 a temporary)
+SLICE_ELEMENTS = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +90,37 @@ def global_norm(tree) -> torch.Tensor:
                           for _, g in _walk(tree)))
 
 
+def _update_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c: float,
+                 b2c: float) -> None:
+    """One leaf's (or slice's) moments, then its param, in place."""
+    g32 = g.float() * scale
+    m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
+    v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
+    del g32
+    mhat = m32 / b1c
+    vhat = v32 / b2c
+    delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
+        + cfg.weight_decay * p.float()
+    del mhat, vhat
+    p.copy_(p.float() - float(lr) * delta)
+    m.copy_(m32)
+    v.copy_(v32)
+
+
+def _slices(p, g, m, v):
+    """``(g, m, v, p)`` as they are, or, for a leaf above
+    ``SLICE_ELEMENTS`` elements whose param and moments are contiguous,
+    views of slices of that many elements of each one's flattened
+    storage."""
+    n, size = p.numel(), SLICE_ELEMENTS
+    if n <= size or not all(t.is_contiguous() for t in (p, m, v)):
+        yield g, m, v, p
+        return
+    flat = [g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)]
+    for i in range(0, n, size):
+        yield tuple(t[i:i + size] for t in flat)
+
+
 def update(cfg: AdamWConfig, grads, state, params):
     """One AdamW step.  Returns ``(params, state, metrics)``: the same
     param and m/v tensors, changed in place, a new step counter, and
@@ -96,18 +137,7 @@ def update(cfg: AdamWConfig, grads, state, params):
         grad_of = dict(_walk(grads))
         m_of, v_of = dict(_walk(state["m"])), dict(_walk(state["v"]))
         for path, p in _walk(params):
-            g32 = grad_of[path].float() * scale
-            m, v = m_of[path], v_of[path]
-            m32 = cfg.b1 * m.float() + (1 - cfg.b1) * g32
-            v32 = cfg.b2 * v.float() + (1 - cfg.b2) * g32 * g32
-            del g32
-            mhat = m32 / b1c
-            vhat = v32 / b2c
-            delta = mhat / (torch.sqrt(vhat) + cfg.eps) \
-                + cfg.weight_decay * p.float()
-            del mhat, vhat
-            p.copy_(p.float() - float(lr) * delta)
-            m.copy_(m32)
-            v.copy_(v32)
+            for piece in _slices(p, grad_of[path], m_of[path], v_of[path]):
+                _update_leaf(cfg, *piece, scale, lr, b1c, b2c)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics

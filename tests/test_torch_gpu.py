@@ -1,7 +1,8 @@
-"""Kernels K1 to K6 and K4's and K6's backward on the card: each CUDA kernel
-against its plain version, and the port's paths through them (training
-too: K4 and K6 under autograd, the kernels without a backward raising where
-a gradient is asked for, train steps on the card against the host).  Every test here carries the ``gpu``
+"""Kernels K1 to K6 and K4's, K5's and K6's backward on the card: each CUDA
+kernel against its plain version, and the port's paths through them
+(training too: K4, K5 and K6 under autograd, the kernels without a backward
+(K1-K3) raising where a gradient is asked for, train steps on the card
+against the host).  Every test here carries the ``gpu``
 marker and skips without a CUDA card (decided inside the test, never at
 import).  This file imports neither JAX nor ``repro``, so it runs on a
 machine with only PyTorch:
@@ -951,7 +952,7 @@ from repro_torch.runtime.exec_store import ExecCache, ExecStore
 cache = ExecCache(ExecStore(sys.argv[1]))
 cache.load_many(("bsr_spgemm", "bsr_spmm", "block_sparse_attention",
                  "flash_attention", "moe_gemm", "rwkv6_scan",
-                 "rwkv6_scan_bwd"))
+                 "flash_attention_bwd", "rwkv6_scan_bwd", "moe_gemm_bwd"))
 print("COUNTS", cache.stats.compiles, cache.stats.loads)
 """
 
@@ -973,8 +974,8 @@ def test_store_restart_loads_every_library_without_nvcc(cuda, tmp_path):
                     if x.startswith("COUNTS"))
         return tuple(int(v) for v in line.split()[1:])
 
-    assert run() == (7, 0)
-    assert run() == (0, 7)
+    assert run() == (9, 0)
+    assert run() == (0, 9)
 
 
 # -- training: K4's backward, the kernels without one, the train step --------
@@ -1042,10 +1043,6 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
     from repro_torch.kernels.bsr_spmm import bsr_spmm
     x = torch.randn(4, 64, device=cuda, requires_grad=True)
     w = torch.randn(2, 64, 64, device=cuda)
-    with pytest.raises(NotImplementedError, match="K5"):
-        moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
-    with torch.no_grad():
-        moe_gemm(x.reshape(1, 4, 64), w, np.zeros(1, np.int32))
     tiles = torch.randn(2, 32, 32, device=cuda, requires_grad=True)
     with pytest.raises(NotImplementedError, match="K1"):
         bsr_spgemm_schedule(dict(a_id=np.array([0]), b_id=np.array([1]),
@@ -1061,12 +1058,82 @@ def test_kernels_without_a_backward_raise_under_grad(cuda):
                                np.ones(2, np.int32))
 
 
+# -- training: K5's backward -------------------------------------------------
+
+K5_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nb,cap,din,dout,e,be", [
+    (4, 24, 64, 64, 4, None), (3, 131, 36, 260, 4, None),
+    (6, 8, 7168, 2048, 8, None), (5, 1, 64, 64, 6, [5, 5, 0, 2, 5]),
+    (8, 80, 128, 256, 5, [1, 1, 1, 1, 3, 3, 0, 0]),
+    (4, 320, 256, 512, 2, [1, 0, 1, 0])])
+def test_k5_backward_matches_plain(cuda, dtype, nb, cap, din, dout, e, be):
+    """dx and dw against ``moe_gemm_bwd_plain``: ragged and tiny caps,
+    widths not a multiple of 8, kimi-k2's widths, an expert with no bundle
+    and repeated experts; two runs bit-identical."""
+    from repro_torch.kernels.moe_gemm import moe_gemm_bwd, moe_gemm_bwd_plain
+    rng = np.random.default_rng(nb * cap + din)
+    x, dy = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        cuda, dtype) for s in ((nb, cap, din), (nb, cap, dout)))
+    w = torch.from_numpy(rng.standard_normal((e, din, dout)).astype(
+        np.float32) / np.sqrt(din)).to(cuda, dtype)
+    be = rng.integers(0, e, nb).astype(np.int32) if be is None \
+        else np.asarray(be, np.int32)
+    before = moe_gemm_bwd.launches
+    got = moe_gemm_bwd(x, w, be, dy)
+    again = moe_gemm_bwd(x, w, be, dy)
+    assert moe_gemm_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = moe_gemm_bwd_plain(x, w, torch.from_numpy(be).to(cuda), dy)
+    for g, ref in zip(got, want):
+        assert g.dtype == dtype and g.shape == ref.shape
+        err = (g.float() - ref.float()).norm() / ref.float().norm()
+        assert err <= K5_BWD_REL_NORM[dtype], err
+    for empty in set(range(e)) - set(be.tolist()):
+        assert not got[1][empty].any()
+
+
+def test_k5_autograd_runs_forward_and_backward_kernels(cuda):
+    """Under grad K5's forward gives the no-grad call's bits, its gradients
+    are the backward entries', and the counts are exact: one forward, one
+    backward call (dx and dw); only w needing a gradient launches dw
+    alone."""
+    from repro_torch.kernels import moe_gemm as K5
+    rng = np.random.default_rng(40)
+    for dtype in (torch.float32, torch.bfloat16):
+        x, dy = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).to(cuda, dtype) for s in ((6, 40, 64), (6, 40, 96)))
+        w = torch.from_numpy(rng.standard_normal((3, 64, 96)).astype(
+            np.float32) / 8).to(cuda, dtype)
+        be = np.array([2, 0, 2, 2, 0, 0], np.int32)
+        xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        f0, b0 = K5.moe_gemm.launches, K5.moe_gemm_bwd.launches
+        r0 = dict(K5.moe_gemm_bwd.routes)
+        out = moe_gemm(xl, wl, be)
+        with torch.no_grad():
+            assert torch.equal(out, moe_gemm(x, w, be))
+        grads = torch.autograd.grad(out, (xl, wl), dy)
+        assert (K5.moe_gemm.launches - f0, K5.moe_gemm_bwd.launches - b0) \
+            == (2, 1)
+        assert {k: v - r0.get(k, 0) for k, v in
+                K5.moe_gemm_bwd.routes.items()} == {"dx": 1, "dw": 1}
+        want = K5.moe_gemm_bwd(x, w, be, dy)
+        assert all(torch.equal(g, v) for g, v in zip(grads, want))
+        (dw,) = torch.autograd.grad(moe_gemm(x, wl, be), (wl,), dy)
+        assert torch.equal(dw, want[1])
+        assert K5.moe_gemm_bwd.routes["dx"] == r0.get("dx", 0) + 2
+
+
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "gemma2-2b", "rwkv6-1.6b",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "dbrx-132b",
+                                  "kimi-k2-1t-a32b"])
 def test_train_step_card_against_host(cuda, arch):
     from repro_torch.configs import reduced_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
     from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch.steps import make_train_step
     from repro_torch.optim import adamw
@@ -1082,7 +1149,7 @@ def test_train_step_card_against_host(cuda, arch):
         opt = adamw.init(opt_cfg, params)
         step = make_train_step(cfg, opt_cfg)
         counters = (FA.flash_attention, FA.flash_attention_bwd, RK.rwkv6,
-                    RK.rwkv6_bwd)
+                    RK.rwkv6_bwd, K5.moe_gemm, K5.moe_gemm_bwd)
         before = [c.launches for c in counters]
         losses[name] = []
         for i in range(2):
@@ -1091,12 +1158,15 @@ def test_train_step_card_against_host(cuda, arch):
             params, opt, m = step(params, opt, batch)
             losses[name].append(float(m["loss"]))
         got = [c.launches - n for c, n in zip(counters, before)]
-        # two steps; under remat each layer's forward runs twice
+        # two steps; under remat each layer's forward runs twice (an MoE
+        # layer's three K5 products each), its backward once
         n = 2 * cfg.n_layers
         att, ssm = cfg.mixer in ("attn", "hymba"), cfg.mixer in ("rwkv",
                                                                  "hymba")
-        assert got == ([0] * 4 if name == "cpu" else
-                       [2 * n * att, n * att, 2 * n * ssm, n * ssm])
+        moe = 3 * (cfg.ffn == "moe")
+        assert got == ([0] * 6 if name == "cpu" else
+                       [2 * n * att, n * att, 2 * n * ssm, n * ssm,
+                        2 * n * moe, n * moe])
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-3)
 
 

@@ -8,8 +8,9 @@ train step and train CLI on the CPU against ``repro``.
   ``gelu_mlp`` against the reference's; ``grad_fence`` is the identity and
   autograd hands each tensor a gradient of its own dtype;
 * ``loss_fn``'s loss and the gradient of every param leaf against
-  ``jax.value_and_grad(M.loss_fn)`` at the reduced configs of seven
-  families (float32, params carried across by ``params_from_numpy``);
+  ``jax.value_and_grad(M.loss_fn)`` at the reduced configs of eight
+  archs (kimi-k2 the one MoE config with shared experts; float32, params
+  carried across by ``params_from_numpy``);
 * three ``make_train_step`` steps against the reference's losses; remat on
   and off bit-equal; the abstract param tree and training state;
 * the CLI (``--reduced --device cpu``): falling loss over 30 steps, and a
@@ -51,7 +52,8 @@ from repro_torch.optim import adamw as PA
 
 CPU = "cpu"
 TRAIN_ARCHS = ["qwen3-1.7b", "gemma2-2b", "hymba-1.5b", "rwkv6-1.6b",
-               "dbrx-132b", "paligemma-3b", "whisper-small"]
+               "dbrx-132b", "kimi-k2-1t-a32b", "paligemma-3b",
+               "whisper-small"]
 LOSS_RTOL = 1e-5
 GRAD_REL = 1e-4
 STEP_LOSS_RTOL = 1e-4
