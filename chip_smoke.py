@@ -5,8 +5,9 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-(``--profile-second-slice``, ``--profile-lm``, ``--store-child`` and
-``--train-full`` are the child processes that ``main`` starts.)
+(``--profile-second-slice``, ``--profile-lm``, ``--store-child``,
+``--train-full`` and ``--train-mesh`` are the child processes that
+``main`` starts.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -171,7 +172,7 @@ then dbrx-132b's parts of 16, 17, 19 and 20.
    beside one ``torch.bmm`` over (E, rows x cap, d), K4 beside SDPA;
 Phases 22 and 23 run after phase 20, then phases 27-31 (31's first runs
 before 27, its resumed processes beside 27-29, 30 last), then phases
-32-35, then 36-39, then phase 21.
+32-35, then 36-38, then 40-44, then 39, then phase 21.
 
 22. paligemma-3b — K4 against ``flash_attention_plain`` at the image
    prefill's shape (B = 2, 8 q heads / 1 kv head of 256, causal, S = 256 +
@@ -292,6 +293,33 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    bound (each entry 2 x 10240 x 6144 x 10752 FLOP at the bf16 peak), its
    plain version and ``torch.bmm`` on inputs grouped by expert beforehand;
    dx and dw each beside theirs;
+40. main path, fifteenth slice — sharded training, in a child process
+   (``--train-mesh``) with the card to itself: the train CLI's loop
+   (``train.train(cfg, args, mesh=...)``) on qwen3-1.7b at full width and
+   depth over a (2, 2) ("data", "model") mesh of ``cuda:0`` x 4 (distinct
+   cards where four are visible), 3 steps of batch 8 x 256 at phase 29's
+   seed and lr: the params, AdamW's m and v sharded storage on the mesh,
+   each data shard gathering the params and taking its loss and gradients
+   (K4 and its backward) on its half of the batch.  First the same 3 steps
+   on one device, then on the mesh: every param leaf after each step
+   within rtol 2e-2 / atol 2e-3 of the one-device step's and the losses
+   within 1e-3 (``tests/test_distributed.py``'s tolerances); K4 and its
+   backward launch twice as often as on one device; step p50, peak memory
+   and whether two runs are bit-identical;
+41. the int8 error-feedback compressed step on a (2, 1, 1) ("pod",
+   "data", "model") mesh at qwen3-1.7b's full width, 2 steps of 8 x 256
+   at lr 1e-2: the params after each step within 5e-2 of the exact step's,
+   the first loss within 1e-3, K4 and its backward once a pod; the error
+   buffer's norm;
+42. ``pipeline_apply`` over a (4, 1) ("pipe", "model") mesh: stages
+   ``tanh(h @ w)`` at d 2048 in float32, 8 microbatches of 8 x 256 rows,
+   forward and gradient against the stages in sequence within 1e-5;
+43. elastic restore: the reference test's reduced gemma2-2b saved from a
+   (4, 2) mesh, ``elastic_restore`` on 6 devices onto (3, 2), every leaf
+   bit-equal;
+44. reduced dbrx-132b, one sharded step on a (2, 2) mesh against one
+   device: K5 and its backward (and K4 and its) once per data shard, the
+   params within phase 40's tolerances;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -306,8 +334,9 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
    script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
-   and 24, K4's of 14, 19, 22, 23, 26, 29, 34 and 38, K4's backward's of
-   29, 34 and 38, K5's of 10, 19 and 38, K5's backward's of 38, K6's of
+   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41 and 44, K4's
+   backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38 and 44,
+   K5's backward's of 38 and 44, K6's of
    14, 18, 26 and 34, K6's backward's of 34;
    K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
    phase 39's; K1's
@@ -583,6 +612,29 @@ TRAIN_CLI_ARGS = ["--reduced", "--batch", "4", "--seq", "64"]
 TRAIN_GRAD_TOL = 1e-3
 # the reduced CLI's resumed losses against the uninterrupted run's
 TRAIN_RESUME_RTOL = 1e-4
+# sharded training (phases 40-44), in a child (``--train-mesh``): meshes of
+# MESH_DEVICE repeated (distinct cards where enough are visible).  Phase
+# 40: qwen3-1.7b at full width and depth on a (2, 2) ("data", "model")
+# mesh through train.train, at phase 29's seed and lr; 41: the int8
+# compressed step on a (2, 1, 1) ("pod", "data", "model") mesh at
+# qwen3-1.7b's full width, at the reference test's lr 1e-2 and no warmup;
+# 42: pipeline_apply over a (4, 1) ("pipe", "model") mesh, stages
+# tanh(h @ w) at d 2048, 8 microbatches of 8 x 256 rows; 43: elastic
+# restore of the reference test's reduced gemma2-2b from (4, 2) onto
+# (3, 2); 44: reduced dbrx-132b's sharded step on (2, 2), K5 on each data
+# shard
+MESH_DEVICE = "cuda:0"
+MESH_TRAIN = dict(steps=3, batch=8, seq=256)
+MESH_COMPRESSED = dict(steps=2, batch=8, seq=256, lr=1e-2)
+MESH_PIPE = dict(n_stage=4, n_micro=8, rows=(8, 256), d=2048)
+MESH_MOE = dict(batch=4, seq=64)
+# tests/test_distributed.py's tolerances: the loss (absolute, on the same
+# params: the first step's), the params after each step (rtol, atol), the
+# compressed step's params against the exact step's (absolute),
+# pipeline_apply against the sequential stages (the forward's max abs
+# error; each gradient's ||err|| / ||want||)
+MESH_LOSS_TOL, MESH_RTOL, MESH_ATOL = 1e-3, 2e-2, 2e-3
+MESH_COMP_ATOL, MESH_PIPE_TOL = 5e-2, 1e-5
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -3661,9 +3713,7 @@ def train_full(arch: str = QWEN3) -> int:
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import moe_gemm as K5
-    from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
@@ -3675,22 +3725,7 @@ def train_full(arch: str = QWEN3) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
-    plain = {}
-
-    def counted(module, name):
-        fn = getattr(module, name)
-        plain[name] = 0
-
-        def wrapper(*args, **kw):
-            plain[name] += 1
-            return fn(*args, **kw)
-        setattr(module, name, wrapper)
-
-    for module, name in ((FA, "flash_attention_plain"),
-                         (FA, "flash_attention_bwd_plain"),
-                         (RK, "rwkv6_plain"), (RK, "rwkv6_bwd_plain"),
-                         (K5, "moe_gemm_plain"), (K5, "moe_gemm_bwd_plain")):
-        counted(module, name)
+    plain = count_plain_calls()
     t = TRAIN_FULL[arch]
     cut = {"n_layers": t["n_layers"]} if "n_layers" in t else {}
     cfg = get_config(arch, **cut)
@@ -4124,6 +4159,422 @@ def k5_backward_times(dev, card: str) -> dict:
     return rows
 
 
+def mesh_devices(n: int) -> list:
+    """``n`` distinct cards where that many are visible, else
+    ``MESH_DEVICE`` repeated ``n`` times (one card runs every shard)."""
+    import torch
+    if MESH_DEVICE.startswith("cuda") and torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return [MESH_DEVICE] * n
+
+
+def card_mesh(shape, axes):
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(shape, axes, mesh_devices(int(np.prod(shape))))
+
+
+def count_plain_calls() -> dict:
+    """Wrap the plain versions of K4, K6, K5 and their backward kernels so
+    that each call counts: on the card's paths they must never run."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
+    from repro_torch.kernels import rwkv6_scan as RK
+    plain = {}
+
+    def counted(module, name):
+        fn = getattr(module, name)
+        plain[name] = 0
+
+        def wrapper(*args, **kw):
+            plain[name] += 1
+            return fn(*args, **kw)
+        setattr(module, name, wrapper)
+
+    for module, name in ((FA, "flash_attention_plain"),
+                         (FA, "flash_attention_bwd_plain"),
+                         (RK, "rwkv6_plain"), (RK, "rwkv6_bwd_plain"),
+                         (K5, "moe_gemm_plain"), (K5, "moe_gemm_bwd_plain")):
+        counted(module, name)
+    return plain
+
+
+def out_of_tol(got, want) -> tuple:
+    """(max |got - want|, elements past MESH_ATOL + MESH_RTOL |want|)."""
+    diff = (got.float() - want.float()).abs()
+    return (diff.max().item(),
+            int((diff > MESH_ATOL + MESH_RTOL * want.float().abs()).sum()))
+
+
+def mesh_train_run(cfg, argv, mesh, after_step) -> dict:
+    """``train.train(cfg, parse_args(argv), mesh=mesh)`` with
+    ``after_step(params)`` called after each step (outside the step's
+    timing in the history only where it is cheap), every count zeroed just
+    before and read just after."""
+    import torch
+    from repro_torch.launch import train
+    make = train.make_train_step
+
+    def wrapped(cfg_, opt_cfg, mesh_=None):
+        step = make(cfg_, opt_cfg, mesh_)
+
+        def run(params, opt, batch):
+            out = step(params, opt, batch)
+            after_step(out[0])
+            return out
+        return run
+
+    train.make_train_step = wrapped
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        t0 = time.perf_counter()
+        hist = train.train(cfg, train.parse_args(argv), mesh=mesh)
+        torch.cuda.synchronize()
+        return dict(hist=hist, launches=read_train_counts(),
+                    peak=torch.cuda.max_memory_allocated(),
+                    seconds=time.perf_counter() - t0)
+    finally:
+        train.make_train_step = make
+
+
+def mesh_qwen3(card: str) -> dict:
+    """Phase 40: qwen3-1.7b at full width and depth (1.72 B float32
+    params, bfloat16 compute, remat) through the train CLI's loop on a
+    (2, 2) ("data", "model") mesh, ``MESH_TRAIN`` at phase 29's seed and
+    lr: first on one device, a host copy of the params after each step;
+    then on the mesh (run A), every param leaf after each step held
+    against that copy (``MESH_RTOL``, ``MESH_ATOL``) and the losses
+    within ``MESH_LOSS_TOL``; then again (run B, nothing in its steps but
+    the step: its step times and peak), its final params bit-equal to run
+    A's.  On the mesh K4 and its backward launch twice as often as on one
+    device: once per data shard."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel import sharding as S
+    t = MESH_TRAIN
+    cfg = get_config(QWEN3)
+    dev = torch.device(mesh_devices(1)[0])
+    argv = ["--arch", QWEN3, "--steps", str(t["steps"]), "--batch",
+            str(t["batch"]), "--seq", str(t["seq"]), "--log-every", "1",
+            "--device", str(dev)]
+    snaps = []
+    one = mesh_train_run(cfg, argv, None, lambda p: snaps.append(
+        {path: x.detach().to("cpu", copy=True) for path, x in _walk(p)}))
+    torch.cuda.empty_cache()
+    mesh = card_mesh((2, 2), ("data", "model"))
+    errs, last = [], []
+
+    def against_one(params):
+        want = snaps[len(errs)]
+        worst, bad = 0.0, 0
+        for path, leaf in _walk(params):
+            w, n = out_of_tol(S.gather(leaf, dev), want[path].to(dev))
+            worst, bad = max(worst, w), bad + n
+        errs.append(dict(max_abs_err=worst, out_of_tol=bad))
+        last[:] = [params]
+
+    run_a = mesh_train_run(cfg, argv, mesh, against_one)
+    final_a = {path: S.gather(x, "cpu") for path, x in _walk(last[0])}
+    n_sharded = sum(isinstance(x, S.ShardedTensor)
+                    for _, x in _walk(last[0]))
+    last.clear()
+    del snaps
+    torch.cuda.empty_cache()
+    run_b = mesh_train_run(cfg, argv, mesh, lambda p: last.__setitem__(
+        slice(None), [p]))
+    bit_equal = all(torch.equal(S.gather(x, "cpu"), final_a[path])
+                    for path, x in _walk(last[0]))
+    last.clear()
+    torch.cuda.empty_cache()
+    losses = {name: [h["loss"] for h in r["hist"]]
+              for name, r in (("one_device", one), ("mesh_a", run_a),
+                              ("mesh_b", run_b))}
+    dts = np.array([h["dt"] for h in run_b["hist"][1:]])
+    steps = t["steps"]
+    want_counts = expected_train_counts(cfg, steps)
+    # the first step's loss is taken on the same params: the reference's
+    # absolute 1e-3; later steps' on params already held to MESH_RTOL /
+    # MESH_ATOL, whose loss (of order 1e3 at full width) moves with them:
+    # LM_TOL relative
+    loss_err = [abs(a - b) / (1.0 if i == 0 else abs(b)) for i, (a, b) in
+                enumerate(zip(losses["mesh_a"], losses["one_device"]))]
+    ok = len(losses["mesh_b"]) == steps \
+        and bool(np.all(np.isfinite(losses["mesh_b"]))) \
+        and loss_err[0] < MESH_LOSS_TOL and max(loss_err[1:]) < LM_TOL \
+        and all(e["out_of_tol"] == 0 for e in errs) \
+        and one["launches"] == want_counts \
+        and run_a["launches"] == run_b["launches"] == {
+            k: 2 * v for k, v in want_counts.items()}
+    emit(phase="check", case=f"{QWEN3} on a (2, 2) mesh against one device, "
+         "each step", mesh=[str(d) for d in mesh.devices.flat],
+         sharded_leaves=n_sharded, per_step=errs, losses=losses,
+         loss_err=loss_err, loss_tol=[MESH_LOSS_TOL, LM_TOL],
+         rtol=MESH_RTOL, atol=MESH_ATOL,
+         runs_bit_equal=bit_equal, one_device_launches=one["launches"],
+         ok=ok, card=card)
+    check(ok, f"{QWEN3} on a mesh: {errs}, losses {losses}, launches "
+          f"{one['launches']} / {run_a['launches']} / {run_b['launches']}")
+    emit(phase="main_path", case=f"{QWEN3} train CLI loop on a (2, 2) mesh, "
+         "full width and depth", arch=QWEN3, argv=argv, steps=steps,
+         losses=losses["mesh_b"], first_step_s=run_b["hist"][0]["dt"],
+         step_s_p50=float(np.median(dts)),
+         tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts)),
+         max_memory_allocated_bytes=run_b["peak"],
+         one_device_max_memory_allocated_bytes=one["peak"],
+         launches=run_b["launches"],
+         per_step={k: v / steps for k, v in run_b["launches"].items()},
+         runs_bit_equal=bit_equal, seconds=run_b["seconds"], ok=ok,
+         card=card)
+    return run_b["launches"]
+
+
+def mesh_compressed(card: str) -> dict:
+    """Phase 41: ``make_compressed_train_step`` on a (2, 1, 1) ("pod",
+    "data", "model") mesh at qwen3-1.7b's full width, ``MESH_COMPRESSED``
+    steps: each pod's loss and gradients on its half of the batch (K4 and
+    its backward on each), the int8 payloads summed in int32 and
+    dequantized at the larger scale; the params after each step against
+    the exact one-device step's within ``MESH_COMP_ATOL``, the first
+    step's loss (the same params) within ``MESH_LOSS_TOL``, later losses
+    a reading; the first pod's error buffer's norm."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _walk
+    from repro_torch.optim import adamw
+    from repro_torch.parallel.compression import (init_error_state,
+                                                  make_compressed_train_step)
+    t = MESH_COMPRESSED
+    cfg = get_config(QWEN3)
+    dev = torch.device(mesh_devices(1)[0])
+    opt_cfg = adamw.AdamWConfig(lr=t["lr"], warmup_steps=0, total_steps=10)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=t["seq"], global_batch=t["batch"],
+                                  seed=0))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.get_batch(i).items()}
+               for i in range(t["steps"])]
+    params = M.init_params(cfg, 0, device=dev)
+    opt = adamw.init(opt_cfg, params)
+    step = make_train_step(cfg, opt_cfg)
+    exact_losses, exact = [], []
+    for b in batches:
+        params, opt, m = step(params, opt, b)
+        exact_losses.append(float(m["loss"]))
+        exact.append({path: x.detach().to("cpu", copy=True)
+                      for path, x in _walk(params)})
+    del params, opt, step, m
+    torch.cuda.empty_cache()
+    mesh = card_mesh((2, 1, 1), ("pod", "data", "model"))
+    params = M.init_params(cfg, 0, device=dev)
+    opt = adamw.init(opt_cfg, params)
+    err = init_error_state(params)
+    cstep = make_compressed_train_step(cfg, opt_cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    losses, dts, deltas = [], [], []
+    for b, want in zip(batches, exact):
+        t0 = time.perf_counter()
+        params, opt, err, m = cstep(params, opt, err, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        dts.append(time.perf_counter() - t0)
+        deltas.append(max((x.detach().float() - want[path].to(dev).float())
+                          .abs().max().item() for path, x in _walk(params)))
+    launches = read_train_counts()
+    peak = torch.cuda.max_memory_allocated()
+    delta = max(deltas)
+    err_norm = adamw.global_norm(err).item()
+    want_counts = {k: 2 * v for k, v in
+                   expected_train_counts(cfg, t["steps"]).items()}
+    ok = delta < MESH_COMP_ATOL \
+        and abs(losses[0] - exact_losses[0]) < MESH_LOSS_TOL \
+        and np.isfinite(err_norm) and err_norm > 0 \
+        and launches == want_counts
+    emit(phase="main_path", case=f"{QWEN3} int8 compressed step on a "
+         "(2, 1, 1) pod mesh, full width, against the exact step",
+         mesh=[str(d) for d in mesh.devices.flat], steps=t["steps"],
+         batch=[t["batch"], t["seq"]], lr=t["lr"], losses=losses,
+         exact_losses=exact_losses, max_abs_param_delta=deltas,
+         tol=MESH_COMP_ATOL, error_buffer_norm=err_norm, step_s=dts,
+         max_memory_allocated_bytes=peak, launches=launches, ok=ok,
+         card=card)
+    check(ok, f"compressed step: delta {delta}, losses {losses} / "
+          f"{exact_losses}, error norm {err_norm}, launches {launches}")
+    return launches
+
+
+def mesh_pipeline(card: str) -> None:
+    """Phase 42: ``pipeline_apply`` over a (4, 1) ("pipe", "model") mesh,
+    stage ``s`` computing ``tanh(h @ w[s])`` at ``MESH_PIPE``'s width in
+    float32 (TF32 off): its output (max abs error) and the gradients of
+    w and x (||err|| / ||want||) against the four stages run in sequence,
+    each within ``MESH_PIPE_TOL``."""
+    import torch
+    from repro_torch.parallel.pipeline import pipeline_apply
+    p = MESH_PIPE
+    dev = torch.device(mesh_devices(1)[0])
+    gen = torch.Generator(device=dev).manual_seed(42)
+    d = p["d"]
+    w = (torch.randn(p["n_stage"], d, d, generator=gen, device=dev)
+         / d ** 0.5).requires_grad_(True)
+    x = torch.randn(p["n_micro"], *p["rows"], d, generator=gen,
+                    device=dev).requires_grad_(True)
+    ct = torch.randn(x.shape, generator=gen, device=dev)
+    mesh = card_mesh((p["n_stage"], 1), ("pipe", "model"))
+
+    def piped():
+        y = pipeline_apply(lambda q, h: torch.tanh(h @ q["w"]), {"w": w}, x,
+                           mesh=mesh)
+        return (y, *torch.autograd.grad((y * ct).sum(), [w, x]))
+
+    def sequential():
+        y = x
+        for s in range(p["n_stage"]):
+            y = torch.tanh(y @ w[s])
+        return (y, *torch.autograd.grad((y * ct).sum(), [w, x]))
+
+    got, pipe_s = timed(piped)
+    want, seq_s = timed(sequential)
+    fwd = (got[0] - want[0]).abs().max().item()
+    rel = [((a - b).norm() / b.norm()).item()
+           for a, b in zip(got[1:], want[1:])]
+    ok = fwd <= MESH_PIPE_TOL and max(rel) <= MESH_PIPE_TOL
+    emit(phase="check", case="pipeline_apply on a (4, 1) pipe mesh against "
+         "the sequential stages, forward and gradient",
+         mesh=[str(d) for d in mesh.devices.flat], n_micro=p["n_micro"],
+         rows=list(p["rows"]), d=d, max_abs_err=fwd,
+         grad_rel_norm={"w": rel[0], "x": rel[1]}, tol=MESH_PIPE_TOL,
+         pipeline_s=pipe_s, sequential_s=seq_s, ok=ok, card=card)
+    check(ok, f"pipeline_apply: forward {fwd}, gradients {rel}")
+
+
+def mesh_elastic(card: str) -> None:
+    """Phase 43: the reference test's reduced gemma2-2b (seed 1) saved from
+    a (4, 2) mesh, then ``elastic_restore`` on 6 devices with a model axis
+    of 2: the (3, 2) mesh, and every leaf bit-equal."""
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel import sharding as S
+    from repro_torch.runtime.elastic import elastic_restore
+    cfg = reduced_config(get_config("gemma2-2b"))
+    dev = torch.device(mesh_devices(1)[0])
+    params = M.init_params(cfg, 1, device=dev)
+    d = ROOT / "build" / "mesh_elastic_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    ckpt.save(str(d), 3, S.shard_tree(params, S.params_shardings(
+        cfg, card_mesh((4, 2), ("data", "model")))))
+    mesh, tree, manifest = elastic_restore(
+        str(d), cfg, M.abstract_params(cfg), model_parallel=2,
+        devices=mesh_devices(6))
+    seconds = time.perf_counter() - t0
+    want = dict(_walk(params))
+    equal = all(torch.equal(S.gather(x, dev), want[path])
+                for path, x in _walk(tree))
+    n_sharded = sum(isinstance(x, S.ShardedTensor) for _, x in _walk(tree))
+    ok = equal and tuple(mesh.devices.shape) == (3, 2) \
+        and manifest["step"] == 3 and n_sharded > 0
+    emit(phase="check", case="elastic restore of reduced gemma2-2b from a "
+         "(4, 2) mesh onto (3, 2)", mesh=list(mesh.devices.shape),
+         sharded_leaves=n_sharded, leaves=len(want), bit_equal=equal,
+         seconds=seconds, ok=ok, card=card)
+    check(ok, f"elastic restore: mesh {mesh.devices.shape}, equal {equal}")
+
+
+def mesh_moe(card: str) -> dict:
+    """Phase 44: reduced dbrx-132b (float32, width 64, 4 experts) one
+    sharded step on a (2, 2) mesh against the one-device step from the
+    same init: the loss within ``MESH_LOSS_TOL`` and the params within
+    ``MESH_RTOL`` / ``MESH_ATOL``; K5 and its backward (and K4 and its)
+    launch twice as often, once per data shard."""
+    import torch
+    from repro_torch.configs import get_config, reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _walk
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as S
+    cfg = reduced_config(get_config(DBRX_LM))
+    dev = torch.device(mesh_devices(1)[0])
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=MESH_MOE["seq"],
+                   global_batch=MESH_MOE["batch"], seed=4)
+    ).get_batch(0).items()}
+    mesh = card_mesh((2, 2), ("data", "model"))
+    out = {}
+    for name, m in (("one_device", None), ("mesh", mesh)):
+        params = M.init_params(cfg, 5, device=dev)
+        if m is not None:
+            params = S.shard_tree(params, S.params_shardings(cfg, m))
+        opt = adamw.init(opt_cfg, params)
+        zero_train_counts()
+        (params, _, metrics), wall = timed(lambda: make_train_step(
+            cfg, opt_cfg, m)(params, opt, batch))
+        out[name] = dict(loss=float(metrics["loss"]), step_s=wall,
+                         launches=read_train_counts(),
+                         params={path: S.gather(x, dev)
+                                 for path, x in _walk(params)})
+    worst, bad = 0.0, 0
+    for path, x in out["mesh"]["params"].items():
+        w, n = out_of_tol(x, out["one_device"]["params"][path])
+        worst, bad = max(worst, w), bad + n
+    one, sharded = out["one_device"], out["mesh"]
+    ok = abs(one["loss"] - sharded["loss"]) < MESH_LOSS_TOL and bad == 0 \
+        and sharded["launches"] == {k: 2 * v for k, v in
+                                    one["launches"].items()} \
+        and sharded["launches"]["moe_gemm"] > 0
+    emit(phase="main_path", case=f"{DBRX_LM} reduced, one sharded step on "
+         "a (2, 2) mesh against one device", loss=sharded["loss"],
+         one_device_loss=one["loss"], max_abs_param_err=worst,
+         out_of_tol=bad, launches=sharded["launches"],
+         one_device_launches=one["launches"], step_s=sharded["step_s"],
+         ok=ok, card=card)
+    check(ok, f"{DBRX_LM} on a mesh: losses {one['loss']} / "
+          f"{sharded['loss']}, {bad} params out of tolerance, launches "
+          f"{one['launches']} / {sharded['launches']}")
+    return sharded["launches"]
+
+
+def train_mesh() -> int:
+    """Phases 40-44 in a child process of their own (``--train-mesh``),
+    which must have the card to itself (about 45 GB at phase 40); it
+    starts early and waits (``wait_for_turn``).  The last row gathers the
+    launches of phases 40, 41 and 44."""
+    import torch
+    wait_for_turn("flash_attention", "moe_gemm", *BACKWARD_SOURCES)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    plain = count_plain_calls()
+    launches = {f"{QWEN3} training on a (2, 2) mesh": mesh_qwen3(card)}
+    torch.cuda.empty_cache()
+    launches[f"{QWEN3} compressed step on a (2, 1, 1) pod mesh"] = \
+        mesh_compressed(card)
+    torch.cuda.empty_cache()
+    mesh_pipeline(card)
+    torch.cuda.empty_cache()
+    mesh_elastic(card)
+    launches[f"{DBRX_LM} reduced on a (2, 2) mesh"] = mesh_moe(card)
+    check(not any(plain.values()), f"plain versions ran: {plain}")
+    emit(phase="mesh_launches", launches=launches, plain_calls=plain)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4373,6 +4824,7 @@ def main() -> int:
     train_children = {arch: start_child(
         [script, "--train-full", arch], stdin=subprocess.PIPE)
         for arch in TRAIN_FULL}
+    mesh_child = start_child([script, "--train-mesh"], stdin=subprocess.PIPE)
     profile_children = {args: start_child(
         [script, *args], stdin=subprocess.PIPE) for args in (
             ("--profile-second-slice",), ("--profile-lm", HYMBA),
@@ -4415,6 +4867,10 @@ def main() -> int:
          "dbrx-132b train child", allocated_bytes=torch.cuda.memory_allocated(),
          reserved_bytes=torch.cuda.memory_reserved())
     train_full_child(DBRX_LM)
+    # -- 40.-44. sharded training, in a child with the card to itself ------
+    out = go_child(mesh_child, "sharded training", timeout=900)
+    sys.stdout.write(out)
+    mesh_launches = child_rows(out, "mesh_launches")[-1]["launches"]
     k5_bwd_times = k5_backward_times(dev, card)
     torch.cuda.empty_cache()
     # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
@@ -4438,7 +4894,9 @@ def main() -> int:
                   "hymba-1.5b with prewarm": prewarm["K4"],
                   **{f"{arch} training": full[arch]["launches"][
                       "flash_attention"] for arch in (QWEN3, HYMBA,
-                                                      DBRX_LM)}}
+                                                      DBRX_LM)},
+                  **{path: n["flash_attention"]
+                     for path, n in mesh_launches.items()}}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4455,6 +4913,11 @@ def main() -> int:
                       for arch, row in full.items() if row["launches"][name]}
                for name in ("flash_attention_bwd", "rwkv6", "rwkv6_bwd",
                             "moe_gemm_bwd")}
+    # and the sharded paths' (phases 40, 41 and 44)
+    for path, counts in mesh_launches.items():
+        for name, paths in by_path.items():
+            if counts[name]:
+                paths[path] = counts[name]
     k4_bwd_row = {
         "name": "flash_attention_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -4502,11 +4965,14 @@ def main() -> int:
         "hymba_1p5b_training": k6_bwd_times[hymba_heads]}
     k5_lm_launches = dbrx["launches"]["K5"]
     k5_train_launches = full[DBRX_LM]["launches"]["moe_gemm"]
+    k5_mesh = {path: n["moe_gemm"] for path, n in mesh_launches.items()
+               if n["moe_gemm"]}
     k5_row.update(launches=k5_row["launches"] + k5_lm_launches
-                  + k5_train_launches,
+                  + k5_train_launches + sum(k5_mesh.values()),
                   launches_by_path={"moe_ffn_host": k5_row["launches"],
                                     DBRX_LM: k5_lm_launches,
-                                    f"{DBRX_LM} training": k5_train_launches},
+                                    f"{DBRX_LM} training": k5_train_launches,
+                                    **k5_mesh},
                   bf16_design=K5_BF16_DESIGN,
                   bf16_routes_on_main_path=dbrx["k5_routes"],
                   max_abs_err=max(k5_row["max_abs_err"], dbrx["k5_err"]),
@@ -4535,6 +5001,8 @@ if __name__ == "__main__":
         sys.exit(profile_second_slice())
     if ARGS[:1] == ["--profile-lm"] and len(ARGS) == 2:
         sys.exit(profile_lm(ARGS[1]))
+    if ARGS == ["--train-mesh"]:
+        sys.exit(train_mesh())
     if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2):
         sys.exit(train_full(*ARGS[1:]))
     if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):

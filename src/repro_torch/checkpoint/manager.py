@@ -13,8 +13,10 @@ never a torn one.  The layout and keys are the reference's, so either
 package restores the other's float32 checkpoints.  numpy has no bfloat16:
 a bfloat16 leaf is stored as the float32 array that holds it exactly (its
 manifest entry says ``bfloat16``), and ``restore`` casts every leaf to its
-template leaf's dtype, as the reference does.  Restoring onto a mesh
-(``shardings=``) waits for sharded training.
+template leaf's dtype, as the reference does.  A leaf held as shards on a
+mesh (``parallel.sharding.ShardedTensor``) is gathered to the host, so the
+file is the unsharded one; ``restore(shardings=)`` places each leaf on a
+mesh, resharding a checkpoint onto any mesh.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.params import _set, _walk
+from ..parallel.sharding import ShardedTensor, gather, shard
 
 SEP = "//"
 
@@ -40,6 +43,8 @@ def _flatten(tree) -> Dict[str, Any]:
 
 
 def _to_numpy(leaf) -> np.ndarray:
+    if isinstance(leaf, ShardedTensor):
+        leaf = gather(leaf, "cpu")
     if torch.is_tensor(leaf):
         leaf = leaf.detach()
         if leaf.dtype == torch.bfloat16:
@@ -49,14 +54,15 @@ def _to_numpy(leaf) -> np.ndarray:
 
 
 def _dtype_name(leaf) -> str:
-    if torch.is_tensor(leaf):
+    if isinstance(leaf, (torch.Tensor, ShardedTensor)):
         return str(leaf.dtype).removeprefix("torch.")
     return str(np.asarray(leaf).dtype)
 
 
 def save(ckpt_dir: str, step: int, tree, extras: Optional[dict] = None):
-    """Write ``tree`` (a dict tree of tensors or arrays) as ``step_<step>``
-    and point ``latest`` at it.  Returns the checkpoint's directory."""
+    """Write ``tree`` (a dict tree of tensors, sharded leaves or arrays) as
+    ``step_<step>`` and point ``latest`` at it.  Returns the checkpoint's
+    directory."""
     os.makedirs(ckpt_dir, exist_ok=True)
     leaves = _flatten(tree)
     flat = {k: _to_numpy(v) for k, v in leaves.items()}
@@ -106,14 +112,18 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 def restore(ckpt_dir: str, template, step: Optional[int] = None,
-            device=None):
+            device=None, shardings=None):
     """Restore into ``template``'s structure (a dict tree of tensors, which
-    may lie on the ``meta`` device).  Returns ``(tree, manifest)``.
+    may lie on the ``meta`` device, or of sharded leaves).  Returns
+    ``(tree, manifest)``.
 
-    Each leaf takes its template leaf's dtype, and lands on ``device``, or,
-    with ``device=None``, on its template leaf's device (a ``meta`` template
-    needs ``device``).  A leaf the checkpoint lacks raises ``KeyError``; no
-    ``latest`` raises ``FileNotFoundError``.
+    Each leaf takes its template leaf's dtype.  With ``shardings`` (a
+    matching tree of ``parallel.sharding.Sharding``; a ``None`` entry
+    places nothing) a leaf is placed on its sharding's mesh, resharded from
+    the file (a sharded template leaf needs one); any other lands on
+    ``device``, or, with ``device=None``, on its template leaf's device (a
+    ``meta`` template needs ``device``).  A leaf the checkpoint lacks
+    raises ``KeyError``; no ``latest`` raises ``FileNotFoundError``.
     """
     if step is None:
         step = latest_step(ckpt_dir)
@@ -129,9 +139,23 @@ def restore(ckpt_dir: str, template, step: Optional[int] = None,
             key = SEP.join(path)
             if key not in z.files:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
+            sharding = _at(shardings, path)
+            value = torch.from_numpy(z[key])
+            if sharding is not None:
+                _set(out, path, shard(value.to(leaf.dtype), sharding))
+                continue
             target = dev or leaf.device
             if target.type == "meta":
                 raise ValueError(f"leaf {key!r}: a meta template needs "
                                  "device=")
-            _set(out, path, torch.from_numpy(z[key]).to(target, leaf.dtype))
+            _set(out, path, value.to(target, leaf.dtype))
     return out, manifest
+
+
+def _at(tree, path):
+    """The entry of ``tree`` at ``path``, or None where there is none."""
+    for k in path:
+        if not isinstance(tree, dict):
+            return None
+        tree = tree.get(k)
+    return tree

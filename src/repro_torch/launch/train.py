@@ -2,9 +2,12 @@
 
 Port of ``repro.launch.train``: deterministic resumable data, atomic
 checkpoints with auto-resume from ``latest``, the straggler watchdog and
-per-step metrics.  It trains on one device: ``--device`` (``cuda`` unless
-the caller asks for ``cpu``).  Sharded training waits for a later slice:
-``--device cuda`` with several cards visible raises (pass ``cuda:0``).
+per-step metrics.  ``--device`` is ``cuda`` unless the caller asks for
+``cpu``: with several cards visible, ``cuda`` trains sharded over a
+``(data, model)`` mesh of all of them (``build_mesh``), as the reference
+shards over every device it sees; ``cuda:<i>`` and ``cpu`` train on one
+device.  ``train(cfg, args, mesh=...)`` trains on a given mesh (a device
+may repeat in it: ``launch.mesh.make_mesh``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --steps 200 --batch 8 --seq 256 --reduced --ckpt-dir runs/ckpt \\
@@ -37,20 +40,23 @@ from ..kernels import moe_gemm as k5
 from ..kernels import rwkv6_scan as wkv
 from ..models import model as M
 from ..optim import adamw
+from ..parallel.sharding import shard_tree
 from ..runtime.elastic import StepWatchdog
-from .steps import make_train_step
+from .mesh import make_mesh
+from .steps import make_train_step, train_shardings
 
 
-def build_mesh(device: torch.device):
-    """No mesh on one device.  ``cuda`` with several cards visible is a
-    request for all of them, as the reference shards over every device it
-    sees: that raises until sharded training is ported."""
-    if device.type == "cuda" and device.index is None \
-            and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} cards visible: sharded training is "
-            "not ported yet; pass --device cuda:0 to train on one card")
-    return None
+def build_mesh(device: torch.device, model_parallel: int = 16):
+    """No mesh on one device (``cpu``, ``cuda:<i>``, or ``cuda`` with one
+    card).  ``cuda`` with ``n > 1`` cards visible is the reference's
+    ``(n // mp, mp)`` ``("data", "model")`` mesh over them, ``mp =
+    min(model_parallel, n)``."""
+    n = torch.cuda.device_count() if device.type == "cuda" \
+        and device.index is None else 1
+    if n <= 1:
+        return None
+    mp = min(model_parallel, n)
+    return make_mesh((n // mp, mp), ("data", "model"))
 
 
 def print_kernel_launches() -> None:
@@ -77,7 +83,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--model-parallel", type=int, default=16,
-                    help="the model axis of a mesh (unused on one device)")
+                    help="the model axis of the mesh over several cards")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--metrics-out", default="")
     ap.add_argument("--device", default="cuda",
@@ -93,12 +99,18 @@ def main(argv=None):
     return train(cfg, args)
 
 
-def train(cfg: ModelConfig, args: argparse.Namespace):
+def train(cfg: ModelConfig, args: argparse.Namespace, mesh=None):
     """The training loop of ``main`` on ``cfg`` (the config ``args.arch``
     names, or any other, e.g. one with its depth cut) with the parsed
-    ``args``; returns the per-step metrics."""
+    ``args``; returns the per-step metrics.  With a ``mesh`` (given, or
+    ``build_mesh``'s) the params and AdamW state are sharded on it
+    (``train_shardings``), each step is the sharded step, checkpoints are
+    written from the shards and a resume restores onto the mesh."""
     dev = resolve_device(args.device)
-    mesh = build_mesh(dev)
+    if mesh is None:
+        mesh = build_mesh(dev, args.model_parallel)
+    if mesh is not None:
+        dev = mesh.devices.flat[0]
 
     opt_cfg = adamw.AdamWConfig(lr=args.lr, warmup_steps=max(
         10, args.steps // 20), total_steps=args.steps)
@@ -109,11 +121,17 @@ def train(cfg: ModelConfig, args: argparse.Namespace):
         d_frame=cfg.d_frame if cfg.enc_dec else 0))
 
     params = M.init_params(cfg, args.seed, device=dev)
+    shardings = None
+    if mesh is not None:
+        pshard, oshard, _ = train_shardings(cfg, mesh, opt_cfg)
+        shardings = {"params": pshard, "opt": oshard}
+        params = shard_tree(params, pshard)
     opt_state = adamw.init(opt_cfg, params)
     start_step = 0
     if args.ckpt_dir and ckpt.latest_step(args.ckpt_dir) is not None:
         state, manifest = ckpt.restore(args.ckpt_dir,
-                                       {"params": params, "opt": opt_state})
+                                       {"params": params, "opt": opt_state},
+                                       shardings=shardings)
         params, opt_state = state["params"], state["opt"]
         start_step = manifest["step"]
         print(f"[train] resumed from step {start_step}")

@@ -11,7 +11,7 @@ block a layer, no ``pos{i}`` level).  The reference scans each stack with
 ``cfg.remat`` and grad mode on, each period runs under a non-reentrant
 ``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` with
 ``nothing_saveable``): its activations are recomputed in the backward.
-``constrain`` (sharding hints) is dropped: there is one device.
+``constrain`` marks the reference's sharding hints (``parallel.api``).
 
 Training differentiates ``loss_fn`` through the float32 params as they
 are (never ``compute_params``), so every cast to the compute dtype is an
@@ -34,6 +34,7 @@ import torch
 import torch.utils.checkpoint
 
 from ..device import resolve_device
+from ..parallel.api import constrain
 from . import params as P
 from .blocks import (block_decode, block_forward, block_make_cache,
                      block_metas, block_prefill, cross_kv)
@@ -163,7 +164,8 @@ def _sinusoid(s: int, d: int, dtype, device="cpu") -> torch.Tensor:
 def _out_head(cfg, params, x):
     x = rms_norm(x, params["final_norm"], plus_one=cfg.gemma_style)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    return unembed(x, table, cap=cfg.final_softcap)
+    logits = unembed(x, table, cap=cfg.final_softcap)
+    return constrain(logits, "dp", None, "vocab")
 
 
 def _positions(b: int, s: int, device) -> torch.Tensor:
@@ -239,6 +241,7 @@ def forward(cfg, params, tokens, *, images=None, frames=None):
     if cfg.n_image_tokens and images is not None:
         x = torch.cat([_image_in(cfg, params, images), x], dim=1)
         prefix = images.shape[1]
+    x = constrain(x, "dp", None, None)
     b, s, _ = x.shape
     positions = _positions(b, s, x.device)
     aux = 0.0

@@ -45,6 +45,7 @@ from ..core.routing import (expert_assignment, scatter_to_slots,
                             softmax_probs, top_k_experts)
 from ..device import resolve_device, to_device
 from ..kernels.ops import moe_gemm
+from ..parallel.api import constrain
 from .layers import dense, swiglu
 
 
@@ -343,9 +344,13 @@ def moe_ffn(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
     x_bundles, dest, gate_keep, aux = _bundles(
         x, p["router"], n_experts=n_experts, top_k=top_k, capacity=cap,
         host_cb=_host_cb)
+    constrain(x_bundles.reshape(b, n_experts, cap, d), "dp", "experts", None,
+              None)
     y = expert_swiglu(x_bundles, p["w_gate"], p["w_up"], p["w_down"],
                       _bundle_map(b, n_experts))
+    constrain(y.reshape(b, n_experts, cap, d), "dp", "experts", None, None)
     out = _combine(y.reshape(b, n_experts * cap, d), dest, gate_keep, top_k)
+    out = constrain(out, "dp", None, None)
     if "shared_gate" in p:                                   # shared experts
         out = out + swiglu(x.reshape(b * s, d), p["shared_gate"],
                            p["shared_up"], p["shared_down"]).reshape(b, s, d)

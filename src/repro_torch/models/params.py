@@ -6,8 +6,8 @@ tree of tensors, with one seeded ``torch.Generator`` per parameter path
 (the reference's per-path key derivation; the values differ from JAX's).
 ``params_from_numpy`` carries a reference param tree across, so both
 packages compute with the same weights; ``abstract_params`` gives the
-tree's shapes and dtypes without storage.  ``param_pspecs`` (sharding
-rules) waits for sharded training.
+tree's shapes and dtypes without storage; ``param_pspecs`` maps each
+leaf's logical axes to a sharding spec.
 """
 from __future__ import annotations
 
@@ -106,6 +106,34 @@ def abstract_params(metas: MetaTree, param_dtype=torch.float32) -> Dict:
         _set(out, path, torch.empty(meta.shape,
                                     dtype=meta.dtype or param_dtype,
                                     device="meta"))
+    return out
+
+
+def param_pspecs(metas: MetaTree, rules: Mapping[str, Optional[str]],
+                 mesh=None) -> Dict:
+    """Logical axes → a spec per leaf: a tuple with one entry a dim (None,
+    an axis name or a tuple of names; the reference's ``PartitionSpec``).
+    If ``mesh`` is given, an axis is only sharded when the dim divides the
+    mesh axis size (guarded FSDP/TP)."""
+    axis_sizes = dict(zip(mesh.axis_names, mesh.devices.shape)) if mesh \
+        else {}
+
+    def spec_axis(logical, dim):
+        phys = rules.get(logical)
+        if phys is None:
+            return None
+        names = phys if isinstance(phys, tuple) else (phys,)
+        total = 1
+        for nm in names:
+            total *= axis_sizes.get(nm, 1)
+        if mesh is not None and dim % total != 0:
+            return None
+        return phys
+
+    out: Dict = {}
+    for path, meta in _walk(metas):
+        _set(out, path, tuple(spec_axis(ax, dim) if ax else None
+                              for ax, dim in zip(meta.axes, meta.shape)))
     return out
 
 

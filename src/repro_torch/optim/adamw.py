@@ -13,7 +13,9 @@ slices of its flattened storage (its leading dimensions first), so the
 update's float32 temporaries stay a few slices' size whatever the leaf's
 (one dbrx-132b expert stack is 1.06 B elements, 4.2 GB a float32 copy);
 the arithmetic is elementwise, so the result is bit-equal to the whole-leaf
-update.
+update.  A leaf held as shards on a mesh (``parallel.sharding.
+ShardedTensor``) has its state sharded alike, and each shard is updated
+on its own device.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from ..models.params import _walk, tree_map
+from ..parallel.sharding import ShardedTensor, pieces
 
 
 #: leaves above this many elements are updated slice by slice (256 MB of
@@ -78,6 +81,8 @@ def init(cfg: AdamWConfig, params) -> Dict:
     corrections are host scalars, so a step reads nothing back from the
     card."""
     def zeros(p):
+        if isinstance(p, ShardedTensor):
+            return p.map(zeros)
         return torch.zeros(p.shape, dtype=cfg.state_dtype, device=p.device)
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "step": torch.zeros((), dtype=torch.int32)}
@@ -85,9 +90,11 @@ def init(cfg: AdamWConfig, params) -> Dict:
 
 def global_norm(tree) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32, leaves taken in
-    sorted key order as ``jax.tree.leaves`` takes them."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for _, g in _walk(tree)))
+    sorted key order as ``jax.tree.leaves`` takes them (a sharded leaf's
+    shards in index order), summed on the first leaf's device."""
+    sq = [torch.sum(torch.square(s.float()))
+          for _, g in _walk(tree) for s in pieces(g)]
+    return torch.sqrt(sum(s.to(sq[0].device) for s in sq))
 
 
 def _update_leaf(cfg: AdamWConfig, g, m, v, p, scale, lr, b1c: float,
@@ -125,7 +132,7 @@ def update(cfg: AdamWConfig, grads, state, params):
     """One AdamW step.  Returns ``(params, state, metrics)``: the same
     param and m/v tensors, changed in place, a new step counter, and
     ``{"grad_norm", "lr"}`` as float32 tensors (the norm before clipping,
-    on the grads' device; the rate on the host)."""
+    on the first grad's device; the rate on the host)."""
     with torch.no_grad():
         step = state["step"] + 1
         gnorm = global_norm(grads)
@@ -136,8 +143,11 @@ def update(cfg: AdamWConfig, grads, state, params):
         b2c = float(f32(1.0) - f32(cfg.b2) ** f32(step))
         grad_of = dict(_walk(grads))
         m_of, v_of = dict(_walk(state["m"])), dict(_walk(state["v"]))
-        for path, p in _walk(params):
-            for piece in _slices(p, grad_of[path], m_of[path], v_of[path]):
-                _update_leaf(cfg, *piece, scale, lr, b1c, b2c)
+        for path, leaf in _walk(params):
+            for p, g, m, v in zip(*map(pieces, (leaf, grad_of[path],
+                                                m_of[path], v_of[path]))):
+                for piece in _slices(p, g, m, v):
+                    _update_leaf(cfg, *piece, scale.to(p.device), lr, b1c,
+                                 b2c)
     metrics = {"grad_norm": gnorm, "lr": lr}
     return params, {"m": state["m"], "v": state["v"], "step": step}, metrics

@@ -1,0 +1,121 @@
+"""Error-feedback int8 gradient compression across the cross-pod links.
+
+Port of ``repro.parallel.compression``.  Within a pod, gradients reduce at
+full precision; across pods the reduction payload is quantized to int8
+with a per-leaf scale, and the quantization residual stays in an
+error-feedback buffer added back next step (the 1-bit SGD lineage, 8-bit
+here).  Compression cuts the inter-pod gradient payload 4× against
+float32.
+
+The reference runs the quantize → psum(int32) → dequantize pipeline in a
+``shard_map`` manual over ``pod``.  Here one process drives the mesh: each
+pod's loss and gradients are taken on the pod's batch slice on the pod's
+device, then each leaf is reduced over the pods in pod order.  Two of the
+reference's choices are kept as they are:
+
+* each payload is quantized at its own pod's scale, yet the int32 sum is
+  dequantized at the largest of the pods' scales;
+* the error buffer is declared replicated although each pod computes its
+  own; the step returns the first pod's, the one the reference returns.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from ..models.params import _set, _walk, tree_map
+
+
+def quantize_int8(x) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(int8 payload, float32 scale)``: ``x / scale`` rounded half to
+    even (as ``jnp.round``) and clipped to ±127, ``scale = max|x| / 127``
+    (at least 1e-12 / 127)."""
+    scale = torch.clamp(torch.max(torch.abs(x)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def dequantize_int8(q, scale):
+    return q.to(torch.float32) * scale
+
+
+def ef_compress_leaf(g, err):
+    """Error-feedback quantization of one gradient leaf.
+
+    Returns (int8 payload, scale, new error buffer)."""
+    g32 = g.to(torch.float32) + err
+    q, scale = quantize_int8(g32)
+    new_err = g32 - dequantize_int8(q, scale)
+    return q, scale, new_err
+
+
+def init_error_state(params_template):
+    """A float32 zero buffer beside each param leaf."""
+    return tree_map(lambda g: torch.zeros(g.shape, dtype=torch.float32,
+                                          device=g.device), params_template)
+
+
+def make_compressed_train_step(cfg, opt_cfg, mesh):
+    """Train step with the int8 EF cross-pod gradient reduction.
+
+    Signature: ``step(params, opt_state, err_state, batch) → (params,
+    opt_state, err_state, metrics)``; ``metrics`` holds ``loss``, ``ce``,
+    ``grad_norm`` and ``lr``.  The params, m/v and error buffers are whole
+    tensors (replicated over the pods, as the reference declares them).
+    Without a pod axis, or with one pod, it is the plain step on the whole
+    batch and the error buffer is returned as it came.
+    """
+    from ..launch.steps import _loss_and_grads, make_train_step
+    from ..optim import adamw
+    from .api import manual_axes, use_mesh
+    from .sharding import Sharding
+
+    n_pod = dict(zip(mesh.axis_names, mesh.devices.shape)).get("pod", 1)
+    plain = make_train_step(cfg, opt_cfg)
+
+    def train_step(params, opt_state, err_state, batch: Dict):
+        if n_pod <= 1:
+            with use_mesh(mesh):
+                params, opt_state, m = plain(params, opt_state, batch)
+            return params, opt_state, err_state, {
+                k: m[k] for k in ("loss", "ce", "grad_norm", "lr")}
+        leaves = list(_walk(params))
+        err_of = dict(_walk(err_state))
+        pods = Sharding(mesh, ("pod",)).placement(1).values()
+        n_rows = next(iter(batch.values())).shape[0] // n_pod
+        # each pod's (loss, ce) and (int8 payload, scale) a leaf; the first
+        # pod's error buffers
+        losses, payloads, new_err = [], [], {}
+        with use_mesh(mesh), manual_axes("pod"):
+            for i, dev in enumerate(pods):
+                part = {k: v[i * n_rows:(i + 1) * n_rows].to(dev)
+                        for k, v in batch.items()}
+                whole = [(path, p.to(dev).detach()) for path, p in leaves]
+                loss, parts, grads = _loss_and_grads(cfg, whole, part)
+                del whole
+                losses.append((loss, parts["ce"]))
+                payloads.append([])
+                for (path, p), g in zip(leaves, grads):
+                    q, scale, e = ef_compress_leaf(g, err_of[path].to(dev))
+                    payloads[-1].append((q, scale))
+                    if i == 0:
+                        _set(new_err, path, e.to(err_of[path].device))
+                del grads
+        grads_tree: Dict = {}
+        for j, (path, p) in enumerate(leaves):
+            total = sum(pod[j][0].to(p.device).to(torch.int32)
+                        for pod in payloads)
+            scale_max = torch.stack([pod[j][1].to(p.device)
+                                     for pod in payloads]).max()
+            _set(grads_tree, path, (total.to(torch.float32) * scale_max
+                                    / n_pod).to(p.dtype))
+        del payloads
+        first = leaves[0][1].device
+        loss, ce = (sum(x[i].to(first) for x in losses) / n_pod
+                    for i in (0, 1))
+        params, opt_state, om = adamw.update(opt_cfg, grads_tree, opt_state,
+                                             params)
+        return params, opt_state, new_err, {"loss": loss, "ce": ce, **om}
+
+    return train_step

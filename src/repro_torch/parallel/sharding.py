@@ -1,14 +1,45 @@
-"""Mesh-axis helpers: which axes are data-parallel and how large they are.
+"""Sharding: logical-axis rules → shardings over (pod, data, model), and the
+sharded storage that holds a tree on a mesh.
 
-Port of the axis helpers of ``repro.parallel.sharding`` (``dp_axes``,
-``axis_size``, ``guarded``).  They read any object with ``axis_names`` and
-``devices.shape``: a ``launch.mesh.DeviceMesh``.  The reference's logical-axis
-rules for parameters and caches belong to training and sharded serving,
-which the port does not have.
+Port of ``repro.parallel.sharding``.  The helpers read any object with
+``axis_names`` and ``devices.shape``: a ``launch.mesh.DeviceMesh``.
+
+Posture (the reference's):
+  * batch  → (pod, data)  pure DP across pods, DP within a pod
+  * params → FSDP over ``data`` on the "embed" rows, TP over ``model``
+             ("heads"/"mlp"/"vocab"/"experts")
+Every rule is divisibility-guarded: a dim that does not divide its mesh
+axes is replicated.
+
+A spec is a tuple with one entry a dim: ``None``, an axis name or a tuple
+of names (the entries of the reference's ``PartitionSpec``), and
+``Sharding(mesh, spec)`` stands for its ``NamedSharding``.  There is no
+compiler to lay arrays out, so a sharded leaf is stored as its shards
+(``ShardedTensor``): one tensor for each distinct shard index, on the first
+device (in the mesh's row-major order) of the positions that share it, as
+``runtime.shard.shard_devices`` places replicas.  A leaf whose spec is all
+``None`` stays one tensor, on the mesh's first device.  ``shard_tree``,
+``gather`` and ``unshard_tree`` move between the two.  The cache rules of
+sharded serving (``cache_pspec_fn``, ``cache_shardings``) are not ported.
 """
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+# logical → physical mesh axis (None = replicate)
+LOGICAL_RULES = {
+    "vocab": "model",
+    "heads": "model",
+    "mlp": "model",
+    "experts": "model",
+    "embed": "data",        # FSDP (ZeRO-3 style)
+    "embed2": None,
+    "layers": None,         # stacked dim — never sharded
+}
 
 
 def dp_axes(mesh):
@@ -35,3 +66,173 @@ def guarded(mesh, dim: int, names) -> Optional[object]:
     if dim % axis_size(mesh, names) != 0:
         return None
     return names
+
+
+def batch_spec(mesh, batch: int, extra_dims: int = 1) -> Tuple:
+    """(B, ...) activations: batch over DP axes if divisible.  A one-axis
+    tuple is given as its name, as the reference's ``PartitionSpec``
+    stores it."""
+    axes = dp_axes(mesh)
+    if batch % axis_size(mesh, axes) != 0:
+        # try within-pod data only, then give up
+        axes = ("data",)
+        if batch % axis_size(mesh, axes) != 0:
+            axes = None
+    if axes is not None and len(axes) == 1:
+        axes = axes[0]
+    return (axes, *([None] * extra_dims))
+
+
+def shard_act(mesh, x, *names):
+    """The reference's guarded sharding constraint: the spec is checked
+    against ``x`` and ``x`` is returned as it is (each data shard computes
+    on its own device; nothing lays activations out)."""
+    _check_spec(x.shape, tuple(guarded(mesh, d, n)
+                               for d, n in zip(x.shape, names)), mesh)
+    return x
+
+
+def params_pspecs(cfg, mesh):
+    from ..models.model import lm_metas
+    from ..models.params import param_pspecs
+    return param_pspecs(lm_metas(cfg), LOGICAL_RULES, mesh)
+
+
+def params_shardings(cfg, mesh):
+    from ..models.params import tree_map
+    return tree_map(lambda s: Sharding(mesh, s), params_pspecs(cfg, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Sharded storage
+# ---------------------------------------------------------------------------
+
+def _check_spec(shape, spec, mesh) -> None:
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    for dim, names in zip(shape, spec):
+        if dim % axis_size(mesh, names) != 0:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not divide "
+                             f"over mesh axes {names}")
+
+
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """A mesh and a spec (a tuple): the reference's ``NamedSharding(mesh,
+    P(*spec))``.  Two shardings are equal when their mesh is the same
+    object and their specs are equal."""
+
+    mesh: object
+    spec: Tuple
+
+    def grid(self, ndim: int) -> Tuple[int, ...]:
+        """Shards along each of ``ndim`` dims."""
+        spec = self.spec + (None,) * (ndim - len(self.spec))
+        return tuple(axis_size(self.mesh, names) for names in spec)
+
+    def placement(self, ndim: int) -> Dict[Tuple[int, ...], torch.device]:
+        """Shard index → device, in index order: each index on the first
+        mesh position (row-major) that holds it.  The index along a dim
+        sharded over axes ``(a, b)`` is ``pos[a] · size[b] + pos[b]``, the
+        reference's order."""
+        mesh = self.mesh
+        sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
+        spec = self.spec + (None,) * (ndim - len(self.spec))
+        out: Dict[Tuple[int, ...], torch.device] = {}
+        for pos in np.ndindex(*mesh.devices.shape):
+            at = dict(zip(mesh.axis_names, pos))
+            idx = []
+            for names in spec:
+                names = () if names is None else (
+                    (names,) if isinstance(names, str) else names)
+                i = 0
+                for n in names:
+                    i = i * sizes.get(n, 1) + at.get(n, 0)
+                idx.append(i)
+            out.setdefault(tuple(idx), mesh.devices[pos])
+        return dict(sorted(out.items()))
+
+
+@dataclasses.dataclass(eq=False)
+class ShardedTensor:
+    """One leaf held as its shards: ``shards`` maps each shard index (one
+    entry a dim) to its tensor, in index order, on the device
+    ``sharding.placement`` gives it.  ``shape`` and ``dtype`` are the whole
+    leaf's."""
+
+    sharding: Sharding
+    shape: torch.Size
+    shards: Dict[Tuple[int, ...], torch.Tensor]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return next(iter(self.shards.values())).dtype
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape)
+
+    def slices(self, idx) -> Tuple[slice, ...]:
+        """The slice of the whole leaf that shard ``idx`` holds."""
+        out = []
+        for i, n, dim in zip(idx, self.sharding.grid(self.ndim), self.shape):
+            size = dim // n
+            out.append(slice(i * size, (i + 1) * size))
+        return tuple(out)
+
+    def map(self, fn) -> "ShardedTensor":
+        """``fn`` applied to every shard, as a leaf of the same sharding."""
+        return ShardedTensor(self.sharding, self.shape,
+                             {idx: fn(s) for idx, s in self.shards.items()})
+
+
+def shard(t: torch.Tensor, sharding: Sharding):
+    """``t`` on ``sharding``'s mesh: a ``ShardedTensor`` of copies of its
+    slices, or, for an all-``None`` spec, ``t`` on the mesh's first
+    device."""
+    _check_spec(t.shape, sharding.spec, sharding.mesh)
+    if all(names is None for names in sharding.spec):
+        return t.to(sharding.mesh.devices.flat[0])
+    out = ShardedTensor(sharding, t.shape, {})
+    for idx, dev in sharding.placement(t.ndim).items():
+        out.shards[idx] = t[out.slices(idx)].to(
+            dev, memory_format=torch.contiguous_format, copy=True)
+    return out
+
+
+def gather(leaf, device) -> torch.Tensor:
+    """The whole leaf on ``device``: a ``ShardedTensor``'s shards
+    concatenated along its sharded dims, or a tensor moved there."""
+    if not isinstance(leaf, ShardedTensor):
+        return leaf.to(device)
+    grid = leaf.sharding.grid(leaf.ndim)
+
+    def cat(prefix: tuple) -> torch.Tensor:
+        d = len(prefix)
+        if d == len(grid):
+            return leaf.shards[prefix].to(device)
+        parts = [cat(prefix + (i,)) for i in range(grid[d])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
+    return cat(())
+
+
+def pieces(leaf) -> list:
+    """A leaf's storage tensors: a ``ShardedTensor``'s shards in index
+    order, or the tensor itself."""
+    return list(leaf.shards.values()) if isinstance(leaf, ShardedTensor) \
+        else [leaf]
+
+
+def shard_tree(tree, shardings):
+    """Every leaf of ``tree`` placed by the matching leaf of ``shardings``
+    (``shard``); a ``None`` sharding leaves the leaf as it is."""
+    if isinstance(tree, dict):
+        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
+    return tree if shardings is None else shard(tree, shardings)
+
+
+def unshard_tree(tree, device):
+    """Every leaf gathered whole onto ``device``."""
+    if isinstance(tree, dict):
+        return {k: unshard_tree(v, device) for k, v in tree.items()}
+    return gather(tree, device)

@@ -11,9 +11,8 @@ Port of ``repro.runtime.elastic``:
                        slower than ``k×median`` as straggler events.
   * ``ElasticPlan``  — given the surviving device count, picks the largest
                        (data, model) mesh that preserves the model axis.
-
-``elastic_restore`` (a checkpoint resharded onto the new mesh) waits for
-sharded training.
+  * ``elastic_restore`` — that mesh, and the latest checkpoint resharded
+                       onto it.
 """
 from __future__ import annotations
 
@@ -100,3 +99,23 @@ class ElasticPlan:
         from ..launch.mesh import make_mesh
         return make_mesh((self.data, self.model), ("data", "model"),
                          devices)
+
+
+def elastic_restore(ckpt_dir: str, cfg, template, model_parallel: int = 16,
+                    devices=None):
+    """Rebuild the largest viable mesh from the surviving devices (the
+    visible cards, or ``devices``; a device may repeat) and restore the
+    latest checkpoint of the param tree ``template`` resharded onto it.
+    Returns ``(mesh, tree, manifest)``."""
+    from ..checkpoint import manager as ckpt
+    from ..parallel.sharding import params_shardings
+
+    n = torch.cuda.device_count() if devices is None else len(devices)
+    if n == 0:
+        raise RuntimeError("no CUDA device visible; pass devices=")
+    plan = ElasticPlan.plan(n, min(model_parallel, n))
+    mesh = plan.make_mesh(None if devices is None
+                          else list(devices)[:plan.data * plan.model])
+    shardings = params_shardings(cfg, mesh)
+    tree, manifest = ckpt.restore(ckpt_dir, template, shardings=shardings)
+    return mesh, tree, manifest

@@ -1277,3 +1277,89 @@ def test_two_layer_loss_backward_card_against_host(cuda, arch):
     for path, g in grads["cpu"].items():
         err = (grads["cuda"][path] - g).norm() / g.norm().clamp_min(1e-30)
         assert err <= 1e-3, (path, err)
+
+
+# -- sharded training over a mesh of one card ---------------------------------
+
+def _train_counters():
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
+    return (FA.flash_attention, FA.flash_attention_bwd, K5.moe_gemm,
+            K5.moe_gemm_bwd)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "dbrx-132b"])
+def test_sharded_step_on_one_card_matches_one_device(cuda, arch,
+                                                     monkeypatch):
+    """A ``(2, 2)`` mesh over ``cuda:0`` x 4: the params, m and v sharded
+    on the card, each of the two data shards runs K4 (dbrx-132b also K5)
+    and their backward kernels on its half of the batch.  The loss and
+    every gradient leaf within 1e-3 (relative norm) of the one-device step
+    on the card, and each kernel launched twice as often: once a data
+    shard."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import _walk
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as S
+    cfg = reduced_config(get_config(arch))
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticLM(
+        DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                   global_batch=4)).get_batch(0).items()}
+    grads, update = [], adamw.update
+
+    def capture(c, g, state, params):
+        grads.append(dict(_walk(S.unshard_tree(g, cuda))))
+        return update(c, g, state, params)
+    monkeypatch.setattr(PS.adamw, "update", capture)
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    launches, losses = [], []
+    for m in (None, mesh):
+        params = M.init_params(cfg, 0, device=cuda)
+        if m is not None:
+            params = S.shard_tree(params, S.params_shardings(cfg, m))
+            assert any(isinstance(p, S.ShardedTensor)
+                       for _, p in _walk(params))
+        opt = adamw.init(opt_cfg, params)
+        before = [c.launches for c in _train_counters()]
+        _, _, metrics = PS.make_train_step(cfg, opt_cfg, m)(params, opt,
+                                                            batch)
+        losses.append(float(metrics["loss"]))
+        launches.append([c.launches - n
+                         for c, n in zip(_train_counters(), before)])
+    assert launches[1] == [2 * n for n in launches[0]]
+    assert launches[0][:2] == [2 * cfg.n_layers, cfg.n_layers]
+    assert (launches[0][2] > 0) is (cfg.ffn == "moe")
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-3)
+    for path, g in grads[0].items():
+        err = (grads[1][path] - g).norm() / g.norm().clamp_min(1e-30)
+        assert err <= 1e-3, (path, err)
+
+
+def test_pipeline_apply_on_card(cuda):
+    """GPipe over a ``(4, 1)`` ``("pipe", "model")`` mesh of ``cuda:0`` x
+    4 against the sequential stages: the output within 1e-5, each
+    gradient within 1e-5 in relative norm (its sums over the rows run per
+    microbatch)."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    w = (torch.randn(4, 256, 256, generator=gen, device=cuda)
+         / 16).requires_grad_(True)
+    x = torch.randn(8, 32, 256, generator=gen, device=cuda
+                    ).requires_grad_(True)
+    ct = torch.randn(8, 32, 256, generator=gen, device=cuda)
+    mesh = make_mesh((4, 1), ("pipe", "model"), ["cuda:0"] * 4)
+    y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]), {"w": w}, x,
+                       mesh=mesh)
+    seq = x
+    for s in range(4):
+        seq = torch.tanh(seq @ w[s])
+    got = (y, *torch.autograd.grad((y * ct).sum(), [w, x]))
+    want = (seq, *torch.autograd.grad((seq * ct).sum(), [w, x]))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
+    for a, b in zip(got[1:], want[1:]):
+        assert ((a - b).norm() / b.norm()).item() <= 1e-5

@@ -24,6 +24,10 @@ graph instead of XLA's); the train steps' losses within 1e-4 relative
 gradient is near zero: its update is ±lr whatever its size).
 """
 import dataclasses
+import json
+import os
+import subprocess
+import sys
 from collections import Counter
 
 import numpy as np
@@ -256,14 +260,37 @@ class TestTrainStep:
         assert int(p_opt["step"]) == int(r_opt["step"]) == 3
 
     def test_mesh_is_refused(self, monkeypatch):
+        """``cuda`` with several cards visible builds the reference's
+        ``(n // mp, mp)`` ``("data", "model")`` mesh over them (the name
+        is kept from when it was refused); ``cuda:<i>`` and ``cpu`` train
+        on one device."""
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        for n, mp, shape in ((2, 16, (1, 2)), (8, 16, (1, 8)), (8, 2, (4, 2)),
+                             (8, 3, (2, 3))):
+            monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+            mesh = PT.build_mesh(torch.device("cuda"), mp)
+            assert mesh.devices.shape == shape
+            assert mesh.axis_names == ("data", "model")
+            assert [str(d) for d in mesh.devices.flat] == [
+                f"cuda:{i}" for i in range(np.prod(shape))]
+            assert PT.build_mesh(torch.device("cuda", 0), mp) is None
+            assert PT.build_mesh(torch.device("cpu"), mp) is None
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+        assert PT.build_mesh(torch.device("cuda")) is None
+
+    def test_make_train_step_takes_a_mesh(self):
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.parallel.sharding import params_shardings, shard_tree
         cfg = PC.reduced_config(PC.get_config("qwen3-1.7b"))
-        with pytest.raises(NotImplementedError):
-            PS.make_train_step(cfg, PA.AdamWConfig(), mesh=object())
-        monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="cuda:0"):
-            PT.build_mesh(torch.device("cuda"))
-        assert PT.build_mesh(torch.device("cuda", 0)) is None
-        assert PT.build_mesh(torch.device("cpu")) is None
+        opt_cfg = PA.AdamWConfig()
+        mesh = make_mesh((2, 2), ("data", "model"), [CPU] * 4)
+        params = shard_tree(PM.init_params(cfg, 0, device=CPU),
+                            params_shardings(cfg, mesh))
+        batch = {k: torch.from_numpy(v) for k, v in SyntheticLM(DataConfig(
+            **_data_cfg(cfg, batch=4))).get_batch(0).items()}
+        _, opt, m = PS.make_train_step(cfg, opt_cfg, mesh)(
+            params, PA.init(opt_cfg, params), batch)
+        assert np.isfinite(float(m["loss"])) and int(opt["step"]) == 1
 
 
 class TestAbstract:
@@ -323,6 +350,25 @@ class TestCLI:
         b, _ = pckpt.restore(cut, template, device=CPU)
         for (path, x), (_, y) in zip(_walk(a), _walk(b)):
             assert torch.equal(x, y), path
+
+    def test_example_trains_on_the_host(self, tmp_path):
+        """``examples/train_lm_torch.py``, the port's twin of
+        ``examples/train_lm.py``: a few reduced steps with ``--device
+        cpu`` into ``tmp_path``; the script asserts that the loss fell."""
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+        r = subprocess.run(
+            [sys.executable, os.path.join(root, "examples",
+                                          "train_lm_torch.py"),
+             "--steps", "12", "--batch", "4", "--seq", "32", "--device",
+             CPU, "--out-dir", str(tmp_path)], capture_output=True,
+            text=True, env=env, timeout=300)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert "training reduced loss" in r.stdout
+        with open(tmp_path / "example_torch_train_metrics.json") as f:
+            hist = json.load(f)
+        assert len(hist) == 12 and hist[-1]["loss"] < hist[0]["loss"]
+        assert pckpt.latest_step(str(tmp_path / "example_torch_ckpt")) == 12
 
     def test_defaults_to_the_card(self):
         if torch.cuda.is_available():
