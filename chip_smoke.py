@@ -6,8 +6,11 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 (``--profile-second-slice``, ``--profile-lm``, ``--store-child``,
-``--train-full`` and ``--train-mesh`` are the child processes that
-``main`` starts.)
+``--train-full``, ``--train-mesh`` and ``--serve-mesh`` are the child
+processes that ``main`` starts.  ``python3 chip_smoke.py
+--control-readings`` also takes the two one-off control readings beside
+the limits of phases 12 and 16, ``k4_limit_reading`` and
+``k5_lm_limit_reading``: what a known defect reads there.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -303,7 +306,10 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    (K4 and its backward) on its half of the batch.  First the same 3 steps
    on one device, then on the mesh: every param leaf after each step
    within rtol 2e-2 / atol 2e-3 of the one-device step's and the losses
-   within 1e-3 (``tests/test_distributed.py``'s tolerances); K4 and its
+   within 1e-3 (``tests/test_distributed.py``'s tolerances: the first
+   step's absolutely, later steps', taken on params that have drifted within
+   the param tolerance, relatively); each mesh step's loss within 1e-3 of
+   ``loss_fn`` on one device at the params that step took; K4 and its
    backward launch twice as often as on one device; step p50, peak memory
    and whether two runs are bit-identical;
 41. the int8 error-feedback compressed step on a (2, 1, 1) ("pod",
@@ -320,6 +326,21 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
 44. reduced dbrx-132b, one sharded step on a (2, 2) mesh against one
    device: K5 and its backward (and K4 and its) once per data shard, the
    params within phase 40's tolerances;
+45. main path, sixteenth slice — sharded serving, in a child process
+   (``--serve-mesh``) after phase 44's: qwen3-1.7b at full width and depth
+   (float32 params, bfloat16 compute) on a (2, 2) ("data", "model") mesh
+   of ``cuda:0`` x 4, ``make_prefill_step`` over 8 x 1024 tokens, then 16
+   ``make_decode_step`` steps on seeded tokens: the params sharded storage,
+   each data shard gathering them and its rows of the cache
+   (``cache_shardings``), K4 once a layer a data shard (56 a prefill); every
+   step's logits and the final cache within 1e-3 of the same steps on one
+   device; wall time, peak memory and, beside them, the dry run's
+   per-device argument and temp bytes for the same shapes (a reading);
+46. the same for rwkv6-1.6b: K6 48 times a prefill;
+47. qwen3-1.7b at batch 1, a prompt of 8192 and 8 decode steps: one data
+   shard on the mesh's first device, the cache stored with its sequence
+   over ``data``, gathered and re-sharded around each step; held to one
+   device, and a (1, 1) mesh bit-equal to it;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -334,10 +355,10 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
    script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
-   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41 and 44, K4's
-   backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38 and 44,
-   K5's backward's of 38 and 44, K6's of
-   14, 18, 26 and 34, K6's backward's of 34;
+   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45 and 47,
+   K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38 and
+   44, K5's backward's of 38 and 44, K6's of
+   14, 18, 26, 34 and 46, K6's backward's of 34;
    K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
    phase 39's; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
@@ -635,6 +656,17 @@ MESH_MOE = dict(batch=4, seq=64)
 # error; each gradient's ||err|| / ||want||)
 MESH_LOSS_TOL, MESH_RTOL, MESH_ATOL = 1e-3, 2e-2, 2e-3
 MESH_COMP_ATOL, MESH_PIPE_TOL = 5e-2, 1e-5
+# sharded serving (phases 45-47), in a child (``--serve-mesh``): qwen3-1.7b
+# and rwkv6-1.6b at full width and depth (float32 params, bfloat16
+# compute) on a (2, 2) ("data", "model") mesh of MESH_DEVICE repeated,
+# make_prefill_step over batch x prompt into a cache of prompt + n_dec
+# positions, then n_dec make_decode_step steps on seeded tokens, every
+# logit and the final cache held to the same steps on one device within
+# LM_TOL; phase 47 at batch 1 (the cache's sequence sharded over "data"),
+# and a (1, 1) mesh bit-equal to one device
+SERVE_MESH = {QWEN3: dict(batch=8, prompt=1024, n_dec=16, seed=140),
+              RWKV6: dict(batch=8, prompt=1024, n_dec=16, seed=141)}
+SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -722,6 +754,10 @@ K5_DIGESTS = {
 OUTPUT_DIGESTS: dict = {}
 # the child processes phases 24-26 start (killed if a phase fails first)
 CHILDREN: list = []
+# the one-off control readings beside two limits (``k4_limit_reading``,
+# ``k5_lm_limit_reading``): what a known defect reads there; run with
+# ``python3 chip_smoke.py --control-readings``
+CONTROL_READINGS = False
 # bfloat16 K4 also as a whole: ||got - want|| / ||want|| against the plain
 # version.  P and the outputs rounded to bfloat16 give about 2e-3 at phase
 # 12's shapes; dropping the 63 oldest keys of each window gives about 1e-1
@@ -1775,15 +1811,18 @@ def k4_k6_against_plain(dev) -> tuple:
             flash_attention(q, k, v, **kw),
             flash_attention_plain(q, k, v, **kw), tol, "K4", rel))
     # beside the relative-norm limit, what it would catch: the plain version
-    # at hymba's prefill without the 63 oldest keys of each window
+    # at hymba's prefill without the 63 oldest keys of each window (a
+    # control reading, with --control-readings; its inputs are drawn either
+    # way, so the K6 cases below see the same generator)
     q = randn(1, 25, 2048, 64, dtype=bf16)
     k, v = (randn(1, 5, 2048, 64, dtype=bf16) for _ in range(2))
-    want = flash_attention_plain(q, k, v, window=1024).float()
-    cut = flash_attention_plain(q, k, v, window=1024 - 63).float()
-    emit(phase="k4_limit_reading", case="hymba S=2048 bf16, plain version "
-         "with window 961 against 1024",
-         rel_norm=((cut - want).norm() / want.norm()).item(),
-         rel_norm_tol=K4_BF16_REL_NORM)
+    if CONTROL_READINGS:
+        want = flash_attention_plain(q, k, v, window=1024).float()
+        cut = flash_attention_plain(q, k, v, window=1024 - 63).float()
+        emit(phase="k4_limit_reading", case="hymba S=2048 bf16, plain "
+             "version with window 961 against 1024",
+             rel_norm=((cut - want).norm() / want.norm()).item(),
+             rel_norm_tol=K4_BF16_REL_NORM)
     k6_errs = []
     h, kk, vv = 25, 16, 64
     g = HYMBA_GENERATE
@@ -2410,16 +2449,18 @@ def dbrx_phases(dev, card: str) -> dict:
                 K5_BF16_TOL, "K5-LM", K5_LM_REL_NORM))
             del got
     # beside the relative-norm limit, what it would catch: sums rounded to
-    # bfloat16 every 512-deep slice, at the prefill's gate product
-    xb, _, be = bundles["prefill"]
-    be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
-    want = moe_gemm_plain(xb, layer0["w_gate"], be_t).float()
-    cut = sliced_bf16_sums(xb, layer0["w_gate"], be_t).float()
-    emit(phase="k5_lm_limit_reading", case="in-graph DBRX prefill gate, "
-         "plain version with its sums rounded to bf16 every 512 deep",
-         rel_norm=((cut - want).norm() / want.norm()).item(),
-         rel_norm_tol=K5_LM_REL_NORM)
-    del want, cut
+    # bfloat16 every 512-deep slice, at the prefill's gate product (a
+    # control reading, with --control-readings)
+    if CONTROL_READINGS:
+        xb, _, be = bundles["prefill"]
+        be_t = torch.from_numpy(be["bundle_expert"]).to(dev)
+        want = moe_gemm_plain(xb, layer0["w_gate"], be_t).float()
+        cut = sliced_bf16_sums(xb, layer0["w_gate"], be_t).float()
+        emit(phase="k5_lm_limit_reading", case="in-graph DBRX prefill gate, "
+             "plain version with its sums rounded to bf16 every 512 deep",
+             rel_norm=((cut - want).norm() / want.norm()).item(),
+             rel_norm_tol=K5_LM_REL_NORM)
+        del want, cut
 
     # -- K4 against plain at the model's prefill --------------------------
     b, s = DBRX_GENERATE["batch"], DBRX_GENERATE["prompt"]
@@ -4205,20 +4246,43 @@ def out_of_tol(got, want) -> tuple:
             int((diff > MESH_ATOL + MESH_RTOL * want.float().abs()).sum()))
 
 
-def mesh_train_run(cfg, argv, mesh, after_step) -> dict:
+def mesh_train_run(cfg, argv, mesh, after_step, same_params=None) -> dict:
     """``train.train(cfg, parse_args(argv), mesh=mesh)`` with
     ``after_step(params)`` called after each step (outside the step's
     timing in the history only where it is cheap), every count zeroed just
-    before and read just after."""
+    before and read just after.  With a list ``same_params``, before each
+    step ``M.loss_fn`` runs on one device at the params the step takes
+    (gathered) and its batch, without grad; ``(the step's loss, that
+    loss)`` is appended after the step."""
     import torch
     from repro_torch.launch import train
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _set, _walk
+    from repro_torch.parallel import sharding as S
     make = train.make_train_step
+    dev = torch.device(mesh_devices(1)[0])
+
+    def loss_at(params, batch) -> float:
+        # a comparison, not the path: its launches are not counted
+        counts = read_train_counts()
+        whole: dict = {}
+        for path, leaf in _walk(params):
+            _set(whole, path, S.gather(leaf, dev))
+        with torch.no_grad():
+            loss = float(M.loss_fn(cfg, whole, {k: v.to(dev) for k, v in
+                                                batch.items()})[0])
+        for name, fn in train_counters().items():
+            fn.launches = counts[name]
+        return loss
 
     def wrapped(cfg_, opt_cfg, mesh_=None):
         step = make(cfg_, opt_cfg, mesh_)
 
         def run(params, opt, batch):
+            want = None if same_params is None else loss_at(params, batch)
             out = step(params, opt, batch)
+            if same_params is not None:
+                same_params.append((float(out[2]["loss"]), want))
             after_step(out[0])
             return out
         return run
@@ -4275,7 +4339,8 @@ def mesh_qwen3(card: str) -> dict:
         errs.append(dict(max_abs_err=worst, out_of_tol=bad))
         last[:] = [params]
 
-    run_a = mesh_train_run(cfg, argv, mesh, against_one)
+    same = []
+    run_a = mesh_train_run(cfg, argv, mesh, against_one, same)
     final_a = {path: S.gather(x, "cpu") for path, x in _walk(last[0])}
     n_sharded = sum(isinstance(x, S.ShardedTensor)
                     for _, x in _walk(last[0]))
@@ -4294,13 +4359,17 @@ def mesh_qwen3(card: str) -> dict:
     dts = np.array([h["dt"] for h in run_b["hist"][1:]])
     steps = t["steps"]
     want_counts = expected_train_counts(cfg, steps)
-    # the first step's loss is taken on the same params: the reference's
-    # absolute 1e-3; later steps' on params already held to MESH_RTOL /
-    # MESH_ATOL, whose loss (of order 1e3 at full width) moves with them:
-    # LM_TOL relative
+    # each mesh step's loss against M.loss_fn on one device at the params
+    # that step took: the reference's absolute 1e-3 on every step
+    same_err = [abs(a - b) for a, b in same]
+    # against the one-device run: the first step's loss is taken on the same
+    # params, the reference's absolute 1e-3; later steps' on params already
+    # held to MESH_RTOL / MESH_ATOL, whose loss (of order 1e3 at full width)
+    # moves with them: LM_TOL relative
     loss_err = [abs(a - b) / (1.0 if i == 0 else abs(b)) for i, (a, b) in
                 enumerate(zip(losses["mesh_a"], losses["one_device"]))]
     ok = len(losses["mesh_b"]) == steps \
+        and len(same_err) == steps and max(same_err) < MESH_LOSS_TOL \
         and bool(np.all(np.isfinite(losses["mesh_b"]))) \
         and loss_err[0] < MESH_LOSS_TOL and max(loss_err[1:]) < LM_TOL \
         and all(e["out_of_tol"] == 0 for e in errs) \
@@ -4310,6 +4379,8 @@ def mesh_qwen3(card: str) -> dict:
     emit(phase="check", case=f"{QWEN3} on a (2, 2) mesh against one device, "
          "each step", mesh=[str(d) for d in mesh.devices.flat],
          sharded_leaves=n_sharded, per_step=errs, losses=losses,
+         loss_at_same_params=[b for _, b in same],
+         loss_err_at_same_params=same_err, same_params_tol=MESH_LOSS_TOL,
          loss_err=loss_err, loss_tol=[MESH_LOSS_TOL, LM_TOL],
          rtol=MESH_RTOL, atol=MESH_ATOL,
          runs_bit_equal=bit_equal, one_device_launches=one["launches"],
@@ -4575,6 +4646,204 @@ def train_mesh() -> int:
     return 0
 
 
+def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None) -> dict:
+    """``make_prefill_step`` over ``spec``'s batch and prompt into a cache
+    of prompt + n_dec positions, then n_dec ``make_decode_step`` steps on
+    seeded tokens, on ``mesh`` (None: one device; the params sharded by
+    ``params_shardings`` otherwise), over the rows ``[lo, hi)`` of the
+    seeded batch where ``rows`` is given: the logits of each step and the
+    final cache gathered onto the first device, the kernels' launches
+    (zeroed just before), wall seconds of the prefill (its first call, and
+    a second whose outputs are kept: a first call at new shapes spends
+    seconds on the card's first use of the products' kernels) and of each
+    step, and the peak device memory."""
+    import torch
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel import sharding as S
+    dev = torch.device(mesh_devices(1)[0])
+    b, s, n_dec = spec["batch"], spec["prompt"], spec["n_dec"]
+    rng = np.random.default_rng(spec["seed"])
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    steps = [rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+             for _ in range(n_dec)]
+    lo, hi = rows or (0, b)
+    toks = torch.from_numpy(toks[lo:hi]).to(dev)
+    steps = [torch.from_numpy(t[lo:hi]).to(dev) for t in steps]
+    if mesh is not None:
+        params = S.shard_tree(params, S.params_shardings(cfg, mesh))
+    prefill = make_prefill_step(cfg, hi - lo, s + n_dec, mesh)
+    decode = make_decode_step(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_train_counts()
+    t0 = time.perf_counter()
+    prefill(params, toks)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, toks)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    seen, step_s = [S.gather(logits, dev)], []
+    del logits
+    for i, tok in enumerate(steps):
+        t0 = time.perf_counter()
+        lg, cache = decode(params, cache, tok, s + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        seen.append(S.gather(lg, dev))
+    launches = read_train_counts()
+    return dict(logits=seen, cache={path: S.gather(x, dev)
+                                    for path, x in _walk(cache)},
+                launches=launches, first_prefill_s=first_s,
+                prefill_s=prefill_s, step_s=step_s,
+                peak=torch.cuda.max_memory_allocated(),
+                n_sharded=sum(isinstance(x, S.ShardedTensor)
+                              for _, x in _walk(cache)))
+
+
+def serve_mesh_compare(got: dict, want: dict, rows=None) -> dict:
+    """Each step's logits and each cache leaf of ``got``, its rows
+    ``[lo, hi)`` where ``rows`` is given, against ``want``'s: the largest
+    error, the largest ||got - want|| / ||want|| of the logits, the
+    elements past LM_TOL + LM_TOL |want| (or not finite), and whether every
+    one is bit-equal."""
+    import torch
+    from repro_torch.launch.steps import _cache_axis
+
+    def cut(x, axis):
+        return x if rows is None else x.narrow(axis, rows[0],
+                                               rows[1] - rows[0])
+
+    pairs = [("logits", cut(a, 0), b) for a, b in zip(got["logits"],
+                                                      want["logits"])]
+    pairs += [("cache", cut(a, _cache_axis(path)), want["cache"][path])
+              for path, a in got["cache"].items()]
+    worst, rel, bad, equal = {"logits": 0.0, "cache": 0.0}, 0.0, 0, True
+    for kind, a, b in pairs:
+        diff = (a.float() - b.float()).abs()
+        worst[kind] = max(worst[kind], diff.max().item())
+        if kind == "logits":
+            rel = max(rel, (diff.norm() / b.float().norm()).item())
+        bad += int((diff > LM_TOL + LM_TOL * b.float().abs()).sum())
+        bad += int((~torch.isfinite(a.float())).sum())
+        equal &= bool(torch.equal(a, b))
+    return dict(max_abs_err=worst, logits_rel_norm=rel, out_of_tol=bad,
+                bit_equal=equal)
+
+
+def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
+                     phase: str, per_shard: dict, one_by_one: bool = False
+                     ) -> dict:
+    """One of phases 45-47: ``serve_mesh_run`` on a (2, 2) ("data",
+    "model") mesh, held to the same steps on one device over each data
+    shard's rows (the same products, row for row) within LM_TOL, every
+    kernel of ``per_shard`` launched that many times a data shard in the
+    prefill and none in the decode steps; the same steps on one device
+    over the whole batch beside it, as a reading (in bfloat16 a product
+    over fewer rows may sum in another order); with ``one_by_one`` a
+    (1, 1) mesh bit-equal to one device.  Returns the mesh run's
+    launches."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch.dryrun import cost_cell
+    from repro_torch.launch.steps import data_shards
+    whole = serve_mesh_run(cfg, params, None, spec)
+    torch.cuda.empty_cache()
+    mesh = card_mesh((2, 2), ("data", "model"))
+    run = serve_mesh_run(cfg, params, mesh, spec)
+    torch.cuda.empty_cache()
+    b, s, n_dec = spec["batch"], spec["prompt"], spec["n_dec"]
+    shards = [(lo, hi) for _, lo, hi in data_shards(mesh, b)]
+    cmp, ref_launches = [], []
+    for lo, hi in shards:
+        part = whole if (lo, hi) == (0, b) else serve_mesh_run(
+            cfg, params, None, spec, (lo, hi))
+        cmp.append(serve_mesh_compare(run, part, (lo, hi)))
+        ref_launches.append(part["launches"])
+        del part
+        torch.cuda.empty_cache()
+    held = dict(max_abs_err={k: max(c["max_abs_err"][k] for c in cmp)
+                             for k in ("logits", "cache")},
+                out_of_tol=sum(c["out_of_tol"] for c in cmp),
+                bit_equal=all(c["bit_equal"] for c in cmp))
+    reading = serve_mesh_compare(run, whole)
+    # two prefills a run (serve_mesh_run), each once a data shard
+    want = {k: 2 * len(shards) * v for k, v in per_shard.items()}
+    ok = held["out_of_tol"] == 0 \
+        and {k: run["launches"][k] for k in want} == want \
+        and all({k: r[k] for k in per_shard} == {
+            k: 2 * v for k, v in per_shard.items()} for r in ref_launches) \
+        and not any(n for k, n in run["launches"].items() if k not in want)
+    bit = None
+    if one_by_one:
+        unit = serve_mesh_run(cfg, params, card_mesh((1, 1),
+                                                     ("data", "model")), spec)
+        bit = serve_mesh_compare(unit, whole)
+        ok &= bit["bit_equal"]
+        del unit
+    # the dry run's per-device bytes for the same shapes, as a reading
+    dry = {kind: cost_cell(cfg, ShapeConfig(phase, kind, seq, b), mesh)[
+        "memory"] for kind, seq in (("prefill", s), ("decode", s + n_dec))}
+    emit(phase="main_path", case=f"{arch} sharded prefill and decode on a "
+         f"(2, 2) mesh, batch {b} x {s}, {n_dec} steps, against one device",
+         serve_phase=phase, arch=arch, mesh=[str(d) for d in
+                                             mesh.devices.flat],
+         data_shards=shards, sharded_cache_leaves=run["n_sharded"],
+         against_same_rows=held, tol=LM_TOL,
+         against_whole_batch_reading=reading, one_by_one=bit,
+         launches=run["launches"], one_device_launches=whole["launches"],
+         first_prefill_s=run["first_prefill_s"], prefill_s=run["prefill_s"],
+         one_device_first_prefill_s=whole["first_prefill_s"],
+         one_device_prefill_s=whole["prefill_s"],
+         step_s_p50=float(np.median(run["step_s"])),
+         one_device_step_s_p50=float(np.median(whole["step_s"])),
+         max_memory_allocated_bytes=run["peak"],
+         one_device_max_memory_allocated_bytes=whole["peak"],
+         dryrun_per_device={k: {"argument_bytes": v["argument_bytes"],
+                                "temp_bytes": v["temp_bytes"]}
+                            for k, v in dry.items()}, ok=ok, card=card)
+    check(ok, f"{arch} sharded serving ({phase}): {held}, launches "
+          f"{run['launches']} / {ref_launches}, (1, 1) {bit}")
+    return run["launches"]
+
+
+def serve_mesh() -> int:
+    """Phases 45-47 in a child process of their own (``--serve-mesh``),
+    started early, waiting for its turn (``wait_for_turn``) after the
+    ``--train-mesh`` child.  The last row gathers the launches of each
+    phase."""
+    import torch
+    from repro_torch.configs import get_config
+    wait_for_turn("flash_attention", "rwkv6_scan")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    plain = count_plain_calls()
+    dev = torch.device(mesh_devices(1)[0])
+    launches = {}
+    for phase, arch, kernel in (("45", QWEN3, "flash_attention"),
+                                ("46", RWKV6, "rwkv6")):
+        cfg = get_config(arch)
+        params = init_model(arch, cfg, SERVE_MESH[arch]["seed"], dev)
+        launches[f"{arch} sharded serving on a (2, 2) mesh"] = \
+            serve_mesh_phase(card, arch, cfg, params, SERVE_MESH[arch],
+                             phase, {kernel: cfg.n_layers})
+        if arch == QWEN3:
+            launches[f"{QWEN3} batch-1 serving on a (2, 2) mesh"] = \
+                serve_mesh_phase(card, QWEN3, cfg, params, SERVE_MESH_LONG,
+                                 "47", {kernel: cfg.n_layers},
+                                 one_by_one=True)
+        del params
+        torch.cuda.empty_cache()
+    check(not any(plain.values()), f"plain versions ran: {plain}")
+    emit(phase="serve_mesh_launches", launches=launches, plain_calls=plain)
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4825,6 +5094,7 @@ def main() -> int:
         [script, "--train-full", arch], stdin=subprocess.PIPE)
         for arch in TRAIN_FULL}
     mesh_child = start_child([script, "--train-mesh"], stdin=subprocess.PIPE)
+    serve_child = start_child([script, "--serve-mesh"], stdin=subprocess.PIPE)
     profile_children = {args: start_child(
         [script, *args], stdin=subprocess.PIPE) for args in (
             ("--profile-second-slice",), ("--profile-lm", HYMBA),
@@ -4871,6 +5141,10 @@ def main() -> int:
     out = go_child(mesh_child, "sharded training", timeout=900)
     sys.stdout.write(out)
     mesh_launches = child_rows(out, "mesh_launches")[-1]["launches"]
+    # -- 45.-47. sharded serving, in a child with the card to itself -------
+    out = go_child(serve_child, "sharded serving", timeout=600)
+    sys.stdout.write(out)
+    serve_launches = child_rows(out, "serve_mesh_launches")[-1]["launches"]
     k5_bwd_times = k5_backward_times(dev, card)
     torch.cuda.empty_cache()
     # phase 26's first CLI run (a cold store: its prewarm builds K4 and K6)
@@ -4896,7 +5170,10 @@ def main() -> int:
                       "flash_attention"] for arch in (QWEN3, HYMBA,
                                                       DBRX_LM)},
                   **{path: n["flash_attention"]
-                     for path, n in mesh_launches.items()}}
+                     for path, n in mesh_launches.items()},
+                  **{path: n["flash_attention"]
+                     for path, n in serve_launches.items()
+                     if n["flash_attention"]}}
     k4_row = {
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -4931,7 +5208,9 @@ def main() -> int:
         "qwen3_1p7b_s2048": k4_bwd_times[f"{QWEN3} S=2048"]}
     k6_by_path = {HYMBA: k6_launches, RWKV6: k6_rwkv_launches,
                   "hymba-1.5b with prewarm": prewarm["K6"],
-                  **by_path["rwkv6"]}
+                  **by_path["rwkv6"],
+                  **{path: n["rwkv6"] for path, n in serve_launches.items()
+                     if n["rwkv6"]}}
     k6_row = {
         "name": "rwkv6", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rwkv6_scan.cu",
@@ -5003,10 +5282,13 @@ if __name__ == "__main__":
         sys.exit(profile_lm(ARGS[1]))
     if ARGS == ["--train-mesh"]:
         sys.exit(train_mesh())
+    if ARGS == ["--serve-mesh"]:
+        sys.exit(serve_mesh())
     if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2):
         sys.exit(train_full(*ARGS[1:]))
     if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):
         sys.exit(store_child(sys.argv[2], sys.argv[3:] != ["--no-checks"]))
+    CONTROL_READINGS = ARGS == ["--control-readings"]
     try:
         sys.exit(main())
     finally:

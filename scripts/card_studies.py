@@ -12,6 +12,8 @@
     PYTHONPATH=src python scripts/card_studies.py k6-time
     PYTHONPATH=src python scripts/card_studies.py hymba-repeat [--seeds 10 --runs 5]
     PYTHONPATH=src python scripts/card_studies.py situ-repeat [--runs 200]
+    PYTHONPATH=src python scripts/card_studies.py pipeline-grad
+    PYTHONPATH=src python scripts/card_studies.py first-meta
 
 * ``k1-carry`` — K1 at ``chip_smoke.py`` phase 3's three cases (filter3D's
   sync plan and its bucketed chunk 1 at bs = 128, a blocky 8192 at
@@ -95,6 +97,24 @@
   bit for bit; then the host's prefill at 8 and at 1 thread against each
   other, and the first card run against the host as phase 13 reads it
   (the largest |card − host| over 1e-3 + 1e-3·|host|).
+* ``pipeline-grad`` — ``pipeline_apply`` over a ``(4, 1)`` ("pipe",
+  "model") mesh of ``cuda:0`` × 4 at ``tests/test_torch_gpu.py::
+  test_pipeline_apply_on_card``'s inputs (seed 0: w 4 × 256 × 256, x 8
+  microbatches of 32 × 256, stages ``tanh(h @ w)``, TF32 off) and at
+  ``chip_smoke.py`` phase 42's (seed 42, d 2048, 8 microbatches of 8 × 256
+  rows): the output and the gradients of w and x, from the pipeline and
+  from the four stages in sequence in float32, each against the stages in
+  sequence in float64 — the largest elementwise error and
+  ||err|| / ||float64|| of each — and the pipeline's largest elementwise
+  difference from the float32 sequential run.
+* ``first-meta`` — in fresh processes, the seconds of a process's first
+  ``torch.stack`` of two ``meta`` tensors (the first operator that needs a
+  Python meta kernel: it imports sympy and torch's decompositions) and of a
+  second one, and whether sympy was imported; then, in another fresh
+  process, the first ``make_prefill_step`` over a (2, 2) mesh of
+  ``cuda:0`` × 4 at reduced qwen3-1.7b (batch 8 × 32), K4 built
+  beforehand, and a second one: the serving path touches no Python meta
+  kernel.
 """
 from __future__ import annotations
 
@@ -102,6 +122,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -637,6 +658,89 @@ def situ_repeat(name: str, runs: int) -> None:
          .max().item(), card=name)
 
 
+def pipeline_grad(name: str) -> None:
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.parallel.pipeline import pipeline_apply
+    dev = torch.device("cuda:0")
+    mesh = make_mesh((4, 1), ("pipe", "model"), ["cuda:0"] * 4)
+    for case, seed, d, micro, rows in (
+            ("test_pipeline_apply_on_card", 0, 256, 8, (32,)),
+            ("chip_smoke phase 42", 42, 2048, 8, (8, 256))):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        w = torch.randn(4, d, d, generator=gen, device=dev) / d ** 0.5
+        x = torch.randn(micro, *rows, d, generator=gen, device=dev)
+        ct = torch.randn(x.shape, generator=gen, device=dev)
+
+        def run(dtype, piped):
+            w_, x_ = (t.to(dtype).requires_grad_(True) for t in (w, x))
+            if piped:
+                y = pipeline_apply(lambda p, h: torch.tanh(h @ p["w"]),
+                                   {"w": w_}, x_, mesh=mesh)
+            else:
+                y = x_
+                for s_ in range(4):
+                    y = torch.tanh(y @ w_[s_])
+            return (y.detach(), *torch.autograd.grad(
+                (y * ct.to(dtype)).sum(), [w_, x_]))
+
+        exact = run(torch.float64, False)
+        pipe, seq = run(torch.float32, True), run(torch.float32, False)
+        for label, a, b, e in zip(("y", "dw", "dx"), pipe, seq, exact):
+            row = {"max_abs": e.abs().max().item()}
+            for who, t in (("pipeline", a), ("sequential_f32", b)):
+                err = t.double() - e
+                row[who] = {"max_abs_err": err.abs().max().item(),
+                            "rel_norm": (err.norm() / e.norm()).item()}
+            row["pipeline_vs_sequential_max_abs"] = (
+                a - b).abs().max().item()
+            emit(study="pipeline-grad", case=case, d=d, tensor=label, **row,
+                 card=name)
+
+
+_FIRST_META = r"""
+import json, sys, time, torch
+t = torch.empty(3, device="meta")
+t0 = time.perf_counter(); torch.stack([t, t]); first = time.perf_counter() - t0
+t0 = time.perf_counter(); torch.stack([t, t]); second = time.perf_counter() - t0
+print(json.dumps(dict(case="torch.stack on meta", first_s=first,
+                      second_s=second, sympy="sympy" in sys.modules)))
+"""
+_FIRST_PREFILL = r"""
+import json, sys, time, torch
+from repro_torch.configs import get_config, reduced_config
+from repro_torch.kernels import _build
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.steps import make_prefill_step
+from repro_torch.models.model import init_params
+from repro_torch.parallel import sharding as S
+cfg = reduced_config(get_config("qwen3-1.7b"))
+mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+params = S.shard_tree(init_params(cfg, 0, device="cuda:0"),
+                      S.params_shardings(cfg, mesh))
+tokens = torch.zeros((8, 32), dtype=torch.int32, device="cuda:0")
+_build.load_all("flash_attention")          # nvcc outside the timing
+step = make_prefill_step(cfg, 8, 40, mesh)
+out = []
+for _ in range(2):
+    torch.cuda.synchronize(); t0 = time.perf_counter(); step(params, tokens)
+    torch.cuda.synchronize(); out.append(time.perf_counter() - t0)
+print(json.dumps(dict(case="make_prefill_step on a (2, 2) mesh",
+                      first_s=out[0], second_s=out[1],
+                      sympy="sympy" in sys.modules)))
+"""
+
+
+def first_meta(name: str) -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for script in (_FIRST_META, _FIRST_PREFILL):
+        out = subprocess.run([sys.executable, "-c", script], env=env,
+                             capture_output=True, text=True, timeout=600)
+        if out.returncode:
+            raise SystemExit(out.stderr)
+        emit(study="first-meta", **json.loads(out.stdout.splitlines()[-1]),
+             card=name)
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
@@ -647,7 +751,8 @@ def main() -> int:
     ap.add_argument("study", choices=("k1-carry", "k3-numerics", "k5-carry",
                                       "k5-bf16", "k5-stream", "k6-time",
                                       "kernel-times", "hymba-repeat",
-                                      "situ-repeat"))
+                                      "situ-repeat", "pipeline-grad",
+                                      "first-meta"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
                          "situ-repeat: card prefills (200)")
@@ -671,6 +776,10 @@ def main() -> int:
         kernel_times(name)
     elif args.study == "situ-repeat":
         situ_repeat(name, args.runs or 200)
+    elif args.study == "pipeline-grad":
+        pipeline_grad(name)
+    elif args.study == "first-meta":
+        first_meta(name)
     else:
         hymba_repeat(name, args.runs or 5, args.seeds)
     return 0

@@ -10,13 +10,17 @@ import numpy as np
 import torch
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device, *, abstract: bool = False) -> torch.device:
     """``"cuda"`` / ``"cpu"`` / ``torch.device`` → ``torch.device``.
 
     Raises ``RuntimeError`` for a CUDA device when no card is present.
+    ``abstract=True`` also takes ``meta``: only where a tree of shapes is
+    built (``init_cache``, the dry run's meshes), never where a value is
+    computed.
     """
     dev = torch.device(device)
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") and not (abstract
+                                                and dev.type == "meta"):
         raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -88,7 +88,7 @@ from ..core.formats import CSR, bsr_pattern_from_csr
 from ..core.inspector import (PatternFingerprint, fingerprint_pattern,
                               next_pow2)
 from ..device import launch_target, resolve_device, to_device
-from . import _build
+from . import _build, _meta
 
 NEG_INF = -1e30
 
@@ -561,7 +561,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors run the plain version (autograd differentiates it); CUDA
     tensors launch K4 or raise, and under grad mode with q, k or v
     requiring grad go through ``_FlashAttention``, whose backward is K4's
-    backward kernel.
+    backward kernel.  ``meta`` tensors (the dry run) get a fake result of
+    K4's shape and FLOP (``kernels._meta``).
     """
     b, h, s, d = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != q.shape[2:] \
@@ -571,6 +572,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(d ** -0.5) if scale is None else float(scale)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
+    if q.device.type == "meta":
+        return _meta.flash_attention(q, k, v, causal=causal, window=window,
                                      softcap=softcap, scale=scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

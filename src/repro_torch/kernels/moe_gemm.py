@@ -88,7 +88,7 @@ import torch
 
 from ..core.rir import ScheduleBundle
 from ..device import launch_target, to_device
-from . import _build
+from . import _build, _meta
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 ROW_TILES = (16, 32, 64, 128)
@@ -419,11 +419,14 @@ def moe_gemm(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert, *,
     there, and K5 does not tile by them.  CPU tensors run the plain version
     (autograd differentiates it); CUDA tensors launch K5 or raise, and under
     grad mode with x or w requiring grad go through ``_MoeGemm``, whose
-    backward is K5's backward kernels.
+    backward is K5's backward kernels.  ``meta`` tensors (the dry run) get a
+    fake result of K5's shape and FLOP (``kernels._meta``).
     """
     be = _check_call(x_bundles, w, bundle_expert, bk, bf)
     if x_bundles.device.type == "cpu":
         return moe_gemm_plain(x_bundles, w, torch.from_numpy(be))
+    if x_bundles.device.type == "meta":
+        return _meta.moe_gemm(x_bundles, w)
     if x_bundles.device.type != "cuda":
         raise ValueError(f"unsupported device {x_bundles.device}")
     if torch.is_grad_enabled() and (x_bundles.requires_grad

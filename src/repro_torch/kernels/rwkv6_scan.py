@@ -54,7 +54,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..device import launch_target
-from . import _build
+from . import _build, _meta
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_CHUNK = 64      # K6 holds a chunk's C × C and C × K arrays on chip
@@ -318,12 +318,15 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     r's device.  CPU tensors run the plain version (autograd differentiates
     it); CUDA tensors launch K6 or raise, and under grad mode with an input
     requiring grad go through ``_Rwkv6``, whose backward is K6's backward
-    kernel.
+    kernel.  ``meta`` tensors (the dry run) get a fake result of K6's
+    shapes and FLOP (``kernels._meta``).
     """
     _check_shapes(r, k, v, w, u)
     chunk = _chunk(r.shape[2], chunk)
     if r.device.type == "cpu":
         return rwkv6_plain(r, k, v, w, u, chunk=chunk)
+    if r.device.type == "meta":
+        return _meta.rwkv6(r, k, v, w, u, chunk)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     u32 = u.to(r.device, torch.float32).contiguous()

@@ -1,0 +1,387 @@
+"""Multi-pod dry run: every (arch × shape × mesh) cell's step, one device's
+share of it costed on ``meta`` tensors, and its roofline on an H100.
+
+Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
+cell with XLA over 512 placeholder host devices and reads the compiled
+program's ``cost_analysis()`` and ``memory_analysis()``.  The port has no
+compiler; its sharded steps (``launch/steps.py``) run each data shard's
+one-device step on that shard's device, the params gathered whole and the
+model axis sharding storage only.  So a cell here is:
+
+* the production mesh of ``meta`` devices (``make_production_mesh``);
+* one data shard's step (the global batch over the data-parallel axes; one
+  shard of every row where it does not divide: the batch-1 cell) run at
+  full size and full depth on ``meta`` tensors under ``cost.CostMode``:
+  its FLOP, bytes and temp bytes are one device's.  A train cell adds
+  AdamW's update of the first device's storage shards;
+* argument and output bytes from the shardings: each input's and output's
+  per-device shard, as the reference's ``memory_analysis`` counts them.
+  The host scalars (AdamW's step counter, a decode step's ``pos``) count
+  4 bytes each, as the reference's int32 arguments do, though the port
+  keeps them on the host;
+* collective bytes from the shardings: the port's own moves onto and off
+  the busiest device — each data shard's gather of the param leaves it
+  does not hold, the gradient reduction into the storage shards (train),
+  the cache rows a decode step gathers and writes back (the batch-1 cell:
+  the whole cache) and those a prefill writes into the cache's storage.
+
+Every layer runs eagerly, so no loop body is counted once: the record's
+``scan_correction`` is ``{"applied": false}``.  ``compile_s`` keeps the
+reference's key and holds the seconds the costed run took (there is no
+compile).  The reference's ``--save-hlo`` is not offered: there is no HLO.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
+        --shape train_4k [--multi-pod] [--out runs/dryrun_torch]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import time
+import traceback
+
+import numpy as np
+import torch
+
+from ..configs import ARCHS, SHAPES, get_config, get_shape
+from ..models import model as M
+from ..models.params import _set, _walk, tree_map
+from ..optim import adamw
+from ..parallel import sharding as S
+from . import roofline as R
+from . import steps as ST
+from .cost import CostMode
+from .mesh import make_production_mesh
+
+# host scalars the port keeps off the card, counted as the reference's
+# int32 arguments
+HOST_SCALAR_BYTES = 4
+# what a kernel does on meta tensors (kernels/_meta.py)
+KERNEL_ON_META = {
+    "flash_attention": "fake result, registered FLOP formula (K4)",
+    "flash_attention_bwd": "fake result, registered FLOP formula (K4's "
+                           "backward)",
+    "moe_gemm": "fake result, registered FLOP formula (K5)",
+    "moe_gemm_bwd": "fake result, registered FLOP formula (K5's backward)",
+    "rwkv6": "fake result, registered FLOP formula (K6)",
+    "rwkv6_bwd": "fake result, registered FLOP formula (K6's backward)"}
+
+
+def cell_is_skipped(arch: str, shape_name: str):
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and not cfg.subquadratic:
+        return ("long_500k needs sub-quadratic attention; "
+                f"{arch} is pure full-attention (DESIGN.md §5 skip list)")
+    return None
+
+
+def _opt_cfg(cfg):
+    return adamw.AdamWConfig(
+        state_dtype=cfg.pdtype if cfg.param_dtype == "bfloat16"
+        else torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Bytes from the shardings
+# ---------------------------------------------------------------------------
+
+def _itemsize(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def shard_bytes(shape, dtype, sharding) -> int:
+    """One device's shard of a leaf under ``sharding``."""
+    n = math.prod(shape) // math.prod(sharding.grid(len(shape)))
+    return n * _itemsize(dtype)
+
+
+def _tree_shard_bytes(tree, shardings) -> int:
+    total = 0
+    for path, leaf in _walk(tree):
+        sh = ST._at(shardings, path)
+        total += shard_bytes(leaf.shape, leaf.dtype, sh)
+    return total
+
+
+def _stored_at(shape, dtype, sharding, axis=None, rows=None) -> dict:
+    """Mesh position → bytes of the leaf the port stores there
+    (``Sharding.positions``: each shard index on its first position; an
+    all-``None`` spec whole on the first), counting only rows
+    ``[lo, hi)`` along ``axis`` where ``rows`` is given."""
+    grid = sharding.grid(len(shape))
+    item = _itemsize(dtype)
+    per = [d // g for d, g in zip(shape, grid)]
+    out: dict = {}
+    for idx, pos in sharding.positions(len(shape)).items():
+        n = math.prod(per)
+        if rows is not None:
+            lo, hi = rows
+            a = max(idx[axis] * per[axis], lo)
+            b = min((idx[axis] + 1) * per[axis], hi)
+            n = n // per[axis] * max(b - a, 0)
+        out[pos] = out.get(pos, 0) + n * item
+    return out
+
+
+def _collectives(cfg, shape, mesh, specs, pshard, cshard) -> R.CollectiveStats:
+    """The port's moves per mesh position, and those of the busiest."""
+    positions = list(np.ndindex(*mesh.devices.shape))
+    moved = {pos: {"param_gather": 0, "grad_reduce": 0, "cache_gather": 0,
+                   "cache_reshard": 0} for pos in positions}
+    batch = shape.global_batch
+    shards = list(S.Sharding(mesh, S.batch_spec(mesh, batch, 0))
+                  .positions(1).values())
+    size = batch // len(shards)
+    abstract = M.abstract_params(cfg)
+    n_moves = 0
+    for path, leaf in _walk(abstract):
+        sh = ST._at(pshard, path)
+        whole = math.prod(leaf.shape) * leaf.element_size()
+        held = _stored_at(leaf.shape, leaf.dtype, sh)
+        for pos in shards:
+            moved[pos]["param_gather"] += whole - held.get(pos, 0)
+            n_moves += whole > held.get(pos, 0)
+        if shape.kind == "train":
+            for pos, n in held.items():
+                moved[pos]["grad_reduce"] += n * sum(p != pos for p in shards)
+    if shape.kind != "train":
+        cache = specs["cache"] if shape.kind == "decode" else M.init_cache(
+            cfg, batch, shape.seq_len, s_enc=shape.seq_len if cfg.enc_dec
+            else 0, device="meta")
+        if cshard is None:
+            cshard = S.cache_shardings(cfg, mesh, cache, batch)
+        for path, leaf in _walk(cache):
+            axis = ST._cache_axis(path)
+            sh = ST._at(cshard, path)
+            row_bytes = math.prod(leaf.shape) // leaf.shape[axis] \
+                * leaf.element_size()
+            for i, pos in enumerate(shards):
+                rows = (i * size, (i + 1) * size)
+                held = _stored_at(leaf.shape, leaf.dtype, sh, axis, rows)
+                n = size * row_bytes - held.get(pos, 0)
+                n_moves += n > 0
+                moved[pos]["cache_reshard"] += n
+                if shape.kind == "decode":
+                    moved[pos]["cache_gather"] += n
+    busiest = max(positions, key=lambda p: sum(moved[p].values()))
+    per_op = {k: float(v) for k, v in moved[busiest].items()}
+    return R.CollectiveStats(per_op, sum(per_op.values()), n_moves, [])
+
+
+# ---------------------------------------------------------------------------
+# One data shard's step on meta tensors
+# ---------------------------------------------------------------------------
+
+def _rows(mesh, batch: int) -> int:
+    return batch // len(ST.data_shards(mesh, batch))
+
+
+def _first_storage(tree, shardings):
+    """Each leaf's storage shard (or the whole leaf) at the mesh's first
+    position, as a ``meta`` tensor: what AdamW updates there."""
+    out: dict = {}
+    for path, leaf in _walk(tree):
+        sh = ST._at(shardings, path)
+        per = [d // g for d, g in zip(leaf.shape, sh.grid(leaf.ndim))]
+        _set(out, path, torch.empty(per, dtype=leaf.dtype, device="meta"))
+    return out
+
+
+def _run_cell(cfg, shape, mesh, specs, pshard, mode: CostMode) -> None:
+    rows = _rows(mesh, shape.global_batch)
+    params = M.abstract_params(cfg)
+
+    def gathered():
+        # each data shard's whole copy of the params: temp on its device
+        return tree_map(torch.empty_like, params)
+
+    if shape.kind == "train":
+        opt_cfg = _opt_cfg(cfg)
+        batch = {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype,
+                                device="meta") for k, v in specs.items()}
+        mine = _first_storage(params, pshard)
+        state = adamw.init(opt_cfg, mine)
+        with mode:
+            leaves = list(_walk(gathered()))
+            _, _, grads = ST._loss_and_grads(cfg, leaves, batch)
+            del leaves
+            acc: dict = {}
+            for (path, p), g in zip(_walk(mine), grads):
+                _set(acc, path, g[tuple(slice(0, n) for n in p.shape)]
+                     .clone())
+            del grads
+            adamw.update(opt_cfg, acc, state, mine)
+        return
+    with torch.no_grad():
+        if shape.kind == "prefill":
+            arg = specs.get("tokens", specs.get("frames"))
+            x = torch.empty((rows, *arg.shape[1:]), dtype=arg.dtype,
+                            device="meta")
+            with mode:
+                ST.make_prefill_step(cfg, rows, shape.seq_len)(gathered(), x)
+            return
+        cache = M.init_cache(cfg, rows, shape.seq_len,
+                             s_enc=shape.seq_len if cfg.enc_dec else 0,
+                             device="meta")
+        token = torch.empty((rows, 1), dtype=torch.int32, device="meta")
+        with mode:
+            ST.make_decode_step(cfg)(gathered(), tree_map(torch.empty_like,
+                                                          cache),
+                                     token, shape.seq_len // 2)
+
+
+def cost_cell(cfg, shape, mesh) -> dict:
+    """One cell on ``mesh``, for one device: ``{"cost", "memory", "coll",
+    "kernels", "aten_ops", "seconds", "n_data_shards"}``."""
+    specs = ST.input_specs(cfg, shape)
+    pshard = S.params_shardings(cfg, mesh)
+    params = M.abstract_params(cfg)
+    p_bytes = _tree_shard_bytes(params, pshard)
+    batch = shape.global_batch
+    cshard = None
+    if shape.kind == "train":
+        state = adamw.init(_opt_cfg(cfg), params)
+        donated = p_bytes + HOST_SCALAR_BYTES + sum(
+            _tree_shard_bytes(state[k], pshard) for k in ("m", "v"))
+        args = donated + sum(
+            shard_bytes(v.shape, v.dtype, S.Sharding(
+                mesh, S.batch_spec(mesh, v.shape[0], v.ndim - 1)))
+            for v in specs.values())
+        # loss, ce, aux, grad_norm, lr: float32 scalars
+        outs = donated + 5 * 4
+    else:
+        # float32 logits; an encoder-decoder's prefill gives enc_out
+        out_shape, out_dtype = (batch, shape.seq_len if shape.kind ==
+                                "prefill" else 1, cfg.vocab_size), \
+            torch.float32
+        if cfg.enc_dec and shape.kind == "prefill":
+            out_shape, out_dtype = (batch, shape.seq_len, cfg.d_model), \
+                cfg.cdtype
+        logits = shard_bytes(out_shape, out_dtype, S.Sharding(
+            mesh, S.batch_spec(mesh, batch, 2)))
+        if shape.kind == "prefill":
+            arg = specs.get("tokens", specs.get("frames"))
+            args = p_bytes + shard_bytes(arg.shape, arg.dtype, S.Sharding(
+                mesh, S.batch_spec(mesh, batch, arg.ndim - 1)))
+            cache = M.init_cache(cfg, batch, shape.seq_len,
+                                 s_enc=shape.seq_len if cfg.enc_dec else 0,
+                                 device="meta")
+            c_bytes = _tree_shard_bytes(cache, S.cache_shardings(
+                cfg, mesh, cache, batch))
+            outs, donated = logits + c_bytes, 0
+        else:
+            _, cshard, tok_sh, _ = ST.decode_shardings(
+                cfg, mesh, specs["cache"], batch)
+            c_bytes = _tree_shard_bytes(specs["cache"], cshard)
+            args = p_bytes + c_bytes + shard_bytes(
+                specs["token"].shape, torch.int32, tok_sh) \
+                + HOST_SCALAR_BYTES
+            outs, donated = logits + c_bytes, c_bytes
+    mode = CostMode()
+    t0 = time.perf_counter()
+    _run_cell(cfg, shape, mesh, specs, pshard, mode)
+    seconds = time.perf_counter() - t0
+    run = mode.summary()
+    return {"cost": {"flops": run["flops"], "bytes accessed": run["bytes"]},
+            "memory": {"argument_bytes": int(args), "output_bytes": int(outs),
+                       "temp_bytes": run["temp_bytes"],
+                       "alias_bytes": int(donated)},
+            "coll": _collectives(cfg, shape, mesh, specs, pshard, cshard),
+            "kernels": {k: dict(v, on_meta=KERNEL_ON_META[k])
+                        for k, v in run["kernels"].items()},
+            "aten_ops": run["aten_ops"], "seconds": seconds,
+            "n_data_shards": len(ST.data_shards(mesh, batch))}
+
+
+def lower_cell(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    n = 512 if multi_pod else 256
+    mesh = make_production_mesh(multi_pod=multi_pod, devices=["meta"] * n)
+    n_chips = mesh.devices.size
+    rec = dict(arch=arch, shape=shape_name,
+               mesh="2x16x16" if multi_pod else "16x16", n_chips=n_chips)
+    cell = cost_cell(cfg, shape, mesh)
+    rec["compile_s"] = round(cell["seconds"], 1)
+    mem = cell["memory"]
+    rec["memory"] = dict(mem, total_nonaliased_gib=round(
+        (mem["argument_bytes"] + mem["output_bytes"] + mem["temp_bytes"]
+         - mem["alias_bytes"]) / 2**30, 3))
+    rec["scan_correction"] = {"applied": False}
+    rec["roofline"] = R.roofline_terms(cell["cost"], cell["coll"], n_chips)
+    mf, total_params = R.model_flops(cfg, shape)
+    rec["model_flops_global"] = mf
+    rec["total_params"] = total_params
+    # the data shards compute (each on one device); the model axis only
+    # stores, so the step's FLOP are one shard's times their number
+    hlo_global = cell["cost"]["flops"] * cell["n_data_shards"]
+    rec["model_vs_hlo_flops"] = round(mf / hlo_global, 4) if hlo_global \
+        else 0
+    rec["n_data_shards"] = cell["n_data_shards"]
+    rec["kernels"] = cell["kernels"]
+    rec["aten_ops"] = cell["aten_ops"]
+    return rec
+
+
+def cells(all_cells: bool, arch=None, shape=None, multi_pod=False) -> list:
+    if not all_cells:
+        return [(arch, shape, multi_pod)]
+    return [(a, s, mp) for a in ARCHS for s in SHAPES for mp in (False, True)]
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=ARCHS)
+    ap.add_argument("--shape", choices=list(SHAPES))
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--out", default="runs/dryrun_torch")
+    ap.add_argument("--skip-existing", action="store_true")
+    args = ap.parse_args(argv)
+    os.makedirs(args.out, exist_ok=True)
+
+    for arch, shape, mp in cells(args.all, args.arch, args.shape,
+                                 args.multi_pod):
+        tag = f"{arch}__{shape}__{'2x16x16' if mp else '16x16'}"
+        path = os.path.join(args.out, tag + ".json")
+        if args.skip_existing and os.path.exists(path):
+            try:
+                if json.load(open(path)).get("status") in ("ok", "skipped"):
+                    print(f"[CACHED] {tag}", flush=True)
+                    continue
+            except Exception:
+                pass
+        skip = cell_is_skipped(arch, shape)
+        if skip:
+            rec = dict(arch=arch, shape=shape,
+                       mesh="2x16x16" if mp else "16x16",
+                       status="skipped", reason=skip)
+            print(f"[SKIP] {tag}: {skip}", flush=True)
+        else:
+            try:
+                rec = lower_cell(arch, shape, multi_pod=mp)
+                rec["status"] = "ok"
+                r = rec["roofline"]
+                print(f"[OK]   {tag}: compile={rec['compile_s']}s "
+                      f"mem={rec['memory']['total_nonaliased_gib']}GiB "
+                      f"compute={r['t_compute_s']:.3e}s "
+                      f"memory={r['t_memory_s']:.3e}s "
+                      f"coll={r['t_collective_s']:.3e}s "
+                      f"dom={r['dominant']} "
+                      f"useful={rec['model_vs_hlo_flops']}", flush=True)
+            except Exception as e:  # noqa: BLE001 — record the failure
+                rec = dict(arch=arch, shape=shape,
+                           mesh="2x16x16" if mp else "16x16",
+                           status="failed", error=str(e)[:2000],
+                           traceback=traceback.format_exc()[-4000:])
+                print(f"[FAIL] {tag}: {e}", flush=True)
+        with open(path, "w") as f:
+            json.dump(rec, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

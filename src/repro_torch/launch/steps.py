@@ -1,8 +1,10 @@
-"""Training step functions, their shardings and the abstract training state.
+"""Step functions (train, prefill, decode), their shardings, the abstract
+training state and the input specs of each (arch, shape) cell.
 
-Port of the training half of ``repro.launch.steps``.  The reference jits
-its step with ``donate_argnums``; here the step runs eagerly and AdamW
-updates the params and its state in place (``optim.adamw.update``).
+Port of ``repro.launch.steps``.  The reference jits its steps with
+``donate_argnums``; here the steps run eagerly, AdamW updates the params
+and its state in place (``optim.adamw.update``) and a sharded decode step
+writes the new cache into the cache's storage shards.
 
 With a mesh the reference's one program is sharded by XLA.  Here one
 process drives every device of the ``DeviceMesh`` (single-controller, as
@@ -10,8 +12,14 @@ the reference's): the params and AdamW's m and v are sharded storage
 (``parallel.sharding``), the batch splits over its data-parallel axes, and
 each data shard gathers the params onto its device, takes its loss and
 gradients there, and the gradients are reduced into the storage shards.
-The model axis shards storage, not computation: the port has no
-tensor-parallel layers.
+Serving is the same: each data shard gathers the params and its rows of
+the cache (sharded storage by ``cache_shardings``) onto its device, runs
+the one-device ``prefill`` / ``decode_step`` there and writes its rows of
+the new cache back into the storage shards.  The model axis shards
+storage, not computation: the port has no tensor-parallel layers.
+
+``input_specs`` gives each cell's inputs as ``meta`` tensors (no storage),
+where the reference gives ``ShapeDtypeStruct``s.
 """
 from __future__ import annotations
 
@@ -19,7 +27,7 @@ from typing import Dict, List
 
 import torch
 
-from ..configs import ModelConfig
+from ..configs import ModelConfig, ShapeConfig
 from ..models import model as M
 from ..models.params import _set, _walk
 from ..optim import adamw
@@ -41,18 +49,23 @@ def _loss_and_grads(cfg: ModelConfig, leaves: List, batch):
     return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
 
-def batch_shards(mesh, batch: Dict[str, torch.Tensor]) -> list:
-    """``[(device, batch slice)]``: the batch split along its leading dim
-    over the axes ``batch_spec`` gives it, into equal slices, each on the
-    device of its shard (one slice on the mesh's first device where the
-    batch does not divide)."""
-    n_rows = next(iter(batch.values())).shape[0]
+def data_shards(mesh, n_rows: int) -> list:
+    """``[(device, first row, end row)]``: ``n_rows`` split over the axes
+    ``batch_spec`` gives them, into equal slices, each on the device of its
+    shard (one slice on the mesh's first device where the rows do not
+    divide)."""
     sharding = S.Sharding(mesh, S.batch_spec(mesh, n_rows, 0))
     devices = list(sharding.placement(1).values())
     size = n_rows // len(devices)
-    return [(dev, {k: v[i * size:(i + 1) * size].to(dev)
-                   for k, v in batch.items()})
-            for i, dev in enumerate(devices)]
+    return [(dev, i * size, (i + 1) * size) for i, dev in enumerate(devices)]
+
+
+def batch_shards(mesh, batch: Dict[str, torch.Tensor]) -> list:
+    """``[(device, batch slice)]``: the batch split along its leading dim
+    as ``data_shards`` splits its rows, each slice on its shard's device."""
+    n_rows = next(iter(batch.values())).shape[0]
+    return [(dev, {k: v[lo:hi].to(dev) for k, v in batch.items()})
+            for dev, lo, hi in data_shards(mesh, n_rows)]
 
 
 def _accumulate(acc, g: torch.Tensor, p):
@@ -140,6 +153,216 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
     return train_step
 
 
+# ---------------------------------------------------------------------------
+# Serving steps
+# ---------------------------------------------------------------------------
+
+def _cache_axis(path) -> int:
+    """The batch axis of the cache leaf at ``path``."""
+    return M._cache_batch_axis(path[0])
+
+
+def read_rows(leaf, axis: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Rows ``[lo, hi)`` along ``axis`` of a leaf, whole on ``device``:
+    the parts of every storage shard they meet, copied into place."""
+    if not isinstance(leaf, S.ShardedTensor):
+        return leaf.narrow(axis, lo, hi - lo).to(device)
+    shape = list(leaf.shape)
+    shape[axis] = hi - lo
+    out = torch.empty(shape, dtype=leaf.dtype, device=device)
+    for idx, shard in leaf.shards.items():
+        sl = list(leaf.slices(idx))
+        a, b = max(sl[axis].start, lo), min(sl[axis].stop, hi)
+        if a < b:
+            piece = shard.narrow(axis, a - sl[axis].start, b - a)
+            sl[axis] = slice(a - lo, b - lo)
+            out[tuple(sl)] = piece.to(device)
+    return out
+
+
+def write_rows(leaf, axis: int, lo: int, rows: torch.Tensor) -> None:
+    """Write ``rows`` (whole in every other dim) at ``lo`` along ``axis``
+    into a leaf's storage: each storage shard takes the part it holds."""
+    if not isinstance(leaf, S.ShardedTensor):
+        leaf.narrow(axis, lo, rows.shape[axis]).copy_(rows)
+        return
+    hi = lo + rows.shape[axis]
+    for idx, shard in leaf.shards.items():
+        sl = list(leaf.slices(idx))
+        a, b = max(sl[axis].start, lo), min(sl[axis].stop, hi)
+        if a < b:
+            start = sl[axis].start
+            sl[axis] = slice(a - lo, b - lo)
+            shard.narrow(axis, a - start, b - a).copy_(rows[tuple(sl)])
+
+
+def _by_rows(mesh, parts: list, n_rows: int):
+    """The data shards' outputs (``parts``, in shard order, each on its
+    shard's device) as one leaf sharded over the batch as ``batch_spec``
+    gives it: no copy.  One shard is the tensor itself."""
+    if len(parts) == 1:
+        return parts[0]
+    sharding = S.Sharding(mesh, S.batch_spec(mesh, n_rows,
+                                             parts[0].ndim - 1))
+    shape = torch.Size((n_rows, *parts[0].shape[1:]))
+    return S.ShardedTensor(sharding, shape, {
+        (i,) + (0,) * (len(shape) - 1): p for i, p in enumerate(parts)})
+
+
+def _at(tree, path):
+    """The leaf of a dict tree at ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _cache_storage(cfg: ModelConfig, mesh, batch: int, part):
+    """An uninitialised cache tree of ``batch`` rows on the mesh, shaped as
+    the data shard's cache ``part`` but for its rows, each leaf allocated as
+    its ``cache_shardings`` storage (every element is written by the data
+    shards' prefills)."""
+    abstract: Dict = {}
+    for path, leaf in _walk(part):
+        shape = list(leaf.shape)
+        shape[_cache_axis(path)] = batch
+        _set(abstract, path, torch.empty(shape, dtype=leaf.dtype,
+                                         device="meta"))
+    shardings = S.cache_shardings(cfg, mesh, abstract, batch)
+    storage: Dict = {}
+    for path, leaf in _walk(abstract):
+        _set(storage, path, S.empty(leaf.shape, leaf.dtype,
+                                    _at(shardings, path)))
+    return storage
+
+
+def _gathered(leaves: List, device) -> Dict:
+    tree: Dict = {}
+    for path, p in leaves:
+        _set(tree, path, S.gather(p, device))
+    return tree
+
+
+def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
+    """``prefill_step(params, tokens) → (logits, cache)``: a zero cache of
+    ``batch`` rows and ``seq`` positions on the tokens' device, then
+    ``M.prefill``.  An encoder-decoder's step takes ``frames`` and returns
+    ``(enc_out, cache)``, its cross K/V over ``seq`` encoder positions.
+
+    With a ``mesh`` the params arrive as sharded storage
+    (``params_shardings``) and the rows split over the data-parallel axes
+    (``data_shards``).  Data shard ``k``, in order, gathers every param
+    leaf onto its device, prefills its rows into a cache of its own there
+    and writes them into the cache's storage (``cache_shardings``).  The
+    logits (or ``enc_out``) come back sharded over the batch as
+    ``batch_spec`` gives it, each shard on its data shard's device; the
+    cache as its storage.  Where the batch does not divide (the batch-1
+    cell) one shard runs on the mesh's first device and its cache is
+    re-sharded, its sequence dim over ``data``.
+    """
+    def one_device(params, x):
+        cache = M.init_cache(cfg, x.shape[0], seq,
+                             s_enc=seq if cfg.enc_dec else 0, device=x.device)
+        if cfg.enc_dec:
+            return M.encdec_prefill(cfg, params, x, cache)
+        return M.prefill(cfg, params, x, cache)
+
+    if mesh is None:
+        return one_device
+
+    def prefill_step(params, x):
+        leaves = list(_walk(params))
+        cache, outs = None, []
+        with use_mesh(mesh):
+            for dev, lo, hi in data_shards(mesh, batch):
+                out, part = one_device(_gathered(leaves, dev),
+                                       x[lo:hi].to(dev))
+                if cache is None:
+                    cache = _cache_storage(cfg, mesh, batch, part)
+                for path, leaf in _walk(cache):
+                    write_rows(leaf, _cache_axis(path), lo,
+                               _at(part, path))
+                outs.append(out)
+                del part
+        return _by_rows(mesh, outs, batch), cache
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    """``serve_step(params, cache, token, pos) → (logits, cache)``:
+    ``M.decode_step``.  ``pos`` is a scalar (a Python int for an
+    encoder-decoder, whose step reads it on the host) or per-row (B,).
+
+    With a ``mesh`` the params and the cache arrive as sharded storage.
+    Data shard ``k``, in order, gathers every param leaf and its rows of
+    every cache leaf whole onto its device, decodes them there and writes
+    its rows of the new cache back into the storage shards: the cache is
+    updated in place and returned (the reference donates it).  The logits
+    come back as ``make_prefill_step``'s do.
+    """
+    if mesh is None:
+        def serve_step(params, cache, token, pos):
+            return M.decode_step(cfg, params, cache, token, pos)
+        return serve_step
+
+    def serve_step(params, cache, token, pos):
+        leaves = list(_walk(params))
+        cache_leaves = list(_walk(cache))
+        n_rows = token.shape[0]
+        outs = []
+        with use_mesh(mesh):
+            for dev, lo, hi in data_shards(mesh, n_rows):
+                part: Dict = {}
+                for path, leaf in cache_leaves:
+                    _set(part, path, read_rows(leaf, _cache_axis(path), lo,
+                                               hi, dev))
+                p = pos[lo:hi].to(dev) if torch.is_tensor(pos) \
+                    and pos.ndim == 1 else pos
+                logits, part = M.decode_step(cfg, _gathered(leaves, dev),
+                                             part, token[lo:hi].to(dev), p)
+                for path, leaf in cache_leaves:
+                    write_rows(leaf, _cache_axis(path), lo, _at(part, path))
+                outs.append(logits)
+                del part
+        return _by_rows(mesh, outs, n_rows), cache
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: no storage)
+# ---------------------------------------------------------------------------
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> Dict:
+    """Each cell's inputs as ``meta`` tensors of the reference's shapes and
+    dtypes; a decode cell's cache is ``M.init_cache(..., device="meta")``
+    and its ``pos`` a scalar."""
+    b, s = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+
+    def spec(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    if shape.kind == "train":
+        specs = {"tokens": spec((b, s), i32), "labels": spec((b, s), i32)}
+        if cfg.n_image_tokens:
+            specs["images"] = spec((b, cfg.n_image_tokens, cfg.d_image), f32)
+        if cfg.enc_dec:
+            specs["frames"] = spec((b, s, cfg.d_frame), f32)
+        return specs
+    if shape.kind == "prefill":
+        if cfg.enc_dec:
+            return {"frames": spec((b, s, cfg.d_frame), f32)}
+        return {"tokens": spec((b, s), i32)}
+    if shape.kind == "decode":
+        return {"cache": M.init_cache(cfg, b, s, s_enc=s if cfg.enc_dec
+                                      else 0, device="meta"),
+                "token": spec((b, 1), i32), "pos": spec((), i32)}
+    raise ValueError(shape.kind)
+
+
+# ---------------------------------------------------------------------------
+# Shardings per cell
+# ---------------------------------------------------------------------------
+
 def train_shardings(cfg: ModelConfig, mesh, opt_cfg: adamw.AdamWConfig):
     """``(param shardings, opt-state shardings, batch_shardings)``, as the
     reference's.  AdamW's step counter stays on the host (``None``: it is
@@ -160,3 +383,13 @@ def abstract_train_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig):
     scalar)."""
     params = M.abstract_params(cfg)
     return params, adamw.init(opt_cfg, params)
+
+
+def decode_shardings(cfg: ModelConfig, mesh, cache_tree, batch: int):
+    """``(param shardings, cache shardings, token sharding, pos
+    sharding)``, as the reference's: the token over the batch, ``pos``
+    replicated."""
+    return (S.params_shardings(cfg, mesh),
+            S.cache_shardings(cfg, mesh, cache_tree, batch),
+            S.Sharding(mesh, S.batch_spec(mesh, batch, 1)),
+            S.Sharding(mesh, ()))

@@ -310,8 +310,10 @@ def init_cache(cfg, batch: int, max_seq: int, *, s_enc: int = 0,
     """Zero cache tree on ``device``: ``layers`` stacked per period (batch
     on axis 1), ``tail{i}`` blocks (batch on axis 0).  An encoder-decoder's
     is one uniform ``layers`` stack whose decoder blocks also hold the
-    cross K/V of ``s_enc`` encoder positions (``xk``, ``xv``)."""
-    dev = resolve_device(device)
+    cross K/V of ``s_enc`` encoder positions (``xk``, ``xv``).
+    ``device="meta"`` gives the tree's shapes and dtypes with no storage
+    (``launch.steps.input_specs``)."""
+    dev = resolve_device(device, abstract=True)
     if cfg.enc_dec:
         c = block_make_cache(cfg, "decoder", batch, max_seq, cfg.cdtype, dev)
         shape = (batch, cfg.n_kv_heads, s_enc, cfg.d_head)

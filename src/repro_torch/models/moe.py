@@ -206,10 +206,14 @@ def _route(tokens: torch.Tensor, router_w: torch.Tensor, top_k: int):
 def _aux_loss(probs: torch.Tensor, e_flat: torch.Tensor, n_experts: int
               ) -> torch.Tensor:
     """Switch-style load-balance loss: E · Σ_e mean prob · assignment share
-    (the share counted exactly, by ``bincount``)."""
+    (the share counted exactly, by an integer ``scatter_add_``: it reads
+    nothing back to the host and takes ``meta`` tensors, where
+    ``bincount`` does neither)."""
     me = probs.mean(dim=0)
-    ce = torch.bincount(e_flat, minlength=n_experts).to(probs.dtype) \
-        / e_flat.numel()
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=e_flat.device).scatter_add_(
+        0, e_flat, torch.ones_like(e_flat))
+    ce = counts.to(probs.dtype) / e_flat.numel()
     return n_experts * torch.sum(me * ce)
 
 

@@ -19,8 +19,7 @@ compiler to lay arrays out, so a sharded leaf is stored as its shards
 device (in the mesh's row-major order) of the positions that share it, as
 ``runtime.shard.shard_devices`` places replicas.  A leaf whose spec is all
 ``None`` stays one tensor, on the mesh's first device.  ``shard_tree``,
-``gather`` and ``unshard_tree`` move between the two.  The cache rules of
-sharded serving (``cache_pspec_fn``, ``cache_shardings``) are not ported.
+``gather`` and ``unshard_tree`` move between the two.
 """
 from __future__ import annotations
 
@@ -78,9 +77,13 @@ def batch_spec(mesh, batch: int, extra_dims: int = 1) -> Tuple:
         axes = ("data",)
         if batch % axis_size(mesh, axes) != 0:
             axes = None
-    if axes is not None and len(axes) == 1:
-        axes = axes[0]
-    return (axes, *([None] * extra_dims))
+    return (_named(axes), *([None] * extra_dims))
+
+
+def _named(axes):
+    """A one-axis tuple as its name, as the reference's ``PartitionSpec``
+    stores it; anything else as it is."""
+    return axes[0] if isinstance(axes, tuple) and len(axes) == 1 else axes
 
 
 def shard_act(mesh, x, *names):
@@ -101,6 +104,67 @@ def params_pspecs(cfg, mesh):
 def params_shardings(cfg, mesh):
     from ..models.params import tree_map
     return tree_map(lambda s: Sharding(mesh, s), params_pspecs(cfg, mesh))
+
+
+# ---------------------------------------------------------------------------
+# Cache sharding (serving): SP over the cache sequence dim for batch-1 cells
+# ---------------------------------------------------------------------------
+
+def cache_pspec_fn(cfg, mesh, batch: int):
+    """Returns a fn mapping each cache leaf (its path, the leaf) to a spec.
+
+    Leaf kinds, as the reference's:
+      k/v:       (L?, B, Hkv, S, D) → batch over DP if divisible, else
+                 S over data (sequence parallelism for global_batch=1)
+      slot_pos:  (B, S) batch over DP if divisible, else replicated
+      wkv/ssm:   (L?, B, H, K, V)   → batch over DP else heads over model
+      shift*:    (L?, B, d)         → batch over DP
+
+    The reference's suffix test for K/V (``"k"``, ``"v"``, ``"xk"``,
+    ``"xv"``) also matches rwkv's ``wkv``, so an rwkv state takes the K/V
+    rule (at batch 1 its K dim over ``data``); kept bit for bit.
+    """
+    dp = _named(dp_axes(mesh))
+    batch_ok = batch % axis_size(mesh, dp) == 0
+
+    def spec_for(path: str, leaf) -> Tuple:
+        ndim = leaf.ndim
+        stacked = ndim >= 1 and "layers" in path
+        lead = (None,) if stacked else ()
+        n = ndim - len(lead)
+        if path.endswith("slot_pos"):
+            if batch_ok and n == 2 and leaf.shape[len(lead)] == batch:
+                return (*lead, dp, None)
+            return (*lead, *([None] * n))
+        if path.endswith(("k", "v", "xk", "xv")) and n == 4:
+            b, hkv, s, d = leaf.shape[-4:]
+            if batch_ok:
+                return (*lead, dp, guarded(mesh, hkv, "model"), None, None)
+            return (*lead, None, guarded(mesh, hkv, "model"),
+                    guarded(mesh, s, "data"), None)
+        if path.endswith(("wkv", "ssm_state")) and n == 4:
+            b, h, k, v = leaf.shape[-4:]
+            if batch_ok:
+                return (*lead, dp, guarded(mesh, h, "model"), None, None)
+            return (*lead, None, guarded(mesh, h, "model"), None, None)
+        if n >= 1:
+            b = leaf.shape[len(lead)]
+            if batch_ok and b == batch:
+                return (*lead, dp, *([None] * (n - 1)))
+        return tuple([None] * ndim)
+    return spec_for
+
+
+def cache_shardings(cfg, mesh, cache_tree, batch: int):
+    """The cache tree's shardings: each leaf's ``cache_pspec_fn`` spec by
+    its path (its dict keys joined by ``/``, as the reference builds it)."""
+    spec_for = cache_pspec_fn(cfg, mesh, batch)
+
+    def walk(tree, prefix):
+        return {k: walk(v, prefix + (k,)) if isinstance(v, dict)
+                else Sharding(mesh, spec_for("/".join(prefix + (k,)), v))
+                for k, v in tree.items()}
+    return walk(cache_tree, ())
 
 
 # ---------------------------------------------------------------------------
@@ -130,15 +194,15 @@ class Sharding:
         spec = self.spec + (None,) * (ndim - len(self.spec))
         return tuple(axis_size(self.mesh, names) for names in spec)
 
-    def placement(self, ndim: int) -> Dict[Tuple[int, ...], torch.device]:
-        """Shard index → device, in index order: each index on the first
-        mesh position (row-major) that holds it.  The index along a dim
-        sharded over axes ``(a, b)`` is ``pos[a] · size[b] + pos[b]``, the
-        reference's order."""
+    def positions(self, ndim: int) -> Dict[Tuple[int, ...], Tuple[int, ...]]:
+        """Shard index → the first mesh position (row-major) that holds
+        it, in index order.  The index along a dim sharded over axes
+        ``(a, b)`` is ``pos[a] · size[b] + pos[b]``, the reference's
+        order."""
         mesh = self.mesh
         sizes = dict(zip(mesh.axis_names, mesh.devices.shape))
         spec = self.spec + (None,) * (ndim - len(self.spec))
-        out: Dict[Tuple[int, ...], torch.device] = {}
+        out: Dict[Tuple[int, ...], Tuple[int, ...]] = {}
         for pos in np.ndindex(*mesh.devices.shape):
             at = dict(zip(mesh.axis_names, pos))
             idx = []
@@ -149,8 +213,14 @@ class Sharding:
                 for n in names:
                     i = i * sizes.get(n, 1) + at.get(n, 0)
                 idx.append(i)
-            out.setdefault(tuple(idx), mesh.devices[pos])
+            out.setdefault(tuple(idx), pos)
         return dict(sorted(out.items()))
+
+    def placement(self, ndim: int) -> Dict[Tuple[int, ...], torch.device]:
+        """Shard index → device, in index order: each index on the device
+        at its first mesh position (``positions``)."""
+        return {idx: self.mesh.devices[pos]
+                for idx, pos in self.positions(ndim).items()}
 
 
 @dataclasses.dataclass(eq=False)
@@ -197,6 +267,21 @@ def shard(t: torch.Tensor, sharding: Sharding):
     for idx, dev in sharding.placement(t.ndim).items():
         out.shards[idx] = t[out.slices(idx)].to(
             dev, memory_format=torch.contiguous_format, copy=True)
+    return out
+
+
+def empty(shape, dtype, sharding: Sharding):
+    """An uninitialised leaf of ``shape`` stored as ``sharding`` gives:
+    each shard on its device, or, for an all-``None`` spec, one tensor on
+    the mesh's first device."""
+    _check_spec(shape, sharding.spec, sharding.mesh)
+    if all(names is None for names in sharding.spec):
+        return torch.empty(shape, dtype=dtype,
+                           device=sharding.mesh.devices.flat[0])
+    out = ShardedTensor(sharding, torch.Size(shape), {})
+    for idx, dev in sharding.placement(len(shape)).items():
+        size = [s_.stop - s_.start for s_ in out.slices(idx)]
+        out.shards[idx] = torch.empty(size, dtype=dtype, device=dev)
     return out
 
 

@@ -1341,9 +1341,12 @@ def test_sharded_step_on_one_card_matches_one_device(cuda, arch,
 
 def test_pipeline_apply_on_card(cuda):
     """GPipe over a ``(4, 1)`` ``("pipe", "model")`` mesh of ``cuda:0`` x
-    4 against the sequential stages: the output within 1e-5, each
-    gradient within 1e-5 in relative norm (its sums over the rows run per
-    microbatch)."""
+    4 against the sequential stages: the output within 1e-5; each
+    gradient elementwise as close to the stages run in float64 as the
+    float32 sequential run is, within a factor of 2 (its sums over the rows
+    run per microbatch, so they round in another order; the card read the
+    pipeline's dw 1.51e-5 and the sequential run's 1.15e-5 from float64,
+    ``scripts/card_studies.py pipeline-grad``)."""
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.parallel.pipeline import pipeline_apply
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -1361,5 +1364,12 @@ def test_pipeline_apply_on_card(cuda):
     got = (y, *torch.autograd.grad((y * ct).sum(), [w, x]))
     want = (seq, *torch.autograd.grad((seq * ct).sum(), [w, x]))
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-5)
-    for a, b in zip(got[1:], want[1:]):
-        assert ((a - b).norm() / b.norm()).item() <= 1e-5
+    w64, x64 = (t.detach().double().requires_grad_(True) for t in (w, x))
+    exact = x64
+    for s in range(4):
+        exact = torch.tanh(exact @ w64[s])
+    exact = torch.autograd.grad((exact * ct.double()).sum(), [w64, x64])
+    for a, b, e in zip(got[1:], want[1:], exact):
+        pipe_err = (a.double() - e).abs().max().item()
+        seq_err = (b.double() - e).abs().max().item()
+        assert pipe_err <= 2 * seq_err, (pipe_err, seq_err)

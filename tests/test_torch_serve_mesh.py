@@ -1,0 +1,408 @@
+"""Port parity, sharded serving: ``repro_torch``'s production mesh, cache
+shardings, sharded prefill and decode steps, input specs and decode
+shardings on the CPU against ``repro``.
+
+One module-scoped subprocess runs the reference at 8 forced host devices
+(``--xla_force_host_platform_device_count=8``, as ``test_distributed.py``
+does), x64 off; the port's meshes are of repeated ``cpu`` devices.  Params
+cross over as numpy trees (``params_from_numpy``).  What is held against
+what:
+
+* ``cache_pspec_fn`` / ``cache_shardings`` equal to the reference's specs,
+  as tuples, for all ten archs (published and reduced configs) on the
+  meshes ``(4, 2)``, ``(3, 2)``, ``(2, 2, 2)`` with ``pod`` and ``(1, 1)``,
+  at batch 8 and batch 1, rwkv's ``wkv`` taking the K/V rule as the
+  reference's suffix test makes it;
+* ``input_specs``' shapes and dtypes for the ten archs × the four
+  ``SHAPES``; ``decode_shardings`` on ``(4, 2)``;
+* the sharded prefill and 4 decode steps on ``(4, 2)`` for reduced
+  qwen3-1.7b, rwkv6-1.6b, gemma2-2b, dbrx-132b and whisper-small (the
+  encoder-decoder branch), at batch 8 and batch 1 (the cache's sequence
+  over ``data``), against the reference's jitted sharded steps with the
+  in- and out-shardings ``dryrun._lower_compile`` gives them, and against
+  the port's one-device steps, at the one-device serving parity tests'
+  1e-4; a ``(1, 1)`` mesh bit-equal to one device;
+* the production meshes' shapes and axes (``test_distributed.py``'s).
+"""
+import os
+import pickle
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.configs as PC
+from repro_torch.launch import steps as PS
+from repro_torch.launch.mesh import make_mesh, make_production_mesh
+from repro_torch.models import model as PM
+from repro_torch.models.params import _walk, params_from_numpy
+from repro_torch.parallel import sharding as S
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CPU = "cpu"
+MESHES = {"4x2": ((4, 2), ("data", "model")),
+          "3x2": ((3, 2), ("data", "model")),
+          "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
+          "1x1": ((1, 1), ("data", "model"))}
+SPEC_BATCHES = (8, 1)
+SPEC_SEQ = 64
+SERVE_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "dbrx-132b",
+               "whisper-small"]
+# prompt, decode steps; the cache holds both (20: a multiple of the data
+# axis, so the batch-1 cell shards its sequence)
+PROMPT, N_DEC = 16, 4
+SEQ = PROMPT + N_DEC
+# the one-device serving parity tests' tolerance (test_torch_models.py)
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+_REF_SCRIPT = r"""
+import os, pickle, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+import jax, jax.numpy as jnp, numpy as np
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs import ARCHS, SHAPES, get_config, reduced_config
+from repro.launch.mesh import make_mesh
+from repro.launch.steps import (decode_shardings, input_specs,
+                                make_decode_step, make_prefill_step)
+from repro.models import model as M
+from repro.parallel import sharding as S
+
+inp = pickle.load(open(sys.argv[1], "rb"))
+out = {"n_devices": len(jax.devices())}
+meshes = {k: make_mesh(*v) for k, v in inp["meshes"].items()}
+spec = lambda s: tuple(s.spec)
+to_np = lambda t: jax.tree.map(lambda a: np.asarray(a, np.float32), t)
+flat = lambda t: {"/".join(str(getattr(k, "key", k)) for k in path): leaf
+                  for path, leaf in jax.tree_util.tree_flatten_with_path(t)[0]}
+
+def cache_of(cfg, b, s):
+    return jax.eval_shape(
+        lambda: M.init_cache(cfg, b, s, s_enc=s if cfg.enc_dec else 0))
+
+out["cache_specs"] = {}
+for arch in ARCHS:
+    for red in (False, True):
+        cfg = get_config(arch)
+        cfg = reduced_config(cfg) if red else cfg
+        for b in inp["spec_batches"]:
+            cache = cache_of(cfg, b, inp["spec_seq"])
+            for name, mesh in meshes.items():
+                out["cache_specs"][arch, red, b, name] = {
+                    k: spec(v) for k, v in flat(
+                        S.cache_shardings(cfg, mesh, cache, b)).items()}
+
+out["input_specs"] = {}
+out["decode_shardings"] = {}
+for arch in ARCHS:
+    cfg = get_config(arch)
+    for name, shape in SHAPES.items():
+        specs = input_specs(cfg, shape)
+        out["input_specs"][arch, name] = {
+            k: (tuple(v.shape), str(v.dtype)) for k, v in flat(specs).items()}
+        if shape.kind == "decode":
+            ps, cs, ts, qs = decode_shardings(cfg, meshes["4x2"],
+                                              specs["cache"],
+                                              shape.global_batch)
+            out["decode_shardings"][arch, name] = (
+                {k: spec(v) for k, v in flat(ps).items()},
+                {k: spec(v) for k, v in flat(cs).items()}, spec(ts),
+                spec(qs))
+
+mesh = meshes["4x2"]
+out["serve"] = {}
+for arch in inp["serve_archs"]:
+    cfg = reduced_config(get_config(arch))
+    params = M.init_params(cfg, jax.random.PRNGKey(3))
+    pshard = S.params_shardings(cfg, mesh)
+    for b in inp["spec_batches"]:
+        x, toks = inp["serve_inputs"][arch, b]
+        arg = jnp.asarray(x)
+        in_sh = NamedSharding(mesh, S.batch_spec(mesh, b, arg.ndim - 1))
+        with mesh:
+            prefill = jax.jit(make_prefill_step(cfg, b, inp["seq"], mesh),
+                              in_shardings=(pshard, in_sh))
+            logits, cache = prefill(jax.device_put(params, pshard), arg)
+            _, cshard, tok_sh, pos_sh = decode_shardings(cfg, mesh, cache, b)
+            step = jax.jit(make_decode_step(cfg, mesh),
+                           in_shardings=(pshard, cshard, tok_sh, pos_sh),
+                           out_shardings=(None, cshard), donate_argnums=(1,))
+            seen = [np.asarray(logits, np.float32)]
+            for i, (tok, pos) in enumerate(toks):
+                lg, cache = step(jax.device_put(params, pshard), cache,
+                                 jnp.asarray(tok, jnp.int32),
+                                 jnp.asarray(pos, jnp.int32))
+                seen.append(np.asarray(lg, np.float32))
+        out["serve"][arch, b] = dict(logits=seen, cache=to_np(cache))
+    out["serve"][arch, "params"] = to_np(params)
+pickle.dump(out, open(sys.argv[2], "wb"))
+"""
+
+
+def _mesh(name):
+    shape, axes = MESHES[name]
+    return make_mesh(shape, axes, [CPU] * int(np.prod(shape)))
+
+
+def _reduced(arch):
+    return PC.reduced_config(PC.get_config(arch))
+
+
+def _serve_inputs(arch, b):
+    """The prompt (tokens, or whisper's frames) and each decode step's
+    (token, position), from a seed."""
+    cfg = _reduced(arch)
+    rng = np.random.default_rng(100 + b)
+    if cfg.enc_dec:
+        x = rng.standard_normal((b, SEQ, cfg.d_frame)).astype(np.float32)
+    else:
+        x = rng.integers(0, cfg.vocab_size, (b, PROMPT)).astype(np.int32)
+    first = 0 if cfg.enc_dec else PROMPT
+    toks = [(rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32),
+             first + i) for i in range(N_DEC)]
+    return x, toks
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("ref_serve8")
+    inp = dict(meshes=MESHES, spec_batches=SPEC_BATCHES, spec_seq=SPEC_SEQ,
+               serve_archs=SERVE_ARCHS, seq=SEQ,
+               serve_inputs={(a, b): _serve_inputs(a, b)
+                             for a in SERVE_ARCHS for b in SPEC_BATCHES})
+    (tmp / "in.pkl").write_bytes(pickle.dumps(inp))
+    script = tmp / "ref_serve8.py"
+    script.write_text(textwrap.dedent(_REF_SCRIPT))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               JAX_PLATFORMS="cpu")
+    env.pop("XLA_FLAGS", None)
+    r = subprocess.run([sys.executable, str(script), str(tmp / "in.pkl"),
+                        str(tmp / "out.pkl")], capture_output=True,
+                       text=True, env=env, timeout=900)
+    assert r.returncode == 0, f"STDOUT:\n{r.stdout}\nSTDERR:\n{r.stderr}"
+    out = pickle.loads((tmp / "out.pkl").read_bytes())
+    assert out["n_devices"] == 8
+    return out
+
+
+def _flat(tree):
+    return {"/".join(path): leaf for path, leaf in _walk(tree)}
+
+
+def _specs(shardings):
+    return {k: tuple(v.spec) for k, v in _flat(shardings).items()}
+
+
+# -- the production mesh -----------------------------------------------------
+
+@pytest.mark.parametrize("device", [CPU, "meta"])
+def test_production_mesh_shapes(device):
+    """``tests/test_distributed.py::test_production_mesh_shapes``'s shapes
+    and axes, over repeated ``cpu`` and over ``meta`` devices."""
+    m1 = make_production_mesh(devices=[device] * 256)
+    assert m1.devices.shape == (16, 16)
+    assert m1.axis_names == ("data", "model")
+    m2 = make_production_mesh(multi_pod=True, devices=[device] * 512)
+    assert m2.devices.shape == (2, 16, 16)
+    assert m2.axis_names == ("pod", "data", "model")
+    assert all(d == torch.device(device) for d in m2.devices.flat)
+
+
+def test_production_mesh_needs_its_cards():
+    if torch.cuda.device_count() >= 256:
+        pytest.skip("256 cards are present")
+    with pytest.raises(RuntimeError, match="256 CUDA devices"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="512 CUDA devices"):
+        make_production_mesh(multi_pod=True)
+    with pytest.raises(ValueError, match="meta"):
+        make_production_mesh(devices=["meta"] * 255 + [CPU])
+
+
+def test_meta_only_where_a_tree_is_built():
+    """``init_cache`` and a mesh of ``meta`` devices only (the dry run's)
+    take ``meta``; an entry point that computes does not, nor a mesh that
+    mixes ``meta`` with a real device."""
+    cfg = _reduced("qwen3-1.7b")
+    cache = PM.init_cache(cfg, 2, 8, device="meta")
+    assert all(x.device.type == "meta" for _, x in _walk(cache))
+    assert make_mesh((2,), ("data",), ["meta"] * 2).devices.shape == (2,)
+    with pytest.raises(ValueError, match="meta"):
+        PM.init_params(cfg, 0, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        make_mesh((2,), ("data",), ["meta", CPU])
+    with pytest.raises(ValueError, match="meta"):
+        PM.compute_params(cfg, PM.init_params(cfg, 0, device=CPU),
+                          device="meta")
+
+
+# -- cache specs ---------------------------------------------------------------
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+@pytest.mark.parametrize("arch", PC.ARCHS)
+def test_cache_specs_match_reference(ref, arch, mesh):
+    for reduced in (False, True):
+        cfg = _reduced(arch) if reduced else PC.get_config(arch)
+        for b in SPEC_BATCHES:
+            cache = PM.init_cache(cfg, b, SPEC_SEQ,
+                                  s_enc=SPEC_SEQ if cfg.enc_dec else 0,
+                                  device="meta")
+            got = _specs(S.cache_shardings(cfg, _mesh(mesh), cache, b))
+            assert got == ref["cache_specs"][arch, reduced, b, mesh]
+            spec_for = S.cache_pspec_fn(cfg, _mesh(mesh), b)
+            assert {k: spec_for(k, v) for k, v in _flat(cache).items()} \
+                == got
+
+
+def test_wkv_takes_the_kv_rule(ref):
+    """The reference's ``path.endswith(("k", "v", "xk", "xv"))`` also
+    matches rwkv's ``wkv``: at batch 1 its K dim is sharded over ``data``,
+    and the ``wkv`` branch never sees it; hymba's ``ssm_state`` does take
+    that branch."""
+    m = _mesh("4x2")
+    rwkv = PC.get_config("rwkv6-1.6b")
+    for b, want in ((1, (None, None, "model", "data", None)),
+                    (8, (None, "data", "model", None, None))):
+        cache = PM.init_cache(rwkv, b, SPEC_SEQ, device="meta")
+        got = _specs(S.cache_shardings(rwkv, m, cache, b))
+        assert got["layers/pos0/wkv"] == want
+        assert ref["cache_specs"]["rwkv6-1.6b", False, b, "4x2"][
+            "layers/pos0/wkv"] == want
+    hymba = PC.get_config("hymba-1.5b")
+    cache = PM.init_cache(hymba, 1, SPEC_SEQ, device="meta")
+    ssm = [(k, v) for k, v in _flat(cache).items()
+           if k.endswith("ssm_state")]
+    spec_for = S.cache_pspec_fn(hymba, m, 1)
+    assert ssm and all(spec_for(k, v)[-2:] == (None, None) for k, v in ssm)
+
+
+# -- input specs and decode shardings ------------------------------------------
+
+@pytest.mark.parametrize("arch", PC.ARCHS)
+def test_input_specs_match_reference(ref, arch):
+    cfg = PC.get_config(arch)
+    for name, shape in PC.SHAPES.items():
+        specs = PS.input_specs(cfg, shape)
+        got = {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+               for k, v in _flat(specs).items()}
+        assert got == ref["input_specs"][arch, name], name
+        assert all(v.device.type == "meta" for v in _flat(specs).values())
+
+
+@pytest.mark.parametrize("arch", PC.ARCHS)
+def test_decode_shardings_match_reference(ref, arch):
+    cfg = PC.get_config(arch)
+    m = _mesh("4x2")
+    for name, shape in PC.SHAPES.items():
+        if shape.kind != "decode":
+            continue
+        specs = PS.input_specs(cfg, shape)
+        ps, cs, ts, qs = PS.decode_shardings(cfg, m, specs["cache"],
+                                             shape.global_batch)
+        want = ref["decode_shardings"][arch, name]
+        assert (_specs(ps), _specs(cs), ts.spec, qs.spec) == want, name
+
+
+# -- sharded prefill and decode --------------------------------------------------
+
+def _run(cfg, params, b, mesh, x, toks):
+    """Prefill and the decode steps on ``mesh`` (None: one device):
+    ``(logits of each, final cache)``, gathered onto the host."""
+    p = params if mesh is None else S.shard_tree(
+        params, S.params_shardings(cfg, mesh))
+    logits, cache = PS.make_prefill_step(cfg, b, SEQ, mesh)(
+        p, torch.from_numpy(x))
+    step = PS.make_decode_step(cfg, mesh)
+    seen = [S.gather(logits, CPU)]
+    for tok, pos in toks:
+        lg, cache = step(p, cache, torch.from_numpy(tok), pos)
+        seen.append(S.gather(lg, CPU))
+    return seen, {k: S.gather(v, CPU) for k, v in _flat(cache).items()}
+
+
+@pytest.fixture(scope="module")
+def served(ref):
+    out = {}
+    for arch in SERVE_ARCHS:
+        cfg = _reduced(arch)
+        params = params_from_numpy(ref["serve"][arch, "params"], CPU)
+        for b in SPEC_BATCHES:
+            x, toks = _serve_inputs(arch, b)
+            for name in ("one", "4x2", "1x1"):
+                out[arch, b, name] = _run(
+                    cfg, params, b, None if name == "one" else _mesh(name),
+                    x, toks)
+    return out
+
+
+@pytest.mark.parametrize("b", SPEC_BATCHES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_sharded_serving_matches_reference_and_one_device(ref, served, arch,
+                                                          b):
+    logits, cache = served[arch, b, "4x2"]
+    one_logits, one_cache = served[arch, b, "one"]
+    want = ref["serve"][arch, b]
+    assert len(logits) == len(want["logits"]) == N_DEC + 1
+    for got, w, one in zip(logits, want["logits"], one_logits):
+        np.testing.assert_allclose(got.float().numpy(), w, **TOL)
+        np.testing.assert_allclose(got.numpy(), one.numpy(), **TOL)
+    want_cache = _flat(want["cache"])
+    assert set(cache) == set(want_cache) == set(one_cache)
+    for k, v in cache.items():
+        np.testing.assert_allclose(v.float().numpy(), want_cache[k], **TOL,
+                                   err_msg=k)
+        np.testing.assert_allclose(v.float().numpy(),
+                                   one_cache[k].float().numpy(), **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("b", SPEC_BATCHES)
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_one_by_one_mesh_is_one_device(served, arch, b):
+    logits, cache = served[arch, b, "1x1"]
+    one_logits, one_cache = served[arch, b, "one"]
+    assert all(torch.equal(g, w) for g, w in zip(logits, one_logits))
+    assert all(torch.equal(cache[k], one_cache[k]) for k in one_cache)
+
+
+def test_batch_one_cell_shards_the_cache_sequence():
+    """At batch 1 the rows do not divide the data axis: one data shard on
+    the mesh's first device, the cache stored with its sequence over
+    ``data`` and its heads over ``model``; the logits come back whole."""
+    cfg = _reduced("qwen3-1.7b")
+    m = _mesh("4x2")
+    params = S.shard_tree(PM.init_params(cfg, 0, device=CPU),
+                          S.params_shardings(cfg, m))
+    x, toks = _serve_inputs("qwen3-1.7b", 1)
+    logits, cache = PS.make_prefill_step(cfg, 1, SEQ, m)(
+        params, torch.from_numpy(x))
+    assert torch.is_tensor(logits) and logits.shape[0] == 1
+    k = cache["layers"]["pos0"]["k"]
+    assert isinstance(k, S.ShardedTensor)
+    assert k.sharding.spec == (None, None, "model", "data", None)
+    assert len(k.shards) == 8
+    assert len(PS.data_shards(m, 1)) == 1
+    logits8, cache8 = PS.make_prefill_step(cfg, 8, SEQ, m)(
+        params, torch.zeros((8, PROMPT), dtype=torch.int32))
+    assert isinstance(logits8, S.ShardedTensor)
+    assert logits8.sharding.spec == ("data", None, None)
+    assert cache8["layers"]["pos0"]["k"].sharding.spec == (
+        None, "data", "model", None, None)
+
+
+def test_rows_read_and_written_through_the_shards():
+    m = _mesh("2x2x2")
+    t = torch.arange(2 * 8 * 4 * 6, dtype=torch.float32).reshape(2, 8, 4, 6)
+    for spec in [(None, ("pod", "data"), "model", None),
+                 (None, None, "model", "data"), (None, None, None, None)]:
+        leaf = S.shard(t.clone(), S.Sharding(m, spec))
+        for lo, hi in ((0, 8), (2, 6), (3, 4)):
+            assert torch.equal(PS.read_rows(leaf, 1, lo, hi, CPU),
+                               t[:, lo:hi])
+        new = -t[:, 3:7]
+        PS.write_rows(leaf, 1, 3, new)
+        want = t.clone()
+        want[:, 3:7] = new
+        assert torch.equal(S.gather(leaf, CPU), want)
