@@ -401,6 +401,21 @@ Phases 24-26 run after phase 21's CLI runs, before its profiles.
    buckets, scheduler state untouched, the first request's time to first
    token without and with it, the completions of both runs equal.
 
+Last, after the profiles (before the script's time and the kernels line):
+
+48. analysis on the card — a child runs ``python -m repro_torch.analysis
+   --check src/repro_torch --purity --summary build/reaplint_summary.json``
+   (the port's reaplint, then the purity replay with its default device
+   ``cuda``: every registered op's plan rebuilt on perturbed values, bit-
+   identical), which must exit 0 with no violation and every op PASS; its
+   lines and the suppression counts are printed.  Beside it, for each op
+   of ``analysis.op_examples.builtin_examples``: the plan built under
+   ``device="cuda"`` and under ``"cpu"``, fingerprint and serialized
+   payload bit-identical; the op run cold, then warm, through one
+   ``ReapRuntime(device="cuda")`` (a miss, then a hit), each result within
+   1e-4 of the same op on the host (the conformance battery's chunked-
+   against-sync tolerance).
+
 The last line is ``{"ok": true, "device": {...}}``.  Matrices are generated
 from fixed seeds with the published (rows, nnz, pattern) of Table I; no
 SuiteSparse file is read.
@@ -754,6 +769,9 @@ K5_DIGESTS = {
 OUTPUT_DIGESTS: dict = {}
 # the child processes phases 24-26 start (killed if a phase fails first)
 CHILDREN: list = []
+# phase 48: each example op on the card against the same op on the host, at
+# the conformance battery's chunked-against-sync tolerance
+ANALYSIS_TOL = 1e-4
 # the one-off control readings beside two limits (``k4_limit_reading``,
 # ``k5_lm_limit_reading``): what a known defect reads there; run with
 # ``python3 chip_smoke.py --control-readings``
@@ -4844,6 +4862,110 @@ def serve_mesh() -> int:
     return 0
 
 
+def result_arrays(result) -> list:
+    """Every array an op's result holds (a CSR as dense, a tensor on the
+    host), in order; plans are not values."""
+    import torch
+    from repro_torch.core import CSR
+    if isinstance(result, CSR):
+        return [result.to_dense()]
+    if torch.is_tensor(result):
+        return [result.detach().cpu().numpy()]
+    if isinstance(result, np.ndarray):
+        return [result]
+    if isinstance(result, (tuple, list)):
+        return [a for r in result for a in result_arrays(r)]
+    return []
+
+
+def analysis_phase(card: str) -> None:
+    """48. analysis on the card: the port's reaplint and purity replay in a
+    child (``python -m repro_torch.analysis --check src/repro_torch
+    --purity``, device ``cuda``), then, for each op of ``builtin_examples``,
+    its plan built under ``device="cuda"`` and ``"cpu"`` (fingerprint and
+    serialized payload bit-identical) and the op run cold, then warm,
+    through one ``ReapRuntime(device="cuda")`` against the same op on the
+    host."""
+    from repro_torch.analysis.op_examples import builtin_examples
+    from repro_torch.analysis.purity_check import (_payload_diff,
+                                                   _plan_payload)
+    from repro_torch.kernels.bsr_spgemm import bsr_spgemm
+    from repro_torch.kernels.bsr_spmm import bsr_spmm
+    from repro_torch.kernels.flash_attention import block_sparse_attention
+    from repro_torch.runtime import ReapRuntime, RuntimeConfig
+    from repro_torch.runtime import ops as _ops
+    t0 = time.perf_counter()
+    summary = ROOT / "build" / "reaplint_summary.json"
+    summary.parent.mkdir(parents=True, exist_ok=True)
+    summary.unlink(missing_ok=True)
+    lint = start_child(["-m", "repro_torch.analysis", "--check",
+                        "src/repro_torch", "--purity", "--summary",
+                        str(summary)])
+    examples = builtin_examples()
+    concrete = [t for t in _ops.list_ops() if _ops.get_op(t).route is None]
+    check(sorted(examples) == sorted(concrete),
+          f"op_examples covers {sorted(examples)}, the registry {concrete}")
+    counters = {"K1": bsr_spgemm, "K2": bsr_spmm,
+                "K3": block_sparse_attention}
+    for tag in concrete:
+        ex = examples[tag]
+        spec = _ops.get_op(tag)
+        plans = {dev: _plan_payload(spec, ex.operands(0), RuntimeConfig(
+            n_chunks=1, overlap=False, device=dev, **ex.runtime_kw), ex.kw)
+            for dev in ("cuda", "cpu")}
+        same_fp = plans["cuda"][0] == plans["cpu"][0]
+        diff = _payload_diff(plans["cuda"][1], plans["cpu"][1])
+        operands = ex.operands(2)
+        want, _ = ReapRuntime(device="cpu", **ex.runtime_kw).run(
+            tag, *operands, **ex.kw)
+        want = result_arrays(want)
+        rt = ReapRuntime(device="cuda", **ex.runtime_kw)
+        before = {k: c.launches for k, c in counters.items()}
+        row = dict(phase="analysis", op=tag, fingerprint=plans["cpu"][0].digest,
+                   payload_keys=len(plans["cpu"][1]),
+                   card_plan_equals_host=same_fp and diff is None)
+        for label in ("cold", "warm"):
+            (got, st), wall = timed(lambda: rt.run(tag, *operands, **ex.kw))
+            got = result_arrays(got)
+            ok = len(got) == len(want) and len(got) > 0 and all(
+                g.shape == w.shape and np.allclose(
+                    g, w, rtol=ANALYSIS_TOL, atol=ANALYSIS_TOL)
+                for g, w in zip(got, want))
+            err = max(float(np.abs(np.asarray(g, np.float64) - w).max(
+                initial=0.0)) for g, w in zip(got, want)) if ok else None
+            row.update({f"{label}_s": wall, f"{label}_cache_hit":
+                        bool(st["cache_hit"]), f"{label}_max_abs_err": err,
+                        f"{label}_ok": ok})
+        row["launches"] = {k: c.launches - before[k]
+                           for k, c in counters.items()
+                           if c.launches != before[k]}
+        row["tol"] = ANALYSIS_TOL
+        emit(**row)
+        check(same_fp, f"{tag}: the card-built fingerprint differs")
+        check(diff is None, f"{tag}: card-built plan differs: {diff}")
+        check(not row["cold_cache_hit"] and row["warm_cache_hit"],
+              f"{tag}: cold {row['cold_cache_hit']}, warm "
+              f"{row['warm_cache_hit']} (want a miss, then a hit)")
+        check(row["cold_ok"] and row["warm_ok"],
+              f"{tag}: the card's result disagrees with the host's")
+    out, lint_s = finish_child(lint, "python -m repro_torch.analysis "
+                               "--purity", timeout=300)
+    sys.stdout.write(out)
+    result = json.loads(summary.read_text())
+    passes = [line for line in out.splitlines()
+              if line.startswith("reaplint purity:")]
+    check(len(passes) == len(_ops.list_ops())
+          and all(line.endswith(": PASS") for line in passes),
+          "the purity replay on the card did not pass for every op")
+    emit(phase="analysis_done", ops=concrete, lint_child_s=lint_s,
+         total_violations=result["total_violations"],
+         total_suppressions=result["total_suppressions"],
+         per_rule=result["per_rule"], purity=result["purity"],
+         seconds=time.perf_counter() - t0, card=card)
+    check(result["ok"] and result["total_violations"] == 0,
+          "reaplint reports violations in src/repro_torch")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5263,6 +5385,8 @@ def main() -> int:
     # profiler sessions in the same process recorded no device event
     device_share("Pre_poisson Cholesky overlapped, warm",
                  lambda: rt.cholesky(spd, dtype=torch.float64))
+    # -- 48. the analysis package on the card ------------------------------
+    analysis_phase(card)
     emit(phase="script", seconds=time.perf_counter() - T_START, card=card)
     print(json.dumps({"kernels": [k1_row, k2_row, k3_row, k4_row,
                                   k4_bwd_row, k5_row, k5_bwd_row, k6_row,

@@ -98,12 +98,6 @@ def run_levels(vals: torch.Tensor, packed: Tuple[np.ndarray, List[int]]
     return vals
 
 
-def _drain(vals: torch.Tensor) -> None:
-    """Wait for queued device work so execute_s measures completion."""
-    if vals.is_cuda:
-        torch.cuda.synchronize(vals.device)
-
-
 def init_values(plan: CholeskyPlan, a_vals: np.ndarray,
                 dtype=torch.float64, device="cuda") -> torch.Tensor:
     """Scatter A's lower-triangle values into the L value array (+scratch)."""
@@ -125,9 +119,10 @@ def cholesky_execute(plan: CholeskyPlan, a_vals: np.ndarray,
     t0 = time.perf_counter()
     for ell in range(plan.n_levels):
         vals = run_levels(vals, pack_bundles([emit_level_bundle(plan, ell)]))
-    # deliberate timed drain: execute_s must measure device completion so
-    # sync/overlapped stats stay comparable
-    _drain(vals)
+    if vals.is_cuda:
+        # reaplint: disable=REAP003 deliberate timed drain: execute_s must
+        # measure device completion so sync/overlapped stats stay comparable
+        torch.cuda.synchronize(vals.device)
     exec_s = time.perf_counter() - t0
     stats = dict(execute_s=exec_s, n_levels=plan.n_levels,
                  nnz_l=plan.nnz, flops=plan.flops())

@@ -535,7 +535,8 @@ def _exec_moe_dispatch(plan: MoeDispatchPlan, operands, cfg, *, overlap,
         x_bundles = plan.bundle(tokens.to(resolve_device(cfg.device),
                                           non_blocking=True))
         if x_bundles.is_cuda:
-            # deliberate timed drain: bundle_s measures device completion
+            # reaplint: disable=REAP003 deliberate timed drain: bundle_s
+            # must measure device completion
             torch.cuda.synchronize(x_bundles.device)
     else:
         x_bundles = plan.bundle(np.asarray(tokens))

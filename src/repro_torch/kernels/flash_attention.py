@@ -689,7 +689,8 @@ def _exec_block_attention(plan, operands, cfg, *, overlap, softcap=0.0,
                                 softcap=softcap, scale=scale,
                                 device=cfg.device)
     if torch.is_tensor(o) and o.is_cuda:
-        # deliberate timed drain: execute_s measures device completion
+        # reaplint: disable=REAP003 deliberate timed drain: execute_s must
+        # measure device completion
         torch.cuda.synchronize(o.device)
     exec_s = time.perf_counter() - t0
     b, h, _, d = q.shape

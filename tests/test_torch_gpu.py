@@ -1373,3 +1373,61 @@ def test_pipeline_apply_on_card(cuda):
         pipe_err = (a.double() - e).abs().max().item()
         seq_err = (b.double() - e).abs().max().item()
         assert pipe_err <= 2 * seq_err, (pipe_err, seq_err)
+
+
+def test_purity_replay_on_card_equals_host(cuda):
+    """The purity replay of ``repro_torch.analysis`` with
+    ``device="cuda"``: every registered op replays bit-identically, and each
+    op's plan built under the card's config has the host-built
+    fingerprint and serialized payload, bit for bit."""
+    from repro_torch.analysis.op_examples import builtin_examples
+    from repro_torch.analysis.purity_check import (_payload_diff,
+                                                   _plan_payload,
+                                                   run_purity_checks)
+    from repro_torch.runtime import RuntimeConfig
+    from repro_torch.runtime import ops as _ops
+    results = run_purity_checks(device="cuda")
+    assert sorted(results) == sorted(_ops.list_ops())
+    assert all(r["ok"] for r in results.values()), results
+    for tag, ex in builtin_examples().items():
+        spec = _ops.get_op(tag)
+        (fp, payload), (host_fp, host_payload) = (
+            _plan_payload(spec, ex.operands(0), RuntimeConfig(
+                n_chunks=1, overlap=False, device=dev, **ex.runtime_kw),
+                ex.kw) for dev in ("cuda", "cpu"))
+        assert fp == host_fp, tag
+        assert _payload_diff(payload, host_payload) is None, tag
+
+
+@pytest.mark.parametrize("tag", ["spgemm_gather", "spgemm_block",
+                                 "cholesky", "moe_dispatch", "spmm",
+                                 "block_attention", "spmv"])
+def test_example_op_on_card_cold_and_warm(cuda, tag):
+    """Each example op of the analysis table through one
+    ``ReapRuntime(device="cuda")``: a miss, then a hit, both within the
+    conformance battery's 1e-4 of the same op on the host."""
+    from repro_torch.analysis.op_examples import builtin_examples
+    ex = builtin_examples()[tag]
+    operands = ex.operands(2)
+
+    def arrays(result):
+        if isinstance(result, P.CSR):
+            return [result.to_dense()]
+        if torch.is_tensor(result):
+            return [result.cpu().numpy()]
+        if isinstance(result, np.ndarray):
+            return [result]
+        if isinstance(result, tuple):
+            return [a for r in result for a in arrays(r)]
+        return []
+
+    want = arrays(ReapRuntime(device="cpu", **ex.runtime_kw).run(
+        tag, *operands, **ex.kw)[0])
+    rt = ReapRuntime(device="cuda", **ex.runtime_kw)
+    for hit in (False, True):
+        got, st = rt.run(tag, *operands, **ex.kw)
+        assert st["cache_hit"] is hit
+        got = arrays(got)
+        assert got and len(got) == len(want)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4)
