@@ -204,11 +204,12 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    top-2 gap under 1e-3 reported as a tie); K4's time at the encoder's
    shape beside its bound, plain version and SDPA with no mask;
 27. kernel against plain — K4's backward (``flash_attention_bwd``: dq,
-   dk, dv) against the autograd of ``flash_attention_plain`` at phase 12's
-   shapes and at qwen3-1.7b's training shape (B 8, S 256, 16 / 8 heads of
-   128, causal), float32 within 1e-4 and bfloat16 within a relative norm
-   of 5e-3 for each of dq, dk and dv (max abs error a reading); each case
-   run twice, the two bit-identical;
+   dk, dv; bfloat16 on the tensor cores, float32 on IEEE FMAs) against the
+   autograd of ``flash_attention_plain`` at phase 12's shapes (head dims
+   16, 32, 64, 128 and 256) and at qwen3-1.7b's training shape (B 8, S
+   256, 16 / 8 heads of 128, causal), float32 within 1e-4 and bfloat16
+   within a relative norm of 5e-3 for each of dq, dk and dv (max abs error
+   a reading); each case run twice, the two bit-identical;
 28. in situ — qwen3-1.7b at full width, 2 layers, float32 compute, batch
    1 x 256: the loss and every param leaf's gradient on the card (K4 and
    its backward) against the host (plain versions), each within 1e-3 in
@@ -221,12 +222,15 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    backward 28 times a step, the plain versions never; step time p50 / p99
    after the first, tokens/s, peak memory; then the device busy share of
    one warm step under ``torch.profiler``;
-30. times — K4's backward at qwen3-1.7b's training shape and at S = 2048
-   (B 1) by CUDA events, beside its bound (five S x S x D products per head
-   over the visible pairs at the bf16 peak, against q, k, v, out and dout
-   read once and dq, dk, dv written once), its plain version
+30. times — K4's backward at qwen3-1.7b's training shape, at S = 2048 (B
+   1) and at hymba-1.5b's training shape (B 2, S 2048, 25 / 5 heads of 64,
+   window 1024) by CUDA events, beside its bound (five S x S x D products
+   per head over the visible pairs at the bf16 peak, against q, k, v, out
+   and dout read once and dq, dk, dv written once), its plain version
    (``flash_attention_plain``'s autograd) and the backward of
-   ``scaled_dot_product_attention`` (``is_causal``, kv heads repeated);
+   ``scaled_dot_product_attention`` (kv heads repeated; ``is_causal``, or
+   the window as a boolean mask) (its two launches' split:
+   ``scripts/card_studies.py k4-bwd-split``);
 31. the reduced train CLI on the card for qwen3-1.7b, gemma2-2b
    (softcap, window; head dim 16), rwkv6-1.6b, hymba-1.5b, dbrx-132b and
    kimi-k2 (a shared expert; both K5 and its backward in float32 at width
@@ -268,9 +272,12 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    dbrx-132b's training bundles (32 of cap 320, 6144 -> 10752 and 10752 ->
    6144), cap 8, kimi-k2's widths (7168 -> 2048) at cap 24, width 64,
    widths 36 / 260 at cap 131, a map with an expert that no bundle meets
-   (its dw must be zeros) and one of a single repeated expert; float32
-   within 1e-5 and bfloat16 within 5e-3 in relative norm for each of dx and
-   dw, each case run twice and the two bit-identical; then K5 under
+   (its dw must be zeros), one of a single repeated expert and 20 bundles
+   over 6 experts; float32 within 1e-5 and bfloat16 within 5e-3 in
+   relative norm for each of dx and dw, each case run twice and the two
+   bit-identical, each bfloat16 call on ``bwd_route``'s kernels (TMA-fed
+   ``wgmma``, or ``mma.sync`` at widths not a multiple of 8, counted in
+   ``moe_gemm_bwd.bf16_routes``); then K5 under
    autograd at dbrx-132b's gate shape in bfloat16: its forward bit-equal to
    the no-grad call, its gradients equal to ``moe_gemm_bwd``'s, one K5
    launch and one backward call (dx and dw);
@@ -288,7 +295,8 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    params, grads and AdamW state), as phase 29: losses finite and falling,
    K5 six times and its backward three times a step, K4 twice and its
    backward once, the plain versions never, K5's expert map and its
-   backward's CSR walk each uploaded once in the run; step p50 / p99, the
+   backward's CSR walk each uploaded once in the run, every backward call
+   on the ``wgmma`` route; step p50 / p99, the
    first step, tokens/s, peak memory, the busy share and split of a warm
    step;
 39. times — K5's backward at dbrx-132b's training bundles, both
@@ -595,13 +603,16 @@ K4_BWD_CASES = {
                                                   softcap=50.0)),
     "reduced config S=300": (1, 4, 2, 16, 300, dict(window=32)),
     "D=32, window 16, S=300": (1, 4, 2, 32, 300, dict(window=16))}
-# K4's backward timed (phase 30) at qwen3-1.7b's heads: (label, B, S)
-K4_BWD_TIMED = (("qwen3-1.7b training", TRAIN_FULL[QWEN3]["batch"],
-                 TRAIN_FULL[QWEN3]["seq"]), ("qwen3-1.7b S=2048", 1, 2048))
 # K4's backward at hymba-1.5b's training shape (phase 32), as K4_BWD_CASES
 K4_BWD_HYMBA = {"hymba-1.5b training": (TRAIN_FULL[HYMBA]["batch"], 25, 5,
                                         64, TRAIN_FULL[HYMBA]["seq"],
                                         dict(window=1024))}
+# K4's backward timed (phase 30), as K4_BWD_CASES: qwen3-1.7b's heads at
+# its training shape and at S = 2048, and hymba-1.5b's training shape
+K4_BWD_TIMED = {
+    "qwen3-1.7b training": (TRAIN_FULL[QWEN3]["batch"], 16, 8, 128,
+                            TRAIN_FULL[QWEN3]["seq"], {}),
+    "qwen3-1.7b S=2048": (1, 16, 8, 128, 2048, {}), **K4_BWD_HYMBA}
 # K6's backward against its plain version (phase 32) at the heads of the
 # two training shapes, label -> (B, H, K, V, u = 0), at each (T, chunk):
 # 2048 in chunks of 64, and 2016 (no multiple of 64) in chunks of 32
@@ -631,7 +642,8 @@ K5_BWD_CASES = {
     "reduced configs, width 64, cap 40": (8, 40, 64, 64, 4, "in_graph"),
     "widths 36 / 260, cap 131": (3, 131, 36, 260, 4, "random"),
     "expert 4 without a bundle": (6, 64, 256, 512, 5, [0, 1, 2, 3, 0, 1]),
-    "one expert, repeated": (8, 48, 512, 256, 4, [2] * 8)}
+    "one expert, repeated": (8, 48, 512, 256, 4, [2] * 8),
+    "20 bundles over 6 experts": (20, 200, 384, 512, 6, "random")}
 # ||kernel - plain|| / ||plain|| of dx and of dw: float32 sums in another
 # order; bfloat16 at K4's backward's limit (each result rounded once)
 K5_BWD_REL_NORM = {"float32": 1e-5, "bfloat16": 5e-3}
@@ -713,6 +725,20 @@ K5_BF16_DESIGN = (
     "two 64-column weight boxes a slice, 5 stages, 2 blocks an SM; widths "
     "not a multiple of 8: mma.sync m16n8k16")
 K4_TOL, K4_BF16_TOL, K6_TOL = 1e-4, 2e-2, 2e-4
+# what the kernels line says of the backward kernels' bfloat16 designs
+K4_BWD_BF16_DESIGN = (
+    "FlashAttention-2's two passes on mma.sync m16n8k16: a dq pass (4 warps "
+    "x 16 q rows; the logsumexp rebuilt on the tensor cores, then dS K with "
+    "dS as the A operand from the accumulators) and a dk/dv pass (4 warps x "
+    "16 kv rows over the kv head's q heads and tiles; P^T dout and dS^T Q), "
+    "2-stage cp.async rings, masks on boundary tiles only, D 16-256")
+K5_BWD_BF16_DESIGN = (
+    "d_in and d_out multiples of 8: K5's forward tile route turned round, "
+    "TMA-fed wgmma m64n256k16, 4-stage ring, producer warp, 2 consumer "
+    "warpgroups, persistent blocks; dx on the forward's expert-grouped units "
+    "with w read K-major, dw on (expert, 128 x 256) tiles walking the "
+    "expert's bundles; the output through shared memory in 16-byte stores; "
+    "other widths: mma.sync m16n8k16")
 # SHA-256 of K2's float32 outputs at phase 6's inputs (numpy-seeded), read
 # from the kernel before its helpers moved to csrc/common.cuh: the shared
 # header must leave K2 bit-identical
@@ -798,7 +824,8 @@ PORT_KERNEL_NAMES = {
     "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel"),
     "K6 backward": ("bwd_local_kernel", "bwd_scan_kernel", "bwd_inter_kernel",
                     "bwd_du_kernel"),
-    "K5 backward": ("moe_bwd_dx_", "moe_bwd_dw_")}
+    "K5 backward": ("moe_bwd_dx_", "moe_bwd_dw_", "moe_bwd_tma_kernel<false>",
+                    "moe_bwd_tma_kernel<true>")}
 
 
 def emit(**row) -> None:
@@ -3798,6 +3825,7 @@ def train_full(arch: str = QWEN3) -> int:
     for fn in (K5.moe_gemm, K5.moe_gemm_bwd):
         fn.routes.clear()
         fn.uploads = 0
+    K5.moe_gemm_bwd.bf16_routes.clear()
     t0 = time.perf_counter()
     hist = train.train(cfg, train.parse_args(argv)) if cut \
         else train.main(argv)
@@ -3805,7 +3833,8 @@ def train_full(arch: str = QWEN3) -> int:
     wall = time.perf_counter() - t0
     launches = read_train_counts()
     routes = {"moe_gemm": dict(K5.moe_gemm.routes),
-              "moe_gemm_bwd": dict(K5.moe_gemm_bwd.routes)}
+              "moe_gemm_bwd": dict(K5.moe_gemm_bwd.routes),
+              "moe_gemm_bwd_bf16": dict(K5.moe_gemm_bwd.bf16_routes)}
     # the in-graph expert map is one object per shape: K5's schedule and
     # its backward's CSR walk are each uploaded once in the whole run
     uploads = {"moe_gemm": K5.moe_gemm.uploads,
@@ -3822,7 +3851,9 @@ def train_full(arch: str = QWEN3) -> int:
         and losses[-1] < losses[0] \
         and launches == expected_train_counts(cfg, steps) \
         and not any(plain.values()) \
-        and set(uploads.values()) == {int(cfg.ffn == "moe")}
+        and set(uploads.values()) == {int(cfg.ffn == "moe")} \
+        and (cfg.ffn != "moe" or routes["moe_gemm_bwd_bf16"]
+             == {"wgmma": launches["moe_gemm_bwd"]})
     emit(phase="main_path", case=f"{arch} train CLI, full width, "
          + (f"depth cut to {cfg.n_layers}" if cut else "full depth"),
          arch=arch, argv=argv, steps=steps, n_layers=cfg.n_layers,
@@ -3837,7 +3868,8 @@ def train_full(arch: str = QWEN3) -> int:
          per_step={k: v / steps for k, v in launches.items()},
          plain_calls=plain, cli_s=wall, ok=ok, card=card)
     check(ok, f"{arch} training: losses {losses[0]} -> {losses[-1]}, "
-          f"launches {launches}, plain {plain}, K5 uploads {uploads}")
+          f"launches {launches}, plain {plain}, K5 uploads {uploads}, "
+          f"routes {routes}")
     # the busy share of one warm step on a fresh state of the same size
     # (the CLI's state is freed: at dbrx-132b two would not fit)
     del hist
@@ -3931,14 +3963,15 @@ def train_cli_phase(first: dict, resumed: dict, card: str) -> None:
 
 
 def k4_backward_times(dev, card: str) -> dict:
-    """Phase 30: K4's backward by CUDA events at qwen3-1.7b's training shape
-    (B 8, S 256) and at S = 2048 (B 1), bfloat16, causal, beside its bound
-    (five S x S x D products per head over the visible pairs, bf16 peak,
-    against q, k, v, out and dout read once and dq, dk, dv written once),
-    its plain version (``flash_attention_plain``'s autograd) and the
-    backward of ``scaled_dot_product_attention`` (``is_causal``, kv heads
-    repeated for GQA) on the same inputs.  Returns the training shape's row
-    for the kernels line."""
+    """Phase 30: K4's backward by CUDA events at ``K4_BWD_TIMED``
+    (qwen3-1.7b's training shape, B 8, S 256, and S = 2048, B 1, causal;
+    hymba-1.5b's training shape, B 2, S 2048, window 1024), bfloat16,
+    beside its bound (five S x S x D products per head over the visible
+    pairs, bf16 peak, against q, k, v, out and dout read once and dq, dk, dv
+    written once), its plain version (``flash_attention_plain``'s autograd)
+    and the backward of ``scaled_dot_product_attention`` (kv heads repeated
+    for GQA; ``is_causal``, or the window as a boolean mask) on the same
+    inputs.  Returns the rows by label."""
     import torch
     from repro_torch.kernels.flash_attention import (
         attention_mask, flash_attention, flash_attention_bwd,
@@ -3946,16 +3979,16 @@ def k4_backward_times(dev, card: str) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(91)
     rows = {}
-    h, hkv, d = 16, 8, 128                       # qwen3-1.7b's heads
-    for label, b, s in K4_BWD_TIMED:
+    for label, (b, h, hkv, d, s, kw) in K4_BWD_TIMED.items():
         q, dout = (torch.randn((b, h, s, d), generator=gen, device=dev).to(
             torch.bfloat16) for _ in range(2))
         k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
             torch.bfloat16) for _ in range(2))
         with torch.no_grad():
-            out = flash_attention(q, k, v)
-        pairs = int(attention_mask(s, causal=True, window=0,
-                                   device=dev).sum())
+            out = flash_attention(q, k, v, **kw)
+        mask = attention_mask(s, causal=True, window=kw.get("window", 0),
+                              device=dev)
+        pairs = int(mask.sum())
         flop = 5 * 2 * b * h * pairs * d
         nbytes = (3 * q.numel() + 2 * k.numel()) * 2 \
             + (q.numel() + 2 * k.numel()) * 2
@@ -3964,20 +3997,27 @@ def k4_backward_times(dev, card: str) -> dict:
             q, k.repeat_interleave(h // hkv, 1),
             v.repeat_interleave(h // hkv, 1)))
         o = torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True)
+            qs, ks, vs, attn_mask=mask) if kw else \
+            torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)
         row = dict(
-            ms=event_ms(lambda: flash_attention_bwd(q, k, v, out, dout)),
-            plain_ms=event_ms(lambda: flash_attention_bwd_plain(q, k, v,
-                                                                dout), 5),
+            ms=event_ms(lambda: flash_attention_bwd(q, k, v, out, dout,
+                                                    **kw)),
+            plain_ms=event_ms(lambda: flash_attention_bwd_plain(
+                q, k, v, dout, **kw), 5),
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=event_ms(lambda: torch.autograd.grad(
                 o, (qs, ks, vs), dout, retain_graph=True)))
         emit(phase="times", kernel="K4 backward", case=f"{label} bf16, B={b}"
-             f", H={h}, Hkv={hkv}, D={d}, S={s}, causal", visible_pairs=pairs,
-             flop=flop, bytes=nbytes, tflops=flop / row["ms"] / 1e9,
-             library="autograd of scaled_dot_product_attention(is_causal)",
+             f", H={h}, Hkv={hkv}, D={d}, S={s}, causal, {kw}",
+             visible_pairs=pairs, flop=flop, bytes=nbytes,
+             tflops=flop / row["ms"] / 1e9,
+             library="autograd of scaled_dot_product_attention("
+             + ("attn_mask=the window" if kw else "is_causal") + ")",
              **row, card=card)
         rows[label] = row
+        del q, k, v, out, dout, qs, ks, vs, o
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -4106,19 +4146,27 @@ def k5_backward_against_plain(dev) -> float:
         for dtype in (torch.float32, torch.bfloat16):
             x, w, dy = k5_bwd_inputs(gen, dev, nb, cap, d_in, d_out, n_exp,
                                      dtype)
+            r0 = dict(K5.moe_gemm_bwd.bf16_routes)
             got = K5.moe_gemm_bwd(x, w, be, dy)
             again = K5.moe_gemm_bwd(x, w, be, dy)
             torch.cuda.synchronize()
+            routes = {k: n - r0.get(k, 0)
+                      for k, n in K5.moe_gemm_bwd.bf16_routes.items()
+                      if n - r0.get(k, 0)}
+            want_routes = {K5.bwd_route(d_in, d_out): 2} \
+                if dtype == torch.bfloat16 else {}
             same = all(torch.equal(a, b) for a, b in zip(got, again))
             empty = sorted(set(range(n_exp)) - set(be.tolist()))
             zeros = all(not got[1][e].any() for e in empty)
             name = f"{label} {str(dtype)[6:]}: {nb} bundles of {cap}, " \
                 f"{d_in} -> {d_out}, {n_exp} experts"
+            ok = same and zeros and routes == want_routes
             emit(phase="check", case=f"K5 backward {name}, two runs",
                  bit_identical=same, experts_without_bundle=empty,
-                 their_dw_zero=zeros, ok=same and zeros)
-            check(same and zeros, f"K5's backward: two runs differ, or an "
-                  f"expert with no bundle got a nonzero dw ({name})")
+                 their_dw_zero=zeros, bf16_routes=routes, ok=ok)
+            check(ok, f"K5's backward: two runs differ, an expert with no "
+                  f"bundle got a nonzero dw, or the calls took routes "
+                  f"{routes}, not {want_routes} ({name})")
             del again
             worst = max(worst, compare_k5_grads(
                 name, got, K5.moe_gemm_bwd_plain(
@@ -5327,7 +5375,9 @@ def main() -> int:
         "launches_by_path": by_path["flash_attention_bwd"],
         "max_abs_err": max(k4_bwd_err, k4_bwd_hymba_err),
         **k4_bwd_times[f"{QWEN3} training"],
-        "qwen3_1p7b_s2048": k4_bwd_times[f"{QWEN3} S=2048"]}
+        "qwen3_1p7b_s2048": k4_bwd_times[f"{QWEN3} S=2048"],
+        "hymba_1p5b_training": k4_bwd_times[f"{HYMBA} training"],
+        "bf16_design": K4_BWD_BF16_DESIGN}
     k6_by_path = {HYMBA: k6_launches, RWKV6: k6_rwkv_launches,
                   "hymba-1.5b with prewarm": prewarm["K6"],
                   **by_path["rwkv6"],
@@ -5341,7 +5391,8 @@ def main() -> int:
         "launches_by_path": k6_by_path,
         "max_abs_err": max(k6_err, k6_rwkv_err), **k6_times,
         "rwkv6_1p6b_prefill": k6_rwkv_times}
-    gate, down = k5_bwd_times
+    gate, down = ("dbrx-132b training, gate and up",
+                  "dbrx-132b training, down")
     k5_bwd_row = {
         "name": "moe_gemm_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/moe_gemm_bwd.cu",
@@ -5352,7 +5403,10 @@ def main() -> int:
         "launches": sum(by_path["moe_gemm_bwd"].values()),
         "launches_by_path": by_path["moe_gemm_bwd"],
         "max_abs_err": k5_bwd_err, **k5_bwd_times[gate],
-        "dbrx_132b_down": k5_bwd_times[down]}
+        "dbrx_132b_down": k5_bwd_times[down],
+        "bf16_design": K5_BWD_BF16_DESIGN,
+        "bf16_routes_on_main_path": full[DBRX_LM]["k5_routes"][
+            "moe_gemm_bwd_bf16"]}
     hymba_heads, rwkv_heads = K6_BWD_HEADS
     k6_bwd_row = {
         "name": "rwkv6_bwd", "route": "cuda",

@@ -14,6 +14,8 @@
     PYTHONPATH=src python scripts/card_studies.py situ-repeat [--runs 200]
     PYTHONPATH=src python scripts/card_studies.py pipeline-grad
     PYTHONPATH=src python scripts/card_studies.py first-meta
+    PYTHONPATH=src python scripts/card_studies.py k4-bwd-split
+    PYTHONPATH=src python scripts/card_studies.py k5-bwd-routes
 
 * ``k1-carry`` — K1 at ``chip_smoke.py`` phase 3's three cases (filter3D's
   sync plan and its bucketed chunk 1 at bs = 128, a blocky 8192 at
@@ -115,6 +117,20 @@
   ``cuda:0`` × 4 at reduced qwen3-1.7b (batch 8 × 32), K4 built
   beforehand, and a second one: the serving path touches no Python meta
   kernel.
+* ``k4-bwd-split`` — K4's backward in bfloat16 at ``chip_smoke.py`` phase
+  30's shapes (``K4_BWD_TIMED``, inputs from the same seed): the device
+  microseconds of its dq pass and of its dk/dv pass a call, each its
+  kernel's events summed under ``torch.profiler`` over 10 warm calls (a
+  fresh process: in ``chip_smoke.py``'s long run, late profiler sessions
+  record no device event), beside the whole call by CUDA events.
+* ``k5-bwd-routes`` — K5's backward in bfloat16, dx and dw each, on the
+  ``wgmma`` route (TMA-fed, the shipped one at these widths) and on
+  ``mma_sync`` (the first design, which now takes only widths that are not
+  a multiple of 8), by CUDA events, at ``chip_smoke.py``'s
+  ``K5_BWD_CASES`` "dbrx-132b training, gate and up" (32 bundles of cap
+  320), "dbrx-132b widths, cap 8" and "kimi-k2 widths, cap 24", beside
+  ``torch.bmm`` on inputs grouped by expert where the map groups evenly:
+  the reading behind ``bwd_route`` leaving the cap out of the choice.
 """
 from __future__ import annotations
 
@@ -741,6 +757,88 @@ def first_meta(name: str) -> None:
              card=name)
 
 
+def k4_bwd_split(name: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(91)
+    n = 10
+    for label, (b, h, hkv, d, s, kw) in cs.K4_BWD_TIMED.items():
+        q, dout = (torch.randn((b, h, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn((b, hkv, s, d), generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(2))
+        with torch.no_grad():
+            out = flash_attention(q, k, v, **kw)
+
+        def call():
+            return flash_attention_bwd(q, k, v, out, dout, **kw)
+
+        ms = cs.event_ms(call)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                call()
+            torch.cuda.synchronize()
+        events = [(e.key, e.self_device_time_total)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        split = {pass_: sum(us for key, us in events if kernel in key) / n
+                 for pass_, kernel in (("dq", "attn_bwd_dq"),
+                                       ("dk_dv", "attn_bwd_dkdv"))}
+        emit(study="k4_bwd_split", case=f"{label} bf16, B={b}, H={h}, "
+             f"Hkv={hkv}, D={d}, S={s}, causal, {kw}", ms=ms,
+             device_us=split if all(split.values()) else None,
+             device_events=len(events),
+             kernels_seen=sorted({key for key, _ in events})[:8], card=name)
+        del q, k, v, out, dout
+        torch.cuda.empty_cache()
+
+
+def k5_bwd_routes(name: str) -> None:
+    from unittest import mock
+
+    import chip_smoke as cs
+    import repro_torch.kernels.moe_gemm as K
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(133)
+    rng = np.random.default_rng(134)
+    for label in ("dbrx-132b training, gate and up",
+                  "dbrx-132b widths, cap 8", "kimi-k2 widths, cap 24"):
+        nb, cap, d_in, d_out, n_exp, kind = cs.K5_BWD_CASES[label]
+        be = cs.k5_map(kind, nb, n_exp, rng)
+        x, w, dy = cs.k5_bwd_inputs(gen, dev, nb, cap, d_in, d_out, n_exp,
+                                    torch.bfloat16)
+        row = dict(study="k5_bwd_routes", case=f"{label} bf16: {nb} bundles "
+                   f"of {cap}, {d_in} -> {d_out}, {n_exp} experts",
+                   shipped=K.bwd_route(d_in, d_out))
+        for route in ("wgmma", "mma_sync"):
+            with mock.patch.object(K, "bwd_route", lambda *a, r=route: r):
+                for entry, need in (("dx", (True, False)),
+                                    ("dw", (False, True))):
+                    row[f"{entry} {route} ms"] = cs.event_ms(
+                        lambda: K._k5_bwd(x, w, be, be, dy, *need), 10)
+        if kind == "in_graph":               # bundle r * E + e meets e
+            rep_ = nb // n_exp
+            xg, dyg = (t.reshape(rep_, n_exp, cap, -1).transpose(0, 1)
+                       .reshape(n_exp, rep_ * cap, -1).contiguous()
+                       for t in (x, dy))
+            row["dx torch.bmm ms"] = cs.event_ms(
+                lambda: torch.bmm(dyg, w.transpose(1, 2)), 10)
+            row["dw torch.bmm ms"] = cs.event_ms(
+                lambda: torch.bmm(xg.transpose(1, 2), dyg), 10)
+            del xg, dyg
+        emit(**row, card=name)
+        del x, w, dy
+        torch.cuda.empty_cache()
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
@@ -752,7 +850,8 @@ def main() -> int:
                                       "k5-bf16", "k5-stream", "k6-time",
                                       "kernel-times", "hymba-repeat",
                                       "situ-repeat", "pipeline-grad",
-                                      "first-meta"))
+                                      "first-meta", "k4-bwd-split",
+                                      "k5-bwd-routes"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
                          "situ-repeat: card prefills (200)")
@@ -780,6 +879,10 @@ def main() -> int:
         pipeline_grad(name)
     elif args.study == "first-meta":
         first_meta(name)
+    elif args.study == "k4-bwd-split":
+        k4_bwd_split(name)
+    elif args.study == "k5-bwd-routes":
+        k5_bwd_routes(name)
     else:
         hymba_repeat(name, args.runs or 5, args.seeds)
     return 0

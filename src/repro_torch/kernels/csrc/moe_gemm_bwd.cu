@@ -22,43 +22,49 @@
 // 6144, d_ff_expert 10752) 1.353 TFLOP an entry, bound by operations in
 // bfloat16 (1.37 ms at the dense peak), against its operands read once.
 //
-// This is the simple kernel that is right first; wgmma, TMA and K5's
-// expert-grouped persistent walk are later work.
+// Every output element has one writer that sums in a fixed order and stores
+// once in x's dtype; no route splits the reduction or uses atomics, so two
+// runs are bit-identical.  The routes, picked by the wrapper from the dtype
+// and the widths (kernels/moe_gemm.py, bwd_route):
 //
-//  * dx: one block owns (bundle, row tile, 128 columns of d_in) and walks
-//    d_out.  w is read through its transpose inside the kernel: a column
-//    tile of w^T is a band of rows of w[e_b], which lie contiguous along
-//    d_out, the reduction axis, so the band lands in shared memory as the
-//    K-major B operand that mma.sync wants and no transposed copy of w is
-//    made (at dbrx-132b that copy would be 2.1 GB of bfloat16 a weight).
-//  * dw: one block owns (expert, 128 rows of d_in, 128 columns of d_out) and
-//    walks every row of every bundle of its expert in a fixed order: the
-//    bundles as the CSR schedule lists them (by expert, then in bundle
-//    order), each bundle's rows in order.  The schedule is one int32 buffer
-//    [ptr (E + 1) | ids (nb)]: expert e's bundles are ids[ptr[e]:ptr[e+1]].
-//    Each output tile has one writer that sums in fp32 and stores once in
-//    x's dtype; an expert with no bundle gets zeros.  No atomics: two runs
-//    are bit-identical.
-//  * bfloat16: mma.sync m16n8k16 with fp32 accumulators, 32-deep slices
-//    through a 4-stage ring of 8-byte cp.async copies (a row of a width
-//    that is a multiple of 4 but not of 8 is only 8-byte aligned), the
-//    fragments by ldmatrix: plain for dx's row-major dy and K-major w,
-//    transposed for dw, where x and dy both lie with the reduction axis
-//    (the bundle's rows) slowest.  Rows past cap read as zeros.
-//  * float32: IEEE FMAs, a 64 x 64 tile of 256 threads, 4 x 4 outputs a
-//    thread, 16-deep slices in shared memory with the next slice's loads in
-//    registers while the FMAs run.
+//  * bfloat16, d_in and d_out multiples of 8 (TMA's 16-byte row strides):
+//    moe_bwd_tma_kernel, K5's forward tile route turned round on the
+//    machinery of moe_tma.cuh (the header it shares with csrc/moe_gemm.cu):
+//    TMA boxes of 64 x 64 with the 128-byte swizzle into a 4-stage ring, one
+//    producer warp, two consumer warpgroups on wgmma m64n256k16, persistent
+//    blocks.  dx reads w through its transpose with no copy (a box of w's
+//    rows is K-major B as it lands) and walks the forward's expert-grouped
+//    units; dw takes x^T and dy both MN-major and owns (expert, 128 x 256)
+//    tiles, each walking its expert's bundles in the CSR order of
+//    bwd_schedule.  Every cap takes it: at cap <= 32 (decode-sized bundles)
+//    both entries are bound by bytes (dx by reading w, dw by writing it),
+//    and the TMA ring moves them at least as fast as the cp.async kernels
+//    below (chip_smoke.py phase 39 times both at cap 8 and 24).
+//  * bfloat16, d_in or d_out not a multiple of 8 (a row of d % 8 == 4 is
+//    only 8-byte aligned): mma.sync m16n8k16 with fp32 accumulators, 32-deep
+//    slices through a 4-stage ring of 8-byte cp.async copies, the fragments
+//    by ldmatrix (transposed for dw).  dx: one block per (bundle, row tile,
+//    128 columns of d_in), reading w's rows K-major; dw: one block per
+//    (expert, 128 x 128 tile) walking its bundles' rows in CSR order.
+//  * float32: IEEE FMAs (the 1e-5 limit rules out one-pass TF32), a 64 x 64
+//    tile of 256 threads, 4 x 4 outputs a thread, 16-deep slices in shared
+//    memory with the next slice's loads in registers while the FMAs run.
 //
-// d_in and d_out must be multiples of 4 and the operands 16-byte aligned
-// (the wrapper checks), as for K5's forward.
+// Rows past cap read as zeros.  d_in and d_out must be multiples of 4 and
+// the operands 16-byte aligned (the wrapper checks), as for K5's forward.
 //
 // C entry points: plain C interfaces for ctypes; each returns the first CUDA
-// error of an attribute call or the launch (0 on success).
+// error of a tensor-map encode (kEncodeFailed + its CUresult), an attribute
+// call or the launch (0 on success).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdio>
+
 #include "common.cuh"
+#include "moe_tma.cuh"
 
 namespace {
 
@@ -94,7 +100,8 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float lo, float hi) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 dx: dx[b] (cap x d_in) = dy[b] (cap x d_out) @ w[e_b]^T
+// bfloat16 dx on mma.sync (d_in or d_out not a multiple of 8):
+// dx[b] (cap x d_in) = dy[b] (cap x d_out) @ w[e_b]^T
 // ---------------------------------------------------------------------------
 
 template <int BM>
@@ -215,7 +222,8 @@ moe_bwd_dx_bf16_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16 dw: dw[e] (d_in x d_out) = sum over e's bundles of x[b]^T @ dy[b]
+// bfloat16 dw on mma.sync (d_in or d_out not a multiple of 8):
+// dw[e] (d_in x d_out) = sum over e's bundles of x[b]^T @ dy[b]
 // ---------------------------------------------------------------------------
 
 struct DwShape {
@@ -470,6 +478,262 @@ moe_bwd_dw_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16 on TMA and wgmma (d_in and d_out multiples of 8)
+// ---------------------------------------------------------------------------
+
+// K5's forward tile route (moe_gemm_tma_kernel) with its operands turned
+// round: one producer warp keeps a 4-stage ring of 64-deep slices full
+// behind mbarriers, two consumer warpgroups of 64 output rows each run wgmma
+// m64n256k16 with the fp32 sums in registers, persistent blocks take work
+// items t = blockIdx.x, + gridDim.x, ...  A stage holds two 64 x 64 boxes of
+// A (one a warpgroup) and four of B (256 output columns), each 8 KiB with
+// the 128-byte swizzle.  Each consumer warp's results leave through a 16 x
+// 64 tile of shared memory in 16-byte stores, 8 lanes to 128 contiguous
+// bytes of a row (the accumulators' own layout would store 16 bytes a row).
+//  * DW false, dx: A = dy[b] (row tiles of 64, K-major: d_out along a row),
+//    B = w[e_b]^T: a box of w (64 d_out x 64 d_in rows) is 64 rows of B that
+//    are K-major as they land, so four boxes of consecutive d_in rows are
+//    B's 256 columns and wgmma reads B K-major (TB = 0) where the forward
+//    reads it MN-major.  The items are the forward's expert-grouped units
+//    (Walk over pack_schedule's buffer): two 64-row tiles of one expert's
+//    bundles by 256 columns of d_in, walking d_out.
+//  * DW true, dw: A = x[b]^T, a box of x (64 d_in x 64 rows) MN-major (TA =
+//    1); B = dy[b], boxes of 64 d_out x 64 rows MN-major (TB = 1), exactly as
+//    the forward reads w.  An item is (expert, 128 rows of d_in, 256 columns
+//    of d_out), experts outermost, then d_in tiles: the blocks in flight
+//    share the expert's x and dy through L2.  The reduction walks the
+//    expert's bundles in the CSR order of `sched` ([ptr (E + 1) | ids]) and
+//    each bundle's rows in 64-deep slices; TMA zero-fills rows past cap.  An
+//    expert with no bundle has no slice: its tiles are stored as zeros.
+constexpr int kTmaThreads = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int kTmaStages = 4;
+constexpr int kBox = 64 * 64 * 2;               // one 64 x 64 box: 8 KiB
+constexpr int kStage = 2 * kBox + 4 * kBox;     // A: 2 boxes, B: 4 boxes
+// each consumer warp's epilogue tile: 16 rows x 64 columns, rows padded by
+// 16 bytes (the fragments' 4-byte stores and the 16-byte reads both meet
+// every bank once)
+constexpr int kEpiLd = 64 + 8;
+constexpr int kEpiBytes = 8 * 16 * kEpiLd * 2;
+constexpr int kTmaSmem =
+    kTmaStages * kStage + 2 * kTmaStages * 8 + kEpiBytes + 1024;
+constexpr int kTmaCols = 256;                   // output columns of an item
+
+template <bool DW>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+moe_bwd_tma_kernel(const __grid_constant__ CUtensorMap ta,
+                   const __grid_constant__ CUtensorMap tb,
+                   const int* __restrict__ sched, int nb, int groups, int cap,
+                   int d_in, int d_out, long long n_items,
+                   bf16* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t smem = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t bars = smem + kTmaStages * kStage;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kTmaStages + s); };
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kTmaStages; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 8);  // lane 0 of each consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  // dx: the forward's walk, d_in in column tiles; dw: (expert, d_in tile,
+  // d_out tile), `groups` experts
+  Walk walk{sched, sched + nb, sched + 2 * nb, groups, (cap + 63) / 64, 2,
+            (d_in + kTmaCols - 1) / kTmaCols};
+  const int per = (cap + 63) / 64;                 // dw: slices a bundle
+  const int n_m = (d_in + 127) / 128, n_n = (d_out + kTmaCols - 1) / kTmaCols;
+  const int* ids = sched + groups + 1;             // dw: bundles by expert
+
+  // dw's item t: expert, first d_in row, first d_out column, its first
+  // bundle in ids and its slices
+  struct DwItem { int e, m0, n0, first, n_k; };
+  auto dw_item = [&](long long t) {
+    DwItem it;
+    it.e = static_cast<int>(t / (n_m * n_n));
+    const int r = static_cast<int>(t % (n_m * n_n));
+    it.m0 = (r / n_n) * 128;
+    it.n0 = (r % n_n) * kTmaCols;
+    it.first = sched[it.e];
+    it.n_k = (sched[it.e + 1] - it.first) * per;
+    return it;
+  };
+
+  if (tid >= 256) {
+    // producer: one thread keeps the ring full
+    if (tid == 256) {
+      int stage = 0, phase = 0;
+      for (long long t = blockIdx.x; t < n_items; t += gridDim.x) {
+        if constexpr (DW) {
+          const DwItem it = dw_item(t);
+          for (int k = 0; k < it.n_k; ++k) {
+            mbar_wait(empty(stage), phase ^ 1);
+            const uint32_t st = smem + stage * kStage;
+            const int bundle = ids[it.first + k / per];
+            const int row = 64 * (k % per);
+            mbar_expect_tx(full(stage), kStage);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              tma_load_3d(st + i * kBox, &ta, it.m0 + 64 * i, row, bundle,
+                          full(stage));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              tma_load_3d(st + 2 * kBox + j * kBox, &tb, it.n0 + 64 * j, row,
+                          bundle, full(stage));
+            if (++stage == kTmaStages) stage = 0, phase ^= 1;
+          }
+        } else {
+          if (!walk.seek(t)) break;
+          const Item it = item_at(walk, t);
+          for (int k = 0; k < (d_out + 63) / 64; ++k) {
+            mbar_wait(empty(stage), phase ^ 1);
+            const uint32_t st = smem + stage * kStage;
+            mbar_expect_tx(full(stage), it.n_slots * kBox + 4 * kBox);
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              if (i < it.n_slots)
+                tma_load_3d(st + i * kBox, &ta, 64 * k, 64 * it.tile[i],
+                            it.bundle[i], full(stage));
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              tma_load_3d(st + 2 * kBox + j * kBox, &tb, 64 * k,
+                          it.col * kTmaCols + 64 * j, it.expert, full(stage));
+            if (++stage == kTmaStages) stage = 0, phase ^= 1;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows 64 wg .. of the item
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  bf16* epi = reinterpret_cast<bf16*>(smem_raw + (smem - smem_addr(smem_raw)) +
+                                      kTmaStages * kStage + 2 * kTmaStages * 8) +
+              (tid / 32) * 16 * kEpiLd;
+  float acc[128];
+  int stage = 0, phase = 0;
+  for (long long t = blockIdx.x; t < n_items; t += gridDim.x) {
+    int n_k, r, c0, rows, cols;
+    long long o_off;
+    bool live;
+    if constexpr (DW) {
+      const DwItem it = dw_item(t);
+      n_k = it.n_k;
+      r = it.m0 + 64 * wg;                  // rows of dw[e]: d_in
+      c0 = it.n0;
+      rows = d_in;
+      cols = d_out;
+      o_off = static_cast<long long>(it.e) * d_in * d_out;
+      live = r < d_in;
+    } else {
+      if (!walk.seek(t)) break;
+      const Item it = item_at(walk, t);
+      n_k = (d_out + 63) / 64;
+      r = 64 * it.tile[wg];                 // rows of dx[b]: the bundle's
+      c0 = it.col * kTmaCols;
+      rows = cap;
+      cols = d_in;
+      o_off = static_cast<long long>(it.bundle[wg]) * cap * d_in;
+      live = wg < it.n_slots;
+    }
+    if (n_k == 0) {  // dw of an expert with no bundle
+#pragma unroll
+      for (int e = 0; e < 128; ++e) acc[e] = 0.0f;
+    }
+    int prev = 0;
+    for (int k = 0; k < n_k; ++k) {
+      mbar_wait(full(stage), phase);
+      if (live) {
+        const uint32_t st = smem + stage * kStage;
+        fence_operand(acc);
+        wgmma_fence();
+        if constexpr (DW) {
+          // A and B MN-major: 16 deep is 16 rows of 128 bytes, +2048 bytes
+          const uint64_t da = desc_sw128(st + wg * kBox, 8192, 1024);
+          const uint64_t db = desc_sw128(st + 2 * kBox, 8192, 1024);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_bf16_n256<1, 1>(acc, da + 128 * kk, db + 128 * kk,
+                                  (k | kk) != 0);
+        } else {
+          // A and B K-major: 16 deep is 32 bytes along a swizzled row
+          const uint64_t da = desc_sw128(st + wg * kBox, 16, 1024);
+          const uint64_t db = desc_sw128(st + 2 * kBox, 16, 1024);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_bf16_n256<0, 0>(acc, da + 2 * kk, db + 2 * kk,
+                                  (k | kk) != 0);
+        }
+        wgmma_commit();
+        fence_operand(acc);
+        wgmma_wait<1>();  // slice k - 1's products are done
+      }
+      if (k > 0 && lane == 0) mbar_arrive(empty(prev));
+      prev = stage;
+      if (++stage == kTmaStages) stage = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();  // on every path: without rows nothing is outstanding
+    fence_operand(acc);
+    if (n_k > 0 && lane == 0) mbar_arrive(empty(prev));
+    if (!live) continue;
+
+    // acc: warp `warp` holds rows 16 warp + lane / 4 (+ 8) of the warpgroup's
+    // 64, columns 8 j + 2 (lane % 4) (+ 1) in acc[4 j .. 4 j + 3].  Each 64
+    // columns go through the warp's epilogue tile and out in 16-byte stores,
+    // 8 lanes a row: a warp's store writes 4 rows of 128 bytes.
+    const int row0 = r + 16 * warp;
+    bf16* O = out + o_off;
+#pragma unroll
+    for (int q4 = 0; q4 < kTmaCols / 64; ++q4) {
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * q4 + jj;
+        bf16* e = epi + (lane / 4) * kEpiLd + 8 * jj + 2 * (lane % 4);
+        *reinterpret_cast<uint32_t*>(e) = pack_bf16(acc[4 * j], acc[4 * j + 1]);
+        *reinterpret_cast<uint32_t*>(e + 8 * kEpiLd) =
+            pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
+      }
+      __syncwarp();
+#pragma unroll
+      for (int it = 0; it < 4; ++it) {
+        const int rr = 4 * it + lane / 8;
+        const int c = c0 + 64 * q4 + 8 * (lane % 8);  // cols % 8 == 0
+        if (row0 + rr < rows && c < cols)
+          *reinterpret_cast<uint4*>(O + static_cast<long long>(row0 + rr) * cols + c) =
+              *reinterpret_cast<const uint4*>(epi + rr * kEpiLd + 8 * (lane % 8));
+      }
+      __syncwarp();  // the tile is read before the next 64 columns land
+    }
+  }
+}
+
+template <bool DW>
+int launch_tma(const CUtensorMap& ta, const CUtensorMap& tb, const int* sched,
+               int nb, int groups, int cap, int d_in, int d_out,
+               long long n_items, void* out, cudaStream_t stream, int device) {
+  static_assert(kTmaSmem <= 232448, "above the 227 KiB a block may use");
+  int sms = 0;
+  int err = sm_count(device, &sms);
+  if (err) return err;
+  auto* kernel = moe_bwd_tma_kernel<DW>;
+  static std::atomic<int> smem_set[64];
+  cudaError_t e = allow_smem(smem_set, kernel, kTmaSmem, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (n_items == 0) return 0;
+  const int grid = static_cast<int>(std::min<long long>(n_items, sms));
+  kernel<<<grid, kTmaThreads, kTmaSmem, stream>>>(
+      ta, tb, sched, nb, groups, cap, d_in, d_out, n_items,
+      static_cast<bf16*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -493,7 +757,7 @@ extern "C" {
 
 // Launches dx = dy @ w[e_b]^T on `stream`: dy (nb, cap, d_out), w (E, d_in,
 // d_out), dx (nb, cap, d_in); bundle_expert (nb,) on the card; dtype 0 =
-// float32, 1 = bfloat16 (dy, w and dx alike).  The caller has checked
+// float32, 1 = bfloat16 on mma.sync (dy, w and dx alike).  The caller has checked
 // dtypes, shapes (nb <= 65535, cap >= 1, d_in and d_out multiples of 4),
 // 16-byte alignment, contiguity and the expert ids.
 int moe_gemm_bwd_dx(const void* dy, const void* w, const int* bundle_expert,
@@ -550,7 +814,55 @@ int moe_gemm_bwd_dw(const void* x, const void* dy, const int* sched,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Launches dx = dy @ w[e_b]^T in bfloat16 on TMA and wgmma on `stream`: dy
+// (nb, cap, d_out), w (n_experts, d_in, d_out), dx (nb, cap, d_in);
+// `sched` is K5's forward schedule buffer (moe_tma.cuh, above Walk) with
+// n_groups groups and n_units units of its tile route.  d_in and d_out are
+// multiples of 8 and the operands 16-byte aligned (the caller has checked).
+int moe_gemm_bwd_dx_tma(const void* dy, const void* w, const int* sched,
+                        int nb, int n_groups, int cap, int d_in, int d_out,
+                        int n_experts, long long n_units, void* dx,
+                        void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap ta, tb;
+  int e = bf16_map(&ta, dy, d_out, cap, nb, 64, 64);
+  if (!e) e = bf16_map(&tb, w, d_out, d_in, n_experts, 64, 64);
+  if (e) return e;
+  return launch_tma<false>(ta, tb, sched, nb, n_groups, cap, d_in, d_out,
+                           n_units * ((d_in + kTmaCols - 1) / kTmaCols), dx,
+                           static_cast<cudaStream_t>(stream), device);
+}
+
+// Launches dw[e] = sum over e's bundles of x[b]^T @ dy[b] in bfloat16 on TMA
+// and wgmma on `stream`, every element written (zeros for an expert with no
+// bundle): x (nb, cap, d_in), dy (nb, cap, d_out), dw (n_experts, d_in,
+// d_out); `sched` the CSR [ptr (n_experts + 1) | ids (nb)].  Widths and
+// alignment as moe_gemm_bwd_dx_tma's.
+int moe_gemm_bwd_dw_tma(const void* x, const void* dy, const int* sched,
+                        int nb, int n_experts, int cap, int d_in, int d_out,
+                        void* dw, void* stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap ta, tb;
+  int e = bf16_map(&ta, x, d_in, cap, nb, 64, 64);
+  if (!e) e = bf16_map(&tb, dy, d_out, cap, nb, 64, 64);
+  if (e) return e;
+  const long long n_items = static_cast<long long>(n_experts) *
+                            ((d_in + 127) / 128) *
+                            ((d_out + kTmaCols - 1) / kTmaCols);
+  return launch_tma<true>(ta, tb, sched, nb, n_experts, cap, d_in, d_out,
+                          n_items, dw, static_cast<cudaStream_t>(stream),
+                          device);
+}
+
 const char* repro_cuda_error_string(int err) {
+  if (err >= kEncodeFailed) {
+    static thread_local char msg[96];
+    snprintf(msg, sizeof msg, "cuTensorMapEncodeTiled failed (CUresult %d)",
+             err - kEncodeFailed);
+    return msg;
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 

@@ -59,6 +59,9 @@ forward launches K4 as above and whose backward launches the kernels of
 ``csrc/flash_attention_bwd.cu``: a dq pass that rebuilds each row's
 logsumexp and ``D = rowsum(dout ∘ out)``, then a dk/dv pass per kv head
 over its q heads, float32 sums, no atomics (two runs are bit-identical).
+bfloat16 runs FlashAttention-2's two passes on the tensor cores
+(``mma.sync`` m16n8k16, P and dS rounded to bfloat16 once as the A
+operands of their products, head dims 16-256); float32 runs IEEE FMAs.
 It replaces the XLA autodiff of the reference's ``flash_attention_jnp``,
 which the reference's models train through (the reference has no backward
 Pallas kernel).  Bound: five S × S × D products per head, half of them
@@ -471,8 +474,9 @@ def _k4_bwd_lib() -> ctypes.CDLL:
 
 def _k4_bwd_launch(q, k, v, out, dout, *, causal, window, softcap, scale):
     """K4's backward on the card: ``(dq, dk, dv)`` in the inputs' dtype.
-    Scratch: each row's logsumexp and ``rowsum(dout * out)`` in float32,
-    which the kernel rebuilds (the forward saves neither)."""
+    Scratch: each row's logsumexp (natural units in float32, log2 units in
+    bfloat16) and ``rowsum(dout * out)`` in float32, which the dq pass
+    rebuilds (the forward saves neither) for the dk/dv pass."""
     b, h, s, d = q.shape
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if not q.numel():

@@ -72,12 +72,19 @@ transpose, no transposed copy) and ``dw[e] = Σ_{b: e_b = e} x[b]ᵀ dy[b]``
 (one writer per output tile walking its expert's bundles in a fixed order,
 fp32 sums, zeros for an expert with no bundle; no atomics).  dw walks the
 CSR ``bwd_schedule`` of the ids: ``[ptr (E + 1) | bundles by expert
-(nb)]``, kept on a schedule bundle as the forward's buffer is.  It replaces
-the XLA autodiff of the reference's expert einsums
-(``src/repro/models/moe.py:313-317``; the reference has no backward Pallas
-kernel).  Its plain version is ``moe_gemm_bwd_plain``.
+(nb)]``, kept on a schedule bundle as the forward's buffer is.  bfloat16
+takes one of two routes, picked by ``bwd_route`` from the widths:
+``wgmma`` (d_in and d_out multiples of 8, every cap) is K5's forward tile
+route turned round, TMA-fed ``wgmma`` m64n256k16 on persistent blocks: dx
+walks the forward's expert-grouped units (``pack_schedule``; ``tile_order``
+with d_in's column tiles), dw owns (expert, 128 × 256) tiles, experts
+outermost, each walking its expert's bundles in ``bwd_schedule``'s order;
+``mma_sync`` (other widths) is ``mma.sync`` on 8-byte ``cp.async`` copies.  It replaces the XLA autodiff of the reference's
+expert einsums (``src/repro/models/moe.py:313-317``; the reference has no
+backward Pallas kernel).  Its plain version is ``moe_gemm_bwd_plain``.
 ``moe_gemm_bwd.launches`` counts the calls that launched it,
-``moe_gemm_bwd.routes`` the launches of each entry (``dx``, ``dw``).
+``moe_gemm_bwd.routes`` the launches of each entry (``dx``, ``dw``) and
+``moe_gemm_bwd.bf16_routes`` the bfloat16 calls by route.
 """
 from __future__ import annotations
 
@@ -112,6 +119,16 @@ def bf16_route(cap: int, d_in: int, d_out: int) -> str:
     if d_in % 8 or d_out % 8:
         return "mma_sync"
     return "wgmma_decode" if cap <= DECODE_ROWS else "wgmma_tiles"
+
+
+def bwd_route(d_in: int, d_out: int) -> str:
+    """The kernels a bfloat16 backward call of these widths takes: ``wgmma``
+    (TMA-fed, d_in and d_out multiples of 8, any cap) or, where TMA's
+    16-byte row strides rule it out, ``mma_sync``.  The cap does not choose:
+    at decode-sized caps both entries are bound by bytes (dx reading w, dw
+    writing it), which the TMA ring moves as fast as ``cp.async`` does
+    (``scripts/card_studies.py k5-bwd-routes``)."""
+    return "mma_sync" if d_in % 8 or d_out % 8 else "wgmma"
 
 
 def pack_schedule(be: np.ndarray, grouped: bool = True):
@@ -218,9 +235,13 @@ def _lib(entry: str = "moe_gemm") -> ctypes.CDLL:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     args = [p, p, p, i, i, i, i, i, p, p, i]
     _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dx", args)
+    _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dx_tma",
+                [p, p, p, i, i, i, i, i, i, q, p, p, i])
+    _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dw_tma",
+                [p, p, p, i, i, i, i, i, p, p, i])
     return _build.bind("moe_gemm_bwd", "moe_gemm_bwd_dw", args)
 
 
@@ -316,9 +337,11 @@ def _k5(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray
 def _k5_bwd(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
             dy: torch.Tensor, need_dx: bool = True, need_dw: bool = True):
     """K5's backward on the card: ``(dx, dw)`` in x's dtype, either None
-    where it is not needed.  dx is one launch of ``moe_gemm_bwd_dx`` (none
-    where it is empty); dw one of ``moe_gemm_bwd_dw``, which writes every
-    element (zeros for an expert with no bundle)."""
+    where it is not needed.  dx is one launch of its entry (none where it is
+    empty); dw one of its, which writes every element (zeros for an expert
+    with no bundle).  bfloat16 takes ``bwd_route``'s kernels: on ``wgmma``
+    dx walks the forward's schedule buffer (the tile route's units), dw the
+    CSR ``bwd_schedule``."""
     nb, cap, d_in = x.shape
     n_experts, _, d_out = w.shape
     _check_operands("K5's backward", x.device, nb, d_in, d_out, x, w, dy)
@@ -329,28 +352,45 @@ def _k5_bwd(x: torch.Tensor, w: torch.Tensor, bundle_expert, be: np.ndarray,
         raise ValueError(f"dy must be ({nb}, {cap}, {d_out}) of x's dtype, "
                          f"got {tuple(dy.shape)} {dy.dtype}")
     dev, code = x.device, _DTYPE_CODE[x.dtype]
+    tma = code == 1 and bwd_route(d_in, d_out) == "wgmma"
     dx = torch.empty_like(x) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
     launched = False
     if need_dx and dx.numel():
         lib = _bwd_lib()
-        sched = _device_schedule(bundle_expert, be, dev)[0]
-        err = lib.moe_gemm_bwd_dx(dy.data_ptr(), w.data_ptr(),
-                                  sched.data_ptr(), nb, cap, d_in, d_out,
-                                  code, dx.data_ptr(), *launch_target(dev))
+        sched, host, n_groups = _device_schedule(bundle_expert, be, dev)
+        if tma:
+            err = lib.moe_gemm_bwd_dx_tma(
+                dy.data_ptr(), w.data_ptr(), sched.data_ptr(), nb, n_groups,
+                cap, d_in, d_out, n_experts,
+                _units(host, nb, "wgmma_tiles", cap), dx.data_ptr(),
+                *launch_target(dev))
+        else:
+            err = lib.moe_gemm_bwd_dx(dy.data_ptr(), w.data_ptr(),
+                                      sched.data_ptr(), nb, cap, d_in, d_out,
+                                      code, dx.data_ptr(), *launch_target(dev))
         _build.check_launch(lib, err, "moe_gemm_bwd_dx")
         moe_gemm_bwd.routes["dx"] = moe_gemm_bwd.routes.get("dx", 0) + 1
         launched = True
     if need_dw and dw.numel():
         lib = _bwd_lib()
         sched = _device_bwd_schedule(bundle_expert, be, n_experts, dev)
-        err = lib.moe_gemm_bwd_dw(x.data_ptr(), dy.data_ptr(),
-                                  sched.data_ptr(), n_experts, cap, d_in,
-                                  d_out, code, dw.data_ptr(),
-                                  *launch_target(dev))
+        if tma:
+            err = lib.moe_gemm_bwd_dw_tma(
+                x.data_ptr(), dy.data_ptr(), sched.data_ptr(), nb, n_experts,
+                cap, d_in, d_out, dw.data_ptr(), *launch_target(dev))
+        else:
+            err = lib.moe_gemm_bwd_dw(x.data_ptr(), dy.data_ptr(),
+                                      sched.data_ptr(), n_experts, cap, d_in,
+                                      d_out, code, dw.data_ptr(),
+                                      *launch_target(dev))
         _build.check_launch(lib, err, "moe_gemm_bwd_dw")
         moe_gemm_bwd.routes["dw"] = moe_gemm_bwd.routes.get("dw", 0) + 1
         launched = True
+    if launched and code == 1:
+        route = "wgmma" if tma else "mma_sync"
+        moe_gemm_bwd.bf16_routes[route] = \
+            moe_gemm_bwd.bf16_routes.get(route, 0) + 1
     moe_gemm_bwd.launches += launched
     return dx, dw
 
@@ -464,6 +504,7 @@ def moe_gemm_bwd(x_bundles: torch.Tensor, w: torch.Tensor, bundle_expert,
 
 moe_gemm_bwd.launches = 0
 moe_gemm_bwd.routes = {}
+moe_gemm_bwd.bf16_routes = {}
 moe_gemm_bwd.uploads = 0
 
 

@@ -16,7 +16,12 @@ against ``repro``.
 * K4's backward as the CPU runs it (autograd through the plain version;
   ``flash_attention_bwd`` on CPU tensors) against ``jax.vjp`` of
   ``flash_attention_jnp``, and the one guard of the kernels without a
-  backward (``_build.refuse_grad``).
+  backward (``_build.refuse_grad``);
+* the arithmetic of K4's bfloat16 backward kernels (P and dS rounded to
+  bfloat16 once, as the A operands of their products; D from the forward's
+  bfloat16 output; every sum in float32), written in plain torch here,
+  against ``jax.vjp`` of ``flash_attention_jnp`` at every head dim: the
+  design keeps dq, dk and dv within the card's 5e-3 relative norm.
 """
 import numpy as np
 import pytest
@@ -243,6 +248,57 @@ class TestBackward:
     def test_no_grad_needed_no_graph(self):
         q, k, v = (torch.from_numpy(x) for x in _qkv(1, 1, 2, 2, 32, 16))
         assert not pops.flash_attention(q, k, v).requires_grad
+
+
+def _bf16_design_bwd(q, k, v, dout, causal=True, window=0, softcap=0.0):
+    """dq, dk, dv as ``csrc/flash_attention_bwd.cu``'s bfloat16 kernels
+    round them: bfloat16 inputs and out, P and dS rounded to bfloat16 before
+    the products they feed, float32 sums, each result rounded once."""
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, dout))
+    kr, vr = kf.repeat_interleave(g, 1), vf.repeat_interleave(g, 1)
+    x = qf @ kr.transpose(-1, -2) * d ** -0.5
+    if softcap > 0.0:
+        x = softcap * torch.tanh(x / softcap)
+    mask = PF.attention_mask(s, causal=causal, window=window, device="cpu")
+    lse = torch.logsumexp(torch.where(mask, x, torch.tensor(-1e30)), -1,
+                          keepdim=True)
+    p = torch.where(mask, torch.exp(x - lse), torch.zeros(()))
+    out = (p @ vr).to(torch.bfloat16).float()
+    dlog = d ** -0.5 * (1 - (x / softcap) ** 2) if softcap > 0.0 \
+        else d ** -0.5
+    ds = (p * (gf @ vr.transpose(-1, -2) - (gf * out).sum(-1, keepdim=True))
+          * dlog).to(torch.bfloat16).float()
+    pb = p.to(torch.bfloat16).float()
+
+    def per_kv(t):
+        return t.reshape(b, k.shape[1], g, s, d).sum(2)
+
+    return [t.to(torch.bfloat16) for t in (
+        ds @ kr, per_kv(ds.transpose(-1, -2) @ qf),
+        per_kv(pb.transpose(-1, -2) @ gf))]
+
+
+@pytest.mark.parametrize("b,h,hkv,s,d,spec", [
+    (2, 4, 2, 300, 16, dict(window=32)),
+    (1, 4, 2, 300, 32, dict(window=16)),
+    (1, 10, 2, 257, 64, dict(window=100)),
+    (2, 4, 2, 200, 128, dict()),
+    (1, 4, 2, 160, 128, dict(window=64, softcap=50.0)),
+    (1, 4, 2, 130, 256, dict(window=4096, softcap=50.0)),
+    (2, 2, 2, 96, 64, dict(causal=False))])
+def test_bf16_backward_design_within_the_card_limit(b, h, hkv, s, d, spec):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16)
+               for x in _qkv(s + d, b, h, hkv, s, d))
+    dout = torch.from_numpy(np.random.default_rng(d).standard_normal(
+        q.shape).astype(np.float32)).to(torch.bfloat16)
+    _, vjp = jax.vjp(lambda *a: RA.flash_attention_jnp(
+        *a, RA.AttnSpec(**spec)), *(t.float().numpy() for t in (q, k, v)))
+    want = vjp(jnp.asarray(dout.float().numpy()))
+    for g, w in zip(_bf16_design_bwd(q, k, v, dout, **spec), want):
+        w = torch.from_numpy(np.array(w, np.float32))
+        assert ((g.float() - w).norm() / w.norm()).item() <= 5e-3
 
 
 def test_refuse_grad_raises_only_when_a_gradient_is_asked_for():

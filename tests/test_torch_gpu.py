@@ -994,6 +994,10 @@ K4_BWD_F32_TOL = 1e-4
     (1, 8, 4, 128, 1000, dict(window=256, softcap=50.0)),
     (2, 4, 4, 64, 130, dict(causal=False)),
     (2, 2, 1, 256, 130, dict(causal=False, scale=0.2)),
+    (2, 25, 5, 64, 2048, dict(window=1024)),      # hymba-1.5b training
+    (1, 4, 2, 256, 333, dict(window=100)),        # D 256: both column halves
+    (1, 6, 2, 128, 77, dict(softcap=30.0, window=20)),
+    (3, 2, 1, 16, 65, dict(causal=False, window=8)),
 ])
 def test_k4_backward_matches_plain_autograd(cuda, dtype, b, h, hkv, d, s,
                                             kw):
@@ -1022,10 +1026,11 @@ def test_k4_backward_matches_plain_autograd(cuda, dtype, b, h, hkv, d, s,
             assert err <= K4_BF16_REL_NORM, err
 
 
-def test_k4_autograd_runs_both_kernels(cuda):
-    q, k, v = (_randn(cuda, i, 2, n, 200, 64).requires_grad_(True)
-               for i, n in ((1, 4), (2, 2), (3, 2)))
-    dout = _randn(cuda, 4, 2, 4, 200, 64)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k4_autograd_runs_both_kernels(cuda, dtype):
+    q, k, v = (_randn(cuda, i, 2, n, 200, 64, dtype=dtype).requires_grad_(
+        True) for i, n in ((1, 4), (2, 2), (3, 2)))
+    dout = _randn(cuda, 4, 2, 4, 200, 64, dtype=dtype)
     from repro_torch.kernels import flash_attention as FA
     f0, b0 = FA.flash_attention.launches, FA.flash_attention_bwd.launches
     out = flash_attention(q, k, v, window=64)
@@ -1068,12 +1073,17 @@ K5_BWD_REL_NORM = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
     (4, 24, 64, 64, 4, None), (3, 131, 36, 260, 4, None),
     (6, 8, 7168, 2048, 8, None), (5, 1, 64, 64, 6, [5, 5, 0, 2, 5]),
     (8, 80, 128, 256, 5, [1, 1, 1, 1, 3, 3, 0, 0]),
-    (4, 320, 256, 512, 2, [1, 0, 1, 0])])
+    (4, 320, 256, 512, 2, [1, 0, 1, 0]),
+    (20, 200, 384, 512, 6, None),          # bundles not a multiple of E
+    (5, 70, 72, 264, 3, [2, 2, 0, 2, 0]),  # widths ragged against the tiles
+    (7, 129, 260, 36, 3, None)])           # d_out not a multiple of 8
 def test_k5_backward_matches_plain(cuda, dtype, nb, cap, din, dout, e, be):
     """dx and dw against ``moe_gemm_bwd_plain``: ragged and tiny caps,
     widths not a multiple of 8, kimi-k2's widths, an expert with no bundle
-    and repeated experts; two runs bit-identical."""
-    from repro_torch.kernels.moe_gemm import moe_gemm_bwd, moe_gemm_bwd_plain
+    and repeated experts; two runs bit-identical; a bfloat16 call on
+    ``bwd_route``'s kernels (``moe_gemm_bwd.bf16_routes``)."""
+    from repro_torch.kernels.moe_gemm import (bwd_route, moe_gemm_bwd,
+                                              moe_gemm_bwd_plain)
     rng = np.random.default_rng(nb * cap + din)
     x, dy = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
         cuda, dtype) for s in ((nb, cap, din), (nb, cap, dout)))
@@ -1082,9 +1092,13 @@ def test_k5_backward_matches_plain(cuda, dtype, nb, cap, din, dout, e, be):
     be = rng.integers(0, e, nb).astype(np.int32) if be is None \
         else np.asarray(be, np.int32)
     before = moe_gemm_bwd.launches
+    r0 = dict(moe_gemm_bwd.bf16_routes)
     got = moe_gemm_bwd(x, w, be, dy)
     again = moe_gemm_bwd(x, w, be, dy)
     assert moe_gemm_bwd.launches == before + 2
+    assert {k: n - r0.get(k, 0) for k, n in moe_gemm_bwd.bf16_routes.items()
+            if n - r0.get(k, 0)} == ({bwd_route(din, dout): 2}
+                                     if dtype == torch.bfloat16 else {})
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = moe_gemm_bwd_plain(x, w, torch.from_numpy(be).to(cuda), dy)
     for g, ref in zip(got, want):
@@ -1111,6 +1125,7 @@ def test_k5_autograd_runs_forward_and_backward_kernels(cuda):
         xl, wl = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
         f0, b0 = K5.moe_gemm.launches, K5.moe_gemm_bwd.launches
         r0 = dict(K5.moe_gemm_bwd.routes)
+        t0 = dict(K5.moe_gemm_bwd.bf16_routes)
         out = moe_gemm(xl, wl, be)
         with torch.no_grad():
             assert torch.equal(out, moe_gemm(x, w, be))
@@ -1119,6 +1134,9 @@ def test_k5_autograd_runs_forward_and_backward_kernels(cuda):
             == (2, 1)
         assert {k: v - r0.get(k, 0) for k, v in
                 K5.moe_gemm_bwd.routes.items()} == {"dx": 1, "dw": 1}
+        assert {k: v - t0.get(k, 0) for k, v in
+                K5.moe_gemm_bwd.bf16_routes.items() if v - t0.get(k, 0)} \
+            == ({"wgmma": 1} if dtype == torch.bfloat16 else {})
         want = K5.moe_gemm_bwd(x, w, be, dy)
         assert all(torch.equal(g, v) for g, v in zip(grads, want))
         (dw,) = torch.autograd.grad(moe_gemm(x, wl, be), (wl,), dy)

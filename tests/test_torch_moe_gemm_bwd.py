@@ -14,7 +14,12 @@
   under reduced dbrx-132b and kimi-k2 (shared experts) with remat: three
   products a layer, each twice forward and once backward, the router and
   the shared experts reached;
-* AdamW's sliced update bit-equal to the whole-leaf one.
+* AdamW's sliced update bit-equal to the whole-leaf one;
+* the bfloat16 routes on the host: ``bwd_route`` at every shape of
+  ``chip_smoke.py``'s phase 36, and ``_k5_bwd`` driven on CPU tensors with
+  a stand-in for the kernel library that records each launch: dx walks the
+  forward's schedule buffer, groups and units, dw the CSR
+  ``bwd_schedule``, and ``moe_gemm_bwd.bf16_routes`` counts each call.
 
 Tolerances: float32 within 1e-5 in relative norm ‖Δ‖ ≤ 1e-5 ‖ref‖ (both
 sum in float32, in another order); bfloat16 within 5e-3, K4's backward's
@@ -310,3 +315,132 @@ def test_slices_cover_a_dbrx_expert_stack_in_bounded_pieces():
     assert max(sizes) == PA.SLICE_ELEMENTS and sum(sizes) == p.numel()
     assert len(pieces) == -(-p.numel() // PA.SLICE_ELEMENTS)
     assert all(len({t.numel() for t in piece}) == 1 for piece in pieces)
+
+
+# -- the bfloat16 routes (bwd_route, the launches' arguments) -----------------
+
+# chip_smoke.py's K5_BWD_CASES (phase 36): (label, nb, cap, d_in, d_out, E,
+# the bfloat16 route)
+PHASE_36 = [
+    ("dbrx-132b training, gate and up", 32, 320, 6144, 10752, 16, "wgmma"),
+    ("dbrx-132b training, down", 32, 320, 10752, 6144, 16, "wgmma"),
+    ("dbrx-132b widths, cap 8", 16, 8, 6144, 10752, 16, "wgmma"),
+    ("kimi-k2 widths, cap 24", 16, 24, 7168, 2048, 8, "wgmma"),
+    ("reduced configs, width 64, cap 40", 8, 40, 64, 64, 4, "wgmma"),
+    ("widths 36 / 260, cap 131", 3, 131, 36, 260, 4, "mma_sync"),
+    ("expert 4 without a bundle", 6, 64, 256, 512, 5, "wgmma"),
+    ("one expert, repeated", 8, 48, 512, 256, 4, "wgmma"),
+    ("20 bundles over 6 experts", 20, 200, 384, 512, 6, "wgmma")]
+
+
+@pytest.mark.parametrize("label,nb,cap,d_in,d_out,e,route", PHASE_36,
+                         ids=[c[0] for c in PHASE_36])
+def test_bwd_route_at_phase_36_shapes(label, nb, cap, d_in, d_out, e, route):
+    assert PK.bwd_route(d_in, d_out) == route
+
+
+@pytest.mark.parametrize("d_in,d_out,route", [
+    (64, 64, "wgmma"), (36, 64, "mma_sync"), (64, 36, "mma_sync"),
+    (260, 36, "mma_sync"), (72, 264, "wgmma")])
+def test_bwd_route_is_set_by_the_widths_alone(d_in, d_out, route):
+    assert PK.bwd_route(d_in, d_out) == route
+
+
+class _RecordingLib:
+    """Stands in for the kernel libraries: each entry records its arguments
+    and returns 0 (no error)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        if not name.startswith("moe_gemm"):
+            raise AttributeError(name)
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def recording(monkeypatch):
+    lib = _RecordingLib()
+    monkeypatch.setattr(PK, "_lib", lambda entry="moe_gemm": lib)
+    monkeypatch.setattr(PK, "_bwd_lib", lambda: lib)
+    monkeypatch.setattr(PK, "launch_target", lambda device: (0, 0))
+    return lib
+
+
+def _bundle_problem(seed, cap, d_in=64, d_out=96, dtype=torch.bfloat16):
+    from repro_torch.core.rir import ScheduleBundle
+    rng = np.random.default_rng(seed)
+    e = int(rng.integers(2, 7))
+    be = rng.integers(0, e, int(rng.integers(2, 12))).astype(np.int32)
+    nb = be.size
+    x, dy = (torch.zeros(s, dtype=dtype) for s in ((nb, cap, d_in),
+                                                   (nb, cap, d_out)))
+    w = torch.zeros((e, d_in, d_out), dtype=dtype)
+    return ScheduleBundle("moe_dispatch", {"bundle_expert": be}), be, x, w, dy
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("cap", [40, 320])
+def test_dx_walks_the_forward_schedule(recording, seed, cap):
+    """At cap > 32 the forward takes its tile route: dx is launched on the
+    very buffer the forward read (kept on the schedule bundle), with its
+    group and unit counts; dw on the CSR walk of the same map."""
+    bundle, be, x, w, dy = _bundle_problem(seed, cap)
+    out = torch.empty((x.shape[0], cap, w.shape[2]), dtype=x.dtype)
+    PK._launch(x, w, bundle, be, out)
+    r0 = dict(PK.moe_gemm_bwd.bf16_routes)
+    PK._k5_bwd(x, w, bundle, be, dy)
+    (fwd, f), (dx, a), (dw, b) = recording.calls
+    assert (fwd, dx, dw) == ("moe_gemm_bf16_tma", "moe_gemm_bwd_dx_tma",
+                             "moe_gemm_bwd_dw_tma")
+    assert f[10] == PK._TMA_ROUTES["wgmma_tiles"]
+    # (sched, nb, n_groups, cap, d_in, d_out, E, n_units): the forward's
+    assert a[2:10] == f[2:10]
+    buf = bundle.__dict__["_device_schedule"]["cpu"][0]
+    assert a[2] == buf.data_ptr()
+    assert np.array_equal(buf.numpy(), PK.pack_schedule(be)[0])
+    csr = bundle.__dict__["_device_bwd_schedule"][("cpu", w.shape[0])]
+    assert b[2] == csr.data_ptr()
+    assert np.array_equal(csr.numpy(), PK.bwd_schedule(be, w.shape[0]))
+    assert b[3:8] == (be.size, w.shape[0], cap, 64, 96)
+    assert {k: n - r0.get(k, 0) for k, n in
+            PK.moe_gemm_bwd.bf16_routes.items()
+            if n - r0.get(k, 0)} == {"wgmma": 1}
+
+
+@pytest.mark.parametrize("seed", range(3))
+@pytest.mark.parametrize("cap", [1, 8, 24])
+def test_dx_walks_tile_units_at_decode_caps(recording, seed, cap):
+    """At cap <= 32 the forward decodes, but dx still walks the tile route's
+    units over the same buffer: every (bundle, 64-row tile, 256 columns of
+    d_in) once."""
+    bundle, be, x, w, dy = _bundle_problem(seed, cap, d_in=600, d_out=72)
+    PK._k5_bwd(x, w, bundle, be, dy, need_dw=False)
+    ((name, a),) = recording.calls
+    host = bundle.__dict__["_device_schedule"]["cpu"][1]
+    assert name == "moe_gemm_bwd_dx_tma"
+    assert a[4] == PK.pack_schedule(be)[1]
+    assert a[9] == PK._units(host, be.size, "wgmma_tiles", cap)
+    items = PK.tile_order(host, be.size, "wgmma_tiles", cap, 600)
+    seen = [(bb, r, c) for _, c, unit in items for bb, r in unit]
+    assert sorted(seen) == [(bb, 0, c) for bb in range(be.size)
+                            for c in range(3)]
+    assert a[9] * 3 == len(items)
+
+
+@pytest.mark.parametrize("dtype,d_in,d_out,entries,routes", [
+    (torch.bfloat16, 36, 260, ("moe_gemm_bwd_dx", "moe_gemm_bwd_dw"),
+     {"mma_sync": 1}),
+    (torch.float32, 64, 96, ("moe_gemm_bwd_dx", "moe_gemm_bwd_dw"), {})])
+def test_other_widths_and_float32_take_the_cp_async_kernels(
+        recording, dtype, d_in, d_out, entries, routes):
+    bundle, be, x, w, dy = _bundle_problem(7, 40, d_in, d_out, dtype)
+    r0 = dict(PK.moe_gemm_bwd.bf16_routes)
+    PK._k5_bwd(x, w, bundle, be, dy)
+    assert tuple(n for n, _ in recording.calls) == entries
+    assert all(args[7] == PK._DTYPE_CODE[dtype]
+               for _, args in recording.calls)
+    assert {k: n - r0.get(k, 0) for k, n in
+            PK.moe_gemm_bwd.bf16_routes.items()
+            if n - r0.get(k, 0)} == routes
