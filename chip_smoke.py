@@ -250,7 +250,10 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    (B 2, H 32, K = V = 64, learned u), at T 2048 (chunk 64) and T 2016
    (chunk 32), with and without a dstate, float32 within 1e-4 and bfloat16
    r, k, v within 5e-3 in relative norm for each gradient, each case run
-   twice and the two bit-identical; extreme decays (1e-6, 1 - 1e-6); then
+   twice and the two bit-identical, each on the route ``bwd_route`` names
+   (bfloat16: ``"mma"``, the tensor-core route; float32: ``"fma"``, the
+   first design), counted in ``rwkv6_bwd.routes``; extreme decays (1e-6,
+   1 - 1e-6) in float32 at hymba's heads and in bfloat16 at both; then
    K4's backward at hymba-1.5b's training shape (B 2, 25 / 5 heads of 64,
    window 1024, S 2048), as phase 27;
 33. in situ — rwkv6-1.6b and hymba-1.5b at full width, 2 layers, float32
@@ -261,12 +264,14 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    1.68 B params) and hymba-1.5b (32 layers) at full width and depth, 10
    steps of batch 2 x 2048 each, each in a child process (``--train-full
    ARCH``), as phase 29: rwkv6 launches K6 48 and its backward 24 times a
-   step, hymba K6 and K4 64 and their backward kernels 32 times a step;
+   step, hymba K6 and K4 64 and their backward kernels 32 times a step,
+   every K6 backward call on the ``"mma"`` route;
 35. times — K6's backward at the two training shapes (bfloat16 r, k, v,
-   float32 w, no dstate) by CUDA events, beside its bound (the FLOP of
-   ``k6_bwd_flop`` at the bf16 peak, against its inputs read once and its
-   outputs written once: bytes-bound), the design's FLOP at the fp32 peak,
-   its plain version and K6's forward;
+   float32 w, no dstate) by CUDA events on the ``"mma"`` route, beside its
+   bound (the FLOP of ``k6_bwd_flop`` at the bf16 peak, against its inputs
+   read once and its outputs written once: bytes-bound), the first design
+   (the ``"fma"`` route) on the same inputs, which it must beat, its plain
+   version and K6's forward;
 36. kernel against plain — K5's backward (``moe_gemm_bwd``: dx, dw)
    against its plain version (``moe_gemm_bwd_plain``) at ``K5_BWD_CASES``:
    dbrx-132b's training bundles (32 of cap 320, 6144 -> 10752 and 10752 ->
@@ -822,7 +827,8 @@ PORT_KERNEL_NAMES = {
     "K3": ("block_attn_",), "K4": ("flash_attn_",),
     "K4 backward": ("attn_bwd_",), "K5": ("moe_gemm_",),
     "K6": ("chunk_local_kernel", "state_scan_kernel", "inter_chunk_kernel"),
-    "K6 backward": ("bwd_local_kernel", "bwd_scan_kernel", "bwd_inter_kernel",
+    "K6 backward": ("bwd_mma_prep_kernel", "bwd_mma_chunk_kernel",
+                    "bwd_local_kernel", "bwd_scan_kernel", "bwd_inter_kernel",
                     "bwd_du_kernel"),
     "K5 backward": ("moe_bwd_dx_", "moe_bwd_dw_", "moe_bwd_tma_kernel<false>",
                     "moe_bwd_tma_kernel<true>")}
@@ -3627,23 +3633,31 @@ def k6_backward_against_plain(dev) -> tuple:
     hymba-1.5b's training shape (``K4_BWD_HYMBA``).  Returns the worst max
     abs errors of K6's and of K4's backward."""
     import torch
-    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd, rwkv6_bwd_plain
+    from repro_torch.kernels.rwkv6_scan import (bwd_route, rwkv6_bwd,
+                                                rwkv6_bwd_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(120)
 
     def run(name, args, chunk, dtype, reading=False):
         r, k, v, w, u, do, ds = args
+        want_route = "mma" if dtype == torch.bfloat16 else "fma"
+        r0 = dict(rwkv6_bwd.routes)
         got = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
         again = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
         torch.cuda.synchronize()
+        routes = {x: n - r0.get(x, 0) for x, n in rwkv6_bwd.routes.items()
+                  if n != r0.get(x, 0)}
         same = all(torch.equal(x, y) for x, y in zip(got, again))
         ok = same and all(g.dtype == x.dtype
-                          for g, x in zip(got, (r, k, v, w, u)))
+                          for g, x in zip(got, (r, k, v, w, u))) \
+            and routes == {want_route: 2} \
+            and bwd_route(r.dtype, r.shape[-1], chunk) == want_route
         emit(phase="check", case=f"K6 backward {name}, two runs",
              bit_identical=same, dtypes=[str(g.dtype)[6:] for g in got],
-             ok=ok)
-        check(ok, f"K6's backward: two runs differ, or a gradient is not "
-              f"in its input's dtype ({name})")
+             routes=routes, ok=ok)
+        check(ok, f"K6's backward: two runs differ, a gradient is not in "
+              f"its input's dtype, or the calls took {routes}, not "
+              f"{want_route} ({name})")
         want = k6_bwd_plain64(r, k, v, w, u, do, ds, chunk)
         err = compare_k6_grads(name, got, want, dtype)
         if reading:
@@ -3676,6 +3690,14 @@ def k6_backward_against_plain(dev) -> tuple:
             f"chunk 64, w = {w_val}", k6_bwd_inputs(
                 gen, dev, 1, 25, 256, 16, 64, torch.float32, False, w_val),
             64, torch.float32))
+    # the mma route at the extreme decays, at both training heads
+    for label, (_, h, kk, vv, u_zero) in K6_BWD_HEADS.items():
+        for w_val in (1e-6, 1 - 1e-6):
+            worst = max(worst, run(
+                f"{label} bfloat16: B=1, H={h}, K={kk}, V={vv}, T=256, "
+                f"chunk 64, w = {w_val}", k6_bwd_inputs(
+                    gen, dev, 1, h, 256, kk, vv, torch.bfloat16, u_zero,
+                    w_val), 64, torch.bfloat16))
     return worst, k4_backward_cases(dev, K4_BWD_HYMBA, 121)
 
 
@@ -3800,6 +3822,7 @@ def train_full(arch: str = QWEN3) -> int:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.kernels import moe_gemm as K5
+    from repro_torch.kernels import rwkv6_scan as RK
     from repro_torch.launch import train
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models import model as M
@@ -3826,6 +3849,7 @@ def train_full(arch: str = QWEN3) -> int:
         fn.routes.clear()
         fn.uploads = 0
     K5.moe_gemm_bwd.bf16_routes.clear()
+    RK.rwkv6_bwd.routes.clear()
     t0 = time.perf_counter()
     hist = train.train(cfg, train.parse_args(argv)) if cut \
         else train.main(argv)
@@ -3835,6 +3859,8 @@ def train_full(arch: str = QWEN3) -> int:
     routes = {"moe_gemm": dict(K5.moe_gemm.routes),
               "moe_gemm_bwd": dict(K5.moe_gemm_bwd.routes),
               "moe_gemm_bwd_bf16": dict(K5.moe_gemm_bwd.bf16_routes)}
+    # every K6 backward call of a training path takes the mma route
+    k6_routes = dict(RK.rwkv6_bwd.routes)
     # the in-graph expert map is one object per shape: K5's schedule and
     # its backward's CSR walk are each uploaded once in the whole run
     uploads = {"moe_gemm": K5.moe_gemm.uploads,
@@ -3853,13 +3879,16 @@ def train_full(arch: str = QWEN3) -> int:
         and not any(plain.values()) \
         and set(uploads.values()) == {int(cfg.ffn == "moe")} \
         and (cfg.ffn != "moe" or routes["moe_gemm_bwd_bf16"]
-             == {"wgmma": launches["moe_gemm_bwd"]})
+             == {"wgmma": launches["moe_gemm_bwd"]}) \
+        and k6_routes == ({"mma": launches["rwkv6_bwd"]}
+                          if launches["rwkv6_bwd"] else {})
     emit(phase="main_path", case=f"{arch} train CLI, full width, "
          + (f"depth cut to {cfg.n_layers}" if cut else "full depth"),
          arch=arch, argv=argv, steps=steps, n_layers=cfg.n_layers,
          n_params=n_params, training_state_bytes=state_bytes,
          param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
-         k5_routes=routes, k5_schedule_uploads=uploads, losses=losses,
+         k5_routes=routes, k6_bwd_routes=k6_routes,
+         k5_schedule_uploads=uploads, losses=losses,
          first_step_s=hist[0]["dt"],
          step_s_p50=float(np.median(dts)),
          step_s_p99=float(np.percentile(dts, 99)),
@@ -3869,7 +3898,7 @@ def train_full(arch: str = QWEN3) -> int:
          plain_calls=plain, cli_s=wall, ok=ok, card=card)
     check(ok, f"{arch} training: losses {losses[0]} -> {losses[-1]}, "
           f"launches {launches}, plain {plain}, K5 uploads {uploads}, "
-          f"routes {routes}")
+          f"routes {routes}, K6 backward routes {k6_routes}")
     # the busy share of one warm step on a fresh state of the same size
     # (the CLI's state is freed: at dbrx-132b two would not fit)
     del hist
@@ -4028,8 +4057,8 @@ def k6_bwd_flop(b: int, h: int, t: int, kk: int, vv: int, chunk: int,
     2 per channel), the pairs s <= t for dA and A^T do (2 + 2 per column),
     and 10 C K V for Q, U, do S^T, v G^T and (k e^{L - cum}) G.  dw then
     needs O(T K) from dr and dk.  ``design`` adds the 4 per pair and channel
-    of the kernel's own dw recurrence (csrc/rwkv6_scan_bwd.cu, step d),
-    which the function does not need."""
+    of the first design's dw recurrence (the "fma" route of
+    csrc/rwkv6_scan_bwd.cu), which the function does not need."""
     c = chunk
     per_pair = (10 if design else 6) * kk
     per_chunk = c * (c - 1) // 2 * per_pair + c * (c + 1) * 2 * vv \
@@ -4041,13 +4070,15 @@ def k6_backward_times(dev, card: str) -> dict:
     """Phase 35: K6's backward by CUDA events at the two training shapes
     (``K6_BWD_HEADS`` at T 2048, chunk 64; bfloat16 r, k, v and float32 w,
     as the models pass them; no dstate, as the loss leaves the final state
-    unused), beside its bound (``k6_bwd_flop`` at the peak of r, k, v's
-    type, bf16's here, as K4's backward takes it, against r, k, v, w, u and
-    do read once and dr, dk, dv, dw and du written once), its
-    plain version (``rwkv6_plain``'s autograd) and K6's forward on the same
-    inputs.  No library call computes it.  Returns the rows by label."""
+    unused) on the route the models take (``"mma"``), beside its bound
+    (``k6_bwd_flop`` at the peak of r, k, v's type, bf16's here, as K4's
+    backward takes it, against r, k, v, w, u and do read once and dr, dk,
+    dv, dw and du written once), the first design (the ``"fma"`` route, on
+    the same inputs through ``_k6_bwd``'s private ``route``), its plain
+    version (``rwkv6_plain``'s autograd) and K6's forward.  No library call
+    computes it.  Returns the rows by label."""
     import torch
-    from repro_torch.kernels.rwkv6_scan import (rwkv6, rwkv6_bwd,
+    from repro_torch.kernels.rwkv6_scan import (_k6_bwd, rwkv6, rwkv6_bwd,
                                                 rwkv6_bwd_plain)
     gen = torch.Generator(device=dev)
     gen.manual_seed(122)
@@ -4064,18 +4095,29 @@ def k6_backward_times(dev, card: str) -> dict:
                                    if r.dtype == torch.bfloat16
                                    else FP32_FLOPS)
         design_flop = k6_bwd_flop(b, h, t, kk, vv, chunk, design=True)
+        r0 = dict(rwkv6_bwd.routes)
+        ms = event_ms(lambda: rwkv6_bwd(r, k, v, w, u, do, chunk=chunk))
+        taken = {x: n - r0.get(x, 0) for x, n in rwkv6_bwd.routes.items()
+                 if n != r0.get(x, 0)}
+        check(set(taken) == {"mma"}, f"K6's backward timed at {label} took "
+              f"the routes {taken}, not mma")
+        fma_ms = event_ms(lambda: _k6_bwd(r, k, v, w, u, do, None, chunk,
+                                          route="fma"))
         row = dict(
-            ms=event_ms(lambda: rwkv6_bwd(r, k, v, w, u, do, chunk=chunk)),
-            plain_ms=event_ms(lambda: rwkv6_bwd_plain(r, k, v, w, u, do,
-                                                      chunk=chunk), 3),
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+            ms=ms, plain_ms=event_ms(lambda: rwkv6_bwd_plain(
+                r, k, v, w, u, do, chunk=chunk), 3),
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bwd_route="mma", first_design_ms=fma_ms)
         emit(phase="times", kernel="K6 backward", case=f"{label} training "
              f"shape B={b}, H={h}, K={kk}, V={vv}, T={t}, chunk {chunk}, bf16 "
              "r/k/v, f32 w, no dstate", flop=flop, design_flop=design_flop,
-             bytes=nbytes, design_tflops=design_flop / row["ms"] / 1e9,
-             fp32_flop_ms=design_flop / FP32_FLOPS * 1e3, library="none",
+             bytes=nbytes, tflops=flop / ms / 1e9,
+             first_design_tflops=design_flop / fma_ms / 1e9,
+             speedup_over_first_design=fma_ms / ms, library="none",
              forward_ms=event_ms(lambda: rwkv6(r, k, v, w, u, chunk=chunk)),
              **row, card=card)
+        check(ms < fma_ms, f"K6's backward at {label}: the mma route "
+              f"({ms} ms) is not faster than the first design ({fma_ms} ms)")
         rows[label] = row
     return rows
 
@@ -5417,7 +5459,9 @@ def main() -> int:
         "launches": sum(by_path["rwkv6_bwd"].values()),
         "launches_by_path": by_path["rwkv6_bwd"],
         "max_abs_err": k6_bwd_err, **k6_bwd_times[rwkv_heads],
-        "hymba_1p5b_training": k6_bwd_times[hymba_heads]}
+        "hymba_1p5b_training": k6_bwd_times[hymba_heads],
+        "routes_on_main_path": {f"{arch} training": full[arch][
+            "k6_bwd_routes"] for arch in (RWKV6, HYMBA)}}
     k5_lm_launches = dbrx["launches"]["K5"]
     k5_train_launches = full[DBRX_LM]["launches"]["moe_gemm"]
     k5_mesh = {path: n["moe_gemm"] for path, n in mesh_launches.items()

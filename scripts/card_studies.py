@@ -16,6 +16,7 @@
     PYTHONPATH=src python scripts/card_studies.py first-meta
     PYTHONPATH=src python scripts/card_studies.py k4-bwd-split
     PYTHONPATH=src python scripts/card_studies.py k5-bwd-routes
+    PYTHONPATH=src python scripts/card_studies.py k6-bwd-routes
 
 * ``k1-carry`` — K1 at ``chip_smoke.py`` phase 3's three cases (filter3D's
   sync plan and its bucketed chunk 1 at bs = 128, a blocky 8192 at
@@ -131,6 +132,12 @@
   320), "dbrx-132b widths, cap 8" and "kimi-k2 widths, cap 24", beside
   ``torch.bmm`` on inputs grouped by expert where the map groups evenly:
   the reading behind ``bwd_route`` leaving the cap out of the choice.
+* ``k6-bwd-routes`` — K6's backward in bfloat16 (float32 w, no dstate) at
+  ``chip_smoke.py`` phase 35's two training shapes (``K6_BWD_HEADS`` at
+  T 2048, chunk 64), on the ``"mma"`` route (the shipped one) and the
+  ``"fma"`` route (the first design, through ``_k6_bwd``'s ``route``), by
+  CUDA events, and each route's device microseconds by kernel, its
+  events summed under ``torch.profiler`` over 10 warm calls.
 """
 from __future__ import annotations
 
@@ -839,6 +846,43 @@ def k5_bwd_routes(name: str) -> None:
         torch.cuda.empty_cache()
 
 
+def k6_bwd_routes(name: str) -> None:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from repro_torch.kernels.rwkv6_scan import _k6_bwd
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(135)
+    n, t, chunk = 10, cs.TRAIN_FULL[cs.RWKV6]["seq"], 64
+    for label, (b, h, kk, vv, u_zero) in cs.K6_BWD_HEADS.items():
+        r, k, v, w, u, do, _ = cs.k6_bwd_inputs(gen, dev, b, h, t, kk, vv,
+                                                torch.bfloat16, u_zero)
+        row = dict(study="k6_bwd_routes", case=f"{label} bf16 r/k/v, f32 w: "
+                   f"B={b}, H={h}, K={kk}, V={vv}, T={t}, chunk {chunk}")
+        for route in ("mma", "fma"):
+            def call():
+                return _k6_bwd(r, k, v, w, u, do, None, chunk, route=route)
+
+            row[f"{route} ms"] = cs.event_ms(call)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(n):
+                    call()
+                torch.cuda.synchronize()
+            events = [(e.key, e.self_device_time_total)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA]
+            row[f"{route} device_us"] = {
+                kn: us for kn, us in (
+                    (kn, sum(us for key, us in events if kn in key) / n)
+                    for kn in cs.PORT_KERNEL_NAMES["K6 backward"]) if us}
+        emit(**row, card=name)
+        del r, k, v, w, u, do
+        torch.cuda.empty_cache()
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
@@ -851,7 +895,7 @@ def main() -> int:
                                       "kernel-times", "hymba-repeat",
                                       "situ-repeat", "pipeline-grad",
                                       "first-meta", "k4-bwd-split",
-                                      "k5-bwd-routes"))
+                                      "k5-bwd-routes", "k6-bwd-routes"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
                          "situ-repeat: card prefills (200)")
@@ -883,6 +927,8 @@ def main() -> int:
         k4_bwd_split(name)
     elif args.study == "k5-bwd-routes":
         k5_bwd_routes(name)
+    elif args.study == "k6-bwd-routes":
+        k6_bwd_routes(name)
     else:
         hymba_repeat(name, args.runs or 5, args.seeds)
     return 0

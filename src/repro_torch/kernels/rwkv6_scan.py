@@ -28,23 +28,35 @@ allocates their scratch.
 K6's backward (``rwkv6_bwd``): ``rwkv6`` on CUDA tensors under grad mode
 goes through ``_Rwkv6``, a ``torch.autograd.Function`` whose forward
 launches K6 as above and whose backward launches the kernels of
-``csrc/rwkv6_scan_bwd.cu``: a chunk-local pass (the intra-chunk parts of
-dr, dk, dv and dw, each chunk's ``Q_c = (r·e^{ecum})ᵀ do`` and the forward's
-``U_c`` again), a scan of the states forward and of their gradients
-backward, an inter-chunk pass, and the sum of du; no atomics.  It forms dw
-without dividing by w, where the plain version's autograd divides a
-difference of two sums by w (see the source's header).  It replaces the
-XLA autodiff of the reference's ``rwkv6_chunked_jnp``
-(``src/repro/models/ssm.py:17``), which the reference's models train
-through (the reference has no backward Pallas kernel).  Its plain version
-is ``rwkv6_plain``'s autograd (``rwkv6_bwd_plain``).
+``csrc/rwkv6_scan_bwd.cu`` on one of two routes, picked by ``bwd_route``
+from the shape before launch and counted in ``rwkv6_bwd.routes``:
+
+* ``"mma"`` (bfloat16 r, k, v, as every training path passes them; K a
+  multiple of 8, the chunk a multiple of 16): a light pass for each
+  chunk's ``Q_c``, ``U_c`` and decay, the scans of the states forward and of
+  their gradients backward, and one fused pass for everything else of the
+  chunk on the TF32 tensor cores, every pair term factored through the
+  boundaries of 16-token sub-chunks; the intra-chunk partials never leave
+  the block;
+* ``"fma"`` (float32 r, k, v and other shapes): the first design, a
+  chunk-local pass (the intra-chunk parts of dr, dk, dv and dw to scratch),
+  the scans, an inter-chunk pass, in IEEE FMAs.
+
+Both end with the sum of du, use no atomics, and form dw without dividing
+by w, where the plain version's autograd divides a difference of two sums by
+w (see the source's header).  Neither falls back to the other or to the
+plain version.  It replaces the XLA autodiff of the reference's
+``rwkv6_chunked_jnp`` (``src/repro/models/ssm.py:17``), which the
+reference's models train through (the reference has no backward Pallas
+kernel).  Its plain version is ``rwkv6_plain``'s autograd
+(``rwkv6_bwd_plain``).
 
 ``rwkv6`` and ``rwkv6_bwd`` dispatch on the tensors' device: CPU tensors
 run ``rwkv6_plain`` (the torch twin of the reference's
 ``rwkv6_chunked_jnp``) and its autograd; CUDA tensors launch the kernels or
 raise.  ``rwkv6.launches`` counts calls that launched K6 (one per call,
 though K6 is three kernel launches on the stream), ``rwkv6_bwd.launches``
-calls that launched its backward (four kernel launches).
+calls that launched its backward (four kernel launches on either route).
 """
 from __future__ import annotations
 
@@ -143,8 +155,22 @@ def _lib() -> ctypes.CDLL:
 
 def _bwd_lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
+    _build.bind("rwkv6_scan_bwd", "rwkv6_scan_bwd_mma",
+                [p] * 13 + [i] * 7 + [p, i])
     return _build.bind("rwkv6_scan_bwd", "rwkv6_scan_bwd",
                        [p] * 13 + [i] * 8 + [p, i])
+
+
+def bwd_route(dtype: torch.dtype, kk: int, chunk: int) -> str:
+    """The kernels K6's backward takes, from the shape before launch:
+    ``"mma"`` (TF32 tensor cores, sub-chunks of 16 tokens) for bfloat16 r,
+    k, v with K a multiple of 8 up to ``MAX_K`` and a chunk a multiple of 16
+    up to ``MAX_CHUNK``; ``"fma"`` (the first design, IEEE FMAs) for float32
+    r, k, v and other shapes."""
+    if dtype == torch.bfloat16 and kk % 8 == 0 and 0 < kk <= MAX_K \
+            and chunk % 16 == 0 and 0 < chunk <= MAX_CHUNK:
+        return "mma"
+    return "fma"
 
 
 def _check_k6(r, k, v, w, u, device, chunk: int) -> None:
@@ -199,13 +225,16 @@ def _k6(r, k, v, w, u, chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return o, state
 
 
-def _k6_bwd(r, k, v, w, u, do, dstate, chunk: int):
+def _k6_bwd(r, k, v, w, u, do, dstate, chunk: int, *,
+            route: Optional[str] = None):
     """K6's backward on the card: ``(dr, dk, dv, dw, du)``, dr, dk, dv in
     r's dtype, dw in w's, du float32.  u, do and dstate (or None) float32
-    and contiguous.  Scratch: each chunk's decay, U_c then the state
-    entering it, Q_c then the gradient of the state leaving it, the
-    intra-chunk parts of dr, dk, dw and dv, db and each chunk's share of du,
-    all float32."""
+    and contiguous.  ``route`` is ``bwd_route``'s pick unless given (a
+    study may time the ``"fma"`` route on bfloat16 inputs; ``"mma"`` takes
+    bfloat16 r, k, v only).  Scratch, float32: each chunk's decay, U_c then
+    the state entering it, Q_c then the gradient of the state leaving it,
+    and each chunk's share of du; the ``"fma"`` route also the intra-chunk
+    parts of dr, dk, dw and dv and db (B·H·T·(3K + V + 1) floats more)."""
     b, h, t, kk = r.shape
     vv = v.shape[-1]
     _check_k6(r, k, v, w, u, r.device, chunk)
@@ -215,24 +244,38 @@ def _k6_bwd(r, k, v, w, u, do, dstate, chunk: int):
                               or x.device != r.device):
             raise ValueError("K6's backward takes do and dstate float32 and "
                              "contiguous on r's device")
+    route = route or bwd_route(r.dtype, kk, chunk)
+    if route == "mma" and bwd_route(r.dtype, kk, chunk) != "mma":
+        raise ValueError(f"K6's backward route 'mma' takes bfloat16 r, k, v, "
+                         f"K a multiple of 8 and a chunk a multiple of 16, "
+                         f"got {r.dtype}, K {kk}, chunk {chunk}")
+    if route not in ("mma", "fma"):
+        raise ValueError(f"unknown route {route!r}")
     dr, dk, dv, dw = (torch.empty_like(x) for x in (r, k, v, w))
     du = torch.zeros((h, kk), dtype=torch.float32, device=r.device)
     if not (r.numel() and v.numel()):
         return dr.zero_(), dk.zero_(), dv.zero_(), dw.zero_(), du
     nc = t // chunk
-    scratch = torch.empty(b * h * (nc * kk * (1 + 2 * vv)
-                                   + t * (3 * kk + vv + 1) + nc * kk),
+    partials = t * (3 * kk + vv + 1) if route == "fma" else 0
+    scratch = torch.empty(b * h * (nc * kk * (1 + 2 * vv) + partials
+                                   + nc * kk),
                           dtype=torch.float32, device=r.device)
     lib = _bwd_lib()
-    err = lib.rwkv6_scan_bwd(
-        r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-        u.data_ptr(), do.data_ptr(),
-        None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
-        scratch.data_ptr(), b, h, t, kk, vv, chunk, _DTYPE_CODE[r.dtype],
-        _DTYPE_CODE[w.dtype], *launch_target(r.device))
-    _build.check_launch(lib, err, "rwkv6_scan_bwd")
+    args = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), do.data_ptr(),
+            None if dstate is None else dstate.data_ptr(), dr.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dw.data_ptr(), du.data_ptr(),
+            scratch.data_ptr(), b, h, t, kk, vv, chunk)
+    if route == "mma":
+        err = lib.rwkv6_scan_bwd_mma(*args, _DTYPE_CODE[w.dtype],
+                                     *launch_target(r.device))
+    else:
+        err = lib.rwkv6_scan_bwd(*args, _DTYPE_CODE[r.dtype],
+                                 _DTYPE_CODE[w.dtype],
+                                 *launch_target(r.device))
+    _build.check_launch(lib, err, f"rwkv6_scan_bwd ({route})")
     rwkv6_bwd.launches += 1
+    rwkv6_bwd.routes[route] = rwkv6_bwd.routes.get(route, 0) + 1
     return dr, dk, dv, dw, du
 
 
@@ -254,7 +297,8 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     run ``rwkv6_bwd_plain``; CUDA tensors launch the kernels of
     ``csrc/rwkv6_scan_bwd.cu`` or raise.  Each gradient in its input's
     dtype.  ``rwkv6``'s autograd calls the kernel; ``rwkv6_bwd.launches``
-    counts the calls that launched it."""
+    counts the calls that launched it, ``rwkv6_bwd.routes`` them by route
+    (``bwd_route``)."""
     b, h, t, kk = r.shape
     _check_shapes(r, k, v, w, u)
     vv = v.shape[-1]
@@ -277,6 +321,7 @@ def rwkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 rwkv6_bwd.launches = 0
+rwkv6_bwd.routes = {}
 
 
 class _Rwkv6(torch.autograd.Function):

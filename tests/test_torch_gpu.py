@@ -1194,38 +1194,51 @@ K6_BWD_REL_NORM = 1e-4
 K6_BWD_BF16_REL_NORM = 5e-3
 
 
-def _k6_bwd_problem(dev, seed, b, h, t, kk, vv, dtype, u_zero):
+def _k6_bwd_problem(dev, seed, b, h, t, kk, vv, dtype, u_zero, w_val=None):
     r, k = (_randn(dev, seed + i, b, h, t, kk, dtype=dtype) for i in (0, 1))
     v = _randn(dev, seed + 2, b, h, t, vv, dtype=dtype)
-    w = torch.exp(-torch.exp(_randn(dev, seed + 3, b, h, t, kk) - 0.5)
-                  ).clamp(1e-6, 1 - 1e-6)
+    w = torch.exp(-torch.exp(_randn(dev, seed + 3, b, h, t, kk) - 0.5)) \
+        if w_val is None else torch.full((b, h, t, kk), w_val, device=dev)
     u = torch.zeros(h, kk, device=dev) if u_zero else \
         _randn(dev, seed + 4, h, kk)
-    return (r, k, v, w, u, _randn(dev, seed + 5, b, h, t, vv),
+    return (r, k, v, w.clamp(1e-6, 1 - 1e-6), u,
+            _randn(dev, seed + 5, b, h, t, vv),
             _randn(dev, seed + 6, b, h, kk, vv))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,t,kk,vv,chunk,u_zero,with_ds", [
-    (2, 25, 2048, 16, 64, 64, True, False),    # hymba-1.5b's training heads
-    (2, 32, 2048, 64, 64, 64, False, False),   # rwkv6-1.6b's
-    (2, 25, 2016, 16, 64, 32, True, True),     # T no multiple of 64
-    (1, 3, 160, 8, 40, 32, False, True),       # K = 8, a V tail tile
-    (1, 2, 12, 32, 72, 64, False, True),       # T < chunk
+@pytest.mark.parametrize("b,h,t,kk,vv,chunk,u_zero,with_ds,w_val", [
+    (2, 25, 2048, 16, 64, 64, True, False, None),   # hymba-1.5b's heads
+    (2, 32, 2048, 64, 64, 64, False, False, None),  # rwkv6-1.6b's
+    (2, 25, 2016, 16, 64, 32, True, True, None),    # T no multiple of 64
+    (1, 3, 160, 8, 40, 32, False, True, None),      # K = 8, a V tail tile
+    (1, 2, 12, 32, 72, 64, False, True, None),      # T < chunk
+    (1, 25, 256, 16, 64, 64, True, True, 1e-6),     # extreme decays at
+    (1, 25, 256, 16, 64, 64, True, True, 1 - 1e-6),  # both training heads
+    (1, 32, 256, 64, 64, 64, False, True, 1e-6),
+    (1, 32, 256, 64, 64, 64, False, True, 1 - 1e-6),
 ])
 def test_k6_backward_matches_plain(cuda, dtype, b, h, t, kk, vv, chunk,
-                                   u_zero, with_ds):
+                                   u_zero, with_ds, w_val):
     """Against the plain version's autograd on float64 copies: its float32
-    dw divides a difference of two sums of order one by w."""
-    from repro_torch.kernels.rwkv6_scan import rwkv6_bwd, rwkv6_bwd_plain
+    dw divides a difference of two sums of order one by w.  bfloat16 r, k,
+    v take the ``"mma"`` route where the shape allows (``bwd_route``),
+    float32 the ``"fma"`` route."""
+    from repro_torch.kernels.rwkv6_scan import (_chunk, bwd_route,
+                                                rwkv6_bwd, rwkv6_bwd_plain)
     r, k, v, w, u, do, ds = _k6_bwd_problem(cuda, t, b, h, t, kk, vv, dtype,
-                                            u_zero)
+                                            u_zero, w_val)
     ds = ds if with_ds else None
+    route = bwd_route(dtype, kk, _chunk(t, chunk))
+    assert route == ("mma" if dtype == torch.bfloat16 and t >= chunk
+                     else "fma")
     before = rwkv6_bwd.launches
+    routes = dict(rwkv6_bwd.routes)
     got = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
     again = rwkv6_bwd(r, k, v, w, u, do, ds, chunk=chunk)
     torch.cuda.synchronize()
     assert rwkv6_bwd.launches == before + 2
+    assert rwkv6_bwd.routes[route] == routes.get(route, 0) + 2
     assert all(torch.equal(x, y) for x, y in zip(got, again))   # no atomics
     want = rwkv6_bwd_plain(*(x.double() for x in (r, k, v, w, u, do)),
                            None if ds is None else ds.double(), chunk=chunk)

@@ -265,6 +265,206 @@ def _chunked_backward(r, k, v, w, u, do, dstate, chunk):
             du), whole(dlogw, kk)
 
 
+SUB = 16
+
+
+def _subchunk_backward(r, k, v, w, u, do, dstate, chunk, exponents=None):
+    """K6's backward as the ``"mma"`` route of ``csrc/rwkv6_scan_bwd.cu``
+    computes it, in plain torch (float32, or float64 for float64 inputs):
+    every pair term of a chunk through the boundaries of sub-chunks of 16
+    tokens, so that every exponent is <= 0 and only pairs inside one
+    sub-chunk take an exponential each.  With cx the chunk's cumsum of log w
+    shifted one row down (cx[t] = ecum_t, cx[t + 1] = cum_t, cx[0] = 0), for
+    sub-chunk J (first token J0, cq = cx[J0], ce = cx[J0 + 16]):
+
+    a. Q_c, U_c and d_c as the first design;  b. the two scans;
+    c. A inside a sub-chunk one exponential per (t, s, k), across
+       sub-chunks Rf Kf^T with Rf = r e^{cx[t] - cx[T0]} and Kf^(T) =
+       k e^{cx[T0] - cx[s+1]}; dv = (A^T + diag bonus) do + (k e^{L-cum}) G;
+       P^(J) = dA[>= J0, < J0] Kf^(J), B^(J) = dA[> eJ, J]^T Rg^(J) with
+       Rg^(J) = r e^{cx[t] - ce};  F' = P^(J) + e^{cq} do S^T on J's rows,
+       B' = B^(J) + e^{L - ce} v G^T;  X'_J the pairs that span J, the
+       entering state and the leaving gradient included;
+    d. per sub-chunk, j in order: M_j[t] = sum_{J0<=s<j} dA_ts k_s
+       e^{cx[j]-cx[s+1]}, N_j = sum_{J0<=s<j} k_s e^{cx[j]-cx[s+1]} B'_s and
+       rt_f[t] = r_t e^{cx[t]-cx[j+1]} (t in J after j):
+         dr_j = e^{cx[j]-cq} F'_j + M_j[j] + u k_j db_j
+         dk_j = e^{ce-cx[j+1]} B'_j + sum_t dA_tj rt_f[t] + u r_j db_j
+         dw_j = e^{ce-cx[j+1]} N_j                                  (ii)
+              + e^{cx[j]-cq} sum_t rt_f[t] F'_t                      (iii)
+              + sum_t rt_f[t] M_j[t]                                 (iv)
+              + e^{(ce-cx[j+1]) + (cx[j]-cq)} X'_J                   (i)
+    w_j is left out of every pair; nothing divides by w.  Every exponent
+    evaluated is appended to ``exponents`` (its largest element) when a list
+    is given."""
+    b, h, t, kk = r.shape
+    vv = v.shape[-1]
+    nc = t // chunk
+    nsb = chunk // SUB
+    f = torch.float64 if r.dtype == torch.float64 else torch.float32
+
+    def ex(a):
+        if exponents is not None and a.numel():
+            exponents.append(a.max().item())
+        return torch.exp(a)
+
+    def chunks(x, n):
+        return x.to(f).reshape(b, h, nc, chunk, n)
+
+    R, K, W = (chunks(x, kk) for x in (r, k, w))
+    V, DO = chunks(v, vv), chunks(do, vv)
+    uf = u.to(f)[None, :, None, :]                       # (1, H, 1, K)
+    cum = torch.cumsum(torch.log(W), dim=3)
+    cx = torch.cat([torch.zeros_like(cum[..., :1, :]), cum], dim=3)
+    last = cx[..., chunk, :]
+    # a. and b.
+    q = (R * ex(cx[..., :chunk, :])).transpose(-1, -2) @ DO
+    kd = K * ex(last[..., None, :] - cx[..., 1:, :])
+    contrib = kd.transpose(-1, -2) @ V
+    decay = ex(last)
+    s = torch.zeros((b, h, kk, vv), dtype=f)
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)
+        s = decay[:, :, c, :, None] * s + contrib[:, :, c]
+    s_in = torch.stack(s_in, dim=2)
+    g = torch.zeros((b, h, kk, vv), dtype=f) if dstate is None \
+        else dstate.to(f)
+    gs = [None] * nc
+    for c in reversed(range(nc)):
+        gs[c] = g
+        g = decay[:, :, c, :, None] * g + q[:, :, c]
+    gs = torch.stack(gs, dim=2)
+    # c. A, with the bonus on the diagonal of A^T; dv
+    idx = torch.arange(chunk)
+    a = torch.zeros((b, h, nc, chunk, chunk), dtype=f)
+    low = (idx[:SUB, None] > idx[None, :SUB])[:, :, None]    # s < t
+    for jb in range(nsb):
+        j0, j1 = jb * SUB, (jb + 1) * SUB
+        expo = torch.where(low, cx[..., j0:j1, None, :]
+                           - cx[..., None, j0 + 1:j1 + 1, :], 0.0)
+        a[..., j0:j1, j0:j1] = torch.where(
+            low, R[..., j0:j1, None, :] * K[..., None, j0:j1, :]
+            * ex(expo), 0.0).sum(-1)
+        if jb:
+            rf = R[..., j0:j1, :] * ex(cx[..., j0:j1, :]
+                                       - cx[..., j0:j0 + 1, :])
+            kf = K[..., :j0, :] * ex(cx[..., j0:j0 + 1, :]
+                                     - cx[..., 1:j0 + 1, :])
+            a[..., j0:j1, :j0] = rf @ kf.transpose(-1, -2)
+    bonus = (R * uf[..., None, :] * K).sum(-1)
+    at = a.transpose(-1, -2) + torch.diag_embed(bonus)
+    dv = at @ DO + kd @ gs
+    du = (R * K * (DO * V).sum(-1)[..., None]).sum(-2).sum(dim=(0, 2))
+    da = DO @ V.transpose(-1, -2)
+    db = torch.diagonal(da, dim1=-2, dim2=-1)
+    dos = DO @ s_in.transpose(-1, -2)                    # do S^T
+    vg = V @ gs.transpose(-1, -2)                        # v G^T
+    pi = (s_in * gs).sum(-1)
+    fp, bp = torch.empty_like(R), torch.empty_like(R)
+    xp = []
+    for jb in range(nsb):
+        j0, j1 = jb * SUB, (jb + 1) * SUB
+        cq, ce = cx[..., j0:j0 + 1, :], cx[..., j1:j1 + 1, :]
+        kf = K[..., :j0, :] * ex(cq - cx[..., 1:j0 + 1, :])
+        rg = R[..., j1:, :] * ex(cx[..., j1:chunk, :] - ce)
+        p = da[..., j0:, :j0] @ kf                       # rows t >= J0
+        bj = da[..., j1:, j0:j1].transpose(-1, -2) @ rg
+        fp[..., j0:j1, :] = p[..., :SUB, :] + ex(cq) * dos[..., j0:j1, :]
+        tail = ex(last[..., None, :] - ce)
+        bp[..., j0:j1, :] = bj + tail * vg[..., j0:j1, :]
+        xp.append((rg * (p[..., SUB:, :] + ex(cq) * dos[..., j1:, :])
+                   ).sum(-2, keepdim=True)
+                  + tail * ((kf * vg[..., :j0, :]).sum(-2, keepdim=True)
+                            + ex(cq) * pi[..., None, :]))
+    # d. each sub-chunk, j in order
+    dr, dk, dw = (torch.empty_like(R) for _ in range(3))
+    for jb in range(nsb):
+        j0, j1 = jb * SUB, (jb + 1) * SUB
+        cq, ce = cx[..., j0, :], cx[..., j1, :]
+        m = torch.zeros_like(R[..., j0:j1, :])
+        n = torch.zeros_like(R[..., 0, :])
+        for jj in range(SUB):
+            j = j0 + jj
+            cj, ej = cx[..., j + 1, :], cx[..., j, :]
+            lt = slice(j + 1, j1)                        # t in J after j
+            rt = R[..., lt, :] * ex(cx[..., lt, :] - cj[..., None, :])
+            dat = da[..., lt, j, None]
+            bon = uf * db[..., j, None]
+            dr[..., j, :] = ex(ej - cq) * fp[..., j, :] + m[..., jj, :] \
+                + bon * K[..., j, :]
+            dk[..., j, :] = ex(ce - cj) * bp[..., j, :] \
+                + (dat * rt).sum(-2) + bon * R[..., j, :]
+            dw[..., j, :] = ex(ce - cj) * n \
+                + ex(ej - cq) * (rt * fp[..., lt, :]).sum(-2) \
+                + (rt * m[..., jj + 1:, :]).sum(-2) \
+                + ex((ce - cj) + (ej - cq)) * xp[jb][..., 0, :]
+            dec = ex(cj - ej)[..., None, :]
+            m[..., jj + 1:, :] = dec * m[..., jj + 1:, :] \
+                + dat * K[..., j, None, :]
+            n = dec[..., 0, :] * n + K[..., j, :] * bp[..., j, :]
+
+    def whole(x, n):
+        return x.reshape(b, h, t, n)
+
+    return (whole(dr, kk), whole(dk, kk), whole(dv, vv), whole(dw, kk),
+            du)
+
+
+def test_subchunk_formulas_match_the_first_design_in_float64():
+    """The sub-chunk factorisation is the same sum as the first design's
+    formulas, term for term up to float64 rounding."""
+    for seed, (b, h, t, kk, vv, chunk, w_val) in enumerate([
+            (1, 2, 256, 16, 64, 64, None), (2, 2, 96, 64, 24, 32, None),
+            (1, 1, 64, 8, 8, 16, 1 - 1e-6), (1, 2, 128, 8, 16, 64, 1e-3)]):
+        args = [torch.from_numpy(x).double() for x in _inputs(
+            40 + seed, b, h, t, kk, vv, w_val=w_val)]
+        got = _subchunk_backward(*args[:7], chunk)
+        want, _ = _chunked_backward(*args[:7], chunk)
+        for name, g, x in zip(NAMES, got, want):
+            assert _rel(g, x) <= 1e-10, (name, seed, _rel(g, x))
+
+
+def test_subchunk_exponents_are_never_above_zero():
+    """No exponent the route evaluates is above 0, so nothing overflows;
+    at w = 1e-6 and C = 64 (|cum| near 884) nothing is inf or NaN."""
+    args = [torch.from_numpy(x) for x in _inputs(
+        44, 1, 2, 128, 16, 32, w_val=1e-6)]
+    seen = []
+    got = _subchunk_backward(*args[:7], 64, exponents=seen)
+    assert seen and max(seen) <= 0.0
+    assert all(torch.isfinite(g).all() for g in got)
+    seen.clear()
+    args = [torch.from_numpy(x) for x in _inputs(45, 1, 2, 128, 16, 32)]
+    _subchunk_backward(*args[:7], 64, exponents=seen)
+    assert max(seen) <= 0.0
+
+
+def test_bwd_route_rule():
+    """``"mma"`` for bfloat16 r, k, v with K a multiple of 8 up to 64 and a
+    chunk a multiple of 16 up to 64; ``"fma"`` for everything else."""
+    bf, f32 = torch.bfloat16, torch.float32
+    for kk in (8, 16, 24, 64):
+        for chunk in (16, 32, 48, 64):
+            assert PK.bwd_route(bf, kk, chunk) == "mma"
+            assert PK.bwd_route(f32, kk, chunk) == "fma"
+    for kk, chunk in ((4, 64), (12, 64), (16, 12), (16, 40), (72, 64),
+                      (64, 80), (16, 8)):
+        assert PK.bwd_route(bf, kk, chunk) == "fma", (kk, chunk)
+
+
+def test_k6_bwd_refuses_a_route_the_shape_does_not_take():
+    """``_k6_bwd``'s private ``route``: ``"mma"`` takes bfloat16 r, k, v
+    only, and no other name is a route; both raise before any build."""
+    r, k, v, w, u, do, _ = (torch.from_numpy(x) for x in _inputs(
+        46, 1, 1, 64, 16, 16))
+    with pytest.raises(ValueError, match="takes bfloat16"):
+        PK._k6_bwd(r, k, v, w, u, do, None, 64, route="mma")
+    with pytest.raises(ValueError, match="unknown route"):
+        PK._k6_bwd(*(x.to(torch.bfloat16) for x in (r, k, v)), w, u, do,
+                   None, 64, route="wgmma")
+
+
 KERNEL_CASES = [
     ("hymba heads, 4 chunks", 1, 2, 256, 16, 64, 64, True, True, None),
     ("rwkv heads, 3 chunks, no dstate", 1, 2, 96, 64, 64, 32, False, False,
@@ -299,6 +499,28 @@ def test_kernel_formulas_match_plain_autograd(label, b, h, t, kk, vv, chunk,
     assert torch.allclose(dlogw64.double(), w64 * want[3], rtol=1e-5,
                           atol=1e-5 * (w64 * want[3]).abs().max().item())
     assert torch.isfinite(dlogw).all()
+
+
+SUBCHUNK_CASES = [c for c in KERNEL_CASES if c[6] % SUB == 0]
+
+
+@pytest.mark.parametrize("label,b,h,t,kk,vv,chunk,u_zero,with_ds,w_val",
+                         SUBCHUNK_CASES, ids=[c[0] for c in SUBCHUNK_CASES])
+def test_subchunk_formulas_match_plain_autograd(label, b, h, t, kk, vv,
+                                                chunk, u_zero, with_ds,
+                                                w_val):
+    """The mma route's formulas in float32 against the plain autograd on
+    float64 copies, at the card's float32 limit."""
+    args = [torch.from_numpy(x) for x in _inputs(
+        len(label) + 7 * t, b, h, t, kk, vv, w_val=w_val, u_zero=u_zero)]
+    ds = args[6] if with_ds else None
+    got = _subchunk_backward(*args[:6], ds, chunk)
+    want = PK.rwkv6_bwd_plain(*(x.double() for x in args[:6]),
+                              None if ds is None else ds.double(),
+                              chunk=chunk)
+    for name, g, x in zip(NAMES, got, want):
+        assert g.dtype == torch.float32 and torch.isfinite(g).all(), name
+        assert _rel(g, x) <= KERNEL_REL, (name, _rel(g, x))
 
 
 def _cpu_launches(monkeypatch):
