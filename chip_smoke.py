@@ -10,7 +10,9 @@ Run from the root of a checkout, with no arguments:
 processes that ``main`` starts.  ``python3 chip_smoke.py
 --control-readings`` also takes the two one-off control readings beside
 the limits of phases 12 and 16, ``k4_limit_reading`` and
-``k5_lm_limit_reading``: what a known defect reads there.)
+``k5_lm_limit_reading``: what a known defect reads there, and the warm
+Pre_poisson Cholesky's profile, a device-busy reading no check reads: its
+12,000 levels of launches keep the profiler about 97 s for a 6 s call.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -326,10 +328,11 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    backward launch twice as often as on one device; step p50, peak memory
    and whether two runs are bit-identical;
 41. the int8 error-feedback compressed step on a (2, 1, 1) ("pod",
-   "data", "model") mesh at qwen3-1.7b's full width, 2 steps of 8 x 256
-   at lr 1e-2: the params after each step within 5e-2 of the exact step's,
-   the first loss within 1e-3, K4 and its backward once a pod; the error
-   buffer's norm;
+   "data", "model") mesh at qwen3-1.7b's full width, 3 steps of 8 x 256
+   at lr 1e-2: the params after the first two steps within 5e-2 of the
+   exact step's (the third's distance a reading), the first loss within
+   1e-3, K4 and its backward once a pod; each pod's error buffer's norm,
+   the second pod's buffer not the first's;
 42. ``pipeline_apply`` over a (4, 1) ("pipe", "model") mesh: stages
    ``tanh(h @ w)`` at d 2048 in float32, 8 microbatches of 8 x 256 rows,
    forward and gradient against the stages in sequence within 1e-5;
@@ -354,6 +357,17 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    shard on the mesh's first device, the cache stored with its sequence
    over ``data``, gathered and re-sharded around each step; held to one
    device, and a (1, 1) mesh bit-equal to it;
+49. in the same child after 47: dbrx-132b at full width (bfloat16 params,
+   float32 compute), depth cut 40 -> 2, on the (2, 2) mesh at batch 64 (prompts of 128 repeating
+   in 16 groups, every group with two rows in each data shard), a prefill
+   and 8 decode steps: each decode step's data shards walk the layers in
+   step and bundle the whole batch for the experts once an MoE layer (24
+   slots an expert; a shard's own rows would have 16), as the reference's
+   one program does.  Every logit and the final cache within 1e-3 of one
+   device; each MoE layer's dropped assignments at each step equal to the
+   one-device step's, some dropped, and a host count from the same
+   routing at a shard's capacity different; K5 three times an MoE layer a
+   decode step, once an MoE layer a data shard in a prefill;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -365,12 +379,12 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    then phases 24-26 (below); then,
    in child processes, the second slice's profiles and a warm prefill and
    decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
-   ``torch.profiler``; last the Pre_poisson Cholesky profile, the whole
-   script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
+   ``torch.profiler``; last (with ``--control-readings``) the Pre_poisson
+   Cholesky profile, then the whole script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
-   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45 and 47,
-   K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38 and
-   44, K5's backward's of 38 and 44, K6's of
+   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45, 47 and
+   49, K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38,
+   44 and 49, K5's backward's of 38 and 44, K6's of
    14, 18, 26, 34 and 46, K6's backward's of 34;
    K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
    phase 39's; K1's
@@ -435,6 +449,7 @@ SuiteSparse file is read.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -678,7 +693,10 @@ TRAIN_RESUME_RTOL = 1e-4
 # shard
 MESH_DEVICE = "cuda:0"
 MESH_TRAIN = dict(steps=3, batch=8, seq=256)
-MESH_COMPRESSED = dict(steps=2, batch=8, seq=256, lr=1e-2)
+# phase 41's params drift from the exact run's by about 1.9e-2 a step
+# (0.0195, 0.0373 and 0.0513 on an H100): the first ``held`` steps are held
+# to MESH_COMP_ATOL, the third (for the pods' buffers) read
+MESH_COMPRESSED = dict(steps=3, held=2, batch=8, seq=256, lr=1e-2)
 MESH_PIPE = dict(n_stage=4, n_micro=8, rows=(8, 256), d=2048)
 MESH_MOE = dict(batch=4, seq=64)
 # tests/test_distributed.py's tolerances: the loss (absolute, on the same
@@ -699,6 +717,20 @@ MESH_COMP_ATOL, MESH_PIPE_TOL = 5e-2, 1e-5
 SERVE_MESH = {QWEN3: dict(batch=8, prompt=1024, n_dec=16, seed=140),
               RWKV6: dict(batch=8, prompt=1024, n_dec=16, seed=141)}
 SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
+# phase 49, in the same child after 45-47: dbrx-132b at full width
+# (bfloat16 params), depth cut 40 -> 2 layers (about 15.5 GB of params: the
+# storage, one data shard's gather and the one-device run fit the card; 4
+# layers would take 28.6 GB each time), float32 compute (bfloat16 products
+# over a data shard's rows and over the batch round differently: phase 45
+# reads 0.40 in the logits against the whole batch, so a hold at LM_TOL
+# needs float32, as phase 37's in-situ check), on a (2, 2) mesh of MESH_DEVICE
+# repeated at batch 64: a decode step's global capacity is 24 slots an
+# expert, a data shard's 32 rows would have 16.  Row i takes the prompt
+# and tokens of group i % 16, so each data shard holds two rows of every
+# group and its experts' loads are half the batch's: an expert the batch
+# loads with 28 or 32 overflows the global capacity and no shard's
+SERVE_MESH_MOE = dict(n_layers=2, batch=64, groups=16, prompt=128, n_dec=8,
+                      seed=149)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -804,7 +836,8 @@ CHILDREN: list = []
 # the conformance battery's chunked-against-sync tolerance
 ANALYSIS_TOL = 1e-4
 # the one-off control readings beside two limits (``k4_limit_reading``,
-# ``k5_lm_limit_reading``): what a known defect reads there; run with
+# ``k5_lm_limit_reading``): what a known defect reads there, and the warm
+# Pre_poisson Cholesky's profile (97 s for a 6 s call); run with
 # ``python3 chip_smoke.py --control-readings``
 CONTROL_READINGS = False
 # bfloat16 K4 also as a whole: ||got - want|| / ||want|| against the plain
@@ -4515,9 +4548,11 @@ def mesh_compressed(card: str) -> dict:
     steps: each pod's loss and gradients on its half of the batch (K4 and
     its backward on each), the int8 payloads summed in int32 and
     dequantized at the larger scale; the params after each step against
-    the exact one-device step's within ``MESH_COMP_ATOL``, the first
+    the exact one-device step's within ``MESH_COMP_ATOL`` for the first
+    ``held`` steps (later steps' distance a reading), the first
     step's loss (the same params) within ``MESH_LOSS_TOL``, later losses
-    a reading; the first pod's error buffer's norm."""
+    a reading; each pod's error buffer (``sharding.Replicas``: pod ``i``
+    adds back its own) by its norm, the second pod's not the first's."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -4567,24 +4602,31 @@ def mesh_compressed(card: str) -> dict:
                           .abs().max().item() for path, x in _walk(params)))
     launches = read_train_counts()
     peak = torch.cuda.max_memory_allocated()
-    delta = max(deltas)
-    err_norm = adamw.global_norm(err).item()
+    delta = max(deltas[:t["held"]])
+    leaves = [x for _, x in _walk(err)]
+    err_norms = [adamw.global_norm({str(j): x.copies[i]
+                                    for j, x in enumerate(leaves)}).item()
+                 for i in range(2)]
+    pods_differ = any(not torch.equal(*x.copies) for x in leaves)
     want_counts = {k: 2 * v for k, v in
                    expected_train_counts(cfg, t["steps"]).items()}
     ok = delta < MESH_COMP_ATOL \
         and abs(losses[0] - exact_losses[0]) < MESH_LOSS_TOL \
-        and np.isfinite(err_norm) and err_norm > 0 \
-        and launches == want_counts
+        and all(np.isfinite(n) and n > 0 for n in err_norms) \
+        and pods_differ and launches == want_counts
     emit(phase="main_path", case=f"{QWEN3} int8 compressed step on a "
          "(2, 1, 1) pod mesh, full width, against the exact step",
          mesh=[str(d) for d in mesh.devices.flat], steps=t["steps"],
-         batch=[t["batch"], t["seq"]], lr=t["lr"], losses=losses,
+         held_steps=t["held"], batch=[t["batch"], t["seq"]], lr=t["lr"],
+         losses=losses,
          exact_losses=exact_losses, max_abs_param_delta=deltas,
-         tol=MESH_COMP_ATOL, error_buffer_norm=err_norm, step_s=dts,
+         tol=MESH_COMP_ATOL, error_buffer_norm_by_pod=err_norms,
+         pod_buffers_differ=pods_differ, step_s=dts,
          max_memory_allocated_bytes=peak, launches=launches, ok=ok,
          card=card)
     check(ok, f"compressed step: delta {delta}, losses {losses} / "
-          f"{exact_losses}, error norm {err_norm}, launches {launches}")
+          f"{exact_losses}, error norms {err_norms} (differ: "
+          f"{pods_differ}), launches {launches}")
     return launches
 
 
@@ -4754,17 +4796,45 @@ def train_mesh() -> int:
     return 0
 
 
-def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None) -> dict:
+@contextlib.contextmanager
+def record_drops(calls):
+    """While it is open, each capacity assignment of ``models.moe`` (an
+    MoE layer's routing) appends ``(dropped assignments, expert ids,
+    capacity)`` to ``calls``, as device tensors (read after the run: the
+    step itself reads nothing back); with ``calls`` None it records
+    nothing."""
+    from repro_torch.models import moe as PMOE
+    if calls is None:
+        yield
+        return
+    assign = PMOE.expert_assignment
+
+    def recorded(e_flat, capacity, n_experts, **kw):
+        pos, keep, dest = assign(e_flat, capacity, n_experts, **kw)
+        calls.append(((~keep).sum(), e_flat, capacity))
+        return pos, keep, dest
+    PMOE.expert_assignment = recorded
+    try:
+        yield
+    finally:
+        PMOE.expert_assignment = assign
+
+
+def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
+                   drops=None) -> dict:
     """``make_prefill_step`` over ``spec``'s batch and prompt into a cache
     of prompt + n_dec positions, then n_dec ``make_decode_step`` steps on
-    seeded tokens, on ``mesh`` (None: one device; the params sharded by
-    ``params_shardings`` otherwise), over the rows ``[lo, hi)`` of the
-    seeded batch where ``rows`` is given: the logits of each step and the
-    final cache gathered onto the first device, the kernels' launches
-    (zeroed just before), wall seconds of the prefill (its first call, and
-    a second whose outputs are kept: a first call at new shapes spends
+    seeded tokens (with ``spec["groups"]``, row ``i`` takes the prompt and
+    tokens of group ``i % groups``), on ``mesh`` (None: one device; the
+    params sharded by ``params_shardings`` otherwise), over the rows
+    ``[lo, hi)`` of the seeded batch where ``rows`` is given: the logits of
+    each step and the final cache gathered onto the first device, the
+    kernels' launches (zeroed just before; ``prefill_launches`` those of
+    the two prefills), wall seconds of the prefill (its first call, and a
+    second whose outputs are kept: a first call at new shapes spends
     seconds on the card's first use of the products' kernels) and of each
-    step, and the peak device memory."""
+    step, and the peak device memory.  The decode steps' MoE routings go
+    to ``drops`` (``record_drops``)."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.params import _walk
@@ -4772,8 +4842,10 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None) -> dict:
     dev = torch.device(mesh_devices(1)[0])
     b, s, n_dec = spec["batch"], spec["prompt"], spec["n_dec"]
     rng = np.random.default_rng(spec["seed"])
-    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
-    steps = [rng.integers(0, cfg.vocab_size, (b, 1)).astype(np.int32)
+    n = spec.get("groups", b)
+    pick = np.arange(b) % n
+    toks = rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)[pick]
+    steps = [rng.integers(0, cfg.vocab_size, (n, 1)).astype(np.int32)[pick]
              for _ in range(n_dec)]
     lo, hi = rows or (0, b)
     toks = torch.from_numpy(toks[lo:hi]).to(dev)
@@ -4795,16 +4867,19 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None) -> dict:
     prefill_s = time.perf_counter() - t0
     seen, step_s = [S.gather(logits, dev)], []
     del logits
-    for i, tok in enumerate(steps):
-        t0 = time.perf_counter()
-        lg, cache = decode(params, cache, tok, s + i)
-        torch.cuda.synchronize()
-        step_s.append(time.perf_counter() - t0)
-        seen.append(S.gather(lg, dev))
+    prefill_launches = read_train_counts()
+    with record_drops(drops):
+        for i, tok in enumerate(steps):
+            t0 = time.perf_counter()
+            lg, cache = decode(params, cache, tok, s + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            seen.append(S.gather(lg, dev))
     launches = read_train_counts()
     return dict(logits=seen, cache={path: S.gather(x, dev)
                                     for path, x in _walk(cache)},
-                launches=launches, first_prefill_s=first_s,
+                launches=launches, prefill_launches=prefill_launches,
+                first_prefill_s=first_s,
                 prefill_s=prefill_s, step_s=step_s,
                 peak=torch.cuda.max_memory_allocated(),
                 n_sharded=sum(isinstance(x, S.ShardedTensor)
@@ -4917,14 +4992,103 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
     return run["launches"]
 
 
+def serve_mesh_moe_phase(card: str) -> dict:
+    """Phase 49: ``serve_mesh_run`` of dbrx-132b (``SERVE_MESH_MOE``) on a
+    (2, 2) ("data", "model") mesh against the same 64 rows on one device:
+    the mesh's decode step bundles the whole batch for the experts once an
+    MoE layer, as the reference's one program does.  Checks: every logit
+    and the final cache within LM_TOL of one device; each MoE layer's
+    dropped assignments at each step equal to the one-device step's, some
+    dropped, and, counted on the host from the same routing, a different
+    number where each data shard bundled its own rows at its own capacity
+    (the check is not vacuous); K5 three times an MoE layer a decode step
+    on both, and in the prefills once an MoE layer a data shard.  Returns
+    the mesh run's launches."""
+    import dataclasses
+
+    import torch
+    from repro_torch.core.routing import expert_assignment
+    from repro_torch.launch.steps import data_shards
+    from repro_torch.models.moe import expert_capacity
+    spec = SERVE_MESH_MOE
+    cfg = dataclasses.replace(dbrx_config(), n_layers=spec["n_layers"],
+                              compute_dtype="float32")
+    dev = torch.device(mesh_devices(1)[0])
+    params = init_model(DBRX_LM, cfg, spec["seed"], dev)
+    drops = {"one": [], "mesh": []}
+    whole = serve_mesh_run(cfg, params, None, spec, drops=drops["one"])
+    torch.cuda.empty_cache()
+    mesh = card_mesh((2, 2), ("data", "model"))
+    run = serve_mesh_run(cfg, params, mesh, spec, drops=drops["mesh"])
+    del params
+    torch.cuda.empty_cache()
+    held = serve_mesh_compare(run, whole)
+    b, n_layers, n_dec = spec["batch"], cfg.n_layers, spec["n_dec"]
+    shards = [(lo, hi) for _, lo, hi in data_shards(mesh, b)]
+    kw = dict(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+              capacity_factor=cfg.capacity_factor)
+    cap = expert_capacity(b, **kw)
+    shard_cap = expert_capacity(b // len(shards), **kw)
+    k = cfg.moe_top_k
+
+    def per_shard(e_flat) -> int:
+        return sum(int((~expert_assignment(
+            e_flat[lo * k:hi * k], shard_cap, cfg.n_experts)[1]).sum())
+            for lo, hi in shards)
+    counts = {name: [int(d.item()) for d, _, _ in calls]
+              for name, calls in drops.items()}
+    caps = {name: sorted({c for _, _, c in calls})
+            for name, calls in drops.items()}
+    shard_counts = [per_shard(e.cpu().numpy()) for _, e, _ in drops["mesh"]]
+    launches = {name: {kind: r[key]["moe_gemm"] - (
+        r["prefill_launches"]["moe_gemm"] if kind == "decode" else 0)
+        for kind, key in (("prefill", "prefill_launches"),
+                          ("decode", "launches"))}
+        for name, r in (("one", whole), ("mesh", run))}
+    want = {"one": {"prefill": 2 * 3 * n_layers,
+                    "decode": 3 * n_layers * n_dec},
+            "mesh": {"prefill": 2 * len(shards) * 3 * n_layers,
+                     "decode": 3 * n_layers * n_dec}}
+    ok = held["out_of_tol"] == 0 \
+        and len(counts["mesh"]) == n_layers * n_dec \
+        and counts["mesh"] == counts["one"] \
+        and caps == {"one": [cap], "mesh": [cap]} \
+        and sum(counts["mesh"]) > 0 and shard_counts != counts["mesh"] \
+        and launches == want
+    emit(phase="main_path", case=f"{DBRX_LM} sharded decode on a (2, 2) "
+         "mesh, full width (bfloat16 params, float32 compute), "
+         f"{n_layers} layers, batch {b} x "
+         f"{spec['prompt']}, {n_dec} steps, the experts' bundles over the "
+         "whole batch, against one device", serve_phase="49", arch=DBRX_LM,
+         cuts={"n_layers": [40, n_layers]},
+         mesh=[str(d) for d in mesh.devices.flat], data_shards=shards,
+         groups=spec["groups"], capacity=cap, shard_capacity=shard_cap,
+         dropped_by_layer_step=counts["mesh"],
+         one_device_dropped_by_layer_step=counts["one"],
+         per_shard_capacity_dropped_by_layer_step=shard_counts,
+         against_one_device=held, tol=LM_TOL,
+         sharded_cache_leaves=run["n_sharded"], k5_launches=launches,
+         launches=run["launches"], one_device_launches=whole["launches"],
+         prefill_s=run["prefill_s"], one_device_prefill_s=whole["prefill_s"],
+         step_s_p50=float(np.median(run["step_s"])),
+         one_device_step_s_p50=float(np.median(whole["step_s"])),
+         max_memory_allocated_bytes=run["peak"],
+         one_device_max_memory_allocated_bytes=whole["peak"], ok=ok,
+         card=card)
+    check(ok, f"{DBRX_LM} sharded decode (49): {held}, dropped "
+          f"{counts} at {caps}, per-shard capacity {shard_counts}, K5 "
+          f"{launches} / {want}")
+    return run["launches"]
+
+
 def serve_mesh() -> int:
-    """Phases 45-47 in a child process of their own (``--serve-mesh``),
-    started early, waiting for its turn (``wait_for_turn``) after the
-    ``--train-mesh`` child.  The last row gathers the launches of each
+    """Phases 45-47 and 49 in a child process of their own
+    (``--serve-mesh``), started early, waiting for its turn
+    (``wait_for_turn``) after the ``--train-mesh`` child.  The last row gathers the launches of each
     phase."""
     import torch
     from repro_torch.configs import get_config
-    wait_for_turn("flash_attention", "rwkv6_scan")
+    wait_for_turn("flash_attention", "rwkv6_scan", "moe_gemm")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4947,6 +5111,8 @@ def serve_mesh() -> int:
                                  one_by_one=True)
         del params
         torch.cuda.empty_cache()
+    launches[f"{DBRX_LM} sharded decode on a (2, 2) mesh"] = \
+        serve_mesh_moe_phase(card)
     check(not any(plain.values()), f"plain versions ran: {plain}")
     emit(phase="serve_mesh_launches", launches=launches, plain_calls=plain)
     return 0
@@ -5464,8 +5630,8 @@ def main() -> int:
             "k6_bwd_routes"] for arch in (RWKV6, HYMBA)}}
     k5_lm_launches = dbrx["launches"]["K5"]
     k5_train_launches = full[DBRX_LM]["launches"]["moe_gemm"]
-    k5_mesh = {path: n["moe_gemm"] for path, n in mesh_launches.items()
-               if n["moe_gemm"]}
+    k5_mesh = {path: n["moe_gemm"] for path, n in (
+        *mesh_launches.items(), *serve_launches.items()) if n["moe_gemm"]}
     k5_row.update(launches=k5_row["launches"] + k5_lm_launches
                   + k5_train_launches + sum(k5_mesh.values()),
                   launches_by_path={"moe_ffn_host": k5_row["launches"],
@@ -5481,8 +5647,9 @@ def main() -> int:
         sys.stdout.write(go_child(started, " ".join(args)))
     # last: after this session (12,000 levels of small launches) later
     # profiler sessions in the same process recorded no device event
-    device_share("Pre_poisson Cholesky overlapped, warm",
-                 lambda: rt.cholesky(spd, dtype=torch.float64))
+    if CONTROL_READINGS:
+        device_share("Pre_poisson Cholesky overlapped, warm",
+                     lambda: rt.cholesky(spd, dtype=torch.float64))
     # -- 48. the analysis package on the card ------------------------------
     analysis_phase(card)
     emit(phase="script", seconds=time.perf_counter() - T_START, card=card)

@@ -15,8 +15,11 @@ gradients there, and the gradients are reduced into the storage shards.
 Serving is the same: each data shard gathers the params and its rows of
 the cache (sharded storage by ``cache_shardings``) onto its device, runs
 the one-device ``prefill`` / ``decode_step`` there and writes its rows of
-the new cache back into the storage shards.  The model axis shards
-storage, not computation: the port has no tensor-parallel layers.
+the new cache back into the storage shards.  An MoE model's decode step is
+the exception: the reference bundles the global batch for its experts, so
+the data shards walk the layers in step and exchange their rows at each
+MoE FFN (``_global_moe_decode``).  The model axis shards storage, not
+computation: the port has no tensor-parallel layers.
 
 ``input_specs`` gives each cell's inputs as ``meta`` tensors (no storage),
 where the reference gives ``ShapeDtypeStruct``s.
@@ -29,7 +32,8 @@ import torch
 
 from ..configs import ModelConfig, ShapeConfig
 from ..models import model as M
-from ..models.params import _set, _walk
+from ..models.blocks import _ffn_out, block_decode_mixer
+from ..models.params import _set, _walk, tree_slice
 from ..optim import adamw
 from ..parallel import sharding as S
 from ..parallel.api import use_mesh
@@ -287,6 +291,107 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
     return prefill_step
 
 
+# the param keys of a block's FFN sub-layer (``blocks._ffn_out``'s)
+_FFN_KEYS = ("ln2", "ffn", "ln2_post")
+
+
+def _blocks(cfg: ModelConfig, params) -> list:
+    """``M._run_stack``'s walk of a decoder-only stack: ``(layer type,
+    subtree keys, layer index)`` for each block in its order, the index
+    None for a tail block."""
+    out = []
+    if "layers" in params:
+        for i in range(M._n_stacked(params["layers"])):
+            out += [(lt, ("layers", f"pos{j}"), i)
+                    for j, lt in enumerate(cfg.layer_pattern)]
+    return out + [(lt, (f"tail{i}",), None)
+                  for i, lt in enumerate(cfg.tail_layers)]
+
+
+def _layer(leaf, i, device) -> torch.Tensor:
+    """Layer ``i`` of a stacked leaf (the leaf itself for ``i`` None),
+    whole on ``device``: only that layer's part of each storage shard
+    moves (the layer dim is never sharded)."""
+    if i is None:
+        return S.gather(leaf, device)
+    if not isinstance(leaf, S.ShardedTensor):
+        return leaf[i].to(device)
+    assert leaf.sharding.grid(leaf.ndim)[0] == 1, leaf.sharding.spec
+    return S.gather(S.ShardedTensor(
+        S.Sharding(leaf.sharding.mesh, leaf.sharding.spec[1:]),
+        leaf.shape[1:], {idx[1:]: s[i] for idx, s in leaf.shards.items()}),
+        device)
+
+
+def _block_params(params, keys, i, device, ffn: bool) -> Dict:
+    """The params of one block (``_blocks``), whole on ``device``: its FFN
+    sub-layer's (``ffn``) or the rest."""
+    out: Dict = {}
+    for path, leaf in _walk(_at(params, keys)):
+        if (path[0] in _FFN_KEYS) is ffn:
+            _set(out, path, _layer(leaf, i, device))
+    return out
+
+
+def _global_moe_decode(cfg: ModelConfig, params, cache, token, pos,
+                       shards: list):
+    """An MoE model's mesh decode step over ``shards`` (``data_shards``):
+    every data shard embeds its rows and reads its rows of the cache onto
+    its device, then the shards walk the blocks in step.  At each block
+    each shard runs the mixer (``block_decode_mixer``) on its rows with
+    that block's mixer params gathered onto its device; the FFN inputs of
+    all shards are then gathered in row order onto the first shard's
+    device, where one ``_ffn_out`` over the B rows bundles them for the
+    experts at ``expert_capacity(B, ...)``, as the reference's one program
+    does (a runtime's host route runs once a block), and each shard's
+    output rows go back to its device.  Last, each shard's head and its
+    rows of the new cache written into the storage shards.  Returns the
+    shards' logits in order."""
+    first = shards[0][0]
+    cache_leaves = list(_walk(cache))
+    xs, poss, parts = [], [], []
+    for dev, lo, hi in shards:
+        part: Dict = {}
+        for path, leaf in cache_leaves:
+            _set(part, path, read_rows(leaf, _cache_axis(path), lo, hi, dev))
+        parts.append(part)
+        xs.append(M._embed_in(cfg, {"embed": S.gather(params["embed"], dev)},
+                              token[lo:hi].to(dev)))
+        p = pos[lo:hi] if torch.is_tensor(pos) and pos.ndim == 1 else pos
+        poss.append(torch.as_tensor(p, dtype=torch.int32,
+                                    device=dev).expand(hi - lo))
+    # each shard's new cache: its tail blocks, and its layers by index
+    new: list = [{} for _ in shards]
+    layers: list = [{} for _ in shards]
+    for lt, keys, i in _blocks(cfg, params):
+        for k, (dev, _, _) in enumerate(shards):
+            c = _at(parts[k], keys)
+            if i is not None:
+                c = tree_slice(c, i)
+            xs[k], c = block_decode_mixer(
+                cfg, lt, _block_params(params, keys, i, dev, ffn=False),
+                xs[k], c, poss[k])
+            if i is None:
+                new[k][keys[0]] = c
+            else:
+                layers[k].setdefault(i, {})[keys[1]] = c
+        x, _, _ = _ffn_out(cfg, _block_params(params, keys, i, first,
+                                              ffn=True),
+                           torch.cat([x.to(first) for x in xs]))
+        xs = [x[lo:hi].to(dev) for dev, lo, hi in shards]
+    outs = []
+    for (dev, lo, _), x, tree, by_index in zip(shards, xs, new, layers):
+        head = {k: S.gather(params[k], dev)
+                for k in ("embed", "unembed", "final_norm") if k in params}
+        outs.append(M._out_head(cfg, head, x))
+        if by_index:
+            tree["layers"] = M._stack_trees([by_index[i]
+                                             for i in sorted(by_index)])
+        for path, leaf in cache_leaves:
+            write_rows(leaf, _cache_axis(path), lo, _at(tree, path))
+    return outs
+
+
 def make_decode_step(cfg: ModelConfig, mesh=None):
     """``serve_step(params, cache, token, pos) → (logits, cache)``:
     ``M.decode_step``.  ``pos`` is a scalar (a Python int for an
@@ -297,7 +402,10 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     every cache leaf whole onto its device, decodes them there and writes
     its rows of the new cache back into the storage shards: the cache is
     updated in place and returned (the reference donates it).  The logits
-    come back as ``make_prefill_step``'s do.
+    come back as ``make_prefill_step``'s do.  An MoE model's step over
+    more than one data shard bundles the whole batch for its experts at
+    each MoE layer, as the reference's one program does
+    (``_global_moe_decode``).
     """
     if mesh is None:
         def serve_step(params, cache, token, pos):
@@ -308,9 +416,15 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
         leaves = list(_walk(params))
         cache_leaves = list(_walk(cache))
         n_rows = token.shape[0]
+        shards = data_shards(mesh, n_rows)
+        if cfg.ffn == "moe" and len(shards) > 1:
+            with use_mesh(mesh):
+                outs = _global_moe_decode(cfg, params, cache, token, pos,
+                                          shards)
+            return _by_rows(mesh, outs, n_rows), cache
         outs = []
         with use_mesh(mesh):
-            for dev, lo, hi in data_shards(mesh, n_rows):
+            for dev, lo, hi in shards:
                 part: Dict = {}
                 for path, leaf in cache_leaves:
                     _set(part, path, read_rows(leaf, _cache_axis(path), lo,

@@ -613,8 +613,9 @@ def block_prefill(cfg, layer_type, p, x, positions, cache):
     return x, cache, aux
 
 
-def block_decode(cfg, layer_type, p, x_t, cache, pos):
-    """One-token block step. Returns (x_t, new_cache)."""
+def block_decode_mixer(cfg, layer_type, p, x_t, cache, pos):
+    """``block_decode`` up to its FFN: the mixer and, where the layer has
+    it, the cross-attention.  Returns (x_t, new_cache)."""
     h = _norm(cfg, x_t, p["ln1"])
     if cfg.mixer == "attn":
         mixed, new_attn = attn_decode(
@@ -633,6 +634,12 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
         x_t = x_t + cross_attn_decode(cfg, p["xattn"],
                                       _norm(cfg, x_t, p["lnx"]),
                                       cache["xk"], cache["xv"])
+    return x_t, cache
+
+
+def block_decode(cfg, layer_type, p, x_t, cache, pos):
+    """One-token block step. Returns (x_t, new_cache)."""
+    x_t, cache = block_decode_mixer(cfg, layer_type, p, x_t, cache, pos)
     cm = cfg.ffn == "rwkv_cm"
     x_t, _, h2 = _ffn_out(cfg, p, x_t, cache["shift_cm"].to(
         x_t.dtype)[:, None, :] if cm else None)

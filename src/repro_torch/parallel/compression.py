@@ -16,7 +16,11 @@ reference's choices are kept as they are:
 * each payload is quantized at its own pod's scale, yet the int32 sum is
   dequantized at the largest of the pods' scales;
 * the error buffer is declared replicated although each pod computes its
-  own; the step returns the first pod's, the one the reference returns.
+  own.  The reference's devices of each pod keep their pod's buffer and
+  read it back on the next step; so does the port: each leaf is returned
+  as ``sharding.Replicas`` over ``pod``, one float32 buffer a pod on the
+  pod's device, and pod ``i`` adds back copy ``i``.  Read whole it is the
+  first pod's, the value the reference returns.
 """
 from __future__ import annotations
 
@@ -56,20 +60,34 @@ def init_error_state(params_template):
                                           device=g.device), params_template)
 
 
+def _pod_copy(leaf, i: int, n_pod: int):
+    """Pod ``i``'s error buffer: copy ``i`` of a ``Replicas`` leaf, or the
+    tensor every pod starts from."""
+    from .sharding import Replicas
+    if isinstance(leaf, Replicas):
+        assert len(leaf.copies) == n_pod, (len(leaf.copies), n_pod)
+        return leaf.copies[i]
+    return leaf
+
+
 def make_compressed_train_step(cfg, opt_cfg, mesh):
     """Train step with the int8 EF cross-pod gradient reduction.
 
     Signature: ``step(params, opt_state, err_state, batch) → (params,
     opt_state, err_state, metrics)``; ``metrics`` holds ``loss``, ``ce``,
-    ``grad_norm`` and ``lr``.  The params, m/v and error buffers are whole
-    tensors (replicated over the pods, as the reference declares them).
-    Without a pod axis, or with one pod, it is the plain step on the whole
-    batch and the error buffer is returned as it came.
+    ``grad_norm`` and ``lr``.  The params and m/v are whole tensors
+    (replicated over the pods, as the reference declares them).  Each
+    error buffer comes in as a tensor that every pod starts from
+    (``init_error_state``'s) or as the ``Replicas`` a step returned, whose
+    copy ``i`` pod ``i`` adds back; it is returned as ``Replicas``, each
+    pod's new buffer on the pod's device.  Without a pod axis, or with one
+    pod, it is the plain step on the whole batch and the error buffer is
+    returned as it came.
     """
     from ..launch.steps import _loss_and_grads, make_train_step
     from ..optim import adamw
     from .api import manual_axes, use_mesh
-    from .sharding import Sharding
+    from .sharding import Replicas, Sharding
 
     n_pod = dict(zip(mesh.axis_names, mesh.devices.shape)).get("pod", 1)
     plain = make_train_step(cfg, opt_cfg)
@@ -84,9 +102,10 @@ def make_compressed_train_step(cfg, opt_cfg, mesh):
         err_of = dict(_walk(err_state))
         pods = Sharding(mesh, ("pod",)).placement(1).values()
         n_rows = next(iter(batch.values())).shape[0] // n_pod
-        # each pod's (loss, ce) and (int8 payload, scale) a leaf; the first
-        # pod's error buffers
-        losses, payloads, new_err = [], [], {}
+        # each pod's (loss, ce), (int8 payload, scale) a leaf and error
+        # buffer a leaf
+        losses, payloads = [], []
+        new_err = {path: [] for path, _ in leaves}
         with use_mesh(mesh), manual_axes("pod"):
             for i, dev in enumerate(pods):
                 part = {k: v[i * n_rows:(i + 1) * n_rows].to(dev)
@@ -97,10 +116,10 @@ def make_compressed_train_step(cfg, opt_cfg, mesh):
                 losses.append((loss, parts["ce"]))
                 payloads.append([])
                 for (path, p), g in zip(leaves, grads):
-                    q, scale, e = ef_compress_leaf(g, err_of[path].to(dev))
+                    q, scale, e = ef_compress_leaf(
+                        g, _pod_copy(err_of[path], i, n_pod).to(dev))
                     payloads[-1].append((q, scale))
-                    if i == 0:
-                        _set(new_err, path, e.to(err_of[path].device))
+                    new_err[path].append(e)
                 del grads
         grads_tree: Dict = {}
         for j, (path, p) in enumerate(leaves):
@@ -116,6 +135,9 @@ def make_compressed_train_step(cfg, opt_cfg, mesh):
                     for i in (0, 1))
         params, opt_state, om = adamw.update(opt_cfg, grads_tree, opt_state,
                                              params)
-        return params, opt_state, new_err, {"loss": loss, "ce": ce, **om}
+        err_tree: Dict = {}
+        for path, copies in new_err.items():
+            _set(err_tree, path, Replicas(mesh, "pod", copies))
+        return params, opt_state, err_tree, {"loss": loss, "ce": ce, **om}
 
     return train_step

@@ -19,7 +19,9 @@ compiler to lay arrays out, so a sharded leaf is stored as its shards
 device (in the mesh's row-major order) of the positions that share it, as
 ``runtime.shard.shard_devices`` places replicas.  A leaf whose spec is all
 ``None`` stays one tensor, on the mesh's first device.  ``shard_tree``,
-``gather`` and ``unshard_tree`` move between the two.
+``gather`` and ``unshard_tree`` move between the two.  A leaf replicated
+over an axis whose copies differ (the compressed step's error buffers) is
+held as its copies (``Replicas``).
 """
 from __future__ import annotations
 
@@ -256,6 +258,20 @@ class ShardedTensor:
                              {idx: fn(s) for idx, s in self.shards.items()})
 
 
+@dataclasses.dataclass(eq=False)
+class Replicas:
+    """One leaf replicated over the mesh axis ``axis`` whose copies may
+    differ: ``copies[i]`` is the copy of the devices at index ``i`` of
+    ``axis``, on the first of them (``Sharding(mesh, (axis,))``'s
+    placement).  Read whole (``gather``) it is copy 0, as a JAX array
+    declared replicated whose devices hold different values reads as its
+    first device's copy."""
+
+    mesh: object
+    axis: str
+    copies: list
+
+
 def shard(t: torch.Tensor, sharding: Sharding):
     """``t`` on ``sharding``'s mesh: a ``ShardedTensor`` of copies of its
     slices, or, for an all-``None`` spec, ``t`` on the mesh's first
@@ -287,7 +303,10 @@ def empty(shape, dtype, sharding: Sharding):
 
 def gather(leaf, device) -> torch.Tensor:
     """The whole leaf on ``device``: a ``ShardedTensor``'s shards
-    concatenated along its sharded dims, or a tensor moved there."""
+    concatenated along its sharded dims, ``Replicas``' first copy, or a
+    tensor moved there."""
+    if isinstance(leaf, Replicas):
+        return leaf.copies[0].to(device)
     if not isinstance(leaf, ShardedTensor):
         return leaf.to(device)
     grid = leaf.sharding.grid(leaf.ndim)

@@ -22,7 +22,9 @@ does), x64 off; the port's meshes are of repeated ``cpu`` devices
   differs);
 * ``ef_compress_leaf`` bit-equal to the reference's, ties included; the
   compressed step on ``(2, 2, 2)`` against the reference's (the loss, the
-  params, the error buffer, which is the first pod's);
+  params, the error buffer read whole, which is the first pod's), and
+  three steps in a row with each pod's buffer held to the reference's
+  pod's (the devices of each pod read their own buffer back);
 * ``pipeline_apply`` against the reference's and the sequential result at
   1e-5, forward and gradient;
 * checkpoints: saved sharded on ``(4, 2)``, restored onto ``(3, 2)``
@@ -78,6 +80,13 @@ OPT = dict(lr=1e-2, warmup_steps=0, total_steps=10)
 STEP_RTOL = 1e-5
 # test_distributed.py's tolerances
 REF_LOSS, REF_RTOL, REF_ATOL, COMP_ATOL = 1e-3, 2e-2, 2e-3, 5e-2
+# compressed steps in a row; a pod's error buffer against the reference's
+# pod's: each element within one quantum (the pod's payload scale of that
+# leaf at that step), and all but this share of them within 1e-6 when both
+# packages step from the same params and AdamW state (the rest: a payload
+# that rounded the other way, and that difference carried into the next
+# step's residual)
+COMP_STEPS, COMP_FLIP_SHARE = 3, 1e-4
 PIPE_TOL = 1e-5
 PIPE = dict(n_stage=4, n_micro=8, mb=2, d=16)
 
@@ -162,14 +171,34 @@ opt = adamw.init(opt_cfg, params)
 jb = {k: jnp.asarray(v) for k, v in out["steps"]["qwen3-1.7b"]["batch"].items()}
 pod_mesh = meshes["2x2x2"]
 captured.clear()
+
+def pod_copy(a, pod):
+    # the copy of a leaf declared replicated that pod ``pod``'s devices hold
+    ids = {d.id for d in pod_mesh.devices[pod].flat}
+    got = np.full(a.shape, np.nan, np.float32)
+    for s in a.addressable_shards:
+        if s.device.id in ids:
+            got[s.index] = np.asarray(s.data, np.float32)
+    return got
+
 with pod_mesh:
     step = jax.jit(make_compressed_train_step(cfg, opt_cfg, pod_mesh))
-    p_c, _, err, m_c = step(params, opt, init_error_state(params), jb)
+    p_c, o_c, err, m_c = step(params, opt, init_error_state(params), jb)
+    out["compressed"] = dict(
+        params=to_np(p_c), metrics=to_np(m_c), err=to_np(err),
+        err_pod1=jax.tree.map(lambda a: np.asarray(
+            [s.data for s in a.addressable_shards if s.device.id == 4][0]),
+            err))
+    # the steps that follow read back each pod's own buffer
+    out["compressed_steps"] = []
+    for i in range(inp["comp_steps"]):
+        if i:
+            p_c, o_c, err, m_c = step(p_c, o_c, err, jb)
+        out["compressed_steps"].append(dict(
+            params=to_np(p_c), opt=to_np(o_c), metrics=to_np(m_c),
+            err_pods=[jax.tree.map(lambda a: pod_copy(a, pod), err)
+                      for pod in range(2)]))
 out["constrain_pod"] = sorted(set(captured))
-out["compressed"] = dict(
-    params=to_np(p_c), metrics=to_np(m_c), err=to_np(err),
-    err_pod1=jax.tree.map(lambda a: np.asarray(
-        [s.data for s in a.addressable_shards if s.device.id == 4][0]), err))
 jax.lax.with_sharding_constraint = wsc
 
 w, x, ct = (jnp.asarray(a) for a in inp["pipe"])
@@ -237,6 +266,7 @@ def ref(tmp_path_factory):
         params, S.params_shardings(cfg, _mesh("4x2")))})
     inp = dict(meshes=MESHES, batches=BATCHES, constrain=CONSTRAIN_CASES,
                opt=OPT, step_archs=STEP_ARCHS, ef=_ef_inputs(),
+               comp_steps=COMP_STEPS,
                pipe=_pipe_inputs(), port_ckpt=port_ckpt,
                ref_ckpt=str(tmp / "ref_ckpt"))
     (tmp / "in.pkl").write_bytes(pickle.dumps(inp))
@@ -455,16 +485,90 @@ def test_compressed_step_matches_reference(ref):
     # the reference's exact step is within its 5e-2 of both
     for path, want in _flat(r["single"][0]).items():
         assert np.abs(_np(got[path]) - want).max() < COMP_ATOL, path
-    # the error buffer returned is the first pod's (the reference's pod 1
-    # holds its own on its devices): each element within one quantum of
-    # it, where a payload rounded the other way
+    # the error buffer read whole is the first pod's (each pod holds its
+    # own, as the reference's devices of pod 1 hold pod 1's): each element
+    # within one quantum of it, where a payload rounded the other way
     got_err, pod1 = _flat(err), _flat(c["err_pod1"])
     differs = False
     for path, want in _flat(c["err"]).items():
         quantum = np.abs(want).max() * 2 / 127 + 1e-12
-        assert np.abs(_np(got_err[path]) - want).max() <= quantum, path
+        assert np.abs(_np(S.gather(got_err[path], CPU)) - want).max() \
+            <= quantum, path
         differs |= not np.allclose(want, pod1[path])
     assert differs
+
+
+def _pod_buffers(leaf) -> list:
+    """Each pod's error buffer of a leaf the compressed step returned."""
+    return [_np(c) for c in getattr(leaf, "copies", [leaf] * 2)]
+
+
+def test_compressed_step_keeps_each_pods_error_buffer(ref, monkeypatch):
+    """``COMP_STEPS`` compressed steps on ``(2, 2, 2)``: the reference's
+    devices of each pod read their own pod's buffer back, so each pod adds
+    back its own residual.  Run in a row, the params after each step are
+    within ``COMP_ATOL`` of the reference's and each pod's buffer within
+    one quantum of the reference's pod's; the buffer read whole is the
+    first pod's, and the second pod's differs from it.  Stepped from the
+    reference's params and AdamW state after each step, all but
+    ``COMP_FLIP_SHARE`` of each pod's buffer is within 1e-6."""
+    cfg = _reduced("qwen3-1.7b")
+    opt_cfg = PA.AdamWConfig(**OPT)
+    r = ref["steps"]["qwen3-1.7b"]
+    runs = ref["compressed_steps"]
+    assert len(runs) == COMP_STEPS
+    batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+    step = PCOMP.make_compressed_train_step(cfg, opt_cfg, _mesh("2x2x2"))
+    scales, ef = [], PCOMP.ef_compress_leaf
+
+    def recorded(g, e):
+        q, scale, new_err = ef(g, e)
+        scales.append(float(scale))
+        return q, scale, new_err
+    monkeypatch.setattr(PCOMP, "ef_compress_leaf", recorded)
+
+    params = params_from_numpy(r["params"], device=CPU)
+    opt = PA.init(opt_cfg, params)
+    err = PCOMP.init_error_state(params)
+    for k, want in enumerate(runs):
+        scales.clear()
+        params, opt, err, _ = step(params, opt, err, batch)
+        got = _flat(params)
+        for path, w in _flat(want["params"]).items():
+            assert np.abs(_np(got[path]) - w).max() < COMP_ATOL, (k, path)
+        leaves = _flat(err)
+        assert len(scales) == 2 * len(leaves)
+        differs = False
+        for j, (path, leaf) in enumerate(leaves.items()):
+            pods = _pod_buffers(leaf)
+            assert np.array_equal(_np(S.gather(leaf, CPU)), pods[0]), path
+            for i, (got_i, w) in enumerate(zip(pods, want["err_pods"])):
+                quantum = scales[i * len(leaves) + j] * (1 + 1e-3)
+                assert np.abs(got_i - _flat(w)[path]).max() <= quantum, \
+                    (k, i, path)
+            differs |= not np.allclose(pods[0], pods[1])
+        assert differs, k
+
+    err = PCOMP.init_error_state(params)
+    for k, want in enumerate(runs):
+        if k == 0:
+            params = params_from_numpy(r["params"], device=CPU)
+            opt = PA.init(opt_cfg, params)
+        else:
+            before = runs[k - 1]
+            params = params_from_numpy(before["params"], device=CPU)
+            opt = {"m": params_from_numpy(before["opt"]["m"], device=CPU),
+                   "v": params_from_numpy(before["opt"]["v"], device=CPU),
+                   "step": torch.tensor(int(before["opt"]["step"]),
+                                        dtype=torch.int32)}
+        _, _, err, _ = step(params, opt, err, batch)
+        far = total = 0
+        for path, leaf in _flat(err).items():
+            for got_i, w in zip(_pod_buffers(leaf), want["err_pods"]):
+                diff = np.abs(got_i - _flat(w)[path])
+                far += int((diff > 1e-6).sum())
+                total += diff.size
+        assert far <= COMP_FLIP_SHARE * total, (k, far, total)
 
 
 def test_compressed_reduction_dequantizes_at_the_largest_scale(

@@ -1406,6 +1406,142 @@ def test_pipeline_apply_on_card(cuda):
         assert pipe_err <= 2 * seq_err, (pipe_err, seq_err)
 
 
+def _equal_router(params) -> None:
+    """Every MoE router's columns made equal to its first: each token ties
+    and takes the first ``top_k`` experts."""
+    from repro_torch.models.params import _walk
+    for path, x in _walk(params):
+        if path[-1] == "router":
+            x.copy_(x[..., :1].expand_as(x))
+
+
+def _serve_on(cfg, params, mesh, dev, toks, steps, seq):
+    """Prefill and decode steps (``launch.steps``) on ``mesh`` (None: one
+    device): the logits of each, the final cache gathered onto ``dev``,
+    and K5's launches in the decode steps."""
+    from repro_torch.launch import steps as PS
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel import sharding as S
+    p = params if mesh is None else S.shard_tree(
+        params, S.params_shardings(cfg, mesh))
+    logits, cache = PS.make_prefill_step(cfg, toks.shape[0], seq, mesh)(
+        p, toks)
+    decode = PS.make_decode_step(cfg, mesh)
+    seen, before = [S.gather(logits, dev)], moe_gemm.launches
+    for i, tok in enumerate(steps):
+        lg, cache = decode(p, cache, tok, toks.shape[1] + i)
+        seen.append(S.gather(lg, dev))
+    return seen, {path: S.gather(x, dev) for path, x in _walk(cache)}, \
+        moe_gemm.launches - before
+
+
+@pytest.mark.parametrize("routing", ["in_graph", "host"])
+def test_moe_mesh_decode_bundles_the_global_batch_on_card(cuda, routing,
+                                                          monkeypatch):
+    """Reduced dbrx-132b at batch 32 on a ``(4, 2)`` mesh of ``cuda:0`` x
+    8, its routers' columns equal, so a decode step over the whole batch
+    drops the tokens past an expert's 24 slots: every logit and the final
+    cache within 1e-4 of one device on the card, K5 launched 3 times an
+    MoE layer a decode step (once over the global batch, not once a data
+    shard); rows 24-31 decoded alone (their own capacity, no drop) differ,
+    so the drop shows.  With a runtime installed the host route runs once
+    an MoE layer a decode step."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as PMOE
+    cfg = reduced_config(get_config("dbrx-132b"))
+    params = M.init_params(cfg, 3, device=cuda)
+    _equal_router(params)
+    rng = np.random.default_rng(130)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 8)).astype(
+        np.int32)).to(cuda)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (32, 1))
+                              .astype(np.int32)).to(cuda) for _ in range(3)]
+    one = _serve_on(cfg, params, None, cuda, toks, steps, 11)
+    tail = _serve_on(cfg, params, None, cuda, toks[24:],
+                     [t[24:] for t in steps], 11)
+    calls = []
+    if routing == "host":
+        plan_dest = PMOE._host_plan_dest
+
+        def counted(expert_ids, **kw):
+            calls.append(np.asarray(expert_ids).shape[0])
+            return plan_dest(expert_ids, **kw)
+        monkeypatch.setattr(PMOE, "_host_plan_dest", counted)
+        monkeypatch.setattr(PMOE, "_HOST_DISPATCH_RT",
+                            ReapRuntime(device="cuda"))
+    mesh = make_mesh((4, 2), ("data", "model"), ["cuda:0"] * 8)
+    got = _serve_on(cfg, params, mesh, cuda, toks, steps, 11)
+    for g, o in zip(got[0], one[0]):
+        torch.testing.assert_close(g, o, rtol=1e-4, atol=1e-4)
+    for path, x in got[1].items():
+        torch.testing.assert_close(x, one[1][path], rtol=1e-4, atol=1e-4)
+    assert got[2] == one[2] == 3 * cfg.n_layers * len(steps)
+    assert max((g[24:] - t).abs().max().item()
+               for g, t in zip(got[0][1:], tail[0][1:])) > 1e-2
+    if routing == "host":
+        assert calls == [32] * (cfg.n_layers * len(steps))
+
+
+def test_compressed_step_keeps_each_pods_error_buffer_on_card(
+        cuda, monkeypatch):
+    """Three int8 compressed steps of reduced qwen3-1.7b on a ``(2, 2,
+    2)`` mesh of ``cuda:0`` x 8 against the same steps on the host: the
+    params within the reference test's 5e-2 after each step, each pod's
+    error buffer within one quantum (the larger of the two runs' payload
+    scales for that pod, leaf and step) of the host's pod's, the second
+    pod's buffer not the first's, and the buffer read whole the first
+    pod's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import _walk, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel import compression as PCOMP
+    cfg = reduced_config(get_config("qwen3-1.7b"))
+    opt_cfg = adamw.AdamWConfig(lr=1e-2, warmup_steps=0, total_steps=10)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                   global_batch=8)).get_batch(0)
+    scales, ef = [], PCOMP.ef_compress_leaf
+
+    def recorded(g, e):
+        q, scale, new_err = ef(g, e)
+        scales[-1].append(float(scale))
+        return q, scale, new_err
+    monkeypatch.setattr(PCOMP, "ef_compress_leaf", recorded)
+    runs = []
+    for dev in ("cpu", "cuda:0"):
+        params = tree_map(lambda x: x.to(dev),
+                          M.init_params(cfg, 0, device="cpu"))
+        opt = adamw.init(opt_cfg, params)
+        err = PCOMP.init_error_state(params)
+        b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        step = PCOMP.make_compressed_train_step(cfg, opt_cfg, make_mesh(
+            (2, 2, 2), ("pod", "data", "model"), [dev] * 8))
+        seen = []
+        for _ in range(3):
+            scales.append([])
+            params, opt, err, _ = step(params, opt, err, b)
+            seen.append(({path: x.cpu() for path, x in _walk(params)},
+                         {path: ([c.cpu() for c in x.copies],
+                                 S.gather(x, "cpu"))
+                          for path, x in _walk(err)}))
+        runs.append(seen)
+    for k, ((hp, he), (cp, ce)) in enumerate(zip(*runs)):
+        for path, x in cp.items():
+            assert (x - hp[path]).abs().max().item() < 5e-2, path
+        n, differs = len(ce), False
+        quanta = np.maximum(scales[k], scales[3 + k]) * (1 + 1e-3)
+        for j, (path, (copies, whole)) in enumerate(ce.items()):
+            assert torch.equal(whole, copies[0]), path
+            for i, (c, h) in enumerate(zip(copies, he[path][0])):
+                assert (c - h).abs().max().item() <= quanta[i * n + j], \
+                    (k, i, path)
+            differs |= not torch.allclose(copies[0], copies[1])
+        assert differs
+
+
 def test_purity_replay_on_card_equals_host(cuda):
     """The purity replay of ``repro_torch.analysis`` with
     ``device="cuda"``: every registered op replays bit-identically, and each

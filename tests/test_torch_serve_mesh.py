@@ -22,6 +22,11 @@ what:
   in- and out-shardings ``dryrun._lower_compile`` gives them, and against
   the port's one-device steps, at the one-device serving parity tests'
   1e-4; a ``(1, 1)`` mesh bit-equal to one device;
+* an MoE decode batch that overflows an expert's capacity (reduced
+  dbrx-132b at batch 32, its router's columns equal in the params both
+  packages get): the port's mesh decode bundles the whole batch once an
+  MoE layer, as the reference's one program does, and holds to its sharded
+  run and to one device at 1e-4, in-graph and host-routed;
 * the production meshes' shapes and axes (``test_distributed.py``'s).
 """
 import os
@@ -57,6 +62,10 @@ PROMPT, N_DEC = 16, 4
 SEQ = PROMPT + N_DEC
 # the one-device serving parity tests' tolerance (test_torch_models.py)
 TOL = dict(rtol=1e-4, atol=1e-4)
+# an MoE decode batch that overflows an expert's capacity (24 slots at 32
+# rows, top-2 of 4) where no data shard's 8 rows would (8 slots): the
+# router's columns made equal in the params both packages get
+DROP = dict(arch="dbrx-132b", batch=32, prompt=8, n_dec=3, seed=130)
 
 _REF_SCRIPT = r"""
 import os, pickle, sys
@@ -112,31 +121,45 @@ for arch in ARCHS:
                 spec(qs))
 
 mesh = meshes["4x2"]
+
+def serve(cfg, params, b, seq, x, toks):
+    pshard = S.params_shardings(cfg, mesh)
+    arg = jnp.asarray(x)
+    in_sh = NamedSharding(mesh, S.batch_spec(mesh, b, arg.ndim - 1))
+    with mesh:
+        prefill = jax.jit(make_prefill_step(cfg, b, seq, mesh),
+                          in_shardings=(pshard, in_sh))
+        logits, cache = prefill(jax.device_put(params, pshard), arg)
+        _, cshard, tok_sh, pos_sh = decode_shardings(cfg, mesh, cache, b)
+        step = jax.jit(make_decode_step(cfg, mesh),
+                       in_shardings=(pshard, cshard, tok_sh, pos_sh),
+                       out_shardings=(None, cshard), donate_argnums=(1,))
+        seen = [np.asarray(logits, np.float32)]
+        for i, (tok, pos) in enumerate(toks):
+            lg, cache = step(jax.device_put(params, pshard), cache,
+                             jnp.asarray(tok, jnp.int32),
+                             jnp.asarray(pos, jnp.int32))
+            seen.append(np.asarray(lg, np.float32))
+    return dict(logits=seen, cache=to_np(cache))
+
 out["serve"] = {}
 for arch in inp["serve_archs"]:
     cfg = reduced_config(get_config(arch))
     params = M.init_params(cfg, jax.random.PRNGKey(3))
-    pshard = S.params_shardings(cfg, mesh)
     for b in inp["spec_batches"]:
-        x, toks = inp["serve_inputs"][arch, b]
-        arg = jnp.asarray(x)
-        in_sh = NamedSharding(mesh, S.batch_spec(mesh, b, arg.ndim - 1))
-        with mesh:
-            prefill = jax.jit(make_prefill_step(cfg, b, inp["seq"], mesh),
-                              in_shardings=(pshard, in_sh))
-            logits, cache = prefill(jax.device_put(params, pshard), arg)
-            _, cshard, tok_sh, pos_sh = decode_shardings(cfg, mesh, cache, b)
-            step = jax.jit(make_decode_step(cfg, mesh),
-                           in_shardings=(pshard, cshard, tok_sh, pos_sh),
-                           out_shardings=(None, cshard), donate_argnums=(1,))
-            seen = [np.asarray(logits, np.float32)]
-            for i, (tok, pos) in enumerate(toks):
-                lg, cache = step(jax.device_put(params, pshard), cache,
-                                 jnp.asarray(tok, jnp.int32),
-                                 jnp.asarray(pos, jnp.int32))
-                seen.append(np.asarray(lg, np.float32))
-        out["serve"][arch, b] = dict(logits=seen, cache=to_np(cache))
+        out["serve"][arch, b] = serve(cfg, params, b, inp["seq"],
+                                      *inp["serve_inputs"][arch, b])
     out["serve"][arch, "params"] = to_np(params)
+
+# the router's columns made equal: every token ties, and top-k takes the
+# first experts, which overflow their capacity at the global batch
+cfg = reduced_config(get_config(inp["drop_arch"]))
+params = jax.tree_util.tree_map_with_path(
+    lambda path, a: jnp.broadcast_to(a[..., :1], a.shape)
+    if path[-1].key == "router" else a,
+    M.init_params(cfg, jax.random.PRNGKey(3)))
+b, seq, x, toks = inp["drop_inputs"]
+out["drop"] = dict(serve(cfg, params, b, seq, x, toks), params=to_np(params))
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -165,13 +188,25 @@ def _serve_inputs(arch, b):
     return x, toks
 
 
+def _drop_inputs():
+    """The drop case's batch, cache length, prompt and decode steps."""
+    d = DROP
+    rng = np.random.default_rng(d["seed"])
+    vocab = _reduced(d["arch"]).vocab_size
+    x = rng.integers(0, vocab, (d["batch"], d["prompt"])).astype(np.int32)
+    toks = [(rng.integers(0, vocab, (d["batch"], 1)).astype(np.int32),
+             d["prompt"] + i) for i in range(d["n_dec"])]
+    return d["batch"], d["prompt"] + d["n_dec"], x, toks
+
+
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ref_serve8")
     inp = dict(meshes=MESHES, spec_batches=SPEC_BATCHES, spec_seq=SPEC_SEQ,
                serve_archs=SERVE_ARCHS, seq=SEQ,
                serve_inputs={(a, b): _serve_inputs(a, b)
-                             for a in SERVE_ARCHS for b in SPEC_BATCHES})
+                             for a in SERVE_ARCHS for b in SPEC_BATCHES},
+               drop_arch=DROP["arch"], drop_inputs=_drop_inputs())
     (tmp / "in.pkl").write_bytes(pickle.dumps(inp))
     script = tmp / "ref_serve8.py"
     script.write_text(textwrap.dedent(_REF_SCRIPT))
@@ -307,12 +342,12 @@ def test_decode_shardings_match_reference(ref, arch):
 
 # -- sharded prefill and decode --------------------------------------------------
 
-def _run(cfg, params, b, mesh, x, toks):
+def _run(cfg, params, b, mesh, x, toks, seq=SEQ):
     """Prefill and the decode steps on ``mesh`` (None: one device):
     ``(logits of each, final cache)``, gathered onto the host."""
     p = params if mesh is None else S.shard_tree(
         params, S.params_shardings(cfg, mesh))
-    logits, cache = PS.make_prefill_step(cfg, b, SEQ, mesh)(
+    logits, cache = PS.make_prefill_step(cfg, b, seq, mesh)(
         p, torch.from_numpy(x))
     step = PS.make_decode_step(cfg, mesh)
     seen = [S.gather(logits, CPU)]
@@ -365,6 +400,70 @@ def test_one_by_one_mesh_is_one_device(served, arch, b):
     one_logits, one_cache = served[arch, b, "one"]
     assert all(torch.equal(g, w) for g, w in zip(logits, one_logits))
     assert all(torch.equal(cache[k], one_cache[k]) for k in one_cache)
+
+
+def _held(got, want, one):
+    """Every step's logits and the final cache within ``TOL`` of the
+    reference's (``want``) and of the one-device port's (``one``)."""
+    (logits, cache), (one_logits, one_cache) = got, one
+    assert len(logits) == len(want["logits"]) == len(one_logits)
+    for g, w, o in zip(logits, want["logits"], one_logits):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+        np.testing.assert_allclose(g.numpy(), o.numpy(), **TOL)
+    want_cache = _flat(want["cache"])
+    assert set(cache) == set(want_cache) == set(one_cache)
+    for k, v in cache.items():
+        np.testing.assert_allclose(v.float().numpy(), want_cache[k], **TOL,
+                                   err_msg=k)
+        np.testing.assert_allclose(v.numpy(), one_cache[k].numpy(), **TOL,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("routing", ["in_graph", "host"])
+def test_moe_mesh_decode_bundles_the_global_batch(ref, routing,
+                                                  monkeypatch):
+    """Reduced dbrx-132b at batch 32 on ``(4, 2)``, its router's columns
+    equal: every token takes the first two experts, so the reference's
+    decode step (one program over the batch) drops the tokens past the
+    global capacity, 24 slots, where a data shard's 8 rows (8 slots) would
+    drop none.  The port's mesh decode bundles the whole batch once an MoE
+    layer: its logits and final cache within ``TOL`` of the reference's
+    sharded run and of one device.  With a runtime installed the host
+    route runs once an MoE layer a decode step, not once a data shard."""
+    import repro.models.moe as RMOE
+    import jax.numpy as jnp
+    from repro_torch.models import moe as PMOE
+    from repro_torch.runtime import ReapRuntime
+    cfg = _reduced(DROP["arch"])
+    b, seq, x, toks = _drop_inputs()
+    params = params_from_numpy(ref["drop"]["params"], CPU)
+    router = ref["drop"]["params"]["layers"]["pos0"]["ffn"]["router"][0]
+    rows = np.random.default_rng(0).standard_normal(
+        (b, cfg.d_model)).astype(np.float32)
+    dropped = {}
+    for n in (b, b // 4):
+        cap = RMOE.expert_capacity(n, cfg.n_experts, cfg.moe_top_k,
+                                   cfg.capacity_factor)
+        dropped[n] = float(RMOE.route_and_bundle(
+            jnp.asarray(rows[:n]), jnp.asarray(router),
+            n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+            capacity=cap)[3])
+    assert dropped[b] > 0 and dropped[b // 4] == 0, dropped
+    one = _run(cfg, params, b, None, x, toks, seq)
+    calls = []
+    if routing == "host":
+        plan_dest = PMOE._host_plan_dest
+
+        def counted(expert_ids, **kw):
+            calls.append(np.asarray(expert_ids).shape[0])
+            return plan_dest(expert_ids, **kw)
+        monkeypatch.setattr(PMOE, "_host_plan_dest", counted)
+        monkeypatch.setattr(PMOE, "_HOST_DISPATCH_RT",
+                            ReapRuntime(device=CPU))
+    got = _run(cfg, params, b, _mesh("4x2"), x, toks, seq)
+    _held(got, ref["drop"], one)
+    if routing == "host":
+        assert calls == [b] * (cfg.n_layers * DROP["n_dec"])
 
 
 def test_batch_one_cell_shards_the_cache_sequence():
