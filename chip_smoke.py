@@ -342,21 +342,31 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
 44. reduced dbrx-132b, one sharded step on a (2, 2) mesh against one
    device: K5 and its backward (and K4 and its) once per data shard, the
    params within phase 40's tolerances;
-45. main path, sixteenth slice — sharded serving, in a child process
+45. main path, sixteenth and eighteenth slices — sharded serving with
+   tensor parallelism over the model axis, in a child process
    (``--serve-mesh``) after phase 44's: qwen3-1.7b at full width and depth
-   (float32 params, bfloat16 compute) on a (2, 2) ("data", "model") mesh
-   of ``cuda:0`` x 4, ``make_prefill_step`` over 8 x 1024 tokens, then 16
-   ``make_decode_step`` steps on seeded tokens: the params sharded storage,
-   each data shard gathering them and its rows of the cache
-   (``cache_shardings``), K4 once a layer a data shard (56 a prefill); every
+   (float32 params) on a (2, 2) ("data", "model") mesh of ``cuda:0`` x 4,
+   ``make_prefill_step`` over 8 x 1024 tokens, then 16
+   ``make_decode_step`` steps on seeded tokens: the params sharded
+   storage, each of the 4 positions (2 data shards x 2 model shards)
+   gathering its model slice of one layer's params at a time and its
+   heads of its rows of the cache (``cache_shardings``), computing on 8 of
+   the 16 q heads (K4 28 times a prefill a position, 112 a prefill), the
+   sub-layers' partial outputs summed in float32; in float32 compute every
    step's logits and the final cache within 1e-3 of the same steps on one
-   device; wall time, peak memory and, beside them, the dry run's
-   per-device argument and temp bytes for the same shapes (a reading);
-46. the same for rwkv6-1.6b: K6 48 times a prefill;
+   device (the same rows), no plain version called; in bfloat16 the same
+   beside one device as a reading; the bytes a position gathers a step,
+   wall time and peak memory beside one device's and, beside them, the
+   dry run's per-device argument and temp bytes for the same shapes (a
+   reading);
+46. the same for rwkv6-1.6b: 16 of 32 heads a position, ``out_norm`` over
+   all heads' channels (the sums of squares reduced), K6 24 times a
+   prefill a position (96 a prefill);
 47. qwen3-1.7b at batch 1, a prompt of 8192 and 8 decode steps: one data
-   shard on the mesh's first device, the cache stored with its sequence
-   over ``data``, gathered and re-sharded around each step; held to one
-   device, and a (1, 1) mesh bit-equal to it;
+   shard at the mesh's first data position, its 2 model positions, the
+   cache stored with its sequence over ``data``, gathered and re-sharded
+   around each step; held to one device in float32, and a (1, 1) mesh
+   (one model position: the one-device route) bit-equal to it;
 49. in the same child after 47: dbrx-132b at full width (bfloat16 params,
    float32 compute), depth cut 40 -> 2, on the (2, 2) mesh at batch 64 (prompts of 128 repeating
    in 16 groups, every group with two rows in each data shard), a prefill
@@ -707,13 +717,15 @@ MESH_MOE = dict(batch=4, seq=64)
 MESH_LOSS_TOL, MESH_RTOL, MESH_ATOL = 1e-3, 2e-2, 2e-3
 MESH_COMP_ATOL, MESH_PIPE_TOL = 5e-2, 1e-5
 # sharded serving (phases 45-47), in a child (``--serve-mesh``): qwen3-1.7b
-# and rwkv6-1.6b at full width and depth (float32 params, bfloat16
-# compute) on a (2, 2) ("data", "model") mesh of MESH_DEVICE repeated,
-# make_prefill_step over batch x prompt into a cache of prompt + n_dec
-# positions, then n_dec make_decode_step steps on seeded tokens, every
-# logit and the final cache held to the same steps on one device within
-# LM_TOL; phase 47 at batch 1 (the cache's sequence sharded over "data"),
-# and a (1, 1) mesh bit-equal to one device
+# and rwkv6-1.6b at full width and depth (float32 params) on a (2, 2)
+# ("data", "model") mesh of MESH_DEVICE repeated, each model position on
+# its heads and columns (the tensor-parallel route), make_prefill_step
+# over batch x prompt into a cache of prompt + n_dec positions, then n_dec
+# make_decode_step steps on seeded tokens; in float32 compute every logit
+# and the final cache held to the same steps on one device within LM_TOL,
+# in bfloat16 the same read beside it; phase 47 at batch 1 (the cache's
+# sequence sharded over "data"), and a (1, 1) mesh bit-equal to one
+# device
 SERVE_MESH = {QWEN3: dict(batch=8, prompt=1024, n_dec=16, seed=140),
               RWKV6: dict(batch=8, prompt=1024, n_dec=16, seed=141)}
 SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
@@ -4833,7 +4845,9 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
     the two prefills), wall seconds of the prefill (its first call, and a
     second whose outputs are kept: a first call at new shapes spends
     seconds on the card's first use of the products' kernels) and of each
-    step, and the peak device memory.  The decode steps' MoE routings go
+    step, the peak device memory over the steps (each read before the
+    logits are gathered for the comparison) and the bytes each position
+    gathered in the second prefill and the last decode step.  The decode steps' MoE routings go
     to ``drops`` (``record_drops``)."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
@@ -4865,23 +4879,32 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
     logits, cache = prefill(params, toks)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    # the steps' peak: each read before the comparison's gather of the
+    # logits (a copy of them beside the shards), which the step does not
+    # make
+    peak = torch.cuda.max_memory_allocated()
     seen, step_s = [S.gather(logits, dev)], []
     del logits
     prefill_launches = read_train_counts()
     with record_drops(drops):
         for i, tok in enumerate(steps):
+            torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
             lg, cache = decode(params, cache, tok, s + i)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
+            peak = max(peak, torch.cuda.max_memory_allocated())
             seen.append(S.gather(lg, dev))
     launches = read_train_counts()
+    gathered = {kind: {str(pos): n for pos, n in getattr(
+        step, "gathered", S.GatherCount()).totals().items()}
+        for kind, step in (("prefill", prefill), ("decode_step", decode))}
     return dict(logits=seen, cache={path: S.gather(x, dev)
                                     for path, x in _walk(cache)},
                 launches=launches, prefill_launches=prefill_launches,
+                gathered=gathered,
                 first_prefill_s=first_s,
-                prefill_s=prefill_s, step_s=step_s,
-                peak=torch.cuda.max_memory_allocated(),
+                prefill_s=prefill_s, step_s=step_s, peak=peak,
                 n_sharded=sum(isinstance(x, S.ShardedTensor)
                               for _, x in _walk(cache)))
 
@@ -4917,79 +4940,95 @@ def serve_mesh_compare(got: dict, want: dict, rows=None) -> dict:
 
 
 def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
-                     phase: str, per_shard: dict, one_by_one: bool = False
+                     phase: str, kernel: str, one_by_one: bool = False
                      ) -> dict:
     """One of phases 45-47: ``serve_mesh_run`` on a (2, 2) ("data",
-    "model") mesh, held to the same steps on one device over each data
-    shard's rows (the same products, row for row) within LM_TOL, every
-    kernel of ``per_shard`` launched that many times a data shard in the
-    prefill and none in the decode steps; the same steps on one device
-    over the whole batch beside it, as a reading (in bfloat16 a product
-    over fewer rows may sum in another order); with ``one_by_one`` a
-    (1, 1) mesh bit-equal to one device.  Returns the mesh run's
-    launches."""
+    "model") mesh, where every position computes on its model slice (the
+    tensor-parallel route), held in float32 compute to the same steps on
+    one device (the same rows) within LM_TOL; ``kernel`` launched once a
+    layer a position in each prefill (on half the heads) and never in the
+    decode steps; in bfloat16 compute (``cfg``'s) the same steps beside one
+    device as a reading; with ``one_by_one`` a (1, 1) mesh bit-equal to one
+    device.  Readings: the bytes each position gathers a step (one device
+    gathers none; the storage-only route gathered every param a data
+    shard), the prefill and decode-step times and the peak memory, each
+    beside one device's.  Returns the float32 mesh run's launches."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import ShapeConfig
     from repro_torch.launch.dryrun import cost_cell
-    from repro_torch.launch.steps import data_shards
-    whole = serve_mesh_run(cfg, params, None, spec)
-    torch.cuda.empty_cache()
+    from repro_torch.launch.steps import tp_shards
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel.tensor_parallel import tp_route
     mesh = card_mesh((2, 2), ("data", "model"))
-    run = serve_mesh_run(cfg, params, mesh, spec)
-    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     b, s, n_dec = spec["batch"], spec["prompt"], spec["n_dec"]
-    shards = [(lo, hi) for _, lo, hi in data_shards(mesh, b)]
-    cmp, ref_launches = [], []
-    for lo, hi in shards:
-        part = whole if (lo, hi) == (0, b) else serve_mesh_run(
-            cfg, params, None, spec, (lo, hi))
-        cmp.append(serve_mesh_compare(run, part, (lo, hi)))
-        ref_launches.append(part["launches"])
-        del part
+    shards = tp_shards(mesh, b)
+    n_pos = sum(len(group) for _, _, group in shards)
+    runs, cmp, bit = {}, {}, None
+    for dtype, c in (("32", cfg32), ("16", cfg)):
+        whole = serve_mesh_run(c, params, None, spec)
         torch.cuda.empty_cache()
-    held = dict(max_abs_err={k: max(c["max_abs_err"][k] for c in cmp)
-                             for k in ("logits", "cache")},
-                out_of_tol=sum(c["out_of_tol"] for c in cmp),
-                bit_equal=all(c["bit_equal"] for c in cmp))
-    reading = serve_mesh_compare(run, whole)
-    # two prefills a run (serve_mesh_run), each once a data shard
-    want = {k: 2 * len(shards) * v for k, v in per_shard.items()}
-    ok = held["out_of_tol"] == 0 \
-        and {k: run["launches"][k] for k in want} == want \
-        and all({k: r[k] for k in per_shard} == {
-            k: 2 * v for k, v in per_shard.items()} for r in ref_launches) \
-        and not any(n for k, n in run["launches"].items() if k not in want)
-    bit = None
+        run = serve_mesh_run(c, params, mesh, spec)
+        cmp[dtype] = serve_mesh_compare(run, whole)
+        del run["logits"], run["cache"]
+        torch.cuda.empty_cache()
+        if one_by_one and dtype == "32":
+            unit = serve_mesh_run(c, params, card_mesh((1, 1), (
+                "data", "model")), spec)
+            bit = serve_mesh_compare(unit, whole)
+            del unit
+        del whole["logits"], whole["cache"]
+        runs["whole" + dtype], runs["mesh" + dtype] = whole, run
+        torch.cuda.empty_cache()
+    held, reading = cmp["32"], cmp["16"]
+    n = cfg.n_layers
+    # two prefills a run (serve_mesh_run); none in the decode steps
+    want = {"mesh": {kernel: 2 * n_pos * n}, "one": {kernel: 2 * n}}
+    got = {name: {k: r["launches"][k] for k in want["one"]}
+           for name, r in runs.items()}
+    ok = held["out_of_tol"] == 0 and tp_route(cfg, mesh) \
+        and all(got[name] == want["mesh" if "mesh" in name else "one"]
+                and runs[name]["prefill_launches"][kernel]
+                == runs[name]["launches"][kernel] for name in runs) \
+        and not any(v for name, r in runs.items()
+                    for k, v in r["launches"].items() if k != kernel)
     if one_by_one:
-        unit = serve_mesh_run(cfg, params, card_mesh((1, 1),
-                                                     ("data", "model")), spec)
-        bit = serve_mesh_compare(unit, whole)
         ok &= bit["bit_equal"]
-        del unit
     # the dry run's per-device bytes for the same shapes, as a reading
     dry = {kind: cost_cell(cfg, ShapeConfig(phase, kind, seq, b), mesh)[
         "memory"] for kind, seq in (("prefill", s), ("decode", s + n_dec))}
-    emit(phase="main_path", case=f"{arch} sharded prefill and decode on a "
-         f"(2, 2) mesh, batch {b} x {s}, {n_dec} steps, against one device",
-         serve_phase=phase, arch=arch, mesh=[str(d) for d in
-                                             mesh.devices.flat],
-         data_shards=shards, sharded_cache_leaves=run["n_sharded"],
-         against_same_rows=held, tol=LM_TOL,
-         against_whole_batch_reading=reading, one_by_one=bit,
-         launches=run["launches"], one_device_launches=whole["launches"],
-         first_prefill_s=run["first_prefill_s"], prefill_s=run["prefill_s"],
-         one_device_first_prefill_s=whole["first_prefill_s"],
-         one_device_prefill_s=whole["prefill_s"],
-         step_s_p50=float(np.median(run["step_s"])),
-         one_device_step_s_p50=float(np.median(whole["step_s"])),
-         max_memory_allocated_bytes=run["peak"],
-         one_device_max_memory_allocated_bytes=whole["peak"],
+    param_bytes = sum(x.numel() * x.element_size() for _, x in _walk(params))
+
+    def times(r):
+        return dict(first_prefill_s=r["first_prefill_s"],
+                    prefill_s=r["prefill_s"],
+                    step_s_p50=float(np.median(r["step_s"])),
+                    max_memory_allocated_bytes=r["peak"])
+    emit(phase="main_path", case=f"{arch} tensor-parallel prefill and "
+         f"decode on a (2, 2) mesh, batch {b} x {s}, {n_dec} steps, "
+         "float32 against one device", serve_phase=phase, arch=arch,
+         mesh=[str(d) for d in mesh.devices.flat],
+         data_shards=[(lo, hi) for lo, hi, _ in shards],
+         model_positions=[[list(p) for p in group]
+                          for _, _, group in shards],
+         sharded_cache_leaves=runs["mesh32"]["n_sharded"],
+         against_one_device_f32=held, tol=LM_TOL,
+         bf16_against_one_device_reading=reading, one_by_one=bit,
+         launches={name: r["launches"] for name, r in runs.items()},
+         launches_a_prefill_a_position=runs["mesh32"]["prefill_launches"][
+             kernel] // (2 * n_pos),
+         gathered_bytes_a_position=runs["mesh32"]["gathered"],
+         one_device_gathered_bytes=0,
+         storage_route_gathered_bytes_a_data_shard=param_bytes,
+         **{name: times(r) for name, r in runs.items()},
          dryrun_per_device={k: {"argument_bytes": v["argument_bytes"],
                                 "temp_bytes": v["temp_bytes"]}
                             for k, v in dry.items()}, ok=ok, card=card)
-    check(ok, f"{arch} sharded serving ({phase}): {held}, launches "
-          f"{run['launches']} / {ref_launches}, (1, 1) {bit}")
-    return run["launches"]
+    check(ok, f"{arch} sharded serving ({phase}): {held}, launches {got} / "
+          f"{want}, (1, 1) {bit}")
+    return runs["mesh32"]["launches"]
 
 
 def serve_mesh_moe_phase(card: str) -> dict:
@@ -5103,12 +5142,11 @@ def serve_mesh() -> int:
         params = init_model(arch, cfg, SERVE_MESH[arch]["seed"], dev)
         launches[f"{arch} sharded serving on a (2, 2) mesh"] = \
             serve_mesh_phase(card, arch, cfg, params, SERVE_MESH[arch],
-                             phase, {kernel: cfg.n_layers})
+                             phase, kernel)
         if arch == QWEN3:
             launches[f"{QWEN3} batch-1 serving on a (2, 2) mesh"] = \
                 serve_mesh_phase(card, QWEN3, cfg, params, SERVE_MESH_LONG,
-                                 "47", {kernel: cfg.n_layers},
-                                 one_by_one=True)
+                                 "47", kernel, one_by_one=True)
         del params
         torch.cuda.empty_cache()
     launches[f"{DBRX_LM} sharded decode on a (2, 2) mesh"] = \

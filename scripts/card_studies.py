@@ -17,6 +17,7 @@
     PYTHONPATH=src python scripts/card_studies.py k4-bwd-split
     PYTHONPATH=src python scripts/card_studies.py k5-bwd-routes
     PYTHONPATH=src python scripts/card_studies.py k6-bwd-routes
+    PYTHONPATH=src python scripts/card_studies.py tp-memory
 
 * ``k1-carry`` — K1 at ``chip_smoke.py`` phase 3's three cases (filter3D's
   sync plan and its bucketed chunk 1 at bs = 128, a blocky 8192 at
@@ -138,6 +139,11 @@
   ``"fma"`` route (the first design, through ``_k6_bwd``'s ``route``), by
   CUDA events, and each route's device microseconds by kernel, its
   events summed under ``torch.profiler`` over 10 warm calls.
+* ``tp-memory`` — where the peak of a sharded serving step sits: phase
+  45's float32 prefill and one decode step of qwen3-1.7b on one device and
+  on the tensor-parallel (2, 2) mesh of ``cuda:0`` x 4, the memory
+  allocated and its peak at each block's entry and exit and at the cache
+  reads and writes.
 """
 from __future__ import annotations
 
@@ -883,6 +889,73 @@ def k6_bwd_routes(name: str) -> None:
         torch.cuda.empty_cache()
 
 
+def tp_memory(name: str) -> None:
+    """qwen3-1.7b at full width and depth in float32 (params and compute),
+    ``chip_smoke.py`` phase 45's prefill (8 x 1024 into a cache of 1040)
+    and one decode step, on one device and on the (2, 2) ("data",
+    "model") mesh of ``cuda:0`` x 4 (the tensor-parallel route): the
+    device memory allocated and its peak so far at the entry and exit of
+    each block, the embedding, the head, the stack walk and the cache
+    reads and writes, one row a run with the events where the peak rose by
+    more than 0.1 GB."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as M
+    from repro_torch.parallel import sharding as S
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"),
+                              compute_dtype="float32")
+    dev = torch.device("cuda:0")
+    params = M.init_params(cfg, 140, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(140).integers(
+        0, cfg.vocab_size, (8, 1024)).astype(np.int32)).to(dev)
+    events = []
+
+    def mark(label):
+        torch.cuda.synchronize()
+        events.append((label, torch.cuda.memory_allocated() / 1e9,
+                       torch.cuda.max_memory_allocated() / 1e9))
+
+    def traced(mod, fname):
+        fn = getattr(mod, fname)
+
+        def wrapper(*a, **k):
+            mark(fname + " in")
+            out = fn(*a, **k)
+            mark(fname + " out")
+            return out
+        setattr(mod, fname, wrapper)
+    for mod, fname in ((M, "block_prefill"), (M, "block_prefill_tp"),
+                       (M, "block_decode"), (M, "block_decode_tp"),
+                       (M, "_embed_in_tp"), (M, "_out_head_tp"),
+                       (M, "_out_head"), (M, "_stack_trees"),
+                       (ST, "_read_pieces"), (ST, "_write_pieces"),
+                       (ST, "write_rows")):
+        traced(mod, fname)
+    for shape in (None, (2, 2)):
+        mesh = shape and make_mesh(shape, ("data", "model"), [dev] * 4)
+        events.clear()
+        torch.cuda.reset_peak_memory_stats()
+        mark("start")
+        p = params if mesh is None else S.shard_tree(
+            params, S.params_shardings(cfg, mesh))
+        mark("params stored")
+        logits, cache = ST.make_prefill_step(cfg, 8, 1040, mesh)(p, toks)
+        mark("prefill")
+        logits, cache = ST.make_decode_step(cfg, mesh)(p, cache,
+                                                       toks[:, :1], 1024)
+        mark("decode step")
+        keep, last = [], -1.0
+        for label, alloc, peak in events:
+            if peak > last + 0.1 or label in ("prefill", "decode step"):
+                keep.append((label, round(alloc, 3), round(peak, 3)))
+                last = peak
+        emit(study="tp-memory", mesh=shape, events=keep, card=name)
+        del p, logits, cache
+        torch.cuda.empty_cache()
+
+
 def _to_cpu(tree):
     return {k: _to_cpu(v) if isinstance(v, dict) else v.cpu()
             for k, v in tree.items()}
@@ -895,7 +968,8 @@ def main() -> int:
                                       "kernel-times", "hymba-repeat",
                                       "situ-repeat", "pipeline-grad",
                                       "first-meta", "k4-bwd-split",
-                                      "k5-bwd-routes", "k6-bwd-routes"))
+                                      "k5-bwd-routes", "k6-bwd-routes",
+                                      "tp-memory"))
     ap.add_argument("--runs", type=int, default=None,
                     help="hymba-repeat: runs per params seed (5); "
                          "situ-repeat: card prefills (200)")
@@ -929,6 +1003,8 @@ def main() -> int:
         k5_bwd_routes(name)
     elif args.study == "k6-bwd-routes":
         k6_bwd_routes(name)
+    elif args.study == "tp-memory":
+        tp_memory(name)
     else:
         hymba_repeat(name, args.runs or 5, args.seeds)
     return 0

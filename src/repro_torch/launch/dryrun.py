@@ -4,26 +4,39 @@ share of it costed on ``meta`` tensors, and its roofline on an H100.
 Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
 cell with XLA over 512 placeholder host devices and reads the compiled
 program's ``cost_analysis()`` and ``memory_analysis()``.  The port has no
-compiler; its sharded steps (``launch/steps.py``) run each data shard's
-one-device step on that shard's device, the params gathered whole and the
-model axis sharding storage only.  So a cell here is:
+compiler; its sharded steps (``launch/steps.py``) compute a serving cell of
+a tensor-parallel family (``parallel.tensor_parallel.tp_route``: attention
+with a SwiGLU FFN, RWKV6) on each model position's slice, and every other
+cell (training; MoE, hymba and whisper serving) on each data shard with
+the params gathered whole, the model axis sharding storage only.  So a
+cell here is:
 
 * the production mesh of ``meta`` devices (``make_production_mesh``);
-* one data shard's step (the global batch over the data-parallel axes; one
-  shard of every row where it does not divide: the batch-1 cell) run at
-  full size and full depth on ``meta`` tensors under ``cost.CostMode``:
-  its FLOP, bytes and temp bytes are one device's.  A train cell adds
+* one device's step, run at full size and full depth on ``meta`` tensors
+  under ``cost.CostMode``: its FLOP, bytes and temp bytes are one
+  device's.  On the tensor-parallel route that is one model position of
+  one data shard (``_run_tp_cell``: its model slice of one layer's params
+  at a time, its rows, heads and vocabulary rows; the other positions'
+  partials and columns arrive as placeholders); else one data shard's
+  step (the global batch over the data-parallel axes; one shard of every
+  row where it does not divide: the batch-1 cell).  A train cell adds
   AdamW's update of the first device's storage shards;
 * argument and output bytes from the shardings: each input's and output's
-  per-device shard, as the reference's ``memory_analysis`` counts them.
+  per-device shard, as the reference's ``memory_analysis`` counts them
+  (a tensor-parallel cell's logits over ``("dp", None, "vocab")``).
   The host scalars (AdamW's step counter, a decode step's ``pos``) count
   4 bytes each, as the reference's int32 arguments do, though the port
   keeps them on the host;
 * collective bytes from the shardings: the port's own moves onto and off
-  the busiest device — each data shard's gather of the param leaves it
-  does not hold, the gradient reduction into the storage shards (train),
-  the cache rows a decode step gathers and writes back (the batch-1 cell:
-  the whole cache) and those a prefill writes into the cache's storage.
+  the busiest device — each computing position's gather of the param
+  bytes it does not hold (the whole leaf, or on the tensor-parallel route
+  its model slice), the gradient reduction into the storage shards
+  (train), the cache a decode step gathers and writes back (its rows, or
+  its rows and heads; the batch-1 cell: the whole rows) and what a
+  prefill writes into the cache's storage; on the tensor-parallel route
+  also ``tp_reduce`` (each sub-layer's partial outputs and rwkv's sums of
+  squares summed on the first model position and sent back) and
+  ``tp_exchange`` (the q and K/V columns of a head split over positions).
 
 Every layer runs eagerly, so no loop body is counted once: the record's
 ``scan_correction`` is ``{"applied": false}``.  ``compile_s`` keeps the
@@ -52,6 +65,8 @@ from ..models import model as M
 from ..models.params import _set, _walk, tree_map
 from ..optim import adamw
 from ..parallel import sharding as S
+from ..parallel.api import resolve_spec
+from ..parallel.tensor_parallel import ModelGroup, model_size, tp_route
 from . import roofline as R
 from . import steps as ST
 from .cost import CostMode
@@ -107,44 +122,64 @@ def _tree_shard_bytes(tree, shardings) -> int:
     return total
 
 
-def _stored_at(shape, dtype, sharding, axis=None, rows=None) -> dict:
+def _stored_at(shape, dtype, sharding, block=None) -> dict:
     """Mesh position → bytes of the leaf the port stores there
     (``Sharding.positions``: each shard index on its first position; an
-    all-``None`` spec whole on the first), counting only rows
-    ``[lo, hi)`` along ``axis`` where ``rows`` is given."""
+    all-``None`` spec whole on the first), counting only the part inside
+    ``block`` (dim → ``(start, end)``) where it is given."""
     grid = sharding.grid(len(shape))
     item = _itemsize(dtype)
     per = [d // g for d, g in zip(shape, grid)]
+    block = block or {}
     out: dict = {}
     for idx, pos in sharding.positions(len(shape)).items():
-        n = math.prod(per)
-        if rows is not None:
-            lo, hi = rows
-            a = max(idx[axis] * per[axis], lo)
-            b = min((idx[axis] + 1) * per[axis], hi)
-            n = n // per[axis] * max(b - a, 0)
+        n = 1
+        for d, (i, p) in enumerate(zip(idx, per)):
+            lo, hi = block.get(d, (0, shape[d]))
+            n *= max(min((i + 1) * p, hi) - max(i * p, lo), 0)
         out[pos] = out.get(pos, 0) + n * item
     return out
 
 
-def _collectives(cfg, shape, mesh, specs, pshard, cshard) -> R.CollectiveStats:
-    """The port's moves per mesh position, and those of the busiest."""
+def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None
+                 ) -> R.CollectiveStats:
+    """The port's moves per mesh position, and those of the busiest.
+
+    On the tensor-parallel route (``group``: the costed position's
+    ``ModelGroup``) every model position of a data shard gathers its
+    model slice of each leaf and its piece of the cache (its rows, its
+    heads), and moves what ``group`` counted: ``tp_reduce`` (the partial
+    outputs and the norm's sums of squares in, the sums out: the first
+    model position receives and sends for all) and ``tp_exchange`` (the
+    q and K/V columns a head split over positions needs)."""
     positions = list(np.ndindex(*mesh.devices.shape))
-    moved = {pos: {"param_gather": 0, "grad_reduce": 0, "cache_gather": 0,
-                   "cache_reshard": 0} for pos in positions}
+    kinds = ("param_gather", "grad_reduce", "cache_gather", "cache_reshard")
+    if group is not None:
+        kinds += ("tp_reduce", "tp_exchange")
+    moved = {pos: dict.fromkeys(kinds, 0) for pos in positions}
     batch = shape.global_batch
     shards = list(S.Sharding(mesh, S.batch_spec(mesh, batch, 0))
                   .positions(1).values())
     size = batch // len(shards)
+    # (data shard, first row, model index, mesh position) of every
+    # computing position
+    if group is None:
+        computing = [(i, i * size, 0, pos) for i, pos in enumerate(shards)]
+    else:
+        computing = [(i, lo, m, pos) for i, (lo, _, group_pos) in
+                     enumerate(ST.tp_shards(mesh, batch))
+                     for m, pos in enumerate(group_pos)]
     abstract = M.abstract_params(cfg)
     n_moves = 0
     for path, leaf in _walk(abstract):
         sh = ST._at(pshard, path)
-        whole = math.prod(leaf.shape) * leaf.element_size()
+        want = math.prod(leaf.shape) * leaf.element_size() if group is None \
+            else math.prod(S.model_slice_shape(leaf.shape, sh)) \
+            * leaf.element_size()
         held = _stored_at(leaf.shape, leaf.dtype, sh)
-        for pos in shards:
-            moved[pos]["param_gather"] += whole - held.get(pos, 0)
-            n_moves += whole > held.get(pos, 0)
+        for _, _, _, pos in computing:
+            moved[pos]["param_gather"] += want - held.get(pos, 0)
+            n_moves += want > held.get(pos, 0)
         if shape.kind == "train":
             for pos, n in held.items():
                 moved[pos]["grad_reduce"] += n * sum(p != pos for p in shards)
@@ -154,19 +189,29 @@ def _collectives(cfg, shape, mesh, specs, pshard, cshard) -> R.CollectiveStats:
             else 0, device="meta")
         if cshard is None:
             cshard = S.cache_shardings(cfg, mesh, cache, batch)
+        m_size = model_size(mesh)
         for path, leaf in _walk(cache):
             axis = ST._cache_axis(path)
             sh = ST._at(cshard, path)
-            row_bytes = math.prod(leaf.shape) // leaf.shape[axis] \
-                * leaf.element_size()
-            for i, pos in enumerate(shards):
-                rows = (i * size, (i + 1) * size)
-                held = _stored_at(leaf.shape, leaf.dtype, sh, axis, rows)
-                n = size * row_bytes - held.get(pos, 0)
+            for _, lo, m, pos in computing:
+                block = {axis: (lo, lo + size)}
+                if group is not None:
+                    block = ST._piece_block(cfg, m_size, m, path, lo,
+                                            lo + size)
+                want = math.prod(b - a for a, b in (
+                    block.get(d, (0, n)) for d, n in enumerate(leaf.shape))) \
+                    * leaf.element_size()
+                held = _stored_at(leaf.shape, leaf.dtype, sh, block)
+                n = want - held.get(pos, 0)
                 n_moves += n > 0
                 moved[pos]["cache_reshard"] += n
                 if shape.kind == "decode":
                     moved[pos]["cache_gather"] += n
+    if group is not None:
+        for _, _, m, pos in computing:
+            for kind, n in group.moved[m].items():
+                moved[pos][kind] += n
+                n_moves += n > 0
     busiest = max(positions, key=lambda p: sum(moved[p].values()))
     per_op = {k: float(v) for k, v in moved[busiest].items()}
     return R.CollectiveStats(per_op, sum(per_op.values()), n_moves, [])
@@ -189,6 +234,53 @@ def _first_storage(tree, shardings):
         per = [d // g for d, g in zip(leaf.shape, sh.grid(leaf.ndim))]
         _set(out, path, torch.empty(per, dtype=leaf.dtype, device="meta"))
     return out
+
+
+def _meta_fetch(cfg, pshard):
+    """``fetch`` for ``M.prefill_tp`` / ``decode_step_tp`` on ``meta``:
+    model slice 0 of the subtree under ``keys`` (layer ``i`` of a stacked
+    one), new tensors each call, as a position's gather of one layer."""
+    params = M.abstract_params(cfg)
+
+    def one(leaf, sh, i):
+        shp = S.model_slice_shape(leaf.shape, sh)
+        return torch.empty(shp if i is None else shp[1:], dtype=leaf.dtype,
+                           device="meta")
+
+    def fetch(keys, i):
+        sub, sh = ST._at(params, keys), ST._at(pshard, keys)
+        if not isinstance(sub, dict):
+            return [one(sub, sh, i)]
+        tree: dict = {}
+        for path, leaf in _walk(sub):
+            _set(tree, path, one(leaf, ST._at(sh, path), i))
+        return [tree]
+    return fetch
+
+
+def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode) -> ModelGroup:
+    """One model position's step (model index 0 of a data shard) on
+    ``meta``: its slices, its rows and heads; what the other positions
+    send arrives as placeholders.  Returns its ``ModelGroup``."""
+    size = model_size(mesh)
+    rows = _rows(mesh, shape.global_batch)
+    group = ModelGroup(["meta"] * size, lone=0)
+    fetch = _meta_fetch(cfg, pshard)
+    with torch.no_grad():
+        if shape.kind == "prefill":
+            x = torch.empty((rows, shape.seq_len), dtype=torch.int32,
+                            device="meta")
+            with mode:
+                M.prefill_tp(cfg, group, fetch, [x], [M.init_cache_tp(
+                    cfg, size, 0, rows, shape.seq_len, "meta")])
+            return group
+        piece = M.init_cache_tp(cfg, size, 0, rows, shape.seq_len, "meta")
+        token = torch.empty((rows, 1), dtype=torch.int32, device="meta")
+        with mode:
+            M.decode_step_tp(cfg, group, fetch,
+                             [tree_map(torch.empty_like, piece)], [token],
+                             shape.seq_len // 2)
+    return group
 
 
 def _run_cell(cfg, shape, mesh, specs, pshard, mode: CostMode) -> None:
@@ -243,6 +335,7 @@ def cost_cell(cfg, shape, mesh) -> dict:
     p_bytes = _tree_shard_bytes(params, pshard)
     batch = shape.global_batch
     cshard = None
+    tp = shape.kind != "train" and tp_route(cfg, mesh)
     if shape.kind == "train":
         state = adamw.init(_opt_cfg(cfg), params)
         donated = p_bytes + HOST_SCALAR_BYTES + sum(
@@ -262,7 +355,8 @@ def cost_cell(cfg, shape, mesh) -> dict:
             out_shape, out_dtype = (batch, shape.seq_len, cfg.d_model), \
                 cfg.cdtype
         logits = shard_bytes(out_shape, out_dtype, S.Sharding(
-            mesh, S.batch_spec(mesh, batch, 2)))
+            mesh, resolve_spec(out_shape, ("dp", None, "vocab"), mesh)
+            if tp else S.batch_spec(mesh, batch, 2)))
         if shape.kind == "prefill":
             arg = specs.get("tokens", specs.get("frames"))
             args = p_bytes + shard_bytes(arg.shape, arg.dtype, S.Sharding(
@@ -283,18 +377,24 @@ def cost_cell(cfg, shape, mesh) -> dict:
             outs, donated = logits + c_bytes, c_bytes
     mode = CostMode()
     t0 = time.perf_counter()
-    _run_cell(cfg, shape, mesh, specs, pshard, mode)
+    group = None
+    if tp:
+        group = _run_tp_cell(cfg, shape, mesh, pshard, mode)
+    else:
+        _run_cell(cfg, shape, mesh, specs, pshard, mode)
     seconds = time.perf_counter() - t0
     run = mode.summary()
     return {"cost": {"flops": run["flops"], "bytes accessed": run["bytes"]},
             "memory": {"argument_bytes": int(args), "output_bytes": int(outs),
                        "temp_bytes": run["temp_bytes"],
                        "alias_bytes": int(donated)},
-            "coll": _collectives(cfg, shape, mesh, specs, pshard, cshard),
+            "coll": _collectives(cfg, shape, mesh, specs, pshard, cshard,
+                                 group),
             "kernels": {k: dict(v, on_meta=KERNEL_ON_META[k])
                         for k, v in run["kernels"].items()},
             "aten_ops": run["aten_ops"], "seconds": seconds,
-            "n_data_shards": len(ST.data_shards(mesh, batch))}
+            "n_data_shards": len(ST.data_shards(mesh, batch)),
+            "n_model_shards": model_size(mesh) if tp else 1}
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
@@ -316,12 +416,14 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
     mf, total_params = R.model_flops(cfg, shape)
     rec["model_flops_global"] = mf
     rec["total_params"] = total_params
-    # the data shards compute (each on one device); the model axis only
-    # stores, so the step's FLOP are one shard's times their number
-    hlo_global = cell["cost"]["flops"] * cell["n_data_shards"]
+    # every computing position runs the costed step: one a data shard, or
+    # on the tensor-parallel route each model position of each data shard
+    hlo_global = cell["cost"]["flops"] * cell["n_data_shards"] \
+        * cell["n_model_shards"]
     rec["model_vs_hlo_flops"] = round(mf / hlo_global, 4) if hlo_global \
         else 0
     rec["n_data_shards"] = cell["n_data_shards"]
+    rec["n_model_shards"] = cell["n_model_shards"]
     rec["kernels"] = cell["kernels"]
     rec["aten_ops"] = cell["aten_ops"]
     return rec

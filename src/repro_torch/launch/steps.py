@@ -11,15 +11,23 @@ process drives every device of the ``DeviceMesh`` (single-controller, as
 the reference's): the params and AdamW's m and v are sharded storage
 (``parallel.sharding``), the batch splits over its data-parallel axes, and
 each data shard gathers the params onto its device, takes its loss and
-gradients there, and the gradients are reduced into the storage shards.
-Serving is the same: each data shard gathers the params and its rows of
-the cache (sharded storage by ``cache_shardings``) onto its device, runs
-the one-device ``prefill`` / ``decode_step`` there and writes its rows of
-the new cache back into the storage shards.  An MoE model's decode step is
-the exception: the reference bundles the global batch for its experts, so
-the data shards walk the layers in step and exchange their rows at each
-MoE FFN (``_global_moe_decode``).  The model axis shards storage, not
-computation: the port has no tensor-parallel layers.
+gradients there, and the gradients are reduced into the storage shards:
+training computes over the data axes only.
+
+Serving computes over the model axis too for the families
+``parallel.tensor_parallel.tp_route`` takes: decoder-only attention with a
+dense SwiGLU FFN (qwen3-1.7b, qwen3-4b, gemma2-2b, gemma3-27b,
+paligemma-3b's text path) and RWKV6 (rwkv6-1.6b).  Each data shard's model
+positions walk the layers together, each on its slice (attention heads,
+FFN columns, vocabulary rows; K4 and K6 on its heads), their partial
+outputs summed after each sub-layer, as XLA partitions the reference's
+program.  The other families keep the storage-only route: each data shard
+gathers the params and its rows of the cache onto its device, runs the
+one-device ``prefill`` / ``decode_step`` there and writes its rows of the
+new cache back into the storage shards; the model axis shards storage, not
+computation.  An MoE model's decode step bundles the global batch for its
+experts, as the reference's does: the data shards walk the layers in step
+and exchange their rows at each MoE FFN (``_global_moe_decode``).
 
 ``input_specs`` gives each cell's inputs as ``meta`` tensors (no storage),
 where the reference gives ``ShapeDtypeStruct``s.
@@ -36,7 +44,8 @@ from ..models.blocks import _ffn_out, block_decode_mixer
 from ..models.params import _set, _walk, tree_slice
 from ..optim import adamw
 from ..parallel import sharding as S
-from ..parallel.api import use_mesh
+from ..parallel.api import resolve_spec, use_mesh
+from ..parallel.tensor_parallel import ModelGroup, model_size, tp_route
 
 
 def _loss_and_grads(cfg: ModelConfig, leaves: List, batch):
@@ -166,38 +175,61 @@ def _cache_axis(path) -> int:
     return M._cache_batch_axis(path[0])
 
 
-def read_rows(leaf, axis: int, lo: int, hi: int, device) -> torch.Tensor:
-    """Rows ``[lo, hi)`` along ``axis`` of a leaf, whole on ``device``:
-    the parts of every storage shard they meet, copied into place."""
+def read_block(leaf, block: Dict[int, tuple], device) -> torch.Tensor:
+    """The block of a leaf that ``block`` gives (dim → ``(start, end)``;
+    whole along every other dim), on ``device``: the parts of every
+    storage shard it meets, copied into place."""
     if not isinstance(leaf, S.ShardedTensor):
-        return leaf.narrow(axis, lo, hi - lo).to(device)
-    shape = list(leaf.shape)
-    shape[axis] = hi - lo
-    out = torch.empty(shape, dtype=leaf.dtype, device=device)
+        idx = [slice(None)] * leaf.ndim
+        for d, (a, b) in block.items():
+            idx[d] = slice(a, b)
+        return leaf[tuple(idx)].to(device)
+    want = [block.get(d, (0, n)) for d, n in enumerate(leaf.shape)]
+    out = torch.empty([b - a for a, b in want], dtype=leaf.dtype,
+                      device=device)
     for idx, shard in leaf.shards.items():
-        sl = list(leaf.slices(idx))
-        a, b = max(sl[axis].start, lo), min(sl[axis].stop, hi)
-        if a < b:
-            piece = shard.narrow(axis, a - sl[axis].start, b - a)
-            sl[axis] = slice(a - lo, b - lo)
-            out[tuple(sl)] = piece.to(device)
+        src, dst = [], []
+        for sl, (a, b) in zip(leaf.slices(idx), want):
+            lo, hi = max(sl.start, a), min(sl.stop, b)
+            if lo >= hi:
+                break
+            src.append(slice(lo - sl.start, hi - sl.start))
+            dst.append(slice(lo - a, hi - a))
+        else:
+            out[tuple(dst)] = shard[tuple(src)].to(device)
     return out
+
+
+def write_block(leaf, start: Dict[int, int], data: torch.Tensor) -> None:
+    """Write ``data`` at ``start`` (dim → first index; 0 along every other
+    dim) into a leaf's storage: each storage shard takes the part it
+    holds."""
+    first = [start.get(d, 0) for d in range(data.ndim)]
+    if not isinstance(leaf, S.ShardedTensor):
+        leaf[tuple(slice(a, a + n) for a, n in zip(first, data.shape))] \
+            .copy_(data)
+        return
+    for idx, shard in leaf.shards.items():
+        src, dst = [], []
+        for sl, a, n in zip(leaf.slices(idx), first, data.shape):
+            lo, hi = max(sl.start, a), min(sl.stop, a + n)
+            if lo >= hi:
+                break
+            src.append(slice(lo - a, hi - a))
+            dst.append(slice(lo - sl.start, hi - sl.start))
+        else:
+            shard[tuple(dst)].copy_(data[tuple(src)])
+
+
+def read_rows(leaf, axis: int, lo: int, hi: int, device) -> torch.Tensor:
+    """Rows ``[lo, hi)`` along ``axis`` of a leaf, whole on ``device``."""
+    return read_block(leaf, {axis: (lo, hi)}, device)
 
 
 def write_rows(leaf, axis: int, lo: int, rows: torch.Tensor) -> None:
     """Write ``rows`` (whole in every other dim) at ``lo`` along ``axis``
-    into a leaf's storage: each storage shard takes the part it holds."""
-    if not isinstance(leaf, S.ShardedTensor):
-        leaf.narrow(axis, lo, rows.shape[axis]).copy_(rows)
-        return
-    hi = lo + rows.shape[axis]
-    for idx, shard in leaf.shards.items():
-        sl = list(leaf.slices(idx))
-        a, b = max(sl[axis].start, lo), min(sl[axis].stop, hi)
-        if a < b:
-            start = sl[axis].start
-            sl[axis] = slice(a - lo, b - lo)
-            shard.narrow(axis, a - start, b - a).copy_(rows[tuple(sl)])
+    into a leaf's storage."""
+    write_block(leaf, {axis: lo}, rows)
 
 
 def _by_rows(mesh, parts: list, n_rows: int):
@@ -220,17 +252,11 @@ def _at(tree, path):
     return tree
 
 
-def _cache_storage(cfg: ModelConfig, mesh, batch: int, part):
+def _cache_storage(cfg: ModelConfig, mesh, batch: int, abstract):
     """An uninitialised cache tree of ``batch`` rows on the mesh, shaped as
-    the data shard's cache ``part`` but for its rows, each leaf allocated as
-    its ``cache_shardings`` storage (every element is written by the data
-    shards' prefills)."""
-    abstract: Dict = {}
-    for path, leaf in _walk(part):
-        shape = list(leaf.shape)
-        shape[_cache_axis(path)] = batch
-        _set(abstract, path, torch.empty(shape, dtype=leaf.dtype,
-                                         device="meta"))
+    the ``meta`` tree ``abstract``, each leaf allocated as its
+    ``cache_shardings`` storage (every element is written by the
+    prefill)."""
     shardings = S.cache_shardings(cfg, mesh, abstract, batch)
     storage: Dict = {}
     for path, leaf in _walk(abstract):
@@ -239,11 +265,183 @@ def _cache_storage(cfg: ModelConfig, mesh, batch: int, part):
     return storage
 
 
+def _abstract_rows(part, batch: int) -> Dict:
+    """A data shard's cache ``part`` as a ``meta`` tree of ``batch``
+    rows."""
+    abstract: Dict = {}
+    for path, leaf in _walk(part):
+        shape = list(leaf.shape)
+        shape[_cache_axis(path)] = batch
+        _set(abstract, path, torch.empty(shape, dtype=leaf.dtype,
+                                         device="meta"))
+    return abstract
+
+
 def _gathered(leaves: List, device) -> Dict:
     tree: Dict = {}
     for path, p in leaves:
         _set(tree, path, S.gather(p, device))
     return tree
+
+
+# -- tensor parallelism over the model axis (``parallel.tensor_parallel``) --
+
+def tp_shards(mesh, n_rows: int) -> list:
+    """``[(first row, end row, [mesh position of model index m, ...])]``:
+    each data shard of ``data_shards`` with its model positions, in
+    order."""
+    axis = mesh.axis_names.index("model")
+    placed = S.Sharding(mesh, S.batch_spec(mesh, n_rows, 0)).positions(1)
+    size = n_rows // len(placed)
+    return [(i * size, (i + 1) * size,
+             [pos[:axis] + (m,) + pos[axis + 1:]
+              for m in range(mesh.devices.shape[axis])])
+            for (i,), pos in placed.items()]
+
+
+def _tp_fetch(params, mesh, group: list, count: S.GatherCount):
+    """``fetch(keys, i)`` for ``M.prefill_tp`` / ``decode_step_tp``: the
+    subtree under ``keys`` (layer ``i`` of a stacked one) as each model
+    position's slice (``model_slice``) on its device, counted."""
+    def fetch(keys, i):
+        sub = _at(params, keys)
+        out = []
+        for m, pos in enumerate(group):
+            dev = mesh.devices[pos]
+            if not isinstance(sub, dict):
+                t = S.model_slice(sub, m, dev, i)
+                count.add(pos, keys, t)
+                out.append(t)
+                continue
+            tree: Dict = {}
+            for path, leaf in _walk(sub):
+                t = S.model_slice(leaf, m, dev, i)
+                count.add(pos, keys + path, t)
+                _set(tree, path, t)
+            out.append(tree)
+        return out
+    return fetch
+
+
+def _piece_block(cfg: ModelConfig, size: int, m: int, path, lo: int,
+                 hi: int) -> Dict[int, tuple]:
+    """Model position ``m``'s block of the cache leaf at ``path`` over the
+    rows ``[lo, hi)``: those rows and its heads (``M.cache_heads``)."""
+    axis = _cache_axis(path)
+    block = {axis: (lo, hi)}
+    heads = M.cache_heads(cfg, size, m, path[-1])
+    if heads is not None:
+        block[axis + 1] = heads
+    return block
+
+
+def _read_pieces(cfg: ModelConfig, mesh, cache, lo: int, hi: int,
+                 group: list) -> list:
+    """Each model position's piece of the cache over the rows ``[lo,
+    hi)``, on its device."""
+    out = []
+    for m, pos in enumerate(group):
+        piece: Dict = {}
+        for path, leaf in _walk(cache):
+            _set(piece, path, read_block(
+                leaf, _piece_block(cfg, len(group), m, path, lo, hi),
+                mesh.devices[pos]))
+        out.append(piece)
+    return out
+
+
+def _write_pieces(cfg: ModelConfig, cache, pieces: list, lo: int) -> None:
+    """The positions' new cache pieces written into the storage: each head
+    by the first position that computes it, a leaf without heads by the
+    first position."""
+    size = len(pieces)
+    for path, leaf in _walk(cache):
+        axis = _cache_axis(path)
+        done = 0
+        for m, piece in enumerate(pieces):
+            x = _at(piece, path)
+            heads = M.cache_heads(cfg, size, m, path[-1])
+            if heads is None:
+                if m == 0:
+                    write_block(leaf, {axis: lo}, x)
+                continue
+            j0, j1 = heads
+            a = max(j0, done)
+            if a < j1:
+                write_block(leaf, {axis: lo, axis + 1: a},
+                            x.narrow(axis + 1, a - j0, j1 - a))
+            done = max(done, j1)
+
+
+def _by_vocab(mesh, outs: list, shape) -> S.ShardedTensor:
+    """The positions' logits (``(first row, end row, m, logits)``) as one
+    leaf over ``resolve_spec(shape, ("dp", None, "vocab"), mesh)``, the
+    reference's ``constrain`` of its logits: each shard's rows and
+    vocabulary slice on its device."""
+    sharding = S.Sharding(mesh, resolve_spec(shape, ("dp", None, "vocab"),
+                                             mesh))
+    out = S.ShardedTensor(sharding, torch.Size(shape), {})
+    for idx, dev in sharding.placement(len(shape)).items():
+        rows = out.slices(idx)[0]
+        meet = sorted(((lo, t) for lo, hi, m, t in outs
+                       if m == idx[2] and lo < rows.stop and rows.start < hi),
+                      key=lambda e: e[0])
+        whole = torch.cat([t.to(dev) for _, t in meet]) if len(meet) > 1 \
+            else meet[0][1]
+        out.shards[idx] = whole.narrow(0, rows.start - meet[0][0],
+                                       rows.stop - rows.start).to(dev)
+    return out
+
+
+def _tp_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh):
+    size = model_size(mesh)
+
+    def prefill_step(params, x):
+        count = S.GatherCount()
+        cache = _cache_storage(cfg, mesh, batch,
+                               M.init_cache(cfg, batch, seq, device="meta"))
+        outs = []
+        with use_mesh(mesh):
+            for lo, hi, group in tp_shards(mesh, batch):
+                devices = [mesh.devices[pos] for pos in group]
+                pieces = [M.init_cache_tp(cfg, size, m, hi - lo, seq, dev)
+                          for m, dev in enumerate(devices)]
+                logits, pieces = M.prefill_tp(
+                    cfg, ModelGroup(devices), _tp_fetch(params, mesh, group,
+                                                        count),
+                    [x[lo:hi].to(dev) for dev in devices], pieces)
+                _write_pieces(cfg, cache, pieces, lo)
+                outs += [(lo, hi, m, t) for m, t in enumerate(logits)]
+                del pieces
+        prefill_step.gathered = count
+        return _by_vocab(mesh, outs, (batch, x.shape[1], cfg.vocab_size)), \
+            cache
+    prefill_step.gathered = S.GatherCount()
+    return prefill_step
+
+
+def _tp_decode_step(cfg: ModelConfig, mesh):
+    def serve_step(params, cache, token, pos):
+        count = S.GatherCount()
+        n_rows = token.shape[0]
+        outs = []
+        with use_mesh(mesh):
+            for lo, hi, group in tp_shards(mesh, n_rows):
+                devices = [mesh.devices[p] for p in group]
+                pieces = _read_pieces(cfg, mesh, cache, lo, hi, group)
+                p = pos[lo:hi] if torch.is_tensor(pos) and pos.ndim == 1 \
+                    else pos
+                logits, pieces = M.decode_step_tp(
+                    cfg, ModelGroup(devices), _tp_fetch(params, mesh, group,
+                                                        count), pieces,
+                    [token[lo:hi].to(dev) for dev in devices], p)
+                _write_pieces(cfg, cache, pieces, lo)
+                outs += [(lo, hi, m, t) for m, t in enumerate(logits)]
+                del pieces
+        serve_step.gathered = count
+        return _by_vocab(mesh, outs, (n_rows, 1, cfg.vocab_size)), cache
+    serve_step.gathered = S.GatherCount()
+    return serve_step
 
 
 def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
@@ -254,14 +452,24 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
 
     With a ``mesh`` the params arrive as sharded storage
     (``params_shardings``) and the rows split over the data-parallel axes
-    (``data_shards``).  Data shard ``k``, in order, gathers every param
-    leaf onto its device, prefills its rows into a cache of its own there
-    and writes them into the cache's storage (``cache_shardings``).  The
-    logits (or ``enc_out``) come back sharded over the batch as
-    ``batch_spec`` gives it, each shard on its data shard's device; the
-    cache as its storage.  Where the batch does not divide (the batch-1
-    cell) one shard runs on the mesh's first device and its cache is
+    (``data_shards``); the cache comes back as its ``cache_shardings``
+    storage.  Where the batch does not divide (the batch-1 cell) one data
+    shard runs at the mesh's first data position and the cache is
     re-sharded, its sequence dim over ``data``.
+
+    A family ``parallel.tensor_parallel.tp_route`` takes (attention with a
+    SwiGLU FFN, RWKV6; a model axis of more than one) computes over the
+    model axis: for each data shard in order, its model positions walk the
+    layers together (``M.prefill_tp``), each gathering its model slice of
+    one layer's params at a time (``sharding.model_slice``; counted in the
+    step's ``gathered``), computing on its heads and columns (K4 or K6 on
+    its heads) and writing its heads of the cache; the logits come back
+    over ``("dp", None, "vocab")``, each position's vocabulary rows on its
+    device.  Other families (MoE, hymba, the encoder-decoder) keep the
+    storage-only route: data shard ``k``, in order, gathers every param
+    leaf onto its device, prefills its rows into a cache of its own there
+    and writes them into the cache's storage; the logits (or ``enc_out``)
+    come back sharded over the batch as ``batch_spec`` gives it.
     """
     def one_device(params, x):
         cache = M.init_cache(cfg, x.shape[0], seq,
@@ -272,6 +480,8 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
 
     if mesh is None:
         return one_device
+    if tp_route(cfg, mesh):
+        return _tp_prefill_step(cfg, batch, seq, mesh)
 
     def prefill_step(params, x):
         leaves = list(_walk(params))
@@ -281,7 +491,8 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
                 out, part = one_device(_gathered(leaves, dev),
                                        x[lo:hi].to(dev))
                 if cache is None:
-                    cache = _cache_storage(cfg, mesh, batch, part)
+                    cache = _cache_storage(cfg, mesh, batch,
+                                           _abstract_rows(part, batch))
                 for path, leaf in _walk(cache):
                     write_rows(leaf, _cache_axis(path), lo,
                                _at(part, path))
@@ -293,19 +504,6 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
 
 # the param keys of a block's FFN sub-layer (``blocks._ffn_out``'s)
 _FFN_KEYS = ("ln2", "ffn", "ln2_post")
-
-
-def _blocks(cfg: ModelConfig, params) -> list:
-    """``M._run_stack``'s walk of a decoder-only stack: ``(layer type,
-    subtree keys, layer index)`` for each block in its order, the index
-    None for a tail block."""
-    out = []
-    if "layers" in params:
-        for i in range(M._n_stacked(params["layers"])):
-            out += [(lt, ("layers", f"pos{j}"), i)
-                    for j, lt in enumerate(cfg.layer_pattern)]
-    return out + [(lt, (f"tail{i}",), None)
-                  for i, lt in enumerate(cfg.tail_layers)]
 
 
 def _layer(leaf, i, device) -> torch.Tensor:
@@ -324,7 +522,7 @@ def _layer(leaf, i, device) -> torch.Tensor:
 
 
 def _block_params(params, keys, i, device, ffn: bool) -> Dict:
-    """The params of one block (``_blocks``), whole on ``device``: its FFN
+    """The params of one block (``M.block_walk``), whole on ``device``: its FFN
     sub-layer's (``ffn``) or the rest."""
     out: Dict = {}
     for path, leaf in _walk(_at(params, keys)):
@@ -363,7 +561,7 @@ def _global_moe_decode(cfg: ModelConfig, params, cache, token, pos,
     # each shard's new cache: its tail blocks, and its layers by index
     new: list = [{} for _ in shards]
     layers: list = [{} for _ in shards]
-    for lt, keys, i in _blocks(cfg, params):
+    for lt, keys, i in M.block_walk(cfg):
         for k, (dev, _, _) in enumerate(shards):
             c = _at(parts[k], keys)
             if i is not None:
@@ -397,20 +595,27 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     ``M.decode_step``.  ``pos`` is a scalar (a Python int for an
     encoder-decoder, whose step reads it on the host) or per-row (B,).
 
-    With a ``mesh`` the params and the cache arrive as sharded storage.
-    Data shard ``k``, in order, gathers every param leaf and its rows of
-    every cache leaf whole onto its device, decodes them there and writes
-    its rows of the new cache back into the storage shards: the cache is
-    updated in place and returned (the reference donates it).  The logits
-    come back as ``make_prefill_step``'s do.  An MoE model's step over
-    more than one data shard bundles the whole batch for its experts at
-    each MoE layer, as the reference's one program does
-    (``_global_moe_decode``).
+    With a ``mesh`` the params and the cache arrive as sharded storage;
+    the cache is updated in place and returned (the reference donates
+    it), the logits come back as ``make_prefill_step``'s do.  On the
+    tensor-parallel route (``tp_route``) each data shard's model positions
+    read their heads of its rows of the cache (a K/V head the model axis
+    replicates by every position whose q heads read it), decode together
+    (``M.decode_step_tp``), one layer's model slices gathered at a time,
+    and each head of the new cache is written by the first position that
+    computes it.  On the storage-only route data shard ``k``, in order,
+    gathers every param leaf and its rows of every cache leaf whole onto
+    its device, decodes them there and writes its rows of the new cache
+    back into the storage shards.  An MoE model's step over more than one
+    data shard bundles the whole batch for its experts at each MoE layer,
+    as the reference's one program does (``_global_moe_decode``).
     """
     if mesh is None:
         def serve_step(params, cache, token, pos):
             return M.decode_step(cfg, params, cache, token, pos)
         return serve_step
+    if tp_route(cfg, mesh):
+        return _tp_decode_step(cfg, mesh)
 
     def serve_step(params, cache, token, pos):
         leaves = list(_walk(params))

@@ -29,8 +29,10 @@ from typing import Dict
 
 import torch
 
+from ..parallel.tensor_parallel import head_slice
 from .attention import NEG_INF, AttnSpec, decode_attention, flash_attention
-from .layers import dense, grad_fence, rms_norm, rotary, swiglu
+from .layers import (dense, dense_partial, grad_fence, rms_norm, rotary,
+                     sum_squares, swiglu, swiglu_hidden)
 from .moe import moe_ffn
 from .params import Meta
 from .ssm import rwkv6_chunked, rwkv6_decode_step
@@ -161,22 +163,32 @@ def _theta(cfg, layer_type: str) -> float:
     return cfg.rope_theta
 
 
-def _qkv(cfg, p, x, positions, layer_type):
-    b, s, _ = x.shape
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = dense(x, p["wq"]).reshape(b, s, h, dh)
-    k = dense(x, p["wk"]).reshape(b, s, hkv, dh)
-    v = dense(x, p["wv"]).reshape(b, s, hkv, dh)
+def _qkv_cols(p, x):
+    """The q, k and v projections of x, flat: (B, S, columns) each."""
+    return dense(x, p["wq"]), dense(x, p["wk"]), dense(x, p["wv"])
+
+
+def _heads(cfg, p, q, k, v, positions, layer_type, rope: bool):
+    """Flat projections (B, S, heads·D) → heads: qk-norm, then the
+    rotation at ``positions`` (B, S) where ``rope``.  Returns (B, H, S, D),
+    (B, Hkv, S, D); the head counts are the columns'."""
+    b, s, _ = q.shape
+    dh = cfg.d_head
+    q, k, v = (z.reshape(b, s, -1, dh) for z in (q, k, v))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"])
         k = rms_norm(k, p["k_norm"])
     q, k = q.transpose(1, 2), k.transpose(1, 2)
-    if cfg.use_rope:
+    if rope:
         theta = _theta(cfg, layer_type)
         q = rotary(q, positions[:, None, :], theta=theta)
         k = rotary(k, positions[:, None, :], theta=theta)
-    v = v.transpose(1, 2)
-    return q, k, v    # (B, H, S, D), (B, Hkv, S, D)
+    return q, k, v.transpose(1, 2)
+
+
+def _qkv(cfg, p, x, positions, layer_type):
+    return _heads(cfg, p, *_qkv_cols(p, x), positions, layer_type,
+                  cfg.use_rope)    # (B, H, S, D), (B, Hkv, S, D)
 
 
 def _merge_heads(out: torch.Tensor) -> torch.Tensor:
@@ -299,20 +311,17 @@ def _cache_token_write(cache, k, v, pos):
 
 def _attn_decode_heads(cfg, p, x_t, cache, pos, layer_type):
     """attn_decode without the output projection (returns flat heads)."""
-    b = x_t.shape[0]
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = dense(x_t, p["wq"]).reshape(b, 1, h, dh)
-    k = dense(x_t, p["wk"]).reshape(b, 1, hkv, dh)
-    v = dense(x_t, p["wv"]).reshape(b, 1, hkv, dh)
-    if cfg.qk_norm:
-        q = rms_norm(q, p["q_norm"])
-        k = rms_norm(k, p["k_norm"])
-    theta = _theta(cfg, layer_type)
-    pos = _decode_pos_vec(pos, b, x_t.device)
-    pos_arr = pos[:, None, None]
-    q = rotary(q.transpose(1, 2), pos_arr, theta=theta)
-    k = rotary(k.transpose(1, 2), pos_arr, theta=theta)
-    v = v.transpose(1, 2)
+    pos = _decode_pos_vec(pos, x_t.shape[0], x_t.device)
+    return _decode_attend(cfg, p, *_qkv_cols(p, x_t), cache, pos,
+                          layer_type)
+
+
+def _decode_attend(cfg, p, q, k, v, cache, pos, layer_type):
+    """One token's flat projections (B, 1, columns) attended against the
+    cache at per-row ``pos`` (B,), after this step's K/V are written (the
+    rotation applied whatever ``use_rope`` says, as in the reference).
+    Returns (flat heads, the attention's new cache)."""
+    q, k, v = _heads(cfg, p, q, k, v, pos[:, None], layer_type, True)
     kc, vc, slot_pos = _cache_token_write(cache, k, v, pos)
     out = decode_attention(q, kc, vc, slot_pos, pos,
                            _attn_spec(cfg, layer_type))
@@ -379,8 +388,10 @@ def _shift_tokens(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rwkv_project(cfg, p, x, x_prev):
+    """r, k, v, w as (B, H, S, D) heads and the gate g flat; H is the
+    columns' head count (a tensor-parallel position's own heads)."""
     b, s, d = x.shape
-    h, dh = cfg.n_heads, cfg.d_head
+    dh = cfg.d_head
     r = dense(_lerp(x, x_prev, p["mu_r"]), p["wr"])
     k = dense(_lerp(x, x_prev, p["mu_k"]), p["wk"])
     v = dense(_lerp(x, x_prev, p["mu_v"]), p["wv"])
@@ -392,8 +403,17 @@ def _rwkv_project(cfg, p, x, x_prev):
     w = torch.clamp(w, 1e-6, 1 - 1e-6)
 
     def heads(z):
-        return z.reshape(b, s, h, dh).transpose(1, 2)
+        return z.reshape(b, s, -1, dh).transpose(1, 2)
     return heads(r), heads(k), heads(v), heads(w), g
+
+
+def _rwkv_scan(cfg, p, x, x_prev):
+    """The WKV over a sequence (K6): (o flat in x's dtype, the gate g,
+    the final state)."""
+    r, k, v, w, g = _rwkv_project(cfg, p, x, x_prev)
+    o, wkv_state = rwkv6_chunked(r, k, v, w, p["u"],
+                                 chunk=min(64, x.shape[1]))
+    return _merge_heads(o).to(x.dtype), g, wkv_state
 
 
 def rwkv_forward(cfg, p, x, state_in=None):
@@ -401,13 +421,11 @@ def rwkv_forward(cfg, p, x, state_in=None):
 
     As in the reference, the WKV state starts from zero; ``state_in``
     supplies only the token shift's first previous token."""
-    b, s, d = x.shape
     x_prev = _shift_tokens(x)
     if state_in is not None:
         x_prev[:, 0] = state_in["shift"].to(x.dtype)
-    r, k, v, w, g = _rwkv_project(cfg, p, x, x_prev)
-    o, wkv_state = rwkv6_chunked(r, k, v, w, p["u"], chunk=min(64, s))
-    o = rms_norm(_merge_heads(o).to(x.dtype), p["out_norm"])
+    o, g, wkv_state = _rwkv_scan(cfg, p, x, x_prev)
+    o = rms_norm(o, p["out_norm"])
     o = o * torch.nn.functional.silu(g)
     return dense(o, p["wo"]), {"wkv": wkv_state, "shift": x[:, -1]}
 
@@ -422,25 +440,36 @@ def rwkv_make_cache(cfg, batch, dtype, device):
                                     device=device)}
 
 
-def rwkv_decode(cfg, p, x_t, cache):
-    """x_t: (B, 1, d)."""
-    b = x_t.shape[0]
-    h, dh = cfg.n_heads, cfg.d_head
-    x = x_t[:, 0]
-    x_prev = cache["shift"].to(x.dtype)
+def _rwkv_step(cfg, p, x, wkv_cache, shift):
+    """One token's WKV x (B, d) after the cached ``shift``: (o (B, H·D)
+    in x's dtype, the gate g (B, H·D), the new state)."""
+    b = x.shape[0]
+    x_prev = shift.to(x.dtype)
     r, k, v, w, g = _rwkv_project(cfg, p, x[:, None, :], x_prev[:, None, :])
     o, state = rwkv6_decode_step(r[:, :, 0], k[:, :, 0], v[:, :, 0],
-                                 w[:, :, 0], p["u"], cache["wkv"])
-    o = o.reshape(b, h * dh).to(x.dtype)
-    o = rms_norm(o, p["out_norm"]) * torch.nn.functional.silu(g[:, 0])
+                                 w[:, :, 0], p["u"], wkv_cache)
+    return o.reshape(b, -1).to(x.dtype), g[:, 0], state
+
+
+def rwkv_decode(cfg, p, x_t, cache):
+    """x_t: (B, 1, d)."""
+    x = x_t[:, 0]
+    o, g, state = _rwkv_step(cfg, p, x, cache["wkv"], cache["shift"])
+    o = rms_norm(o, p["out_norm"]) * torch.nn.functional.silu(g)
     out = dense(o, p["wo"])[:, None, :]
     return out, {"wkv": state, "shift": x, "shift_cm": cache["shift_cm"]}
 
 
-def rwkv_channel_mix(cfg, p, x, x_prev):
+def _cm_in(p, x, x_prev):
+    """The channel mix's receptance gate (``w_rcm`` whole) and hidden
+    activation (its columns of ``w_in``)."""
     xk = _lerp(x, x_prev, p["mu_cm"])
     rgate = torch.sigmoid(dense(xk, p["w_rcm"]))
-    hidden = torch.square(torch.relu(dense(xk, p["w_in"])))
+    return rgate, torch.square(torch.relu(dense(xk, p["w_in"])))
+
+
+def rwkv_channel_mix(cfg, p, x, x_prev):
+    rgate, hidden = _cm_in(p, x, x_prev)
     return rgate * dense(hidden, p["w_out"])
 
 
@@ -646,3 +675,153 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
     if cm:
         cache = dict(cache, shift_cm=h2[:, 0])
     return x_t, cache
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the model axis (``parallel.tensor_parallel``)
+# ---------------------------------------------------------------------------
+#
+# One data shard's model positions ``g`` (a ``ModelGroup``) run a block in
+# turn.  Each argument that is a list has one entry a position of
+# ``g.ranks``: ``ps`` its slice of the block's params (``sharding.
+# model_slice``: its columns of the head and FFN projections, its rows of
+# ``wo``, ``w_down``, ``w_out``), ``xs`` the residual stream (the same on
+# every position, on its device), ``caches`` its piece of the block's
+# cache (its K/V heads, its WKV heads).  Each sub-layer ends in a partial
+# output that ``g.all_reduce`` sums before the post-norm and the residual.
+
+
+def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
+    """Attention on each position's q heads (K4 over a sequence, the
+    plain decode attention against the cache at ``pos``): (partials,
+    caches).  The q and K/V columns a position's heads need and its
+    projections do not hold (a head split over positions) come from the
+    positions that hold them."""
+    dh = cfg.d_head
+    sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
+    cols = [_qkv_cols(p, h) for p, h in zip(ps, hs)]
+    q, k, v = (g.columns([c[j] for c in cols], held,
+                         [(a * dh, b * dh) for a, b in want])
+               for j, held, want in (
+                   (0, [s.q_cols for s in sl], [s.q_heads for s in sl]),
+                   (1, [s.kv_cols for s in sl], [s.kv_heads for s in sl]),
+                   (2, [s.kv_cols for s in sl], [s.kv_heads for s in sl])))
+    parts, new = [], []
+    for i, r in enumerate(g.ranks):
+        p = ps[i]
+        if pos is None:
+            qh, kh, vh = _heads(cfg, p, q[i], k[i], v[i], positions[i],
+                                layer_type, cfg.use_rope)
+            o = _merge_heads(flash_attention(qh, kh, vh,
+                                             _attn_spec(cfg, layer_type)))
+            c = _fill_cache(caches[i], kh, vh, positions[i])
+        else:
+            o, c = _decode_attend(cfg, p, q[i], k[i], v[i], caches[i],
+                                  pos[i], layer_type)
+        a = sl[r].q_cols[0] - sl[r].q_heads[0] * dh
+        o = o[..., a:a + sl[r].q_cols[1] - sl[r].q_cols[0]]
+        parts.append(dense_partial(o, p["wo"]))
+        new.append(c)
+    return parts, new
+
+
+def _rwkv_local(cfg, p, r: int, size: int) -> Dict:
+    """A position's RWKV6 params: the head-indexed leaves the model axis
+    replicates (``u``, ``w_bias``, ``out_norm``) cut to its heads."""
+    h = cfg.n_heads // size
+    cols = slice(r * h * cfg.d_head, (r + 1) * h * cfg.d_head)
+    return dict(p, u=p["u"][r * h:(r + 1) * h], w_bias=p["w_bias"][cols],
+                out_norm=p["out_norm"][cols])
+
+
+def _rwkv_tp(cfg, g, ps, hs, caches, decode: bool):
+    """The RWKV6 time mix on each position's heads (K6 over a sequence):
+    (partials, caches).  ``out_norm`` is one RMS norm over all H·D
+    channels: each position's sum of squares is reduced first."""
+    ps = [_rwkv_local(cfg, p, r, g.size) for p, r in zip(ps, g.ranks)]
+    os, gates, new = [], [], []
+    for p, x, c in zip(ps, hs, caches):
+        if decode:
+            o, gt, st = _rwkv_step(cfg, p, x[:, 0], c["wkv"], c["shift"])
+            c = dict(c, wkv=st, shift=x[:, 0])
+        else:
+            o, gt, st = _rwkv_scan(cfg, p, x, _shift_tokens(x))
+            c = dict(c, wkv=st, shift=x[:, -1])
+        os.append(o)
+        gates.append(gt)
+        new.append(c)
+    sumsq = g.all_reduce([sum_squares(o) for o in os], torch.float32)
+    width = cfg.n_heads * cfg.d_head
+    parts = []
+    for p, o, gt, ss in zip(ps, os, gates, sumsq):
+        o = rms_norm(o, p["out_norm"], sumsq=ss, width=width) \
+            * torch.nn.functional.silu(gt)
+        out = dense_partial(o, p["wo"])
+        parts.append(out[:, None, :] if decode else out)
+    return parts, new
+
+
+def _ffn_tp(cfg, g, ps, xs, cm_prevs=None):
+    """The FFN sub-layer on each position's columns of the hidden width:
+    (xs, the FFN's inputs).  The channel mix's receptance gate (``w_rcm``
+    whole) multiplies the reduced sum."""
+    h2s = [_norm(cfg, x, p["ln2"]) for p, x in zip(ps, xs)]
+    parts, gates = [], []
+    for i, (p, h2) in enumerate(zip(ps, h2s)):
+        f = p["ffn"]
+        if cfg.ffn == "rwkv_cm":
+            prev = _shift_tokens(h2) if cm_prevs is None else cm_prevs[i]
+            rgate, hidden = _cm_in(f, h2, prev)
+            gates.append(rgate)
+            parts.append(dense_partial(hidden, f["w_out"]))
+        else:
+            parts.append(dense_partial(swiglu_hidden(h2, f["w_gate"],
+                                                     f["w_up"]), f["w_down"]))
+    outs = g.all_reduce(parts, xs[0].dtype)
+    if gates:
+        outs = [gt * o for gt, o in zip(gates, outs)]
+    if cfg.post_norm:
+        outs = [_norm(cfg, o, p["ln2_post"]) for p, o in zip(ps, outs)]
+    return [x + o for x, o in zip(xs, outs)], h2s
+
+
+def _mixer_tp(cfg, g, ps, xs, parts):
+    """The mixer's partials reduced, then the post-norm and the residual,
+    once."""
+    mixed = g.all_reduce(parts, xs[0].dtype)
+    return [_mixer_out(cfg, p, m, x) for p, m, x in zip(ps, mixed, xs)]
+
+
+def block_prefill_tp(cfg, layer_type, g, ps, xs, positions, caches):
+    """``block_prefill`` over the model positions ``g``: (xs, caches)."""
+    hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
+    if cfg.mixer == "attn":
+        parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
+                                 layer_type, caches, positions=positions)
+    else:
+        parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
+                                 decode=False)
+    xs, h2s = _ffn_tp(cfg, g, ps, _mixer_tp(cfg, g, ps, xs, parts))
+    if cfg.ffn == "rwkv_cm":
+        caches = [dict(c, shift_cm=h2[:, -1]) for c, h2 in zip(caches, h2s)]
+    return xs, caches
+
+
+def block_decode_tp(cfg, layer_type, g, ps, xs, caches, pos):
+    """``block_decode`` over the model positions ``g``: (xs, caches);
+    ``pos`` per position, (B,) each."""
+    hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
+    if cfg.mixer == "attn":
+        parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
+                                 layer_type, caches, pos=pos)
+    else:
+        parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
+                                 decode=True)
+    xs = _mixer_tp(cfg, g, ps, xs, parts)
+    cm = cfg.ffn == "rwkv_cm"
+    xs, h2s = _ffn_tp(cfg, g, ps, xs, [
+        c["shift_cm"].to(x.dtype)[:, None, :] for c, x in zip(caches, xs)]
+        if cm else None)
+    if cm:
+        caches = [dict(c, shift_cm=h2[:, 0]) for c, h2 in zip(caches, h2s)]
+    return xs, caches

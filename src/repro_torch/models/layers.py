@@ -23,15 +23,30 @@ def grad_fence(x: torch.Tensor) -> torch.Tensor:
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, *, eps: float = 1e-6,
-             plus_one: bool = False) -> torch.Tensor:
-    """RMSNorm with fp32 statistics. ``plus_one``: gemma-style (1 + w)."""
+             plus_one: bool = False, sumsq: Optional[torch.Tensor] = None,
+             width: int = 0) -> torch.Tensor:
+    """RMSNorm with fp32 statistics. ``plus_one``: gemma-style (1 + w).
+
+    ``x`` may be one tensor-parallel slice of a wider activation: then
+    ``sumsq`` is the float32 sum of squares over all ``width`` channels
+    (``sum_squares`` of each slice, reduced) and ``weight`` the slice's."""
     x32 = x.float()
-    var = (x32 * x32).mean(dim=-1, keepdim=True)
+    if sumsq is None:
+        var = (x32 * x32).mean(dim=-1, keepdim=True)
+    else:
+        var = sumsq / width
     y = x32 * torch.rsqrt(var + eps)
     w = weight.float()
     if plus_one:
         w = 1.0 + w
     return (y * w).to(x.dtype)
+
+
+def sum_squares(x: torch.Tensor) -> torch.Tensor:
+    """The float32 sum of squares over the last dim, kept: one slice's
+    share of ``rms_norm``'s statistic."""
+    x32 = x.float()
+    return (x32 * x32).sum(dim=-1, keepdim=True)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -77,6 +92,22 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+def dense_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``dense`` over a slice of the contracted dim, in float32: one
+    tensor-parallel position's partial product, summed with the others'
+    before one rounding to the compute dtype.  Products of compute-dtype
+    values summed in float32 (``dense`` itself where that is float32)."""
+    if x.dtype == torch.float32:
+        return dense(x, w)
+    w2 = w.to(x.dtype).reshape(w.shape[0], -1)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type in ("cuda", "meta"):
+        out = torch.mm(x2, w2, out_dtype=torch.float32)
+    else:
+        out = x2.float() @ w2.float()
+    return out.reshape(*x.shape[:-1], *w.shape[1:])
+
+
 def embed_lookup(tokens: torch.Tensor, table: torch.Tensor, *,
                  scale: Optional[float] = None,
                  compute_dtype=torch.bfloat16) -> torch.Tensor:
@@ -101,9 +132,14 @@ def unembed(x: torch.Tensor, table: torch.Tensor, *,
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     """SwiGLU MLP: silu(x@Wg) * (x@Wu) @ Wd, used by every dense FFN here."""
-    g = torch.nn.functional.silu(dense(x, w_gate))
-    u = dense(x, w_up)
-    return dense(g * u, w_down)
+    return dense(swiglu_hidden(x, w_gate, w_up), w_down)
+
+
+def swiglu_hidden(x: torch.Tensor, w_gate: torch.Tensor,
+                  w_up: torch.Tensor) -> torch.Tensor:
+    """SwiGLU's hidden activation silu(x@Wg) * (x@Wu) (a tensor-parallel
+    position's columns of it from its columns of Wg and Wu)."""
+    return torch.nn.functional.silu(dense(x, w_gate)) * dense(x, w_up)
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, b_up: torch.Tensor,

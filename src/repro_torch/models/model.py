@@ -24,9 +24,12 @@ Entry points:
   init_cache / prefill / decode_step / encdec_prefill
   cache_write_slot / cache_evict_slot / cache_slot_occupancy /
   cache_slot_residue
+  prefill_tp / decode_step_tp (one data shard's model positions, each on
+  its slice: the sharded serving steps' tensor parallelism)
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict
 
 import numpy as np
@@ -35,9 +38,11 @@ import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..parallel.api import constrain
+from ..parallel.tensor_parallel import head_slice, vocab_lookup
 from . import params as P
-from .blocks import (block_decode, block_forward, block_make_cache,
-                     block_metas, block_prefill, cross_kv)
+from .blocks import (block_decode, block_decode_tp, block_forward,
+                     block_make_cache, block_metas, block_prefill,
+                     block_prefill_tp, cross_kv)
 from .layers import (cross_entropy_loss, dense, embed_lookup, rms_norm,
                      unembed)
 from .params import Meta
@@ -417,6 +422,129 @@ def decode_step(cfg, params, cache, token, pos):
         return block_decode(cfg, lt, p, h, c, pos)
     x, new_cache = _run_stack(cfg, params, cache, x, step, pattern)
     return _out_head(cfg, params, x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Serving over the model axis (tensor parallelism; ``launch.steps``)
+# ---------------------------------------------------------------------------
+#
+# One data shard's model positions ``g`` (``parallel.tensor_parallel.
+# ModelGroup``) prefill or decode together, each on its slice: lists hold
+# one entry a position of ``g.ranks``.  ``fetch(keys, i)`` gives each
+# position its slice of the params under ``keys`` (layer ``i`` of a stacked
+# subtree; ``i`` None: as it is), one layer at a time; ``caches`` are the
+# positions' cache pieces (``init_cache_tp``).
+
+def block_walk(cfg) -> list:
+    """The blocks of a decoder-only stack in ``_run_stack``'s order:
+    ``(layer type, subtree keys, layer index)``, the index None for a
+    tail block."""
+    out = [(lt, ("layers", f"pos{j}"), i) for i in range(cfg.n_periods)
+           for j, lt in enumerate(cfg.layer_pattern)]
+    return out + [(lt, (f"tail{i}",), None)
+                  for i, lt in enumerate(cfg.tail_layers)]
+
+
+def cache_heads(cfg, size: int, m: int, name: str):
+    """The heads ``[first, end)`` of the cache leaf ``name`` that model
+    position ``m`` of ``size`` computes: the K/V heads its q heads read
+    (``k``, ``v``), its RWKV6 heads (``wkv``); None for a leaf without a
+    head dim (``slot_pos``, ``shift``, ``shift_cm``), which every
+    position computes whole.  The head dim follows the batch dim."""
+    if name in ("k", "v"):
+        return head_slice(cfg, size, m).kv_heads
+    if name == "wkv":
+        h = cfg.n_heads // size
+        return m * h, (m + 1) * h
+    return None
+
+
+def init_cache_tp(cfg, size: int, m: int, batch: int, max_seq: int,
+                  device) -> Dict:
+    """Model position ``m``'s zero cache piece: ``init_cache`` over its
+    heads (``cache_heads``)."""
+    j0, j1 = head_slice(cfg, size, m).kv_heads
+    local = dataclasses.replace(
+        cfg, n_kv_heads=j1 - j0,
+        n_heads=cfg.n_heads // size if cfg.mixer == "rwkv" else cfg.n_heads)
+    return init_cache(local, batch, max_seq, device=device)
+
+
+def _embed_in_tp(cfg, g, tables, tokens):
+    """The vocabulary-parallel embedding: each position's rows of the
+    table for the tokens in its range, summed (exactly: one nonzero term a
+    token), then gemma's scale."""
+    n = cfg.vocab_size // g.size
+    xs = g.all_reduce([vocab_lookup(t, tab, r * n, cfg.cdtype)
+                       for t, tab, r in zip(tokens, tables, g.ranks)],
+                      cfg.cdtype)
+    if cfg.gemma_style:
+        xs = [x * torch.tensor(cfg.d_model ** 0.5, dtype=cfg.cdtype,
+                               device=x.device) for x in xs]
+    return xs
+
+
+def _out_head_tp(cfg, fetch, xs, embed) -> list:
+    """Each position's float32 logits over its vocabulary rows (B, S,
+    V / size): the final norm (replicated) and its rows of the table (the
+    embedding's, ``embed``, where tied), soft-capped elementwise."""
+    norms = fetch(("final_norm",), None)
+    tables = embed if cfg.tie_embeddings else fetch(("unembed",), None)
+    return [unembed(rms_norm(x, w, plus_one=cfg.gemma_style), t,
+                    cap=cfg.final_softcap)
+            for x, w, t in zip(xs, norms, tables)]
+
+
+def _run_stack_tp(cfg, fetch, caches, xs, step):
+    """``_run_stack`` over the positions: ``step(layer_type, params, xs,
+    caches) → (xs, caches)`` a block, each block's params fetched as it
+    comes.  Returns (xs, each position's new cache)."""
+    layers = [{} for _ in xs]
+    new = [{} for _ in xs]
+    for lt, keys, i in block_walk(cfg):
+        cs = [c[keys[0]] if i is None else P.tree_slice(
+            c["layers"][keys[1]], i) for c in caches]
+        xs, cs = step(lt, fetch(keys, i), xs, cs)
+        for r, c in enumerate(cs):
+            if i is None:
+                new[r][keys[0]] = c
+            else:
+                layers[r].setdefault(i, {})[keys[1]] = c
+    for r, by_index in enumerate(layers):
+        if by_index:
+            new[r]["layers"] = _stack_trees([by_index[i]
+                                             for i in sorted(by_index)])
+    return xs, new
+
+
+def prefill_tp(cfg, g, fetch, tokens, caches):
+    """``prefill`` over the model positions ``g``: ``tokens`` (B, S) on
+    each position's device.  Returns (each position's logits over its
+    vocabulary rows, each position's cache piece)."""
+    embed = fetch(("embed",), None)
+    xs = _embed_in_tp(cfg, g, embed, tokens)
+    b, s, _ = xs[0].shape
+    positions = [_positions(b, s, x.device) for x in xs]
+
+    def step(lt, ps, hs, cs):
+        return block_prefill_tp(cfg, lt, g, ps, hs, positions, cs)
+    xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
+    return _out_head_tp(cfg, fetch, xs, embed), new
+
+
+def decode_step_tp(cfg, g, fetch, caches, tokens, pos):
+    """``decode_step`` over the model positions ``g``: ``tokens`` (B, 1)
+    on each position's device, ``pos`` () or per-row (B,).  Returns
+    (logits, caches) as ``prefill_tp``."""
+    embed = fetch(("embed",), None)
+    xs = _embed_in_tp(cfg, g, embed, tokens)
+    poss = [torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(
+        t.shape[0]) for x, t in zip(xs, tokens)]
+
+    def step(lt, ps, hs, cs):
+        return block_decode_tp(cfg, lt, g, ps, hs, cs, poss)
+    xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
+    return _out_head_tp(cfg, fetch, xs, embed), new
 
 
 # -- Slot-wise cache management (continuous batching) -----------------------

@@ -3,9 +3,14 @@
 Port of ``repro.parallel.api``.  Model code calls ``constrain(x, "dp",
 None, "model")`` with *logical* axis names.  With a mesh active (set by the
 step builders with ``use_mesh``) the reference turns that into a guarded
-``with_sharding_constraint``; with none it is a no-op.  Here each data
-shard already computes on its own device and nothing lays activations out,
-so ``constrain`` resolves and guards the spec exactly as the reference does
+``with_sharding_constraint``; with none it is a no-op.  Here nothing lays
+activations out: the step builders place them.  Each data shard computes
+on its own device, and in the serving steps of the tensor-parallel
+families (``tensor_parallel.tp_route``: attention with a SwiGLU FFN,
+RWKV6) each model position on its slice, the logits returned over
+``resolve_spec(shape, ("dp", None, "vocab"), mesh)``; MoE, hymba,
+whisper and training compute over the data axes only.  So ``constrain``
+resolves and guards the spec exactly as the reference does
 (``resolve_spec``) and returns ``x`` as it is.  Guards drop any axis whose
 dim does not divide the mesh axes, and axes under manual control (the
 compressed step's ``pod``, the reference's ``shard_map`` axis) are dropped
@@ -83,7 +88,11 @@ def resolve_spec(shape, names, mesh) -> Tuple:
 
 def constrain(x, *names):
     """``x`` as it is; under a mesh its guarded spec is resolved (and a
-    name list of the wrong rank is ignored, as the reference ignores it)."""
+    name list of the wrong rank is ignored, as the reference ignores it).
+    The step that owns ``x`` places it: the tensor-parallel serving steps
+    return the logits over the spec this resolves for the reference's
+    ``constrain(logits, "dp", None, "vocab")``; elsewhere ``x`` stays on
+    the device that computed it."""
     mesh = _MESH.get()
     if mesh is None or x.ndim != len(names):
         return x

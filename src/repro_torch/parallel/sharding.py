@@ -19,7 +19,10 @@ compiler to lay arrays out, so a sharded leaf is stored as its shards
 device (in the mesh's row-major order) of the positions that share it, as
 ``runtime.shard.shard_devices`` places replicas.  A leaf whose spec is all
 ``None`` stays one tensor, on the mesh's first device.  ``shard_tree``,
-``gather`` and ``unshard_tree`` move between the two.  A leaf replicated
+``gather`` and ``unshard_tree`` move between the two; ``model_slice``
+assembles one tensor-parallel shard of a leaf (the sharded serving steps
+of ``launch.steps``), ``GatherCount`` the bytes each position assembled.
+A leaf replicated
 over an axis whose copies differ (the compressed step's error buffers) is
 held as its copies (``Replicas``).
 """
@@ -318,6 +321,71 @@ def gather(leaf, device) -> torch.Tensor:
         parts = [cat(prefix + (i,)) for i in range(grid[d])]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=d)
     return cat(())
+
+
+def _model_dims(spec, ndim: int) -> list:
+    """The dims a spec shards over ``"model"`` (the rules give it alone)."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    for names in spec:
+        if isinstance(names, tuple) and "model" in names:
+            raise ValueError(f"spec {spec} shards a dim over 'model' with "
+                             "other axes")
+    return [d for d, names in enumerate(spec) if names == "model"]
+
+
+def model_slice_shape(shape, sharding: Sharding) -> Tuple[int, ...]:
+    """The shape of ``model_slice``'s result for a leaf of ``shape``."""
+    m = axis_size(sharding.mesh, "model")
+    dims = _model_dims(sharding.spec, len(shape))
+    return tuple(n // m if d in dims else n for d, n in enumerate(shape))
+
+
+def model_slice(leaf, m: int, device, layer: Optional[int] = None
+                ) -> torch.Tensor:
+    """Model slice ``m`` of a leaf on ``device``: along each dim sharded
+    over ``"model"`` only shard ``m``, whole along every other dim (the
+    ``data`` axis's shards of it concatenated: the reference's FSDP gather
+    within one tensor-parallel shard).  A leaf not sharded over ``"model"``
+    comes whole (``gather``).  With ``layer`` only that index of the
+    leading (layer) dim moves; that dim is never sharded."""
+    if not isinstance(leaf, ShardedTensor):
+        if isinstance(leaf, Replicas):
+            leaf = leaf.copies[0]
+        return (leaf if layer is None else leaf[layer]).to(device)
+    grid = leaf.sharding.grid(leaf.ndim)
+    dims = _model_dims(leaf.sharding.spec, leaf.ndim)
+    lead = 0 if layer is None else 1
+    assert layer is None or grid[0] == 1, leaf.sharding.spec
+
+    def cat(prefix: tuple) -> torch.Tensor:
+        d = len(prefix)
+        if d == len(grid):
+            s = leaf.shards[prefix]
+            return (s if layer is None else s[layer]).to(device)
+        if d in dims:
+            return cat(prefix + (m,))
+        parts = [cat(prefix + (i,)) for i in range(grid[d])]
+        return parts[0] if len(parts) == 1 else torch.cat(parts,
+                                                          dim=d - lead)
+    return cat(())
+
+
+@dataclasses.dataclass
+class GatherCount:
+    """Bytes each mesh position assembled from the storage, by leaf path
+    (``model_slice``'s results, the part the position holds itself
+    included)."""
+
+    by_position: Dict[tuple, Dict[tuple, int]] = dataclasses.field(
+        default_factory=dict)
+
+    def add(self, position: tuple, path: tuple, t: torch.Tensor) -> None:
+        at = self.by_position.setdefault(position, {})
+        at[path] = at.get(path, 0) + t.numel() * t.element_size()
+
+    def totals(self) -> Dict[tuple, int]:
+        """Mesh position → bytes over every leaf."""
+        return {pos: sum(v.values()) for pos, v in self.by_position.items()}
 
 
 def pieces(leaf) -> list:

@@ -16,7 +16,9 @@ One module-scoped subprocess imports the reference's dry run, which forces
   port counting its host scalars (AdamW's step counter, ``pos``) as the
   reference's int32 arguments;
 * one full-size cell, qwen3-1.7b ``decode_32k`` on the 16x16 mesh of
-  ``meta`` devices, through the CLI under a time limit of its own.
+  ``meta`` devices, through the CLI under a time limit of its own;
+* a tensor-parallel cell's collectives (``tp_reduce``, ``tp_exchange``)
+  against their formulas, written in this file (``TP_CELLS``).
 
 The engine itself: ``CostMode``'s FLOP and bytes on known operators, and
 K4, K5 and K6 (and their backward kernels) on ``meta`` tensors, each one
@@ -189,6 +191,50 @@ def test_small_cells_count_every_kernel_on_meta():
                      mesh)["kernels"]
     assert (k["rwkv6"]["calls"], k["rwkv6_bwd"]["calls"]) == (
         2 * rwkv.n_layers, rwkv.n_layers)
+
+
+# the tensor-parallel cells: (arch, kind, the tp_reduce bytes of the
+# busiest position, its tp_exchange bytes) on (4, 2), batch 8 (2 rows a
+# data shard), seq 64, d 64, 2 layers, bfloat16 compute.  The first model
+# position receives each reduction's M - 1 = 1 partial and sends the sum
+# back: (M - 1) n (partial bytes + result bytes) for n elements.  The
+# embedding's partials are bfloat16 (2 + 2), the sub-layers' float32
+# (4 + 2) over n = rows x tokens x d; rwkv adds each layer's sums of
+# squares, float32 both ways (4 + 4) over n = rows x tokens.  paligemma's
+# one K/V head (16 columns) splits over the two positions: each receives
+# the other's 8 columns of k and of v in every layer and sends its own.
+_ROWS, _D, _L, _S = 2, 64, 2, 64
+TP_CELLS = [
+    ("qwen3-1.7b", "decode",
+     _ROWS * _D * (2 + 2) + _L * 2 * _ROWS * _D * (4 + 2), 0),
+    ("rwkv6-1.6b", "prefill",
+     _ROWS * _S * _D * (2 + 2) + _L * (_ROWS * _S * (4 + 4)
+                                       + 2 * _ROWS * _S * _D * (4 + 2)), 0),
+    ("paligemma-3b", "prefill",
+     _ROWS * _S * _D * (2 + 2) + _L * 2 * _ROWS * _S * _D * (4 + 2),
+     _L * 2 * 2 * _ROWS * _S * 8 * 2)]
+
+
+@pytest.mark.parametrize("arch,kind,reduce,exchange", TP_CELLS)
+def test_tp_reduce_bytes_match_the_formula(arch, kind, reduce, exchange):
+    """A tensor-parallel cell is costed as one model position's step: the
+    collectives ``tp_reduce`` and ``tp_exchange`` of the busiest position
+    equal the formulas above, its param gather is its model slice (less
+    what it stores), and K4 / K6 run once a layer on its heads."""
+    cfg = _small(arch)
+    mesh = _small_mesh()
+    cell = PD.cost_cell(cfg, PC.ShapeConfig("t", kind, _S, 8), mesh)
+    per_op = cell["coll"].per_op
+    assert cfg.n_layers == _L and cfg.d_model == _D
+    assert cell["n_model_shards"] == 2 and cell["n_data_shards"] == 4
+    assert per_op["tp_reduce"] == reduce
+    assert per_op["tp_exchange"] == exchange
+    assert 0 < per_op["param_gather"] < sum(
+        x.numel() * x.element_size() for _, x in PD._walk(
+            PD.M.abstract_params(cfg))) / 2
+    calls = {k: v["calls"] for k, v in cell["kernels"].items()}
+    assert calls == ({} if kind == "decode" else {
+        "rwkv6" if cfg.mixer == "rwkv" else "flash_attention": _L})
 
 
 def test_one_full_size_cell(tmp_path):

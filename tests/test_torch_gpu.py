@@ -1483,6 +1483,41 @@ def test_moe_mesh_decode_bundles_the_global_batch_on_card(cuda, routing,
         assert calls == [32] * (cfg.n_layers * len(steps))
 
 
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b"])
+def test_tensor_parallel_serving_on_card_matches_host(cuda, arch):
+    """Reduced qwen3-1.7b / rwkv6-1.6b (float32) on a ``(2, 2)`` mesh of
+    ``cuda:0`` x 4 take the tensor-parallel route: a prefill of 8 x 64 and
+    3 decode steps, each model position on its heads, every logit and the
+    final cache within 1e-4 of the same steps on the host (one device);
+    K4 (K6) once a layer a position in the prefill, on half the heads."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.tensor_parallel import tp_route
+    cfg = reduced_config(get_config(arch))
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    assert tp_route(cfg, mesh)
+    params = M.init_params(cfg, 5, device="cpu")
+    rng = np.random.default_rng(150)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64))
+                            .astype(np.int32))
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1))
+                              .astype(np.int32)) for _ in range(3)]
+    host = _serve_on(cfg, params, None, "cpu", toks, steps, 67)
+    kernel = RK.rwkv6 if cfg.mixer == "rwkv" else FA.flash_attention
+    before = kernel.launches
+    got = _serve_on(cfg, tree_map(lambda x: x.to(cuda), params), mesh, cuda,
+                    toks.to(cuda), [t.to(cuda) for t in steps], 67)
+    assert kernel.launches - before == 4 * cfg.n_layers
+    for g, h in zip(got[0], host[0]):
+        torch.testing.assert_close(g.cpu(), h, rtol=1e-4, atol=1e-4)
+    for path, x in got[1].items():
+        torch.testing.assert_close(x.cpu(), host[1][path], rtol=1e-4,
+                                   atol=1e-4)
+
+
 def test_compressed_step_keeps_each_pods_error_buffer_on_card(
         cuda, monkeypatch):
     """Three int8 compressed steps of reduced qwen3-1.7b on a ``(2, 2,

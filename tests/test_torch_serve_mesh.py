@@ -16,12 +16,20 @@ what:
 * ``input_specs``' shapes and dtypes for the ten archs × the four
   ``SHAPES``; ``decode_shardings`` on ``(4, 2)``;
 * the sharded prefill and 4 decode steps on ``(4, 2)`` for reduced
-  qwen3-1.7b, rwkv6-1.6b, gemma2-2b, dbrx-132b and whisper-small (the
-  encoder-decoder branch), at batch 8 and batch 1 (the cache's sequence
-  over ``data``), against the reference's jitted sharded steps with the
-  in- and out-shardings ``dryrun._lower_compile`` gives them, and against
-  the port's one-device steps, at the one-device serving parity tests'
-  1e-4; a ``(1, 1)`` mesh bit-equal to one device;
+  qwen3-1.7b, rwkv6-1.6b, gemma2-2b, paligemma-3b, dbrx-132b and
+  whisper-small (the encoder-decoder branch), at batch 8 and batch 1 (the
+  cache's sequence over ``data``), against the reference's jitted sharded
+  steps with the in- and out-shardings ``dryrun._lower_compile`` gives
+  them, and against the port's one-device steps, at the one-device serving
+  parity tests' 1e-4; a ``(1, 1)`` mesh bit-equal to one device;
+* the tensor-parallel route (``tp_route``: qwen3-1.7b, rwkv6-1.6b,
+  gemma2-2b, paligemma-3b) also on ``(2, 4)``: reduced qwen3-1.7b's 2 K/V
+  heads under 4 model shards and paligemma-3b's one K/V head split inside
+  it, both ways at 1e-4; no position gathering more than its model slice
+  of a leaf sharded over ``"model"``; rwkv's ``out_norm`` over all the
+  heads' channels (its heads scaled apart), where a per-shard norm departs
+  from the reference; the logits over ``resolve_spec(shape, ("dp", None,
+  "vocab"), mesh)``;
 * an MoE decode batch that overflows an expert's capacity (reduced
   dbrx-132b at batch 32, its router's columns equal in the params both
   packages get): the port's mesh decode bundles the whole batch once an
@@ -45,17 +53,29 @@ from repro_torch.launch.mesh import make_mesh, make_production_mesh
 from repro_torch.models import model as PM
 from repro_torch.models.params import _walk, params_from_numpy
 from repro_torch.parallel import sharding as S
+from repro_torch.parallel import tensor_parallel as TPP
+from repro_torch.parallel.api import resolve_spec
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
 MESHES = {"4x2": ((4, 2), ("data", "model")),
           "3x2": ((3, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
-          "1x1": ((1, 1), ("data", "model"))}
+          "1x1": ((1, 1), ("data", "model")),
+          "2x4": ((2, 4), ("data", "model"))}
 SPEC_BATCHES = (8, 1)
 SPEC_SEQ = 64
 SERVE_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "dbrx-132b",
-               "whisper-small"]
+               "whisper-small", "paligemma-3b"]
+# the archs whose serving steps compute over the model axis
+# (``tp_route``), also served on (2, 4): reduced qwen3-1.7b's 2 K/V heads
+# over 4 model shards, paligemma-3b's one K/V head split inside it
+TP_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "paligemma-3b"]
+# rwkv6-1.6b with its heads' values scaled apart (OUT_NORM_SCALE[j] for
+# head j of every layer's ``wv``): each model shard's sum of squares
+# differs, so ``out_norm`` over one shard's channels departs from the norm
+# over all of them
+OUT_NORM_SCALE = (4.0, 2.0, 0.5, 0.25)
 # prompt, decode steps; the cache holds both (20: a multiple of the data
 # axis, so the batch-1 cell shards its sequence)
 PROMPT, N_DEC = 16, 4
@@ -120,9 +140,7 @@ for arch in ARCHS:
                 {k: spec(v) for k, v in flat(cs).items()}, spec(ts),
                 spec(qs))
 
-mesh = meshes["4x2"]
-
-def serve(cfg, params, b, seq, x, toks):
+def serve(cfg, params, b, seq, x, toks, mesh=meshes["4x2"]):
     pshard = S.params_shardings(cfg, mesh)
     arg = jnp.asarray(x)
     in_sh = NamedSharding(mesh, S.batch_spec(mesh, b, arg.ndim - 1))
@@ -149,7 +167,23 @@ for arch in inp["serve_archs"]:
     for b in inp["spec_batches"]:
         out["serve"][arch, b] = serve(cfg, params, b, inp["seq"],
                                       *inp["serve_inputs"][arch, b])
+        if arch in inp["tp_archs"]:
+            out["serve"][arch, b, "2x4"] = serve(
+                cfg, params, b, inp["seq"], *inp["serve_inputs"][arch, b],
+                mesh=meshes["2x4"])
     out["serve"][arch, "params"] = to_np(params)
+
+# rwkv6-1.6b, each head's wv columns scaled apart
+cfg = reduced_config(get_config("rwkv6-1.6b"))
+scale = jnp.repeat(jnp.asarray(inp["out_norm_scale"], jnp.float32),
+                   cfg.d_head)
+params = jax.tree_util.tree_map_with_path(
+    lambda path, a: a * scale.astype(a.dtype)
+    if path[-1].key == "wv" else a,
+    M.init_params(cfg, jax.random.PRNGKey(3)))
+out["out_norm"] = dict(serve(cfg, params, 8, inp["seq"],
+                             *inp["serve_inputs"]["rwkv6-1.6b", 8]),
+                       params=to_np(params))
 
 # the router's columns made equal: every token ties, and top-k takes the
 # first experts, which overflow their capacity at the global batch
@@ -203,7 +237,8 @@ def _drop_inputs():
 def ref(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("ref_serve8")
     inp = dict(meshes=MESHES, spec_batches=SPEC_BATCHES, spec_seq=SPEC_SEQ,
-               serve_archs=SERVE_ARCHS, seq=SEQ,
+               serve_archs=SERVE_ARCHS, tp_archs=TP_ARCHS, seq=SEQ,
+               out_norm_scale=OUT_NORM_SCALE,
                serve_inputs={(a, b): _serve_inputs(a, b)
                              for a in SERVE_ARCHS for b in SPEC_BATCHES},
                drop_arch=DROP["arch"], drop_inputs=_drop_inputs())
@@ -365,7 +400,8 @@ def served(ref):
         params = params_from_numpy(ref["serve"][arch, "params"], CPU)
         for b in SPEC_BATCHES:
             x, toks = _serve_inputs(arch, b)
-            for name in ("one", "4x2", "1x1"):
+            for name in ("one", "4x2", "1x1") + (
+                    ("2x4",) if arch in TP_ARCHS else ()):
                 out[arch, b, name] = _run(
                     cfg, params, b, None if name == "one" else _mesh(name),
                     x, toks)
@@ -400,6 +436,131 @@ def test_one_by_one_mesh_is_one_device(served, arch, b):
     one_logits, one_cache = served[arch, b, "one"]
     assert all(torch.equal(g, w) for g, w in zip(logits, one_logits))
     assert all(torch.equal(cache[k], one_cache[k]) for k in one_cache)
+
+
+@pytest.mark.parametrize("b", SPEC_BATCHES)
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_tensor_parallel_serving_on_2x4_matches_reference_and_one_device(
+        ref, served, arch, b):
+    """Four model shards: reduced qwen3-1.7b's and gemma2-2b's 2 K/V heads
+    each read by two positions, paligemma-3b's one K/V head split inside it
+    (its columns over 4 positions, exchanged), rwkv6-1.6b one head a
+    position.  Every step's logits and the final cache within 1e-4 of the
+    reference's jitted steps on the same mesh and of one device."""
+    assert TPP.tp_route(_reduced(arch), _mesh("2x4"))
+    _held(served[arch, b, "2x4"], ref["serve"][arch, b, "2x4"],
+          served[arch, b, "one"])
+
+
+def test_route_by_family_and_model_size():
+    """The six families compute over the model axis at every model size
+    their widths divide (the production mesh's 16 too); MoE, hymba and the
+    encoder-decoder keep the storage-only route, as does a model axis of
+    one."""
+    meta = {(16, 16): make_production_mesh(devices=["meta"] * 256),
+            (4, 2): make_mesh((4, 2), ("data", "model"), ["meta"] * 8),
+            (8, 1): make_mesh((8, 1), ("data", "model"), ["meta"] * 8)}
+    tp = {"qwen3-1.7b", "qwen3-4b", "gemma2-2b", "gemma3-27b",
+          "paligemma-3b", "rwkv6-1.6b"}
+    for arch in PC.ARCHS:
+        for shape, m in meta.items():
+            want = arch in tp and shape[1] > 1
+            assert TPP.tp_route(PC.get_config(arch), m) is want, (arch, shape)
+        assert TPP.tp_route(_reduced(arch), _mesh("2x4")) is (arch in tp)
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x4"])
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_positions_gather_at_most_their_model_slice(arch, mesh):
+    """A prefill and a decode step: each position of each data shard
+    gathers, of every leaf sharded over ``"model"``, its model slice and no
+    more (1/M of the leaf, one layer at a time), never the whole leaf."""
+    cfg, m = _reduced(arch), _mesh(mesh)
+    size = TPP.model_size(m)
+    params = PM.init_params(cfg, 0, device=CPU)
+    sharded = {path: leaf.numel() * leaf.element_size()
+               for (path, leaf), (_, spec) in zip(
+                   _walk(params), _walk(S.params_pspecs(cfg, m)))
+               if "model" in spec}
+    mixer = "rwkv" if cfg.mixer == "rwkv" else "attn"
+    assert {("embed",), ("layers", "pos0", mixer, "wo")} <= set(sharded)
+    p = S.shard_tree(params, S.params_shardings(cfg, m))
+    x, toks = _serve_inputs(arch, 8)
+    prefill = PS.make_prefill_step(cfg, 8, SEQ, m)
+    _, cache = prefill(p, torch.from_numpy(x))
+    decode = PS.make_decode_step(cfg, m)
+    decode(p, cache, torch.from_numpy(toks[0][0]), toks[0][1])
+    every = set(np.ndindex(*m.devices.shape))
+    for step in (prefill, decode):
+        got = step.gathered.by_position
+        assert set(got) == every
+        for pos, leaves in got.items():
+            for path, whole in sharded.items():
+                assert leaves[path] == whole // size, (pos, path)
+
+
+def test_rwkv_out_norm_spans_every_heads_channels(ref, monkeypatch):
+    """rwkv6-1.6b with its heads' values scaled apart (``OUT_NORM_SCALE``)
+    on ``(4, 2)``: each position's sum of squares is reduced before
+    ``out_norm``, so the logits and the final cache hold to the reference
+    at 1e-4; the same steps with each position normalising by its own
+    channels' mean square (a per-shard RMS) depart by more."""
+    from repro_torch.parallel.tensor_parallel import ModelGroup
+    cfg = _reduced("rwkv6-1.6b")
+    want = ref["out_norm"]
+    params = params_from_numpy(want["params"], CPU)
+    x, toks = _serve_inputs("rwkv6-1.6b", 8)
+    logits, cache = _run(cfg, params, 8, _mesh("4x2"), x, toks)
+    for g, w in zip(logits, want["logits"]):
+        np.testing.assert_allclose(g.numpy(), w, **TOL)
+    for k, v in _flat(want["cache"]).items():
+        np.testing.assert_allclose(cache[k].float().numpy(), v, **TOL,
+                                   err_msg=k)
+    reduce = ModelGroup.all_reduce
+
+    def per_shard(self, parts, dtype):
+        if dtype == torch.float32 and parts[0].shape[-1] == 1:
+            return [p * self.size for p in parts]
+        return reduce(self, parts, dtype)
+    monkeypatch.setattr(ModelGroup, "all_reduce", per_shard)
+    bad, _ = _run(cfg, params, 8, _mesh("4x2"), x, toks)
+    err = max(float(np.abs(g.numpy() - w).max())
+              for g, w in zip(bad, want["logits"]))
+    assert err > 1e-4 + 1e-4 * max(float(np.abs(w).max())
+                                   for w in want["logits"]), err
+
+
+@pytest.mark.parametrize("mesh", ["4x2", "2x4", "2x2x2"])
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b"])
+def test_tp_logits_over_the_references_constrain(arch, mesh):
+    """The tensor-parallel steps' logits come back over ``resolve_spec(
+    shape, ("dp", None, "vocab"), mesh)`` (the reference's ``constrain``
+    of its logits), each shard on its placement's device, and read whole
+    within 1e-4 of one device (the pod mesh too, where at batch 2 the rows
+    split over ``data`` only and the logits' spec leaves the batch whole:
+    each shard takes both data shards' rows)."""
+    cfg, m = _reduced(arch), _mesh(mesh)
+    params = PM.init_params(cfg, 0, device=CPU)
+    p = S.shard_tree(params, S.params_shardings(cfg, m))
+    for b in SPEC_BATCHES + ((2,) if mesh == "2x2x2" else ()):
+        x, toks = _serve_inputs(arch, b)
+        tok, pos = toks[0]
+        got = PS.make_prefill_step(cfg, b, SEQ, m)(p, torch.from_numpy(x))
+        got = (got[0], PS.make_decode_step(cfg, m)(
+            p, got[1], torch.from_numpy(tok), pos)[0])
+        one = PS.make_prefill_step(cfg, b, SEQ)(params, torch.from_numpy(x))
+        one = (one[0], PS.make_decode_step(cfg)(
+            params, one[1], torch.from_numpy(tok), pos)[0])
+        for lg, o in zip(got, one):
+            assert isinstance(lg, S.ShardedTensor)
+            assert lg.sharding.spec == resolve_spec(
+                lg.shape, ("dp", None, "vocab"), m)
+            assert lg.sharding.spec[2] == "model"
+            placed = lg.sharding.placement(3)
+            assert set(lg.shards) == set(placed)
+            assert all(lg.shards[i].device == placed[i] for i in placed)
+            np.testing.assert_allclose(S.gather(lg, CPU).numpy(), o.numpy(),
+                                       **TOL)
 
 
 def _held(got, want, one):
@@ -467,9 +628,11 @@ def test_moe_mesh_decode_bundles_the_global_batch(ref, routing,
 
 
 def test_batch_one_cell_shards_the_cache_sequence():
-    """At batch 1 the rows do not divide the data axis: one data shard on
-    the mesh's first device, the cache stored with its sequence over
-    ``data`` and its heads over ``model``; the logits come back whole."""
+    """At batch 1 the rows do not divide the data axis: one data shard at
+    the mesh's first data position, the cache stored with its sequence
+    over ``data`` and its heads over ``model``; the logits come back over
+    the vocabulary only (the tensor-parallel route), at batch 8 over the
+    batch and the vocabulary."""
     cfg = _reduced("qwen3-1.7b")
     m = _mesh("4x2")
     params = S.shard_tree(PM.init_params(cfg, 0, device=CPU),
@@ -477,7 +640,8 @@ def test_batch_one_cell_shards_the_cache_sequence():
     x, toks = _serve_inputs("qwen3-1.7b", 1)
     logits, cache = PS.make_prefill_step(cfg, 1, SEQ, m)(
         params, torch.from_numpy(x))
-    assert torch.is_tensor(logits) and logits.shape[0] == 1
+    assert isinstance(logits, S.ShardedTensor) and logits.shape[0] == 1
+    assert logits.sharding.spec == (None, None, "model")
     k = cache["layers"]["pos0"]["k"]
     assert isinstance(k, S.ShardedTensor)
     assert k.sharding.spec == (None, None, "model", "data", None)
@@ -486,7 +650,7 @@ def test_batch_one_cell_shards_the_cache_sequence():
     logits8, cache8 = PS.make_prefill_step(cfg, 8, SEQ, m)(
         params, torch.zeros((8, PROMPT), dtype=torch.int32))
     assert isinstance(logits8, S.ShardedTensor)
-    assert logits8.sharding.spec == ("data", None, None)
+    assert logits8.sharding.spec == ("data", None, "model")
     assert cache8["layers"]["pos0"]["k"].sharding.spec == (
         None, "data", "model", None, None)
 
