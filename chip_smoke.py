@@ -367,17 +367,26 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    cache stored with its sequence over ``data``, gathered and re-sharded
    around each step; held to one device in float32, and a (1, 1) mesh
    (one model position: the one-device route) bit-equal to it;
-49. in the same child after 47: dbrx-132b at full width (bfloat16 params,
-   float32 compute), depth cut 40 -> 2, on the (2, 2) mesh at batch 64 (prompts of 128 repeating
-   in 16 groups, every group with two rows in each data shard), a prefill
-   and 8 decode steps: each decode step's data shards walk the layers in
-   step and bundle the whole batch for the experts once an MoE layer (24
-   slots an expert; a shard's own rows would have 16), as the reference's
-   one program does.  Every logit and the final cache within 1e-3 of one
-   device; each MoE layer's dropped assignments at each step equal to the
-   one-device step's, some dropped, and a host count from the same
-   routing at a shard's capacity different; K5 three times an MoE layer a
-   decode step, once an MoE layer a data shard in a prefill;
+49. in the same child after 47 (nineteenth slice): dbrx-132b at full
+   width (bfloat16 params, float32 compute), depth cut 40 -> 2, on the
+   (2, 2) mesh at batch 64 (prompts of 128 repeating in 16 groups, every
+   group with two rows in each data shard), a prefill and 8 decode steps
+   on the tensor-parallel route with expert parallelism: each model
+   position on 24 of the 48 q heads and 8 of the 16 experts (its slice of
+   each expert stack gathered one layer at a time and freed after its
+   FFN), the first position routing each MoE layer once and sharing the
+   slot map; each decode step's data shards walk the layers in step and
+   bundle the whole batch for the experts once an MoE layer on the first
+   shard's two positions (24 slots an expert; a shard's own rows would
+   have 16), as the reference's one program does.  Every logit and the
+   final cache within 1e-3 of one device; each MoE layer's dropped
+   assignments at each step equal to the one-device step's, some dropped,
+   and a host count from the same routing at a shard's capacity
+   different; K5 three times an MoE layer a decode step on each of the
+   first shard's positions, three times an MoE layer a position in a
+   prefill, every call on 8 experts; the expert bytes a position gathers
+   a decode step (half a layer's stack on the first shard's positions,
+   none on the other's), times and peaks beside one device's;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -731,7 +740,7 @@ SERVE_MESH = {QWEN3: dict(batch=8, prompt=1024, n_dec=16, seed=140),
 SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
 # phase 49, in the same child after 45-47: dbrx-132b at full width
 # (bfloat16 params), depth cut 40 -> 2 layers (about 15.5 GB of params: the
-# storage, one data shard's gather and the one-device run fit the card; 4
+# storage, one position's slices and the one-device run fit the card; 4
 # layers would take 28.6 GB each time), float32 compute (bfloat16 products
 # over a data shard's rows and over the batch round differently: phase 45
 # reads 0.40 in the logits against the whole batch, so a hold at LM_TOL
@@ -4847,8 +4856,9 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
     seconds on the card's first use of the products' kernels) and of each
     step, the peak device memory over the steps (each read before the
     logits are gathered for the comparison) and the bytes each position
-    gathered in the second prefill and the last decode step.  The decode steps' MoE routings go
-    to ``drops`` (``record_drops``)."""
+    gathered in the second prefill and the last decode step (of that, the
+    expert stacks' bytes: ``gathered_experts``).  The decode steps' MoE
+    routings go to ``drops`` (``record_drops``)."""
     import torch
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.params import _walk
@@ -4896,13 +4906,21 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
             peak = max(peak, torch.cuda.max_memory_allocated())
             seen.append(S.gather(lg, dev))
     launches = read_train_counts()
-    gathered = {kind: {str(pos): n for pos, n in getattr(
-        step, "gathered", S.GatherCount()).totals().items()}
-        for kind, step in (("prefill", prefill), ("decode_step", decode))}
+    counts = {kind: getattr(step, "gathered", S.GatherCount())
+              for kind, step in (("prefill", prefill),
+                                 ("decode_step", decode))}
+    gathered = {kind: {str(pos): n for pos, n in c.totals().items()}
+                for kind, c in counts.items()}
+    # of that, an MoE FFN's expert stacks
+    experts = {kind: {str(pos): sum(n for path, n in leaves.items()
+                                    if path[-1] in ("w_gate", "w_up",
+                                                    "w_down"))
+                      for pos, leaves in c.by_position.items()}
+               for kind, c in counts.items()}
     return dict(logits=seen, cache={path: S.gather(x, dev)
                                     for path, x in _walk(cache)},
                 launches=launches, prefill_launches=prefill_launches,
-                gathered=gathered,
+                gathered=gathered, gathered_experts=experts,
                 first_prefill_s=first_s,
                 prefill_s=prefill_s, step_s=step_s, peak=peak,
                 n_sharded=sum(isinstance(x, S.ShardedTensor)
@@ -5031,39 +5049,78 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
     return runs["mesh32"]["launches"]
 
 
+@contextlib.contextmanager
+def record_expert_calls(calls):
+    """While it is open, each model position's expert-parallel MoE FFN
+    (``models.blocks.moe_ffn_ep``) appends ``(its experts (first, end),
+    the experts of its weight slice, K5 launches in the call)`` to
+    ``calls``."""
+    from repro_torch.kernels import moe_gemm as K5
+    from repro_torch.models import blocks as PB
+    ep = PB.moe_ffn_ep
+
+    def recorded(x, p, route, experts, **kw):
+        before = K5.moe_gemm.launches
+        out = ep(x, p, route, experts, **kw)
+        calls.append((tuple(experts), int(p["w_gate"].shape[0]),
+                      K5.moe_gemm.launches - before))
+        return out
+    PB.moe_ffn_ep = recorded
+    try:
+        yield
+    finally:
+        PB.moe_ffn_ep = ep
+
+
 def serve_mesh_moe_phase(card: str) -> dict:
     """Phase 49: ``serve_mesh_run`` of dbrx-132b (``SERVE_MESH_MOE``) on a
     (2, 2) ("data", "model") mesh against the same 64 rows on one device:
-    the mesh's decode step bundles the whole batch for the experts once an
-    MoE layer, as the reference's one program does.  Checks: every logit
-    and the final cache within LM_TOL of one device; each MoE layer's
-    dropped assignments at each step equal to the one-device step's, some
-    dropped, and, counted on the host from the same routing, a different
-    number where each data shard bundled its own rows at its own capacity
-    (the check is not vacuous); K5 three times an MoE layer a decode step
-    on both, and in the prefills once an MoE layer a data shard.  Returns
-    the mesh run's launches."""
+    the tensor-parallel route with expert parallelism, each model position
+    on 24 of the 48 q heads and 8 of the 16 experts; the mesh's decode
+    step runs each MoE FFN on the first data shard's two positions over
+    the whole batch (the second shard's rows moved there and back), as the
+    reference's one program bundles it.  Checks: every logit and the final
+    cache within LM_TOL of one device; each MoE layer's dropped
+    assignments at each step equal to the one-device step's (routed once a
+    layer a step), some dropped, and, counted on the host from the same
+    routing, a different number where each data shard bundled its own rows
+    at its own capacity (the check is not vacuous); every position's FFN
+    on a slice of 8 experts, K5 three times a call; K5 three times an MoE
+    layer a decode step on each of the first shard's positions (once on
+    one device), and in the prefills three times an MoE layer a position.
+    Readings: the expert bytes each position gathers a decode step beside
+    the storage route's whole stack a layer, times and peaks beside one
+    device's.  Returns the mesh run's launches."""
     import dataclasses
 
     import torch
     from repro_torch.core.routing import expert_assignment
-    from repro_torch.launch.steps import data_shards
+    from repro_torch.launch.steps import data_shards, tp_shards
     from repro_torch.models.moe import expert_capacity
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel.tensor_parallel import (expert_slice,
+                                                      model_size, tp_route)
     spec = SERVE_MESH_MOE
     cfg = dataclasses.replace(dbrx_config(), n_layers=spec["n_layers"],
                               compute_dtype="float32")
     dev = torch.device(mesh_devices(1)[0])
     params = init_model(DBRX_LM, cfg, spec["seed"], dev)
+    stack = sum(x.numel() * x.element_size() for path, x in _walk(params)
+                if path[-1] in ("w_gate", "w_up", "w_down")) // cfg.n_layers
     drops = {"one": [], "mesh": []}
     whole = serve_mesh_run(cfg, params, None, spec, drops=drops["one"])
     torch.cuda.empty_cache()
     mesh = card_mesh((2, 2), ("data", "model"))
-    run = serve_mesh_run(cfg, params, mesh, spec, drops=drops["mesh"])
+    ep_calls = []
+    with record_expert_calls(ep_calls):
+        run = serve_mesh_run(cfg, params, mesh, spec, drops=drops["mesh"])
     del params
     torch.cuda.empty_cache()
     held = serve_mesh_compare(run, whole)
     b, n_layers, n_dec = spec["batch"], cfg.n_layers, spec["n_dec"]
     shards = [(lo, hi) for _, lo, hi in data_shards(mesh, b)]
+    size = model_size(mesh)
+    first = {str(p) for p in tp_shards(mesh, b)[0][2]}
     kw = dict(n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
               capacity_factor=cfg.capacity_factor)
     cap = expert_capacity(b, **kw)
@@ -5086,27 +5143,49 @@ def serve_mesh_moe_phase(card: str) -> dict:
         for name, r in (("one", whole), ("mesh", run))}
     want = {"one": {"prefill": 2 * 3 * n_layers,
                     "decode": 3 * n_layers * n_dec},
-            "mesh": {"prefill": 2 * len(shards) * 3 * n_layers,
-                     "decode": 3 * n_layers * n_dec}}
-    ok = held["out_of_tol"] == 0 \
+            "mesh": {"prefill": 2 * len(shards) * size * 3 * n_layers,
+                     "decode": size * 3 * n_layers * n_dec}}
+    # K5 launches by each model index's experts: the prefills' (each data
+    # shard's position of that index, 2 prefills) and the decode steps'
+    n_pre = 2 * len(shards) * n_layers
+    by_experts = {}
+    for j, (experts, _, n) in enumerate(ep_calls):
+        kind = "prefill" if j < n_pre * size else "decode"
+        at = by_experts.setdefault(str(experts), {"prefill": 0, "decode": 0})
+        at[kind] += n
+    slices = {str(expert_slice(cfg, size, m)) for m in range(size)}
+    want_by_experts = {e: {"prefill": 3 * n_pre, "decode": 3 * n_layers
+                           * n_dec} for e in slices}
+    dec_experts = run["gathered_experts"]["decode_step"]
+    ok = held["out_of_tol"] == 0 and tp_route(cfg, mesh) \
         and len(counts["mesh"]) == n_layers * n_dec \
         and counts["mesh"] == counts["one"] \
         and caps == {"one": [cap], "mesh": [cap]} \
         and sum(counts["mesh"]) > 0 and shard_counts != counts["mesh"] \
-        and launches == want
-    emit(phase="main_path", case=f"{DBRX_LM} sharded decode on a (2, 2) "
-         "mesh, full width (bfloat16 params, float32 compute), "
-         f"{n_layers} layers, batch {b} x "
-         f"{spec['prompt']}, {n_dec} steps, the experts' bundles over the "
-         "whole batch, against one device", serve_phase="49", arch=DBRX_LM,
+        and launches == want and by_experts == want_by_experts \
+        and all(e == cfg.n_experts // size and n == 3
+                for _, e, n in ep_calls) \
+        and all(n == (stack // size * n_layers if p in first else 0)
+                for p, n in dec_experts.items())
+    emit(phase="main_path", case=f"{DBRX_LM} expert-parallel prefill and "
+         "decode on a (2, 2) mesh, full width (bfloat16 params, float32 "
+         f"compute), {n_layers} layers, batch {b} x {spec['prompt']}, "
+         f"{n_dec} steps, the experts' bundles over the whole batch, "
+         "against one device", serve_phase="49", arch=DBRX_LM,
          cuts={"n_layers": [40, n_layers]},
          mesh=[str(d) for d in mesh.devices.flat], data_shards=shards,
          groups=spec["groups"], capacity=cap, shard_capacity=shard_cap,
+         experts_a_position=cfg.n_experts // size,
+         q_heads_a_position=cfg.n_heads // size,
          dropped_by_layer_step=counts["mesh"],
          one_device_dropped_by_layer_step=counts["one"],
          per_shard_capacity_dropped_by_layer_step=shard_counts,
          against_one_device=held, tol=LM_TOL,
          sharded_cache_leaves=run["n_sharded"], k5_launches=launches,
+         k5_launches_by_experts=by_experts,
+         gathered_bytes_a_position=run["gathered"],
+         expert_bytes_a_position_a_decode_step=dec_experts,
+         expert_stack_bytes_a_layer=stack,
          launches=run["launches"], one_device_launches=whole["launches"],
          prefill_s=run["prefill_s"], one_device_prefill_s=whole["prefill_s"],
          step_s_p50=float(np.median(run["step_s"])),
@@ -5116,7 +5195,8 @@ def serve_mesh_moe_phase(card: str) -> dict:
          card=card)
     check(ok, f"{DBRX_LM} sharded decode (49): {held}, dropped "
           f"{counts} at {caps}, per-shard capacity {shard_counts}, K5 "
-          f"{launches} / {want}")
+          f"{launches} / {want}, by experts {by_experts} / "
+          f"{want_by_experts}, expert bytes {dec_experts}")
     return run["launches"]
 
 
@@ -5149,7 +5229,7 @@ def serve_mesh() -> int:
                                  "47", kernel, one_by_one=True)
         del params
         torch.cuda.empty_cache()
-    launches[f"{DBRX_LM} sharded decode on a (2, 2) mesh"] = \
+    launches[f"{DBRX_LM} expert-parallel serving on a (2, 2) mesh"] = \
         serve_mesh_moe_phase(card)
     check(not any(plain.values()), f"plain versions ran: {plain}")
     emit(phase="serve_mesh_launches", launches=launches, plain_calls=plain)

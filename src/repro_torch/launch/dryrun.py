@@ -6,18 +6,19 @@ cell with XLA over 512 placeholder host devices and reads the compiled
 program's ``cost_analysis()`` and ``memory_analysis()``.  The port has no
 compiler; its sharded steps (``launch/steps.py``) compute a serving cell of
 a tensor-parallel family (``parallel.tensor_parallel.tp_route``: attention
-with a SwiGLU FFN, RWKV6) on each model position's slice, and every other
-cell (training; MoE, hymba and whisper serving) on each data shard with
-the params gathered whole, the model axis sharding storage only.  So a
-cell here is:
+with a SwiGLU or an MoE FFN, RWKV6) on each model position's slice, and
+every other cell (training; hymba and whisper serving) on each data shard
+with the params gathered whole, the model axis sharding storage only.  So
+a cell here is:
 
 * the production mesh of ``meta`` devices (``make_production_mesh``);
 * one device's step, run at full size and full depth on ``meta`` tensors
   under ``cost.CostMode``: its FLOP, bytes and temp bytes are one
   device's.  On the tensor-parallel route that is one model position of
-  one data shard (``_run_tp_cell``: its model slice of one layer's params
-  at a time, its rows, heads and vocabulary rows; the other positions'
-  partials and columns arrive as placeholders); else one data shard's
+  the first data shard (``_run_tp_cell``: its model slice of one layer's
+  params at a time, its rows, heads, experts and vocabulary rows, an MoE
+  decode step's FFN over the global batch; the other positions' partials,
+  columns and rows arrive as placeholders); else one data shard's
   step (the global batch over the data-parallel axes; one shard of every
   row where it does not divide: the batch-1 cell).  A train cell adds
   AdamW's update of the first device's storage shards;
@@ -36,7 +37,11 @@ cell here is:
   prefill writes into the cache's storage; on the tensor-parallel route
   also ``tp_reduce`` (each sub-layer's partial outputs and rwkv's sums of
   squares summed on the first model position and sent back) and
-  ``tp_exchange`` (the q and K/V columns of a head split over positions).
+  ``tp_exchange`` (the q and K/V columns of a head split over positions),
+  and for an MoE FFN ``ep_route`` (the first model position's routing
+  copied to the others) and ``ep_rows`` (a decode step's rows moved onto
+  the first data shard's positions and back).  Every data shard's
+  positions are charged the costed (first) shard's moves.
 
 Every layer runs eagerly, so no loop body is counted once: the record's
 ``scan_correction`` is ``{"applied": false}``.  ``compile_s`` keeps the
@@ -150,12 +155,14 @@ def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None
     model slice of each leaf and its piece of the cache (its rows, its
     heads), and moves what ``group`` counted: ``tp_reduce`` (the partial
     outputs and the norm's sums of squares in, the sums out: the first
-    model position receives and sends for all) and ``tp_exchange`` (the
-    q and K/V columns a head split over positions needs)."""
+    model position receives and sends for all), ``tp_exchange`` (the q
+    and K/V columns a head split over positions needs) and an MoE FFN's
+    ``ep_route`` and ``ep_rows``; every data shard's positions are charged
+    the costed (first) shard's."""
     positions = list(np.ndindex(*mesh.devices.shape))
     kinds = ("param_gather", "grad_reduce", "cache_gather", "cache_reshard")
     if group is not None:
-        kinds += ("tp_reduce", "tp_exchange")
+        kinds += tuple({k: 0 for mv in group.moved for k in mv})
     moved = {pos: dict.fromkeys(kinds, 0) for pos in positions}
     batch = shape.global_batch
     shards = list(S.Sharding(mesh, S.batch_spec(mesh, batch, 0))
@@ -239,7 +246,8 @@ def _first_storage(tree, shardings):
 def _meta_fetch(cfg, pshard):
     """``fetch`` for ``M.prefill_tp`` / ``decode_step_tp`` on ``meta``:
     model slice 0 of the subtree under ``keys`` (layer ``i`` of a stacked
-    one), new tensors each call, as a position's gather of one layer."""
+    one), new tensors each call, as a position's gather of one layer (the
+    lone position's, whatever ``rank`` is asked for)."""
     params = M.abstract_params(cfg)
 
     def one(leaf, sh, i):
@@ -247,7 +255,7 @@ def _meta_fetch(cfg, pshard):
         return torch.empty(shp if i is None else shp[1:], dtype=leaf.dtype,
                            device="meta")
 
-    def fetch(keys, i):
+    def fetch(keys, i, rank=None):
         sub, sh = ST._at(params, keys), ST._at(pshard, keys)
         if not isinstance(sub, dict):
             return [one(sub, sh, i)]
@@ -259,9 +267,11 @@ def _meta_fetch(cfg, pshard):
 
 
 def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode) -> ModelGroup:
-    """One model position's step (model index 0 of a data shard) on
-    ``meta``: its slices, its rows and heads; what the other positions
-    send arrives as placeholders.  Returns its ``ModelGroup``."""
+    """One model position's step (model index 0 of the first data shard)
+    on ``meta``: its slices, its rows and heads; what the other positions
+    send arrives as placeholders.  An MoE decode step over several data
+    shards runs its FFN over every shard's rows (the global batch's
+    bundles on its experts).  Returns its ``ModelGroup``."""
     size = model_size(mesh)
     rows = _rows(mesh, shape.global_batch)
     group = ModelGroup(["meta"] * size, lone=0)
@@ -276,10 +286,11 @@ def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode) -> ModelGroup:
             return group
         piece = M.init_cache_tp(cfg, size, 0, rows, shape.seq_len, "meta")
         token = torch.empty((rows, 1), dtype=torch.int32, device="meta")
+        n_shards = len(ST.data_shards(mesh, shape.global_batch))
         with mode:
-            M.decode_step_tp(cfg, group, fetch,
-                             [tree_map(torch.empty_like, piece)], [token],
-                             shape.seq_len // 2)
+            M.decode_step_tp(cfg, [group], [fetch],
+                             [[tree_map(torch.empty_like, piece)]], [[token]],
+                             [shape.seq_len // 2], rows=[rows] * n_shards)
     return group
 
 

@@ -17,17 +17,22 @@ training computes over the data axes only.
 Serving computes over the model axis too for the families
 ``parallel.tensor_parallel.tp_route`` takes: decoder-only attention with a
 dense SwiGLU FFN (qwen3-1.7b, qwen3-4b, gemma2-2b, gemma3-27b,
-paligemma-3b's text path) and RWKV6 (rwkv6-1.6b).  Each data shard's model
-positions walk the layers together, each on its slice (attention heads,
-FFN columns, vocabulary rows; K4 and K6 on its heads), their partial
-outputs summed after each sub-layer, as XLA partitions the reference's
-program.  The other families keep the storage-only route: each data shard
-gathers the params and its rows of the cache onto its device, runs the
-one-device ``prefill`` / ``decode_step`` there and writes its rows of the
-new cache back into the storage shards; the model axis shards storage, not
-computation.  An MoE model's decode step bundles the global batch for its
-experts, as the reference's does: the data shards walk the layers in step
-and exchange their rows at each MoE FFN (``_global_moe_decode``).
+paligemma-3b's text path) or an MoE FFN (dbrx-132b, kimi-k2-1t-a32b: expert
+parallelism), and RWKV6 (rwkv6-1.6b).  Each data shard's model positions
+walk the layers together, each on its slice (attention heads, FFN columns,
+experts, vocabulary rows; K4 and K6 on its heads, K5 on its experts), their
+partial outputs summed after each sub-layer, as XLA partitions the
+reference's program.  An MoE decode step over several data shards walks
+every shard's positions in step and runs each MoE FFN on the first shard's
+positions over the global batch, as the reference's one program bundles
+it.  The other families (hymba, the encoder-decoder) and configs whose
+widths do not divide the model axis keep the storage-only route: each data
+shard gathers the params and its rows of the cache onto its device, runs
+the one-device ``prefill`` / ``decode_step`` there and writes its rows of
+the new cache back into the storage shards; the model axis shards storage,
+not computation.  There an MoE model's decode step bundles the global
+batch for its experts too: the data shards walk the layers in step and
+exchange their rows at each MoE FFN (``_global_moe_decode``).
 
 ``input_specs`` gives each cell's inputs as ``meta`` tensors (no storage),
 where the reference gives ``ShapeDtypeStruct``s.
@@ -300,13 +305,16 @@ def tp_shards(mesh, n_rows: int) -> list:
 
 
 def _tp_fetch(params, mesh, group: list, count: S.GatherCount):
-    """``fetch(keys, i)`` for ``M.prefill_tp`` / ``decode_step_tp``: the
-    subtree under ``keys`` (layer ``i`` of a stacked one) as each model
-    position's slice (``model_slice``) on its device, counted."""
-    def fetch(keys, i):
+    """``fetch(keys, i, rank=None)`` for ``M.prefill_tp`` /
+    ``decode_step_tp``: the subtree under ``keys`` (layer ``i`` of a
+    stacked one) as each model position's slice (``model_slice``) on its
+    device, or only model position ``rank``'s (a list of one), counted."""
+    def fetch(keys, i, rank=None):
         sub = _at(params, keys)
         out = []
         for m, pos in enumerate(group):
+            if rank is not None and m != rank:
+                continue
             dev = mesh.devices[pos]
             if not isinstance(sub, dict):
                 t = S.model_slice(sub, m, dev, i)
@@ -424,20 +432,24 @@ def _tp_decode_step(cfg: ModelConfig, mesh):
     def serve_step(params, cache, token, pos):
         count = S.GatherCount()
         n_rows = token.shape[0]
+        shards = tp_shards(mesh, n_rows)
+        devices = [[mesh.devices[p] for p in group] for _, _, group in shards]
         outs = []
         with use_mesh(mesh):
-            for lo, hi, group in tp_shards(mesh, n_rows):
-                devices = [mesh.devices[p] for p in group]
-                pieces = _read_pieces(cfg, mesh, cache, lo, hi, group)
-                p = pos[lo:hi] if torch.is_tensor(pos) and pos.ndim == 1 \
-                    else pos
-                logits, pieces = M.decode_step_tp(
-                    cfg, ModelGroup(devices), _tp_fetch(params, mesh, group,
-                                                        count), pieces,
-                    [token[lo:hi].to(dev) for dev in devices], p)
+            done = M.decode_step_tp(
+                cfg, [ModelGroup(d) for d in devices],
+                [_tp_fetch(params, mesh, group, count)
+                 for _, _, group in shards],
+                [_read_pieces(cfg, mesh, cache, lo, hi, group)
+                 for lo, hi, group in shards],
+                [[token[lo:hi].to(dev) for dev in d]
+                 for (lo, hi, _), d in zip(shards, devices)],
+                [pos[lo:hi] if torch.is_tensor(pos) and pos.ndim == 1
+                 else pos for lo, hi, _ in shards])
+            for (lo, hi, _), (logits, pieces) in zip(shards, done):
                 _write_pieces(cfg, cache, pieces, lo)
                 outs += [(lo, hi, m, t) for m, t in enumerate(logits)]
-                del pieces
+            del done
         serve_step.gathered = count
         return _by_vocab(mesh, outs, (n_rows, 1, cfg.vocab_size)), cache
     serve_step.gathered = S.GatherCount()
@@ -458,15 +470,17 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
     re-sharded, its sequence dim over ``data``.
 
     A family ``parallel.tensor_parallel.tp_route`` takes (attention with a
-    SwiGLU FFN, RWKV6; a model axis of more than one) computes over the
-    model axis: for each data shard in order, its model positions walk the
-    layers together (``M.prefill_tp``), each gathering its model slice of
-    one layer's params at a time (``sharding.model_slice``; counted in the
-    step's ``gathered``), computing on its heads and columns (K4 or K6 on
-    its heads) and writing its heads of the cache; the logits come back
-    over ``("dp", None, "vocab")``, each position's vocabulary rows on its
-    device.  Other families (MoE, hymba, the encoder-decoder) keep the
-    storage-only route: data shard ``k``, in order, gathers every param
+    SwiGLU or an MoE FFN, RWKV6; a model axis of more than one that their
+    widths divide) computes over the model axis: for each data shard in
+    order, its model positions walk the layers together
+    (``M.prefill_tp``), each gathering its model slice of one layer's
+    params at a time (``sharding.model_slice``; counted in the step's
+    ``gathered``), computing on its heads, columns and experts (K4 or K6
+    on its heads, K5 on its experts, each row bundled on its own as the
+    reference bundles a prefill) and writing its heads of the cache; the
+    logits come back over ``("dp", None, "vocab")``, each position's
+    vocabulary rows on its device.  Other families (hymba, the
+    encoder-decoder) keep the storage-only route: data shard ``k``, in order, gathers every param
     leaf onto its device, prefills its rows into a cache of its own there
     and writes them into the cache's storage; the logits (or ``enc_out``)
     come back sharded over the batch as ``batch_spec`` gives it.
@@ -600,15 +614,18 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     it), the logits come back as ``make_prefill_step``'s do.  On the
     tensor-parallel route (``tp_route``) each data shard's model positions
     read their heads of its rows of the cache (a K/V head the model axis
-    replicates by every position whose q heads read it), decode together
-    (``M.decode_step_tp``), one layer's model slices gathered at a time,
-    and each head of the new cache is written by the first position that
-    computes it.  On the storage-only route data shard ``k``, in order,
-    gathers every param leaf and its rows of every cache leaf whole onto
-    its device, decodes them there and writes its rows of the new cache
-    back into the storage shards.  An MoE model's step over more than one
-    data shard bundles the whole batch for its experts at each MoE layer,
-    as the reference's one program does (``_global_moe_decode``).
+    replicates by every position whose q heads read it), and the data
+    shards' positions decode together, walking the blocks in step
+    (``M.decode_step_tp``), one layer's model slices gathered at a time;
+    each head of the new cache is written by the first position that
+    computes it.  An MoE model's step over more than one data shard runs
+    each MoE FFN on the first shard's positions over the whole batch (its
+    rows moved there and back).  On the storage-only route data shard
+    ``k``, in order, gathers every param leaf and its rows of every cache
+    leaf whole onto its device, decodes them there and writes its rows of
+    the new cache back into the storage shards; there an MoE model's step
+    over more than one data shard bundles the whole batch for its experts
+    at each MoE layer too (``_global_moe_decode``).
     """
     if mesh is None:
         def serve_step(params, cache, token, pos):

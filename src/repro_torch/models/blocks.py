@@ -29,11 +29,11 @@ from typing import Dict
 
 import torch
 
-from ..parallel.tensor_parallel import head_slice
+from ..parallel.tensor_parallel import expert_slice, head_slice
 from .attention import NEG_INF, AttnSpec, decode_attention, flash_attention
 from .layers import (dense, dense_partial, grad_fence, rms_norm, rotary,
                      sum_squares, swiglu, swiglu_hidden)
-from .moe import moe_ffn
+from .moe import moe_ffn, moe_ffn_ep, moe_route
 from .params import Meta
 from .ssm import rwkv6_chunked, rwkv6_decode_step
 
@@ -290,10 +290,11 @@ def _decode_pos_vec(pos, b: int, device) -> torch.Tensor:
     return torch.as_tensor(pos, dtype=torch.int32, device=device).expand(b)
 
 
-def _cache_token_write(cache, k, v, pos):
+def _cache_token_write(cache, k, v, pos, in_place: bool = False):
     """Write this step's K/V at each row's slot (``pos % s_cache``, the
     ring discipline; Python's modulo, so an idle row at position -1 writes
-    slot ``s_cache - 1``) and stamp the per-row slot→position map.
+    slot ``s_cache - 1``) and stamp the per-row slot→position map, into
+    copies of the cache's tensors (into them with ``in_place``).
 
     k/v: (B, Hkv, 1, D); pos: (B,) int32.  Returns (kc, vc, slot_pos).
     """
@@ -301,8 +302,8 @@ def _cache_token_write(cache, k, v, pos):
     s_cache = cache["k"].shape[2]
     slot = torch.remainder(pos, s_cache).long()             # (B,)
     rows = torch.arange(b, device=k.device)
-    kc, vc = cache["k"].clone(), cache["v"].clone()
-    slot_pos = cache["slot_pos"].clone()
+    kc, vc, slot_pos = (cache[n] if in_place else cache[n].clone()
+                        for n in ("k", "v", "slot_pos"))
     kc[rows, :, slot] = k[:, :, 0]
     vc[rows, :, slot] = v[:, :, 0]
     slot_pos[rows, slot] = pos
@@ -316,13 +317,15 @@ def _attn_decode_heads(cfg, p, x_t, cache, pos, layer_type):
                           layer_type)
 
 
-def _decode_attend(cfg, p, q, k, v, cache, pos, layer_type):
+def _decode_attend(cfg, p, q, k, v, cache, pos, layer_type,
+                   in_place: bool = False):
     """One token's flat projections (B, 1, columns) attended against the
     cache at per-row ``pos`` (B,), after this step's K/V are written (the
-    rotation applied whatever ``use_rope`` says, as in the reference).
-    Returns (flat heads, the attention's new cache)."""
+    rotation applied whatever ``use_rope`` says, as in the reference; into
+    the cache's own tensors with ``in_place``).  Returns (flat heads, the
+    attention's new cache)."""
     q, k, v = _heads(cfg, p, q, k, v, pos[:, None], layer_type, True)
-    kc, vc, slot_pos = _cache_token_write(cache, k, v, pos)
+    kc, vc, slot_pos = _cache_token_write(cache, k, v, pos, in_place)
     out = decode_attention(q, kc, vc, slot_pos, pos,
                            _attn_spec(cfg, layer_type))
     return _merge_heads(out), {"k": kc, "v": vc, "slot_pos": slot_pos}
@@ -693,7 +696,8 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
 
 def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
     """Attention on each position's q heads (K4 over a sequence, the
-    plain decode attention against the cache at ``pos``): (partials,
+    plain decode attention against the cache at ``pos``, this step's K/V
+    written into the position's cache piece in place): (partials,
     caches).  The q and K/V columns a position's heads need and its
     projections do not hold (a head split over positions) come from the
     positions that hold them."""
@@ -717,7 +721,7 @@ def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
             c = _fill_cache(caches[i], kh, vh, positions[i])
         else:
             o, c = _decode_attend(cfg, p, q[i], k[i], v[i], caches[i],
-                                  pos[i], layer_type)
+                                  pos[i], layer_type, in_place=True)
         a = sl[r].q_cols[0] - sl[r].q_heads[0] * dh
         o = o[..., a:a + sl[r].q_cols[1] - sl[r].q_cols[0]]
         parts.append(dense_partial(o, p["wo"]))
@@ -761,15 +765,26 @@ def _rwkv_tp(cfg, g, ps, hs, caches, decode: bool):
     return parts, new
 
 
-def _ffn_tp(cfg, g, ps, xs, cm_prevs=None):
-    """The FFN sub-layer on each position's columns of the hidden width:
-    (xs, the FFN's inputs).  The channel mix's receptance gate (``w_rcm``
-    whole) multiplies the reduced sum."""
+def _ffn_tp(cfg, g, ps, ffn, xs, cm_prevs=None):
+    """The FFN sub-layer on each position's columns of the hidden width,
+    or on its experts (an MoE FFN: the first position routes, every
+    position bundles by its slot map, ``moe_ffn_ep``): (xs, the FFN's
+    inputs).  The channel mix's receptance gate (``w_rcm`` whole)
+    multiplies the reduced sum."""
     h2s = [_norm(cfg, x, p["ln2"]) for p, x in zip(ps, xs)]
-    parts, gates = [], []
-    for i, (p, h2) in enumerate(zip(ps, h2s)):
-        f = p["ffn"]
-        if cfg.ffn == "rwkv_cm":
+    parts, gates, routes = [], [], None
+    for i, h2 in enumerate(h2s):
+        f = ffn(i)
+        if cfg.ffn == "moe":
+            if routes is None:
+                routes = g.share(list(moe_route(
+                    h2, f["router"], n_experts=cfg.n_experts,
+                    top_k=cfg.moe_top_k,
+                    capacity_factor=cfg.capacity_factor)))
+            parts.append(moe_ffn_ep(
+                h2, f, routes[i], expert_slice(cfg, g.size, g.ranks[i]),
+                n_experts=cfg.n_experts, top_k=cfg.moe_top_k))
+        elif cfg.ffn == "rwkv_cm":
             prev = _shift_tokens(h2) if cm_prevs is None else cm_prevs[i]
             rgate, hidden = _cm_in(f, h2, prev)
             gates.append(rgate)
@@ -777,6 +792,7 @@ def _ffn_tp(cfg, g, ps, xs, cm_prevs=None):
         else:
             parts.append(dense_partial(swiglu_hidden(h2, f["w_gate"],
                                                      f["w_up"]), f["w_down"]))
+        del f
     outs = g.all_reduce(parts, xs[0].dtype)
     if gates:
         outs = [gt * o for gt, o in zip(gates, outs)]
@@ -792,7 +808,7 @@ def _mixer_tp(cfg, g, ps, xs, parts):
     return [_mixer_out(cfg, p, m, x) for p, m, x in zip(ps, mixed, xs)]
 
 
-def block_prefill_tp(cfg, layer_type, g, ps, xs, positions, caches):
+def block_prefill_tp(cfg, layer_type, g, ps, ffn, xs, positions, caches):
     """``block_prefill`` over the model positions ``g``: (xs, caches)."""
     hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
     if cfg.mixer == "attn":
@@ -801,15 +817,15 @@ def block_prefill_tp(cfg, layer_type, g, ps, xs, positions, caches):
     else:
         parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
                                  decode=False)
-    xs, h2s = _ffn_tp(cfg, g, ps, _mixer_tp(cfg, g, ps, xs, parts))
+    xs, h2s = _ffn_tp(cfg, g, ps, ffn, _mixer_tp(cfg, g, ps, xs, parts))
     if cfg.ffn == "rwkv_cm":
         caches = [dict(c, shift_cm=h2[:, -1]) for c, h2 in zip(caches, h2s)]
     return xs, caches
 
 
-def block_decode_tp(cfg, layer_type, g, ps, xs, caches, pos):
-    """``block_decode`` over the model positions ``g``: (xs, caches);
-    ``pos`` per position, (B,) each."""
+def block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches, pos):
+    """``block_decode_tp`` up to its FFN: (xs, caches); ``pos`` per
+    position, (B,) each."""
     hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
     if cfg.mixer == "attn":
         parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
@@ -817,9 +833,16 @@ def block_decode_tp(cfg, layer_type, g, ps, xs, caches, pos):
     else:
         parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
                                  decode=True)
-    xs = _mixer_tp(cfg, g, ps, xs, parts)
+    return _mixer_tp(cfg, g, ps, xs, parts), caches
+
+
+def block_decode_tp(cfg, layer_type, g, ps, ffn, xs, caches, pos):
+    """``block_decode`` over the model positions ``g``: (xs, caches);
+    ``pos`` per position, (B,) each."""
+    xs, caches = block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches,
+                                       pos)
     cm = cfg.ffn == "rwkv_cm"
-    xs, h2s = _ffn_tp(cfg, g, ps, xs, [
+    xs, h2s = _ffn_tp(cfg, g, ps, ffn, xs, [
         c["shift_cm"].to(x.dtype)[:, None, :] for c, x in zip(caches, xs)]
         if cm else None)
     if cm:

@@ -24,8 +24,8 @@ Entry points:
   init_cache / prefill / decode_step / encdec_prefill
   cache_write_slot / cache_evict_slot / cache_slot_occupancy /
   cache_slot_residue
-  prefill_tp / decode_step_tp (one data shard's model positions, each on
-  its slice: the sharded serving steps' tensor parallelism)
+  prefill_tp / decode_step_tp (data shards' model positions, each on its
+  slice: the sharded serving steps' tensor and expert parallelism)
 """
 from __future__ import annotations
 
@@ -38,11 +38,12 @@ import torch.utils.checkpoint
 
 from ..device import resolve_device
 from ..parallel.api import constrain
-from ..parallel.tensor_parallel import head_slice, vocab_lookup
+from ..parallel.tensor_parallel import (head_slice, rows_from_first,
+                                        rows_to_first, vocab_lookup)
 from . import params as P
-from .blocks import (block_decode, block_decode_tp, block_forward,
-                     block_make_cache, block_metas, block_prefill,
-                     block_prefill_tp, cross_kv)
+from .blocks import (_ffn_tp, block_decode, block_decode_mixer_tp,
+                     block_decode_tp, block_forward, block_make_cache,
+                     block_metas, block_prefill, block_prefill_tp, cross_kv)
 from .layers import (cross_entropy_loss, dense, embed_lookup, rms_norm,
                      unembed)
 from .params import Meta
@@ -495,16 +496,28 @@ def _out_head_tp(cfg, fetch, xs, embed) -> list:
             for x, w, t in zip(xs, norms, tables)]
 
 
+def _block_tp(cfg, fetch, layer_type, keys, i, ffn: bool = True):
+    """A block's params for each position, its FFN's left out, and
+    ``ffn(j)``: the ``j``-th position's slice of the FFN's params, fetched
+    when called (None where ``ffn`` is false: another group runs it)."""
+    parts = {k: fetch(keys + (k,), i) for k in block_metas(cfg, layer_type)
+             if k != "ffn"}
+    ps = [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    if not ffn:
+        return ps, None
+    return ps, lambda j: fetch(keys + ("ffn",), i, rank=j)[0]
+
+
 def _run_stack_tp(cfg, fetch, caches, xs, step):
-    """``_run_stack`` over the positions: ``step(layer_type, params, xs,
-    caches) → (xs, caches)`` a block, each block's params fetched as it
-    comes.  Returns (xs, each position's new cache)."""
+    """``_run_stack`` over the positions: ``step(layer_type, params, ffn,
+    xs, caches) → (xs, caches)`` a block (``_block_tp``'s ``params`` and
+    ``ffn``).  Returns (xs, each position's new cache)."""
     layers = [{} for _ in xs]
     new = [{} for _ in xs]
     for lt, keys, i in block_walk(cfg):
         cs = [c[keys[0]] if i is None else P.tree_slice(
             c["layers"][keys[1]], i) for c in caches]
-        xs, cs = step(lt, fetch(keys, i), xs, cs)
+        xs, cs = step(lt, *_block_tp(cfg, fetch, lt, keys, i), xs, cs)
         for r, c in enumerate(cs):
             if i is None:
                 new[r][keys[0]] = c
@@ -526,25 +539,66 @@ def prefill_tp(cfg, g, fetch, tokens, caches):
     b, s, _ = xs[0].shape
     positions = [_positions(b, s, x.device) for x in xs]
 
-    def step(lt, ps, hs, cs):
-        return block_prefill_tp(cfg, lt, g, ps, hs, positions, cs)
+    def step(lt, ps, ffn, hs, cs):
+        return block_prefill_tp(cfg, lt, g, ps, ffn, hs, positions, cs)
     xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
     return _out_head_tp(cfg, fetch, xs, embed), new
 
 
-def decode_step_tp(cfg, g, fetch, caches, tokens, pos):
-    """``decode_step`` over the model positions ``g``: ``tokens`` (B, 1)
-    on each position's device, ``pos`` () or per-row (B,).  Returns
-    (logits, caches) as ``prefill_tp``."""
-    embed = fetch(("embed",), None)
-    xs = _embed_in_tp(cfg, g, embed, tokens)
-    poss = [torch.as_tensor(pos, dtype=torch.int32, device=x.device).expand(
-        t.shape[0]) for x, t in zip(xs, tokens)]
+def decode_step_tp(cfg, groups, fetches, caches, tokens, pos, rows=None):
+    """``decode_step`` over the model positions of one or more data shards
+    (``groups``, in row order; ``fetches``, ``caches``, ``tokens`` (B_k, 1)
+    and ``pos`` (() or per-row (B_k,)) one a group, each as ``prefill_tp``
+    takes them for one), the groups walking the blocks in step.  An MoE
+    FFN over more than one data shard bundles the global batch, as the
+    reference's one program does: each shard's FFN inputs go onto the
+    first shard's positions (``rows_to_first``), which run the FFN over
+    every row, their experts over the whole batch's bundles, and send each
+    shard its rows back; the other shards fetch no FFN params.  ``rows``:
+    every data shard's row count, where ``groups`` holds only the first
+    (the dry run's lone position; the others' rows arrive as
+    placeholders).  Each position's cache piece is updated in place (the
+    step's own copy: ``launch.steps`` reads it from the storage and writes
+    it back), so no second copy of it is made.  Returns ``[(logits,
+    caches)]`` a group, as ``prefill_tp``'s."""
+    rows = rows or [t[0].shape[0] for t in tokens]
+    global_ffn = cfg.ffn == "moe" and len(rows) > 1
+    embeds = [f(("embed",), None) for f in fetches]
+    xss = [_embed_in_tp(cfg, g, e, t)
+           for g, e, t in zip(groups, embeds, tokens)]
+    poss = [[torch.as_tensor(p, dtype=torch.int32, device=x.device).expand(
+        t.shape[0]) for x, t in zip(xs, toks)]
+        for p, xs, toks in zip(pos, xss, tokens)]
+    for lt, keys, i in block_walk(cfg):
+        for k, g in enumerate(groups):
+            cs = [c[keys[0]] if i is None else P.tree_slice(
+                c["layers"][keys[1]], i) for c in caches[k]]
+            ps, ffn = _block_tp(cfg, fetches[k], lt, keys, i,
+                                ffn=k == 0 or not global_ffn)
+            if global_ffn:
+                xss[k], new = block_decode_mixer_tp(cfg, lt, g, ps, xss[k],
+                                                    cs, poss[k])
+            else:
+                xss[k], new = block_decode_tp(cfg, lt, g, ps, ffn, xss[k],
+                                              cs, poss[k])
+            for c, n in zip(cs, new):
+                _write_into(c, n)
+            if k == 0:
+                first = ps, ffn
+        if global_ffn:
+            xs, _ = _ffn_tp(cfg, groups[0], *first,
+                            rows_to_first(groups, xss, rows))
+            xss = rows_from_first(groups, xs, rows)
+    return [(_out_head_tp(cfg, f, xs, e), c)
+            for f, xs, e, c in zip(fetches, xss, embeds, caches)]
 
-    def step(lt, ps, hs, cs):
-        return block_decode_tp(cfg, lt, g, ps, hs, cs, poss)
-    xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
-    return _out_head_tp(cfg, fetch, xs, embed), new
+
+def _write_into(cache: Dict, new: Dict) -> None:
+    """A block's new cache copied into its slice of a position's piece,
+    leaf by leaf (a leaf the block updated in place is that slice)."""
+    for name, x in new.items():
+        if x is not cache[name]:
+            cache[name].copy_(x)
 
 
 # -- Slot-wise cache management (continuous batching) -----------------------

@@ -20,6 +20,13 @@ Two paths:
   (``_host_plan_dest``: warm per-token plans after the first steps, the
   same integers), as the reference's jitted decode step does through its
   host callback; a prefill stays on the device.
+* ``moe_route`` / ``moe_ffn_ep`` — ``moe_ffn`` split for expert
+  parallelism over the model axis (``parallel.tensor_parallel``): one
+  position routes (the same slot map, dropped assignments and gates as
+  ``moe_ffn``, integer for integer) and shares the result; each position
+  bundles only its own experts' slots, runs K5 on its slice of the expert
+  stacks and forms its float32 partial of the combine (and of the shared
+  experts, on its columns), summed over the positions once.
 * ``moe_ffn_host`` — the eager registry-routed API: ``host_route`` (the
   router's logits to the host, numpy routing), ``ReapRuntime.moe_dispatch``
   (plan-cached bundling), ``expert_swiglu`` through K5, ``plan.combine``.
@@ -46,7 +53,7 @@ from ..core.routing import (expert_assignment, scatter_to_slots,
 from ..device import resolve_device, to_device
 from ..kernels.ops import moe_gemm
 from ..parallel.api import constrain
-from .layers import dense, swiglu
+from .layers import dense, dense_partial, swiglu, swiglu_hidden
 
 
 def _round_up(x: int, m: int) -> int:
@@ -359,6 +366,63 @@ def moe_ffn(x: torch.Tensor, p: Mapping[str, torch.Tensor], *,
         out = out + swiglu(x.reshape(b * s, d), p["shared_gate"],
                            p["shared_up"], p["shared_down"]).reshape(b, s, d)
     return out, aux.mean()
+
+
+def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, n_experts: int,
+              top_k: int, capacity_factor: float):
+    """``moe_ffn``'s routing of x (B, S, d), with its rule at decode (s ==
+    1: the batch bundled as one row, through the installed runtime if
+    there is one): ``(dest (R, T·K), gate·keep (R, T·K), slot_token (R,
+    E·cap))`` over its R rows of T tokens (R = 1, T = B at decode), the
+    capacity ``slot_token``'s width over E."""
+    b, s, d = x.shape
+    host_cb = False
+    if s == 1:
+        host_cb = _HOST_DISPATCH_RT is not None
+        x = x.reshape(1, b, d)
+    cap = expert_capacity(x.shape[1], n_experts, top_k, capacity_factor)
+    dest, gate, keep, _, slot_token = (torch.stack(c) for c in zip(*(
+        _row_slots(x[i], router_w, n_experts=n_experts, top_k=top_k,
+                   capacity=cap, host_cb=host_cb)
+        for i in range(x.shape[0]))))
+    return dest, gate * keep, slot_token
+
+
+def moe_ffn_ep(x: torch.Tensor, p: Mapping[str, torch.Tensor], route,
+               experts: Tuple[int, int], *, n_experts: int, top_k: int
+               ) -> torch.Tensor:
+    """One model position's float32 partial of ``moe_ffn``'s output for x
+    (B, S, d): ``p`` its slice of the FFN's params (the experts ``[first,
+    end)`` of each stack, its columns of the shared experts), ``route``
+    ``moe_route``'s result.  Its experts' slots bundled by gather (bundle
+    ``r·E' + e'`` meets local expert ``e'``, ``_bundle_map(R, E')``), the
+    expert SwiGLU through K5 on its slice, each token's top-k slot outputs
+    in its range gate-weighted and summed over k in ``_combine``'s order
+    (a slot outside its range, or the overflow slot, reads zero), plus the
+    shared experts' partial product on its columns."""
+    dest, weight, slot_token = route
+    n_rows, n_tok = dest.shape[0], dest.shape[1] // top_k
+    d = x.shape[-1]
+    e0, e1 = experts
+    n_local, cap = e1 - e0, slot_token.shape[1] // n_experts
+    n_mine = n_local * cap
+    rows = x.reshape(n_rows, n_tok, d)
+    xpad = torch.cat([rows, rows.new_zeros((n_rows, 1, d))], dim=1)
+    idx = torch.arange(n_rows, device=x.device)[:, None]
+    x_bundles = xpad[idx, slot_token[:, e0 * cap:e1 * cap]].reshape(
+        n_rows * n_local, cap, d)
+    y = expert_swiglu(x_bundles, p["w_gate"], p["w_up"], p["w_down"],
+                      _bundle_map(n_rows, n_local))
+    local = dest - e0 * cap
+    local = torch.where((local >= 0) & (local < n_mine), local,
+                        torch.full_like(local, n_mine))
+    out = _combine(y.reshape(n_rows, n_mine, d).float(), local, weight,
+                   top_k).reshape(x.shape)
+    if "shared_gate" in p:                                   # shared experts
+        out = out + dense_partial(swiglu_hidden(x, p["shared_gate"],
+                                                p["shared_up"]),
+                                  p["shared_down"])
+    return out
 
 
 _MOE_KEYS = ("router", "w_gate", "w_up", "w_down",

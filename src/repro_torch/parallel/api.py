@@ -6,10 +6,12 @@ step builders with ``use_mesh``) the reference turns that into a guarded
 ``with_sharding_constraint``; with none it is a no-op.  Here nothing lays
 activations out: the step builders place them.  Each data shard computes
 on its own device, and in the serving steps of the tensor-parallel
-families (``tensor_parallel.tp_route``: attention with a SwiGLU FFN,
-RWKV6) each model position on its slice, the logits returned over
-``resolve_spec(shape, ("dp", None, "vocab"), mesh)``; MoE, hymba,
-whisper and training compute over the data axes only.  So ``constrain``
+families (``tensor_parallel.tp_route``: attention with a SwiGLU or an MoE
+FFN, RWKV6) each model position on its slice (an MoE FFN on its experts,
+as the reference's ``("dp", "experts", None, None)`` constraints lay the
+bundles out), the logits returned over ``resolve_spec(shape, ("dp", None,
+"vocab"), mesh)``; hymba, whisper and training compute over the data axes
+only.  So ``constrain``
 resolves and guards the spec exactly as the reference does
 (``resolve_spec``) and returns ``x`` as it is.  Guards drop any axis whose
 dim does not divide the mesh axes, and axes under manual control (the

@@ -2,33 +2,45 @@
 serving steps (``launch.steps``).
 
 The reference jits its serving steps with the params sharded by
-``params_shardings`` (``"heads"``, ``"mlp"`` and ``"vocab"`` over
-``"model"``) and its logits constrained to ``("dp", None, "vocab")``, so
-XLA partitions attention by heads, the FFN by columns and the head by
+``params_shardings`` (``"heads"``, ``"mlp"``, ``"vocab"`` and
+``"experts"`` over ``"model"``) and its logits constrained to ``("dp",
+None, "vocab")``, so XLA partitions attention by heads, the FFN by columns,
+an MoE FFN by experts (its bundles and expert outputs constrained to
+``("dp", "experts", None, None)``: pure expert parallelism) and the head by
 vocabulary.  Here one process drives every mesh position in turn (single
 controller) and each model position computes on its own slice:
 
 * ``tp_route`` picks the route from the config's family and the mesh's
   model size: decoder-only attention with a dense SwiGLU FFN (qwen3,
-  gemma2, gemma3, paligemma's text path) and RWKV6 with its channel mix,
-  when every sharded width divides the model axis.  Other families (MoE,
-  hymba's hybrid mixer, the encoder-decoder) keep the storage-only route;
+  gemma2, gemma3, paligemma's text path) or an MoE FFN (dbrx, kimi-k2),
+  and RWKV6 with its channel mix, when every sharded width divides the
+  model axis (an MoE config's experts and shared-expert columns too).
+  Other families (hymba's hybrid mixer, the encoder-decoder) and configs
+  whose widths do not divide keep the storage-only route;
 * ``head_slice`` gives model position ``m`` its columns of the head
-  projections and the q and K/V heads it computes;
+  projections and the q and K/V heads it computes; ``expert_slice`` the
+  experts it holds and computes;
 * ``ModelGroup`` holds one data shard's model positions: ``all_reduce``
   sums their partial outputs in float32 in a fixed order (m = 0, 1, ...)
   on the first position's device, rounds once and copies the result to
   every position; ``columns`` hands each position the columns of an
   activation it needs from the positions that computed them (the K/V
   heads a position's q heads read where ``wk`` / ``wv`` split inside a
-  head);
+  head); ``share`` copies what the first position computed (an MoE FFN's
+  routing: every position bundles by the same slot map) to the others;
+* ``rows_to_first`` / ``rows_from_first`` move each data shard's rows of
+  an activation onto the first data shard's model positions and back (a
+  decode step's MoE FFN bundles the global batch, as the reference's one
+  program does);
 * ``vocab_lookup`` is one position's part of the vocabulary-parallel
   embedding: its rows of the table, zeros for tokens outside its range.
 
 A group made with ``lone`` runs one position on ``meta`` tensors (the dry
 run): what the other positions would send arrives as placeholders.  Every
 group counts the bytes each position sends and receives (``moved``), as
-the dry run's ``tp_reduce`` and ``tp_exchange`` collectives.
+the dry run's collectives: ``tp_reduce``, ``tp_exchange``, and for an MoE
+FFN ``ep_route`` (the routing's copies) and ``ep_rows`` (the rows moved
+for a decode step's global bundles).
 """
 from __future__ import annotations
 
@@ -49,17 +61,22 @@ def in_scope(cfg) -> bool:
     """The families whose serving steps compute over ``"model"``."""
     if cfg.enc_dec:
         return False
-    return (cfg.mixer == "attn" and cfg.ffn == "swiglu") or (
+    return (cfg.mixer == "attn" and cfg.ffn in ("swiglu", "moe")) or (
         cfg.mixer == "rwkv" and cfg.ffn == "rwkv_cm")
 
 
 def divides(cfg, size: int) -> bool:
     """Whether ``size`` model positions split ``cfg``'s widths: the q
-    columns, the FFN's hidden width and the vocabulary; whole RWKV heads;
-    a position's q heads reading whole K/V heads (or one q head a
-    position, shared by several positions)."""
+    columns, the FFN's hidden width and the vocabulary; an MoE FFN's
+    experts and its shared experts' hidden width (where they do not
+    divide, the reference's guard replicates them); whole RWKV heads; a
+    position's q heads reading whole K/V heads (or one q head a position,
+    shared by several positions)."""
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     if (h * dh) % size or cfg.d_ff % size or cfg.vocab_size % size:
+        return False
+    if cfg.ffn == "moe" and (cfg.n_experts % size or (
+            cfg.d_ff_expert * cfg.n_shared_experts) % size):
         return False
     if cfg.mixer == "rwkv":
         return h % size == 0
@@ -103,6 +120,13 @@ def head_slice(cfg, size: int, m: int) -> HeadSlice:
     return HeadSlice(q_cols, q_heads, kv_cols, kv_heads)
 
 
+def expert_slice(cfg, size: int, m: int) -> Tuple[int, int]:
+    """The experts ``[first, end)`` model position ``m`` of ``size`` holds
+    and computes: its ``E / size`` of the ``"experts"`` dim."""
+    n = cfg.n_experts // size
+    return m * n, (m + 1) * n
+
+
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
 
@@ -122,6 +146,10 @@ class ModelGroup:
             raise ValueError("a lone position runs on meta tensors only")
         self.moved: List[Dict[str, int]] = [
             {"tp_reduce": 0, "tp_exchange": 0} for _ in self.devices]
+
+    def count(self, r: int, kind: str, n: int) -> None:
+        """Add ``n`` bytes to position ``r``'s ``kind`` of moves."""
+        self.moved[r][kind] = self.moved[r].get(kind, 0) + n
 
     def device(self, i: int) -> torch.device:
         """The device of the ``i``-th entry of a per-position list."""
@@ -148,6 +176,16 @@ class ModelGroup:
             acc = p if acc is None else acc + p
         out = acc.to(dtype)
         return [out.to(self.devices[r]) for r in self.ranks]
+
+    def share(self, tensors: list) -> list:
+        """The first position's ``tensors`` on every position's device (a
+        list a position of ``ranks``): the first sends each of the others
+        a copy (``ep_route``)."""
+        n = sum(t.numel() * t.element_size() for t in tensors)
+        for r in range(self.size):
+            self.count(r, "ep_route", (self.size - 1) * n if r == 0 else n)
+        return [[t.to(self.device(i)) for t in tensors]
+                for i in range(len(self.ranks))]
 
     def columns(self, pieces: list, held: list, want: list) -> list:
         """Each position's columns ``want[m]`` of an activation whose
@@ -183,6 +221,48 @@ class ModelGroup:
                             else p[..., lo - sa:hi - sa].to(self.device(i)))
             out.append(torch.cat(segs, dim=-1))
         return out
+
+
+def rows_to_first(groups: list, xss: list, rows: list) -> list:
+    """Every data shard's rows of an activation, in row order, on each
+    model position of the first shard's group: position ``m``'s on its
+    device, from position ``m`` of each shard (``xss[k]``: group ``k``'s
+    entries; ``rows[k]``: shard ``k``'s row count, for every data shard,
+    where ``groups`` may hold only the first, a lone group's, the other
+    shards' rows arriving as placeholders).  Counted as ``ep_rows``."""
+    first = groups[0]
+    out = []
+    for i in range(len(first.ranks)):
+        dev = first.device(i)
+        segs = [xss[k][i].to(dev) if k < len(groups) else
+                xss[0][i].new_empty((n, *xss[0][i].shape[1:]))
+                for k, n in enumerate(rows)]
+        out.append(torch.cat(segs) if len(segs) > 1 else segs[0])
+    _count_rows(groups, xss[0][0], rows)
+    return out
+
+
+def rows_from_first(groups: list, xs: list, rows: list) -> list:
+    """``rows_to_first`` undone: each data shard's rows of the first
+    group's ``xs`` on its own positions' devices (``groups``' entries
+    only).  Counted as ``ep_rows``."""
+    out, lo = [], 0
+    for k, g in enumerate(groups):
+        out.append([x[lo:lo + rows[k]].to(g.device(i))
+                    for i, x in enumerate(xs)])
+        lo += rows[k]
+    _count_rows(groups, xs[0], rows)
+    return out
+
+
+def _count_rows(groups: list, x: torch.Tensor, rows: list) -> None:
+    """Each model position of data shard ``k > 0`` sends (or receives) its
+    rows; the first shard's position receives (or sends) all of them."""
+    row = x[:1].numel() * x.element_size()
+    for r in range(groups[0].size):
+        groups[0].count(r, "ep_rows", sum(rows[1:]) * row)
+        for k, g in enumerate(groups[1:], 1):
+            g.count(r, "ep_rows", rows[k] * row)
 
 
 def vocab_lookup(tokens: torch.Tensor, table: torch.Tensor, lo: int,

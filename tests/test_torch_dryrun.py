@@ -18,7 +18,12 @@ One module-scoped subprocess imports the reference's dry run, which forces
 * one full-size cell, qwen3-1.7b ``decode_32k`` on the 16x16 mesh of
   ``meta`` devices, through the CLI under a time limit of its own;
 * a tensor-parallel cell's collectives (``tp_reduce``, ``tp_exchange``)
-  against their formulas, written in this file (``TP_CELLS``).
+  against their formulas, written in this file (``TP_CELLS``), and an MoE
+  serving cell's (``ep_route``, ``ep_rows``: the routing's copies and a
+  decode step's rows moved onto the first data shard's positions) with K5
+  three times a layer on the position's experts (``EP_CELLS``); the
+  production mesh's MoE serving cells on the expert-parallel route, a lone
+  position fetching 1/16 of each expert stack of a layer.
 
 The engine itself: ``CostMode``'s FLOP and bytes on known operators, and
 K4, K5 and K6 (and their backward kernels) on ``meta`` tensors, each one
@@ -46,7 +51,8 @@ from repro_torch.launch.mesh import make_mesh
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # test_dryrun_machinery.py's cells
 SMALL_CELLS = [("qwen3-1.7b", "train"), ("gemma2-2b", "decode"),
-               ("rwkv6-1.6b", "prefill"), ("dbrx-132b", "train")]
+               ("rwkv6-1.6b", "prefill"), ("dbrx-132b", "train"),
+               ("dbrx-132b", "decode"), ("kimi-k2-1t-a32b", "prefill")]
 # the full-size cell's own time limit, seconds (it takes some 10 on a
 # shared host core)
 FULL_CELL_TIMEOUT = 300
@@ -235,6 +241,70 @@ def test_tp_reduce_bytes_match_the_formula(arch, kind, reduce, exchange):
     calls = {k: v["calls"] for k, v in cell["kernels"].items()}
     assert calls == ({} if kind == "decode" else {
         "rwkv6" if cfg.mixer == "rwkv" else "flash_attention": _L})
+
+
+# the MoE serving cells on (4, 2), batch 8 (2 rows a data shard, 4 data
+# shards), seq 64, 2 layers, 4 experts top-2, bfloat16 compute: (arch,
+# kind).  The first model position routes each MoE layer and sends the
+# other (M - 1 = 1) its slot map: ``dest`` (int64) and the gates (float32)
+# over R x T x k entries, ``slot_token`` (int64) over R x E x cap slots,
+# R x T the routed rows x tokens (a prefill: its 2 rows of 64 tokens, each
+# row bundled at ``expert_capacity(64, ...)``; a decode step: the global
+# batch as one row of 8, at ``expert_capacity(8, ...)``).  A decode step
+# moves the other 3 data shards' 2 rows (d bfloat16 values each) onto the
+# first shard's position and back.
+EP_CELLS = [("dbrx-132b", "prefill"), ("dbrx-132b", "decode"),
+            ("kimi-k2-1t-a32b", "prefill"), ("kimi-k2-1t-a32b", "decode")]
+
+
+@pytest.mark.parametrize("arch,kind", EP_CELLS)
+def test_moe_cells_take_the_expert_parallel_route(arch, kind):
+    """An MoE serving cell is costed as one model position's step on its
+    experts: K5 three times a layer (its expert SwiGLU), K4 once a layer in
+    a prefill, and the moves ``ep_route`` and ``ep_rows`` (decode only)
+    equal to the formulas above, listed beside ``tp_reduce``."""
+    from repro_torch.models.moe import expert_capacity
+    cfg = _small(arch)
+    cell = PD.cost_cell(cfg, PC.ShapeConfig("t", kind, _S, 8),
+                        _small_mesh())
+    assert cell["n_model_shards"] == 2 and cell["n_data_shards"] == 4
+    per_op = cell["coll"].per_op
+    k, e = cfg.moe_top_k, cfg.n_experts
+    r, t = (1, 8) if kind == "decode" else (_ROWS, _S)
+    cap = expert_capacity(t, e, k, cfg.capacity_factor)
+    route = r * t * k * (8 + 4) + r * e * cap * 8
+    assert per_op["ep_route"] == _L * route
+    assert per_op.get("ep_rows", 0) == (
+        _L * 2 * 3 * _ROWS * _D * 2 if kind == "decode" else 0)
+    assert per_op["tp_reduce"] > 0
+    calls = {n: v["calls"] for n, v in cell["kernels"].items()}
+    assert calls == dict({"moe_gemm": 3 * _L}, **(
+        {"flash_attention": _L} if kind == "prefill" else {}))
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_production_moe_cells_fetch_a_slice_of_the_experts(arch):
+    """On the 16x16 mesh the MoE serving cells take the tensor-parallel
+    route, and the lone costed position fetches, of a layer's expert
+    stacks and shared experts, 1/16 (its experts, its columns), of its
+    router the whole."""
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.tensor_parallel import tp_route
+    cfg = PC.get_config(arch)
+    mesh = PD.make_production_mesh(devices=["meta"] * 256)
+    assert tp_route(cfg, mesh)
+    fetch = PD._meta_fetch(cfg, S.params_shardings(cfg, mesh))
+    got = fetch(("layers", "pos0", "ffn"), 0, rank=3)
+    assert len(got) == 1
+    whole = PD.M.abstract_params(cfg)["layers"]["pos0"]["ffn"]
+    names = ["w_gate", "w_up", "w_down"] + (
+        ["shared_gate", "shared_up", "shared_down"]
+        if cfg.n_shared_experts else [])
+    assert set(got[0]) == set(names) | {"router"}
+    for name in names:
+        assert got[0][name].numel() * 16 == whole[name][0].numel(), name
+    assert got[0]["router"].shape == whole["router"].shape[1:]
+    assert got[0]["w_gate"].shape[0] == cfg.n_experts // 16
 
 
 def test_one_full_size_cell(tmp_path):

@@ -1442,7 +1442,8 @@ def test_moe_mesh_decode_bundles_the_global_batch_on_card(cuda, routing,
     8, its routers' columns equal, so a decode step over the whole batch
     drops the tokens past an expert's 24 slots: every logit and the final
     cache within 1e-4 of one device on the card, K5 launched 3 times an
-    MoE layer a decode step (once over the global batch, not once a data
+    MoE layer a decode step on each of the first data shard's 2 model
+    positions, on its 2 experts over the global batch (not once a data
     shard); rows 24-31 decoded alone (their own capacity, no drop) differ,
     so the drop shows.  With a runtime installed the host route runs once
     an MoE layer a decode step."""
@@ -1476,7 +1477,8 @@ def test_moe_mesh_decode_bundles_the_global_batch_on_card(cuda, routing,
         torch.testing.assert_close(g, o, rtol=1e-4, atol=1e-4)
     for path, x in got[1].items():
         torch.testing.assert_close(x, one[1][path], rtol=1e-4, atol=1e-4)
-    assert got[2] == one[2] == 3 * cfg.n_layers * len(steps)
+    assert one[2] == 3 * cfg.n_layers * len(steps)
+    assert got[2] == 2 * one[2]
     assert max((g[24:] - t).abs().max().item()
                for g, t in zip(got[0][1:], tail[0][1:])) > 1e-2
     if routing == "host":
@@ -1511,6 +1513,62 @@ def test_tensor_parallel_serving_on_card_matches_host(cuda, arch):
     got = _serve_on(cfg, tree_map(lambda x: x.to(cuda), params), mesh, cuda,
                     toks.to(cuda), [t.to(cuda) for t in steps], 67)
     assert kernel.launches - before == 4 * cfg.n_layers
+    for g, h in zip(got[0], host[0]):
+        torch.testing.assert_close(g.cpu(), h, rtol=1e-4, atol=1e-4)
+    for path, x in got[1].items():
+        torch.testing.assert_close(x.cpu(), host[1][path], rtol=1e-4,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])
+def test_expert_parallel_serving_on_card_matches_host(cuda, arch,
+                                                      monkeypatch):
+    """Reduced dbrx-132b / kimi-k2 (float32; 4 experts top-2, kimi-k2 with
+    its shared expert) on a ``(2, 2)`` mesh of ``cuda:0`` x 4 take the
+    tensor-parallel route with the experts split over the model axis: a
+    prefill of 8 x 64 and 3 decode steps, every logit and the final cache
+    within 1e-4 of the same steps on the host (one device).  K5 runs three
+    times an MoE layer on each computing position (the prefill: both data
+    shards' 2 positions; a decode step: the first shard's 2, over the
+    global batch), always on a slice of 2 experts with local ids in [0,
+    2), and its plain version never."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import moe_gemm as K5
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as PMOE
+    from repro_torch.models.params import tree_map
+    from repro_torch.parallel.tensor_parallel import tp_route
+    cfg = reduced_config(get_config(arch))
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    assert tp_route(cfg, mesh)
+    params = M.init_params(cfg, 5, device="cpu")
+    rng = np.random.default_rng(151)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 64))
+                            .astype(np.int32))
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1))
+                              .astype(np.int32)) for _ in range(3)]
+    host = _serve_on(cfg, params, None, "cpu", toks, steps, 67)
+    seen, plain = [], []
+    launch, plain_fn = PMOE.moe_gemm, K5.moe_gemm_plain
+
+    def recorded(x, w, bundle_expert, **kw):
+        ids = K5._host_ids(bundle_expert)
+        seen.append((w.shape[0], int(ids.min()), int(ids.max())))
+        return launch(x, w, bundle_expert, **kw)
+
+    def counted(*a, **kw):
+        plain.append(1)
+        return plain_fn(*a, **kw)
+    monkeypatch.setattr(PMOE, "moe_gemm", recorded)
+    monkeypatch.setattr(K5, "moe_gemm_plain", counted)
+    before = moe_gemm.launches
+    got = _serve_on(cfg, tree_map(lambda x: x.to(cuda), params), mesh, cuda,
+                    toks.to(cuda), [t.to(cuda) for t in steps], 67)
+    n = cfg.n_layers
+    assert moe_gemm.launches - before == (4 + 2 * len(steps)) * 3 * n
+    assert got[2] == 2 * 3 * n * len(steps)
+    assert len(seen) == (4 + 2 * len(steps)) * 3 * n and not plain
+    assert all(e == 2 and lo >= 0 and hi < 2 for e, lo, hi in seen), seen
     for g, h in zip(got[0], host[0]):
         torch.testing.assert_close(g.cpu(), h, rtol=1e-4, atol=1e-4)
     for path, x in got[1].items():

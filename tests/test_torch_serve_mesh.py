@@ -16,17 +16,22 @@ what:
 * ``input_specs``' shapes and dtypes for the ten archs × the four
   ``SHAPES``; ``decode_shardings`` on ``(4, 2)``;
 * the sharded prefill and 4 decode steps on ``(4, 2)`` for reduced
-  qwen3-1.7b, rwkv6-1.6b, gemma2-2b, paligemma-3b, dbrx-132b and
-  whisper-small (the encoder-decoder branch), at batch 8 and batch 1 (the
+  qwen3-1.7b, rwkv6-1.6b, gemma2-2b, paligemma-3b, dbrx-132b,
+  kimi-k2-1t-a32b and whisper-small (the encoder-decoder branch), at
+  batch 8 and batch 1 (the
   cache's sequence over ``data``), against the reference's jitted sharded
   steps with the in- and out-shardings ``dryrun._lower_compile`` gives
   them, and against the port's one-device steps, at the one-device serving
   parity tests' 1e-4; a ``(1, 1)`` mesh bit-equal to one device;
 * the tensor-parallel route (``tp_route``: qwen3-1.7b, rwkv6-1.6b,
-  gemma2-2b, paligemma-3b) also on ``(2, 4)``: reduced qwen3-1.7b's 2 K/V
-  heads under 4 model shards and paligemma-3b's one K/V head split inside
-  it, both ways at 1e-4; no position gathering more than its model slice
-  of a leaf sharded over ``"model"``; rwkv's ``out_norm`` over all the
+  gemma2-2b, paligemma-3b, and with expert parallelism dbrx-132b and
+  kimi-k2-1t-a32b) also on ``(2, 4)``: reduced qwen3-1.7b's 2 K/V heads
+  under 4 model shards and paligemma-3b's, dbrx-132b's and kimi-k2's one
+  K/V head split inside it (the MoE archs' 4 experts one a position),
+  both ways at 1e-4; no position gathering more than its model slice of a
+  leaf sharded over ``"model"`` (the expert stacks included); the storage
+  route where the experts do not divide the model axis; rwkv's
+  ``out_norm`` over all the
   heads' channels (its heads scaled apart), where a per-shard norm departs
   from the reference; the logits over ``resolve_spec(shape, ("dp", None,
   "vocab"), mesh)``;
@@ -34,7 +39,8 @@ what:
   dbrx-132b at batch 32, its router's columns equal in the params both
   packages get): the port's mesh decode bundles the whole batch once an
   MoE layer, as the reference's one program does, and holds to its sharded
-  run and to one device at 1e-4, in-graph and host-routed;
+  run and to one device at 1e-4, in-graph and host-routed, on ``(4, 2)``
+  (expert parallelism) and ``(4, 1)`` (the storage route);
 * the production meshes' shapes and axes (``test_distributed.py``'s).
 """
 import os
@@ -62,15 +68,19 @@ MESHES = {"4x2": ((4, 2), ("data", "model")),
           "3x2": ((3, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
           "1x1": ((1, 1), ("data", "model")),
-          "2x4": ((2, 4), ("data", "model"))}
+          "2x4": ((2, 4), ("data", "model")),
+          "4x1": ((4, 1), ("data", "model"))}
 SPEC_BATCHES = (8, 1)
 SPEC_SEQ = 64
 SERVE_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "dbrx-132b",
-               "whisper-small", "paligemma-3b"]
+               "kimi-k2-1t-a32b", "whisper-small", "paligemma-3b"]
 # the archs whose serving steps compute over the model axis
 # (``tp_route``), also served on (2, 4): reduced qwen3-1.7b's 2 K/V heads
-# over 4 model shards, paligemma-3b's one K/V head split inside it
-TP_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "paligemma-3b"]
+# over 4 model shards, paligemma-3b's, dbrx-132b's and kimi-k2's one K/V
+# head split inside it, the MoE archs' 4 experts one a position
+TP_ARCHS = ["qwen3-1.7b", "rwkv6-1.6b", "gemma2-2b", "paligemma-3b",
+            "dbrx-132b", "kimi-k2-1t-a32b"]
+MOE_ARCHS = ["dbrx-132b", "kimi-k2-1t-a32b"]
 # rwkv6-1.6b with its heads' values scaled apart (OUT_NORM_SCALE[j] for
 # head j of every layer's ``wv``): each model shard's sum of squares
 # differs, so ``out_norm`` over one shard's channels departs from the norm
@@ -194,6 +204,7 @@ params = jax.tree_util.tree_map_with_path(
     M.init_params(cfg, jax.random.PRNGKey(3)))
 b, seq, x, toks = inp["drop_inputs"]
 out["drop"] = dict(serve(cfg, params, b, seq, x, toks), params=to_np(params))
+out["drop_4x1"] = serve(cfg, params, b, seq, x, toks, mesh=meshes["4x1"])
 pickle.dump(out, open(sys.argv[2], "wb"))
 """
 
@@ -453,28 +464,64 @@ def test_tensor_parallel_serving_on_2x4_matches_reference_and_one_device(
 
 
 def test_route_by_family_and_model_size():
-    """The six families compute over the model axis at every model size
-    their widths divide (the production mesh's 16 too); MoE, hymba and the
-    encoder-decoder keep the storage-only route, as does a model axis of
-    one."""
+    """The eight families compute over the model axis at every model size
+    their widths divide (the production mesh's 16 too): the MoE archs
+    with their experts split over it; hymba and the encoder-decoder keep
+    the storage-only route, as does a model axis of one."""
     meta = {(16, 16): make_production_mesh(devices=["meta"] * 256),
             (4, 2): make_mesh((4, 2), ("data", "model"), ["meta"] * 8),
             (8, 1): make_mesh((8, 1), ("data", "model"), ["meta"] * 8)}
     tp = {"qwen3-1.7b", "qwen3-4b", "gemma2-2b", "gemma3-27b",
-          "paligemma-3b", "rwkv6-1.6b"}
+          "paligemma-3b", "rwkv6-1.6b", "dbrx-132b", "kimi-k2-1t-a32b"}
     for arch in PC.ARCHS:
         for shape, m in meta.items():
             want = arch in tp and shape[1] > 1
             assert TPP.tp_route(PC.get_config(arch), m) is want, (arch, shape)
         assert TPP.tp_route(_reduced(arch), _mesh("2x4")) is (arch in tp)
+        assert TPP.tp_route(_reduced(arch), _mesh("4x2")) is (arch in tp)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_experts_that_do_not_divide_keep_the_storage_route(arch):
+    """The reference's guard replicates an ``"experts"`` (or shared
+    ``"mlp"``) dim its model axis does not divide; the port then keeps the
+    storage-only route: reduced configs with 6 experts (or, kimi-k2, a
+    shared width of 66) at a model axis of 4, which 2 divides.  The
+    sharded steps on ``(2, 4)`` still hold to one device."""
+    import dataclasses
+    cfg = _reduced(arch)
+    bad = [dataclasses.replace(cfg, n_experts=6)]
+    if cfg.n_shared_experts:
+        bad.append(dataclasses.replace(cfg, d_ff_expert=66))
+    for c in bad:
+        assert not TPP.divides(c, 4) and TPP.divides(c, 2)
+        assert not TPP.tp_route(c, _mesh("2x4"))
+        assert TPP.tp_route(c, _mesh("4x2"))
+        pspecs = dict(_walk(S.params_pspecs(c, _mesh("2x4"))))
+        ffn = {k[-1]: v for k, v in pspecs.items() if "ffn" in k}
+        assert "model" not in (ffn["w_gate"] if c.n_experts == 6
+                               else ffn["shared_gate"])
+    c = bad[0]
+    params = PM.init_params(c, 0, device=CPU)
+    x, toks = _serve_inputs(arch, 8)
+    one = _run(c, params, 8, None, x, toks)
+    got = _run(c, params, 8, _mesh("2x4"), x, toks)
+    for g, o in zip(got[0], one[0]):
+        np.testing.assert_allclose(g.numpy(), o.numpy(), **TOL)
+    for k, v in got[1].items():
+        np.testing.assert_allclose(v.numpy(), one[1][k].numpy(), **TOL,
+                                   err_msg=k)
 
 
 @pytest.mark.parametrize("mesh", ["4x2", "2x4"])
 @pytest.mark.parametrize("arch", TP_ARCHS)
 def test_positions_gather_at_most_their_model_slice(arch, mesh):
     """A prefill and a decode step: each position of each data shard
-    gathers, of every leaf sharded over ``"model"``, its model slice and no
-    more (1/M of the leaf, one layer at a time), never the whole leaf."""
+    gathers, of every leaf sharded over ``"model"`` (an MoE FFN's expert
+    stacks and shared experts too), its model slice and no more (1/M of
+    the leaf, one layer at a time), never the whole leaf.  An MoE decode
+    step runs its FFN on the first data shard's positions over the whole
+    batch: only they gather the FFN's params."""
     cfg, m = _reduced(arch), _mesh(mesh)
     size = TPP.model_size(m)
     params = PM.init_params(cfg, 0, device=CPU)
@@ -484,6 +531,12 @@ def test_positions_gather_at_most_their_model_slice(arch, mesh):
                if "model" in spec}
     mixer = "rwkv" if cfg.mixer == "rwkv" else "attn"
     assert {("embed",), ("layers", "pos0", mixer, "wo")} <= set(sharded)
+    moe = cfg.ffn == "moe"
+    if moe:
+        assert {("layers", "pos0", "ffn", k) for k in (
+            "w_gate", "w_up", "w_down") + (
+            ("shared_gate", "shared_up", "shared_down")
+            if cfg.n_shared_experts else ())} <= set(sharded)
     p = S.shard_tree(params, S.params_shardings(cfg, m))
     x, toks = _serve_inputs(arch, 8)
     prefill = PS.make_prefill_step(cfg, 8, SEQ, m)
@@ -491,11 +544,16 @@ def test_positions_gather_at_most_their_model_slice(arch, mesh):
     decode = PS.make_decode_step(cfg, m)
     decode(p, cache, torch.from_numpy(toks[0][0]), toks[0][1])
     every = set(np.ndindex(*m.devices.shape))
+    first = set(PS.tp_shards(m, 8)[0][2])
     for step in (prefill, decode):
         got = step.gathered.by_position
         assert set(got) == every
         for pos, leaves in got.items():
             for path, whole in sharded.items():
+                if moe and step is decode and "ffn" in path \
+                        and pos not in first:
+                    assert path not in leaves, (pos, path)
+                    continue
                 assert leaves[path] == whole // size, (pos, path)
 
 
@@ -580,22 +638,28 @@ def _held(got, want, one):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("mesh", ["4x2", "4x1"])
 @pytest.mark.parametrize("routing", ["in_graph", "host"])
-def test_moe_mesh_decode_bundles_the_global_batch(ref, routing,
+def test_moe_mesh_decode_bundles_the_global_batch(ref, routing, mesh,
                                                   monkeypatch):
-    """Reduced dbrx-132b at batch 32 on ``(4, 2)``, its router's columns
-    equal: every token takes the first two experts, so the reference's
-    decode step (one program over the batch) drops the tokens past the
-    global capacity, 24 slots, where a data shard's 8 rows (8 slots) would
-    drop none.  The port's mesh decode bundles the whole batch once an MoE
-    layer: its logits and final cache within ``TOL`` of the reference's
-    sharded run and of one device.  With a runtime installed the host
-    route runs once an MoE layer a decode step, not once a data shard."""
+    """Reduced dbrx-132b at batch 32, its router's columns equal: every
+    token takes the first two experts, so the reference's decode step (one
+    program over the batch) drops the tokens past the global capacity, 24
+    slots, where a data shard's 8 rows (8 slots) would drop none.  The
+    port's mesh decode bundles the whole batch once an MoE layer: on ``(4,
+    2)`` the data shards' rows on the first shard's two model positions,
+    each on its two experts (expert parallelism); on ``(4, 1)`` on the
+    first shard's device (``_global_moe_decode``, the storage route).  Its
+    logits and final cache within ``TOL`` of the reference's sharded run on
+    the same mesh and of one device.  With a runtime installed the host
+    route runs once an MoE layer a decode step, not once a data shard or a
+    model position."""
     import repro.models.moe as RMOE
     import jax.numpy as jnp
     from repro_torch.models import moe as PMOE
     from repro_torch.runtime import ReapRuntime
     cfg = _reduced(DROP["arch"])
+    assert TPP.tp_route(cfg, _mesh(mesh)) is (mesh == "4x2")
     b, seq, x, toks = _drop_inputs()
     params = params_from_numpy(ref["drop"]["params"], CPU)
     router = ref["drop"]["params"]["layers"]["pos0"]["ffn"]["router"][0]
@@ -621,8 +685,10 @@ def test_moe_mesh_decode_bundles_the_global_batch(ref, routing,
         monkeypatch.setattr(PMOE, "_host_plan_dest", counted)
         monkeypatch.setattr(PMOE, "_HOST_DISPATCH_RT",
                             ReapRuntime(device=CPU))
-    got = _run(cfg, params, b, _mesh("4x2"), x, toks, seq)
-    _held(got, ref["drop"], one)
+    got = _run(cfg, params, b, _mesh(mesh), x, toks, seq)
+    want = ref["drop"] if mesh == "4x2" else dict(
+        ref["drop_4x1"], params=ref["drop"]["params"])
+    _held(got, want, one)
     if routing == "host":
         assert calls == [b] * (cfg.n_layers * DROP["n_dec"])
 
