@@ -354,11 +354,13 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    the 16 q heads (K4 28 times a prefill a position, 112 a prefill), the
    sub-layers' partial outputs summed in float32; in float32 compute every
    step's logits and the final cache within 1e-3 of the same steps on one
-   device (the same rows), no plain version called; in bfloat16 the same
-   beside one device as a reading; the bytes a position gathers a step,
-   wall time and peak memory beside one device's and, beside them, the
-   dry run's per-device argument and temp bytes for the same shapes (a
-   reading);
+   device (the same rows), no plain version called; in bfloat16 the
+   prefill and 4 decode steps on the mesh, their launches held the same
+   way and every value finite (with ``--control-readings`` beside one
+   device as a reading); the bytes a position gathers a step, wall time
+   and peak memory beside one device's and, with ``--control-readings``,
+   the dry run's per-device argument and temp bytes for the same shapes
+   (a reading, seconds of host work a phase);
 46. the same for rwkv6-1.6b: 16 of 32 heads a position, ``out_norm`` over
    all heads' channels (the sums of squares reduced), K6 24 times a
    prefill a position (96 a prefill);
@@ -387,6 +389,23 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    prefill, every call on 8 experts; the expert bytes a position gathers
    a decode step (half a layer's stack on the first shard's positions,
    none on the other's), times and peaks beside one device's;
+50. in the same child after 49 (twentieth slice): hymba-1.5b at full
+   width and depth (float32 params) on the (2, 2) mesh, 8 x 1024 and 16
+   decode steps past the 1024-token window (the ring cache wraps), on the
+   tensor-parallel route: each model position on 12.5 of the 25 q heads
+   (the split head's columns exchanged, its 3 K/V heads repeated one a q
+   head for K4 and the decode attention) and the 13 SSM heads its columns
+   meet (K6 with u = 0), the fusion's two norms over all 1600 channels
+   from one reduction of the positions' sums of squares; float32 within
+   1e-3 of one device, K4 and K6 once a layer a position in each prefill
+   (32 each), none in a decode step, no plain version; readings as 45's;
+51. whisper-small at full width and depth (12 + 12 layers) on the (2, 2)
+   mesh: 8 x 1024 encoder frames (1500 is refused by both packages), the
+   encoder on 6 heads a position (K4 non-causal, 12 a prefill a position),
+   each position's cross K/V heads, 16 decode steps from position 0 with
+   self- and cross-attention on its heads; the encoder output, every logit
+   and the final cache within 1e-3 of one device, no K4 in a decode step;
+   readings as 45's;
 21. the serving CLI — ``python -m repro_torch.launch.serve --arch A --batch
    2 --prompt-len 64 --gen 4`` on the card for hymba-1.5b, qwen3-1.7b,
    gemma2-2b, rwkv6-1.6b, paligemma-3b (text), whisper-small (frames of
@@ -402,9 +421,9 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    Cholesky profile, then the whole script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
    and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45, 47 and
-   49, K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38,
+   49-51, K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38,
    44 and 49, K5's backward's of 38 and 44, K6's of
-   14, 18, 26, 34 and 46, K6's backward's of 34;
+   14, 18, 26, 34, 46 and 50, K6's backward's of 34;
    K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
    phase 39's; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
@@ -732,12 +751,19 @@ MESH_COMP_ATOL, MESH_PIPE_TOL = 5e-2, 1e-5
 # over batch x prompt into a cache of prompt + n_dec positions, then n_dec
 # make_decode_step steps on seeded tokens; in float32 compute every logit
 # and the final cache held to the same steps on one device within LM_TOL,
-# in bfloat16 the same read beside it; phase 47 at batch 1 (the cache's
+# in bfloat16 the prefill and the first SERVE_MESH_BF16_STEPS steps on the
+# mesh, their launches held and every value finite (with
+# --control-readings beside one device as a reading; the default run
+# leaves that twin out for the time phases 50 and 51 need); phase 47 at
+# batch 1 (the cache's
 # sequence sharded over "data"), and a (1, 1) mesh bit-equal to one
 # device
 SERVE_MESH = {QWEN3: dict(batch=8, prompt=1024, n_dec=16, seed=140),
               RWKV6: dict(batch=8, prompt=1024, n_dec=16, seed=141)}
 SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
+# decode steps of each serving phase's bfloat16 run (its launches are the
+# prefill's; hymba's first step already wraps the ring)
+SERVE_MESH_BF16_STEPS = 4
 # phase 49, in the same child after 45-47: dbrx-132b at full width
 # (bfloat16 params), depth cut 40 -> 2 layers (about 15.5 GB of params: the
 # storage, one position's slices and the one-device run fit the card; 4
@@ -752,6 +778,17 @@ SERVE_MESH_LONG = dict(batch=1, prompt=8192, n_dec=8, seed=142)
 # loads with 28 or 32 overflows the global capacity and no shard's
 SERVE_MESH_MOE = dict(n_layers=2, batch=64, groups=16, prompt=128, n_dec=8,
                       seed=149)
+# phases 50 and 51, in the same child after 49 (twentieth slice), on the
+# (2, 2) mesh in float32 compute against one device: hymba-1.5b as
+# published (32 layers, 25 / 5 heads of 64, SSM state 16, vocabulary 32001,
+# window 1024; no depth cut), a prompt of 1024 and 16 decode steps past it
+# (the ring cache wraps), each position on 12.5 q heads; whisper-small at
+# full width and depth (12 + 12
+# layers, 12 heads of 64, vocabulary 51865) on 1024 encoder frames (both
+# packages refuse 1500) and 16 decode steps from position 0, each position
+# on 6 heads
+SERVE_MESH_HYMBA = dict(batch=8, prompt=1024, n_dec=16, seed=154)
+SERVE_MESH_WHISPER = dict(batch=8, prompt=1024, n_dec=16, seed=155)
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # and TF32 dense tensor cores, HBM3
@@ -4846,7 +4883,9 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
     """``make_prefill_step`` over ``spec``'s batch and prompt into a cache
     of prompt + n_dec positions, then n_dec ``make_decode_step`` steps on
     seeded tokens (with ``spec["groups"]``, row ``i`` takes the prompt and
-    tokens of group ``i % groups``), on ``mesh`` (None: one device; the
+    tokens of group ``i % groups``; an encoder-decoder's prompt is that
+    many seeded frames and its steps start at position 0, its first
+    output the encoder's), on ``mesh`` (None: one device; the
     params sharded by ``params_shardings`` otherwise), over the rows
     ``[lo, hi)`` of the seeded batch where ``rows`` is given: the logits of
     each step and the final cache gathered onto the first device, the
@@ -4868,7 +4907,14 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
     rng = np.random.default_rng(spec["seed"])
     n = spec.get("groups", b)
     pick = np.arange(b) % n
-    toks = rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)[pick]
+    if cfg.enc_dec:
+        # an encoder-decoder's prompt is its s frames; it decodes from 0
+        toks = rng.standard_normal((n, s, cfg.d_frame)).astype(
+            np.float32)[pick]
+        first = 0
+    else:
+        toks = rng.integers(0, cfg.vocab_size, (n, s)).astype(np.int32)[pick]
+        first = s
     steps = [rng.integers(0, cfg.vocab_size, (n, 1)).astype(np.int32)[pick]
              for _ in range(n_dec)]
     lo, hi = rows or (0, b)
@@ -4900,7 +4946,7 @@ def serve_mesh_run(cfg, params, mesh, spec: dict, rows=None,
         for i, tok in enumerate(steps):
             torch.cuda.reset_peak_memory_stats()
             t0 = time.perf_counter()
-            lg, cache = decode(params, cache, tok, s + i)
+            lg, cache = decode(params, cache, tok, first + i)
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
             peak = max(peak, torch.cuda.max_memory_allocated())
@@ -4958,19 +5004,26 @@ def serve_mesh_compare(got: dict, want: dict, rows=None) -> dict:
 
 
 def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
-                     phase: str, kernel: str, one_by_one: bool = False
+                     phase: str, kernels: dict, one_by_one: bool = False
                      ) -> dict:
-    """One of phases 45-47: ``serve_mesh_run`` on a (2, 2) ("data",
-    "model") mesh, where every position computes on its model slice (the
-    tensor-parallel route), held in float32 compute to the same steps on
-    one device (the same rows) within LM_TOL; ``kernel`` launched once a
-    layer a position in each prefill (on half the heads) and never in the
-    decode steps; in bfloat16 compute (``cfg``'s) the same steps beside one
-    device as a reading; with ``one_by_one`` a (1, 1) mesh bit-equal to one
-    device.  Readings: the bytes each position gathers a step (one device
-    gathers none; the storage-only route gathered every param a data
-    shard), the prefill and decode-step times and the peak memory, each
-    beside one device's.  Returns the float32 mesh run's launches."""
+    """One of phases 45-47, 50 and 51: ``serve_mesh_run`` on a (2, 2)
+    ("data", "model") mesh, where every position computes on its model
+    slice (the tensor-parallel route), held in float32 compute to the same
+    steps on one device (the same rows) within LM_TOL; each of ``kernels``
+    (name -> its launches a prefill a position: one a layer, whisper's K4
+    one an encoder layer) launched that often in each prefill on the
+    position's heads, never in the decode steps, and no other kernel; the
+    prefill and the first SERVE_MESH_BF16_STEPS decode steps in bfloat16
+    compute (``cfg``'s) on the mesh, their launches held the same way and
+    every logit and cache value finite, with ``--control-readings`` beside
+    one device as a reading; with
+    ``one_by_one`` a (1, 1) mesh bit-equal to one device.  Readings: the
+    heads each model position computes, the bytes each position gathers a
+    step (one device gathers none; the storage-only route gathered every
+    param a data shard), the prefill and decode-step times and the peak
+    memory, each beside one device's (with ``--control-readings`` the dry
+    run's per-device bytes too).  Returns the float32 mesh run's
+    launches."""
     import dataclasses
 
     import torch
@@ -4978,18 +5031,28 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
     from repro_torch.launch.dryrun import cost_cell
     from repro_torch.launch.steps import tp_shards
     from repro_torch.models.params import _walk
-    from repro_torch.parallel.tensor_parallel import tp_route
+    from repro_torch.parallel.tensor_parallel import (head_slice, kv_index,
+                                                      model_size, tp_route,
+                                                      vocab_split)
     mesh = card_mesh((2, 2), ("data", "model"))
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     b, s, n_dec = spec["batch"], spec["prompt"], spec["n_dec"]
     shards = tp_shards(mesh, b)
     n_pos = sum(len(group) for _, _, group in shards)
-    runs, cmp, bit = {}, {}, None
-    for dtype, c in (("32", cfg32), ("16", cfg)):
-        whole = serve_mesh_run(c, params, None, spec)
+    runs, cmp, bit, finite = {}, {}, None, {}
+    short = dict(spec, n_dec=min(n_dec, SERVE_MESH_BF16_STEPS))
+    for dtype, c, sp in (("32", cfg32, spec), ("16", cfg, short)):
+        # the bfloat16 mesh run is driven and its launches held in every
+        # run; its one-device twin only with --control-readings
+        twin = dtype == "32" or CONTROL_READINGS
+        whole = serve_mesh_run(c, params, None, sp) if twin else None
         torch.cuda.empty_cache()
-        run = serve_mesh_run(c, params, mesh, spec)
-        cmp[dtype] = serve_mesh_compare(run, whole)
+        run = serve_mesh_run(c, params, mesh, sp)
+        finite[dtype] = all(bool(torch.isfinite(x.float()).all())
+                            for x in run["logits"] + list(
+                                run["cache"].values()))
+        if twin:
+            cmp[dtype] = serve_mesh_compare(run, whole)
         del run["logits"], run["cache"]
         torch.cuda.empty_cache()
         if one_by_one and dtype == "32":
@@ -4997,27 +5060,39 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
                 "data", "model")), spec)
             bit = serve_mesh_compare(unit, whole)
             del unit
-        del whole["logits"], whole["cache"]
-        runs["whole" + dtype], runs["mesh" + dtype] = whole, run
+        if twin:
+            del whole["logits"], whole["cache"]
+            runs["whole" + dtype] = whole
+        runs["mesh" + dtype] = run
         torch.cuda.empty_cache()
-    held, reading = cmp["32"], cmp["16"]
-    n = cfg.n_layers
+    held, reading = cmp["32"], cmp.get("16")
     # two prefills a run (serve_mesh_run); none in the decode steps
-    want = {"mesh": {kernel: 2 * n_pos * n}, "one": {kernel: 2 * n}}
-    got = {name: {k: r["launches"][k] for k in want["one"]}
+    want = {"mesh": {k: 2 * n_pos * n for k, n in kernels.items()},
+            "one": {k: 2 * n for k, n in kernels.items()}}
+    got = {name: {k: r["launches"][k] for k in kernels}
            for name, r in runs.items()}
-    ok = held["out_of_tol"] == 0 and tp_route(cfg, mesh) \
+    ok = held["out_of_tol"] == 0 and all(finite.values()) \
+        and tp_route(cfg, mesh) \
         and all(got[name] == want["mesh" if "mesh" in name else "one"]
-                and runs[name]["prefill_launches"][kernel]
-                == runs[name]["launches"][kernel] for name in runs) \
+                and all(runs[name]["prefill_launches"][k]
+                        == runs[name]["launches"][k] for k in kernels)
+                for name in runs) \
         and not any(v for name, r in runs.items()
-                    for k, v in r["launches"].items() if k != kernel)
+                    for k, v in r["launches"].items() if k not in kernels)
     if one_by_one:
         ok &= bit["bit_equal"]
     # the dry run's per-device bytes for the same shapes, as a reading
+    # (seconds of host work a phase: with --control-readings only)
     dry = {kind: cost_cell(cfg, ShapeConfig(phase, kind, seq, b), mesh)[
-        "memory"] for kind, seq in (("prefill", s), ("decode", s + n_dec))}
+        "memory"] for kind, seq in (("prefill", s), ("decode", s + n_dec))
+        if CONTROL_READINGS}
     param_bytes = sum(x.numel() * x.element_size() for _, x in _walk(params))
+    size = model_size(mesh)
+    heads = [dict(zip(("q_cols", "q_heads", "kv_cols", "kv_heads"),
+                      map(list, dataclasses.astuple(head_slice(cfg, size,
+                                                               m)))),
+                  kv_repeated=kv_index(cfg, head_slice(cfg, size, m))
+                  is not None) for m in range(size)]
 
     def times(r):
         return dict(first_prefill_s=r["first_prefill_s"],
@@ -5027,16 +5102,19 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
     emit(phase="main_path", case=f"{arch} tensor-parallel prefill and "
          f"decode on a (2, 2) mesh, batch {b} x {s}, {n_dec} steps, "
          "float32 against one device", serve_phase=phase, arch=arch,
-         mesh=[str(d) for d in mesh.devices.flat],
+         n_layers=cfg.n_layers, mesh=[str(d) for d in mesh.devices.flat],
          data_shards=[(lo, hi) for lo, hi, _ in shards],
          model_positions=[[list(p) for p in group]
                           for _, _, group in shards],
+         heads_a_model_position=heads,
+         vocab_split=vocab_split(cfg, size),
          sharded_cache_leaves=runs["mesh32"]["n_sharded"],
-         against_one_device_f32=held, tol=LM_TOL,
+         against_one_device_f32=held, tol=LM_TOL, finite=finite,
          bf16_against_one_device_reading=reading, one_by_one=bit,
          launches={name: r["launches"] for name, r in runs.items()},
-         launches_a_prefill_a_position=runs["mesh32"]["prefill_launches"][
-             kernel] // (2 * n_pos),
+         launches_a_prefill_a_position={
+             k: runs["mesh32"]["prefill_launches"][k] // (2 * n_pos)
+             for k in kernels},
          gathered_bytes_a_position=runs["mesh32"]["gathered"],
          one_device_gathered_bytes=0,
          storage_route_gathered_bytes_a_data_shard=param_bytes,
@@ -5044,8 +5122,8 @@ def serve_mesh_phase(card: str, arch: str, cfg, params, spec: dict,
          dryrun_per_device={k: {"argument_bytes": v["argument_bytes"],
                                 "temp_bytes": v["temp_bytes"]}
                             for k, v in dry.items()}, ok=ok, card=card)
-    check(ok, f"{arch} sharded serving ({phase}): {held}, launches {got} / "
-          f"{want}, (1, 1) {bit}")
+    check(ok, f"{arch} sharded serving ({phase}): {held}, finite {finite}, "
+          f"launches {got} / {want}, (1, 1) {bit}")
     return runs["mesh32"]["launches"]
 
 
@@ -5201,10 +5279,11 @@ def serve_mesh_moe_phase(card: str) -> dict:
 
 
 def serve_mesh() -> int:
-    """Phases 45-47 and 49 in a child process of their own
-    (``--serve-mesh``), started early, waiting for its turn
-    (``wait_for_turn``) after the ``--train-mesh`` child.  The last row gathers the launches of each
-    phase."""
+    """Phases 45-47 and 49-51 in a child process of their own
+    (``--serve-mesh``, with ``--control-readings`` the bfloat16 runs of
+    45-47, 50 and 51 beside one device too), started early, waiting for
+    its turn (``wait_for_turn``) after the ``--train-mesh`` child.  The
+    last row gathers the launches of each phase."""
     import torch
     from repro_torch.configs import get_config
     wait_for_turn("flash_attention", "rwkv6_scan", "moe_gemm")
@@ -5220,17 +5299,29 @@ def serve_mesh() -> int:
                                 ("46", RWKV6, "rwkv6")):
         cfg = get_config(arch)
         params = init_model(arch, cfg, SERVE_MESH[arch]["seed"], dev)
+        kernels = {kernel: cfg.n_layers}
         launches[f"{arch} sharded serving on a (2, 2) mesh"] = \
             serve_mesh_phase(card, arch, cfg, params, SERVE_MESH[arch],
-                             phase, kernel)
+                             phase, kernels)
         if arch == QWEN3:
             launches[f"{QWEN3} batch-1 serving on a (2, 2) mesh"] = \
                 serve_mesh_phase(card, QWEN3, cfg, params, SERVE_MESH_LONG,
-                                 "47", kernel, one_by_one=True)
+                                 "47", kernels, one_by_one=True)
         del params
         torch.cuda.empty_cache()
     launches[f"{DBRX_LM} expert-parallel serving on a (2, 2) mesh"] = \
         serve_mesh_moe_phase(card)
+    # 50, 51: hymba's hybrid mixer and whisper's encoder-decoder
+    for phase, arch, spec in (("50", HYMBA, SERVE_MESH_HYMBA),
+                              ("51", WHISPER, SERVE_MESH_WHISPER)):
+        cfg = get_config(arch)
+        params = init_model(arch, cfg, spec["seed"], dev)
+        kernels = {"flash_attention": cfg.n_enc_layers} if cfg.enc_dec \
+            else {"flash_attention": cfg.n_layers, "rwkv6": cfg.n_layers}
+        launches[f"{arch} sharded serving on a (2, 2) mesh"] = \
+            serve_mesh_phase(card, arch, cfg, params, spec, phase, kernels)
+        del params
+        torch.cuda.empty_cache()
     check(not any(plain.values()), f"plain versions ran: {plain}")
     emit(phase="serve_mesh_launches", launches=launches, plain_calls=plain)
     return 0
@@ -5590,7 +5681,10 @@ def main() -> int:
         [script, "--train-full", arch], stdin=subprocess.PIPE)
         for arch in TRAIN_FULL}
     mesh_child = start_child([script, "--train-mesh"], stdin=subprocess.PIPE)
-    serve_child = start_child([script, "--serve-mesh"], stdin=subprocess.PIPE)
+    serve_child = start_child(
+        [script, "--serve-mesh"] + (["--control-readings"]
+                                    if CONTROL_READINGS else []),
+        stdin=subprocess.PIPE)
     profile_children = {args: start_child(
         [script, *args], stdin=subprocess.PIPE) for args in (
             ("--profile-second-slice",), ("--profile-lm", HYMBA),
@@ -5789,7 +5883,9 @@ if __name__ == "__main__":
         sys.exit(profile_lm(ARGS[1]))
     if ARGS == ["--train-mesh"]:
         sys.exit(train_mesh())
-    if ARGS == ["--serve-mesh"]:
+    if ARGS[:1] == ["--serve-mesh"] and ARGS[1:] in ([],
+                                                     ["--control-readings"]):
+        CONTROL_READINGS = ARGS[1:] == ["--control-readings"]
         sys.exit(serve_mesh())
     if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2):
         sys.exit(train_full(*ARGS[1:]))

@@ -4,12 +4,11 @@ share of it costed on ``meta`` tensors, and its roofline on an H100.
 Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
 cell with XLA over 512 placeholder host devices and reads the compiled
 program's ``cost_analysis()`` and ``memory_analysis()``.  The port has no
-compiler; its sharded steps (``launch/steps.py``) compute a serving cell of
-a tensor-parallel family (``parallel.tensor_parallel.tp_route``: attention
-with a SwiGLU or an MoE FFN, RWKV6) on each model position's slice, and
-every other cell (training; hymba and whisper serving) on each data shard
-with the params gathered whole, the model axis sharding storage only.  So
-a cell here is:
+compiler; its sharded steps (``launch/steps.py``) compute a serving cell
+(``parallel.tensor_parallel.tp_route``: every family, where its widths
+divide the model axis) on each model position's slice, and a training cell
+on each data shard with the params gathered whole, the model axis sharding
+storage only.  So a cell here is:
 
 * the production mesh of ``meta`` devices (``make_production_mesh``);
 * one device's step, run at full size and full depth on ``meta`` tensors
@@ -18,7 +17,11 @@ a cell here is:
   the first data shard (``_run_tp_cell``: its model slice of one layer's
   params at a time, its rows, heads, experts and vocabulary rows, an MoE
   decode step's FFN over the global batch; the other positions' partials,
-  columns and rows arrive as placeholders); else one data shard's
+  columns and rows arrive as placeholders).  Where the positions' shares
+  differ (a head split over positions, K/V heads repeated one a q head,
+  the first position's logits over a replicated vocabulary) the first
+  position and the one with the most heads are costed and the larger
+  kept; the record's ``tp_position`` names it.  Else one data shard's
   step (the global batch over the data-parallel axes; one shard of every
   row where it does not divide: the batch-1 cell).  A train cell adds
   AdamW's update of the first device's storage shards;
@@ -71,7 +74,8 @@ from ..models.params import _set, _walk, tree_map
 from ..optim import adamw
 from ..parallel import sharding as S
 from ..parallel.api import resolve_spec
-from ..parallel.tensor_parallel import ModelGroup, model_size, tp_route
+from ..parallel.tensor_parallel import (ModelGroup, head_slice, kv_index,
+                                        model_size, tp_route)
 from . import roofline as R
 from . import steps as ST
 from .cost import CostMode
@@ -146,14 +150,16 @@ def _stored_at(shape, dtype, sharding, block=None) -> dict:
     return out
 
 
-def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None
-                 ) -> R.CollectiveStats:
+def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None,
+                 fetched=None) -> R.CollectiveStats:
     """The port's moves per mesh position, and those of the busiest.
 
     On the tensor-parallel route (``group``: the costed position's
     ``ModelGroup``) every model position of a data shard gathers its
-    model slice of each leaf and its piece of the cache (its rows, its
-    heads), and moves what ``group`` counted: ``tp_reduce`` (the partial
+    model slice of each leaf the step fetches (``fetched``: hymba's unread
+    ``ssm/wo_s`` is not, nor an encoder-decoder prefill's decoder weights
+    but the cross K/V projections) and its piece of the cache (its rows,
+    its heads), and moves what ``group`` counted: ``tp_reduce`` (the partial
     outputs and the norm's sums of squares in, the sums out: the first
     model position receives and sends for all), ``tp_exchange`` (the q
     and K/V columns a head split over positions needs) and an MoE FFN's
@@ -179,6 +185,8 @@ def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None
     abstract = M.abstract_params(cfg)
     n_moves = 0
     for path, leaf in _walk(abstract):
+        if fetched is not None and path not in fetched:
+            continue
         sh = ST._at(pshard, path)
         want = math.prod(leaf.shape) * leaf.element_size() if group is None \
             else math.prod(S.model_slice_shape(leaf.shape, sh)) \
@@ -243,7 +251,7 @@ def _first_storage(tree, shardings):
     return out
 
 
-def _meta_fetch(cfg, pshard):
+def _meta_fetch(cfg, pshard, fetched=None):
     """``fetch`` for ``M.prefill_tp`` / ``decode_step_tp`` on ``meta``:
     model slice 0 of the subtree under ``keys`` (layer ``i`` of a stacked
     one), new tensors each call, as a position's gather of one layer (the
@@ -255,36 +263,66 @@ def _meta_fetch(cfg, pshard):
         return torch.empty(shp if i is None else shp[1:], dtype=leaf.dtype,
                            device="meta")
 
+    def seen(path):
+        if fetched is not None:
+            fetched.add(path)
+
     def fetch(keys, i, rank=None):
         sub, sh = ST._at(params, keys), ST._at(pshard, keys)
         if not isinstance(sub, dict):
+            seen(keys)
             return [one(sub, sh, i)]
         tree: dict = {}
         for path, leaf in _walk(sub):
+            seen(keys + path)
             _set(tree, path, one(leaf, ST._at(sh, path), i))
         return [tree]
     return fetch
 
 
-def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode) -> ModelGroup:
-    """One model position's step (model index 0 of the first data shard)
-    on ``meta``: its slices, its rows and heads; what the other positions
-    send arrives as placeholders.  An MoE decode step over several data
-    shards runs its FFN over every shard's rows (the global batch's
-    bundles on its experts).  Returns its ``ModelGroup``."""
+def costed_positions(cfg, size: int) -> list:
+    """The model positions whose steps the dry run costs: the first (where
+    the vocabulary is replicated it alone computes the logits) and, where
+    another's share of the heads is larger (a head split over positions, a
+    position's q heads cut from a GQA group's middle: more q heads, or K/V
+    heads repeated one a q head), the first with the largest share."""
+    def share(m):
+        sl = head_slice(cfg, size, m)
+        idx = kv_index(cfg, sl)
+        return (sl.q_heads[1] - sl.q_heads[0],
+                len(idx) if idx else sl.kv_heads[1] - sl.kv_heads[0])
+    best = max(range(size), key=lambda m: (share(m), -m))
+    return [0] if share(best) == share(0) else [0, best]
+
+
+def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode, m: int = 0,
+                 fetched=None) -> ModelGroup:
+    """One model position's step (model index ``m`` of the first data
+    shard) on ``meta``: its slices, its rows and heads; what the other
+    positions send arrives as placeholders.  An MoE decode step over
+    several data shards runs its FFN over every shard's rows (the global
+    batch's bundles on its experts).  The paths of the leaves it fetches
+    go into ``fetched``.  Returns its ``ModelGroup``."""
     size = model_size(mesh)
     rows = _rows(mesh, shape.global_batch)
-    group = ModelGroup(["meta"] * size, lone=0)
-    fetch = _meta_fetch(cfg, pshard)
+    group = ModelGroup(["meta"] * size, lone=m)
+    fetch = _meta_fetch(cfg, pshard, fetched)
+    s_enc = shape.seq_len if cfg.enc_dec else 0
+    piece = M.init_cache_tp(cfg, size, m, rows, shape.seq_len, "meta",
+                            s_enc=s_enc)
     with torch.no_grad():
         if shape.kind == "prefill":
-            x = torch.empty((rows, shape.seq_len), dtype=torch.int32,
-                            device="meta")
+            if cfg.enc_dec:
+                x = torch.empty((rows, shape.seq_len, cfg.d_frame),
+                                dtype=torch.float32, device="meta")
+                run = M.encdec_prefill_tp
+            else:
+                x = torch.empty((rows, shape.seq_len), dtype=torch.int32,
+                                device="meta")
+                run = M.prefill_tp
             with mode:
-                M.prefill_tp(cfg, group, fetch, [x], [M.init_cache_tp(
-                    cfg, size, 0, rows, shape.seq_len, "meta")])
+                run(cfg, group, fetch, [x], [piece])
             return group
-        piece = M.init_cache_tp(cfg, size, 0, rows, shape.seq_len, "meta")
         token = torch.empty((rows, 1), dtype=torch.int32, device="meta")
         n_shards = len(ST.data_shards(mesh, shape.global_batch))
         with mode:
@@ -339,14 +377,39 @@ def _run_cell(cfg, shape, mesh, specs, pshard, mode: CostMode) -> None:
 
 def cost_cell(cfg, shape, mesh) -> dict:
     """One cell on ``mesh``, for one device: ``{"cost", "memory", "coll",
-    "kernels", "aten_ops", "seconds", "n_data_shards"}``."""
+    "kernels", "aten_ops", "seconds", "n_data_shards", "n_model_shards",
+    "tp_position"}``."""
     specs = ST.input_specs(cfg, shape)
     pshard = S.params_shardings(cfg, mesh)
     params = M.abstract_params(cfg)
-    p_bytes = _tree_shard_bytes(params, pshard)
     batch = shape.global_batch
     cshard = None
     tp = shape.kind != "train" and tp_route(cfg, mesh)
+    t0 = time.perf_counter()
+    group, position, fetched = None, None, None
+    if tp:
+        # the largest share: of the costed positions, the one with the
+        # most temporary bytes (then FLOP); the leaves the step reads are
+        # those any of them fetched
+        costed, fetched = [], set()
+        for m in costed_positions(cfg, model_size(mesh)):
+            mode = CostMode()
+            g = _run_tp_cell(cfg, shape, mesh, pshard, mode, m, fetched)
+            run = mode.summary()
+            costed.append(((run["temp_bytes"], run["flops"], -m), m, g, run))
+        _, position, group, run = max(costed, key=lambda c: c[0])
+    else:
+        mode = CostMode()
+        _run_cell(cfg, shape, mesh, specs, pshard, mode)
+        run = mode.summary()
+    seconds = time.perf_counter() - t0
+    # the params are the step's arguments, as the reference's jitted step
+    # keeps only those it reads (hymba's ``ssm/wo_s`` none; a whisper
+    # decode step no encoder weight): on the tensor-parallel route the
+    # leaves its positions fetch
+    p_bytes = _tree_shard_bytes(params, pshard) if fetched is None else \
+        sum(shard_bytes(leaf.shape, leaf.dtype, ST._at(pshard, path))
+            for path, leaf in _walk(params) if path in fetched)
     if shape.kind == "train":
         state = adamw.init(_opt_cfg(cfg), params)
         donated = p_bytes + HOST_SCALAR_BYTES + sum(
@@ -386,26 +449,18 @@ def cost_cell(cfg, shape, mesh) -> dict:
                 specs["token"].shape, torch.int32, tok_sh) \
                 + HOST_SCALAR_BYTES
             outs, donated = logits + c_bytes, c_bytes
-    mode = CostMode()
-    t0 = time.perf_counter()
-    group = None
-    if tp:
-        group = _run_tp_cell(cfg, shape, mesh, pshard, mode)
-    else:
-        _run_cell(cfg, shape, mesh, specs, pshard, mode)
-    seconds = time.perf_counter() - t0
-    run = mode.summary()
     return {"cost": {"flops": run["flops"], "bytes accessed": run["bytes"]},
             "memory": {"argument_bytes": int(args), "output_bytes": int(outs),
                        "temp_bytes": run["temp_bytes"],
                        "alias_bytes": int(donated)},
             "coll": _collectives(cfg, shape, mesh, specs, pshard, cshard,
-                                 group),
+                                 group, fetched),
             "kernels": {k: dict(v, on_meta=KERNEL_ON_META[k])
                         for k, v in run["kernels"].items()},
             "aten_ops": run["aten_ops"], "seconds": seconds,
             "n_data_shards": len(ST.data_shards(mesh, batch)),
-            "n_model_shards": model_size(mesh) if tp else 1}
+            "n_model_shards": model_size(mesh) if tp else 1,
+            "tp_position": position}
 
 
 def lower_cell(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
@@ -435,6 +490,9 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool) -> dict:
         else 0
     rec["n_data_shards"] = cell["n_data_shards"]
     rec["n_model_shards"] = cell["n_model_shards"]
+    # the model position whose step was costed (the first data shard's;
+    # None off the tensor-parallel route)
+    rec["tp_position"] = cell["tp_position"]
     rec["kernels"] = cell["kernels"]
     rec["aten_ops"] = cell["aten_ops"]
     return rec

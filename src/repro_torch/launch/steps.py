@@ -14,25 +14,27 @@ each data shard gathers the params onto its device, takes its loss and
 gradients there, and the gradients are reduced into the storage shards:
 training computes over the data axes only.
 
-Serving computes over the model axis too for the families
-``parallel.tensor_parallel.tp_route`` takes: decoder-only attention with a
-dense SwiGLU FFN (qwen3-1.7b, qwen3-4b, gemma2-2b, gemma3-27b,
-paligemma-3b's text path) or an MoE FFN (dbrx-132b, kimi-k2-1t-a32b: expert
-parallelism), and RWKV6 (rwkv6-1.6b).  Each data shard's model positions
-walk the layers together, each on its slice (attention heads, FFN columns,
-experts, vocabulary rows; K4 and K6 on its heads, K5 on its experts), their
-partial outputs summed after each sub-layer, as XLA partitions the
-reference's program.  An MoE decode step over several data shards walks
-every shard's positions in step and runs each MoE FFN on the first shard's
-positions over the global batch, as the reference's one program bundles
-it.  The other families (hymba, the encoder-decoder) and configs whose
-widths do not divide the model axis keep the storage-only route: each data
-shard gathers the params and its rows of the cache onto its device, runs
-the one-device ``prefill`` / ``decode_step`` there and writes its rows of
-the new cache back into the storage shards; the model axis shards storage,
-not computation.  There an MoE model's decode step bundles the global
-batch for its experts too: the data shards walk the layers in step and
-exchange their rows at each MoE FFN (``_global_moe_decode``).
+Serving computes over the model axis too wherever
+``parallel.tensor_parallel.tp_route`` takes the config: decoder-only
+attention with a dense SwiGLU FFN (qwen3-1.7b, qwen3-4b, gemma2-2b,
+gemma3-27b, paligemma-3b's text path) or an MoE FFN (dbrx-132b,
+kimi-k2-1t-a32b: expert parallelism), RWKV6 (rwkv6-1.6b), hymba-1.5b's
+hybrid mixer and whisper-small's encoder-decoder.  Each data shard's model
+positions walk the layers together, each on its slice (attention and SSM
+heads, FFN columns, experts, vocabulary rows or, where the model axis does
+not divide the vocabulary, the whole table; K4 and K6 on its heads, K5 on
+its experts), their partial outputs summed after each sub-layer, as XLA
+partitions the reference's program.  An MoE decode step over several data
+shards walks every shard's positions in step and runs each MoE FFN on the
+first shard's positions over the global batch, as the reference's one
+program bundles it.  A model axis of one and configs whose widths do not
+divide it keep the storage-only route: each data shard gathers the params
+and its rows of the cache onto its device, runs the one-device ``prefill``
+/ ``decode_step`` there and writes its rows of the new cache back into the
+storage shards; the model axis shards storage, not computation.  There an
+MoE model's decode step bundles the global batch for its experts too: the
+data shards walk the layers in step and exchange their rows at each MoE FFN
+(``_global_moe_decode``).
 
 ``input_specs`` gives each cell's inputs as ``meta`` tensors (no storage),
 where the reference gives ``ShapeDtypeStruct``s.
@@ -385,7 +387,9 @@ def _by_vocab(mesh, outs: list, shape) -> S.ShardedTensor:
     """The positions' logits (``(first row, end row, m, logits)``) as one
     leaf over ``resolve_spec(shape, ("dp", None, "vocab"), mesh)``, the
     reference's ``constrain`` of its logits: each shard's rows and
-    vocabulary slice on its device."""
+    vocabulary slice on its device (where the model axis does not divide
+    the vocabulary, the spec leaves it whole: the first model position's
+    logits, on its own device)."""
     sharding = S.Sharding(mesh, resolve_spec(shape, ("dp", None, "vocab"),
                                              mesh))
     out = S.ShardedTensor(sharding, torch.Size(shape), {})
@@ -406,22 +410,32 @@ def _tp_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh):
 
     def prefill_step(params, x):
         count = S.GatherCount()
-        cache = _cache_storage(cfg, mesh, batch,
-                               M.init_cache(cfg, batch, seq, device="meta"))
+        # an encoder-decoder's cross K/V over its frames, as ``M.
+        # encdec_prefill`` builds them
+        s_enc = x.shape[1] if cfg.enc_dec else 0
+        cache = _cache_storage(cfg, mesh, batch, M.init_cache(
+            cfg, batch, seq, s_enc=s_enc, device="meta"))
         outs = []
         with use_mesh(mesh):
             for lo, hi, group in tp_shards(mesh, batch):
                 devices = [mesh.devices[pos] for pos in group]
-                pieces = [M.init_cache_tp(cfg, size, m, hi - lo, seq, dev)
+                pieces = [M.init_cache_tp(cfg, size, m, hi - lo, seq, dev,
+                                          s_enc=s_enc)
                           for m, dev in enumerate(devices)]
-                logits, pieces = M.prefill_tp(
+                run = M.encdec_prefill_tp if cfg.enc_dec else M.prefill_tp
+                out, pieces = run(
                     cfg, ModelGroup(devices), _tp_fetch(params, mesh, group,
                                                         count),
                     [x[lo:hi].to(dev) for dev in devices], pieces)
                 _write_pieces(cfg, cache, pieces, lo)
-                outs += [(lo, hi, m, t) for m, t in enumerate(logits)]
+                outs += [(lo, hi, m, t) for m, t in enumerate(out)
+                         if t is not None]
                 del pieces
         prefill_step.gathered = count
+        if cfg.enc_dec:
+            # the encoder's output, the same on each position: the first's
+            return _by_rows(mesh, [t for _, _, m, t in outs if m == 0],
+                            batch), cache
         return _by_vocab(mesh, outs, (batch, x.shape[1], cfg.vocab_size)), \
             cache
     prefill_step.gathered = S.GatherCount()
@@ -448,7 +462,8 @@ def _tp_decode_step(cfg: ModelConfig, mesh):
                  else pos for lo, hi, _ in shards])
             for (lo, hi, _), (logits, pieces) in zip(shards, done):
                 _write_pieces(cfg, cache, pieces, lo)
-                outs += [(lo, hi, m, t) for m, t in enumerate(logits)]
+                outs += [(lo, hi, m, t) for m, t in enumerate(logits)
+                         if t is not None]
             del done
         serve_step.gathered = count
         return _by_vocab(mesh, outs, (n_rows, 1, cfg.vocab_size)), cache
@@ -469,21 +484,23 @@ def make_prefill_step(cfg: ModelConfig, batch: int, seq: int, mesh=None):
     shard runs at the mesh's first data position and the cache is
     re-sharded, its sequence dim over ``data``.
 
-    A family ``parallel.tensor_parallel.tp_route`` takes (attention with a
-    SwiGLU or an MoE FFN, RWKV6; a model axis of more than one that their
-    widths divide) computes over the model axis: for each data shard in
-    order, its model positions walk the layers together
-    (``M.prefill_tp``), each gathering its model slice of one layer's
-    params at a time (``sharding.model_slice``; counted in the step's
-    ``gathered``), computing on its heads, columns and experts (K4 or K6
-    on its heads, K5 on its experts, each row bundled on its own as the
-    reference bundles a prefill) and writing its heads of the cache; the
-    logits come back over ``("dp", None, "vocab")``, each position's
-    vocabulary rows on its device.  Other families (hymba, the
-    encoder-decoder) keep the storage-only route: data shard ``k``, in order, gathers every param
-    leaf onto its device, prefills its rows into a cache of its own there
-    and writes them into the cache's storage; the logits (or ``enc_out``)
-    come back sharded over the batch as ``batch_spec`` gives it.
+    A config ``parallel.tensor_parallel.tp_route`` takes (a model axis of
+    more than one that its widths divide) computes over the model axis:
+    for each data shard in order, its model positions walk the layers
+    together (``M.prefill_tp``; an encoder-decoder's encoder and cross K/V,
+    ``M.encdec_prefill_tp``), each gathering its model slice of one
+    layer's params at a time (``sharding.model_slice``; counted in the
+    step's ``gathered``), computing on its heads, columns and experts (K4
+    or K6 on its heads, K5 on its experts, each row bundled on its own as
+    the reference bundles a prefill) and writing its heads of the cache;
+    the logits come back over ``("dp", None, "vocab")``, each position's
+    vocabulary rows on its device (a vocabulary the model axis does not
+    divide: the first position's logits whole), an encoder-decoder's
+    ``enc_out`` sharded over the batch.  Otherwise the storage-only route:
+    data shard ``k``, in order, gathers every param leaf onto its device,
+    prefills its rows into a cache of its own there and writes them into
+    the cache's storage; the logits (or ``enc_out``) come back sharded
+    over the batch as ``batch_spec`` gives it.
     """
     def one_device(params, x):
         cache = M.init_cache(cfg, x.shape[0], seq,
@@ -620,7 +637,9 @@ def make_decode_step(cfg: ModelConfig, mesh=None):
     each head of the new cache is written by the first position that
     computes it.  An MoE model's step over more than one data shard runs
     each MoE FFN on the first shard's positions over the whole batch (its
-    rows moved there and back).  On the storage-only route data shard
+    rows moved there and back).  An encoder-decoder's step decodes every
+    row at the first row's position, as ``M.decode_step``.  On the
+    storage-only route data shard
     ``k``, in order, gathers every param leaf and its rows of every cache
     leaf whole onto its device, decodes them there and writes its rows of
     the new cache back into the storage shards; there an MoE model's step

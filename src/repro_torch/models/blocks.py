@@ -29,7 +29,8 @@ from typing import Dict
 
 import torch
 
-from ..parallel.tensor_parallel import expert_slice, head_slice
+from ..parallel.tensor_parallel import (expert_slice, head_slice, kv_index,
+                                        model_cols)
 from .attention import NEG_INF, AttnSpec, decode_attention, flash_attention
 from .layers import (dense, dense_partial, grad_fence, rms_norm, rotary,
                      sum_squares, swiglu, swiglu_hidden)
@@ -318,17 +319,29 @@ def _attn_decode_heads(cfg, p, x_t, cache, pos, layer_type):
 
 
 def _decode_attend(cfg, p, q, k, v, cache, pos, layer_type,
-                   in_place: bool = False):
+                   in_place: bool = False, kv_index=None):
     """One token's flat projections (B, 1, columns) attended against the
     cache at per-row ``pos`` (B,), after this step's K/V are written (the
     rotation applied whatever ``use_rope`` says, as in the reference; into
-    the cache's own tensors with ``in_place``).  Returns (flat heads, the
-    attention's new cache)."""
+    the cache's own tensors with ``in_place``).  ``kv_index``: the K/V
+    head each q head reads, where the heads are not whole GQA groups (the
+    cache stays one entry a K/V head; the attention reads them repeated).
+    Returns (flat heads, the attention's new cache)."""
     q, k, v = _heads(cfg, p, q, k, v, pos[:, None], layer_type, True)
     kc, vc, slot_pos = _cache_token_write(cache, k, v, pos, in_place)
-    out = decode_attention(q, kc, vc, slot_pos, pos,
+    ka, va = _expand_kv(kc, vc, kv_index)
+    out = decode_attention(q, ka, va, slot_pos, pos,
                            _attn_spec(cfg, layer_type))
     return _merge_heads(out), {"k": kc, "v": vc, "slot_pos": slot_pos}
+
+
+def _expand_kv(k, v, kv_index):
+    """K/V heads (B, Hkv, S, D) repeated to one a q head by ``kv_index``
+    (None: as they are)."""
+    if kv_index is None:
+        return k, v
+    idx = torch.as_tensor(kv_index, dtype=torch.long, device=k.device)
+    return k.index_select(1, idx), v.index_select(1, idx)
 
 
 def attn_decode(cfg, p, x_t, cache, pos, layer_type):
@@ -690,17 +703,23 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
 # model_slice``: its columns of the head and FFN projections, its rows of
 # ``wo``, ``w_down``, ``w_out``), ``xs`` the residual stream (the same on
 # every position, on its device), ``caches`` its piece of the block's
-# cache (its K/V heads, its WKV heads).  Each sub-layer ends in a partial
-# output that ``g.all_reduce`` sums before the post-norm and the residual.
+# cache (its K/V and cross K/V heads, its WKV or SSM heads).  Each
+# sub-layer ends in a partial output that ``g.all_reduce`` sums before the
+# post-norm and the residual.
 
 
-def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
+def _attn_heads_tp(cfg, g, ps, hs, layer_type, caches=None, positions=None,
+                   pos=None):
     """Attention on each position's q heads (K4 over a sequence, the
     plain decode attention against the cache at ``pos``, this step's K/V
-    written into the position's cache piece in place): (partials,
-    caches).  The q and K/V columns a position's heads need and its
-    projections do not hold (a head split over positions) come from the
-    positions that hold them."""
+    written into the position's cache piece in place), before the output
+    projection: (each position's head outputs cut to its ``q_cols``, its
+    new cache: ``caches[i]`` with the attention's leaves replaced; None
+    entries without ``caches``, an encoder's).  The q and K/V columns a
+    position's heads need and its projections do not hold (a head split
+    over positions) come from the positions that hold them; where its q
+    heads are not whole GQA groups, K4 and the decode attention read the
+    K/V heads repeated one a q head (``kv_index``)."""
     dh = cfg.d_head
     sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
     cols = [_qkv_cols(p, h) for p, h in zip(ps, hs)]
@@ -710,22 +729,151 @@ def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
                    (0, [s.q_cols for s in sl], [s.q_heads for s in sl]),
                    (1, [s.kv_cols for s in sl], [s.kv_heads for s in sl]),
                    (2, [s.kv_cols for s in sl], [s.kv_heads for s in sl])))
-    parts, new = [], []
+    outs, new = [], []
     for i, r in enumerate(g.ranks):
-        p = ps[i]
+        p, idx = ps[i], kv_index(cfg, sl[r])
         if pos is None:
             qh, kh, vh = _heads(cfg, p, q[i], k[i], v[i], positions[i],
                                 layer_type, cfg.use_rope)
-            o = _merge_heads(flash_attention(qh, kh, vh,
+            o = _merge_heads(flash_attention(qh, *_expand_kv(kh, vh, idx),
                                              _attn_spec(cfg, layer_type)))
-            c = _fill_cache(caches[i], kh, vh, positions[i])
+            c = None if caches is None else _fill_cache(caches[i], kh, vh,
+                                                        positions[i])
         else:
             o, c = _decode_attend(cfg, p, q[i], k[i], v[i], caches[i],
-                                  pos[i], layer_type, in_place=True)
-        a = sl[r].q_cols[0] - sl[r].q_heads[0] * dh
-        o = o[..., a:a + sl[r].q_cols[1] - sl[r].q_cols[0]]
-        parts.append(dense_partial(o, p["wo"]))
-        new.append(c)
+                                  pos[i], layer_type, in_place=True,
+                                  kv_index=idx)
+        outs.append(_own_cols(o, sl[r], dh))
+        new.append(None if c is None else dict(caches[i], **c))
+    return outs, new
+
+
+def _own_cols(o, sl, dh: int):
+    """Flat head outputs (..., heads·D) of ``sl.q_heads`` cut to the
+    position's ``sl.q_cols``."""
+    a = sl.q_cols[0] - sl.q_heads[0] * dh
+    return o[..., a:a + sl.q_cols[1] - sl.q_cols[0]]
+
+
+def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
+    """``_attn_heads_tp`` and each position's rows of ``wo``: (partials,
+    caches)."""
+    outs, new = _attn_heads_tp(cfg, g, ps, hs, layer_type, caches,
+                               positions, pos)
+    return [dense_partial(o, p["wo"]) for o, p in zip(outs, ps)], new
+
+
+def _xattn_tp(cfg, g, ps, hs, caches) -> list:
+    """One token's cross-attention on each position's q heads against its
+    cross K/V heads (``xk``, ``xv`` of its cache piece): the partials of
+    its rows of ``wo``."""
+    dh = cfg.d_head
+    sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
+    q = g.columns([dense(h, p["wq"]) for p, h in zip(ps, hs)],
+                  [s.q_cols for s in sl],
+                  [(a * dh, b * dh) for a, b in (s.q_heads for s in sl)])
+    spec = AttnSpec(causal=False, window=0, softcap=0.0, scale=dh ** -0.5)
+    parts = []
+    for i, r in enumerate(g.ranks):
+        b = q[i].shape[0]
+        qh = q[i].reshape(b, 1, -1, dh).transpose(1, 2)
+        xk, xv = _expand_kv(caches[i]["xk"], caches[i]["xv"],
+                            kv_index(cfg, sl[r]))
+        s_enc = xk.shape[2]
+        slot_pos = torch.arange(s_enc, dtype=torch.int32, device=qh.device)
+        o = _merge_heads(decode_attention(qh, xk, xv, slot_pos, s_enc, spec))
+        parts.append(dense_partial(_own_cols(o, sl[r], dh), ps[i]["wo"]))
+    return parts
+
+
+def cross_kv_tp(cfg, g, ps, enc_outs) -> tuple:
+    """Each position's cross K/V heads (``head_slice``'s ``kv_heads``) of
+    the encoder output, (B, Hkv_m, S_enc, D) each: its columns of the
+    cross-attention's ``wk`` and ``wv``, the columns of its heads it does
+    not hold from the positions that do."""
+    dh = cfg.d_head
+    sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
+
+    def heads(name):
+        cols = g.columns([dense(e, p[name]) for p, e in zip(ps, enc_outs)],
+                         [s.kv_cols for s in sl],
+                         [(a * dh, b * dh) for a, b in (s.kv_heads
+                                                        for s in sl)])
+        return [c.reshape(*c.shape[:2], -1, dh).transpose(1, 2)
+                for c in cols]
+    return heads("wk"), heads("wv")
+
+
+def _ssm_heads_tp(cfg, g, ps, hs) -> tuple:
+    """Hymba's SSM projections on each position's heads (those its q
+    columns meet): r, k, w (B, H_m, S, state) and v (B, H_m, S, D), each
+    list one a position.  A projection the model axis splits is read
+    column by column from the positions that hold its heads' columns;
+    ``wb_s`` (replicated) is cut to them locally."""
+    st, dh, h = cfg.ssm_state, cfg.d_head, cfg.n_heads
+    heads = [head_slice(cfg, g.size, r).q_heads for r in range(g.size)]
+
+    def cols(name, width):
+        return g.columns([dense(x, p[name]) for p, x in zip(ps, hs)],
+                         [model_cols(h * width, g.size, r)
+                          for r in range(g.size)],
+                         [(a * width, b * width) for a, b in heads])
+    rs, ks, vs, ws = (cols("wr_s", st), cols("wk_s", st), cols("wv_s", dh),
+                      cols("ww_s", st))
+    out = []
+    for i, r in enumerate(g.ranks):
+        a, b = heads[r]
+        wraw = ws[i] + ps[i]["wb_s"][a * st:b * st].to(ws[i].dtype)
+        w = torch.clamp(torch.exp(-torch.exp(wraw.float() - 0.5)),
+                        1e-6, 1 - 1e-6)
+        bs, s = hs[i].shape[:2]
+        out.append(tuple(z.reshape(bs, s, b - a, -1).transpose(1, 2)
+                         for z in (rs[i], ks[i], vs[i], w)))
+    return out
+
+
+def _hymba_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
+    """Hymba's mixer on each position's heads: attention (``_attn_heads_tp``)
+    and the SSM heads its q columns meet (K6 with u = 0 over a sequence,
+    ``rwkv6_decode_step`` at ``pos``), both cut to its q columns; the
+    fusion's two RMS norms over all H·D channels from the reduced sums of
+    squares of every position's own columns (one reduction carries both);
+    its rows of ``attn/wo``: (partials, caches with ``ssm_state`` its SSM
+    heads' state)."""
+    dh, st = cfg.d_head, cfg.ssm_state
+    sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
+    attn = [p["attn"] for p in ps]
+    outs, new = _attn_heads_tp(cfg, g, attn, hs, layer_type, caches,
+                               positions, pos)
+    ssm = _ssm_heads_tp(cfg, g, [p["ssm"] for p in ps], hs)
+    os = []
+    for i, r in enumerate(g.ranks):
+        rr, kk, vv, ww = ssm[i]
+        u0 = torch.zeros((rr.shape[1], st), dtype=torch.float32,
+                         device=rr.device)
+        if pos is None:
+            o, state = rwkv6_chunked(rr, kk, vv, ww, u0,
+                                     chunk=min(64, rr.shape[2]))
+            o = _merge_heads(o)
+        else:
+            o, state = rwkv6_decode_step(rr[:, :, 0], kk[:, :, 0],
+                                         vv[:, :, 0], ww[:, :, 0], u0,
+                                         caches[i]["ssm_state"])
+            o = o.reshape(o.shape[0], 1, -1)
+        os.append(_own_cols(o.to(hs[i].dtype), sl[r], dh))
+        new[i]["ssm_state"] = state
+    sumsq = g.all_reduce([torch.cat([sum_squares(a), sum_squares(o)], -1)
+                          for a, o in zip(outs, os)], torch.float32)
+    width = cfg.n_heads * dh
+    parts = []
+    for i, r in enumerate(g.ranks):
+        c0, c1 = sl[r].q_cols
+        p = ps[i]["ssm"]
+        fused = 0.5 * (rms_norm(outs[i], p["norm_a"][c0:c1],
+                                sumsq=sumsq[i][..., :1], width=width)
+                       + rms_norm(os[i], p["norm_s"][c0:c1],
+                                  sumsq=sumsq[i][..., 1:], width=width))
+        parts.append(dense_partial(fused, attn[i]["wo"]))
     return parts, new
 
 
@@ -809,11 +957,16 @@ def _mixer_tp(cfg, g, ps, xs, parts):
 
 
 def block_prefill_tp(cfg, layer_type, g, ps, ffn, xs, positions, caches):
-    """``block_prefill`` over the model positions ``g``: (xs, caches)."""
+    """``block_prefill`` over the model positions ``g``: (xs, caches).
+    Without ``caches`` (None) the block runs as ``block_forward`` (an
+    encoder's): the caches come back None."""
     hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
     if cfg.mixer == "attn":
         parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
                                  layer_type, caches, positions=positions)
+    elif cfg.mixer == "hymba":
+        parts, caches = _hymba_tp(cfg, g, ps, hs, layer_type, caches,
+                                  positions=positions)
     else:
         parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
                                  decode=False)
@@ -824,16 +977,26 @@ def block_prefill_tp(cfg, layer_type, g, ps, ffn, xs, positions, caches):
 
 
 def block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches, pos):
-    """``block_decode_tp`` up to its FFN: (xs, caches); ``pos`` per
-    position, (B,) each."""
+    """``block_decode_tp`` up to its FFN: the mixer and, where the layer
+    has it, the cross-attention against each position's cross K/V heads
+    (one reduction each): (xs, caches); ``pos`` per position, (B,) each."""
     hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
     if cfg.mixer == "attn":
-        parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
-                                 layer_type, caches, pos=pos)
+        parts, new = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
+                              layer_type, caches, pos=pos)
+    elif cfg.mixer == "hymba":
+        parts, new = _hymba_tp(cfg, g, ps, hs, layer_type, caches, pos=pos)
     else:
-        parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
-                                 decode=True)
-    return _mixer_tp(cfg, g, ps, xs, parts), caches
+        parts, new = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
+                              decode=True)
+    xs = _mixer_tp(cfg, g, ps, xs, parts)
+    if layer_type == "decoder" and "xk" in caches[0]:
+        xo = g.all_reduce(_xattn_tp(
+            cfg, g, [p["xattn"] for p in ps],
+            [_norm(cfg, x, p["lnx"]) for p, x in zip(ps, xs)], caches),
+            xs[0].dtype)
+        xs = [x + o for x, o in zip(xs, xo)]
+    return xs, new
 
 
 def block_decode_tp(cfg, layer_type, g, ps, ffn, xs, caches, pos):

@@ -24,12 +24,14 @@ Entry points:
   init_cache / prefill / decode_step / encdec_prefill
   cache_write_slot / cache_evict_slot / cache_slot_occupancy /
   cache_slot_residue
-  prefill_tp / decode_step_tp (data shards' model positions, each on its
-  slice: the sharded serving steps' tensor and expert parallelism)
+  prefill_tp / encdec_prefill_tp / decode_step_tp (data shards' model
+  positions, each on its slice: the sharded serving steps' tensor and
+  expert parallelism)
 """
 from __future__ import annotations
 
 import dataclasses
+from collections.abc import Mapping
 from typing import Dict
 
 import numpy as np
@@ -39,11 +41,13 @@ import torch.utils.checkpoint
 from ..device import resolve_device
 from ..parallel.api import constrain
 from ..parallel.tensor_parallel import (head_slice, rows_from_first,
-                                        rows_to_first, vocab_lookup)
+                                        rows_to_first, vocab_lookup,
+                                        vocab_split)
 from . import params as P
 from .blocks import (_ffn_tp, block_decode, block_decode_mixer_tp,
                      block_decode_tp, block_forward, block_make_cache,
-                     block_metas, block_prefill, block_prefill_tp, cross_kv)
+                     block_metas, block_prefill, block_prefill_tp, cross_kv,
+                     cross_kv_tp)
 from .layers import (cross_entropy_loss, dense, embed_lookup, rms_norm,
                      unembed)
 from .params import Meta
@@ -398,6 +402,14 @@ def prefill(cfg, params, tokens, cache, *, images=None):
     return _out_head(cfg, params, x), new_cache
 
 
+def _decode_sinusoid(cfg, x, s_cache: int, pos: int):
+    """An encoder-decoder's decode input ``x`` plus the sinusoid row at
+    ``pos`` of the float64 table over the cache's ``s_cache`` positions
+    (its last row past its end), cast as the reference casts it."""
+    row = _sinusoid_np(s_cache, cfg.d_model)[min(pos, s_cache - 1)]
+    return x + torch.from_numpy(row).to(x.dtype).to(x.device)
+
+
 def decode_step(cfg, params, cache, token, pos):
     """token: (B, 1) int; pos: () int or per-row (B,) int.
 
@@ -411,9 +423,7 @@ def decode_step(cfg, params, cache, token, pos):
     pattern = None
     if cfg.enc_dec:
         pos = int(torch.as_tensor(pos).reshape(-1)[0])
-        s_cache = cache["layers"]["k"].shape[3]
-        row = _sinusoid_np(s_cache, cfg.d_model)[min(pos, s_cache - 1)]
-        x = x + torch.from_numpy(row).to(x.dtype).to(x.device)
+        x = _decode_sinusoid(cfg, x, cache["layers"]["k"].shape[3], pos)
         pattern = ("decoder",)
     else:
         pos = torch.as_tensor(pos, dtype=torch.int32,
@@ -437,44 +447,60 @@ def decode_step(cfg, params, cache, token, pos):
 # positions' cache pieces (``init_cache_tp``).
 
 def block_walk(cfg) -> list:
-    """The blocks of a decoder-only stack in ``_run_stack``'s order:
-    ``(layer type, subtree keys, layer index)``, the index None for a
-    tail block."""
+    """The blocks of a decoder stack in ``_run_stack``'s order: ``(layer
+    type, subtree keys, layer index)``, the index None for a tail block;
+    an encoder-decoder's uniform stack of ``decoder`` blocks has no
+    ``pos{j}`` level."""
+    if cfg.enc_dec:
+        return [("decoder", ("layers",), i) for i in range(cfg.n_layers)]
     out = [(lt, ("layers", f"pos{j}"), i) for i in range(cfg.n_periods)
            for j, lt in enumerate(cfg.layer_pattern)]
     return out + [(lt, (f"tail{i}",), None)
                   for i, lt in enumerate(cfg.tail_layers)]
 
 
+def _cache_at(cache: Dict, keys, i) -> Dict:
+    """The block cache under ``keys`` (layer ``i`` of a stacked one, as
+    views)."""
+    for k in keys:
+        cache = cache[k]
+    return cache if i is None else P.tree_slice(cache, i)
+
+
 def cache_heads(cfg, size: int, m: int, name: str):
     """The heads ``[first, end)`` of the cache leaf ``name`` that model
     position ``m`` of ``size`` computes: the K/V heads its q heads read
-    (``k``, ``v``), its RWKV6 heads (``wkv``); None for a leaf without a
-    head dim (``slot_pos``, ``shift``, ``shift_cm``), which every
-    position computes whole.  The head dim follows the batch dim."""
-    if name in ("k", "v"):
+    (``k``, ``v``; the cross K/V ``xk``, ``xv``), the recurrent heads its
+    q columns meet (RWKV6's ``wkv``, hymba's ``ssm_state``); None for a
+    leaf without a head dim (``slot_pos``, ``shift``, ``shift_cm``), which
+    every position computes whole.  The head dim follows the batch dim."""
+    if name in ("k", "v", "xk", "xv"):
         return head_slice(cfg, size, m).kv_heads
-    if name == "wkv":
-        h = cfg.n_heads // size
-        return m * h, (m + 1) * h
+    if name in ("wkv", "ssm_state"):
+        return head_slice(cfg, size, m).q_heads
     return None
 
 
 def init_cache_tp(cfg, size: int, m: int, batch: int, max_seq: int,
-                  device) -> Dict:
+                  device, s_enc: int = 0) -> Dict:
     """Model position ``m``'s zero cache piece: ``init_cache`` over its
     heads (``cache_heads``)."""
-    j0, j1 = head_slice(cfg, size, m).kv_heads
-    local = dataclasses.replace(
-        cfg, n_kv_heads=j1 - j0,
-        n_heads=cfg.n_heads // size if cfg.mixer == "rwkv" else cfg.n_heads)
-    return init_cache(local, batch, max_seq, device=device)
+    sl = head_slice(cfg, size, m)
+    (a, b), (j0, j1) = sl.q_heads, sl.kv_heads
+    local = dataclasses.replace(cfg, n_kv_heads=j1 - j0, n_heads=b - a)
+    return init_cache(local, batch, max_seq, s_enc=s_enc, device=device)
 
 
 def _embed_in_tp(cfg, g, tables, tokens):
-    """The vocabulary-parallel embedding: each position's rows of the
-    table for the tokens in its range, summed (exactly: one nonzero term a
-    token), then gemma's scale."""
+    """The embedding on each position.  Vocabulary-parallel where the
+    model axis splits the vocabulary: each position's rows of the table
+    for the tokens in its range, summed (exactly: one nonzero term a
+    token), then gemma's scale; else every position looks its tokens up
+    in the whole table (the reference's guard replicates it), no
+    reduction."""
+    if not vocab_split(cfg, g.size):
+        return [_embed_in(cfg, {"embed": tab}, t)
+                for t, tab in zip(tokens, tables)]
     n = cfg.vocab_size // g.size
     xs = g.all_reduce([vocab_lookup(t, tab, r * n, cfg.cdtype)
                        for t, tab, r in zip(tokens, tables, g.ranks)],
@@ -485,10 +511,24 @@ def _embed_in_tp(cfg, g, tables, tokens):
     return xs
 
 
-def _out_head_tp(cfg, fetch, xs, embed) -> list:
+def _out_head_tp(cfg, g, fetch, xs, embed) -> list:
     """Each position's float32 logits over its vocabulary rows (B, S,
     V / size): the final norm (replicated) and its rows of the table (the
-    embedding's, ``embed``, where tied), soft-capped elementwise."""
+    embedding's, ``embed``, where tied), soft-capped elementwise.  Where
+    the model axis does not split the vocabulary the first position
+    computes the logits over all of it from the whole table and the others
+    none (None): the reference's ``("dp", None, "vocab")`` then leaves the
+    vocabulary whole on the data shard's first position."""
+    if not vocab_split(cfg, g.size):
+        out = [None] * len(xs)
+        if 0 in g.ranks:
+            i = g.ranks.index(0)
+            w = fetch(("final_norm",), None, rank=0)[0]
+            t = embed[i] if cfg.tie_embeddings else fetch(("unembed",), None,
+                                                          rank=0)[0]
+            out[i] = unembed(rms_norm(xs[i], w, plus_one=cfg.gemma_style), t,
+                             cap=cfg.final_softcap)
+        return out
     norms = fetch(("final_norm",), None)
     tables = embed if cfg.tie_embeddings else fetch(("unembed",), None)
     return [unembed(rms_norm(x, w, plus_one=cfg.gemma_style), t,
@@ -496,13 +536,43 @@ def _out_head_tp(cfg, fetch, xs, embed) -> list:
             for x, w, t in zip(xs, norms, tables)]
 
 
-def _block_tp(cfg, fetch, layer_type, keys, i, ffn: bool = True):
-    """A block's params for each position, its FFN's left out, and
-    ``ffn(j)``: the ``j``-th position's slice of the FFN's params, fetched
-    when called (None where ``ffn`` is false: another group runs it)."""
-    parts = {k: fetch(keys + (k,), i) for k in block_metas(cfg, layer_type)
+class _BlockView(Mapping):
+    """One position's view of a block's params (a subtree of ``metas``):
+    each leaf is fetched by ``leaf(path)``, for every position at once,
+    the first time a position reads it, so a leaf no step reads is never
+    gathered (hymba's ``ssm/wo_s``, which no forward reads; a decode
+    block's cross ``wk`` / ``wv``, read once by ``encdec_prefill_tp``)."""
+
+    def __init__(self, leaf, metas: Dict, r: int, path: tuple = ()):
+        self._leaf, self._metas, self._r, self._path = leaf, metas, r, path
+
+    def __getitem__(self, name):
+        sub, path = self._metas[name], self._path + (name,)
+        if isinstance(sub, dict):
+            return _BlockView(self._leaf, sub, self._r, path)
+        return self._leaf(path)[self._r]
+
+    def __iter__(self):
+        return iter(self._metas)
+
+    def __len__(self) -> int:
+        return len(self._metas)
+
+
+def _block_tp(cfg, fetch, layer_type, keys, i, n: int, ffn: bool = True):
+    """A block's params for each of ``n`` positions (``_BlockView``s: a
+    leaf is fetched when first read), its FFN's left out, and ``ffn(j)``:
+    the ``j``-th position's slice of the FFN's params, fetched when called
+    (None where ``ffn`` is false: another group runs it)."""
+    got: Dict[tuple, list] = {}
+
+    def leaf(path):
+        if path not in got:
+            got[path] = fetch(keys + path, i)
+        return got[path]
+    metas = {k: v for k, v in block_metas(cfg, layer_type).items()
              if k != "ffn"}
-    ps = [dict(zip(parts, vals)) for vals in zip(*parts.values())]
+    ps = [_BlockView(leaf, metas, r) for r in range(n)]
     if not ffn:
         return ps, None
     return ps, lambda j: fetch(keys + ("ffn",), i, rank=j)[0]
@@ -515,9 +585,9 @@ def _run_stack_tp(cfg, fetch, caches, xs, step):
     layers = [{} for _ in xs]
     new = [{} for _ in xs]
     for lt, keys, i in block_walk(cfg):
-        cs = [c[keys[0]] if i is None else P.tree_slice(
-            c["layers"][keys[1]], i) for c in caches]
-        xs, cs = step(lt, *_block_tp(cfg, fetch, lt, keys, i), xs, cs)
+        cs = [_cache_at(c, keys, i) for c in caches]
+        xs, cs = step(lt, *_block_tp(cfg, fetch, lt, keys, i, len(xs)),
+                      xs, cs)
         for r, c in enumerate(cs):
             if i is None:
                 new[r][keys[0]] = c
@@ -533,7 +603,8 @@ def _run_stack_tp(cfg, fetch, caches, xs, step):
 def prefill_tp(cfg, g, fetch, tokens, caches):
     """``prefill`` over the model positions ``g``: ``tokens`` (B, S) on
     each position's device.  Returns (each position's logits over its
-    vocabulary rows, each position's cache piece)."""
+    vocabulary rows, or the first position's over all of it
+    (``_out_head_tp``); each position's cache piece)."""
     embed = fetch(("embed",), None)
     xs = _embed_in_tp(cfg, g, embed, tokens)
     b, s, _ = xs[0].shape
@@ -542,7 +613,45 @@ def prefill_tp(cfg, g, fetch, tokens, caches):
     def step(lt, ps, ffn, hs, cs):
         return block_prefill_tp(cfg, lt, g, ps, ffn, hs, positions, cs)
     xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
-    return _out_head_tp(cfg, fetch, xs, embed), new
+    return _out_head_tp(cfg, g, fetch, xs, embed), new
+
+
+def encode_tp(cfg, g, fetch, frames) -> list:
+    """``_encode`` over the model positions ``g``: ``frames`` (B, S_enc,
+    d_frame) on each position's device.  ``frame_proj``, the sinusoid and
+    ``enc_norm`` whole on each position; each ``encoder`` block on its
+    heads (K4, non-causal) and FFN columns, one reduction a sub-layer.
+    Returns each position's encoder output (the same on each)."""
+    ws = fetch(("frame_proj",), None)
+    xs = [dense(f.to(w.device, cfg.cdtype), w) for f, w in zip(frames, ws)]
+    b, s_enc, _ = xs[0].shape
+    xs = [x + _sinusoid(s_enc, cfg.d_model, x.dtype, x.device)[None]
+          for x in xs]
+    positions = [_positions(b, s_enc, x.device) for x in xs]
+    for i in range(cfg.n_enc_layers):
+        ps, ffn = _block_tp(cfg, fetch, "encoder", ("enc_layers",), i,
+                            len(xs))
+        xs, _ = block_prefill_tp(cfg, "encoder", g, ps, ffn, xs, positions,
+                                 None)
+    return [rms_norm(x, w) for x, w in zip(xs, fetch(("enc_norm",), None))]
+
+
+def encdec_prefill_tp(cfg, g, fetch, frames, caches) -> tuple:
+    """``encdec_prefill`` over the model positions ``g``: the encoder
+    (``encode_tp``), then each decoder layer's cross K/V heads each
+    position's cross-attention reads, from its columns of that layer's
+    ``xattn/wk`` and ``xattn/wv`` (``cross_kv_tp``), written into its
+    cache piece.  Returns (each position's encoder output, its cache
+    piece)."""
+    enc = encode_tp(cfg, g, fetch, frames)
+    for i in range(cfg.n_layers):
+        ps = [{"wk": k, "wv": v} for k, v in zip(
+            fetch(("layers", "xattn", "wk"), i),
+            fetch(("layers", "xattn", "wv"), i))]
+        for name, heads in zip(("xk", "xv"), cross_kv_tp(cfg, g, ps, enc)):
+            for c, x in zip(caches, heads):
+                c["layers"][name][i].copy_(x)
+    return enc, caches
 
 
 def decode_step_tp(cfg, groups, fetches, caches, tokens, pos, rows=None):
@@ -554,26 +663,33 @@ def decode_step_tp(cfg, groups, fetches, caches, tokens, pos, rows=None):
     reference's one program does: each shard's FFN inputs go onto the
     first shard's positions (``rows_to_first``), which run the FFN over
     every row, their experts over the whole batch's bundles, and send each
-    shard its rows back; the other shards fetch no FFN params.  ``rows``:
-    every data shard's row count, where ``groups`` holds only the first
-    (the dry run's lone position; the others' rows arrive as
-    placeholders).  Each position's cache piece is updated in place (the
-    step's own copy: ``launch.steps`` reads it from the storage and writes
-    it back), so no second copy of it is made.  Returns ``[(logits,
-    caches)]`` a group, as ``prefill_tp``'s."""
+    shard its rows back; the other shards fetch no FFN params.  An
+    encoder-decoder decodes every row at the first row's position (of the
+    first group), with the sinusoid row at that position, as
+    ``decode_step``.  ``rows``: every data shard's row count, where
+    ``groups`` holds only the first (the dry run's lone position; the
+    others' rows arrive as placeholders).  Each position's cache piece is
+    updated in place (the step's own copy: ``launch.steps`` reads it from
+    the storage and writes it back), so no second copy of it is made.
+    Returns ``[(logits, caches)]`` a group, as ``prefill_tp``'s."""
     rows = rows or [t[0].shape[0] for t in tokens]
     global_ffn = cfg.ffn == "moe" and len(rows) > 1
     embeds = [f(("embed",), None) for f in fetches]
     xss = [_embed_in_tp(cfg, g, e, t)
            for g, e, t in zip(groups, embeds, tokens)]
+    if cfg.enc_dec:
+        at = int(torch.as_tensor(pos[0]).reshape(-1)[0])
+        s_cache = caches[0][0]["layers"]["k"].shape[3]
+        xss = [[_decode_sinusoid(cfg, x, s_cache, at) for x in xs]
+               for xs in xss]
+        pos = [at] * len(groups)
     poss = [[torch.as_tensor(p, dtype=torch.int32, device=x.device).expand(
         t.shape[0]) for x, t in zip(xs, toks)]
         for p, xs, toks in zip(pos, xss, tokens)]
     for lt, keys, i in block_walk(cfg):
         for k, g in enumerate(groups):
-            cs = [c[keys[0]] if i is None else P.tree_slice(
-                c["layers"][keys[1]], i) for c in caches[k]]
-            ps, ffn = _block_tp(cfg, fetches[k], lt, keys, i,
+            cs = [_cache_at(c, keys, i) for c in caches[k]]
+            ps, ffn = _block_tp(cfg, fetches[k], lt, keys, i, len(xss[k]),
                                 ffn=k == 0 or not global_ffn)
             if global_ffn:
                 xss[k], new = block_decode_mixer_tp(cfg, lt, g, ps, xss[k],
@@ -589,8 +705,8 @@ def decode_step_tp(cfg, groups, fetches, caches, tokens, pos, rows=None):
             xs, _ = _ffn_tp(cfg, groups[0], *first,
                             rows_to_first(groups, xss, rows))
             xss = rows_from_first(groups, xs, rows)
-    return [(_out_head_tp(cfg, f, xs, e), c)
-            for f, xs, e, c in zip(fetches, xss, embeds, caches)]
+    return [(_out_head_tp(cfg, g, f, xs, e), c)
+            for g, f, xs, e, c in zip(groups, fetches, xss, embeds, caches)]
 
 
 def _write_into(cache: Dict, new: Dict) -> None:

@@ -13,13 +13,18 @@ controller) and each model position computes on its own slice:
 * ``tp_route`` picks the route from the config's family and the mesh's
   model size: decoder-only attention with a dense SwiGLU FFN (qwen3,
   gemma2, gemma3, paligemma's text path) or an MoE FFN (dbrx, kimi-k2),
-  and RWKV6 with its channel mix, when every sharded width divides the
-  model axis (an MoE config's experts and shared-expert columns too).
-  Other families (hymba's hybrid mixer, the encoder-decoder) and configs
-  whose widths do not divide keep the storage-only route;
+  RWKV6 with its channel mix, hymba's hybrid mixer (attention and SSM
+  heads side by side) and the encoder-decoder (whisper: its encoder, its
+  decoder's self- and cross-attention), when the widths the reference
+  shards divide the model axis (the q columns, the FFN's hidden width; an
+  MoE config's experts and shared-expert columns; whole RWKV heads).  A
+  model axis of one and configs whose widths do not divide keep the
+  storage-only route;
 * ``head_slice`` gives model position ``m`` its columns of the head
-  projections and the q and K/V heads it computes; ``expert_slice`` the
-  experts it holds and computes;
+  projections and the q and K/V heads it computes (a head may be split
+  over positions, and a position's q heads may start inside a GQA group:
+  ``kv_index`` then gives K4 one K/V head per q head); ``expert_slice``
+  the experts it holds and computes;
 * ``ModelGroup`` holds one data shard's model positions: ``all_reduce``
   sums their partial outputs in float32 in a fixed order (m = 0, 1, ...)
   on the first position's device, rounds once and copies the result to
@@ -34,6 +39,9 @@ controller) and each model position computes on its own slice:
   program does);
 * ``vocab_lookup`` is one position's part of the vocabulary-parallel
   embedding: its rows of the table, zeros for tokens outside its range.
+  Where the model axis does not divide the vocabulary the reference's
+  guard replicates the table (``vocab_split`` false): every position
+  looks tokens up in the whole table and the first computes the logits.
 
 A group made with ``lone`` runs one position on ``meta`` tensors (the dry
 run): what the other positions would send arrives as placeholders.  Every
@@ -60,30 +68,37 @@ def model_size(mesh) -> int:
 def in_scope(cfg) -> bool:
     """The families whose serving steps compute over ``"model"``."""
     if cfg.enc_dec:
-        return False
-    return (cfg.mixer == "attn" and cfg.ffn in ("swiglu", "moe")) or (
-        cfg.mixer == "rwkv" and cfg.ffn == "rwkv_cm")
+        return cfg.mixer == "attn" and cfg.ffn == "swiglu"
+    return (cfg.mixer in ("attn", "hymba") and cfg.ffn in ("swiglu", "moe")
+            ) or (cfg.mixer == "rwkv" and cfg.ffn == "rwkv_cm")
 
 
 def divides(cfg, size: int) -> bool:
-    """Whether ``size`` model positions split ``cfg``'s widths: the q
-    columns, the FFN's hidden width and the vocabulary; an MoE FFN's
-    experts and its shared experts' hidden width (where they do not
-    divide, the reference's guard replicates them); whole RWKV heads; a
-    position's q heads reading whole K/V heads (or one q head a position,
-    shared by several positions)."""
-    h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    if (h * dh) % size or cfg.d_ff % size or cfg.vocab_size % size:
+    """Whether ``size`` model positions split ``cfg``'s widths as the
+    reference's guards shard them: the q columns and the FFN's hidden
+    width; an MoE FFN's experts and its shared experts' hidden width
+    (where they do not divide, the reference's guard replicates them);
+    whole RWKV heads.  The K/V columns, hymba's SSM state columns and the
+    vocabulary need not divide: the guard replicates them, and a position
+    reads what it needs (``ModelGroup.columns``, the whole table).  Heads
+    need not divide either way: a head split over positions takes the
+    columns it lacks from the others, and a position whose q heads start
+    inside a GQA group reads one K/V head per q head (``kv_index``)."""
+    h, dh = cfg.n_heads, cfg.d_head
+    if (h * dh) % size or cfg.d_ff % size:
         return False
     if cfg.ffn == "moe" and (cfg.n_experts % size or (
             cfg.d_ff_expert * cfg.n_shared_experts) % size):
         return False
     if cfg.mixer == "rwkv":
         return h % size == 0
-    if h % size == 0:
-        per, group = h // size, h // hkv
-        return per % group == 0 or group % per == 0
-    return size % h == 0
+    return True
+
+
+def vocab_split(cfg, size: int) -> bool:
+    """Whether the model axis splits the vocabulary (else the reference's
+    guard replicates the table and the logits' vocabulary dim)."""
+    return cfg.vocab_size % size == 0
 
 
 def tp_route(cfg, mesh) -> bool:
@@ -97,9 +112,9 @@ def tp_route(cfg, mesh) -> bool:
 class HeadSlice:
     """Model position ``m``'s share of a layer's heads: the columns of
     ``wq`` (rows of ``wo``) its model slice holds, the q heads those
-    columns meet, the columns of ``wk`` / ``wv`` it holds (all of them
-    where the guard replicates them) and the K/V heads its q heads read.
-    Each range is ``[first, end)``."""
+    columns meet (hymba's SSM heads too), the columns of ``wk`` / ``wv``
+    it holds (all of them where the guard replicates them) and the K/V
+    heads its q heads read.  Each range is ``[first, end)``."""
 
     q_cols: Tuple[int, int]
     q_heads: Tuple[int, int]
@@ -107,17 +122,36 @@ class HeadSlice:
     kv_heads: Tuple[int, int]
 
 
+def model_cols(width: int, size: int, m: int) -> Tuple[int, int]:
+    """The columns ``[first, end)`` of a ``width``-column projection sharded
+    over ``"model"`` that model position ``m`` of ``size`` holds: its
+    ``width / size``, or all of them where the reference's guard
+    replicates the projection (``width`` does not divide)."""
+    if width % size:
+        return 0, width
+    return m * width // size, (m + 1) * width // size
+
+
 def head_slice(cfg, size: int, m: int) -> HeadSlice:
     h, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    qc = h * dh // size
-    q_cols = (m * qc, (m + 1) * qc)
+    q_cols = model_cols(h * dh, size, m)
     q_heads = (q_cols[0] // dh, -(-q_cols[1] // dh))
     group = h // hkv
     kv_heads = (q_heads[0] // group, (q_heads[1] - 1) // group + 1)
-    kvc = hkv * dh
-    kv_cols = (m * kvc // size, (m + 1) * kvc // size) if kvc % size == 0 \
-        else (0, kvc)
-    return HeadSlice(q_cols, q_heads, kv_cols, kv_heads)
+    return HeadSlice(q_cols, q_heads, model_cols(hkv * dh, size, m), kv_heads)
+
+
+def kv_index(cfg, sl: HeadSlice) -> Optional[List[int]]:
+    """The K/V head (counted from ``sl.kv_heads[0]``) each of a position's
+    q heads reads, where its q heads do not fill whole GQA groups from a
+    group's first head (K4 and the decode attention then take the K/V
+    heads repeated one a q head); None where they do, or where they lie in
+    one group (the ratio of q to K/V heads is then an integer)."""
+    group = cfg.n_heads // cfg.n_kv_heads
+    (a, b), (j0, j1) = sl.q_heads, sl.kv_heads
+    if j1 - j0 == 1 or (a == j0 * group and b == j1 * group):
+        return None
+    return [q // group - j0 for q in range(a, b)]
 
 
 def expert_slice(cfg, size: int, m: int) -> Tuple[int, int]:

@@ -1576,6 +1576,110 @@ def test_expert_parallel_serving_on_card_matches_host(cuda, arch,
                                    atol=1e-4)
 
 
+def _mesh_against_one_card(cfg, params, cuda, x, steps, seq, first):
+    """Prefill and decode steps on a ``(2, 2)`` mesh of ``cuda:0`` x 4 and
+    on the card alone: (the mesh run's and the card's (logits, cache)),
+    the K4 and K6 launches of the mesh's prefill and decode steps, and the
+    calls of their plain versions.  Decode step ``i`` is at position
+    ``first + i``."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv6_scan as RK
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import _walk
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.tensor_parallel import tp_route
+    mesh = make_mesh((2, 2), ("data", "model"), ["cuda:0"] * 4)
+    assert tp_route(cfg, mesh)
+    plain, fns = [], {}
+    for mod, name in ((FA, "flash_attention_plain"), (RK, "rwkv6_plain")):
+        fns[mod, name] = getattr(mod, name)
+
+        def counted(*a, _fn=fns[mod, name], **kw):
+            plain.append(1)
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        runs, launches = [], []
+        for m in (mesh, None):
+            p = params if m is None else S.shard_tree(
+                params, S.params_shardings(cfg, m))
+            before = FA.flash_attention.launches, RK.rwkv6.launches
+            logits, cache = PS.make_prefill_step(cfg, x.shape[0], seq, m)(
+                p, x)
+            mid = FA.flash_attention.launches, RK.rwkv6.launches
+            decode = PS.make_decode_step(cfg, m)
+            seen = [S.gather(logits, cuda)]
+            for i, tok in enumerate(steps):
+                lg, cache = decode(p, cache, tok, first + i)
+                seen.append(S.gather(lg, cuda))
+            after = FA.flash_attention.launches, RK.rwkv6.launches
+            runs.append((seen, {path: S.gather(c, cuda)
+                                for path, c in _walk(cache)}))
+            launches.append({"prefill": [b - a for a, b in zip(before, mid)],
+                             "decode": [b - a for a, b in zip(mid, after)]})
+    finally:
+        for (mod, name), fn in fns.items():
+            setattr(mod, name, fn)
+    return runs, launches[0], len(plain)
+
+
+def _held_on_card(mesh_run, one_run, tol):
+    for g, h in zip(mesh_run[0], one_run[0]):
+        torch.testing.assert_close(g, h, rtol=tol, atol=tol)
+    for path, x in mesh_run[1].items():
+        torch.testing.assert_close(x, one_run[1][path], rtol=tol, atol=tol)
+
+
+def test_hymba_tensor_parallel_serving_on_card(cuda):
+    """hymba-1.5b at full width (25 / 5 heads of 64, SSM state 16,
+    vocabulary 32001, window 1024), 2 layers, float32, on a ``(2, 2)``
+    mesh of ``cuda:0`` x 4: the tensor-parallel route, each model position
+    on 12.5 of the 25 q heads (its K/V heads repeated one a q head) and
+    the SSM heads its columns meet; a prefill of 4 x 256 and 3 decode
+    steps within 1e-3 of the same steps on the card alone, every logit and
+    the final cache; K4 and K6 once a layer a position in the prefill
+    (8 each), neither in a decode step, no plain version."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("hymba-1.5b"), n_layers=2,
+                              compute_dtype="float32")
+    params = M.init_params(cfg, 7, device=cuda)
+    rng = np.random.default_rng(152)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 256))
+                            .astype(np.int32)).to(cuda)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))
+                              .astype(np.int32)).to(cuda) for _ in range(3)]
+    (got, one), launches, plain = _mesh_against_one_card(
+        cfg, params, cuda, toks, steps, 259, 256)
+    assert launches == {"prefill": [8, 8], "decode": [0, 0]}
+    assert plain == 0
+    _held_on_card(got, one, 1e-3)
+
+
+def test_whisper_tensor_parallel_serving_on_card(cuda):
+    """whisper-small at full width (12 heads of 64, vocabulary 51865), 2
+    encoder and 2 decoder layers, float32, on a ``(2, 2)`` mesh of
+    ``cuda:0`` x 4: the encoder on 6 heads a position (K4 once an encoder
+    layer a position, 8 in the prefill), each position's cross K/V heads,
+    3 decode steps (self- and cross-attention on its heads, no K4); the
+    encoder output, every logit and the final cache within 1e-3 of the
+    card alone, no plain version."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config("whisper-small"), n_layers=2,
+                              n_enc_layers=2, compute_dtype="float32")
+    params = M.init_params(cfg, 8, device=cuda)
+    rng = np.random.default_rng(153)
+    frames = torch.from_numpy(rng.standard_normal((4, 256, cfg.d_frame))
+                              .astype(np.float32)).to(cuda)
+    steps = [torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1))
+                              .astype(np.int32)).to(cuda) for _ in range(3)]
+    (got, one), launches, plain = _mesh_against_one_card(
+        cfg, params, cuda, frames, steps, 256, 0)
+    assert launches == {"prefill": [8, 0], "decode": [0, 0]}
+    assert plain == 0
+    _held_on_card(got, one, 1e-3)
+
+
 def test_compressed_step_keeps_each_pods_error_buffer_on_card(
         cuda, monkeypatch):
     """Three int8 compressed steps of reduced qwen3-1.7b on a ``(2, 2,

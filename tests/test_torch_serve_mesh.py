@@ -23,9 +23,11 @@ what:
   steps with the in- and out-shardings ``dryrun._lower_compile`` gives
   them, and against the port's one-device steps, at the one-device serving
   parity tests' 1e-4; a ``(1, 1)`` mesh bit-equal to one device;
-* the tensor-parallel route (``tp_route``: qwen3-1.7b, rwkv6-1.6b,
-  gemma2-2b, paligemma-3b, and with expert parallelism dbrx-132b and
-  kimi-k2-1t-a32b) also on ``(2, 4)``: reduced qwen3-1.7b's 2 K/V heads
+* the tensor-parallel route (``tp_route``: every family at every model
+  size above one that its widths divide; whisper-small's 4x2 run above
+  takes it, and ``test_torch_serve_mesh_tp.py`` holds hymba and whisper on
+  both meshes) for qwen3-1.7b, rwkv6-1.6b, gemma2-2b, paligemma-3b, and
+  with expert parallelism dbrx-132b and kimi-k2-1t-a32b, also on ``(2, 4)``: reduced qwen3-1.7b's 2 K/V heads
   under 4 model shards and paligemma-3b's, dbrx-132b's and kimi-k2's one
   K/V head split inside it (the MoE archs' 4 experts one a position),
   both ways at 1e-4; no position gathering more than its model slice of a
@@ -464,21 +466,29 @@ def test_tensor_parallel_serving_on_2x4_matches_reference_and_one_device(
 
 
 def test_route_by_family_and_model_size():
-    """The eight families compute over the model axis at every model size
-    their widths divide (the production mesh's 16 too): the MoE archs
-    with their experts split over it; hymba and the encoder-decoder keep
-    the storage-only route, as does a model axis of one."""
+    """Every family computes over the model axis at every model size above
+    one whose reference guards ``divides`` accepts (the production mesh's
+    16 too): the MoE archs with their experts split over it, hymba's
+    hybrid mixer and the encoder-decoder with their heads split, their
+    vocabularies (32001, 51865) replicated; a model axis of one keeps the
+    storage-only route."""
     meta = {(16, 16): make_production_mesh(devices=["meta"] * 256),
+            (4, 4): make_mesh((4, 4), ("data", "model"), ["meta"] * 16),
             (4, 2): make_mesh((4, 2), ("data", "model"), ["meta"] * 8),
             (8, 1): make_mesh((8, 1), ("data", "model"), ["meta"] * 8)}
-    tp = {"qwen3-1.7b", "qwen3-4b", "gemma2-2b", "gemma3-27b",
-          "paligemma-3b", "rwkv6-1.6b", "dbrx-132b", "kimi-k2-1t-a32b"}
     for arch in PC.ARCHS:
+        cfg = PC.get_config(arch)
+        assert TPP.in_scope(cfg), arch
         for shape, m in meta.items():
-            want = arch in tp and shape[1] > 1
-            assert TPP.tp_route(PC.get_config(arch), m) is want, (arch, shape)
-        assert TPP.tp_route(_reduced(arch), _mesh("2x4")) is (arch in tp)
-        assert TPP.tp_route(_reduced(arch), _mesh("4x2")) is (arch in tp)
+            want = shape[1] > 1
+            assert TPP.divides(cfg, shape[1]) is True, (arch, shape)
+            assert TPP.tp_route(cfg, m) is want, (arch, shape)
+        assert TPP.tp_route(_reduced(arch), _mesh("2x4"))
+        assert TPP.tp_route(_reduced(arch), _mesh("4x2"))
+        assert not TPP.tp_route(_reduced(arch), _mesh("4x1"))
+    for arch in ("hymba-1.5b", "whisper-small"):
+        cfg = PC.get_config(arch)
+        assert not any(TPP.vocab_split(cfg, n) for n in (2, 4, 16))
 
 
 @pytest.mark.parametrize("arch", MOE_ARCHS)
