@@ -10,9 +10,13 @@ Run from the root of a checkout, with no arguments:
 processes that ``main`` starts.  ``python3 chip_smoke.py
 --control-readings`` also takes the two one-off control readings beside
 the limits of phases 12 and 16, ``k4_limit_reading`` and
-``k5_lm_limit_reading``: what a known defect reads there, and the warm
+``k5_lm_limit_reading``: what a known defect reads there, the warm
 Pre_poisson Cholesky's profile, a device-busy reading no check reads: its
-12,000 levels of launches keep the profiler about 97 s for a 6 s call.)
+12,000 levels of launches keep the profiler about 97 s for a 6 s call, and
+the three ``--profile-lm`` children's device-busy readings of a warm
+prefill and decode step, phase 5's of the warm SpGEMM calls and phases
+29, 34 and 38's of a warm training step and its split, which no check
+reads either.)
 
 Phases, in order; any failure exits non-zero without the result line:
 
@@ -36,7 +40,8 @@ Phases, in order; any failure exits non-zero without the result line:
    and by its residual ‖L·Lᵀ − A‖_F / ‖A‖_F ≤ 1e-10 from sparse products;
    warm SpGEMM calls must upload no K1 schedule;
 5. times — wall time per call (and the numpy references' host time),
-   device busy share of warm calls under ``torch.profiler``, K1 / plain /
+   (with ``--control-readings``) device busy share of warm calls under
+   ``torch.profiler``, K1 / plain /
    library yardstick (``torch.bmm`` + ``index_add_``) from CUDA events at
    the filter3D sync-plan shapes, K1 on one chunk with and without its
    bucketed dead tail, K1's bound in 3xTF32 (its design) beside one fp32
@@ -222,8 +227,9 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    27.5 GB) for 20 steps of batch 8 x 256, in a child process
    (``--train-full qwen3-1.7b``): losses finite and falling, K4 56 and its
    backward 28 times a step, the plain versions never; step time p50 / p99
-   after the first, tokens/s, peak memory; then the device busy share of
-   one warm step under ``torch.profiler``;
+   after the first, tokens/s, peak memory; then (with
+   ``--control-readings``) the device busy share of one warm step under
+   ``torch.profiler`` and the step's split;
 30. times — K4's backward at qwen3-1.7b's training shape, at S = 2048 (B
    1) and at hymba-1.5b's training shape (B 2, S 2048, 25 / 5 heads of 64,
    window 1024) by CUDA events, beside its bound (five S x S x D products
@@ -304,29 +310,43 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    backward once, the plain versions never, K5's expert map and its
    backward's CSR walk each uploaded once in the run, every backward call
    on the ``wgmma`` route; step p50 / p99, the
-   first step, tokens/s, peak memory, the busy share and split of a warm
-   step;
+   first step, tokens/s, peak memory (with ``--control-readings`` the
+   busy share and split of a warm step);
 39. times — K5's backward at dbrx-132b's training bundles, both
    orientations, bfloat16, by CUDA events: the call (dx and dw) beside its
    bound (each entry 2 x 10240 x 6144 x 10752 FLOP at the bf16 peak), its
    plain version and ``torch.bmm`` on inputs grouped by expert beforehand;
    dx and dw each beside theirs;
-40. main path, fifteenth slice — sharded training, in a child process
+40. main path, fifteenth and twenty-first slices — sharded training with
+   tensor parallelism over the model axis, in a child process
    (``--train-mesh``) with the card to itself: the train CLI's loop
    (``train.train(cfg, args, mesh=...)``) on qwen3-1.7b at full width and
    depth over a (2, 2) ("data", "model") mesh of ``cuda:0`` x 4 (distinct
    cards where four are visible), 3 steps of batch 8 x 256 at phase 29's
    seed and lr: the params, AdamW's m and v sharded storage on the mesh,
-   each data shard gathering the params and taking its loss and gradients
-   (K4 and its backward) on its half of the batch.  First the same 3 steps
-   on one device, then on the mesh: every param leaf after each step
-   within rtol 2e-2 / atol 2e-3 of the one-device step's and the losses
-   within 1e-3 (``tests/test_distributed.py``'s tolerances: the first
-   step's absolutely, later steps', taken on params that have drifted within
-   the param tolerance, relatively); each mesh step's loss within 1e-3 of
-   ``loss_fn`` on one device at the params that step took; K4 and its
-   backward launch twice as often as on one device; step p50, peak memory
-   and whether two runs are bit-identical;
+   each data shard's two model positions on 8 of the 16 q heads, half of
+   the FFN's columns and of the vocabulary (the loss vocabulary-parallel),
+   each gathering its model slice of one layer at a time (again in the
+   backward's recompute) and adding its slice gradients into the storage
+   shards.  First ``dense_partial``'s gradient on the card at a
+   position's ``wo`` and ``w_down`` products (bfloat16 inputs, float32
+   product), dx and dw within 2^-7 of float32 autograd (relative norm).
+   In float32 compute the same 3 steps on one device, then on the mesh:
+   every param leaf after each step within rtol 2e-2 / atol 2e-3 of the
+   one-device step's and the losses within 1e-3
+   (``tests/test_distributed.py``'s tolerances: the first step's
+   absolutely, later steps', taken on params that have drifted within the
+   param tolerance, relatively); each mesh step's loss within 1e-3 of
+   ``loss_fn`` on one device at the params that step took.  In bfloat16
+   compute (the CLI's) the mesh against one device in bfloat16, at the
+   scale of one device's own bfloat16 gap from float32 on the same params:
+   the first loss and each step's loss against ``loss_fn`` at that step's
+   params, relatively, and each leaf's first-step gradient, by relative
+   norm, within twice that gap (a leaf's plus 1e-3).  K4 and its backward
+   launch four times as often as on one device (once a layer a position,
+   the forward twice under remat); step p50, peak memory, the bytes a
+   position gathers a step beside a data shard's whole params (the
+   storage route's) and whether two runs are bit-identical;
 41. the int8 error-feedback compressed step on a (2, 1, 1) ("pod",
    "data", "model") mesh at qwen3-1.7b's full width, 3 steps of 8 x 256
    at lr 1e-2: the params after the first two steps within 5e-2 of the
@@ -340,8 +360,23 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    (4, 2) mesh, ``elastic_restore`` on 6 devices onto (3, 2), every leaf
    bit-equal;
 44. reduced dbrx-132b, one sharded step on a (2, 2) mesh against one
-   device: K5 and its backward (and K4 and its) once per data shard, the
-   params within phase 40's tolerances;
+   device: K5 and its backward on each model position's experts (and K4
+   and its on its heads) once a layer a position, the params within phase
+   40's tolerances;
+52. in the same child after 44 (twenty-first slice): hymba-1.5b at full
+   width (d_model 1600, 25 / 5 heads of 64, SSM state 16, vocabulary
+   32001; float32 params), depth cut 32 -> 4 layers, 3 training steps of
+   batch 4 x 1024 on the (2, 2) mesh on the tensor-parallel route against
+   one device: each model position on 12.5 of the 25 q heads (head 12
+   split, its GQA group cut: K/V heads repeated one a q head for K4) and
+   the 13 SSM heads its columns meet (K6 with u = 0), the fusion norms
+   over all 1600 channels, the replicated vocabulary's loss on the first
+   position; in float32 compute every param leaf after each step and the
+   losses within phase 40's tolerances of one device; in bfloat16 compute
+   (``dense_partial``'s backward on the card) the mesh run's losses and
+   gradient norms finite; both with K4, K6 and their backward kernels once
+   a layer a position (the forward twice under remat), no plain version;
+   step p50 and peak memory beside one device's;
 45. main path, sixteenth and eighteenth slices — sharded serving with
    tensor parallelism over the model axis, in a child process
    (``--serve-mesh``) after phase 44's: qwen3-1.7b at full width and depth
@@ -415,15 +450,15 @@ before 27, its resumed processes beside 27-29, 30 last), then phases
    and dbrx-132b with ``--routing host --plan-store build/serve_plan_store``
    twice, the second run answering its dispatch plans from the store;
    then phases 24-26 (below); then,
-   in child processes, the second slice's profiles and a warm prefill and
-   decode step of hymba-1.5b, rwkv6-1.6b and dbrx-132b (4 layers) under
-   ``torch.profiler``; last (with ``--control-readings``) the Pre_poisson
-   Cholesky profile, then the whole script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
+   in child processes, the second slice's profiles and (with
+   ``--control-readings``) a warm prefill and decode step of hymba-1.5b,
+   rwkv6-1.6b and dbrx-132b (4 layers) under ``torch.profiler``; last
+   (with ``--control-readings``) the Pre_poisson Cholesky profile, then the whole script's time and the kernels line (K1 to K6 and K4's, K5's and K6's
    backward, each with the launches of its main-path phases — K2's of 7
-   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45, 47 and
-   49-51, K4's backward's of 29, 34, 38, 40, 41 and 44, K5's of 10, 19, 38,
-   44 and 49, K5's backward's of 38 and 44, K6's of
-   14, 18, 26, 34, 46 and 50, K6's backward's of 34;
+   and 24, K4's of 14, 19, 22, 23, 26, 29, 34, 38, 40, 41, 44, 45, 47,
+   49-51 and 52, K4's backward's of 29, 34, 38, 40, 41, 44 and 52, K5's of
+   10, 19, 38, 44 and 49, K5's backward's of 38 and 44, K6's of
+   14, 18, 26, 34, 46, 50 and 52, K6's backward's of 34 and 52;
    K4's backward's times at phase 30's shapes, K6's at phase 35's, K5's at
    phase 39's; K1's
    times at the filter3D sync plan, K2's at the spmm shape, K3's at softcap
@@ -727,8 +762,12 @@ TRAIN_RESUME_RTOL = 1e-4
 # 42: pipeline_apply over a (4, 1) ("pipe", "model") mesh, stages
 # tanh(h @ w) at d 2048, 8 microbatches of 8 x 256 rows; 43: elastic
 # restore of the reference test's reduced gemma2-2b from (4, 2) onto
-# (3, 2); 44: reduced dbrx-132b's sharded step on (2, 2), K5 on each data
-# shard
+# (3, 2); 44: reduced dbrx-132b's sharded step on (2, 2), K5 on each model
+# position's experts; 52: hymba-1.5b at full width, depth cut 32 -> 4
+# (MESH_HYMBA), 3 steps of 4 x 1024 on (2, 2) against one device, float32
+# compute held, bfloat16 compute's launches and finiteness held.  Phases
+# 40, 44 and 52 take the tensor-parallel route: each kernel once a layer
+# a model position (the forward twice under remat)
 MESH_DEVICE = "cuda:0"
 MESH_TRAIN = dict(steps=3, batch=8, seq=256)
 # phase 41's params drift from the exact run's by about 1.9e-2 a step
@@ -737,6 +776,21 @@ MESH_TRAIN = dict(steps=3, batch=8, seq=256)
 MESH_COMPRESSED = dict(steps=3, held=2, batch=8, seq=256, lr=1e-2)
 MESH_PIPE = dict(n_stage=4, n_micro=8, rows=(8, 256), d=2048)
 MESH_MOE = dict(batch=4, seq=64)
+MESH_HYMBA = dict(n_layers=4, steps=3, batch=4, seq=1024, seed=160)
+# model positions of the (2, 2) mesh: each runs every kernel of the path
+MESH_POSITIONS = 4
+# phase 40 in bfloat16 compute: the mesh run against one device's
+# bfloat16 run, each quantity within MESH_BF16_K times one device's own
+# bfloat16 gap from float32 on the same params (a gradient leaf's plus
+# TRAIN_GRAD_TOL): each run within one gap of float32 puts the two within
+# two (an H100 read 0.13-0.91 of one gap a leaf, 0.024 on the first
+# loss).  dense_partial's gradient (_MmFloat32) against float32 autograd
+# on the same bfloat16 inputs, relative norms: the product's sums in
+# float32 (MM_FWD_TOL; read 1.0e-6 and 3.3e-6); dx and dw each round g
+# and the result to bfloat16 once, 2^-9 relative an element each
+# (MM_GRAD_TOL; read 2.3e-3)
+MESH_BF16_K = 2.0
+MM_FWD_TOL, MM_GRAD_TOL = 1e-5, 2.0 ** -7
 # tests/test_distributed.py's tolerances: the loss (absolute, on the same
 # params: the first step's), the params after each step (rtol, atol), the
 # compressed step's params against the exact step's (absolute),
@@ -3906,9 +3960,9 @@ def train_full(arch: str = QWEN3) -> int:
     falling, K4 (where the model attends) and K6 (where it scans) twice a
     layer a step and their backward kernels once, K5 six times a MoE layer
     a step and its backward three times, the plain versions never.  Then
-    the device busy share of one warm step on a fresh state of the same
-    size (the first freed), and the step's split.  It starts early and
-    waits (``wait_for_turn``)."""
+    with ``--control-readings`` the device busy share of one warm step on
+    a fresh state of the same size (the first freed), and the step's
+    split.  It starts early and waits (``wait_for_turn``)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -3991,8 +4045,12 @@ def train_full(arch: str = QWEN3) -> int:
           f"launches {launches}, plain {plain}, K5 uploads {uploads}, "
           f"routes {routes}, K6 backward routes {k6_routes}")
     # the busy share of one warm step on a fresh state of the same size
-    # (the CLI's state is freed: at dbrx-132b two would not fit)
+    # (the CLI's state is freed: at dbrx-132b two would not fit) and the
+    # step's split: readings no check reads, with --control-readings
+    # (their time pays for phase 40's bfloat16 hold)
     del hist
+    if not CONTROL_READINGS:
+        return 0
     torch.cuda.empty_cache()
     opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
     params = M.init_params(cfg, 1, device=dev)
@@ -4445,20 +4503,37 @@ def out_of_tol(got, want) -> tuple:
             int((diff > MESH_ATOL + MESH_RTOL * want.float().abs()).sum()))
 
 
-def mesh_train_run(cfg, argv, mesh, after_step, same_params=None) -> dict:
+def mesh_train_run(cfg, argv, mesh, after_step, same_params=None,
+                   first_grads=None) -> dict:
     """``train.train(cfg, parse_args(argv), mesh=mesh)`` with
     ``after_step(params)`` called after each step (outside the step's
     timing in the history only where it is cheap), every count zeroed just
     before and read just after.  With a list ``same_params``, before each
     step ``M.loss_fn`` runs on one device at the params the step takes
     (gathered) and its batch, without grad; ``(the step's loss, that
-    loss)`` is appended after the step."""
+    loss)`` is appended after the step.  With ``first_grads``, the first
+    step's gradients (storage-shaped, as AdamW's update takes them) go to
+    ``first_grads(grads)`` inside that step; its seconds are the result's
+    ``capture_s`` (in the first step's ``dt``).  ``gathered``: each step's
+    bytes gathered by each mesh position (a tensor-parallel step's
+    ``gathered``; none off that route)."""
     import torch
     from repro_torch.launch import train
     from repro_torch.models import model as M
     from repro_torch.models.params import _set, _walk
+    from repro_torch.optim import adamw
     from repro_torch.parallel import sharding as S
-    make = train.make_train_step
+    make, update = train.make_train_step, adamw.update
+    capture_s = []
+
+    def capturing(opt_cfg, grads, state, params):
+        if first_grads is not None and not capture_s:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            first_grads(grads)
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t0)
+        return update(opt_cfg, grads, state, params)
     dev = torch.device(mesh_devices(1)[0])
 
     def loss_at(params, batch) -> float:
@@ -4474,6 +4549,8 @@ def mesh_train_run(cfg, argv, mesh, after_step, same_params=None) -> dict:
             fn.launches = counts[name]
         return loss
 
+    gathered = []
+
     def wrapped(cfg_, opt_cfg, mesh_=None):
         step = make(cfg_, opt_cfg, mesh_)
 
@@ -4482,11 +4559,14 @@ def mesh_train_run(cfg, argv, mesh, after_step, same_params=None) -> dict:
             out = step(params, opt, batch)
             if same_params is not None:
                 same_params.append((float(out[2]["loss"]), want))
+            if hasattr(step, "gathered"):
+                gathered.append({str(pos): n for pos, n in
+                                 step.gathered.totals().items()})
             after_step(out[0])
             return out
         return run
 
-    train.make_train_step = wrapped
+    train.make_train_step, adamw.update = wrapped, capturing
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4496,35 +4576,104 @@ def mesh_train_run(cfg, argv, mesh, after_step, same_params=None) -> dict:
         torch.cuda.synchronize()
         return dict(hist=hist, launches=read_train_counts(),
                     peak=torch.cuda.max_memory_allocated(),
-                    seconds=time.perf_counter() - t0)
+                    seconds=time.perf_counter() - t0, gathered=gathered,
+                    capture_s=sum(capture_s))
     finally:
-        train.make_train_step = make
+        train.make_train_step, adamw.update = make, update
+
+
+def dense_partial_grads(cfg, tokens: int, card: str) -> None:
+    """``layers.dense_partial``'s gradient on the card (``_MmFloat32``:
+    bfloat16 inputs, a float32 product) at phase 40's row-split products
+    of a model position: ``attn/wo``'s rows (its 8 of 16 q heads) and the
+    FFN's down projection (its half of d_ff), ``tokens`` rows (a data
+    shard's).  On seeded inputs and a seeded float32 upstream gradient, the
+    product, dx and dw against the autograd of ``x.float() @ w.float()``
+    on the same bfloat16 values, by relative norm: the product within
+    ``MM_FWD_TOL``, dx and dw within ``MM_GRAD_TOL``, dx and dw in the
+    inputs' dtype."""
+    import torch
+    from repro_torch.models.layers import dense_partial
+
+    def rel(a, b) -> float:
+        return float((a.float() - b).norm() / b.norm())
+    dev = torch.device(mesh_devices(1)[0])
+    gen = torch.Generator(device=dev).manual_seed(240)
+    rows, ok = [], True
+    for name, k in (("attn/wo", cfg.n_heads * cfg.d_head // 2),
+                    ("ffn/w_down", cfg.d_ff // 2)):
+        x, w = (torch.randn(*shape, generator=gen, device=dev)
+                .to(torch.bfloat16).requires_grad_()
+                for shape in ((tokens, k), (k, cfg.d_model)))
+        g = torch.randn(tokens, cfg.d_model, generator=gen, device=dev)
+        y = dense_partial(x, w)
+        dx, dw = torch.autograd.grad(y, (x, w), g)
+        xf, wf = (t.detach().float().requires_grad_() for t in (x, w))
+        yf = xf @ wf
+        dxf, dwf = torch.autograd.grad(yf, (xf, wf), g)
+        row = dict(leaf=name, x=list(x.shape), w=list(w.shape),
+                   out_rel=rel(y.detach(), yf.detach()), dx_rel=rel(dx, dxf),
+                   dw_rel=rel(dw, dwf), dtypes=[str(dx.dtype), str(dw.dtype)])
+        ok &= y.dtype == torch.float32 and dx.dtype == dw.dtype \
+            == torch.bfloat16 and row["out_rel"] <= MM_FWD_TOL \
+            and row["dx_rel"] <= MM_GRAD_TOL and row["dw_rel"] <= MM_GRAD_TOL
+        rows.append(row)
+    emit(phase="check", case=f"{QWEN3} dense_partial's gradient on the card "
+         "(_MmFloat32), bfloat16, against float32 autograd", products=rows,
+         fwd_tol=MM_FWD_TOL, grad_tol=MM_GRAD_TOL, ok=ok, card=card)
+    check(ok, f"dense_partial's gradient: {rows}")
 
 
 def mesh_qwen3(card: str) -> dict:
     """Phase 40: qwen3-1.7b at full width and depth (1.72 B float32
-    params, bfloat16 compute, remat) through the train CLI's loop on a
-    (2, 2) ("data", "model") mesh, ``MESH_TRAIN`` at phase 29's seed and
-    lr: first on one device, a host copy of the params after each step;
-    then on the mesh (run A), every param leaf after each step held
-    against that copy (``MESH_RTOL``, ``MESH_ATOL``) and the losses
-    within ``MESH_LOSS_TOL``; then again (run B, nothing in its steps but
-    the step: its step times and peak), its final params bit-equal to run
-    A's.  On the mesh K4 and its backward launch twice as often as on one
-    device: once per data shard."""
+    params, remat) through the train CLI's loop on a (2, 2) ("data",
+    "model") mesh, ``MESH_TRAIN`` at phase 29's seed and lr.  First
+    ``dense_partial``'s gradient at the positions' row-split products
+    (``dense_partial_grads``).  In float32 compute: first on one device
+    (run F), a host copy of the params after each step; then on the mesh
+    (run A), every param leaf after each step held against that copy
+    (``MESH_RTOL``, ``MESH_ATOL``) and the losses within
+    ``MESH_LOSS_TOL``; then again (run B, nothing in its steps but the
+    step: its step times and peak), its final params bit-equal to run
+    A's.  In bfloat16 compute (the CLI's): the tensor-parallel route sums
+    each sub-layer's float32 partials before one rounding where one device
+    rounds each product, so the two part by bfloat16's rounding and are
+    held at a scale set by it: one device in bfloat16 (run D) against one
+    device in float32 (run F) gives each quantity's bfloat16 gap, and the
+    mesh in bfloat16 (run C) is held to run D within ``MESH_BF16_K`` times
+    that gap: the first loss and each step's loss against ``M.loss_fn`` on
+    one device at the params that step took, relatively, within
+    ``MESH_BF16_K`` times the first loss's gap; each gradient leaf of the
+    first step (the same params and batch), by relative norm, within
+    ``MESH_BF16_K`` times that leaf's gap plus ``TRAIN_GRAD_TOL``; every
+    loss finite.  On the mesh K4 and its backward launch four times as
+    often as on one device: once a layer a model position, each on 8 of
+    the 16 q heads.  The bytes each position gathers a step, beside a data
+    shard's whole params (the storage route's gather)."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models.params import _walk
     from repro_torch.parallel import sharding as S
     t = MESH_TRAIN
-    cfg = get_config(QWEN3)
+    production = get_config(QWEN3)
+    cfg = dataclasses.replace(production, compute_dtype="float32")
+    dense_partial_grads(production, t["batch"] // 2 * t["seq"], card)
     dev = torch.device(mesh_devices(1)[0])
     argv = ["--arch", QWEN3, "--steps", str(t["steps"]), "--batch",
             str(t["batch"]), "--seq", str(t["seq"]), "--log-every", "1",
             "--device", str(dev)]
-    snaps = []
+    snaps, grads = [], {}
+
+    def keep(name):
+        def put(tree):
+            grads[name] = {path: S.gather(x, dev).to("cpu")
+                           for path, x in _walk(tree)}
+        return put
     one = mesh_train_run(cfg, argv, None, lambda p: snaps.append(
-        {path: x.detach().to("cpu", copy=True) for path, x in _walk(p)}))
+        {path: x.detach().to("cpu", copy=True) for path, x in _walk(p)}),
+        first_grads=keep("F"))
     torch.cuda.empty_cache()
     mesh = card_mesh((2, 2), ("data", "model"))
     errs, last = [], []
@@ -4541,6 +4690,7 @@ def mesh_qwen3(card: str) -> dict:
     same = []
     run_a = mesh_train_run(cfg, argv, mesh, against_one, same)
     final_a = {path: S.gather(x, "cpu") for path, x in _walk(last[0])}
+    param_bytes = sum(x.numel() * x.element_size() for x in final_a.values())
     n_sharded = sum(isinstance(x, S.ShardedTensor)
                     for _, x in _walk(last[0]))
     last.clear()
@@ -4551,11 +4701,33 @@ def mesh_qwen3(card: str) -> dict:
     bit_equal = all(torch.equal(S.gather(x, "cpu"), final_a[path])
                     for path, x in _walk(last[0]))
     last.clear()
+    del final_a
+    torch.cuda.empty_cache()
+    run_d = mesh_train_run(production, argv, None, lambda p: None,
+                           first_grads=keep("D"))
+    torch.cuda.empty_cache()
+    leaf_rel = {}
+
+    def against_d(tree):
+        # run C's first-step gradients, leaf by leaf on the card
+        def rel(a, b) -> float:
+            return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+        for path, x in _walk(tree):
+            c = S.gather(x, dev).float()
+            d, f = grads["D"][path].to(dev), grads["F"][path].to(dev)
+            leaf_rel["/".join(path)] = dict(mesh=rel(c, d), gap=rel(d, f),
+                                            mesh_f32=rel(c, f))
+    same_c = []
+    run_c = mesh_train_run(production, argv, mesh, lambda p: None, same_c,
+                           first_grads=against_d)
+    del grads
     torch.cuda.empty_cache()
     losses = {name: [h["loss"] for h in r["hist"]]
               for name, r in (("one_device", one), ("mesh_a", run_a),
-                              ("mesh_b", run_b))}
+                              ("mesh_b", run_b), ("one_device_bf16", run_d),
+                              ("mesh_bf16", run_c))}
     dts = np.array([h["dt"] for h in run_b["hist"][1:]])
+    dts_c = np.array([h["dt"] for h in run_c["hist"][1:]])
     steps = t["steps"]
     want_counts = expected_train_counts(cfg, steps)
     # each mesh step's loss against M.loss_fn on one device at the params
@@ -4567,27 +4739,64 @@ def mesh_qwen3(card: str) -> dict:
     # moves with them: LM_TOL relative
     loss_err = [abs(a - b) / (1.0 if i == 0 else abs(b)) for i, (a, b) in
                 enumerate(zip(losses["mesh_a"], losses["one_device"]))]
+    # bfloat16: the scale is one device's bfloat16 gap from float32 on the
+    # same params (the first loss; each leaf's first-step gradient)
+    d0, f0 = losses["one_device_bf16"][0], losses["one_device"][0]
+    loss_gap = abs(d0 - f0) / abs(f0)
+    bf16 = dict(
+        first_loss_rel=abs(losses["mesh_bf16"][0] - d0) / abs(d0),
+        same_params_rel=[abs(a - b) / abs(b) for a, b in same_c],
+        later_loss_rel=[abs(a - b) / abs(b) for a, b in zip(
+            losses["mesh_bf16"][1:], losses["one_device_bf16"][1:])],
+        loss_gap=loss_gap, loss_limit=MESH_BF16_K * loss_gap,
+        leaf_ratio_max=max(v["mesh"] / max(v["gap"], 1e-30)
+                           for v in leaf_rel.values()),
+        leaves_past=sorted(k for k, v in leaf_rel.items() if v["mesh"] >
+                           MESH_BF16_K * v["gap"] + TRAIN_GRAD_TOL),
+        k=MESH_BF16_K, floor=TRAIN_GRAD_TOL)
+    bf16_ok = len(leaf_rel) > 0 and not bf16["leaves_past"] \
+        and bf16["first_loss_rel"] <= bf16["loss_limit"] \
+        and len(same_c) == steps \
+        and max(bf16["same_params_rel"]) <= bf16["loss_limit"] \
+        and bool(np.all(np.isfinite(losses["mesh_bf16"])))
     ok = len(losses["mesh_b"]) == steps \
         and len(same_err) == steps and max(same_err) < MESH_LOSS_TOL \
         and bool(np.all(np.isfinite(losses["mesh_b"]))) \
         and loss_err[0] < MESH_LOSS_TOL and max(loss_err[1:]) < LM_TOL \
         and all(e["out_of_tol"] == 0 for e in errs) \
-        and one["launches"] == want_counts \
-        and run_a["launches"] == run_b["launches"] == {
-            k: 2 * v for k, v in want_counts.items()}
+        and one["launches"] == run_d["launches"] == want_counts \
+        and run_a["launches"] == run_b["launches"] == run_c["launches"] \
+        == {k: MESH_POSITIONS * v for k, v in want_counts.items()}
+    emit(phase="reading", case=f"{QWEN3} on a (2, 2) mesh, bfloat16: each "
+         "leaf's first-step gradient, relative norm: mesh against one device "
+         "(mesh), one device's bfloat16 against float32 (gap), mesh against "
+         "one device's float32 (mesh_f32)", leaves=leaf_rel, card=card)
     emit(phase="check", case=f"{QWEN3} on a (2, 2) mesh against one device, "
-         "each step", mesh=[str(d) for d in mesh.devices.flat],
+         "each step, float32 and bfloat16 compute",
+         mesh=[str(d) for d in mesh.devices.flat],
          sharded_leaves=n_sharded, per_step=errs, losses=losses,
          loss_at_same_params=[b for _, b in same],
          loss_err_at_same_params=same_err, same_params_tol=MESH_LOSS_TOL,
          loss_err=loss_err, loss_tol=[MESH_LOSS_TOL, LM_TOL],
-         rtol=MESH_RTOL, atol=MESH_ATOL,
+         rtol=MESH_RTOL, atol=MESH_ATOL, bf16=bf16, bf16_ok=bf16_ok,
          runs_bit_equal=bit_equal, one_device_launches=one["launches"],
-         ok=ok, card=card)
-    check(ok, f"{QWEN3} on a mesh: {errs}, losses {losses}, launches "
-          f"{one['launches']} / {run_a['launches']} / {run_b['launches']}")
+         ok=ok and bf16_ok, card=card)
+    check(ok and bf16_ok, f"{QWEN3} on a mesh: {errs}, losses {losses}, "
+          f"bf16 {bf16}, launches {one['launches']} / {run_a['launches']} "
+          f"/ {run_b['launches']} / {run_c['launches']} / "
+          f"{run_d['launches']}")
     emit(phase="main_path", case=f"{QWEN3} train CLI loop on a (2, 2) mesh, "
-         "full width and depth", arch=QWEN3, argv=argv, steps=steps,
+         "full width and depth, tensor-parallel", arch=QWEN3, argv=argv,
+         steps=steps,
+         gathered_bytes_a_position_a_step=run_b["gathered"][-1],
+         storage_route_bytes_a_data_shard_a_step=param_bytes,
+         bf16=dict(losses=losses["mesh_bf16"], first_step_s=run_c["hist"][0][
+             "dt"], first_step_grad_check_s=run_c["capture_s"],
+             step_s_p50=float(np.median(dts_c)),
+             tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts_c)),
+             max_memory_allocated_bytes=run_c["peak"],
+             one_device_max_memory_allocated_bytes=run_d["peak"],
+             launches=run_c["launches"]),
          losses=losses["mesh_b"], first_step_s=run_b["hist"][0]["dt"],
          step_s_p50=float(np.median(dts)),
          tokens_per_s=t["batch"] * t["seq"] / float(np.median(dts)),
@@ -4776,7 +4985,8 @@ def mesh_moe(card: str) -> dict:
     sharded step on a (2, 2) mesh against the one-device step from the
     same init: the loss within ``MESH_LOSS_TOL`` and the params within
     ``MESH_RTOL`` / ``MESH_ATOL``; K5 and its backward (and K4 and its)
-    launch twice as often, once per data shard."""
+    launch four times as often, once a layer a model position (each on 2
+    of the 4 experts and 2 of the 4 q heads)."""
     import torch
     from repro_torch.configs import get_config, reduced_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -4812,7 +5022,7 @@ def mesh_moe(card: str) -> dict:
         worst, bad = max(worst, w), bad + n
     one, sharded = out["one_device"], out["mesh"]
     ok = abs(one["loss"] - sharded["loss"]) < MESH_LOSS_TOL and bad == 0 \
-        and sharded["launches"] == {k: 2 * v for k, v in
+        and sharded["launches"] == {k: MESH_POSITIONS * v for k, v in
                                     one["launches"].items()} \
         and sharded["launches"]["moe_gemm"] > 0
     emit(phase="main_path", case=f"{DBRX_LM} reduced, one sharded step on "
@@ -4827,11 +5037,133 @@ def mesh_moe(card: str) -> dict:
     return sharded["launches"]
 
 
+def mesh_hymba(card: str) -> dict:
+    """Phase 52: hymba-1.5b at full width, depth cut to
+    ``MESH_HYMBA["n_layers"]``, float32 params, ``steps`` training steps
+    of ``batch`` x ``seq`` on a (2, 2) mesh on the tensor-parallel route:
+    each model position on 12.5 of the 25 q heads and 13 SSM heads, the
+    32001-token vocabulary replicated (the first position's loss).  In
+    float32 compute the one-device steps first, a host copy of the params
+    after each, then the mesh's, every param leaf after each step within
+    ``MESH_RTOL`` / ``MESH_ATOL`` of that copy and the losses as phase
+    40's (the first step's within ``MESH_LOSS_TOL``, later ones relatively
+    within ``LM_TOL``).  In bfloat16 compute the mesh's steps, every loss
+    and gradient norm finite.  Each mesh run launches K4, K6 and their
+    backward kernels ``MESH_POSITIONS`` times as often as one device."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import model as M
+    from repro_torch.models.params import _walk
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.tensor_parallel import head_slice, tp_route
+    h = MESH_HYMBA
+    base = dataclasses.replace(get_config(HYMBA), n_layers=h["n_layers"])
+    dev = torch.device(mesh_devices(1)[0])
+    mesh = card_mesh((2, 2), ("data", "model"))
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=10, total_steps=100)
+    data = SyntheticLM(DataConfig(vocab_size=base.vocab_size,
+                                  seq_len=h["seq"], global_batch=h["batch"],
+                                  seed=h["seed"]))
+    batches = [{k: torch.from_numpy(v).to(dev)
+                for k, v in data.get_batch(i).items()}
+               for i in range(h["steps"])]
+
+    def run(cfg, m, after_step):
+        params = M.init_params(cfg, h["seed"], device=dev)
+        if m is not None:
+            params = S.shard_tree(params, S.params_shardings(cfg, m))
+        opt = adamw.init(opt_cfg, params)
+        step = make_train_step(cfg, opt_cfg, m)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_train_counts()
+        losses, norms, dts = [], [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, b)
+            torch.cuda.synchronize()
+            dts.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            norms.append(float(metrics["grad_norm"]))
+            after_step(params)
+        out = dict(losses=losses, grad_norms=norms, step_s=dts,
+                   launches=read_train_counts(),
+                   peak=torch.cuda.max_memory_allocated(),
+                   gathered={str(pos): n for pos, n in
+                             step.gathered.totals().items()}
+                   if hasattr(step, "gathered") else None)
+        del params, opt, step
+        torch.cuda.empty_cache()
+        return out
+
+    f32 = dataclasses.replace(base, compute_dtype="float32")
+    check(tp_route(f32, mesh), f"{HYMBA} off the tensor-parallel route")
+    snaps, errs = [], []
+    one = run(f32, None, lambda p: snaps.append(
+        {path: x.detach().to("cpu", copy=True) for path, x in _walk(p)}))
+
+    def against_one(params):
+        want = snaps[len(errs)]
+        worst, bad = 0.0, 0
+        for path, leaf in _walk(params):
+            w, n = out_of_tol(S.gather(leaf, dev), want[path].to(dev))
+            worst, bad = max(worst, w), bad + n
+        errs.append(dict(max_abs_err=worst, out_of_tol=bad))
+    sharded = run(f32, mesh, against_one)
+    del snaps
+    bf16 = run(dataclasses.replace(base, compute_dtype="bfloat16"), mesh,
+               lambda p: None)
+    want_one = expected_train_counts(f32, h["steps"])
+    want = {k: MESH_POSITIONS * v for k, v in want_one.items()}
+    loss_err = [abs(a - b) / (1.0 if i == 0 else abs(b)) for i, (a, b) in
+                enumerate(zip(sharded["losses"], one["losses"]))]
+    ok = loss_err[0] < MESH_LOSS_TOL and max(loss_err[1:]) < LM_TOL \
+        and all(e["out_of_tol"] == 0 for e in errs) \
+        and one["launches"] == want_one \
+        and sharded["launches"] == bf16["launches"] == want \
+        and bool(np.all(np.isfinite(bf16["losses"] + bf16["grad_norms"])))
+    sl = [head_slice(f32, 2, m) for m in range(2)]
+    emit(phase="main_path", case=f"{HYMBA} at full width, {h['n_layers']} "
+         "layers, training on a (2, 2) mesh, tensor-parallel, against one "
+         "device", mesh=[str(d) for d in mesh.devices.flat],
+         batch=[h["batch"], h["seq"]], steps=h["steps"],
+         q_heads_a_position=[s.q_heads for s in sl],
+         q_cols_a_position=[s.q_cols for s in sl],
+         f32=dict(per_step=errs, losses=sharded["losses"],
+                  one_device_losses=one["losses"], loss_err=loss_err,
+                  loss_tol=[MESH_LOSS_TOL, LM_TOL], rtol=MESH_RTOL,
+                  atol=MESH_ATOL, step_s=sharded["step_s"],
+                  step_s_p50=float(np.median(sharded["step_s"][1:])),
+                  one_device_step_s=one["step_s"],
+                  one_device_step_s_p50=float(np.median(one["step_s"][1:])),
+                  max_memory_allocated_bytes=sharded["peak"],
+                  one_device_max_memory_allocated_bytes=one["peak"],
+                  launches=sharded["launches"],
+                  one_device_launches=one["launches"],
+                  gathered_bytes_a_position=sharded["gathered"]),
+         bf16=dict(losses=bf16["losses"], grad_norms=bf16["grad_norms"],
+                   step_s=bf16["step_s"],
+                   step_s_p50=float(np.median(bf16["step_s"][1:])),
+                   max_memory_allocated_bytes=bf16["peak"],
+                   launches=bf16["launches"]),
+         ok=ok, card=card)
+    check(ok, f"{HYMBA} training on a mesh: {errs}, losses "
+          f"{sharded['losses']} / {one['losses']}, bf16 {bf16['losses']} "
+          f"{bf16['grad_norms']}, launches {one['launches']} / "
+          f"{sharded['launches']} / {bf16['launches']}")
+    return {k: sharded["launches"][k] + bf16["launches"][k] for k in want}
+
+
 def train_mesh() -> int:
-    """Phases 40-44 in a child process of their own (``--train-mesh``),
-    which must have the card to itself (about 45 GB at phase 40); it
-    starts early and waits (``wait_for_turn``).  The last row gathers the
-    launches of phases 40, 41 and 44."""
+    """Phases 40-44 and 52 in a child process of their own
+    (``--train-mesh``), which must have the card to itself (about 35 GB at
+    phase 40); it starts early and waits (``wait_for_turn``).  The last
+    row gathers the launches of phases 40, 41, 44 and 52."""
     import torch
     wait_for_turn("flash_attention", "moe_gemm", *BACKWARD_SOURCES)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4849,6 +5181,9 @@ def train_mesh() -> int:
     torch.cuda.empty_cache()
     mesh_elastic(card)
     launches[f"{DBRX_LM} reduced on a (2, 2) mesh"] = mesh_moe(card)
+    torch.cuda.empty_cache()
+    launches[f"{HYMBA} at full width, {MESH_HYMBA['n_layers']} layers, on "
+             "a (2, 2) mesh"] = mesh_hymba(card)
     check(not any(plain.values()), f"plain versions ran: {plain}")
     emit(phase="mesh_launches", launches=launches, plain_calls=plain)
     return 0
@@ -5572,10 +5907,15 @@ def main() -> int:
          max_memory_allocated_bytes=peak)
 
     # device busy share of warm calls (after the count is read: the
-    # profiled calls launch K1 again)
-    device_share("filter3D A@A chunked, warm", lambda: rt.spgemm(fa2, fa2))
-    device_share("filter3D A@A sync, warm", lambda: rt_sync.spgemm(fa, fa))
-    device_share("cage12 A@A chunked, warm", lambda: rt.spgemm(cage, cage))
+    # profiled calls launch K1 again); readings no check reads, with
+    # --control-readings (their time pays for phase 40's bfloat16 hold)
+    if CONTROL_READINGS:
+        device_share("filter3D A@A chunked, warm",
+                     lambda: rt.spgemm(fa2, fa2))
+        device_share("filter3D A@A sync, warm",
+                     lambda: rt_sync.spgemm(fa, fa))
+        device_share("cage12 A@A chunked, warm",
+                     lambda: rt.spgemm(cage, cage))
 
     # -- 5. times at the filter3D sync-plan shapes -------------------------
     uploads = bsr_spgemm.uploads
@@ -5678,17 +6018,20 @@ def main() -> int:
     # 26, each a child that sets up now and waits for its turn
     script = str(Path(__file__).resolve())
     train_children = {arch: start_child(
-        [script, "--train-full", arch], stdin=subprocess.PIPE)
-        for arch in TRAIN_FULL}
+        [script, "--train-full", arch] + (["--control-readings"]
+                                          if CONTROL_READINGS else []),
+        stdin=subprocess.PIPE) for arch in TRAIN_FULL}
     mesh_child = start_child([script, "--train-mesh"], stdin=subprocess.PIPE)
     serve_child = start_child(
         [script, "--serve-mesh"] + (["--control-readings"]
                                     if CONTROL_READINGS else []),
         stdin=subprocess.PIPE)
+    # the LM profiles are readings no check reads: with --control-readings
     profile_children = {args: start_child(
         [script, *args], stdin=subprocess.PIPE) for args in (
-            ("--profile-second-slice",), ("--profile-lm", HYMBA),
-            ("--profile-lm", RWKV6), ("--profile-lm", DBRX_LM))}
+            ("--profile-second-slice",), *(
+                (("--profile-lm", HYMBA), ("--profile-lm", RWKV6),
+                 ("--profile-lm", DBRX_LM)) if CONTROL_READINGS else ()))}
     k4_bwd_err = k4_backward_against_plain(dev)
     torch.cuda.empty_cache()
     train_in_situ(dev, QWEN3)
@@ -5887,8 +6230,10 @@ if __name__ == "__main__":
                                                      ["--control-readings"]):
         CONTROL_READINGS = ARGS[1:] == ["--control-readings"]
         sys.exit(serve_mesh())
-    if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2):
-        sys.exit(train_full(*ARGS[1:]))
+    if ARGS[:1] == ["--train-full"] and len(ARGS) in (1, 2, 3) \
+            and ARGS[2:] in ([], ["--control-readings"]):
+        CONTROL_READINGS = ARGS[2:] == ["--control-readings"]
+        sys.exit(train_full(*ARGS[1:2]))
     if sys.argv[1:2] == ["--store-child"] and len(sys.argv) in (3, 4):
         sys.exit(store_child(sys.argv[2], sys.argv[3:] != ["--no-checks"]))
     CONTROL_READINGS = ARGS == ["--control-readings"]

@@ -4,11 +4,11 @@ share of it costed on ``meta`` tensors, and its roofline on an H100.
 Port of ``repro.launch.dryrun``.  The reference lowers and compiles each
 cell with XLA over 512 placeholder host devices and reads the compiled
 program's ``cost_analysis()`` and ``memory_analysis()``.  The port has no
-compiler; its sharded steps (``launch/steps.py``) compute a serving cell
+compiler; its sharded steps (``launch/steps.py``) compute a cell
 (``parallel.tensor_parallel.tp_route``: every family, where its widths
-divide the model axis) on each model position's slice, and a training cell
-on each data shard with the params gathered whole, the model axis sharding
-storage only.  So a cell here is:
+divide the model axis) on each model position's slice, or else (a model
+axis its widths do not divide) on each data shard with the params gathered
+whole, the model axis sharding storage only.  So a cell here is:
 
 * the production mesh of ``meta`` devices (``make_production_mesh``);
 * one device's step, run at full size and full depth on ``meta`` tensors
@@ -17,14 +17,18 @@ storage only.  So a cell here is:
   the first data shard (``_run_tp_cell``: its model slice of one layer's
   params at a time, its rows, heads, experts and vocabulary rows, an MoE
   decode step's FFN over the global batch; the other positions' partials,
-  columns and rows arrive as placeholders).  Where the positions' shares
-  differ (a head split over positions, K/V heads repeated one a q head,
-  the first position's logits over a replicated vocabulary) the first
-  position and the one with the most heads are costed and the larger
-  kept; the record's ``tp_position`` names it.  Else one data shard's
-  step (the global batch over the data-parallel axes; one shard of every
-  row where it does not divide: the batch-1 cell).  A train cell adds
-  AdamW's update of the first device's storage shards;
+  columns and rows arrive as placeholders).  A train cell's position
+  runs the forward and the backward (under remat each layer's slices
+  fetched twice), each layer's slice gradients added into its storage
+  shards as the backward forms them, the loss vocabulary-parallel.  Where
+  the positions' shares differ (a head split over positions, K/V heads
+  repeated one a q head, the first position's logits over a replicated
+  vocabulary) the first position and the one with the most heads are
+  costed and the larger kept; the record's ``tp_position`` names it.
+  Else one data shard's step (the global batch over the data-parallel
+  axes; one shard of every row where it does not divide: the batch-1
+  cell).  A train cell adds AdamW's update of the first device's storage
+  shards;
 * argument and output bytes from the shardings: each input's and output's
   per-device shard, as the reference's ``memory_analysis`` counts them
   (a tensor-parallel cell's logits over ``("dp", None, "vocab")``).
@@ -34,17 +38,22 @@ storage only.  So a cell here is:
 * collective bytes from the shardings: the port's own moves onto and off
   the busiest device — each computing position's gather of the param
   bytes it does not hold (the whole leaf, or on the tensor-parallel route
-  its model slice), the gradient reduction into the storage shards
-  (train), the cache a decode step gathers and writes back (its rows, or
-  its rows and heads; the batch-1 cell: the whole rows) and what a
-  prefill writes into the cache's storage; on the tensor-parallel route
+  its model slice, as often as the step fetches it: twice a layer in a
+  train cell under remat), the gradient reduction into the storage
+  shards (train: the whole leaf's, or on the tensor-parallel route each
+  position's slice's into the shards it came from, a model-replicated
+  leaf's copies summed on the data shard's first position), the cache a
+  decode step gathers and writes back (its rows, or its rows and heads;
+  the batch-1 cell: the whole rows) and what a prefill writes into the
+  cache's storage; on the tensor-parallel route
   also ``tp_reduce`` (each sub-layer's partial outputs and rwkv's sums of
   squares summed on the first model position and sent back) and
   ``tp_exchange`` (the q and K/V columns of a head split over positions),
   and for an MoE FFN ``ep_route`` (the first model position's routing
   copied to the others) and ``ep_rows`` (a decode step's rows moved onto
-  the first data shard's positions and back).  Every data shard's
-  positions are charged the costed (first) shard's moves.
+  the first data shard's positions and back), in a train cell the
+  recompute's and the backward's too.  Every data shard's positions are
+  charged the costed (first) shard's moves.
 
 Every layer runs eagerly, so no loop body is counted once: the record's
 ``scan_correction`` is ``{"applied": false}``.  ``compile_s`` keeps the
@@ -64,6 +73,7 @@ import math
 import os
 import time
 import traceback
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -74,6 +84,7 @@ from ..models.params import _set, _walk, tree_map
 from ..optim import adamw
 from ..parallel import sharding as S
 from ..parallel.api import resolve_spec
+from ..parallel import tensor_parallel as TP
 from ..parallel.tensor_parallel import (ModelGroup, head_slice, kv_index,
                                         model_size, tp_route)
 from . import roofline as R
@@ -156,9 +167,13 @@ def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None,
 
     On the tensor-parallel route (``group``: the costed position's
     ``ModelGroup``) every model position of a data shard gathers its
-    model slice of each leaf the step fetches (``fetched``: hymba's unread
-    ``ssm/wo_s`` is not, nor an encoder-decoder prefill's decoder weights
-    but the cross K/V projections) and its piece of the cache (its rows,
+    model slice of each leaf the step fetches, as many times as it fetches
+    it (``fetched``: leaf path → whole fetches; hymba's unread ``ssm/wo_s``
+    is not fetched, nor an encoder-decoder prefill's decoder weights but
+    the cross K/V projections; a train cell's layers twice under remat),
+    sends a train cell's slice gradients to the storage shards they came
+    from (a model-replicated leaf's to its data shard's first position,
+    which sends their sum on), and gathers its piece of the cache (its rows,
     its heads), and moves what ``group`` counted: ``tp_reduce`` (the partial
     outputs and the norm's sums of squares in, the sums out: the first
     model position receives and sends for all), ``tp_exchange`` (the q
@@ -191,13 +206,29 @@ def _collectives(cfg, shape, mesh, specs, pshard, cshard, group=None,
         want = math.prod(leaf.shape) * leaf.element_size() if group is None \
             else math.prod(S.model_slice_shape(leaf.shape, sh)) \
             * leaf.element_size()
+        times = 1 if fetched is None else fetched[path]
         held = _stored_at(leaf.shape, leaf.dtype, sh)
         for _, _, _, pos in computing:
-            moved[pos]["param_gather"] += want - held.get(pos, 0)
+            moved[pos]["param_gather"] += int(times * (want - held.get(pos,
+                                                                       0)))
             n_moves += want > held.get(pos, 0)
         if shape.kind == "train":
-            for pos, n in held.items():
-                moved[pos]["grad_reduce"] += n * sum(p != pos for p in shards)
+            # each storage shard receives its part of the gradient from
+            # every computing position whose slice covers it but itself;
+            # a model-replicated leaf's copies first reach their data
+            # shard's first position, which alone sends the sum
+            dims = S._model_dims(sh.spec, leaf.ndim)
+            n = shard_bytes(leaf.shape, leaf.dtype, sh)
+            senders = computing
+            if group is not None and not dims:
+                senders = [c for c in computing if c[2] == 0]
+                for i, _, m, pos in computing:
+                    if m:
+                        moved[senders[i][3]]["grad_reduce"] += want
+            for idx, spos in sh.positions(leaf.ndim).items():
+                moved[spos]["grad_reduce"] += n * sum(
+                    pos != spos for _, _, m, pos in senders
+                    if group is None or not dims or idx[dims[0]] == m)
     if shape.kind != "train":
         cache = specs["cache"] if shape.kind == "decode" else M.init_cache(
             cfg, batch, shape.seq_len, s_enc=shape.seq_len if cfg.enc_dec
@@ -251,31 +282,47 @@ def _first_storage(tree, shardings):
     return out
 
 
-def _meta_fetch(cfg, pshard, fetched=None):
-    """``fetch`` for ``M.prefill_tp`` / ``decode_step_tp`` on ``meta``:
-    model slice 0 of the subtree under ``keys`` (layer ``i`` of a stacked
-    one), new tensors each call, as a position's gather of one layer (the
-    lone position's, whatever ``rank`` is asked for)."""
+def _meta_fetch(cfg, pshard, fetched=None, grads=None, anchor=None,
+                first: bool = True):
+    """``fetch`` for ``M.prefill_tp`` / ``decode_step_tp`` /
+    ``forward_tp`` on ``meta``: model slice 0 of the subtree under
+    ``keys`` (layer ``i`` of a stacked one), new tensors each call, as a
+    position's gather of one layer (the lone position's, whatever ``rank``
+    is asked for).  Each fetch adds its share of the leaf to
+    ``fetched[path]`` (1 for a whole leaf, 1/L for one of L layers).
+    With ``grads`` (the first device's storage shards, ``_first_storage``)
+    each slice is ``fetched``: the backward adds its storage shard's part
+    of the gradient into ``grads``; a model-replicated leaf's in float32
+    on the ``first`` position (``sharding.CopyGrads``' sum of the
+    positions' copies)."""
     params = M.abstract_params(cfg)
 
-    def one(leaf, sh, i):
+    def one(leaf, sh, i, path):
         shp = S.model_slice_shape(leaf.shape, sh)
-        return torch.empty(shp if i is None else shp[1:], dtype=leaf.dtype,
-                           device="meta")
-
-    def seen(path):
+        shp = shp if i is None else shp[1:]
         if fetched is not None:
-            fetched.add(path)
+            fetched[path] = fetched.get(path, 0) + (
+                1 if i is None else Fraction(1, leaf.shape[0]))
+
+        def get():
+            return torch.empty(shp, dtype=leaf.dtype, device="meta")
+        if grads is None:
+            return get()
+        acc = ST._at(grads, path)
+        acc = acc if i is None else acc[i]
+        part = tuple(slice(0, n) for n in acc.shape)
+        if first and not S._model_dims(sh.spec, leaf.ndim):
+            return TP.fetched(anchor, get,
+                              lambda g: acc.add_(g.float()[part]))
+        return TP.fetched(anchor, get, lambda g: acc.add_(g[part]))
 
     def fetch(keys, i, rank=None):
         sub, sh = ST._at(params, keys), ST._at(pshard, keys)
         if not isinstance(sub, dict):
-            seen(keys)
-            return [one(sub, sh, i)]
+            return [one(sub, sh, i, keys)]
         tree: dict = {}
         for path, leaf in _walk(sub):
-            seen(keys + path)
-            _set(tree, path, one(leaf, ST._at(sh, path), i))
+            _set(tree, path, one(leaf, ST._at(sh, path), i, keys + path))
         return [tree]
     return fetch
 
@@ -295,17 +342,56 @@ def costed_positions(cfg, size: int) -> list:
     return [0] if share(best) == share(0) else [0, best]
 
 
+def _train_tp_cell(cfg, specs, group, pshard, mode: CostMode, fetched,
+                   rows: int) -> None:
+    """A train cell's lone position (``group``) on ``meta``: its rows'
+    forward (``M.forward_tp``) and the backward from its loss (from its
+    last residual, on a placeholder gradient, where it computes no logits:
+    a replicated vocabulary's other positions), each slice gradient added
+    into the first device's storage shards, then AdamW's update of them."""
+    batch = {k: torch.empty((rows, *v.shape[1:]), dtype=v.dtype,
+                            device="meta") for k, v in specs.items()}
+    opt_cfg = _opt_cfg(cfg)
+    mine = _first_storage(M.abstract_params(cfg), pshard)
+    state = adamw.init(opt_cfg, mine)
+    anchor = torch.zeros(0, device="meta", requires_grad=True)
+    grads: dict = {}
+    fetch = _meta_fetch(cfg, pshard, fetched, grads, anchor,
+                        first=0 in group.ranks)
+    with mode:
+        # the accumulators are the step's own (temp), as the slices are
+        grads.update(tree_map(torch.zeros_like, mine))
+        logits, aux, xs = M.forward_tp(
+            cfg, group, fetch, [batch["tokens"]],
+            images=[batch["images"]] if "images" in batch else None,
+            frames=[batch["frames"]] if "frames" in batch else None)
+        loss, _ = M.tp_loss(cfg, group, logits, aux, [batch])
+        del logits, aux
+        if loss is None:
+            torch.autograd.backward(xs, [torch.empty_like(x) for x in xs])
+        else:
+            del xs
+            loss.backward()
+        del loss
+        adamw.update(opt_cfg, grads, state, mine)
+
+
 def _run_tp_cell(cfg, shape, mesh, pshard, mode: CostMode, m: int = 0,
                  fetched=None) -> ModelGroup:
     """One model position's step (model index ``m`` of the first data
     shard) on ``meta``: its slices, its rows and heads; what the other
     positions send arrives as placeholders.  An MoE decode step over
     several data shards runs its FFN over every shard's rows (the global
-    batch's bundles on its experts).  The paths of the leaves it fetches
-    go into ``fetched``.  Returns its ``ModelGroup``."""
+    batch's bundles on its experts); a train cell runs its forward and
+    backward (``_train_tp_cell``).  Each leaf it fetches counts in
+    ``fetched`` (``_meta_fetch``).  Returns its ``ModelGroup``."""
     size = model_size(mesh)
     rows = _rows(mesh, shape.global_batch)
     group = ModelGroup(["meta"] * size, lone=m)
+    if shape.kind == "train":
+        _train_tp_cell(cfg, ST.input_specs(cfg, shape), group, pshard,
+                       mode, fetched, rows)
+        return group
     fetch = _meta_fetch(cfg, pshard, fetched)
     s_enc = shape.seq_len if cfg.enc_dec else 0
     piece = M.init_cache_tp(cfg, size, m, rows, shape.seq_len, "meta",
@@ -384,19 +470,21 @@ def cost_cell(cfg, shape, mesh) -> dict:
     params = M.abstract_params(cfg)
     batch = shape.global_batch
     cshard = None
-    tp = shape.kind != "train" and tp_route(cfg, mesh)
+    tp = tp_route(cfg, mesh)
     t0 = time.perf_counter()
     group, position, fetched = None, None, None
     if tp:
         # the largest share: of the costed positions, the one with the
         # most temporary bytes (then FLOP); the leaves the step reads are
-        # those any of them fetched
-        costed, fetched = [], set()
+        # those any of them fetched, as often as the most fetched each
+        costed, fetched = [], {}
         for m in costed_positions(cfg, model_size(mesh)):
-            mode = CostMode()
-            g = _run_tp_cell(cfg, shape, mesh, pshard, mode, m, fetched)
+            mode, seen = CostMode(), {}
+            g = _run_tp_cell(cfg, shape, mesh, pshard, mode, m, seen)
             run = mode.summary()
             costed.append(((run["temp_bytes"], run["flops"], -m), m, g, run))
+            for path, n in seen.items():
+                fetched[path] = max(fetched.get(path, 0), n)
         _, position, group, run = max(costed, key=lambda c: c[0])
     else:
         mode = CostMode()
@@ -406,8 +494,9 @@ def cost_cell(cfg, shape, mesh) -> dict:
     # the params are the step's arguments, as the reference's jitted step
     # keeps only those it reads (hymba's ``ssm/wo_s`` none; a whisper
     # decode step no encoder weight): on the tensor-parallel route the
-    # leaves its positions fetch
-    p_bytes = _tree_shard_bytes(params, pshard) if fetched is None else \
+    # leaves its positions fetch; a train step updates every leaf
+    p_bytes = _tree_shard_bytes(params, pshard) \
+        if fetched is None or shape.kind == "train" else \
         sum(shard_bytes(leaf.shape, leaf.dtype, ST._at(pshard, path))
             for path, leaf in _walk(params) if path in fetched)
     if shape.kind == "train":

@@ -9,12 +9,9 @@ writes the new cache into the cache's storage shards.
 With a mesh the reference's one program is sharded by XLA.  Here one
 process drives every device of the ``DeviceMesh`` (single-controller, as
 the reference's): the params and AdamW's m and v are sharded storage
-(``parallel.sharding``), the batch splits over its data-parallel axes, and
-each data shard gathers the params onto its device, takes its loss and
-gradients there, and the gradients are reduced into the storage shards:
-training computes over the data axes only.
+(``parallel.sharding``) and the batch splits over its data-parallel axes.
 
-Serving computes over the model axis too wherever
+Training and serving compute over the model axis too wherever
 ``parallel.tensor_parallel.tp_route`` takes the config: decoder-only
 attention with a dense SwiGLU FFN (qwen3-1.7b, qwen3-4b, gemma2-2b,
 gemma3-27b, paligemma-3b's text path) or an MoE FFN (dbrx-132b,
@@ -24,14 +21,18 @@ positions walk the layers together, each on its slice (attention and SSM
 heads, FFN columns, experts, vocabulary rows or, where the model axis does
 not divide the vocabulary, the whole table; K4 and K6 on its heads, K5 on
 its experts), their partial outputs summed after each sub-layer, as XLA
-partitions the reference's program.  An MoE decode step over several data
+partitions the reference's program.  A training step's positions take the
+vocabulary-parallel loss and its gradients together, each adding its
+slice gradients into the storage shards they came from.  An MoE decode
+step over several data
 shards walks every shard's positions in step and runs each MoE FFN on the
 first shard's positions over the global batch, as the reference's one
 program bundles it.  A model axis of one and configs whose widths do not
 divide it keep the storage-only route: each data shard gathers the params
-and its rows of the cache onto its device, runs the one-device ``prefill``
-/ ``decode_step`` there and writes its rows of the new cache back into the
-storage shards; the model axis shards storage, not computation.  There an
+(and its rows of the cache) onto its device, runs the one-device
+``loss_fn`` (``prefill`` / ``decode_step``) there and reduces its
+gradients into the storage shards (writes its rows of the new cache
+back); the model axis shards storage, not computation.  There an
 MoE model's decode step bundles the global batch for its experts too: the
 data shards walk the layers in step and exchange their rows at each MoE FFN
 (``_global_moe_decode``).
@@ -48,11 +49,12 @@ import torch
 from ..configs import ModelConfig, ShapeConfig
 from ..models import model as M
 from ..models.blocks import _ffn_out, block_decode_mixer
-from ..models.params import _set, _walk, tree_slice
+from ..models.params import _set, _walk, tree_map, tree_slice
 from ..optim import adamw
 from ..parallel import sharding as S
 from ..parallel.api import resolve_spec, use_mesh
-from ..parallel.tensor_parallel import ModelGroup, model_size, tp_route
+from ..parallel.tensor_parallel import (ModelGroup, fetched, model_size,
+                                        tp_route)
 
 
 def _loss_and_grads(cfg: ModelConfig, leaves: List, batch):
@@ -137,6 +139,44 @@ def _sharded_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh):
     return train_step
 
 
+def _tp_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, mesh):
+    def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        count = S.GatherCount()
+        grads = tree_map(S.zeros_like_storage, params)
+        n_rows = next(iter(batch.values())).shape[0]
+        shards = tp_shards(mesh, n_rows)
+        metrics: Dict[str, list] = {"loss": [], "ce": [], "aux": []}
+        with use_mesh(mesh):
+            for lo, hi, group in shards:
+                devices = [mesh.devices[pos] for pos in group]
+                anchor = torch.zeros(0, requires_grad=True)
+                copies = S.CopyGrads(devices[0])
+                loss, parts = M.loss_fn_tp(
+                    cfg, ModelGroup(devices),
+                    _tp_fetch(params, mesh, group, count, grads, anchor,
+                              copies),
+                    [{k: v[lo:hi].to(dev) for k, v in batch.items()}
+                     for dev in devices])
+                loss.backward()
+                copies.flush()
+                for k, v in (("loss", loss), *parts.items()):
+                    metrics[k].append(v.detach())
+                del loss, parts
+        n = len(shards)
+        for _, a in _walk(grads):
+            for piece in S.pieces(a):
+                piece.div_(n)
+        params, opt_state, om = adamw.update(opt_cfg, grads, opt_state,
+                                             params)
+        first = mesh.devices[shards[0][2][0]]
+        metrics = {k: sum(x.to(first) for x in v) / n
+                   for k, v in metrics.items()}
+        train_step.gathered = count
+        return params, opt_state, {**metrics, **om}
+    train_step.gathered = S.GatherCount()
+    return train_step
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     mesh=None):
     """``train_step(params, opt_state, batch) → (params, opt_state,
@@ -146,17 +186,34 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
 
     With a ``mesh`` the params and m/v arrive as sharded storage
     (``train_shardings``, ``parallel.sharding.shard_tree``) and the batch is
-    split over the data-parallel axes (``batch_shards``).  Data shard ``k``,
-    in order, gathers every leaf onto its device, runs ``loss_fn`` on its
+    split over the data-parallel axes (``batch_shards``).  A config
+    ``parallel.tensor_parallel.tp_route`` takes (a model axis of more than
+    one that its widths divide) computes over the model axis: for each
+    data shard in order (``tp_shards``), its model positions run
+    ``M.loss_fn_tp`` on its rows, each gathering its model slice of one
+    layer's params at a time (``sharding.model_slice``, through
+    ``tensor_parallel.fetched``: again in the backward under remat;
+    counted in the step's ``gathered``) and computing on its heads,
+    columns, experts and vocabulary rows (K4, K6 and K5 and their backward
+    kernels on its slice), the loss vocabulary-parallel; ``backward()``
+    then adds each position's gradient of each slice into the storage
+    shards it came from (``sharding.add_model_slice``; a model-replicated
+    leaf gets the sum of every position's copy, summed on the data
+    shard's first position before one add, ``sharding.CopyGrads``), a
+    layer at a time as the backward reaches it.  Otherwise the
+    storage-only route: data shard ``k``, in order, gathers every leaf
+    onto its device, runs ``loss_fn`` on its
     slice and takes the gradients; each storage shard gets its slice of
-    them summed in shard order on its own device, and, after the last
-    shard, divided by the number of shards.  A shard's gathered params and
-    gradients are freed before the next starts.  The loss, ``ce`` and
-    ``aux`` are the means of the shards' (exact for equal shards: both are
-    means over rows).  Nothing reads a device value on the host, so shards
-    on distinct cards overlap.
+    them summed in shard order on its own device.  Either way the sums are
+    divided by the number of data shards after the last; a shard's
+    gathered params and gradients are freed before the next starts.  The
+    loss, ``ce`` and ``aux`` are the means of the shards' (exact for equal
+    shards: both are means over rows).  Nothing reads a device value on
+    the host, so shards on distinct cards overlap.
     """
     if mesh is not None:
+        if tp_route(cfg, mesh):
+            return _tp_train_step(cfg, opt_cfg, mesh)
         return _sharded_train_step(cfg, opt_cfg, mesh)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
@@ -306,28 +363,44 @@ def tp_shards(mesh, n_rows: int) -> list:
             for (i,), pos in placed.items()]
 
 
-def _tp_fetch(params, mesh, group: list, count: S.GatherCount):
+def _tp_fetch(params, mesh, group: list, count: S.GatherCount,
+              grads=None, anchor=None, copies=None):
     """``fetch(keys, i, rank=None)`` for ``M.prefill_tp`` /
-    ``decode_step_tp``: the subtree under ``keys`` (layer ``i`` of a
-    stacked one) as each model position's slice (``model_slice``) on its
-    device, or only model position ``rank``'s (a list of one), counted."""
+    ``decode_step_tp`` / ``loss_fn_tp``: the subtree under ``keys`` (layer
+    ``i`` of a stacked one) as each model position's slice
+    (``model_slice``) on its device, or only model position ``rank``'s (a
+    list of one), counted.  With ``grads`` (the storage-shaped
+    accumulators of the params) each slice is ``fetched``: its gradient
+    goes into ``grads`` (``add_model_slice``) in the backward, a
+    model-replicated leaf's through ``copies`` (``S.CopyGrads``: the
+    positions' copies summed on the first, then one add)."""
+    def one(leaf, path, m, pos, i):
+        def get():
+            t = S.model_slice(leaf, m, mesh.devices[pos], i)
+            count.add(pos, path, t)
+            return t
+        if grads is None:
+            return get()
+        acc = _at(grads, path)
+        if not S.model_replicated(leaf):
+            return fetched(anchor, get,
+                           lambda g: S.add_model_slice(acc, m, g, i))
+        copies.expect((path, i), m)
+        return fetched(anchor, get,
+                       lambda g: copies.put((path, i), m, g, acc, i))
+
     def fetch(keys, i, rank=None):
         sub = _at(params, keys)
         out = []
         for m, pos in enumerate(group):
             if rank is not None and m != rank:
                 continue
-            dev = mesh.devices[pos]
             if not isinstance(sub, dict):
-                t = S.model_slice(sub, m, dev, i)
-                count.add(pos, keys, t)
-                out.append(t)
+                out.append(one(sub, keys, m, pos, i))
                 continue
             tree: Dict = {}
             for path, leaf in _walk(sub):
-                t = S.model_slice(leaf, m, dev, i)
-                count.add(pos, keys + path, t)
-                _set(tree, path, t)
+                _set(tree, path, one(leaf, keys + path, m, pos, i))
             out.append(tree)
         return out
     return fetch

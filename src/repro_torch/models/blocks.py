@@ -11,6 +11,10 @@ with identical parameters:
   * ``block_prefill`` — forward + emit decode cache
   * ``block_decode``  — single token with cache
 
+and their counterparts over a data shard's model positions (``*_tp``:
+tensor and expert parallelism; ``block_seq_tp`` both the prefill's and
+the training step's).
+
 Param declarations (Meta) live beside the compute so shapes cannot drift;
 the param tree equals the reference's key for key and shape for shape
 (hymba's unused ``wo_s`` included).  On the card, attention over a
@@ -709,9 +713,10 @@ def block_decode(cfg, layer_type, p, x_t, cache, pos):
 
 
 def _attn_heads_tp(cfg, g, ps, hs, layer_type, caches=None, positions=None,
-                   pos=None):
-    """Attention on each position's q heads (K4 over a sequence, the
-    plain decode attention against the cache at ``pos``, this step's K/V
+                   pos=None, prefix: int = 0):
+    """Attention on each position's q heads (K4 over a sequence, prefix-LM
+    attention over a ``prefix`` as ``attn_forward`` computes it, the plain
+    decode attention against the cache at ``pos``, this step's K/V
     written into the position's cache piece in place), before the output
     projection: (each position's head outputs cut to its ``q_cols``, its
     new cache: ``caches[i]`` with the attention's leaves replaced; None
@@ -735,8 +740,13 @@ def _attn_heads_tp(cfg, g, ps, hs, layer_type, caches=None, positions=None,
         if pos is None:
             qh, kh, vh = _heads(cfg, p, q[i], k[i], v[i], positions[i],
                                 layer_type, cfg.use_rope)
-            o = _merge_heads(flash_attention(qh, *_expand_kv(kh, vh, idx),
-                                             _attn_spec(cfg, layer_type)))
+            spec = _attn_spec(cfg, layer_type)
+            if cfg.prefix_lm and prefix > 0:
+                o = _prefix_attention(qh, *_expand_kv(kh, vh, idx), spec,
+                                      prefix)
+            else:
+                o = flash_attention(qh, *_expand_kv(kh, vh, idx), spec)
+            o = _merge_heads(o)
             c = None if caches is None else _fill_cache(caches[i], kh, vh,
                                                         positions[i])
         else:
@@ -755,18 +765,21 @@ def _own_cols(o, sl, dh: int):
     return o[..., a:a + sl.q_cols[1] - sl.q_cols[0]]
 
 
-def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
+def _attn_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None,
+             prefix: int = 0):
     """``_attn_heads_tp`` and each position's rows of ``wo``: (partials,
     caches)."""
     outs, new = _attn_heads_tp(cfg, g, ps, hs, layer_type, caches,
-                               positions, pos)
+                               positions, pos, prefix)
     return [dense_partial(o, p["wo"]) for o, p in zip(outs, ps)], new
 
 
-def _xattn_tp(cfg, g, ps, hs, caches) -> list:
-    """One token's cross-attention on each position's q heads against its
-    cross K/V heads (``xk``, ``xv`` of its cache piece): the partials of
-    its rows of ``wo``."""
+def _xattn_tp(cfg, g, ps, hs, caches, seq: bool = False) -> list:
+    """Cross-attention on each position's q heads against its cross K/V
+    heads (``xk``, ``xv`` of its cache piece): the partials of its rows of
+    ``wo``.  One token against the cache (the decode attention), or with
+    ``seq`` every decoder position (the plain masked attention of
+    ``cross_attn_forward``)."""
     dh = cfg.d_head
     sl = [head_slice(cfg, g.size, r) for r in range(g.size)]
     q = g.columns([dense(h, p["wq"]) for p, h in zip(ps, hs)],
@@ -775,15 +788,32 @@ def _xattn_tp(cfg, g, ps, hs, caches) -> list:
     spec = AttnSpec(causal=False, window=0, softcap=0.0, scale=dh ** -0.5)
     parts = []
     for i, r in enumerate(g.ranks):
-        b = q[i].shape[0]
-        qh = q[i].reshape(b, 1, -1, dh).transpose(1, 2)
+        b, s = q[i].shape[:2]
+        qh = q[i].reshape(b, s, -1, dh).transpose(1, 2)
         xk, xv = _expand_kv(caches[i]["xk"], caches[i]["xv"],
                             kv_index(cfg, sl[r]))
-        s_enc = xk.shape[2]
-        slot_pos = torch.arange(s_enc, dtype=torch.int32, device=qh.device)
-        o = _merge_heads(decode_attention(qh, xk, xv, slot_pos, s_enc, spec))
-        parts.append(dense_partial(_own_cols(o, sl[r], dh), ps[i]["wo"]))
+        if seq:
+            o = _masked_attention(qh, xk, xv, spec.scale)
+        else:
+            s_enc = xk.shape[2]
+            slot_pos = torch.arange(s_enc, dtype=torch.int32,
+                                    device=qh.device)
+            o = decode_attention(qh, xk, xv, slot_pos, s_enc, spec)
+        parts.append(dense_partial(_own_cols(_merge_heads(o), sl[r], dh),
+                                   ps[i]["wo"]))
     return parts
+
+
+def _cross_tp(cfg, g, ps, xs, kvs, seq: bool = False) -> list:
+    """A ``decoder`` block's cross-attention sub-layer over each
+    position's cross K/V heads (``kvs``: its cache piece, or with ``seq``
+    ``cross_kv_tp``'s heads of the encoder output): ``_xattn_tp``, one
+    reduction, the residual."""
+    xo = g.all_reduce(_xattn_tp(
+        cfg, g, [p["xattn"] for p in ps],
+        [_norm(cfg, x, p["lnx"]) for p, x in zip(ps, xs)], kvs, seq),
+        xs[0].dtype)
+    return [x + o for x, o in zip(xs, xo)]
 
 
 def cross_kv_tp(cfg, g, ps, enc_outs) -> tuple:
@@ -861,7 +891,8 @@ def _hymba_tp(cfg, g, ps, hs, layer_type, caches, positions=None, pos=None):
                                          caches[i]["ssm_state"])
             o = o.reshape(o.shape[0], 1, -1)
         os.append(_own_cols(o.to(hs[i].dtype), sl[r], dh))
-        new[i]["ssm_state"] = state
+        if new[i] is not None:
+            new[i]["ssm_state"] = state
     sumsq = g.all_reduce([torch.cat([sum_squares(a), sum_squares(o)], -1)
                           for a, o in zip(outs, os)], torch.float32)
     width = cfg.n_heads * dh
@@ -892,13 +923,13 @@ def _rwkv_tp(cfg, g, ps, hs, caches, decode: bool):
     channels: each position's sum of squares is reduced first."""
     ps = [_rwkv_local(cfg, p, r, g.size) for p, r in zip(ps, g.ranks)]
     os, gates, new = [], [], []
-    for p, x, c in zip(ps, hs, caches):
+    for p, x, c in zip(ps, hs, caches or [None] * len(hs)):
         if decode:
             o, gt, st = _rwkv_step(cfg, p, x[:, 0], c["wkv"], c["shift"])
             c = dict(c, wkv=st, shift=x[:, 0])
         else:
             o, gt, st = _rwkv_scan(cfg, p, x, _shift_tokens(x))
-            c = dict(c, wkv=st, shift=x[:, -1])
+            c = None if c is None else dict(c, wkv=st, shift=x[:, -1])
         os.append(o)
         gates.append(gt)
         new.append(c)
@@ -917,18 +948,19 @@ def _ffn_tp(cfg, g, ps, ffn, xs, cm_prevs=None):
     """The FFN sub-layer on each position's columns of the hidden width,
     or on its experts (an MoE FFN: the first position routes, every
     position bundles by its slot map, ``moe_ffn_ep``): (xs, the FFN's
-    inputs).  The channel mix's receptance gate (``w_rcm`` whole)
+    inputs, the routing's aux loss on the routing position, 0.0 for a
+    dense FFN).  The channel mix's receptance gate (``w_rcm`` whole)
     multiplies the reduced sum."""
     h2s = [_norm(cfg, x, p["ln2"]) for p, x in zip(ps, xs)]
-    parts, gates, routes = [], [], None
+    parts, gates, routes, aux = [], [], None, 0.0
     for i, h2 in enumerate(h2s):
         f = ffn(i)
         if cfg.ffn == "moe":
             if routes is None:
-                routes = g.share(list(moe_route(
+                *route, aux = moe_route(
                     h2, f["router"], n_experts=cfg.n_experts,
-                    top_k=cfg.moe_top_k,
-                    capacity_factor=cfg.capacity_factor)))
+                    top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor)
+                routes = g.share(route)
             parts.append(moe_ffn_ep(
                 h2, f, routes[i], expert_slice(cfg, g.size, g.ranks[i]),
                 n_experts=cfg.n_experts, top_k=cfg.moe_top_k))
@@ -946,7 +978,7 @@ def _ffn_tp(cfg, g, ps, ffn, xs, cm_prevs=None):
         outs = [gt * o for gt, o in zip(gates, outs)]
     if cfg.post_norm:
         outs = [_norm(cfg, o, p["ln2_post"]) for p, o in zip(ps, outs)]
-    return [x + o for x, o in zip(xs, outs)], h2s
+    return [x + o for x, o in zip(xs, outs)], h2s, aux
 
 
 def _mixer_tp(cfg, g, ps, xs, parts):
@@ -956,24 +988,37 @@ def _mixer_tp(cfg, g, ps, xs, parts):
     return [_mixer_out(cfg, p, m, x) for p, m, x in zip(ps, mixed, xs)]
 
 
-def block_prefill_tp(cfg, layer_type, g, ps, ffn, xs, positions, caches):
-    """``block_prefill`` over the model positions ``g``: (xs, caches).
-    Without ``caches`` (None) the block runs as ``block_forward`` (an
-    encoder's): the caches come back None."""
-    hs = [_norm(cfg, x, p["ln1"]) for p, x in zip(ps, xs)]
+def block_seq_tp(cfg, layer_type, g, ps, ffn, xs, positions, caches=None,
+                 prefix: int = 0, enc_outs=None):
+    """``block_prefill`` (with ``caches``) or ``block_forward`` (without:
+    they come back None) over the model positions ``g``: (xs, caches, the
+    MoE routing's aux loss).  An image prefix's prefix-LM attention (each
+    position's heads through the plain ``_prefix_attention``); a
+    ``decoder`` block's cross-attention over ``enc_outs`` (each position's
+    encoder output)."""
+    cached = caches is not None
+    hs = [grad_fence(_norm(cfg, x, p["ln1"])) for p, x in zip(ps, xs)]
     if cfg.mixer == "attn":
         parts, caches = _attn_tp(cfg, g, [p["attn"] for p in ps], hs,
-                                 layer_type, caches, positions=positions)
+                                 layer_type, caches, positions=positions,
+                                 prefix=prefix)
     elif cfg.mixer == "hymba":
         parts, caches = _hymba_tp(cfg, g, ps, hs, layer_type, caches,
                                   positions=positions)
     else:
         parts, caches = _rwkv_tp(cfg, g, [p["rwkv"] for p in ps], hs, caches,
                                  decode=False)
-    xs, h2s = _ffn_tp(cfg, g, ps, ffn, _mixer_tp(cfg, g, ps, xs, parts))
+    xs = _mixer_tp(cfg, g, ps, xs, parts)
+    if layer_type == "decoder" and enc_outs is not None:
+        ks, vs = cross_kv_tp(cfg, g, [p["xattn"] for p in ps], enc_outs)
+        xs = _cross_tp(cfg, g, ps, xs, [{"xk": k, "xv": v}
+                                        for k, v in zip(ks, vs)], seq=True)
+    xs, h2s, aux = _ffn_tp(cfg, g, ps, ffn, xs)
+    if not cached:
+        return xs, None, aux
     if cfg.ffn == "rwkv_cm":
         caches = [dict(c, shift_cm=h2[:, -1]) for c, h2 in zip(caches, h2s)]
-    return xs, caches
+    return xs, caches, aux
 
 
 def block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches, pos):
@@ -991,11 +1036,7 @@ def block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches, pos):
                               decode=True)
     xs = _mixer_tp(cfg, g, ps, xs, parts)
     if layer_type == "decoder" and "xk" in caches[0]:
-        xo = g.all_reduce(_xattn_tp(
-            cfg, g, [p["xattn"] for p in ps],
-            [_norm(cfg, x, p["lnx"]) for p, x in zip(ps, xs)], caches),
-            xs[0].dtype)
-        xs = [x + o for x, o in zip(xs, xo)]
+        xs = _cross_tp(cfg, g, ps, xs, caches)
     return xs, new
 
 
@@ -1005,7 +1046,7 @@ def block_decode_tp(cfg, layer_type, g, ps, ffn, xs, caches, pos):
     xs, caches = block_decode_mixer_tp(cfg, layer_type, g, ps, xs, caches,
                                        pos)
     cm = cfg.ffn == "rwkv_cm"
-    xs, h2s = _ffn_tp(cfg, g, ps, ffn, xs, [
+    xs, h2s, _ = _ffn_tp(cfg, g, ps, ffn, xs, [
         c["shift_cm"].to(x.dtype)[:, None, :] for c, x in zip(caches, xs)]
         if cm else None)
     if cm:

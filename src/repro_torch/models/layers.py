@@ -92,17 +92,40 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return out.reshape(*x.shape[:-1], *w.shape[1:])
 
 
+class _MmFloat32(torch.autograd.Function):
+    """``x2 @ w2`` of compute-dtype matrices with a float32 result (one
+    product, float32 sums), and its gradient: ``dx = g @ w2ᵀ`` in x's
+    dtype, ``dw = x2ᵀ @ g`` summed in float32 and rounded to w's dtype,
+    ``g`` first rounded to the compute dtype (the gradient ``dense`` gets
+    on one device).  torch has no derivative of ``mm`` with ``out_dtype``."""
+
+    @staticmethod
+    def forward(ctx, x2, w2):
+        ctx.save_for_backward(x2, w2)
+        return torch.mm(x2, w2, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w2 = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        dx = g @ w2.T
+        dw = torch.mm(x2.T, g, out_dtype=torch.float32).to(w2.dtype)
+        return dx, dw
+
+
 def dense_partial(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``dense`` over a slice of the contracted dim, in float32: one
     tensor-parallel position's partial product, summed with the others'
     before one rounding to the compute dtype.  Products of compute-dtype
-    values summed in float32 (``dense`` itself where that is float32)."""
+    values summed in float32 (``dense`` itself where that is float32);
+    differentiable on every device (``_MmFloat32`` on the card and on
+    ``meta``)."""
     if x.dtype == torch.float32:
         return dense(x, w)
     w2 = w.to(x.dtype).reshape(w.shape[0], -1)
     x2 = x.reshape(-1, x.shape[-1])
     if x.device.type in ("cuda", "meta"):
-        out = torch.mm(x2, w2, out_dtype=torch.float32)
+        out = _MmFloat32.apply(x2, w2)
     else:
         out = x2.float() @ w2.float()
     return out.reshape(*x.shape[:-1], *w.shape[1:])
@@ -168,3 +191,37 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, *,
         nll = nll * mask
         return nll.sum() / torch.clamp(mask.sum(), min=1)
     return nll.mean()
+
+
+def cross_entropy_tp(g, logits: list, labels: list) -> torch.Tensor:
+    """``cross_entropy_loss`` over vocabulary-parallel logits: ``logits``
+    each model position's float32 logits over its vocabulary rows (B, S,
+    V / size; the rows ``[r · V / size, (r + 1) · V / size)`` of position
+    ``r``), ``labels`` (B, S) on each, one entry a position of ``g.ranks``
+    (``parallel.tensor_parallel.ModelGroup``).  Each position gives the max
+    of its logits, the sum of their exponentials below it and the gold
+    logit where the label falls in its range (zero elsewhere: the
+    reference's one-hot contraction, one nonzero term a token); the three
+    reach the first position (``g.to_first``), which reduces them in
+    float32 in the order m = 0, 1, ...: logz = M + log Σ s_r e^(m_r − M).
+    Returns the mean NLL on the first position's device.  The maxima are
+    constants of the gradient (they cancel in the value)."""
+    stats = []
+    for lg, lab, r in zip(logits, labels, g.ranks):
+        lg = lg.float()
+        n = lg.shape[-1]
+        mx = lg.amax(dim=-1).detach()
+        s = torch.exp(lg - mx[..., None]).sum(dim=-1)
+        idx = lab.long() - r * n
+        inside = (idx >= 0) & (idx < n)
+        gold = lg.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        gold = torch.where(inside, gold, torch.zeros((), device=lg.device))
+        stats.append(torch.stack([mx, s, gold], dim=-1))
+    parts = g.to_first(stats)
+    top = torch.stack([p[..., 0] for p in parts]).amax(dim=0)
+    total = gold = None
+    for p in parts:
+        t = p[..., 1] * torch.exp(p[..., 0] - top)
+        total = t if total is None else total + t
+        gold = p[..., 2] if gold is None else gold + p[..., 2]
+    return (top + torch.log(total) - gold).mean()

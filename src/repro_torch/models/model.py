@@ -27,10 +27,13 @@ Entry points:
   prefill_tp / encdec_prefill_tp / decode_step_tp (data shards' model
   positions, each on its slice: the sharded serving steps' tensor and
   expert parallelism)
+  forward_tp / loss_fn_tp (one data shard's model positions: the sharded
+  training step's)
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from collections.abc import Mapping
 from typing import Dict
 
@@ -46,10 +49,10 @@ from ..parallel.tensor_parallel import (head_slice, rows_from_first,
 from . import params as P
 from .blocks import (_ffn_tp, block_decode, block_decode_mixer_tp,
                      block_decode_tp, block_forward, block_make_cache,
-                     block_metas, block_prefill, block_prefill_tp, cross_kv,
+                     block_metas, block_prefill, block_seq_tp, cross_kv,
                      cross_kv_tp)
-from .layers import (cross_entropy_loss, dense, embed_lookup, rms_norm,
-                     unembed)
+from .layers import (cross_entropy_loss, cross_entropy_tp, dense,
+                     embed_lookup, rms_norm, unembed)
 from .params import Meta
 
 
@@ -611,28 +614,62 @@ def prefill_tp(cfg, g, fetch, tokens, caches):
     positions = [_positions(b, s, x.device) for x in xs]
 
     def step(lt, ps, ffn, hs, cs):
-        return block_prefill_tp(cfg, lt, g, ps, ffn, hs, positions, cs)
+        return block_seq_tp(cfg, lt, g, ps, ffn, hs, positions, cs)[:2]
     xs, new = _run_stack_tp(cfg, fetch, caches, xs, step)
     return _out_head_tp(cfg, g, fetch, xs, embed), new
+
+
+def _stack_tp(cfg, g, fetch, xs, positions, blocks, prefix: int = 0,
+              enc_outs=None):
+    """``block_seq_tp`` over ``blocks`` (``block_walk``'s entries, in
+    order), as ``_forward_stack`` and the tail loop of ``forward``: with
+    ``cfg.remat`` and grad mode on, each layer index's blocks (a period of
+    the stack) under one non-reentrant checkpoint over every position.
+    The fetches run inside it, so the backward fetches the slices again
+    and each layer's slice gradients leave as the backward forms them.
+    Returns (xs, aux)."""
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def run(period, xs):
+        aux = 0.0
+        for lt, keys, i in period:
+            ps, ffn = _block_tp(cfg, fetch, lt, keys, i, len(xs))
+            xs, _, a = block_seq_tp(cfg, lt, g, ps, ffn, xs, positions,
+                                    None, prefix, enc_outs)
+            aux = aux + a
+        return xs, aux
+
+    aux = 0.0
+    for i, period in itertools.groupby(blocks, key=lambda b: b[2]):
+        period = list(period)
+        if remat and i is not None:
+            # the blocks draw no random numbers: no RNG state to replay
+            xs, a = torch.utils.checkpoint.checkpoint(
+                run, period, xs, use_reentrant=False,
+                preserve_rng_state=False)
+        else:
+            xs, a = run(period, xs)
+        aux = aux + a
+    return xs, aux
 
 
 def encode_tp(cfg, g, fetch, frames) -> list:
     """``_encode`` over the model positions ``g``: ``frames`` (B, S_enc,
     d_frame) on each position's device.  ``frame_proj``, the sinusoid and
     ``enc_norm`` whole on each position; each ``encoder`` block on its
-    heads (K4, non-causal) and FFN columns, one reduction a sub-layer.
+    heads (K4, non-causal) and FFN columns, one reduction a sub-layer
+    (under remat one checkpoint a layer, as ``_encode``'s stack).
     Returns each position's encoder output (the same on each)."""
     ws = fetch(("frame_proj",), None)
-    xs = [dense(f.to(w.device, cfg.cdtype), w) for f, w in zip(frames, ws)]
-    b, s_enc, _ = xs[0].shape
-    xs = [x + _sinusoid(s_enc, cfg.d_model, x.dtype, x.device)[None]
-          for x in xs]
-    positions = [_positions(b, s_enc, x.device) for x in xs]
-    for i in range(cfg.n_enc_layers):
-        ps, ffn = _block_tp(cfg, fetch, "encoder", ("enc_layers",), i,
-                            len(xs))
-        xs, _ = block_prefill_tp(cfg, "encoder", g, ps, ffn, xs, positions,
-                                 None)
+    b, s_enc, _ = frames[0].shape
+    positions = [_positions(b, s_enc, w.device) for w in ws]
+    # the stack holds the only reference to its input, so each layer's
+    # input is freed as the next layer's is formed
+    xs, _ = _stack_tp(cfg, g, fetch, [
+        x + _sinusoid(s_enc, cfg.d_model, x.dtype, x.device)[None]
+        for x in (dense(f.to(w.device, cfg.cdtype), w)
+                  for f, w in zip(frames, ws))], positions, [
+        ("encoder", ("enc_layers",), i) for i in range(cfg.n_enc_layers)])
     return [rms_norm(x, w) for x, w in zip(xs, fetch(("enc_norm",), None))]
 
 
@@ -702,11 +739,80 @@ def decode_step_tp(cfg, groups, fetches, caches, tokens, pos, rows=None):
             if k == 0:
                 first = ps, ffn
         if global_ffn:
-            xs, _ = _ffn_tp(cfg, groups[0], *first,
-                            rows_to_first(groups, xss, rows))
+            xs, _, _ = _ffn_tp(cfg, groups[0], *first,
+                               rows_to_first(groups, xss, rows))
             xss = rows_from_first(groups, xs, rows)
     return [(_out_head_tp(cfg, g, f, xs, e), c)
             for g, f, xs, e, c in zip(groups, fetches, xss, embeds, caches)]
+
+
+def forward_tp(cfg, g, fetch, tokens, images=None, frames=None) -> tuple:
+    """``forward`` over the model positions ``g``, each on its slice:
+    ``tokens`` (B, S) (and ``images`` / ``frames``) on each position's
+    device, ``fetch`` as ``prefill_tp`` takes it (a training step's
+    differentiable: ``launch.steps``).  The embedding (vocabulary-parallel
+    where the model axis divides the vocabulary), paligemma's image prefix
+    (``img_proj`` whole on each position) or whisper's encoder
+    (``encode_tp``), every block on each position's heads, FFN columns
+    and experts (``block_seq_tp``, under remat one checkpoint a
+    period), then ``_out_head_tp``.  Returns (each position's float32
+    logits over its vocabulary rows, or the first's over all of it and
+    None for the others; the aux loss; each position's last residual)."""
+    enc = encode_tp(cfg, g, fetch, frames) if cfg.enc_dec else None
+    embed = fetch(("embed",), None)
+    xs = _embed_in_tp(cfg, g, embed, tokens)
+    prefix = 0
+    if cfg.enc_dec:
+        s_dec = tokens[0].shape[1]
+        xs = [x + _sinusoid(s_dec, cfg.d_model, x.dtype, x.device)[None]
+              for x in xs]
+    elif cfg.n_image_tokens and images is not None:
+        xs = [torch.cat([_image_in(cfg, {"img_proj": w}, im), x], dim=1)
+              for w, im, x in zip(fetch(("img_proj",), None), images, xs)]
+        prefix = images[0].shape[1]
+    b, s, _ = xs[0].shape
+    positions = [_positions(b, s, x.device) for x in xs]
+    xs, aux = _stack_tp(cfg, g, fetch, xs, positions, block_walk(cfg),
+                        prefix, enc)
+    logits = _out_head_tp(cfg, g, fetch, xs, embed)
+    return logits, torch.as_tensor(aux, dtype=torch.float32,
+                                   device=g.device(0)), xs
+
+
+def tp_loss(cfg, g, logits, aux, batches) -> tuple:
+    """``loss_fn``'s loss from ``forward_tp``'s logits and aux:
+    ``cross_entropy_tp`` where the model axis splits the vocabulary, else
+    the plain loss on the first position's logits; an image-prefix model's
+    prefix rows dropped first.  Returns ``(ce + router_aux_coef · aux,
+    {"ce", "aux"})`` on the first position's device, or ``(None, ...)``
+    for a lone position that computes no logits (the dry run's)."""
+    labels = [b["labels"] for b in batches]
+    if cfg.n_image_tokens and "images" in batches[0]:
+        n = batches[0]["images"].shape[1]
+        logits = [None if lg is None else lg[:, n:] for lg in logits]
+    if vocab_split(cfg, g.size):
+        ce = cross_entropy_tp(g, logits, labels)
+    elif 0 in g.ranks:
+        i = g.ranks.index(0)
+        ce = cross_entropy_loss(logits[i], labels[i])
+    else:
+        return None, {"ce": None, "aux": aux}
+    aux = aux.to(ce.device)
+    return ce + cfg.router_aux_coef * aux, {"ce": ce, "aux": aux}
+
+
+def loss_fn_tp(cfg, g, fetch, batches) -> tuple:
+    """``loss_fn`` over the model positions ``g`` of one data shard:
+    ``batches`` its rows (tokens, labels [, images | frames]) on each
+    position's device.  Returns ``(loss, {"ce", "aux"})`` on the first
+    position's device; its backward differentiates every position's
+    slice."""
+    logits, aux, _ = forward_tp(cfg, g, fetch, [b["tokens"] for b in batches],
+                                images=[b["images"] for b in batches]
+                                if "images" in batches[0] else None,
+                                frames=[b["frames"] for b in batches]
+                                if "frames" in batches[0] else None)
+    return tp_loss(cfg, g, logits, aux, batches)
 
 
 def _write_into(cache: Dict, new: Dict) -> None:

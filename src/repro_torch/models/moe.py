@@ -26,7 +26,9 @@ Two paths:
   ``moe_ffn``, integer for integer) and shares the result; each position
   bundles only its own experts' slots, runs K5 on its slice of the expert
   stacks and forms its float32 partial of the combine (and of the shared
-  experts, on its columns), summed over the positions once.
+  experts, on its columns), summed over the positions once.  Under
+  autograd the router's gradient reaches the routing position through the
+  gates' copies and the aux loss ``moe_route`` returns.
 * ``moe_ffn_host`` — the eager registry-routed API: ``host_route`` (the
   router's logits to the host, numpy routing), ``ReapRuntime.moe_dispatch``
   (plan-cached bundling), ``expert_swiglu`` through K5, ``plan.combine``.
@@ -373,19 +375,20 @@ def moe_route(x: torch.Tensor, router_w: torch.Tensor, *, n_experts: int,
     """``moe_ffn``'s routing of x (B, S, d), with its rule at decode (s ==
     1: the batch bundled as one row, through the installed runtime if
     there is one): ``(dest (R, T·K), gate·keep (R, T·K), slot_token (R,
-    E·cap))`` over its R rows of T tokens (R = 1, T = B at decode), the
-    capacity ``slot_token``'s width over E."""
+    E·cap), aux)`` over its R rows of T tokens (R = 1, T = B at decode),
+    the capacity ``slot_token``'s width over E; ``aux`` the load-balance
+    loss, the mean of the rows' (``moe_ffn``'s)."""
     b, s, d = x.shape
     host_cb = False
     if s == 1:
         host_cb = _HOST_DISPATCH_RT is not None
         x = x.reshape(1, b, d)
     cap = expert_capacity(x.shape[1], n_experts, top_k, capacity_factor)
-    dest, gate, keep, _, slot_token = (torch.stack(c) for c in zip(*(
+    dest, gate, keep, aux, slot_token = (torch.stack(c) for c in zip(*(
         _row_slots(x[i], router_w, n_experts=n_experts, top_k=top_k,
                    capacity=cap, host_cb=host_cb)
         for i in range(x.shape[0]))))
-    return dest, gate * keep, slot_token
+    return dest, gate * keep, slot_token, aux.mean()
 
 
 def moe_ffn_ep(x: torch.Tensor, p: Mapping[str, torch.Tensor], route,
@@ -394,7 +397,8 @@ def moe_ffn_ep(x: torch.Tensor, p: Mapping[str, torch.Tensor], route,
     """One model position's float32 partial of ``moe_ffn``'s output for x
     (B, S, d): ``p`` its slice of the FFN's params (the experts ``[first,
     end)`` of each stack, its columns of the shared experts), ``route``
-    ``moe_route``'s result.  Its experts' slots bundled by gather (bundle
+    ``moe_route``'s first three results.  Its experts' slots bundled by
+    gather (bundle
     ``r·E' + e'`` meets local expert ``e'``, ``_bundle_map(R, E')``), the
     expert SwiGLU through K5 on its slice, each token's top-k slot outputs
     in its range gate-weighted and summed over k in ``_combine``'s order

@@ -20,8 +20,11 @@ device (in the mesh's row-major order) of the positions that share it, as
 ``runtime.shard.shard_devices`` places replicas.  A leaf whose spec is all
 ``None`` stays one tensor, on the mesh's first device.  ``shard_tree``,
 ``gather`` and ``unshard_tree`` move between the two; ``model_slice``
-assembles one tensor-parallel shard of a leaf (the sharded serving steps
-of ``launch.steps``), ``GatherCount`` the bytes each position assembled.
+assembles one tensor-parallel shard of a leaf (the sharded serving and
+training steps of ``launch.steps``) and ``add_model_slice`` adds its
+gradient into a storage-shaped accumulator (its transpose; ``CopyGrads``
+sums a model-replicated leaf's copies first); ``GatherCount`` the bytes
+each position assembled.
 A leaf replicated
 over an axis whose copies differ (the compressed step's error buffers) is
 held as its copies (``Replicas``).
@@ -368,6 +371,87 @@ def model_slice(leaf, m: int, device, layer: Optional[int] = None
         return parts[0] if len(parts) == 1 else torch.cat(parts,
                                                           dim=d - lead)
     return cat(())
+
+
+def add_model_slice(acc, m: int, grad: torch.Tensor,
+                    layer: Optional[int] = None) -> None:
+    """``model_slice``'s transpose: add ``grad``, the gradient of model
+    slice ``m`` of a leaf (its layer ``layer``), into ``acc``, the leaf's
+    storage-shaped accumulator (a ``ShardedTensor`` sharded as the leaf,
+    or a tensor): into each shard whose index along the dims sharded over
+    ``"model"`` is ``m``, its part along the other dims (as ``model_slice``
+    concatenated them), on the shard's device; for a leaf not sharded
+    over ``"model"``, into every shard.  Summed over the model positions
+    this gives a replicated leaf the sum of its copies' gradients."""
+    if not isinstance(acc, ShardedTensor):
+        (acc if layer is None else acc[layer]).add_(grad.to(acc.device))
+        return
+    dims = _model_dims(acc.sharding.spec, acc.ndim)
+    lead = 0 if layer is None else 1
+    assert layer is None or acc.sharding.grid(acc.ndim)[0] == 1, \
+        acc.sharding.spec
+    for idx, shard in acc.shards.items():
+        if any(idx[d] != m for d in dims):
+            continue
+        part = tuple(slice(None) if d in dims else
+                     slice(idx[d] * shard.shape[d],
+                           (idx[d] + 1) * shard.shape[d])
+                     for d in range(lead, acc.ndim))
+        (shard if layer is None else shard[layer]).add_(
+            grad[part].to(shard.device))
+
+
+def model_replicated(leaf) -> bool:
+    """Whether every model position reads the whole of ``leaf`` (a
+    ``ShardedTensor`` with no dim over ``"model"``, or one tensor)."""
+    return not isinstance(leaf, ShardedTensor) \
+        or not _model_dims(leaf.sharding.spec, leaf.ndim)
+
+
+class CopyGrads:
+    """The gradients of a model-replicated leaf's copies, one a model
+    position of a data shard: summed in float32, in the order m = 0, 1,
+    ..., on the first position's device (``first``), then added into the
+    storage shards once (``add_model_slice``): one send a data shard
+    instead of one a position.  A (leaf, layer)'s sum goes when every
+    position that read it (``expect``) has given its gradient (``put``);
+    ``flush`` sends the others' (a copy no loss reached) after the
+    backward."""
+
+    def __init__(self, first):
+        self.first = torch.device(first)
+        self.want: dict = {}
+        self.got: dict = {}
+
+    def expect(self, key, m: int) -> None:
+        self.want.setdefault(key, set()).add(m)
+
+    def put(self, key, m: int, grad: torch.Tensor, acc,
+            layer: Optional[int] = None) -> None:
+        got = self.got.setdefault(key, ({}, acc, layer))[0]
+        g = grad.to(self.first).float()
+        got[m] = got[m] + g if m in got else g
+        if self.want[key] <= got.keys():
+            self._send(key)
+
+    def _send(self, key) -> None:
+        got, acc, layer = self.got.pop(key)
+        total = None
+        for m in sorted(got):
+            total = got[m] if total is None else total + got[m]
+        add_model_slice(acc, 0, total, layer)
+
+    def flush(self) -> None:
+        for key in list(self.got):
+            self._send(key)
+
+
+def zeros_like_storage(leaf):
+    """A zero accumulator stored as ``leaf``: each shard's zeros on its
+    device, or one zero tensor."""
+    if isinstance(leaf, ShardedTensor):
+        return leaf.map(torch.zeros_like)
+    return torch.zeros_like(leaf)
 
 
 @dataclasses.dataclass

@@ -1,14 +1,15 @@
 """Tensor parallelism over the mesh's ``"model"`` axis for the sharded
-serving steps (``launch.steps``).
+serving and training steps (``launch.steps``).
 
-The reference jits its serving steps with the params sharded by
+The reference jits its steps with the params sharded by
 ``params_shardings`` (``"heads"``, ``"mlp"``, ``"vocab"`` and
 ``"experts"`` over ``"model"``) and its logits constrained to ``("dp",
 None, "vocab")``, so XLA partitions attention by heads, the FFN by columns,
 an MoE FFN by experts (its bundles and expert outputs constrained to
-``("dp", "experts", None, None)``: pure expert parallelism) and the head by
-vocabulary.  Here one process drives every mesh position in turn (single
-controller) and each model position computes on its own slice:
+``("dp", "experts", None, None)``: pure expert parallelism), the head and
+the loss by vocabulary, and a training step's gradients as its forward.
+Here one process drives every mesh position in turn (single controller)
+and each model position computes on its own slice:
 
 * ``tp_route`` picks the route from the config's family and the mesh's
   model size: decoder-only attention with a dense SwiGLU FFN (qwen3,
@@ -28,7 +29,10 @@ controller) and each model position computes on its own slice:
 * ``ModelGroup`` holds one data shard's model positions: ``all_reduce``
   sums their partial outputs in float32 in a fixed order (m = 0, 1, ...)
   on the first position's device, rounds once and copies the result to
-  every position; ``columns`` hands each position the columns of an
+  every position (under autograd its backward is the same reduction of
+  the outputs' gradients, in float32 in the same order); ``to_first``
+  moves each position's tensor to the first (the vocabulary-parallel
+  loss's statistics); ``columns`` hands each position the columns of an
   activation it needs from the positions that computed them (the K/V
   heads a position's q heads read where ``wk`` / ``wv`` split inside a
   head); ``share`` copies what the first position computed (an MoE FFN's
@@ -41,14 +45,20 @@ controller) and each model position computes on its own slice:
   embedding: its rows of the table, zeros for tokens outside its range.
   Where the model axis does not divide the vocabulary the reference's
   guard replicates the table (``vocab_split`` false): every position
-  looks tokens up in the whole table and the first computes the logits.
+  looks tokens up in the whole table and the first computes the logits;
+* ``fetched`` makes a param slice a training step reads from the storage
+  a node of the autograd graph: its backward adds the slice's gradient
+  into the storage-shaped accumulator (``sharding.add_model_slice``) once
+  a layer and position, re-fetches under remat included.
 
 A group made with ``lone`` runs one position on ``meta`` tensors (the dry
 run): what the other positions would send arrives as placeholders.  Every
 group counts the bytes each position sends and receives (``moved``), as
 the dry run's collectives: ``tp_reduce``, ``tp_exchange``, and for an MoE
 FFN ``ep_route`` (the routing's copies) and ``ep_rows`` (the rows moved
-for a decode step's global bundles).
+for a decode step's global bundles); under autograd the backward's moves
+(the same bytes, the other way) count under the same kinds, by a hook on
+the move's outputs (``charge_back``) for every kind of move.
 """
 from __future__ import annotations
 
@@ -66,7 +76,8 @@ def model_size(mesh) -> int:
 
 
 def in_scope(cfg) -> bool:
-    """The families whose serving steps compute over ``"model"``."""
+    """The families whose serving and training steps compute over
+    ``"model"`` (every family of ``configs``)."""
     if cfg.enc_dec:
         return cfg.mixer == "attn" and cfg.ffn == "swiglu"
     return (cfg.mixer in ("attn", "hymba") and cfg.ffn in ("swiglu", "moe")
@@ -102,8 +113,8 @@ def vocab_split(cfg, size: int) -> bool:
 
 
 def tp_route(cfg, mesh) -> bool:
-    """Whether the sharded serving steps of ``cfg`` on ``mesh`` compute
-    over the model axis (else: the storage-only route)."""
+    """Whether the sharded serving and training steps of ``cfg`` on
+    ``mesh`` compute over the model axis (else: the storage-only route)."""
     size = model_size(mesh)
     return size > 1 and in_scope(cfg) and divides(cfg, size)
 
@@ -189,17 +200,24 @@ class ModelGroup:
         """The device of the ``i``-th entry of a per-position list."""
         return self.devices[self.ranks[i]]
 
-    def all_reduce(self, parts: list, dtype) -> list:
-        """The sum of every position's partial (``parts``, one a position
-        in ``ranks``) in float32, in the order m = 0, 1, ..., on the first
-        position's device, rounded once to ``dtype`` and copied to each
-        position's device.  The first position receives the others'
-        partials and sends each the result."""
-        n = parts[0].numel()
-        sent, back = n * parts[0].element_size(), n * _itemsize(dtype)
-        for r, mv in enumerate(self.moved):
-            mv["tp_reduce"] += (self.size - 1) * (sent + back) if r == 0 \
-                else sent + back
+    def charge(self, kind: str, per_rank: list) -> None:
+        """Add ``per_rank[r]`` bytes to each position ``r``'s ``kind``."""
+        for r, n in enumerate(per_rank):
+            self.count(r, kind, n)
+
+    def charge_back(self, kind: str, per_rank: list, outs: list) -> None:
+        """Charge ``per_rank`` again when the backward reaches ``outs``
+        (the transposed moves: the same bytes the other way), once; nothing
+        where no output takes part in a gradient."""
+        for t in outs:
+            if t.requires_grad:
+                t.register_hook(lambda grad: self.charge(kind, per_rank))
+                return
+
+    def _sum_first(self, parts: list) -> torch.Tensor:
+        """The float32 sum, in the order m = 0, 1, ..., of every
+        position's entry (``parts`` one a position of ``ranks``; a
+        placeholder for the others) on the first position's device."""
         first = self.devices[0]
         by_rank = dict(zip(self.ranks, parts))
         acc = None
@@ -208,18 +226,61 @@ class ModelGroup:
             p = torch.empty_like(parts[0], dtype=torch.float32) if p is None \
                 else p.to(first, torch.float32)
             acc = p if acc is None else acc + p
-        out = acc.to(dtype)
-        return [out.to(self.devices[r]) for r in self.ranks]
+        return acc
+
+    def all_reduce(self, parts: list, dtype) -> list:
+        """The sum of every position's partial (``parts``, one a position
+        in ``ranks``) in float32, in the order m = 0, 1, ..., on the first
+        position's device, rounded once to ``dtype`` and copied to each
+        position's device.  The first position receives the others'
+        partials and sends each the result.  Under autograd
+        (``_AllReduce``) the backward sums the outputs' gradients the same
+        way and sends each position the sum."""
+        n = parts[0].numel()
+        sent, back = n * parts[0].element_size(), n * _itemsize(dtype)
+        per_rank = [(self.size - 1) * (sent + back) if r == 0
+                    else sent + back for r in range(self.size)]
+        self.charge("tp_reduce", per_rank)
+        track = torch.is_grad_enabled() and any(p.requires_grad
+                                                for p in parts)
+        out = list(_AllReduce.apply(self, dtype, track, *parts))
+        self.charge_back("tp_reduce", per_rank, out)
+        return out
+
+    def to_first(self, parts: list, kind: str = "tp_reduce") -> list:
+        """Every position's entry of ``parts`` (one a position of
+        ``ranks``) on the first position's device, in the order m = 0, 1,
+        ... (placeholders for the positions a lone group does not run):
+        the first receives the others'."""
+        n = parts[0].numel() * parts[0].element_size()
+        per_rank = [(self.size - 1) * n if r == 0 else n
+                    for r in range(self.size)]
+        self.charge(kind, per_rank)
+        first = self.devices[0]
+        by_rank = dict(zip(self.ranks, parts))
+        out = [by_rank[r].to(first) if r in by_rank
+               else parts[0].new_empty(parts[0].shape, device=first)
+               for r in range(self.size)]
+        self.charge_back(kind, per_rank, out)
+        return out
 
     def share(self, tensors: list) -> list:
         """The first position's ``tensors`` on every position's device (a
         list a position of ``ranks``): the first sends each of the others
         a copy (``ep_route``)."""
         n = sum(t.numel() * t.element_size() for t in tensors)
-        for r in range(self.size):
-            self.count(r, "ep_route", (self.size - 1) * n if r == 0 else n)
-        return [[t.to(self.device(i)) for t in tensors]
-                for i in range(len(self.ranks))]
+        self.charge("ep_route", [(self.size - 1) * n if r == 0 else n
+                                 for r in range(self.size)])
+        out = [[t.to(self.device(i)) for t in tensors]
+               for i in range(len(self.ranks))]
+        # the backward sends the first position the gradients of the
+        # copies that have one (the routing's gates)
+        n = sum(t.numel() * t.element_size() for t in tensors
+                if t.requires_grad)
+        self.charge_back("ep_route", [(self.size - 1) * n if r == 0 else n
+                                      for r in range(self.size)],
+                         [t for ts in out for t in ts])
+        return out
 
     def columns(self, pieces: list, held: list, want: list) -> list:
         """Each position's columns ``want[m]`` of an activation whose
@@ -229,6 +290,7 @@ class ModelGroup:
         them, in column order, copied onto its device."""
         lead = pieces[0].shape[:-1]
         row_bytes = lead.numel() * pieces[0].element_size()
+        per_rank = [0] * self.size
         for r, (a, b) in enumerate(want):
             ha, hb = held[r]
             if ha <= a and b <= hb:
@@ -236,8 +298,9 @@ class ModelGroup:
             for s, (sa, sb) in enumerate(held):
                 lo, hi = max(a, sa), min(b, sb)
                 if s != r and lo < hi:
-                    self.moved[r]["tp_exchange"] += (hi - lo) * row_bytes
-                    self.moved[s]["tp_exchange"] += (hi - lo) * row_bytes
+                    per_rank[r] += (hi - lo) * row_bytes
+                    per_rank[s] += (hi - lo) * row_bytes
+        self.charge("tp_exchange", per_rank)
         by_rank = dict(zip(self.ranks, pieces))
         out = []
         for i, r in enumerate(self.ranks):
@@ -254,7 +317,56 @@ class ModelGroup:
                 segs.append(pieces[0].new_empty((*lead, hi - lo)) if p is None
                             else p[..., lo - sa:hi - sa].to(self.device(i)))
             out.append(torch.cat(segs, dim=-1))
+        if any(per_rank):
+            self.charge_back("tp_exchange", per_rank, out)
         return out
+
+
+class _AllReduce(torch.autograd.Function):
+    """``ModelGroup.all_reduce``'s values: the sum copied to each
+    position's device (with ``track`` each output a tensor of its own, as
+    autograd needs); the backward is the same reduction of the outputs'
+    gradients (float32, m = 0, 1, ..., on the first position) sent back to
+    every partial in its dtype.  ``all_reduce`` counts both ways."""
+
+    @staticmethod
+    def forward(ctx, g, dtype, track, *parts):
+        ctx.g, ctx.like = g, [(p.dtype, p.device) for p in parts]
+        out = g._sum_first(parts).to(dtype)
+        return tuple(out.to(g.device(i), copy=track and i > 0)
+                     for i in range(len(parts)))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        total = ctx.g._sum_first(list(grads))
+        return (None, None, None,
+                *(total.to(dev, dt) for dt, dev in ctx.like))
+
+
+class _Fetched(torch.autograd.Function):
+    """A param slice a training step reads: ``get()`` in the forward;
+    ``put(gradient)`` in the backward, which returns nothing (the slice's
+    gradient goes into the accumulator, not through the graph)."""
+
+    @staticmethod
+    def forward(ctx, anchor, get, put):
+        ctx.put = put
+        t = get()
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        ctx.put(grad)
+        return None, None, None
+
+
+def fetched(anchor: torch.Tensor, get, put) -> torch.Tensor:
+    """``get()`` as a node of the autograd graph whose backward calls
+    ``put(gradient)`` once, where the backward reaches it: under remat the
+    recompute's ``get()`` runs again, its node is never differentiated.
+    ``anchor`` is any tensor that requires grad (a zero-element one): a
+    custom ``Function`` is recorded only where an input requires grad."""
+    return _Fetched.apply(anchor, get, put)
 
 
 def rows_to_first(groups: list, xss: list, rows: list) -> list:

@@ -85,3 +85,62 @@ def tree_close(port, ref, **tol):
         else:
             np.testing.assert_allclose(to_np32(a), b.astype(np.float32),
                                        **tol, err_msg=key)
+
+
+def hold_sharded_step(params, batch, ref_sharded, cfg, mesh, monkeypatch, *,
+                      opt: dict, step_rtol: float, ref_loss: float,
+                      ref_rtol: float, ref_atol: float):
+    """The port's train step of ``cfg`` on ``mesh`` from the reference's
+    ``params`` (a numpy tree) and ``batch`` (numpy arrays), held against
+    the port's one-device step (``loss``, ``ce``, ``aux``, ``grad_norm``
+    and ``lr`` within ``step_rtol`` relative, each gradient leaf within
+    ``step_rtol`` of its norm: only the order of the sums differs) and
+    against the reference's sharded step ``ref_sharded`` (its params and
+    metrics: the loss within ``ref_loss``, every param within ``ref_rtol``
+    / ``ref_atol``); the params and AdamW's m and v stored alike, before
+    the step and after it.  Returns
+    the sharded step's params (sharded storage)."""
+    from repro_torch.launch import steps as PS
+    from repro_torch.models.params import _walk, params_from_numpy
+    from repro_torch.optim import adamw as PA
+    from repro_torch.parallel import sharding as S
+    grads, update = [], PA.update
+
+    def capture(c, g, state, p):
+        grads.append(dict(_walk(S.unshard_tree(g, "cpu"))))
+        return update(c, g, state, p)
+    monkeypatch.setattr(PS.adamw, "update", capture)
+    opt_cfg = PA.AdamWConfig(**opt)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    p1 = params_from_numpy(params, device="cpu")
+    p1, _, m1 = PS.make_train_step(cfg, opt_cfg)(p1, PA.init(opt_cfg, p1),
+                                                 batch)
+    pshard, _, _ = PS.train_shardings(cfg, mesh, opt_cfg)
+    p2 = S.shard_tree(params_from_numpy(params, device="cpu"), pshard)
+    o2 = PA.init(opt_cfg, p2)
+    # before the step: AdamW's m and v sharded as the params
+    for moment in ("m", "v"):
+        got = dict(_walk(o2[moment]))
+        for path, p in _walk(p2):
+            assert type(got[path]) is type(p), (moment, path)
+    p2, o2, m2 = PS.make_train_step(cfg, opt_cfg, mesh)(p2, o2, batch)
+    assert sorted(m2) == sorted(m1)
+    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(m2[key]), float(m1[key]),
+                                   rtol=step_rtol, atol=1e-12, err_msg=key)
+    g1, g2 = grads
+    for path, g in g1.items():
+        assert float((g2[path] - g).norm()) <= step_rtol * max(
+            float(g.norm()), 1e-30), path
+    ref_params, ref_metrics = ref_sharded
+    assert abs(float(m2["loss"]) - float(ref_metrics["loss"])) < ref_loss
+    got = dict(_walk(S.unshard_tree(p2, "cpu")))
+    for path, want in _walk(ref_params):
+        np.testing.assert_allclose(got[path].detach().float().numpy(), want,
+                                   rtol=ref_rtol, atol=ref_atol,
+                                   err_msg="/".join(path))
+    # storage: each shard on its device, m / v sharded alike
+    m = dict(_walk(o2["m"]))
+    for path, p in _walk(p2):
+        assert type(m[path]) is type(p), path
+    return p2

@@ -14,12 +14,14 @@ does), x64 off; the port's meshes are of repeated ``cpu`` devices
   ``batch_spec`` and ``constrain``'s resolved specs likewise, and under the
   compressed step's manual ``pod`` axis;
 * the sharded step on ``(4, 2)`` for reduced qwen3-1.7b, dbrx-132b and
-  rwkv6-1.6b against the reference's sharded step at
-  ``test_distributed.py``'s tolerances (loss 1e-3; params rtol 2e-2, atol
-  2e-3), and against the port's one-device step: the loss, ``ce``,
-  ``aux`` and the gradient norm within 1e-5 relative and each gradient
-  leaf within 1e-5 of its norm (only the order of the gradient sums
-  differs);
+  rwkv6-1.6b, on the tensor-parallel route (each model position on its
+  slice, the loss vocabulary-parallel), against the reference's sharded
+  step at ``test_distributed.py``'s tolerances (loss 1e-3; params rtol
+  2e-2, atol 2e-3), and against the port's one-device step: the loss,
+  ``ce``, ``aux`` and the gradient norm within 1e-5 relative and each
+  gradient leaf within 1e-5 of its norm (only the order of the gradient
+  sums differs) (``_torch_parity.hold_sharded_step``; the other families
+  and ``(2, 4)`` in ``test_torch_train_mesh_ref.py``);
 * ``ef_compress_leaf`` bit-equal to the reference's, ties included; the
   compressed step on ``(2, 2, 2)`` against the reference's (the loss, the
   params, the error buffer read whole, which is the first pod's), and
@@ -42,6 +44,7 @@ import textwrap
 import numpy as np
 import pytest
 import torch
+from _torch_parity import hold_sharded_step
 
 import repro_torch.configs as PC
 from repro_torch.checkpoint import manager as pckpt
@@ -55,11 +58,13 @@ from repro_torch.parallel import api as PAPI
 from repro_torch.parallel import compression as PCOMP
 from repro_torch.parallel import sharding as S
 from repro_torch.parallel.pipeline import pipeline_apply
+from repro_torch.parallel.tensor_parallel import tp_route
 from repro_torch.runtime.elastic import elastic_restore
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = "cpu"
 MESHES = {"4x2": ((4, 2), ("data", "model")),
+          "2x4": ((2, 4), ("data", "model")),
           "3x2": ((3, 2), ("data", "model")),
           "2x2x2": ((2, 2, 2), ("pod", "data", "model")),
           "1x1": ((1, 1), ("data", "model"))}
@@ -379,42 +384,36 @@ def _captured_update(monkeypatch):
 @pytest.mark.parametrize("arch", STEP_ARCHS)
 def test_sharded_step_matches_reference_and_one_device(ref, arch,
                                                        monkeypatch):
+    """The sharded step on the tensor-parallel route (``tp_route``)."""
     r = ref["steps"][arch]
-    cfg = _reduced(arch)
-    opt_cfg = PA.AdamWConfig(**OPT)
-    batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
-    grads = _captured_update(monkeypatch)
-    p1 = params_from_numpy(r["params"], device=CPU)
-    p1, _, m1 = PS.make_train_step(cfg, opt_cfg)(p1, PA.init(opt_cfg, p1),
-                                                 batch)
-    mesh = _mesh("4x2")
-    pshard, oshard, _ = PS.train_shardings(cfg, mesh, opt_cfg)
-    p2 = S.shard_tree(params_from_numpy(r["params"], device=CPU), pshard)
-    o2 = PA.init(opt_cfg, p2)
-    assert all(isinstance(v, S.ShardedTensor) for k, v in _walk(o2["m"])
-               if isinstance(_flat(p2)["/".join(k)], S.ShardedTensor))
-    p2, o2, m2 = PS.make_train_step(cfg, opt_cfg, mesh)(p2, o2, batch)
-    assert sorted(m2) == sorted(m1)
-    for key in ("loss", "ce", "aux", "grad_norm", "lr"):
-        np.testing.assert_allclose(float(m2[key]), float(m1[key]),
-                                   rtol=STEP_RTOL, atol=1e-12, err_msg=key)
-    g1, g2 = (dict(_walk(g)) for g in grads)
-    for path, g in g1.items():
-        assert float((g2[path] - g).norm()) <= STEP_RTOL * max(
-            float(g.norm()), 1e-30), path
-    ref_loss = float(r["sharded"][1]["loss"])
-    assert abs(float(m2["loss"]) - ref_loss) < REF_LOSS
-    got = _flat(S.unshard_tree(p2, CPU))
-    for path, want in _flat(r["sharded"][0]).items():
-        np.testing.assert_allclose(_np(got[path]), want, rtol=REF_RTOL,
-                                   atol=REF_ATOL, err_msg=path)
+    cfg, mesh = _reduced(arch), _mesh("4x2")
+    assert tp_route(cfg, mesh)
+    p2 = hold_sharded_step(r["params"], r["batch"], r["sharded"], cfg, mesh,
+                           monkeypatch, opt=OPT, step_rtol=STEP_RTOL,
+                           ref_loss=REF_LOSS, ref_rtol=REF_RTOL,
+                           ref_atol=REF_ATOL)
+    assert any(isinstance(p, S.ShardedTensor) for _, p in _walk(p2))
     for path, want in _flat(r["single"][0]).items():   # the reference's own
         np.testing.assert_allclose(_flat(r["sharded"][0])[path], want,
                                    rtol=REF_RTOL, atol=REF_ATOL)
-    # storage: each shard on its device, m / v sharded alike
-    for path, p in _walk(p2):
-        m = dict(_walk(o2["m"]))[path]
-        assert type(m) is type(p)
+
+
+@pytest.mark.parametrize("arch", STEP_ARCHS)
+def test_storage_route_matches_reference_at_a_model_axis_of_two(
+        ref, arch, monkeypatch):
+    """The storage-only route (each data shard on the params gathered
+    whole; the route of refused widths) on ``(4, 2)``, where ``tp_route``
+    would take the config, against the reference's sharded step and the
+    port's one-device step at the same tolerances."""
+    r = ref["steps"][arch]
+    cfg, mesh = _reduced(arch), _mesh("4x2")
+    assert tp_route(cfg, mesh)
+    monkeypatch.setattr(PS, "tp_route", lambda c, m: False)
+    p2 = hold_sharded_step(r["params"], r["batch"], r["sharded"], cfg, mesh,
+                           monkeypatch, opt=OPT, step_rtol=STEP_RTOL,
+                           ref_loss=REF_LOSS, ref_rtol=REF_RTOL,
+                           ref_atol=REF_ATOL)
+    assert any(isinstance(p, S.ShardedTensor) for _, p in _walk(p2))
 
 
 def test_one_by_one_mesh_is_the_one_device_step():

@@ -23,7 +23,13 @@ One module-scoped subprocess imports the reference's dry run, which forces
   decode step's rows moved onto the first data shard's positions) with K5
   three times a layer on the position's experts (``EP_CELLS``); the
   production mesh's MoE serving cells on the expert-parallel route, a lone
-  position fetching 1/16 of each expert stack of a layer.
+  position fetching 1/16 of each expert stack of a layer;
+* a train cell on the tensor-parallel route: one position's forward and
+  backward on ``meta`` in bfloat16, through ``dense_partial``'s backward,
+  its ``tp_reduce`` (forward, recompute and backward) against a formula
+  written here (``TRAIN_TP_REDUCE``), its layers' slices fetched twice;
+  qwen3-1.7b's ``train_4k`` at full size on the 16x16 mesh under 80 GiB a
+  device.
 
 The engine itself: ``CostMode``'s FLOP and bytes on known operators, and
 K4, K5 and K6 (and their backward kernels) on ``meta`` tensors, each one
@@ -280,6 +286,71 @@ def test_moe_cells_take_the_expert_parallel_route(arch, kind):
     calls = {n: v["calls"] for n, v in cell["kernels"].items()}
     assert calls == dict({"moe_gemm": 3 * _L}, **(
         {"flash_attention": _L} if kind == "prefill" else {}))
+
+
+# a train cell on (4, 2) (2 rows a data shard, M = 2 model positions, both
+# as busy: each receives the other's partials or sends its own, and the
+# sums back), qwen3-1.7b reduced, bfloat16 compute: the embedding's
+# reduction (bfloat16 both ways, 2 + 2, over n = rows x tokens x d) in
+# the forward and the backward; each layer's two sub-layer reductions
+# (float32 partials, bfloat16 sums: 4 + 2) in the forward and the
+# backward, and under remat the attention's once more in the recompute
+# (non-reentrant checkpointing stops recomputing once the last tensor the
+# backward needs is back, before the FFN's reduction); the loss's three
+# float32 statistics a token to the first position and their gradients
+# back (3 x 4 each way over rows x tokens)
+_N = _ROWS * _S * _D
+TRAIN_TP_REDUCE = 2 * _N * (2 + 2) + _L * (2 + 1 + 2) * _N * (4 + 2) \
+    + 2 * _ROWS * _S * 3 * 4
+
+
+def test_train_cell_takes_the_route_through_dense_partials_backward(
+        monkeypatch):
+    """A train cell on ``(4, 2)`` is one model position's step in bfloat16
+    on ``meta``: its forward and backward, ``dense_partial``'s backward
+    (the card's float32-output product) once a row-split product, K4 twice
+    a layer (remat) and its backward once, ``tp_reduce`` equal to
+    ``TRAIN_TP_REDUCE``, each layer's slices fetched twice (the recompute)
+    and the embedding once; its argument bytes every param's shard."""
+    from repro_torch.models import layers as PL
+    from repro_torch.parallel import sharding as S
+    calls, backward = [], PL._MmFloat32.backward
+
+    def counted(ctx, g):
+        calls.append(g.shape)
+        return backward(ctx, g)
+    monkeypatch.setattr(PL._MmFloat32, "backward", staticmethod(counted))
+    cfg = _small("qwen3-1.7b")
+    mesh = _small_mesh()
+    shape = PC.ShapeConfig("t", "train", _S, 8)
+    cell = PD.cost_cell(cfg, shape, mesh)
+    assert cell["n_model_shards"] == 2 and cell["tp_position"] == 0
+    # wo and w_down a layer, each a backward
+    assert len(calls) == 2 * _L
+    assert {k: v["calls"] for k, v in cell["kernels"].items()} == {
+        "flash_attention": 2 * _L, "flash_attention_bwd": _L}
+    assert cell["coll"].per_op["tp_reduce"] == TRAIN_TP_REDUCE
+    assert cell["coll"].per_op["grad_reduce"] > 0
+    seen = {}
+    PD._run_tp_cell(cfg, shape, mesh, S.params_shardings(cfg, mesh),
+                    CostMode(), 0, seen)
+    assert seen[("embed",)] == 1 and seen[("final_norm",)] == 1
+    assert all(n == 2 for path, n in seen.items() if path[0] == "layers")
+
+
+def test_full_size_train_cell_fits_a_device():
+    """qwen3-1.7b's ``train_4k`` at full size and depth on the 16x16 mesh
+    of ``meta`` devices: one model position's step, under 80 GiB a device
+    (the storage route gathered every param and the whole vocabulary's
+    float32 logits onto each data shard: some 200 GiB)."""
+    cfg = PC.get_config("qwen3-1.7b")
+    mesh = PD.make_production_mesh(devices=["meta"] * 256)
+    cell = PD.cost_cell(cfg, PC.SHAPES["train_4k"], mesh)
+    assert cell["n_model_shards"] == 16
+    mem = cell["memory"]
+    total = mem["argument_bytes"] + mem["output_bytes"] \
+        + mem["temp_bytes"] - mem["alias_bytes"]
+    assert 0 < total < 80 * 2 ** 30
 
 
 @pytest.mark.parametrize("arch", ["dbrx-132b", "kimi-k2-1t-a32b"])

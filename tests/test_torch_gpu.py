@@ -1323,11 +1323,12 @@ def _train_counters():
 def test_sharded_step_on_one_card_matches_one_device(cuda, arch,
                                                      monkeypatch):
     """A ``(2, 2)`` mesh over ``cuda:0`` x 4: the params, m and v sharded
-    on the card, each of the two data shards runs K4 (dbrx-132b also K5)
-    and their backward kernels on its half of the batch.  The loss and
-    every gradient leaf within 1e-3 (relative norm) of the one-device step
-    on the card, and each kernel launched twice as often: once a data
-    shard."""
+    on the card, each of the four positions (two data shards x two model
+    positions: the tensor-parallel route) runs K4 (dbrx-132b also K5) and
+    their backward kernels on its heads (experts) and its data shard's half
+    of the batch.  The loss and every gradient leaf within 1e-3 (relative
+    norm) of the one-device step on the card, and each kernel launched four
+    times as often: once a position."""
     from repro_torch.configs import reduced_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch import steps as PS
@@ -1361,13 +1362,138 @@ def test_sharded_step_on_one_card_matches_one_device(cuda, arch,
         losses.append(float(metrics["loss"]))
         launches.append([c.launches - n
                          for c, n in zip(_train_counters(), before)])
-    assert launches[1] == [2 * n for n in launches[0]]
+    assert launches[1] == [4 * n for n in launches[0]]
     assert launches[0][:2] == [2 * cfg.n_layers, cfg.n_layers]
     assert (launches[0][2] > 0) is (cfg.ffn == "moe")
     np.testing.assert_allclose(losses[1], losses[0], rtol=1e-3)
     for path, g in grads[0].items():
         err = (grads[1][path] - g).norm() / g.norm().clamp_min(1e-30)
         assert err <= 1e-3, (path, err)
+
+
+# a leaf's bfloat16 gradient on the mesh against one device's bfloat16
+# gradient: within this many times one device's own bfloat16 gap from
+# float32 on that leaf (plus the float32 route's 1e-3): each within one
+# gap of float32 puts the two within two (an H100 read at most 0.78, 0.86,
+# 0.80 and 1.12 of one gap for qwen3, rwkv6, hymba and dbrx)
+BF16_LEAF_K = 2.0
+
+
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b", "hymba-1.5b",
+                                  "dbrx-132b"])
+def test_tensor_parallel_training_on_card_matches_host(cuda, arch,
+                                                       monkeypatch):
+    """One training step on the tensor-parallel route over a ``(2, 2)``
+    mesh of ``cuda:0`` x 4 (each of the 4 positions on its heads, FFN
+    columns or experts and its vocabulary rows), from the same params as
+    the same step on a host mesh of 4 ``cpu`` devices and as the
+    one-device step on the card.  In float32 compute: K4, K6 and K5 and
+    their backward kernels once a layer a position (the forward twice
+    under remat), never on the host; the loss within 1e-3 (relative) of
+    the host mesh's and every gradient leaf within phase 40's rtol 2e-2 /
+    atol 2e-3 of it; the loss and every gradient leaf within 1e-3
+    (relative) of the one-device step on the card, as
+    ``test_sharded_step_on_one_card_matches_one_device`` holds the routes.
+    In bfloat16 compute (``dense_partial``'s backward on the card) the same
+    launches, every gradient finite, the gradients within 2e-2 (relative
+    norm over every leaf) of the float32 card step's, and each leaf's
+    gradient, by its own relative norm, within ``BF16_LEAF_K`` times one
+    device's bfloat16 gap from float32 on that leaf, plus 1e-3 (the
+    float32 route's tolerance), of the one-device bfloat16 step's.  Each
+    run starts from its own copy of the params (AdamW updates them in
+    place)."""
+    import dataclasses
+    import json
+
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import moe_gemm as K5
+    from repro_torch.kernels import rwkv6_scan as RK
+    from repro_torch.launch import steps as PS
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.params import _walk, tree_map
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import sharding as S
+    from repro_torch.parallel.tensor_parallel import tp_route
+    cfg = reduced_config(get_config(arch))
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    opt_cfg = adamw.AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                   global_batch=4)).get_batch(0)
+    host = M.init_params(cfg, 0, device="cpu")
+    grads, update = [], adamw.update
+
+    def capture(c, g, state, params):
+        grads.append(dict(_walk(S.unshard_tree(g, "cpu"))))
+        return update(c, g, state, params)
+    monkeypatch.setattr(PS.adamw, "update", capture)
+    counters = (FA.flash_attention, FA.flash_attention_bwd, RK.rwkv6,
+                RK.rwkv6_bwd, K5.moe_gemm, K5.moe_gemm_bwd)
+    runs = {}
+    for name, dev, c, shape in (("host", "cpu", cfg, (2, 2)),
+                                ("card_one", "cuda:0", cfg, None),
+                                ("card", "cuda:0", cfg, (2, 2)),
+                                ("card_one_bf16", "cuda:0", bf16, None),
+                                ("card_bf16", "cuda:0", bf16, (2, 2))):
+        params = tree_map(lambda t: t.to(dev, copy=True), host)
+        mesh = None
+        if shape is not None:
+            mesh = make_mesh(shape, ("data", "model"), [dev] * 4)
+            assert tp_route(c, mesh)
+            params = S.shard_tree(params, S.params_shardings(c, mesh))
+        before = [k.launches for k in counters]
+        _, _, metrics = PS.make_train_step(c, opt_cfg, mesh)(
+            params, adamw.init(opt_cfg, params),
+            {k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        runs[name] = (float(metrics["loss"]), grads[-1],
+                      [k.launches - n for k, n in zip(counters, before)])
+    n = cfg.n_layers                # layers, one step
+    att, ssm = cfg.mixer in ("attn", "hymba"), cfg.mixer in ("rwkv",
+                                                             "hymba")
+    moe = 3 * (cfg.ffn == "moe")
+    one = [2 * n * att, n * att, 2 * n * ssm, n * ssm, 2 * n * moe, n * moe]
+    want = [4 * k for k in one]     # four positions
+    losses = {k: v[0] for k, v in runs.items()}
+    g_host, g_one, g_card, g_bf, g_one_bf = (runs[k][1] for k in (
+        "host", "card_one", "card", "card_bf16", "card_one_bf16"))
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm()) / max(
+            float(b.float().norm()), 1e-30)
+    route_err = max(rel(g_card[p], g) for p, g in g_one.items())
+    out_of_tol = [p for p, g in g_host.items() if not bool(
+        ((g_card[p].float() - g).abs() <= 2e-3 + 2e-2 * g.abs()).all())]
+    diff = sum(float((g_bf[p].float() - g.float()).norm()) ** 2
+               for p, g in g_card.items()) ** 0.5
+    norm = sum(float(g.float().norm()) ** 2
+               for g in g_card.values()) ** 0.5
+    finite = all(bool(torch.isfinite(g).all()) for g in g_bf.values())
+    # each leaf: the mesh's bfloat16 gradient against one device's, and
+    # one device's bfloat16 gap from its float32 gradient (the scale)
+    leaves = {"/".join(p): (rel(g_bf[p], g), rel(g, g_one[p]))
+              for p, g in g_one_bf.items()}
+    past = sorted(p for p, (m, gap) in leaves.items()
+                  if m > BF16_LEAF_K * gap + 1e-3)
+    seen = dict(arch=arch, losses=losses, route_grad_rel=route_err,
+                host_grad_rel=max(rel(g_card[p], g)
+                                  for p, g in g_host.items()),
+                host_out_of_tol=out_of_tol, bf16_rel_norm=diff / norm,
+                bf16_finite=finite, bf16_leaves=leaves, bf16_leaves_past=past,
+                launches={k: v[2] for k, v in runs.items()}, want=want)
+    print(json.dumps(seen))
+    assert runs["host"][2] == [0] * 6, seen
+    assert runs["card_one"][2] == one, seen
+    assert runs["card"][2] == want and runs["card_bf16"][2] == want, seen
+    assert runs["card_one_bf16"][2] == one, seen
+    assert abs(losses["card"] - losses["card_one"]) \
+        <= 1e-3 * abs(losses["card_one"]), seen
+    assert route_err <= 1e-3, seen
+    assert abs(losses["card"] - losses["host"]) \
+        <= 1e-3 * abs(losses["host"]), seen
+    assert not out_of_tol, seen
+    assert finite and diff <= 2e-2 * norm, seen
+    assert not past, seen
 
 
 def test_pipeline_apply_on_card(cuda):
